@@ -1,0 +1,176 @@
+"""Slice parity: the whole Qwen3-style decoder (fused projections, QK-norm,
+tied embedding) in ominix_mlx_tpu_torch against ominix_mlx_tpu on the same
+weights, carried across as numpy by ``utils.params.params_from_numpy``.
+
+Tiny config: vocab 512, hidden 256 (the smallest width the JAX package
+re-tiles into its main-path tn layout), 2 layers, 4 query / 2 KV heads of
+dim 64, FFN 512."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ominix_mlx_tpu.core.generate import Engine as JEngine
+from ominix_mlx_tpu.core.sampling import SamplerConfig as JSampler
+from ominix_mlx_tpu.models import base as jbase
+from ominix_mlx_tpu.ops import quant_matmul as jqm
+from ominix_mlx_tpu_torch.core.generate import Engine as TEngine
+from ominix_mlx_tpu_torch.core.sampling import SamplerConfig as TSampler
+from ominix_mlx_tpu_torch.models import base as tbase
+from ominix_mlx_tpu_torch.models import qwen3 as tqwen3
+from ominix_mlx_tpu_torch.ops import quant_matmul as tqm
+from ominix_mlx_tpu_torch.ops.quant_matmul import PackedQuantizedTensor
+from ominix_mlx_tpu_torch.utils.params import params_from_numpy
+
+torch.set_num_threads(2)
+
+HF = {"model_type": "qwen3", "vocab_size": 512, "hidden_size": 256,
+      "num_hidden_layers": 2, "num_attention_heads": 4,
+      "num_key_value_heads": 2, "head_dim": 64, "intermediate_size": 512,
+      "rope_theta": 1e6, "rms_norm_eps": 1e-6, "tie_word_embeddings": True}
+JCFG = jbase.TransformerConfig.from_hf(HF)
+TCFG = tqwen3.config_from_hf(HF)
+
+
+def _to_numpy(tree):
+    """JAX param tree -> numpy tree; packed weights in canonical form."""
+    if isinstance(tree, jqm.PackedQuantizedTensor):
+        u = jqm.unpack(tree)
+        return {"q": np.array(u.q), "scales": np.asarray(u.scales),
+                "biases": np.asarray(u.biases),
+                "group_size": u.group_size, "bits": u.bits}
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_numpy(v) for v in tree)
+    return np.asarray(tree)
+
+
+def _quantized_pair(act_bits):
+    dense = jbase.init_params(JCFG, jax.random.PRNGKey(0), jnp.float32)
+    jp = jbase.fuse_layer_projections(
+        jbase.quantize_params(dense, 64, 4, consume=False))
+    assert jp["layers"][0]["qkv_proj"]["w"].tn    # the JAX main-path layout
+    tp = params_from_numpy(_to_numpy(jp), "cpu", act_bits=act_bits)
+    assert isinstance(tp["layers"][0]["qkv_proj"]["w"], PackedQuantizedTensor)
+    return jp, tp
+
+
+def _run_logits(jp, tp, prompt, steps, dtype_j, dtype_t):
+    """Prefill then ``steps`` decode steps through both packages' forward;
+    returns the list of (jax, torch) logits per call, float32 numpy."""
+    jc = jbase.init_cache(JCFG, 1, 64, dtype_j)
+    tc = tbase.init_cache(TCFG, 1, 64, dtype_t)
+    out = []
+    toks = np.asarray(prompt)[None]
+    for i in range(steps + 1):
+        jl, jc = jbase.forward(jp, JCFG, jnp.asarray(toks), jc,
+                               fresh_prefill=i == 0)
+        with torch.inference_mode():
+            tl, tc = tbase.forward(tp, TCFG, torch.from_numpy(toks), tc,
+                                   fresh_prefill=i == 0)
+        jl = np.asarray(jl, np.float32)
+        out.append((jl, tl.float().numpy()))
+        toks = np.argmax(jl[:, -1:], -1)
+    return out
+
+
+def test_forward_float32_dense_matches_jax():
+    """float32 dense weights: logits of a 20-token prefill and 4 decode
+    steps within max abs 1e-4."""
+    dense = jbase.fuse_layer_projections(
+        jbase.init_params(JCFG, jax.random.PRNGKey(1), jnp.float32))
+    tp = params_from_numpy(_to_numpy(dense), "cpu")
+    assert tp["embed"].dtype == torch.float32
+    prompt = np.random.default_rng(0).integers(0, 512, 20)
+    for jl, tl in _run_logits(dense, tp, prompt, 4, jnp.float32,
+                              torch.float32):
+        assert jl.shape == tl.shape
+        assert np.max(np.abs(jl - tl)) < 1e-4
+
+
+def test_w4a16_greedy_generate_equals_jax():
+    """4-bit weights, exact activations: greedy Engine.generate gives the
+    same 16 tokens as the JAX package's, token for token. The 12-token
+    prompt buckets to 16, so the port's prefill runs K1 at M=16."""
+    jp, tp = _quantized_pair(act_bits=None)
+    prompt = np.random.default_rng(1).integers(0, 512, 12)
+    je = JEngine(lambda p, t, c: jbase.forward(p, JCFG, t, c), jp,
+                 JSampler(),
+                 prefill_forward_fn=lambda p, t, c: jbase.forward(
+                     p, JCFG, t, c, fresh_prefill=True))
+    te = TEngine(lambda p, t, c: tbase.forward(p, TCFG, t, c), tp,
+                 TSampler(),
+                 prefill_forward_fn=lambda p, t, c: tbase.forward(
+                     p, TCFG, t, c, fresh_prefill=True))
+    want = list(je.generate(jnp.asarray(prompt, jnp.int32),
+                            jbase.init_cache(JCFG, 1, 64), max_tokens=16))
+    got = list(te.generate(torch.from_numpy(prompt),
+                           tbase.init_cache(TCFG, 1, 64), max_tokens=16))
+    assert len(want) == 16 and got == want
+    toks, _ = te.generate_scan(torch.from_numpy(prompt),
+                               tbase.init_cache(TCFG, 1, 64), max_tokens=16)
+    assert toks[0].tolist() == want
+
+
+def test_w4a8_logits_close_to_jax():
+    """4-bit weights with per-row int8 activations at decode (the TPU main
+    path's w4a8) against the JAX package's exact CPU path: rel < 0.05 per
+    call (the a8 tolerance of tests/test_quant_ops.py)."""
+    jp, tp = _quantized_pair(act_bits=8)
+    prompt = np.random.default_rng(2).integers(0, 512, 20)
+    for jl, tl in _run_logits(jp, tp, prompt, 4, jnp.bfloat16,
+                              torch.bfloat16):
+        rel = np.max(np.abs(jl - tl)) / np.max(np.abs(jl))
+        assert rel < 0.05, rel
+
+
+def test_quantize_params_matches_jax():
+    """The port's post-hoc quantizer on the same dense float32 weights
+    gives the JAX package's codes and bf16 scales exactly; biases agree
+    within the bf16 rounding of the stored fold b - 8s (the same one-ulp
+    loss as the JAX tn layout, tests/test_quant_ops.py)."""
+    dense = jbase.init_params(JCFG, jax.random.PRNGKey(2), jnp.float32)
+    jq = jbase.quantize_params(dense, 64, 4, consume=False)
+    tq = tbase.quantize_params(params_from_numpy(_to_numpy(dense), "cpu"))
+    for name in ("q_proj", "down_proj"):
+        ju = jqm.unpack(jq["layers"][1][name]["w"])
+        tu = tqm.unpack(tq["layers"][1][name]["w"])
+        np.testing.assert_array_equal(tu.q.numpy(), np.asarray(ju.q))
+        s = np.asarray(ju.scales, np.float32)
+        np.testing.assert_array_equal(tu.scales.float().numpy(), s)
+        b = np.asarray(ju.biases, np.float32)
+        ulp = 2.0 ** -8 * (np.abs(b) + 8 * s)
+        assert np.all(np.abs(tu.biases.float().numpy() - b) <= ulp)
+    assert isinstance(tq["embed"], PackedQuantizedTensor)
+
+
+def test_unported_branches_raise():
+    import dataclasses
+    with pytest.raises(NotImplementedError):
+        tbase.init_params(dataclasses.replace(TCFG, moe=object()),
+                          torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(0)
+    tp = tbase.init_quantized_params(dataclasses.replace(TCFG, num_layers=1),
+                                     g)
+    tp["layers"][0]["moe"] = {}
+    with pytest.raises(NotImplementedError):
+        tbase.forward(tp, dataclasses.replace(TCFG, num_layers=1),
+                      torch.zeros(1, 1, dtype=torch.long),
+                      tbase.init_cache(TCFG, 1, 8))
+
+
+@pytest.mark.parametrize("key", ["post_self_attn_layernorm",
+                                 "post_mlp_layernorm"])
+def test_post_norm_layers_raise(key):
+    """Families with extra post-attention / post-MLP norms (Gemma-style)
+    are not ported: a tree holding one raises instead of skipping it."""
+    import dataclasses
+    cfg = dataclasses.replace(TCFG, num_layers=1)
+    tp = tbase.init_quantized_params(cfg, torch.Generator().manual_seed(0))
+    tp["layers"][0][key] = torch.ones(cfg.hidden_size, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        tbase.forward(tp, cfg, torch.zeros(1, 1, dtype=torch.long),
+                      tbase.init_cache(cfg, 1, 8))
