@@ -56,15 +56,26 @@ class Engine:
 
     prefill_forward_fn: the variant for the FIRST prefill on an empty cache
     (``base.forward`` with ``fresh_prefill=True``, which runs kernel K2 on
-    CUDA). Defaults to forward_fn. The cache's KV buffers are written in
-    place by every call.
+    CUDA). Defaults to forward_fn.
+
+    chunk_forward_fn(params, tokens, cache, kv_limit): the variant for
+    CONTINUATION chunks of a long prefill, attending only the first
+    ``kv_limit`` cache slots (``base.forward`` with ``kv_limit=``, kernel
+    K2c on CUDA). chunk_hidden_forward_fn: the same with its first return
+    value ignored (``skip_logits=True``), for non-final chunks.
+
+    The cache's KV buffers are written in place by every call.
     """
 
     def __init__(self, forward_fn: Callable, params,
                  sampler: SamplerConfig = SamplerConfig(),
-                 prefill_forward_fn: Optional[Callable] = None):
+                 prefill_forward_fn: Optional[Callable] = None,
+                 chunk_forward_fn: Optional[Callable] = None,
+                 chunk_hidden_forward_fn: Optional[Callable] = None):
         self.forward_fn = forward_fn
         self.prefill_forward_fn = prefill_forward_fn or forward_fn
+        self.chunk_forward_fn = chunk_forward_fn
+        self.chunk_hidden_forward_fn = chunk_hidden_forward_fn
         self.params = params
         self.sampler = sampler
 
@@ -76,6 +87,8 @@ class Engine:
         the padded tail writes KV slots past offset + T that the causal
         mask never exposes and decode overwrites."""
         B, T = tokens.shape
+        if isinstance(cache.offset, torch.Tensor):
+            raise ValueError("prefill takes a cache at one shared offset")
         cap = _kv_capacity(cache)
         if cap is not None and T > cap:
             raise ValueError(f"prompt length {T} exceeds KV cache capacity "
@@ -95,6 +108,42 @@ class Engine:
         logits, cache = fn(self.params, padded, cache)
         cache = ModelCache(layers=cache.layers, offset=start + T)
         return logits[:, T - 1], cache
+
+    @torch.inference_mode()
+    def prefill_chunked(self, tokens: torch.Tensor, cache: ModelCache,
+                        chunk_size: int = 512):
+        """Long-prompt prefill in fixed chunks: bounds per-chunk attention
+        memory. The first chunk rides the fresh path (K2); continuation
+        chunks attend the first ``kv_limit`` cache slots through
+        ``chunk_forward_fn`` (K2c on CUDA), O(tokens written so far) per
+        chunk instead of O(capacity). Returns (last_logits [B, V], cache)."""
+        B, T = tokens.shape
+        cap = _kv_capacity(cache)
+        last = None
+        pos = 0
+        while pos < T:
+            end = min(pos + chunk_size, T)
+            if pos == 0 or self.chunk_forward_fn is None:
+                last, cache = self.prefill(tokens[:, pos:end], cache,
+                                           fresh=(pos == 0))
+            else:
+                # pad to the chunk size but never past capacity (a padded
+                # window past capacity would write out of the cache); the
+                # exact fit keeps kv_limit == chunk start + width
+                real = end - pos
+                width = chunk_size if cap is None else min(chunk_size,
+                                                           cap - pos)
+                padded = F.pad(tokens[:, pos:end], (0, width - real))
+                final = end >= T
+                fn = (self.chunk_forward_fn
+                      if final or self.chunk_hidden_forward_fn is None
+                      else self.chunk_hidden_forward_fn)
+                out, cache = fn(self.params, padded, cache, pos + width)
+                cache = ModelCache(layers=cache.layers, offset=pos + real)
+                if final:
+                    last = out[:, real - 1]
+            pos = end
+        return last, cache
 
     def _step(self, cache, tok, generator, recent):
         logits, cache = self.forward_fn(self.params, tok[:, None], cache)
@@ -156,14 +205,57 @@ class Engine:
             stats.decode_time_s = time.perf_counter() - td0
 
     @torch.inference_mode()
+    def generate_batch(self, prompts: torch.Tensor, cache: ModelCache,
+                       max_tokens: int = 256, stop_tokens: tuple = (),
+                       pad_id: int = 0,
+                       generator: Optional[torch.Generator] = None,
+                       prompt_lengths=None):
+        """Batched decode with per-sequence finish flags.
+
+        prompts: [B, T] RIGHT-padded to a common width; ``prompt_lengths``
+        [B] gives each row's true length (None: all rows are length T).
+        Right padding keeps every real token at its true RoPE position and
+        the pads' garbage KV past each row's offset, where the causal mask
+        never exposes it and decode overwrites it; decode then runs at
+        per-row offsets (a [B] tensor, no host sync per step). A finished
+        row holds its offset, so its writes overwrite one garbage slot.
+        Returns (tokens [B, max_tokens] with pad_id after each stop,
+        lengths [B]), on the device."""
+        B, T = prompts.shape
+        dev = prompts.device
+        lengths = (torch.full((B,), T, dtype=torch.long, device=dev)
+                   if prompt_lengths is None
+                   else torch.as_tensor(prompt_lengths, device=dev).long())
+        stops = torch.tensor(list(stop_tokens) or [-1], device=dev)
+        logits, cache = self.prefill_forward_fn(self.params, prompts, cache)
+        cache = ModelCache(layers=cache.layers, offset=lengths)
+        last = logits[torch.arange(B, device=dev), lengths - 1]
+        tok = sample(last, generator, self.sampler)
+        done = torch.zeros(B, dtype=torch.bool, device=dev)
+        outs, dones = [], []
+        for _ in range(max_tokens):
+            lg, cache = self.forward_fn(self.params, tok[:, None], cache)
+            nxt = sample(lg[:, -1], generator, self.sampler)
+            done = done | torch.isin(tok, stops)
+            outs.append(torch.where(done, torch.full_like(tok, pad_id), tok))
+            dones.append(done)
+            nxt = torch.where(done, tok, nxt)
+            cache = ModelCache(layers=cache.layers,
+                               offset=torch.where(done, cache.offset - 1,
+                                                  cache.offset))
+            tok = nxt
+        toks = torch.stack(outs, 1)
+        return toks, (~torch.stack(dones, 1)).sum(-1)
+
+    @torch.inference_mode()
     def generate_scan(self, prompt: torch.Tensor, cache: ModelCache,
                       max_tokens: int,
                       generator: Optional[torch.Generator] = None):
         """Fixed-length generation with no host round trip per token: the
         sampled tokens stay on the device, the loop runs ``max_tokens``
         decode steps like the JAX package's ``lax.scan``, and the caller
-        reads the tokens once. Returns (tokens [B, max_tokens] on the
-        device, cache)."""
+        reads the tokens once. Runs at any batch B over a dense or paged
+        cache. Returns (tokens [B, max_tokens] on the device, cache)."""
         if prompt.ndim == 1:
             prompt = prompt[None]
         cap = _kv_capacity(cache)

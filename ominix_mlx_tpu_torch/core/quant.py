@@ -29,6 +29,14 @@ class QuantizedTensor:
         return tuple(self.q.shape)
 
 
+def over_127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127, correctly rounded on every device, as in the JAX package.
+    On CUDA, PyTorch divides by a Python scalar as a multiply by its
+    reciprocal, which is one ulp off for some x and then moves an int8
+    code; a tensor divisor takes the true division."""
+    return x / torch.full_like(x, 127.0)
+
+
 def quantize(w: torch.Tensor, group_size: int = 64, bits: int = 4):
     """[out, in] float -> (unsigned codes uint8 [out, in], scales, biases).
 

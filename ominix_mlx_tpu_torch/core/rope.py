@@ -46,12 +46,16 @@ def _angles(positions: torch.Tensor, dims: int, theta: float, scale: float):
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                cfg: RopeConfig) -> torch.Tensor:
-    """x: [..., T, head_dim]; positions: [T] absolute positions. Only the
-    first ``cfg.dims`` dims rotate."""
+    """x: [..., T, head_dim]; positions: [T] absolute positions, or [B, T]
+    per-row positions for x [B, H, T, head_dim] (continuous batching).
+    Only the first ``cfg.dims`` dims rotate."""
     dims = cfg.dims
     dtype = x.dtype
     rot, rest = x[..., :dims], x[..., dims:]
     cos, sin = _angles(positions, dims, cfg.theta, cfg.scale)
+    if positions.ndim == 2 and rot.ndim >= 3:
+        while cos.ndim < rot.ndim:      # keep B on axis 0, broadcast heads
+            cos, sin = cos[:, None], sin[:, None]
     rot = rot.float()
     if cfg.traditional:
         x1, x2 = rot[..., 0::2], rot[..., 1::2]

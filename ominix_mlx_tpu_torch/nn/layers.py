@@ -9,19 +9,23 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ominix_mlx_tpu_torch.ops.quant_matmul import (PackedQuantizedTensor,
+from ominix_mlx_tpu_torch.ops.quant_matmul import (ChannelQuantizedTensor,
+                                                   PackedQuantizedTensor,
+                                                   channel_gather_rows,
                                                    gather_rows,
                                                    quantized_matmul,
                                                    rms_norm)
 
+QUANTIZED = (PackedQuantizedTensor, ChannelQuantizedTensor)
+
 
 def linear(params: dict, x: torch.Tensor,
            norm: Optional[tuple] = None) -> torch.Tensor:
-    """y = x @ W^T (+ b). params: {"w": [out, in] | PackedQuantizedTensor,
-    "b"?}. norm (optional (weight, eps)): RMSNorm x first; fused into K1's
-    prologue for a quantized weight at M=1."""
+    """y = x @ W^T (+ b). params: {"w": [out, in] | PackedQuantizedTensor |
+    ChannelQuantizedTensor, "b"?}. norm (optional (weight, eps)): RMSNorm x
+    first; fused into K1's prologue for a 4-bit weight at M=1."""
     w = params["w"]
-    if isinstance(w, PackedQuantizedTensor):
+    if isinstance(w, QUANTIZED):
         if norm is not None:
             y = quantized_matmul(x, w, norm_w=norm[0], norm_eps=norm[1])
         else:
@@ -37,10 +41,12 @@ def linear(params: dict, x: torch.Tensor,
 
 
 def embedding(weight, tokens: torch.Tensor) -> torch.Tensor:
-    """weight: [V, D] tensor or PackedQuantizedTensor (dequantizes only the
-    gathered rows, bf16)."""
+    """weight: [V, D] tensor, PackedQuantizedTensor or
+    ChannelQuantizedTensor (dequantizes only the gathered rows, bf16)."""
     if isinstance(weight, PackedQuantizedTensor):
         return gather_rows(weight, tokens)
+    if isinstance(weight, ChannelQuantizedTensor):
+        return channel_gather_rows(weight, tokens)
     return weight[tokens]
 
 

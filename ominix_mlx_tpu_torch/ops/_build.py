@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels from ``csrc/*.cu`` on first use.
 
-Every ``.cu`` file under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
-into ONE shared library with a plain C interface, loaded with ``ctypes``.
+Every ``.cu`` file under ``csrc/`` is compiled by its own ``nvcc`` for
+``sm_90a`` (all started together), and the objects are linked into ONE
+shared library with a plain C interface, loaded with ``ctypes``.
 The library lands in ``ominix_mlx_tpu_torch/_build/`` (git-ignored) under a
 name keyed by a hash of the sources and flags, so an edited kernel always
 rebuilds and an unchanged one is reused. Nothing is downloaded; a build
@@ -24,7 +25,7 @@ _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _lock = threading.Lock()
 _lib = None
@@ -32,7 +33,9 @@ build_seconds = 0.0     # wall time of the build this process ran (0 if reused)
 
 # Kernel launch counts, by kernel: incremented by each wrapper where it
 # launches its kernel and nowhere else ("k1_m1": K1 at M=1, "k1_mn": K1 at
-# 2 <= M <= 16, "k2": flash prefill). Plain-version calls do not count.
+# 2 <= M <= 16, "k2": flash prefill, "k2c": flash continuation chunk,
+# "k3": paged decode attention, "k3_int8": the part of "k3" on int8
+# pages). Plain-version calls do not count.
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -65,6 +68,13 @@ def _declare(lib):
     lib.ominix_flash_fwd.restype = i
     lib.ominix_flash_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, f,
                                      vp]
+    ll = ctypes.c_longlong
+    lib.ominix_flash_chunk_fwd.restype = i
+    lib.ominix_flash_chunk_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i,
+                                           i, ll, ll, ll, ll, ll, ll, f, vp]
+    lib.ominix_paged_decode.restype = i
+    lib.ominix_paged_decode.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i,
+                                        i, i, i, i, i, i, i, f, vp]
     lib.ominix_cuda_error_string.restype = ctypes.c_char_p
     lib.ominix_cuda_error_string.argtypes = [i]
     return lib
@@ -84,14 +94,31 @@ def library():
         out = BUILD_DIR / f"libominix_kernels_{h.hexdigest()[:16]}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
             t0 = time.perf_counter()
-            r = subprocess.run(cmd, capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                    f"{r.stderr}")
+            tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+            objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+            procs = [(subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), s)
+                for s, o in zip(srcs, objs)]
+            errs = []
+            for p, s in procs:
+                _, err = p.communicate()
+                if p.returncode != 0:
+                    errs.append(f"nvcc failed ({p.returncode}) on {s.name}:"
+                                f"\n{err}")
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            if not errs:
+                cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                       *map(str, objs)]
+                r = subprocess.run(cmd, capture_output=True, text=True)
+                if r.returncode != 0:
+                    errs.append(f"link failed ({r.returncode}): "
+                                f"{' '.join(cmd)}\n{r.stderr}")
+            for o in objs:
+                o.unlink(missing_ok=True)
+            if errs:
+                raise RuntimeError("\n".join(errs))
             os.replace(tmp, out)    # atomic: a concurrent build never sees
             build_seconds = time.perf_counter() - t0  # a half-written file
         _lib = _declare(ctypes.CDLL(str(out)))

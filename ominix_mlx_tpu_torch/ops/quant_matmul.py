@@ -19,6 +19,12 @@ Dispatch (``quantized_matmul``), by rows M of the flattened input:
 K1 is hand-written CUDA (``csrc/qmm.cu``). A CPU tensor takes the plain
 PyTorch version ``quantized_matmul_reference``, which computes the same
 formula; a CUDA tensor launches the kernel or raises.
+
+A ``ChannelQuantizedTensor`` (per-output-channel int8, the batched-serving
+w8a8 scheme) dispatches to ``channel_matmul``: dynamic per-token int8
+activations, an exact int8 x int8 product summed in int32, then a rank-1
+rescale. The JAX package computes that product in XLA, outside any Pallas
+kernel; here it is ``torch._int_mm``.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from ominix_mlx_tpu_torch.core.quant import QuantizedTensor
+from ominix_mlx_tpu_torch.core.quant import QuantizedTensor, over_127
 
 DECODE_M_MAX = 16   # up to this many rows, K1 runs
 
@@ -222,14 +228,19 @@ def _k1(x: torch.Tensor, w: PackedQuantizedTensor,
     return y
 
 
-def quantized_matmul(x: torch.Tensor, w: PackedQuantizedTensor,
+def quantized_matmul(x: torch.Tensor, w,
                      norm_w: Optional[torch.Tensor] = None,
                      norm_eps: float = 1e-6) -> torch.Tensor:
     """x [..., K] @ W^T -> [..., N] in x's dtype.
 
     norm_w (optional [K]): RMSNorm x first; fused into K1's prologue at
-    M=1, applied before the matmul at M > 1 with the same op order.
+    M=1, applied before the matmul at M > 1 (and for channel-quantized
+    weights) with the same op order.
     """
+    if isinstance(w, ChannelQuantizedTensor):
+        if norm_w is not None:
+            x = rms_norm(norm_w, x, norm_eps)
+        return channel_matmul(x, w)
     lead = x.shape[:-1]
     K = x.shape[-1]
     x2 = x.reshape(-1, K)
@@ -255,3 +266,83 @@ def quantized_matmul(x: torch.Tensor, w: PackedQuantizedTensor,
                 None if norm_w is None else norm_w.to(torch.bfloat16),
                 norm_eps, a8).to(x.dtype)
     return y.reshape(*lead, N)
+
+
+# ------------------------------------- channelwise w8a8 (batched serving) ---
+# (counterpart of ominix_mlx_tpu/ops/quant_matmul.py:1404-1474)
+
+INT_MM_MIN_ROWS = 17    # torch._int_mm on CUDA takes more than 16 rows
+
+
+@dataclasses.dataclass
+class ChannelQuantizedTensor:
+    """Per-output-channel symmetric int8 weight: w[n, k] ~ data[n, k] *
+    scale[n]. Activations are quantized per token at run time."""
+
+    data: torch.Tensor   # int8 [N, K]
+    scale: torch.Tensor  # f32 [N]
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+
+def channel_quantize(w: torch.Tensor) -> ChannelQuantizedTensor:
+    """bf16/f32 [N, K] -> per-row symmetric int8 (scale = max|w|/127 +
+    1e-12, codes = clip(round(w / scale), -127, 127))."""
+    wf = w.float()
+    s = over_127(wf.abs().amax(1)) + 1e-12
+    q = torch.clamp(torch.round(wf / s[:, None]), -127, 127).to(torch.int8)
+    return ChannelQuantizedTensor(data=q.contiguous(), scale=s)
+
+
+def channel_dequantize(w: ChannelQuantizedTensor,
+                       dtype=torch.bfloat16) -> torch.Tensor:
+    return (w.data.float() * w.scale[:, None]).to(dtype)
+
+
+def quantize_act_channel(xf: torch.Tensor):
+    """Dynamic per-row symmetric int8 activations: xf [..., K] float32 ->
+    (int8 codes [..., K], scale [...])."""
+    sx = over_127(xf.abs().amax(-1)) + 1e-12
+    xq = torch.clamp(torch.round(xf / sx[..., None]), -127, 127).to(
+        torch.int8)
+    return xq, sx
+
+
+def _int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact int8 [M, K] x int8 [N, K]^T summed in int32 -> [M, N].
+
+    On CUDA, ``torch._int_mm`` takes more than 16 rows and K, N multiples
+    of 8: fewer rows are zero-padded (exact: rows are independent); other
+    K or N raise."""
+    M, K = xq.shape
+    N = wq.shape[0]
+    if xq.is_cuda:
+        if K % 8 or N % 8:
+            raise ValueError(f"int8 matmul on CUDA needs K and N multiples "
+                             f"of 8, got K={K}, N={N}")
+        if M < INT_MM_MIN_ROWS:
+            pad = -(-INT_MM_MIN_ROWS // 8) * 8 - M
+            xq = torch.cat([xq, xq.new_zeros(pad, K)])
+        return torch._int_mm(xq, wq.T)[:M]
+    return torch._int_mm(xq, wq.T)
+
+
+def channel_matmul(x: torch.Tensor, w: ChannelQuantizedTensor) -> torch.Tensor:
+    """x [..., K] @ W^T -> [..., N] in x's dtype with dynamic per-token
+    int8 activations, at any M: int8 x int8 summed in int32, then
+    ``* sx * scale`` in float32 (ops/quant_matmul.py:1451-1455)."""
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    xq, sx = quantize_act_channel(x.reshape(-1, K).float())
+    acc = _int8_matmul(xq.contiguous(), w.data)
+    y = acc.float() * sx[:, None] * w.scale[None, :]
+    return y.to(x.dtype).reshape(*lead, w.data.shape[0])
+
+
+def channel_gather_rows(w: ChannelQuantizedTensor,
+                        tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding lookup on a channel-quantized table -> bf16 rows."""
+    rows = w.data[tokens].float()
+    return (rows * w.scale[tokens][..., None]).to(torch.bfloat16)

@@ -7,18 +7,24 @@ ominix_mlx_tpu/serving/server.py, chat surface):
   GET  /metrics                  (Prometheus text, counters)
 
 HTTP threads hand each request to ONE inference thread
-(``InferenceWorker``), which owns the device; an Engine is cached per
-sampler configuration. Continuous batching, speculative decoding, tool
-calls and the audio / image / OCR endpoints are not ported yet: their
-routes answer 404 and a request that needs them answers 501.
+(``InferenceWorker``); an Engine is cached per sampler configuration.
+``Server.enable_batching`` turns on continuous batching for a model: its
+chat requests (greedy and sampled) then go to a ``BatchedChatRunner``,
+whose own thread steps a shared slot decode over a dense or paged KV
+cache, with its own caches (the two threads never share a cache).
+Speculative decoding, tool calls and the audio / image / OCR endpoints are
+not ported yet: their routes answer 404 and a request that needs them
+answers 501.
 """
 
 from __future__ import annotations
 
 import json
 import queue
+import sys
 import threading
 import time
+import traceback
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -29,6 +35,8 @@ from ominix_mlx_tpu_torch import __version__
 from ominix_mlx_tpu_torch.core.generate import Engine
 from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
 from ominix_mlx_tpu_torch.models import base
+from ominix_mlx_tpu_torch.serving.batching import (ContinuousBatcher,
+                                                   PagedContinuousBatcher)
 from ominix_mlx_tpu_torch.utils.tokenizer import chatml
 
 DEFAULT_MAX_TOKENS = 512
@@ -100,8 +108,107 @@ class ChatModel:
                                       self.device)
 
 
+class BatchedChatRunner:
+    """Cross-request continuous batching for chat (serving/batching.py):
+    HTTP threads submit token lists, ONE dedicated thread steps the shared
+    slot decode, and tokens stream back through per-request queues. Greedy
+    and sampled requests share the one step (per-slot sampler settings are
+    tensors).
+
+    quantize_bits=8 serves channelwise w8a8 (``scheme="channel8"``);
+    quantize_bits=4 serves group w4 through K1 in its exact a16 mode.
+    kv_bits=8 stores the paged pool as int8 pages."""
+
+    def __init__(self, model, slots: int = 4, max_len: int = 2048,
+                 dtype=torch.bfloat16, paged: bool = False,
+                 num_pages=None, page_size: int = 128,
+                 quantize_bits=None, kv_bits=None,
+                 prefix_cache: bool = False):
+        if quantize_bits not in (None, 4, 8) or kv_bits not in (None, 8):
+            raise ValueError(f"quantize_bits {quantize_bits!r} (None, 4 or "
+                             f"8), kv_bits {kv_bits!r} (None or 8)")
+        self.lock = threading.Lock()
+        self.wake = threading.Event()
+        self._stop = threading.Event()
+        params = model.params
+        if quantize_bits:
+            params = base.quantize_params(
+                dict(model.params), bits=quantize_bits, act_bits=None,
+                scheme="channel8" if quantize_bits == 8 else "group")
+        mod, cfg = model.module, model.cfg
+        fwd = lambda p, t, c: mod.forward(p, cfg, t, c)
+        # adoption prefills are always fresh (K2); long prompts adopt by
+        # chunks and prefix hits prefill their suffix through kv_limit (K2c)
+        pfwd = lambda p, t, c: mod.forward(p, cfg, t, c, fresh_prefill=True)
+        cfwd = lambda p, t, c, kl: mod.forward(p, cfg, t, c, kv_limit=kl)
+        hfwd = lambda p, t, c, kl: mod.forward(p, cfg, t, c, kv_limit=kl,
+                                               skip_logits=True)
+        if paged or kv_bits or prefix_cache:
+            self.batcher = PagedContinuousBatcher(
+                fwd, params, cfg, slots=slots, max_len=max_len,
+                num_pages=num_pages, page_size=page_size, dtype=dtype,
+                prefill_forward_fn=pfwd, quantize_kv=kv_bits == 8,
+                prefix_cache=prefix_cache, chunk_forward_fn=cfwd,
+                chunk_hidden_forward_fn=hfwd, device=model.device)
+        else:
+            self.batcher = ContinuousBatcher(
+                fwd, params, cfg,
+                lambda c, b, ml: mod.init_cache(c, b, ml, dtype,
+                                                model.device),
+                slots=slots, max_len=max_len, prefill_forward_fn=pfwd,
+                chunk_forward_fn=cfwd, chunk_hidden_forward_fn=hfwd)
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def submit(self, tokens, max_tokens: int, stop_tokens=(),
+               sampler=None, seed: int = 0):
+        rid = uuid.uuid4().hex
+        q: "queue.Queue" = queue.Queue()
+        with self.lock:
+            self.batcher.submit(rid, tokens, max_tokens,
+                                stop_tokens=stop_tokens, emit=q.put,
+                                sampler=sampler, seed=seed)
+        self.wake.set()
+        return rid, q
+
+    def cancel(self, rid):
+        with self.lock:
+            self.batcher.cancel(rid)
+
+    def _run(self):
+        while not self._stop.is_set():
+            with self.lock:
+                busy = self.batcher.pending()
+            if not busy:
+                self.wake.wait(timeout=0.1)
+                self.wake.clear()
+                continue
+            try:
+                with self.lock:
+                    self.batcher.step()
+            except Exception as e:
+                # a step error must not kill the stepping thread (every
+                # in-flight and future request would hang): fail the
+                # affected requests, so their HTTP threads answer 500
+                traceback.print_exc(file=sys.stderr)
+                with self.lock:
+                    try:
+                        self.batcher.abort_all(
+                            f"batch step failed: {type(e).__name__}: {e}")
+                    except Exception:
+                        traceback.print_exc(file=sys.stderr)
+
+    def stop(self, timeout: float = 10.0):
+        """End the stepping thread; queued and in-flight requests end."""
+        self._stop.set()
+        self.wake.set()
+        self.thread.join(timeout)
+        with self.lock:
+            self.batcher.abort_all("the server is shutting down")
+
+
 class InferenceWorker:
-    """The one thread that runs inference."""
+    """The one thread that runs inference for unbatched models."""
 
     def __init__(self):
         self.q: "queue.Queue" = queue.Queue()
@@ -132,6 +239,7 @@ class Server:
                  request_timeout_s: float = 600.0):
         self.host, self.port = host, port
         self.models: dict = {}
+        self.batchers: dict = {}
         self.worker = InferenceWorker()
         self.request_timeout_s = request_timeout_s
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -160,11 +268,47 @@ class Server:
                 lines.append(f"ominix_{k} {v}")
         lines.append("# TYPE ominix_models_loaded gauge")
         lines.append(f"ominix_models_loaded {len(self.models)}")
+        for name, runner in self.batchers.items():
+            pfx = getattr(runner.batcher, "prefix", None)
+            if pfx is None:
+                continue
+            for key, kind, val in (
+                    ("prefix_cache_hits", "counter", pfx.hits),
+                    ("prefix_cache_misses", "counter", pfx.misses),
+                    ("prefix_cache_hit_tokens", "counter", pfx.hit_tokens),
+                    ("prefix_cache_pages", "gauge", len(pfx.entries))):
+                lines.append(f"# TYPE ominix_{key} {kind}")
+                lines.append(f'ominix_{key}{{model="{name}"}} {val}')
         return "\n".join(lines) + "\n"
 
     def add_model(self, name: str, model: ChatModel):
         """Register a model built in memory (random or bridged weights)."""
         self.models[name] = model
+
+    def enable_batching(self, name: str, slots: int = 4, max_len: int = 2048,
+                        dtype=torch.bfloat16, paged: bool = False,
+                        num_pages=None, page_size: int = 128,
+                        quantize_bits=None, kv_bits=None,
+                        prefix_cache: bool = False,
+                        draft_dir=None, draft_layers=None):
+        """Turn on continuous batching for a loaded chat model: concurrent
+        requests share one slot decode step instead of queueing on the
+        inference thread. ``paged=True`` backs the slots with a shared
+        paged KV pool of ``num_pages`` pages (decode attention: K3 on
+        CUDA); ``kv_bits=8`` stores it as int8 pages; ``prefix_cache=True``
+        reuses pool pages across requests sharing a prompt prefix (both
+        imply ``paged``). ``quantize_bits``: 8 = channelwise w8a8, 4 =
+        group w4 (K1). Speculative batching (``draft_dir`` or
+        ``draft_layers``) is not ported and raises NotImplementedError."""
+        if draft_dir is not None or draft_layers is not None:
+            raise NotImplementedError(
+                "speculative batching is not ported to the torch package "
+                "yet")
+        self.batchers[name] = BatchedChatRunner(
+            self.models[name], slots=slots, max_len=max_len, dtype=dtype,
+            paged=paged, num_pages=num_pages, page_size=page_size,
+            quantize_bits=quantize_bits, kv_bits=kv_bits,
+            prefix_cache=prefix_cache)
 
     # ---------------------------------------------------------- handlers ----
 
@@ -201,6 +345,11 @@ class Server:
         created = int(time.time())
         timeout_s = float(body.get("timeout_s", self.request_timeout_s))
         seed = int(body.get("seed", 0))
+        runner = self.batchers.get(name)
+        if runner is not None:
+            return self._chat_batched(runner, m, name, tokens, max_tokens,
+                                      stops, send_chunk, timeout_s, rid,
+                                      created, sampler, seed, stop_strs)
         cancel = threading.Event()
         result = {"text": "", "n": 0}
         done = threading.Event()
@@ -276,6 +425,69 @@ class Server:
             "usage": {"prompt_tokens": len(tokens),
                       "completion_tokens": result["n"],
                       "total_tokens": len(tokens) + result["n"]},
+        }
+
+    @staticmethod
+    def _chat_batched(runner, m, name, tokens, max_tokens, stops,
+                      send_chunk, timeout_s, rid, created, sampler, seed,
+                      stop_strs) -> dict:
+        """Drain one request's token queue from the batcher's thread;
+        streams deltas as tokens land, cancels the slot on timeout or on a
+        stop string, and raises the error the batcher failed the request
+        with (a prompt the pool can never hold: 400; a failed step: 500)."""
+        brid, q = runner.submit(tokens, max_tokens, stop_tokens=stops,
+                                sampler=sampler, seed=seed)
+        deadline = time.time() + timeout_s
+        out_ids, text = [], ""
+        matched = None
+
+        def chunk(delta):
+            send_chunk({"id": rid, "object": "chat.completion.chunk",
+                        "created": created, "model": name,
+                        "choices": [{"index": 0,
+                                     "delta": {"content": delta},
+                                     "finish_reason": None}]})
+
+        while True:
+            try:
+                tok = q.get(timeout=max(0.0, deadline - time.time()))
+            except queue.Empty:
+                runner.cancel(brid)
+                raise TimeoutError(f"request exceeded {timeout_s:.0f}s")
+            if tok is None:
+                break
+            if isinstance(tok, Exception):    # the batcher failed the request
+                raise tok
+            out_ids.append(tok)
+            if send_chunk is None and not stop_strs:
+                continue
+            piece = m.tokenizer.decode(out_ids)
+            if stop_strs:
+                safe, hit = stop_strs.cut(piece)
+                if hit:
+                    matched = piece[:safe]
+                piece = piece[:safe]
+            delta = piece[len(text):]
+            if delta:
+                text = piece
+                if send_chunk is not None:
+                    chunk(delta)
+            if matched is not None:
+                runner.cancel(brid)       # frees the slot immediately
+                break
+        final = matched if matched is not None else m.tokenizer.decode(
+            out_ids)
+        if send_chunk is not None and len(final) > len(text):
+            chunk(final[len(text):])
+        return {
+            "id": rid, "object": "chat.completion", "created": created,
+            "model": name,
+            "choices": [{"index": 0,
+                         "message": {"role": "assistant", "content": final},
+                         "finish_reason": "stop"}],
+            "usage": {"prompt_tokens": len(tokens),
+                      "completion_tokens": len(out_ids),
+                      "total_tokens": len(tokens) + len(out_ids)},
         }
 
     def list_models(self) -> dict:
@@ -396,10 +608,12 @@ class Server:
         return self._thread
 
     def shutdown(self):
-        """Stop serving and end the inference thread."""
+        """Stop serving and end the inference and batching threads."""
         if self._httpd:
             self._httpd.shutdown()
             self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(10)
         self.worker.stop()
+        for runner in self.batchers.values():
+            runner.stop()

@@ -49,8 +49,13 @@ def test_flash_reference_matches_jax_sdpa(T):
 
 
 def test_use_flash_rule():
+    """Every fresh prefill of T > 1 tokens on CUDA goes to K2, whatever its
+    head dim: K2's wrapper raises for a head dim it does not take (before
+    anything is built), so the card never runs a quiet dense path."""
     cpu, gpu = torch.device("cpu"), torch.device("cuda")
-    assert not tfa.use_flash(128, 128, cpu)      # CPU: dense sdpa, as JAX
-    assert tfa.use_flash(2, 128, gpu) and tfa.use_flash(777, 64, gpu)
-    assert not tfa.use_flash(1, 128, gpu)
-    assert not tfa.use_flash(128, 96, gpu)
+    assert not tfa.use_flash(128, cpu)           # CPU: dense sdpa, as JAX
+    assert tfa.use_flash(2, gpu) and tfa.use_flash(777, gpu)
+    assert not tfa.use_flash(1, gpu)
+    q = torch.zeros(1, 4, 8, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa._k2(q, q[:, :2], q[:, :2], 0.1)
