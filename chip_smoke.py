@@ -7,6 +7,8 @@ Qwen3-30B-A3B with random weights (seeded):
 
   - serve: HTTP chat requests on w4a8 weights, one at a time (K1, K2),
     the kernel-vs-plain logits check and the batch-1 decode rate;
+  - serve_q8: the same on w8a8 group-64 weights held in panels (K1's 8-bit
+    modes at one row and at the 16-token bucket);
   - prefill_chunked: an 8192-token bf16 prefill in 2048-token chunks (K2
     then K2c), against a single-shot prefill;
   - batch_decode: w8a8 decode at batch 8 over a dense and a paged cache
@@ -14,6 +16,11 @@ Qwen3-30B-A3B with random weights (seeded):
   - serve_batched: concurrent HTTP chat requests on a batched server (w8a8,
     paged int8 KV pool, prefix cache): chunked adoption (K2, K2c), a prefix
     hit (K2c), int8 paged decode (K3), streaming and sampling;
+  - generate_rows: the bf16 weights quantized at 4 and 8 bits without
+    fusion (row-major, as ``generate.py --quantize`` does), Engine.generate
+    on 12- and 40-token prompts (K6 at 16 rows and at one, K7 at 64 rows);
+  - serve_batched_w4: enable_batching(quantize_bits=4), four concurrent
+    chat requests (K7 at adoption, K1's dq formula at the batch decode);
   - serve_moe: HTTP chat requests on Qwen3-30B-A3B w4a8 (every MoE layer's
     decode through K4, every prefill of more than 8 tokens through K5), the
     kernel-vs-plain logits check, the batch-1 decode rate, and a batch-8
@@ -95,7 +102,20 @@ K2_LSE_TOL = 1e-2  # max abs error of K2's float32 row LSE (wrong scores)
 # page or one token left out of a row reads 0.11 or more (float64 model of
 # the kernel on the CPU, the same inputs)
 K3_TOL = 3e-2
-LOGITS_TOL = 2e-2  # rel max error of kernel vs plain logits, 2 layers
+# Kernel vs plain logits (check_logits), max error over max |plain|, 2
+# layers. Each limit sits above every sound reading on the H100 (the kernel
+# path, a second seed, the plain path with its sums reversed) and below the
+# reading of a planted fault (every quantized matmul without its last
+# group of K), both read by check_logits itself:
+# - w4a8 on panels, exact copies (w4a16 / w8a16), Qwen3-30B-A3B: sound
+#   readings up to 1.15e-2, the fault 8.5e-2 (w4a8 panels) and more
+LOGITS_TOL = 2e-2
+# - w8a8 on panels (a8 at every decode row): sound up to 1.73e-2, the
+#   fault 0.327
+W8A8_PANELS_LOGITS_TOL = 5e-2
+# - row-major w4a8 / w8a8 (a8 at every prefill row too, where a one-ulp
+#   flip moves int8 codes downstream): sound up to 5.24e-2, the fault 0.384
+ROWS_A8_LOGITS_TOL = 0.1
 # chunked vs single-shot 8k prefill, last-token logits, bf16 through 36
 # layers: read 0.0 on the H100 (K2c walks a query's key tiles in K2's
 # order and cuBLAS gave the same rows at M=2048 and M=8192); the limit
@@ -197,76 +217,167 @@ def int4pack(qt):
     return w4, sz, None
 
 
-def check_k1(dev, flush):
+def random_packed(qm, g, dev, N, K, bits, act_bits=8):
+    """A random QuantizedTensor [N, K] (codes, scales, biases from ``g``)
+    and its packed weight."""
     from ominix_mlx_tpu_torch.core.quant import QuantizedTensor
+
+    G, lim = K // GS, 1 << (bits - 1)
+    qt = QuantizedTensor(
+        q=torch.randint(-lim, lim, (N, K), generator=g, device=dev,
+                        dtype=torch.int8),
+        scales=((torch.rand(N, G, generator=g, device=dev) + 0.5)
+                * (K ** -0.5 / lim)).bfloat16(),
+        biases=(torch.randn(N, G, generator=g, device=dev)
+                * (K ** -0.5 / 4)).bfloat16(),
+        group_size=GS, bits=bits)
+    return qt, qm.prepare(qt, act_bits=act_bits)
+
+
+def qmm_row(kernel, x, pq, launch, plain, lib_call, lib_err, a8, **keys):
+    """Check one quantized-matmul launch against its plain version and time
+    both, beside the bound and, where ``lib_call`` is given, the PyTorch
+    call computing the same function (dropped with its error where it
+    disagrees with the plain version)."""
+    M, K = x.shape
+    N = pq.data.shape[0]
+    G = K // GS
+    got, want = launch(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{kernel} {keys}: non-finite")
+    d = (got.float() - want.float()).abs().max().item()
+    rel = row_rel_err(got, want)
+    flush = keys.pop("flush")
+    ms = time_ms(launch, 20, flush)
+    plain_ms = time_ms(plain, 3, flush)
+    lib = lib_rel = None
+    if lib_call is not None:
+        lib, lib_err = time_library(lib_call, 20, flush)
+        if lib is not None:
+            ly = lib_call().float()
+            lib_rel = row_rel_err(ly, want)
+            if not lib_rel < K1_TOL:          # not the same function
+                lib, lib_err = None, f"disagrees: rel {lib_rel}"
+    wbytes = N * K * pq.bits // 8 + 4 * N * G
+    norm = keys.get("norm", False)
+    row = {**keys, "N": N, "K": K, "M": M, "bits": pq.bits,
+           "max_abs_err": d, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib, "library_error": lib_err,
+           "library_rel_err": lib_rel, "GBps": wbytes / ms / 1e6,
+           **bound(wbytes + 2 * M * (K + N) + (2 * K if norm else 0),
+                   2 * M * N * K, "int8" if a8 else "bf16")}
+    emit({"phase": kernel, **row})
+    if not rel < K1_TOL:
+        raise RuntimeError(f"{kernel} {keys} M={M}: rel error {rel} >= "
+                           f"{K1_TOL}")
+    return row
+
+
+def int4_library(w4, sz, x):
+    """torch._weight_int4pack_mm on x, or None where no packed weight."""
+    if w4 is None:
+        return None
+    return lambda: torch._weight_int4pack_mm(x, w4, GS, sz)
+
+
+def check_k1(dev, flush):
+    """K1 at Qwen3-4B's shapes: 4-bit M=1 w4a8 / w4a16 (the RMSNorm fused
+    where the model fuses it) and the dq formula at M=2 and 16; 8-bit M=1
+    w8a8 / w8a16 and the dq formula at M=8 and 16."""
     from ominix_mlx_tpu_torch.ops import quant_matmul as qm
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
-    for name, N, K, norm in K1_SHAPES:
-        G = K // GS
-        qt = QuantizedTensor(
-            q=torch.randint(-8, 8, (N, K), generator=g, device=dev,
-                            dtype=torch.int8),
-            scales=((torch.rand(N, G, generator=g, device=dev) + 0.5)
-                    * (K ** -0.5 / 8)).bfloat16(),
-            biases=(torch.randn(N, G, generator=g, device=dev)
-                    * (K ** -0.5 / 4)).bfloat16(),
-            group_size=GS, bits=4)
-        pq8 = qm.prepare(qt, act_bits=8)
-        pq16 = dataclasses.replace(pq8, act_bits=None)
+    for bits in (4, 8):
+        for name, N, K, norm in K1_SHAPES:
+            qt, pq8 = random_packed(qm, g, dev, N, K, bits)
+            pq16 = dataclasses.replace(pq8, act_bits=None)
+            w4, sz, pack_err = (int4pack(qt) if bits == 4 else (
+                None, None, "group-wise int8 weights: no PyTorch call"))
+            del qt
+            nw = (1 + 0.1 * torch.randn(K, generator=g,
+                                        device=dev)).bfloat16()
+            modes = ((("a8", 1), ("a16", 1), ("a16", 2), ("a16", 16))
+                     if bits == 4 else
+                     (("a8", 1), ("a16", 1), ("a16", 8), ("a16", 16)))
+            for mode, M in modes:
+                a8 = mode == "a8"
+                pq = pq8 if a8 else pq16
+                x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+                w_norm = nw if norm and M == 1 and bits == 4 else None
+                if a8:
+                    lib_err = ("int8 activations: no PyTorch call computes "
+                               "group-wise weights against them")
+                elif w_norm is not None:
+                    lib_err = "the fused RMSNorm: no one PyTorch call"
+                else:
+                    lib_err = pack_err
+                lib_call = (int4_library(w4, sz, x)
+                            if not a8 and w_norm is None else None)
+                if M == 1:
+                    plain = lambda: qm.qmm_p_reference(x, pq, w_norm, EPS)
+                else:
+                    plain = lambda: qm.qmm_dq_reference(x, pq)
+                rows.append(qmm_row(
+                    "k1", x, pq, lambda: qm._k1(x, pq, w_norm, EPS), plain,
+                    lib_call, lib_err, a8, shape=name, mode=mode,
+                    norm=w_norm is not None, flush=flush,
+                    library="torch._weight_int4pack_mm (tinygemm)"))
+            del pq8, pq16, w4, sz
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_k6(dev, flush):
+    """K6 (row-major weights, the P formula row by row) at Qwen3-4B's
+    shapes, M = 1, 4 and 16, in its three modes. No PyTorch call computes
+    int8 activations or group-wise int8 weights: library_ms is null."""
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    rows = []
+    for mode in ("w4a8", "w8a8", "w8a16"):
+        bits, a8 = (4 if mode == "w4a8" else 8), mode.endswith("a8")
+        for name, N, K, _ in K1_SHAPES:
+            _, pq = random_packed(qm, g, dev, N, K, bits,
+                                  8 if a8 else None)
+            for M in (1, 4, 16):
+                x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+                rows.append(qmm_row(
+                    "k6", x, pq, lambda: qm._k6(x, pq),
+                    lambda: qm.qmm_p_reference(x, pq), None,
+                    "no PyTorch call computes " + (
+                        "int8 activations against group-wise weights"
+                        if a8 else "group-wise int8 weights"), a8,
+                    shape=name, mode=mode, flush=flush))
+            del pq
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_k7(dev, flush):
+    """K7 (exact w4a16 on the tensor cores) at Qwen3-4B's projections
+    (its lm_head is padded, so the dense route takes it at 17..64 rows),
+    M = 17, 40 and 64, with torch._weight_int4pack_mm (tinygemm, the same
+    function) as the library call."""
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    rows = []
+    for name, N, K, _ in K1_SHAPES[:4]:
+        qt, pq = random_packed(qm, g, dev, N, K, 4, None)
         w4, sz, pack_err = int4pack(qt)
         del qt
-        nw = (1 + 0.1 * torch.randn(K, generator=g, device=dev)).bfloat16()
-        for mode, M in (("a8", 1), ("a16", 1), ("a16", 2), ("a16", 16)):
-            a8 = mode == "a8"
-            pq = pq8 if a8 else pq16
+        for M in (17, 40, 64):
             x = torch.randn(M, K, generator=g, device=dev).bfloat16()
-            w_norm = nw if norm and M == 1 else None
-            got = qm._k1(x, pq, w_norm, EPS, a8)
-            want = qm.quantized_matmul_reference(
-                x, pq, w_norm, EPS, act_bits=8 if a8 else None)
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                raise RuntimeError(f"K1 {name} {mode} M={M}: non-finite")
-            d = (got.float() - want.float()).abs().max().item()
-            rel = d / max(want.float().abs().max().item(), 1e-12)
-            ms = time_ms(lambda: qm._k1(x, pq, w_norm, EPS, a8), 20, flush)
-            plain = time_ms(lambda: qm.quantized_matmul_reference(
-                x, pq, w_norm, EPS, act_bits=8 if a8 else None), 3, flush)
-            lib = lib_rel = None
-            if a8:
-                lib_err = ("int8 activations: no PyTorch call computes w4 "
-                           "against them")
-            elif w_norm is not None:
-                lib_err = "the fused RMSNorm: no one PyTorch call"
-            elif w4 is None:
-                lib_err = pack_err
-            else:
-                lib, lib_err = time_library(lambda: torch._weight_int4pack_mm(
-                    x, w4, GS, sz), 20, flush)
-                if lib is not None:
-                    ly = torch._weight_int4pack_mm(x, w4, GS, sz).float()
-                    lib_rel = ((ly - want.float()).abs().max().item()
-                               / max(want.float().abs().max().item(), 1e-12))
-                    if not lib_rel < K1_TOL:     # not the same function
-                        lib, lib_err = None, f"disagrees: rel {lib_rel}"
-            nbytes = N * K // 2 + 4 * N * G + 2 * M * (K + N) + (
-                2 * K if w_norm is not None else 0)
-            row = {"shape": name, "N": N, "K": K, "M": M, "mode": mode,
-                   "norm": w_norm is not None, "max_abs_err": d,
-                   "rel_err": rel, "ms": ms, "plain_ms": plain,
-                   "library_ms": lib,
-                   "library": "torch._weight_int4pack_mm (tinygemm)",
-                   "library_error": lib_err, "library_rel_err": lib_rel,
-                   "GBps": (N * K // 2 + 4 * N * G) / ms / 1e6,
-                   **bound(nbytes, 2 * M * N * K, "int8" if a8 else "bf16")}
-            emit({"phase": "k1", **row})
-            if not rel < K1_TOL:
-                raise RuntimeError(f"K1 {name} {mode} M={M}: rel error "
-                                   f"{rel} >= {K1_TOL}")
-            rows.append(row)
-        del pq8, pq16, w4, sz
+            rows.append(qmm_row(
+                "k7", x, pq, lambda: qm._k7(x, pq),
+                lambda: qm.qmm_dq_reference(x, pq),
+                int4_library(w4, sz, x), pack_err, False, shape=name,
+                mode="w4a16", flush=flush,
+                library="torch._weight_int4pack_mm (tinygemm)"))
+        del pq, w4, sz
         torch.cuda.empty_cache()
     return rows
 
@@ -652,29 +763,127 @@ def chat(port, content, stream=False, model="qwen3-4b", system=None,
     return text, usage["prompt_tokens"], usage["completion_tokens"]
 
 
-@contextlib.contextmanager
-def plain_kernels(keep=()):
-    """Route the kernel wrappers, all but those named in ``keep`` ("k1",
-    "k2", "k4", "k5"), to their plain versions (for the kernel-vs-plain
-    logits check only)."""
+def send_concurrent(port, model, requests) -> dict:
+    """Send chat requests {key: (content, keyword arguments of chat)} to
+    ``model`` all at once, a thread each. Returns {key: (text, prompt
+    tokens, completion tokens, seconds)}; raises if any request failed."""
+    import threading
+
+    res, errs = {}, []
+
+    def one(k):
+        try:
+            t0 = time.perf_counter()
+            content, kw = requests[k]
+            text, n_prompt, n_out = chat(port, content, model=model, **kw)
+            res[k] = (text, n_prompt, n_out, time.perf_counter() - t0)
+        except Exception as e:       # raised below
+            errs.append((k, e))
+
+    threads = [threading.Thread(target=one, args=(k,)) for k in requests]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errs or len(res) != len(requests):
+        raise RuntimeError(f"concurrent requests to {model} failed: {errs}")
+    return res
+
+
+# the kernels whose wrappers take x [M, K] and a packed weight first
+QMM_KERNELS = ("k1", "k4", "k6", "k7")
+
+
+def plain_versions() -> dict:
+    """{kernel: (module, wrapper name, plain version)} for every kernel
+    wrapper on the model paths."""
     from ominix_mlx_tpu_torch.ops import flash_attention as fa
     from ominix_mlx_tpu_torch.ops import grouped_matmul as gmm
     from ominix_mlx_tpu_torch.ops import quant_matmul as qm
 
-    k1, k2, k4, k5 = qm._k1, fa._k2, qm._k4, gmm._k5
-    if "k1" not in keep:
-        qm._k1 = lambda x, w, nw, eps, a8: qm.quantized_matmul_reference(
-            x, w, nw, eps, act_bits=8 if a8 else None)
-    if "k2" not in keep:
-        fa._k2 = fa.flash_prefill_reference
-    if "k4" not in keep:
-        qm._k4 = lambda x, w, ids: qm.gather_qmm_reference(x, w, ids, 8)
-    if "k5" not in keep:
-        gmm._k5 = gmm.grouped_matmul_reference
+    return {"k1": (qm, "_k1", lambda x, w, nw=None, eps=EPS: (
+                qm.qmm_p_reference(x, w, nw, eps) if x.shape[0] == 1
+                else qm.qmm_dq_reference(x, w))),
+            "k2": (fa, "_k2", fa.flash_prefill_reference),
+            "k4": (qm, "_k4",
+                   lambda x, w, ids: qm.gather_qmm_reference(x, w, ids, 8)),
+            "k5": (gmm, "_k5", gmm.grouped_matmul_reference),
+            "k6": (qm, "_k6", qm.qmm_p_reference),
+            "k7": (qm, "_k7", qm.qmm_dq_reference)}
+
+
+@contextlib.contextmanager
+def swapped_kernels(wrap):
+    """Replace every kernel wrapper by ``wrap(name, wrapper, plain
+    version)`` for the duration (the logits check's runs only)."""
+    table = plain_versions()
+    saved = {k: getattr(mod, attr) for k, (mod, attr, _) in table.items()}
     try:
+        for k, (mod, attr, plain) in table.items():
+            setattr(mod, attr, wrap(k, saved[k], plain))
         yield
     finally:
-        qm._k1, fa._k2, qm._k4, gmm._k5 = k1, k2, k4, k5
+        for k, (mod, attr, _) in table.items():
+            setattr(mod, attr, saved[k])
+
+
+def plain_kernels(keep=(), args=None):
+    """Route the kernel wrappers, all but those named in ``keep``, to their
+    plain versions. ``args`` (optional, (kernel, arguments) -> arguments)
+    rewrites the arguments of the quantized matmuls' plain versions: the
+    logits check's controls."""
+    def wrap(k, kern, plain):
+        if k in keep:
+            return kern
+        if args is None or k not in QMM_KERNELS:
+            return plain
+        return lambda *a: plain(*args(k, a))
+    return swapped_kernels(wrap)
+
+
+def reversed_k(w):
+    """A packed weight (or stack of experts) with its K axis reversed:
+    the groups in reverse order and each group's codes reversed. Against
+    x reversed along K it computes the same function as ``w`` with every
+    float32 sum in another order."""
+    data = w.data.flip(-1)
+    if w.bits == 4:                 # byte j holds codes 2j and 2j+1
+        data = ((data & 15) << 4) | (data >> 4)
+    return dataclasses.replace(w, data=data.contiguous(),
+                               scales=w.scales.flip(-1).contiguous(),
+                               biases=w.biases.flip(-1).contiguous())
+
+
+def without_last_group(w):
+    """A packed weight whose last group of K weighs nothing (scale and
+    bias 0): what a kernel whose loop stops one group early computes."""
+    s, b = w.scales.clone(), w.biases.clone()
+    s[..., -1] = 0
+    b[..., -1] = 0
+    return dataclasses.replace(w, scales=s, biases=b)
+
+
+def control_args(transform):
+    """(kernel, arguments) -> arguments of a quantized matmul's plain
+    version under ``transform``: "reversed" (x, the fused norm's weight
+    and the packed weight reversed along K) or "last_group" (the packed
+    weight without its last group). Transformed weights are cached."""
+    cache = {}
+
+    def weight(w):
+        if id(w) not in cache:
+            cache[id(w)] = (w, reversed_k(w) if transform == "reversed"
+                            else without_last_group(w))
+        return cache[id(w)][1]
+
+    def args(k, a):
+        x, w, *rest = a
+        if transform == "reversed":
+            x = x.flip(-1).contiguous()
+            if k == "k1" and rest and rest[0] is not None:
+                rest[0] = rest[0].flip(-1).contiguous()
+        return (x, weight(w), *rest)
+    return args
 
 
 def serve_requests(dev, cfg, params, name, keys):
@@ -728,23 +937,25 @@ def serve_requests(dev, cfg, params, name, keys):
     return results, counts
 
 
-def serve_main_path(dev, cfg, params):
-    """Qwen3-4B w4a8: every decode token runs K1 at M=1 for 4 projections
-    a layer and the lm_head; the 16-token bucket's prefill K1 at M=16."""
+def serve_main_path(dev, cfg, params, phase="serve", name="qwen3-4b",
+                    w8=""):
+    """Qwen3-4B w4a8 (or, with w8="_w8", w8a8) on panels: every decode
+    token runs K1 at M=1 for 4 projections a layer and the lm_head; the
+    16-token bucket's prefill K1 at M=16 (the dq formula)."""
     layers = cfg.num_layers
     per_token = 4 * layers + 1
-    results, counts = serve_requests(dev, cfg, params, "qwen3-4b",
-                                     ("k1_m1", "k1_mn", "k2"))
+    m1, mn = "k1_m1" + w8, "k1_mn" + w8
+    results, counts = serve_requests(dev, cfg, params, name, (m1, mn, "k2"))
     for req, row in results.items():
         n_out, delta = row["completion_tokens"], row["launches"]
-        if delta["k1_m1"] < per_token * (n_out - 1):
+        if delta[m1] < per_token * (n_out - 1):
             raise RuntimeError(f"request {req}: K1 M=1 ran "
-                               f"{delta['k1_m1']} times for {n_out} tokens")
+                               f"{delta[m1]} times for {n_out} tokens")
         if delta["k2"] < 1:
             raise RuntimeError(f"request {req}: K2 never ran")
-    if results["short"]["launches"]["k1_mn"] < per_token:
+    if results["short"]["launches"][mn] < per_token:
         raise RuntimeError("prefill at bucket 16 did not run K1 at M=16")
-    emit({"phase": "serve", "launches": counts, "ok": True})
+    emit({"phase": phase, "launches": counts, "ok": True})
     return counts
 
 
@@ -837,7 +1048,7 @@ def prefill_chunked_path(dev, cfg, params):
     return launches
 
 
-def batch_decode(dev, cfg, params, short=64, long=256):
+def batch_decode(dev, cfg, params, short=32, long=128):
     """w8a8 Qwen3-4B decode at batch 8 after a 128-token prompt, aggregate
     tok/s by bench.py's difference quotient (generate_scan of `long` vs
     `short` tokens, best of 2), over a dense cache and over
@@ -923,8 +1134,6 @@ def serve_batched(dev, cfg, params):
     with one exception: after the prefix cache is emptied, the long
     request alone adopts by chunks (K2, K2c) again, as in pass 1, and its
     pass-1 text must equal that solo text."""
-    import threading
-
     from ominix_mlx_tpu_torch.ops import _build
     from ominix_mlx_tpu_torch.serving.server import ChatModel, Server
 
@@ -949,25 +1158,7 @@ def serve_batched(dev, cfg, params):
     greedy = [k for k in reqs if k != "sampled"]
 
     def send(keys):
-        res, errs = {}, []
-
-        def one(k):
-            try:
-                t0 = time.perf_counter()
-                content, kw = reqs[k]
-                text, n_prompt, n_out = chat(port, content, model=name, **kw)
-                res[k] = (text, n_prompt, n_out, time.perf_counter() - t0)
-            except Exception as e:       # raised below
-                errs.append((k, e))
-
-        threads = [threading.Thread(target=one, args=(k,)) for k in keys]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(600)
-        if errs or len(res) != len(keys):
-            raise RuntimeError(f"batched requests failed: {errs}")
-        return res
+        return send_concurrent(port, name, {k: reqs[k] for k in keys})
 
     try:
         runner = srv.batchers[name]
@@ -1022,17 +1213,250 @@ def serve_batched(dev, cfg, params):
     return launches
 
 
-def check_logits(dev, cfg, params, name="Qwen3-4B"):
+def with_act_bits(tree, act_bits):
+    """The tree with every group-quantized weight's act_bits replaced (the
+    packed data is shared)."""
+    from ominix_mlx_tpu_torch.ops.quant_matmul import PackedQuantizedTensor
+
+    if isinstance(tree, PackedQuantizedTensor):
+        return dataclasses.replace(tree, act_bits=act_bits)
+    if isinstance(tree, dict):
+        return {k: with_act_bits(v, act_bits) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(with_act_bits(v, act_bits) for v in tree)
+    return tree
+
+
+def generate_rows(dev, cfg, dense):
+    """The generate.py --quantize route: quantize_params at 4 and at 8 bits
+    on the bf16 weights with no fusion into panels, so every weight is
+    row-major with act_bits=8 (what the JAX package's quantize_params
+    gives). Engine.generate, greedy, on a 12-token prompt (bucket 16: K6 at
+    16 rows) and a 40-token prompt (bucket 64: K7 for 4-bit; the dense
+    route for 8-bit), then 32 tokens each (K6 at one row); the 12-token
+    prompt again (the tokens repeat); and the kernel-vs-plain logits on a
+    2-layer cut, for w4a8 on a second seed too. Returns the launches of
+    the generate runs."""
+    from ominix_mlx_tpu_torch.core.generate import Engine
+    from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.ops import _build
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    prompts = {T: torch.randint(0, 256, (T,), generator=g, device=dev)
+               for T in (12, 40)}
+    per_token = 4 * cfg.num_layers + 1
+    total = {}
+    for bits in (4, 8):
+        t0 = time.perf_counter()
+        qp = base.quantize_params(dense, GS, bits)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        w = qp["layers"][0]["qkv_proj"]["w"]
+        if w.panels or w.batched or w.act_bits != 8 or w.bits != bits:
+            raise RuntimeError(f"quantize_params gave {w.bits}-bit "
+                               f"panels={w.panels} batched={w.batched}")
+        eng = Engine(lambda p, t, c: base.forward(p, cfg, t, c), qp,
+                     SamplerConfig(),
+                     prefill_forward_fn=lambda p, t, c: base.forward(
+                         p, cfg, t, c, fresh_prefill=True))
+
+        def gen(prompt):
+            cache = base.init_cache(cfg, 1, 256, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = list(eng.generate(prompt, cache, max_tokens=MAX_TOKENS))
+            return toks, time.perf_counter() - t0
+
+        rows = {}
+        _build.reset_launches()
+        for T, prompt in prompts.items():
+            before = dict(_build.LAUNCHES)
+            toks, sec = gen(prompt)
+            rows[T] = {"tokens": len(toks), "seconds": sec, "first": toks[:8],
+                       "launches": {k: _build.LAUNCHES[k] - before.get(k, 0)
+                                    for k in ("k6", "k7")}}
+            rows[T]["all"] = toks
+        launches = dict(_build.LAUNCHES)
+        again, _ = gen(prompts[12])
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        emit({"phase": "generate_rows", "bits": bits, "weights":
+              f"w{bits}a8 g64 row-major", "quantize_seconds": t_quant,
+              "launches": launches, "repeat_equal": again == rows[12]["all"],
+              **{f"prompt_{T}": {k: v for k, v in r.items() if k != "all"}
+                 for T, r in rows.items()}})
+        for T, r in rows.items():
+            want_k6 = per_token * (MAX_TOKENS - 1) + (per_token if T <= 16
+                                                      else 0)
+            if r["tokens"] != MAX_TOKENS or r["launches"]["k6"] < want_k6:
+                raise RuntimeError(f"{bits}-bit prompt {T}: {r['tokens']} "
+                                   f"tokens, launches {r['launches']}")
+        if bits == 4 and rows[40]["launches"]["k7"] < 4 * cfg.num_layers:
+            raise RuntimeError(f"the 40-token prefill ran K7 "
+                               f"{rows[40]['launches']['k7']} times")
+        if again != rows[12]["all"]:
+            raise RuntimeError(f"{bits}-bit greedy decode does not repeat")
+        check_logits(dev, cfg, qp, f"Qwen3-4B w{bits}a8 row-major",
+                     kernels=("k2", "k6"), tol=ROWS_A8_LOGITS_TOL)
+        # exact copies of the same weights: 4-bit through K7 at 16 rows
+        # and the dense route at one; 8-bit through K6's w8a16
+        check_logits(dev, cfg, with_act_bits(qp, None),
+                     f"Qwen3-4B w{bits}a16 row-major",
+                     kernels=("k2", "k7" if bits == 4 else "k6"))
+        del qp, eng, w
+        free_device_memory()
+    # the row-major w4a8 check again on a second seed (the 2 layers it reads)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    d2 = base.fuse_layer_projections(base.init_params(
+        dataclasses.replace(cfg, num_layers=2), gen, torch.bfloat16,
+        device=dev))
+    check_logits(dev, cfg, base.quantize_params(d2, GS, 4),
+                 "Qwen3-4B w4a8 row-major, second seed",
+                 kernels=("k2", "k6"), tol=ROWS_A8_LOGITS_TOL)
+    del d2
+    free_device_memory()
+    return total
+
+
+def serve_batched_w4(dev, cfg, dense):
+    """The batched server's 4-bit capacity scheme: enable_batching(
+    quantize_bits=4) quantizes the bf16 weights row-major, marked batched,
+    act_bits=8, as the JAX package does. Four concurrent chat requests of
+    33-64 prompt tokens (each adoption prefill at bucket 64: K7; the 4-slot
+    batch decode: K1's dq formula on the batched weights), then each
+    alone: every slot decodes every step, so the greedy texts must
+    match."""
+    from ominix_mlx_tpu_torch.ops import _build
+    from ominix_mlx_tpu_torch.serving.server import ChatModel, Server
+
+    name = "qwen3-4b-batched-w4"
+    srv = Server(port=free_port())
+    srv.add_model(name, ChatModel(name, dense, cfg, ByteTokenizer(), dev))
+    srv.enable_batching(name, slots=4, max_len=1024, quantize_bits=4)
+    srv.start_background()
+    contents = {"colours": "Name the three primary colours, please.",
+                "count": "Count from one to ten in English words.",
+                "french": "Say good morning and thank you in French.",
+                "story": "Tell me a very short story about a cat."}
+
+    def send(keys):
+        return send_concurrent(srv.port, name,
+                               {k: (contents[k], {}) for k in keys})
+
+    try:
+        w = srv.batchers[name].batcher.params["layers"][0]["qkv_proj"]["w"]
+        flags = (w.bits, w.batched, w.act_bits, w.panels)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        together = send(list(contents))
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        alone = {}
+        for k in contents:
+            alone.update(send([k]))
+    finally:
+        srv.shutdown()
+    same = {k: together[k][0] == alone[k][0] for k in contents}
+    row = {"phase": "serve_batched_w4", "weights": "w4 g64 batched, a8",
+           "slots": 4, "launches": launches, "seconds": wall,
+           "prompt_tokens": {k: r[1] for k, r in together.items()},
+           "completion_tokens": sum(r[2] for r in together.values()),
+           "equal_alone": same,
+           "text": {k: r[0][:40] for k, r in together.items()}}
+    emit(row)
+    per_token = 4 * cfg.num_layers + 1
+    if flags != (4, True, 8, False):
+        raise RuntimeError(f"enable_batching(quantize_bits=4) gave (bits, "
+                           f"batched, act_bits, panels) = {flags}")
+    if not all(32 < r[1] <= 64 and r[2] > 0 and r[0]
+               for r in together.values()):
+        raise RuntimeError(f"prompts outside bucket 64 or empty: {row}")
+    if launches.get("k7", 0) < 4 * 4 * cfg.num_layers \
+            or launches.get("k1_mn", 0) < per_token * (MAX_TOKENS - 1):
+        raise RuntimeError(f"batched w4 launched {launches}")
+    if not all(same.values()):
+        raise RuntimeError(f"batched w4 answers differ from solo: {row}")
+    return launches
+
+
+def p_formula_on_kernel_prologue(x, w) -> dict:
+    """K6 a8 on x once more (a comparison launch, not counted), with its
+    prologue's outputs read back: the rows' int8 codes xq, scales sx and
+    bf16 group sums xg. Returns how many of each differ from the plain
+    version's own, and the share of outputs where the kernel differs from
+    the plain P formula evaluated on the kernel's xq, sx and xg: what is
+    left once the prologue's roundings are shared. Against the formula
+    evaluated in float64 on the same xq, sx and xg, it counts the outputs
+    of the kernel and of that plain evaluation that are not the rounded
+    exact value, and it sums |bias term| and |y| over the outputs: where
+    the bias term is larger than y, y is a difference of larger terms and
+    their float32 rounding reaches y's last bf16 bit more often."""
+    from ominix_mlx_tpu_torch.core.quant import over_127
+    from ominix_mlx_tpu_torch.ops import _build
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    M, K = x.shape
+    N, gs = w.data.shape[0], w.group_size
+    G = K // gs
+    y = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
+    xg = torch.empty(M, G, dtype=torch.float32, device=x.device)
+    xq = torch.empty(M, K, dtype=torch.int8, device=x.device)
+    sx = torch.empty(M, dtype=torch.float32, device=x.device)
+    _build.check(_build.library().ominix_qmm_p(
+        x.data_ptr(), None, 0.0, w.data.data_ptr(), w.scales.data_ptr(),
+        w.biases.data_ptr(), y.data_ptr(), xq.data_ptr(), xg.data_ptr(),
+        sx.data_ptr(), None, M, N, K, gs, w.bits, 1,
+        torch.cuda.current_stream().cuda_stream), "K6 (prologue witness)")
+    c = qm._code_values(w.data, w.bits).reshape(N, G, gs)
+    P = torch.einsum("mgk,ngk->mng", xq.float().reshape(M, G, gs), c)
+    y_on = (sx[:, None] * (P * w.scales.float()[None]).sum(-1)
+            + xg @ w.biases.float().T).to(torch.bfloat16)
+    bias64 = xg.double() @ w.biases.double().T
+    y64 = (sx.double()[:, None] * (P.double() * w.scales.double()[None]).sum(
+        -1) + bias64)
+    exact = y64.float().to(torch.bfloat16)
+    xf = x.float()
+    sx_p = over_127(xf.abs().amax(-1)) + 1e-12
+    return {"outputs": y.numel(), "differ_on_kernel_prologue":
+            int((y != y_on).sum()),
+            "kernel_not_exact": int((y != exact).sum()),
+            "plain_not_exact": int((y_on != exact).sum()),
+            "sum_abs_bias_term": bias64.abs().sum().item(),
+            "sum_abs_y": y64.abs().sum().item(),
+            "xg": xg.numel(), "xg_differ": int((xg != xf.reshape(M, G, gs).sum(
+                -1).to(torch.bfloat16).float()).sum()),
+            "xq_differ": int((xq.float() != torch.round(
+                xf / sx_p[:, None])).sum()),
+            "sx_differ": int((sx != sx_p).sum())}
+
+
+def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
+                 tol=LOGITS_TOL):
     """Kernel path vs plain path on a 2-layer cut of the full-width model:
-    a 10-token prefill (bucket 16: K1 at M=16, K2; K5 on a MoE model) then
-    3 w4a8 decode steps (K4 on a MoE model). Logits finite, of shape
-    [1, T, 151936], rel error < 2e-2. The line also reads each kernel
-    alone against the plain path (that kernel launched, every other one
-    plain), which says where the difference comes from. On a MoE model it
-    counts the rows (token, layer) whose set of routed experts differs
-    between the kernel and the plain run: a router near-tie that one run
-    breaks the other way moves that row's output by a whole expert, not
-    by a rounding."""
+    an 11-token prefill (bucket 16: K1's dq formula or K6 at 16 rows, K2;
+    K5 on a MoE model) then 3 decode steps (K1 or K6 at one row; K4 on a
+    MoE model). Held: logits finite, of shape [4, 1, vocab], max error
+    over max |plain| below ``tol``; and at every call of a quantized
+    matmul (K1, K4, K6, K7) in the kernel run, the kernel against its
+    plain version on the same inputs, per row, below K1_TOL; and the
+    "last_group" control below at or above ``tol`` (the limit catches
+    it).
+
+    Reported beside, to say where a difference comes from and what the
+    limit is worth: each kernel alone against the plain path (that kernel
+    launched, every other one plain); two controls on the plain path,
+    "reversed" (every quantized matmul's plain version on K reversed: the
+    same function, each float32 sum in another order, so the drift
+    between two sound implementations) and "last_group" (the last group
+    of K left out of every quantized matmul: a kernel fault the limit
+    must catch); per call the share of outputs where kernel and plain
+    differ beside the share where plain on reversed K and plain differ;
+    and for K6 at a8 the prologue witness (p_formula_on_kernel_prologue).
+    On a MoE model it counts the rows (token, layer) whose set of routed
+    experts differs between the kernel and the plain run: a router
+    near-tie that one run breaks the other way moves that row's output by
+    a whole expert, not by a rounding."""
     from ominix_mlx_tpu_torch.core.generate import Engine
     from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
     from ominix_mlx_tpu_torch.models import base, moe
@@ -1068,29 +1492,79 @@ def check_logits(dev, cfg, params, name="Qwen3-4B"):
     def rel_to(want, got):
         return ((got - want).abs().max() / want.abs().max()).item()
 
-    kernels = ("k1", "k2", "k4", "k5") if cfg.moe is not None \
-        else ("k1", "k2")
+    calls = {}
+    reverse = control_args("reversed")
+
+    def checked(k, kern, plain):
+        if k not in QMM_KERNELS:
+            return kern
+
+        def call(*a):
+            y = kern(*a)
+            want, rev = plain(*a), plain(*reverse(k, a))
+            c = calls.setdefault(k, {"calls": 0, "max_rel_err": 0.0,
+                                     "differ": 0, "reversed_max_rel_err": 0.0,
+                                     "reversed_differ": 0, "outputs": 0})
+            c["calls"] += 1
+            c["outputs"] += want.numel()
+            for key, v in (("", y), ("reversed_", rev)):
+                c[key + "max_rel_err"] = max(c[key + "max_rel_err"],
+                                             row_rel_err(v, want))
+                c[key + "differ"] += int((v != want).sum())
+            if k == "k6" and a[1].act_bits == 8:
+                for key, v in p_formula_on_kernel_prologue(*a).items():
+                    c.setdefault("prologue", {})
+                    c["prologue"][key] = c["prologue"].get(key, 0) + v
+            return y
+        return call
+
+    if kernels is None:
+        kernels = ("k1", "k2", "k4", "k5") if cfg.moe is not None \
+            else ("k1", "k2")
     moe.route = recording_route
     try:
-        got = run()
+        with swapped_kernels(checked):
+            got = run()
         with plain_kernels():
             want = run()
         alone = {}
         for k in kernels:
             with plain_kernels(keep=(k,)):
                 alone[k] = rel_to(want, run())
+        controls = {}
+        for c in ("reversed", "last_group"):
+            with plain_kernels(args=control_args(c)):
+                controls[c] = rel_to(want, run())
     finally:
         moe.route = route
     if got.shape != (4, 1, cfg.vocab_size) or not torch.isfinite(got).all():
         raise RuntimeError(f"bad logits: {tuple(got.shape)}")
     rel = rel_to(want, got)
+    per_call = {k: {"calls": c["calls"], "max_rel_err": c["max_rel_err"],
+                    "share_differ": c["differ"] / c["outputs"],
+                    "reversed_max_rel_err": c["reversed_max_rel_err"],
+                    "reversed_share_differ":
+                        c["reversed_differ"] / c["outputs"],
+                    **({"prologue": c["prologue"]} if "prologue" in c
+                       else {})}
+                for k, c in calls.items()}
     emit({"phase": "logits", "config": name, "layers": 2, "rel_err": rel,
-          "rel_err_one_kernel": alone,
+          "limit": tol, "rel_err_one_kernel": alone,
+          "rel_err_control": controls, "per_call": per_call,
+          "per_call_limit": K1_TOL,
           "routed_rows": sum(r.shape[0] for r in routes[0]),
           "routed_rows_differ": sum(int((a != b).any(-1).sum())
                                     for a, b in zip(routes[0], routes[1]))})
-    if not rel < LOGITS_TOL:
-        raise RuntimeError(f"kernel vs plain logits rel {rel}")
+    if not rel < tol:
+        raise RuntimeError(f"{name}: kernel vs plain logits rel {rel}")
+    if not controls["last_group"] >= tol:
+        raise RuntimeError(f"{name}: the limit {tol} misses a quantized "
+                           f"matmul without its last group (rel "
+                           f"{controls['last_group']})")
+    for k, c in per_call.items():
+        if not c["max_rel_err"] < K1_TOL:
+            raise RuntimeError(f"{name}: {k} against its plain version on "
+                               f"the path's inputs: rel {c['max_rel_err']}")
 
 
 def decode_rate(dev, cfg, params, short=128, long=512):
@@ -1299,6 +1773,8 @@ def main() -> int:
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     k1_rows = check_k1(dev, flush_buf.zero_)
+    k6_rows = check_k6(dev, flush_buf.zero_)
+    k7_rows = check_k7(dev, flush_buf.zero_)
     k2_rows = check_k2(dev, flush_buf.zero_)
     k2c_rows = check_k2c(dev, flush_buf.zero_)
     k3_rows = check_k3(dev, flush_buf.zero_)
@@ -1319,9 +1795,26 @@ def main() -> int:
           "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
     phases["serve"] = serve_main_path(dev, cfg, params)
     check_logits(dev, cfg, params)
-    emit({**decode_rate(dev, cfg, params), "card": smi})
+    emit({**decode_rate(dev, cfg, params, 64, 256), "card": smi})
     if args.profile:
         emit({**profile_decode(dev, cfg, params), "card": smi})
+    del params
+    free_device_memory()
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    params = base.fuse_layer_projections(base.init_quantized_params(
+        cfg, gen, GS, 8, act_bits=8, device=dev))
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": "Qwen3-4B", "weights": "w8a8 g64",
+          "init_seconds": time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    phases["serve_q8"] = serve_main_path(dev, cfg, params, "serve_q8",
+                                         "qwen3-4b-w8", "_w8")
+    check_logits(dev, cfg, params, "Qwen3-4B w8a8",
+                 tol=W8A8_PANELS_LOGITS_TOL)
+    emit({**decode_rate(dev, cfg, params, 64, 192), "weights": "w8a8 g64",
+          "card": smi})
     del params
     free_device_memory()
 
@@ -1343,6 +1836,9 @@ def main() -> int:
     phases["prefill_chunked"] = prefill_chunked_path(dev, cfg, params)
     torch.cuda.empty_cache()
     phases["serve_batched"] = serve_batched(dev, cfg, params)
+    free_device_memory()
+    phases["generate_rows"] = generate_rows(dev, cfg, params)
+    phases["serve_batched_w4"] = serve_batched_w4(dev, cfg, params)
     del params
     free_device_memory()
 
@@ -1381,20 +1877,37 @@ def main() -> int:
                 "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                 "library_ms": rep["library_ms"],
                 "timed_at": {k: rep[k] for k in rep
-                             if k in ("shape", "N", "K", "M", "mode", "T",
-                                      "pos", "window", "k", "S")}}
+                             if k in ("shape", "N", "K", "M", "mode", "bits",
+                                      "T", "pos", "window", "k", "S")}}
 
-    m1 = [r for r in k1_rows if r["M"] == 1]
-    mn = [r for r in k1_rows if r["M"] > 1]
+    def k1_rows_of(bits, m1):
+        return [r for r in k1_rows
+                if r["bits"] == bits and (r["M"] == 1) == m1]
+
+    def at(shape, M, mode=None):
+        return lambda rs: next(r for r in rs if r["shape"] == shape
+                               and r["M"] == M
+                               and mode in (None, r["mode"]))
+
     kernels = [
         entry("k1_qmm_w4_m1", "ominix_mlx_tpu/ops/quant_matmul.py:719",
-              "ominix_mlx_tpu_torch/csrc/qmm.cu", m1,
-              lambda rs: next(r for r in rs if r["shape"] == "lm_head"
-                              and r["mode"] == "a8"), "k1_m1"),
+              "ominix_mlx_tpu_torch/csrc/qmm.cu", k1_rows_of(4, True),
+              at("lm_head", 1, "a8"), "k1_m1"),
         entry("k1_qmm_w4_m2_16", "ominix_mlx_tpu/ops/quant_matmul.py:1062",
-              "ominix_mlx_tpu_torch/csrc/qmm.cu", mn,
-              lambda rs: next(r for r in rs if r["shape"] == "gate_up_proj"
-                              and r["M"] == 16), "k1_mn"),
+              "ominix_mlx_tpu_torch/csrc/qmm.cu", k1_rows_of(4, False),
+              at("gate_up_proj", 16), "k1_mn"),
+        entry("k1_qmm_w8_m1", "ominix_mlx_tpu/ops/quant_matmul.py:719",
+              "ominix_mlx_tpu_torch/csrc/qmm.cu", k1_rows_of(8, True),
+              at("lm_head", 1, "a8"), "k1_m1_w8"),
+        entry("k1_qmm_w8_m2_16", "ominix_mlx_tpu/ops/quant_matmul.py:1062",
+              "ominix_mlx_tpu_torch/csrc/qmm.cu", k1_rows_of(8, False),
+              at("gate_up_proj", 16), "k1_mn_w8"),
+        entry("k6_qmm_rows", "ominix_mlx_tpu/ops/quant_matmul.py:358",
+              "ominix_mlx_tpu_torch/csrc/qmm.cu", k6_rows,
+              at("gate_up_proj", 1, "w4a8"), "k6"),
+        entry("k7_qmm_w4a16_tc", "ominix_mlx_tpu/ops/quant_matmul.py:1229",
+              "ominix_mlx_tpu_torch/csrc/qmm_tc.cu", k7_rows,
+              at("gate_up_proj", 64), "k7"),
         entry("k2_flash_prefill", "ominix_mlx_tpu/ops/flash_attention.py:60",
               "ominix_mlx_tpu_torch/csrc/flash_attn.cu", k2_rows,
               lambda rs: rs[-1], "k2"),

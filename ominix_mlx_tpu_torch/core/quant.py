@@ -81,3 +81,46 @@ def dequantize(qt: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
     q = qt.q.float().reshape(out_f, in_f // gs, gs)
     w = qt.scales[..., None].float() * q + qt.biases[..., None].float()
     return w.reshape(out_f, in_f).to(dtype)
+
+
+def quantize_tree(params, group_size: int = 64, bits: int = 4,
+                  pack: bool = True, min_dim: int = 256,
+                  batched: bool = False, scheme: str = "group"):
+    """Generic post-hoc quantizer for any parameter tree (the JAX
+    package's ``core.quant.quantize_tree``): every dict holding a 2-D "w"
+    whose shape suits the kernels (both dims multiples of 128 and at least
+    ``min_dim``, K a multiple of the group size) gets it quantized;
+    everything else (norms, convolutions, embeddings, small projections)
+    stays dense. scheme="group": group quantization into the packed
+    row-major layout (``ops.quant_matmul.prepare``, act_bits=8, marked
+    ``batched`` if asked), or the canonical ``QuantizedTensor`` with
+    pack=False. scheme="channel8": per-output-channel symmetric int8
+    (``group_size``, ``bits`` and ``pack`` unused). Any other scheme
+    raises, where the JAX package quantizes it as "group"."""
+    from ominix_mlx_tpu_torch.ops.quant_matmul import (channel_quantize,
+                                                       prepare)
+
+    if scheme not in ("group", "channel8"):
+        raise ValueError(f"scheme {scheme!r}: want 'group' or 'channel8'")
+
+    def eligible(w):
+        return (isinstance(w, torch.Tensor) and w.dim() == 2
+                and w.shape[0] % 128 == 0 and w.shape[1] % 128 == 0
+                and (scheme == "channel8" or w.shape[1] % group_size == 0)
+                and min(w.shape) >= min_dim)
+
+    def quant(w):
+        if scheme == "channel8":
+            return channel_quantize(w.float())
+        qt = quantize_tensor(w.float(), group_size, bits)
+        return prepare(qt, batched=batched) if pack else qt
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: quant(v) if k == "w" and eligible(v) else walk(v)
+                    for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)

@@ -73,7 +73,7 @@ int ominix_gather_qmm_w4a8(const void* x, const void* ids, const void* data,
                            int N, int K, int gs, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   qmm_prep<<<T, kPrepThreads, 0, st>>>((const __nv_bfloat16*)x, nullptr, 0.f,
-                                       K, gs, 1, (int8_t*)xq, (float*)xg,
+                                       K, gs, (int8_t*)xq, (float*)xg,
                                        (float*)sx, nullptr);
   const dim3 grid((N + kWarps - 1) / kWarps, T * k);
   gather_qmm_a8<<<grid, kThreads, 0, st>>>(

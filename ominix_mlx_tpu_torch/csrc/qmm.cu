@@ -1,36 +1,44 @@
-// K1: quantized skinny matmul y[M, N] = x[M, K] @ W^T for M in [1, 16],
-// W group-affine 4-bit (per-group bf16 scale and bias).
+// K1 and K6: quantized skinny matmuls y[M, N] = x[M, K] @ W^T for M in
+// [1, 16], W group-affine 4- or 8-bit (per-group bf16 scale and bias).
 //
-// Replaces two TPU kernels of ominix_mlx_tpu/ops/quant_matmul.py:
-//   * _pt_kernel (M = 1 decode, w4a8 with RMSNorm fused into the prologue)
-//   * _dq_kernel (2 <= M <= 16, exact bf16 activations)
+// Replaces three TPU kernels of ominix_mlx_tpu/ops/quant_matmul.py:
+//   * _pt_kernel (A1; M = 1 over transposed panels, w4/w8, a8/a16, RMSNorm
+//     fused for 4-bit): K1 at M = 1, the P formula;
+//   * _dq_kernel (A3; 2 <= M <= 16, exact bf16 activations, w4/w8): K1 at
+//     2 <= M <= 16, the dq formula;
+//   * _pm_kernel (A4; row-major, M <= 16, w4a8 / w8a8 / w8a16): K6, the P
+//     formula over M rows.
+// The port keeps one row-major layout for all three; ops/quant_matmul.py
+// route() picks the formula the JAX package would.
 //
-// Weight layout (ops/quant_matmul.py prepare): data uint8 [N, K/2], byte j
-// of a row = u[2j] | u[2j+1] << 4 with unsigned codes u = q + 8 in [0, 15];
-// scales [N, G] bf16; biases [N, G] bf16 holding b - 8s, so that
-// w = s * u + (b - 8s) (the zero-point fold the TPU kernel uses too).
+// Weight layout (ops/quant_matmul.py prepare): 4-bit data uint8 [N, K/2],
+// byte j of a row = u[2j] | u[2j+1] << 4 with unsigned codes u = q + 8,
+// biases b' = b - 8s; 8-bit data int8 [N, K] (centred codes q), biases b.
+// Scales and biases bf16 [N, G]. Below, c is the stored code (u or q) and
+// b* the stored bias.
 //
-// Modes (same formulas as quantized_matmul_reference):
-//   a8  (M = 1): optional RMSNorm xn = bf16(bf16(x * inv) * w_norm);
-//       sx = max|xn| / 127 + 1e-12; cx = rint(xn / sx) as int8;
-//       y = sx * sum_g s_g * P_g + sum_g b'_g * bf16(xg_g), with
-//       P_g = sum_{k in g} cx_k * u_k in int32 (__dp4a) and xg_g the group
-//       sums of xn (quant_matmul.py:771-827, 914-927).
-//   a16 (M <= 16): y = sum_k bf16(s * u_k + b') * x_k with f32 accumulation
-//       (the rounding of the JAX package's exact dequant path, _dense_tn);
-//       M = 1 keeps the fused norm, M > 1 takes an already-normed x.
+// Formulas (the plain versions are qmm_p_reference / qmm_dq_reference):
+//   P  (qmm_p): per row m, a8: sx = max|x| / 127 + 1e-12, cx = rint(x / sx)
+//       as int8, P_g = sum_{k in g} c_k * cx_k in int32 (__dp4a, exact like
+//       the MXU's int32); a16: sx = 1, P_g = sum c_k * x_k in f32. Then
+//       y = sx * sum_g s_g * P_g + sum_g b*_g * xg_g, xg the bf16-rounded
+//       group sums of x (of the normed x when K1 fuses the norm).
+//   dq (qmm_dq): y = sum_k bf16(d_k * s_g) * x_k + sum_g bh_g * xg_g in f32,
+//       d = u - 8 or q, bh = bf16(b' + 8s) or b (quant_matmul.py:1110-1135).
 //
-// What bounds it on an H100: bytes. At M = 1 every weight byte is read
-// once and used for two multiply-adds, far below the card's ~295 FLOP/byte
-// ridge, so the kernel is a stream of N*K/2 code bytes plus N*G*4 bytes of
-// scales and biases. The design streams each row once with 16-byte loads
-// (one warp per output row, lanes on consecutive 16-byte chunks so a warp
-// reads 512 contiguous bytes), dequantises in registers, and never writes
-// an intermediate to device memory. The activation prologue (norm, int8
-// quantisation, group sums) runs once per call in a small kernel, not once
-// per output tile. Reductions are warp butterflies in a fixed order with no
-// atomics, so greedy decode is deterministic run to run.
-// Later work: split-K for the small-N projections, cp.async/TMA pipelining.
+// What bounds it on an H100: bytes. At M = 1 every weight byte is read once
+// and used for one or two multiply-adds, far below the card's ~295
+// FLOP/byte ridge, so the kernel is a stream of the code bytes plus 4 bytes
+// of scale and bias per group. One warp per output row, lanes on
+// consecutive 16-byte chunks (a warp reads 512 contiguous bytes), codes
+// dequantised in registers, no intermediate in device memory. The
+// activation prologue (norm, group sums, int8 quantisation) runs once per
+// call in a small kernel, not once per output tile. Each lane reuses its
+// chunk for every row of x, but x is read again for every output row (from
+// L1/L2), which is what limits M = 16. Reductions are warp butterflies in a
+// fixed order with no atomics, so greedy decode is deterministic.
+// Later work: split-K for the small-N projections, x staged in shared
+// memory, cp.async/TMA pipelining.
 
 #include "qmm_common.cuh"
 
@@ -39,88 +47,206 @@ namespace {
 constexpr int kWarps = 8;                 // output rows per CTA
 constexpr int kThreads = kWarps * 32;
 
-// M = 1, int8 activations. One warp per output row (a8_row_dot).
-__global__ void __launch_bounds__(kThreads)
-qmm_a8(const uint8_t* __restrict__ data, const __nv_bfloat16* __restrict__ sc,
-       const __nv_bfloat16* __restrict__ bs, const int8_t* __restrict__ xq,
-       const float* __restrict__ xg, const float* __restrict__ sx,
-       __nv_bfloat16* __restrict__ y, int N, int K, int gs) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (n >= N) return;
-  const int G = K / gs;
-  const float v = a8_row_dot(data + (size_t)n * (K / 2), sc + (size_t)n * G,
-                             bs + (size_t)n * G, xq, xg, sx[0], K, gs, lane);
-  if (lane == 0) y[n] = __float2bfloat16(v);
-}
-
-// Exact bf16 activations, M <= MT rows of x. Same row/chunk mapping; each
-// lane dequantises its 32 weights once and reuses them for every row of x.
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-qmm_a16(const uint8_t* __restrict__ data, const __nv_bfloat16* __restrict__ sc,
-        const __nv_bfloat16* __restrict__ bs,
-        const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y,
-        int M, int N, int K, int gs) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (n >= N) return;
-  const int G = K / gs, chunks = K / 32;
-  const uint4* wrow = reinterpret_cast<const uint4*>(data + (size_t)n * (K / 2));
-  const __nv_bfloat16* srow = sc + (size_t)n * G;
-  const __nv_bfloat16* brow = bs + (size_t)n * G;
-  float acc[MT];
+// The chunk's codes as floats: 4-bit unsigned u in natural order, 8-bit q.
+template <int BITS>
+__device__ __forceinline__ void unpack_chunk(const uint4 w, float* c) {
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    const uint4 w4 = __ldg(wrow + c);
-    const int g = (c * 32) / gs;
-    const float s = __bfloat162float(srow[g]), b = __bfloat162float(brow[g]);
-    const uint32_t words[4] = {w4.x, w4.y, w4.z, w4.w};
-    float wd[32];
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t byte = (words[i] >> (8 * j)) & 0xFFu;
-        wd[8 * i + 2 * j] = bf16r(fmaf(s, (float)(byte & 15u), b));
-        wd[8 * i + 2 * j + 1] = bf16r(fmaf(s, (float)(byte >> 4), b));
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t byte = (words[i] >> (8 * j)) & 0xFFu;
+      if constexpr (BITS == 4) {
+        c[8 * i + 2 * j] = (float)(byte & 15u);
+        c[8 * i + 2 * j + 1] = (float)(byte >> 4);
+      } else {
+        c[4 * i + j] = (float)(int8_t)byte;
       }
     }
+  }
+}
+
+// sum_i c[i] * x[i] over the chunk's codes, x bf16 at xr (16-byte aligned),
+// accumulated into acc in order.
+template <int NC>
+__device__ __forceinline__ float dot_bf16(const float* c,
+                                          const __nv_bfloat16* xr,
+                                          float acc) {
+  const uint4* xv = reinterpret_cast<const uint4*>(xr);
+#pragma unroll
+  for (int q = 0; q < NC / 8; ++q) {
+    const uint4 xx = __ldg(xv + q);
+    const uint32_t xw[4] = {xx.x, xx.y, xx.z, xx.w};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&xw[t]));
+      acc = fmaf(c[8 * q + 2 * t], f.x, acc);
+      acc = fmaf(c[8 * q + 2 * t + 1], f.y, acc);
+    }
+  }
+  return acc;
+}
+
+// The P formula over M <= MT rows of x: xq int8 [M, K] (a8) or xa bf16
+// [M, K] (a16), xg f32 [M, G], sx [M] (a8).
+template <int BITS, bool A8, int MT>
+__global__ void __launch_bounds__(kThreads)
+qmm_p(const uint8_t* __restrict__ data, const __nv_bfloat16* __restrict__ sc,
+      const __nv_bfloat16* __restrict__ bs, const int8_t* __restrict__ xq,
+      const __nv_bfloat16* __restrict__ xa, const float* __restrict__ xg,
+      const float* __restrict__ sx, __nv_bfloat16* __restrict__ y, int M,
+      int N, int K, int gs) {
+  constexpr int NC = BITS == 4 ? 32 : 16;   // codes a chunk
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const int G = K / gs, chunks = K / NC;
+  const uint4* wrow =
+      reinterpret_cast<const uint4*>(data + (size_t)n * (K / 8 * BITS));
+  const __nv_bfloat16* srow = sc + (size_t)n * G;
+  const __nv_bfloat16* brow = bs + (size_t)n * G;
+  float acc_p[MT], acc_b[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) acc_p[m] = acc_b[m] = 0.f;
+  for (int c = lane; c < chunks; c += 32) {
+    const uint4 w = __ldg(wrow + c);
+    const int k0 = c * NC, g = k0 / gs;
+    const float s = __bfloat162float(srow[g]);
+    const bool first = k0 % gs == 0;       // the lane that adds the bias
+    const float b = first ? __bfloat162float(brow[g]) : 0.f;
+    float cw[NC];
+    if constexpr (!A8) unpack_chunk<BITS>(w, cw);
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
       if (m < M) {
-        const uint4* xr =
-            reinterpret_cast<const uint4*>(x + (size_t)m * K + (size_t)c * 32);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const uint4 xx = __ldg(xr + q);
-          const uint32_t xw[4] = {xx.x, xx.y, xx.z, xx.w};
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const float2 f = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(&xw[t]));
-            acc[m] = fmaf(wd[8 * q + 2 * t], f.x, acc[m]);
-            acc[m] = fmaf(wd[8 * q + 2 * t + 1], f.y, acc[m]);
+        float p;
+        if constexpr (A8) {
+          const int4* xv =
+              reinterpret_cast<const int4*>(xq + (size_t)m * K + k0);
+          int ip;
+          if constexpr (BITS == 4) {
+            const int4 xa4 = __ldg(xv), xb4 = __ldg(xv + 1);
+            ip = dot8(w.x, xa4.x, xa4.y, 0);
+            ip = dot8(w.y, xa4.z, xa4.w, ip);
+            ip = dot8(w.z, xb4.x, xb4.y, ip);
+            ip = dot8(w.w, xb4.z, xb4.w, ip);
+          } else {
+            const int4 x4 = __ldg(xv);
+            ip = __dp4a((int)w.x, x4.x, 0);
+            ip = __dp4a((int)w.y, x4.y, ip);
+            ip = __dp4a((int)w.z, x4.z, ip);
+            ip = __dp4a((int)w.w, x4.w, ip);
           }
+          p = (float)ip;
+        } else {
+          p = dot_bf16<NC>(cw, xa + (size_t)m * K + k0, 0.f);
         }
+        acc_p[m] = fmaf(s, p, acc_p[m]);
+        if (first) acc_b[m] = fmaf(b, xg[(size_t)m * G + g], acc_b[m]);
       }
     }
   }
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
-    const float v = warp_sum(acc[m]);
+    const float p = warp_sum(acc_p[m]), b = warp_sum(acc_b[m]);
+    if (lane == 0 && m < M)
+      y[(size_t)m * N + n] = __float2bfloat16(fmaf(A8 ? sx[m] : 1.f, p, b));
+  }
+}
+
+// The dq formula over M <= MT rows of bf16 x [M, K], xg f32 [M, G]. Each
+// lane dequantises its chunk once, with the TPU kernel's rounding, and
+// reuses it for every row of x.
+template <int BITS, int MT>
+__global__ void __launch_bounds__(kThreads)
+qmm_dq(const uint8_t* __restrict__ data, const __nv_bfloat16* __restrict__ sc,
+       const __nv_bfloat16* __restrict__ bs,
+       const __nv_bfloat16* __restrict__ x, const float* __restrict__ xg,
+       __nv_bfloat16* __restrict__ y, int M, int N, int K, int gs) {
+  constexpr int NC = BITS == 4 ? 32 : 16;   // codes a chunk
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (n >= N) return;
+  const int G = K / gs, chunks = K / NC;
+  const uint4* wrow =
+      reinterpret_cast<const uint4*>(data + (size_t)n * (K / 8 * BITS));
+  const __nv_bfloat16* srow = sc + (size_t)n * G;
+  const __nv_bfloat16* brow = bs + (size_t)n * G;
+  float acc[MT], acc_b[MT];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) acc[m] = acc_b[m] = 0.f;
+  for (int c = lane; c < chunks; c += 32) {
+    const uint4 w = __ldg(wrow + c);
+    const int k0 = c * NC, g = k0 / gs;
+    const float s = __bfloat162float(srow[g]);
+    const bool first = k0 % gs == 0;
+    float bh = 0.f;
+    if (first) {
+      bh = __bfloat162float(brow[g]);
+      if constexpr (BITS == 4) bh = bf16r(bh + 8.f * s);   // unfold b - 8s
+    }
+    float wd[NC];
+    unpack_chunk<BITS>(w, wd);
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      wd[i] = bf16r((BITS == 4 ? wd[i] - 8.f : wd[i]) * s);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m < M) {
+        acc[m] = dot_bf16<NC>(wd, x + (size_t)m * K + k0, acc[m]);
+        if (first) acc_b[m] = fmaf(bh, xg[(size_t)m * G + g], acc_b[m]);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const float v = warp_sum(acc[m]) + warp_sum(acc_b[m]);
     if (lane == 0 && m < M) y[(size_t)m * N + n] = __float2bfloat16(v);
   }
 }
 
-template <int MT>
-void launch_a16(const uint8_t* data, const __nv_bfloat16* sc,
-                const __nv_bfloat16* bs, const __nv_bfloat16* x,
-                __nv_bfloat16* y, int M, int N, int K, int gs,
-                cudaStream_t st) {
-  qmm_a16<MT><<<(N + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      data, sc, bs, x, y, M, N, K, gs);
+template <int BITS, bool A8, int MT>
+void launch_p(const uint8_t* d, const __nv_bfloat16* sc,
+              const __nv_bfloat16* bs, const int8_t* xq,
+              const __nv_bfloat16* xa, const float* xg, const float* sx,
+              __nv_bfloat16* y, int M, int N, int K, int gs,
+              cudaStream_t st) {
+  qmm_p<BITS, A8, MT><<<(N + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs);
+}
+
+template <int BITS, bool A8>
+void launch_p_rows(const uint8_t* d, const __nv_bfloat16* sc,
+                   const __nv_bfloat16* bs, const int8_t* xq,
+                   const __nv_bfloat16* xa, const float* xg, const float* sx,
+                   __nv_bfloat16* y, int M, int N, int K, int gs,
+                   cudaStream_t st) {
+  if (M == 1) launch_p<BITS, A8, 1>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
+  else if (M <= 2) launch_p<BITS, A8, 2>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
+  else if (M <= 4) launch_p<BITS, A8, 4>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
+  else if (M <= 8) launch_p<BITS, A8, 8>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
+  else launch_p<BITS, A8, 16>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
+}
+
+template <int BITS, int MT>
+void launch_dq(const uint8_t* d, const __nv_bfloat16* sc,
+               const __nv_bfloat16* bs, const __nv_bfloat16* x,
+               const float* xg, __nv_bfloat16* y, int M, int N, int K,
+               int gs, cudaStream_t st) {
+  qmm_dq<BITS, MT><<<(N + kWarps - 1) / kWarps, kThreads, 0, st>>>(
+      d, sc, bs, x, xg, y, M, N, K, gs);
+}
+
+template <int BITS>
+void launch_dq_rows(const uint8_t* d, const __nv_bfloat16* sc,
+                    const __nv_bfloat16* bs, const __nv_bfloat16* x,
+                    const float* xg, __nv_bfloat16* y, int M, int N, int K,
+                    int gs, cudaStream_t st) {
+  if (M <= 2) launch_dq<BITS, 2>(d, sc, bs, x, xg, y, M, N, K, gs, st);
+  else if (M <= 4) launch_dq<BITS, 4>(d, sc, bs, x, xg, y, M, N, K, gs, st);
+  else if (M <= 8) launch_dq<BITS, 8>(d, sc, bs, x, xg, y, M, N, K, gs, st);
+  else launch_dq<BITS, 16>(d, sc, bs, x, xg, y, M, N, K, gs, st);
 }
 
 }  // namespace
@@ -131,12 +257,15 @@ const char* ominix_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches K1 on `stream`. Scratch (xq, xg, sx for a8; xn for a16 with a
-// fused norm) is allocated by the caller. Returns cudaGetLastError().
-int ominix_qmm_w4(const void* x, const void* norm_w, float eps,
-                  const void* data, const void* scales, const void* biases,
-                  void* y, void* xq, void* xg, void* sx, void* xn, int M,
-                  int N, int K, int gs, int a8, void* stream) {
+// The P formula (K1 at M = 1, K6 at M <= 16) on `stream`: the prologue
+// (norm when norm_w is given, group sums, a8 quantisation) then the rows.
+// Scratch xg [M, G] f32 always, xq [M, K] int8 and sx [M] f32 for a8, xn
+// [M, K] bf16 for a16 with a norm, all allocated by the caller. Returns
+// cudaGetLastError().
+int ominix_qmm_p(const void* x, const void* norm_w, float eps,
+                 const void* data, const void* scales, const void* biases,
+                 void* y, void* xq, void* xg, void* sx, void* xn, int M,
+                 int N, int K, int gs, int bits, int a8, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const auto* xb = (const __nv_bfloat16*)x;
   const auto* nw = (const __nv_bfloat16*)norm_w;
@@ -144,27 +273,40 @@ int ominix_qmm_w4(const void* x, const void* norm_w, float eps,
   const auto* sc = (const __nv_bfloat16*)scales;
   const auto* bs = (const __nv_bfloat16*)biases;
   auto* yb = (__nv_bfloat16*)y;
-  const int grid = (N + kWarps - 1) / kWarps;
-  if (a8) {
-    qmm_prep<<<M, kPrepThreads, 0, st>>>(xb, nw, eps, K, gs, 1,
-                                         (int8_t*)xq, (float*)xg,
-                                         (float*)sx, nullptr);
-    qmm_a8<<<grid, kThreads, 0, st>>>(d, sc, bs, (const int8_t*)xq,
-                                      (const float*)xg, (const float*)sx, yb,
-                                      N, K, gs);
-    return (int)cudaGetLastError();
-  }
-  if (nw != nullptr) {
-    qmm_prep<<<M, kPrepThreads, 0, st>>>(xb, nw, eps, K, gs, 0, nullptr,
-                                         nullptr, nullptr,
-                                         (__nv_bfloat16*)xn);
-    xb = (const __nv_bfloat16*)xn;
-  }
-  if (M == 1) launch_a16<1>(d, sc, bs, xb, yb, M, N, K, gs, st);
-  else if (M <= 2) launch_a16<2>(d, sc, bs, xb, yb, M, N, K, gs, st);
-  else if (M <= 4) launch_a16<4>(d, sc, bs, xb, yb, M, N, K, gs, st);
-  else if (M <= 8) launch_a16<8>(d, sc, bs, xb, yb, M, N, K, gs, st);
-  else launch_a16<16>(d, sc, bs, xb, yb, M, N, K, gs, st);
+  const bool norm_out = !a8 && nw != nullptr;
+  qmm_prep<<<M, kPrepThreads, 0, st>>>(
+      xb, nw, eps, K, gs, a8 ? (int8_t*)xq : nullptr, (float*)xg,
+      a8 ? (float*)sx : nullptr, norm_out ? (__nv_bfloat16*)xn : nullptr);
+  const auto* xa = norm_out ? (const __nv_bfloat16*)xn : xb;
+  const auto* q8 = (const int8_t*)xq;
+  const auto* g = (const float*)xg;
+  const auto* s = (const float*)sx;
+  if (bits == 4 && a8) launch_p_rows<4, true>(d, sc, bs, q8, xa, g, s, yb, M, N, K, gs, st);
+  else if (bits == 4) launch_p_rows<4, false>(d, sc, bs, q8, xa, g, s, yb, M, N, K, gs, st);
+  else if (a8) launch_p_rows<8, true>(d, sc, bs, q8, xa, g, s, yb, M, N, K, gs, st);
+  else launch_p_rows<8, false>(d, sc, bs, q8, xa, g, s, yb, M, N, K, gs, st);
+  return (int)cudaGetLastError();
+}
+
+// The dq formula (K1 at 2 <= M <= 16) on `stream`: the group-sum prologue
+// (scratch xg [M, G] f32 from the caller), then the rows. Returns
+// cudaGetLastError().
+int ominix_qmm_dq(const void* x, const void* data, const void* scales,
+                  const void* biases, void* y, void* xg, int M, int N, int K,
+                  int gs, int bits, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const auto* xb = (const __nv_bfloat16*)x;
+  qmm_prep<<<M, kPrepThreads, 0, st>>>(xb, nullptr, 0.f, K, gs, nullptr,
+                                       (float*)xg, nullptr, nullptr);
+  const auto* d = (const uint8_t*)data;
+  const auto* sc = (const __nv_bfloat16*)scales;
+  const auto* bs = (const __nv_bfloat16*)biases;
+  if (bits == 4)
+    launch_dq_rows<4>(d, sc, bs, xb, (const float*)xg, (__nv_bfloat16*)y, M,
+                      N, K, gs, st);
+  else
+    launch_dq_rows<8>(d, sc, bs, xb, (const float*)xg, (__nv_bfloat16*)y, M,
+                      N, K, gs, st);
   return (int)cudaGetLastError();
 }
 

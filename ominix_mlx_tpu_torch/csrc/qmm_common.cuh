@@ -1,7 +1,8 @@
-// Device code shared by K1 (qmm.cu) and K4 (gather_qmm.cu): warp and block
-// reductions, the w4a8 activation prologue, and the int8 x int4 row dot of
-// K1's a8 mode over the packed layout (uint8 [.., K/2], natural nibble
-// order; bf16 scales and folded biases b - 8s per group).
+// Device code shared by K1 and K6 (qmm.cu), K4 (gather_qmm.cu) and K7
+// (qmm_tc.cu): warp and block reductions, the activation prologue (norm,
+// group sums, a8 quantisation), and the int8 x int4 dot of the w4a8 formula
+// over the 4-bit packed layout (uint8 [.., K/2], natural nibble order;
+// bf16 scales and folded biases b - 8s per group).
 //
 // Everything here has internal linkage (an anonymous namespace), so each
 // kernel source that includes it gets its own copy.
@@ -47,13 +48,17 @@ __device__ float block_reduce(float v, float* red) {
   return r;
 }
 
-// Activation prologue, one CTA per row m of x [M, K] (bf16).
-//   a8:  writes xq [M, K] int8, xg [M, G] f32 (bf16-rounded), sx [M] f32.
-//   a16: writes xn [M, K] bf16 (only launched when a norm is fused).
+// Activation prologue, one CTA per row m of x [M, K] (bf16), after an
+// RMSNorm xn = bf16(bf16(x * inv) * w_norm) when norm_w is given. It writes
+// whichever outputs it is given:
+//   xn [M, K] bf16: the normed row;
+//   xg [M, G] f32: the row's group sums, rounded to bf16;
+//   xq [M, K] int8 and sx [M] f32: the a8 quantisation,
+//       sx = max|xn| / 127 + 1e-12, xq = rint(xn / sx).
 __global__ void __launch_bounds__(kPrepThreads)
 qmm_prep(const __nv_bfloat16* __restrict__ x,
          const __nv_bfloat16* __restrict__ norm_w, float eps, int K, int gs,
-         int a8, int8_t* __restrict__ xq, float* __restrict__ xg,
+         int8_t* __restrict__ xq, float* __restrict__ xg,
          float* __restrict__ sx, __nv_bfloat16* __restrict__ xn) {
   __shared__ float red[32];
   const int m = blockIdx.x;
@@ -73,26 +78,28 @@ qmm_prep(const __nv_bfloat16* __restrict__ x,
     if (norm_w == nullptr) return v;
     return bf16r(bf16r(v * inv) * __bfloat162float(norm_w[k]));
   };
-  if (!a8) {
+  if (xn != nullptr)
     for (int k = threadIdx.x; k < K; k += blockDim.x)
       xn[(size_t)m * K + k] = __float2bfloat16(norm_at(k));
-    return;
+  if (xq != nullptr) {
+    float amax = 0.f;
+    for (int k = threadIdx.x; k < K; k += blockDim.x)
+      amax = fmaxf(amax, fabsf(norm_at(k)));
+    amax = block_reduce<true>(amax, red);
+    const float s = amax / 127.f + 1e-12f;
+    for (int k = threadIdx.x; k < K; k += blockDim.x)
+      xq[(size_t)m * K + k] = (int8_t)rintf(norm_at(k) / s);
+    if (threadIdx.x == 0) sx[m] = s;
   }
-  float amax = 0.f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    amax = fmaxf(amax, fabsf(norm_at(k)));
-  amax = block_reduce<true>(amax, red);
-  const float s = amax / 127.f + 1e-12f;
-  for (int k = threadIdx.x; k < K; k += blockDim.x)
-    xq[(size_t)m * K + k] = (int8_t)rintf(norm_at(k) / s);
-  const int G = K / gs, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int g = warp; g < G; g += blockDim.x >> 5) {
-    float acc = 0.f;
-    for (int t = lane; t < gs; t += 32) acc += norm_at(g * gs + t);
-    acc = warp_sum(acc);
-    if (lane == 0) xg[(size_t)m * G + g] = bf16r(acc);
+  if (xg != nullptr) {
+    const int G = K / gs, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int g = warp; g < G; g += blockDim.x >> 5) {
+      float acc = 0.f;
+      for (int t = lane; t < gs; t += 32) acc += norm_at(g * gs + t);
+      acc = warp_sum(acc);
+      if (lane == 0) xg[(size_t)m * G + g] = bf16r(acc);
+    }
   }
-  if (threadIdx.x == 0) sx[m] = s;
 }
 
 // 8 int4 codes (one 32-bit word, natural nibble order) . 8 int8 activations

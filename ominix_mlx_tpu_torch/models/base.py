@@ -36,7 +36,8 @@ from ominix_mlx_tpu_torch.ops import flash_attention as fa
 from ominix_mlx_tpu_torch.ops import paged_attention as pa
 from ominix_mlx_tpu_torch.ops.quant_matmul import (ChannelQuantizedTensor,
                                                    PackedQuantizedTensor,
-                                                   channel_quantize, prepare)
+                                                   channel_quantize, prepare,
+                                                   to_panels)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,15 +178,18 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 def init_quantized_params(cfg: TransformerConfig, generator: torch.Generator,
                           group_size: int = 64, bits: int = 4,
                           act_bits: Optional[int] = 8,
-                          device=None, scheme: str = "group") -> dict:
+                          device=None, scheme: str = "group",
+                          batched: bool = False) -> dict:
     """Random quantized tree made directly (never materialises dense
     weights), as ``base.init_quantized_params`` does. scheme="group":
-    uniform codes in [-2^(bits-1), 2^(bits-1)), scales
-    1/(sqrt(in) * 2^(bits-1)), zero biases. scheme="channel8" (w8a8):
-    codes uniform in [-127, 127], scale in_f**-0.5 / 127 per output row.
-    Unit norms (bf16). With ``cfg.moe`` every layer is a MoE layer whose
-    4-bit experts are made packed (``moe.init_quantized_moe_params``);
-    channel8 experts are not ported. ``device`` defaults to the current
+    4- or 8-bit codes uniform in [-2^(bits-1), 2^(bits-1)), scales
+    1/(sqrt(in) * 2^(bits-1)), zero biases, row-major (``batched`` marks
+    them for the batched-decode formula; ``fuse_layer_projections`` moves
+    the eligible ones to panels). scheme="channel8" (w8a8): codes uniform
+    in [-127, 127], scale in_f**-0.5 / 127 per output row. Unit norms
+    (bf16). With ``cfg.moe`` every layer is a MoE layer whose 4-bit
+    experts are made packed (``moe.init_quantized_moe_params``); channel8
+    and 8-bit experts are not ported. ``device`` defaults to the current
     CUDA device."""
     _check_supported(cfg)
     device = resolve_device(device)
@@ -211,7 +215,7 @@ def init_quantized_params(cfg: TransformerConfig, generator: torch.Generator,
             biases=torch.zeros((out_f, G), dtype=torch.bfloat16,
                                device=device),
             group_size=group_size, bits=bits)
-        return prepare(qt, act_bits=act_bits)
+        return prepare(qt, act_bits=act_bits, batched=batched)
 
     layers = []
     for _ in range(cfg.num_layers):
@@ -219,9 +223,10 @@ def init_quantized_params(cfg: TransformerConfig, generator: torch.Generator,
         for name, shape in _layer_shapes(cfg).items():
             lp[name] = {"w": qrand(*shape)}
         if cfg.moe is not None:
-            if scheme != "group":
+            if scheme != "group" or bits != 4:
                 raise NotImplementedError(
-                    "channel8 experts are not ported to the torch package")
+                    "channel8 and 8-bit experts are not ported to the "
+                    "torch package")
             lp["moe"] = moe_mod.init_quantized_moe_params(
                 generator, cfg.hidden_size, cfg.moe, group_size, act_bits,
                 device)
@@ -243,16 +248,18 @@ PROJ_NAMES = ("q_proj", "k_proj", "v_proj", "o_proj",
 def quantize_params(params: dict, group_size: int = 64, bits: int = 4,
                     act_bits: Optional[int] = 8,
                     quantize_embed: bool = True,
-                    scheme: str = "group") -> dict:
+                    scheme: str = "group", batched: bool = False) -> dict:
     """Quantize every dense projection weight (and the embedding) of a
-    tree; weights already quantized pass through. scheme="group": 4-bit
-    group quantization into K1's layout (weights whose in-features are not
-    a multiple of the group size stay dense). scheme="channel8":
+    tree; weights already quantized pass through. scheme="group": 4- or
+    8-bit group quantization into the packed row-major layout (weights
+    whose in-features are not a multiple of the group size stay dense;
+    ``batched`` marks them for the batched-decode formula, as the JAX
+    package's ``prepare(batched=True)``). scheme="channel8":
     per-output-channel symmetric int8 (w8a8), the batched-serving scheme.
     A MoE layer's stacked experts quantize by the same group rule into
-    ``PackedQuantizedExperts`` (channel8 experts are not ported and
-    raise); its router gate stays dense and its shared expert quantizes as
-    plain linears."""
+    ``PackedQuantizedExperts`` (4-bit only: channel8 and 8-bit experts are
+    not ported and raise); its router gate stays dense and its shared
+    expert quantizes as plain linears."""
     from ominix_mlx_tpu_torch.core.quant import quantize_tensor
 
     if scheme not in ("group", "channel8"):
@@ -264,7 +271,7 @@ def quantize_params(params: dict, group_size: int = 64, bits: int = 4,
         if w.shape[-1] % group_size:
             return w
         return prepare(quantize_tensor(w.float(), group_size, bits),
-                       act_bits=act_bits)
+                       act_bits=act_bits, batched=batched)
 
     out = dict(params)
     out["layers"] = []
@@ -303,7 +310,8 @@ def _stack_weights(ws: list):
             scales=torch.cat([w.scales for w in ws], 0),
             biases=torch.cat([w.biases for w in ws], 0),
             group_size=w0.group_size, bits=w0.bits,
-            in_features=w0.in_features, act_bits=w0.act_bits)
+            in_features=w0.in_features, act_bits=w0.act_bits,
+            batched=all(w.batched for w in ws))
     if isinstance(w0, ChannelQuantizedTensor):
         return ChannelQuantizedTensor(
             data=torch.cat([w.data for w in ws], 0),
@@ -311,10 +319,26 @@ def _stack_weights(ws: list):
     return torch.cat(ws, 0)
 
 
+def _to_panels_tree(node):
+    """Mark every packed weight of a tree that the JAX package's
+    ``transpose_packed_params`` would re-tile (``ops.quant_matmul.
+    to_panels``); batched and ineligible weights stay row-major."""
+    if isinstance(node, dict):
+        return {k: _to_panels_tree(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_to_panels_tree(v) for v in node)
+    return to_panels(node)
+
+
 def fuse_layer_projections(params: dict) -> dict:
     """Fuse q/k/v -> qkv_proj and gate/up -> gate_up_proj per layer: one
-    weight stream and one kernel launch instead of three / two. A MoE
-    layer's experts (under "moe") are left as they are."""
+    weight stream and one kernel launch instead of three / two. Then, as
+    the JAX package re-tiles group-quantized weights into its panel layout
+    (``transpose_packed_params``), every eligible packed weight of the
+    tree, the embedding and the lm_head included, is marked ``panels``:
+    a dispatch flag (route "k1" at M=1, "k1_mn" up to 16 rows), the data
+    stays as it is. A MoE layer's experts (under "moe") are left as they
+    are."""
     out = dict(params)
     out["layers"] = []
     for lp in params["layers"]:
@@ -328,7 +352,7 @@ def fuse_layer_projections(params: dict) -> dict:
                     f["b"] = torch.cat([p["b"] for p in parts], 0)
                 nlp[fused] = f
         out["layers"].append(nlp)
-    return out
+    return _to_panels_tree(out)
 
 
 # ------------------------------------------------------- forward ------------

@@ -23,7 +23,9 @@ def linear(params: dict, x: torch.Tensor,
            norm: Optional[tuple] = None) -> torch.Tensor:
     """y = x @ W^T (+ b). params: {"w": [out, in] | PackedQuantizedTensor |
     ChannelQuantizedTensor, "b"?}. norm (optional (weight, eps)): RMSNorm x
-    first; fused into K1's prologue for a 4-bit weight at M=1."""
+    first; fused into K1's prologue where the JAX package fuses it (a 4-bit
+    panel weight at M=1). A packed weight takes the formula
+    ``ops.quant_matmul.route`` names."""
     w = params["w"]
     if isinstance(w, QUANTIZED):
         if norm is not None:

@@ -1,26 +1,55 @@
-"""Quantized matmuls: x @ W^T with group-quantized 4-bit W
+"""Quantized matmuls: x @ W^T with group-quantized 4- or 8-bit W
 (counterpart of ominix_mlx_tpu/ops/quant_matmul.py).
 
-The port keeps its own packed layout (``PackedQuantizedTensor``): row-major
-``data`` uint8 [N, K/2] with natural nibble order (byte j of a row holds
-codes 2j and 2j+1 as ``u[2j] | u[2j+1] << 4``, unsigned ``u = q + 8``), and
-bf16 ``scales`` / ``biases`` [N, G]. The biases hold the zero-point fold
-``b - 8s`` so that ``w = s * u + biases``: the same fold the TPU's M=1
-kernel streams, which keeps the a8 formula identical to it.
+The port keeps one packed layout (``PackedQuantizedTensor``), bf16
+``scales`` and ``biases`` [N, G] beside the codes:
 
-Dispatch (``quantized_matmul``), by rows M of the flattened input:
+* 4-bit: ``data`` uint8 [N, K/2] in natural nibble order (byte j of a row
+  holds codes 2j and 2j+1 as ``u[2j] | u[2j+1] << 4``, unsigned
+  ``u = q + 8``); the biases hold the zero-point fold ``b' = b - 8s``, so
+  ``w = s * u + b'`` (the fold the TPU's kernels stream);
+* 8-bit: ``data`` int8 [N, K], the centred codes ``q``; the biases are
+  ``b`` itself, ``w = s * q + b`` (as the JAX package's ``prepare`` keeps
+  them).
 
-* M = 1: kernel K1, w4a8 (``act_bits == 8``) or w4a16, RMSNorm fused;
-* 2 <= M <= 16: kernel K1 in its a16 mode (replaces ``_dq_kernel``), the
-  norm applied first;
-* M > 16: dequantize and ``torch.matmul`` (the counterpart of
-  ``_dense_tn``, plain XLA in the JAX package).
+The JAX package picks a formula from the weight's layout, its ``batched``
+flag, its bits, ``act_bits`` and the row count M of the input
+(``quantized_matmul``, ops/quant_matmul.py:1314-1402). The port carries
+the two layout facts as dispatch flags only: ``panels`` (the JAX package
+holds this weight in its transposed-panel layout: ``fuse_layer_projections``
+sets it where ``to_panels_t`` would accept the shape) and ``batched``.
+``route(w, M)`` copies the branch conditions and names the formula:
 
-K1 is hand-written CUDA (``csrc/qmm.cu``). A CPU tensor takes the plain
-PyTorch version ``quantized_matmul_reference``, which computes the same
-formula; a CUDA tensor launches the kernel or raises.
+* ``"k1"`` (panels, M = 1; A1 ``_pt_kernel``): the P formula, w4a8,
+  w4a16, w8a8 or w8a16, an RMSNorm fused for 4-bit;
+* ``"k1_mn"`` (panels at 2 <= M <= 16, or a batched row-major weight;
+  A3 ``_dq_kernel``): the dq formula;
+* ``"k6"`` (row-major, M <= 16, 8-bit, or 4-bit with act_bits=8; A4
+  ``_pm_kernel``): the P formula, row by row;
+* ``"k7"`` (row-major 4-bit, M <= 64, shapes the JAX package does not
+  pad; A5 ``_vpu_kernel``): the dq formula;
+* ``"dense"``: dequantize and ``torch.matmul`` (plain XLA in the JAX
+  package, ``_dense_tn`` or ``dequantize``).
 
-Stacked MoE experts (``PackedQuantizedExperts``, the same layout with an
+The formulas, on x taken in bf16 (the model's activations):
+
+* P: per row, ``sx = max|x| / 127 + 1e-12`` and ``cx = round(x / sx)``
+  (a8) or ``sx = 1`` and ``cx = x`` (a16); ``xg`` the bf16-rounded group
+  sums of x; ``y = sx * sum_g s_g * P_g + sum_g xg_g * b*_g`` with
+  ``P_g = sum_{k in g} c_k * cx_k``, c the stored code (u or q) and b* the
+  stored bias (b' or b). Under a8 P is an exact integer.
+* dq: ``y = sum_k bf16(d_k * s_g) * x_k + sum_g xg_g * bh_g`` accumulated
+  in float32, with d = u - 8 or q, and bh = b (8-bit) or
+  ``bf16(b' + 8s)`` (4-bit: the JAX package's unfold of its panel
+  biases; against a row-major weight's own b it is off by at most one
+  bf16 ulp of |b| + 8s, and exact for the zero biases of a random init).
+
+K1, K6 and K7 are hand-written CUDA (``csrc/qmm.cu``, ``csrc/qmm_tc.cu``).
+A CPU tensor takes the plain PyTorch version of its route
+(``quantized_matmul_reference``); a CUDA tensor launches the route's kernel
+or raises.
+
+Stacked MoE experts (``PackedQuantizedExperts``, the 4-bit layout with an
 expert axis) go through ``gather_qmm``: kernel K4 (``csrc/gather_qmm.cu``,
 replaces the TPU's ``_gq_kernel``) reads only the rows of the experts each
 row of x selects, with K1's w4a8 formula; ``gather_qmm_reference`` is its
@@ -42,60 +71,92 @@ import torch
 
 from ominix_mlx_tpu_torch.core.quant import QuantizedTensor, over_127
 
-DECODE_M_MAX = 16   # up to this many rows, K1 runs
+DECODE_M_MAX = 16   # up to this many rows, K1 and K6 run
+VPU_M_MAX = 64      # up to this many rows, K7 runs
 GATHER_T_MAX = 64   # K4 takes up to this many rows (M * k at the down proj)
+# above this N the JAX package streams scales per panel and pads the rows
+# to 2048 and the groups to 128 (ops/quant_matmul.py:114-125, :343)
+SB_VMEM_MAX_N = 32768
 
 
 @dataclasses.dataclass
 class PackedQuantizedTensor:
-    """Kernel-ready 4-bit weight (see the module docstring for the layout)."""
+    """Kernel-ready 4- or 8-bit weight (see the module docstring for the
+    layout and the dispatch flags)."""
 
-    data: torch.Tensor     # uint8 [N, K/2]
+    data: torch.Tensor     # uint8 [N, K/2] (4-bit) or int8 [N, K] (8-bit)
     scales: torch.Tensor   # bf16 [N, G]
-    biases: torch.Tensor   # bf16 [N, G], holds b - 8s
+    biases: torch.Tensor   # bf16 [N, G]: b - 8s (4-bit) or b (8-bit)
     group_size: int = 64
     bits: int = 4
     in_features: int = 0
-    # 8 = per-row dynamic int8 activations at M=1 (w4a8); None = exact bf16
+    # 8 = per-row dynamic int8 activations where the route's formula has
+    # them (w4a8 / w8a8); None = exact bf16
     act_bits: Optional[int] = 8
+    # prepare(batched=True) in the JAX package: 2 <= M <= 16 takes the dq
+    # formula, and the weight never goes to panels
+    batched: bool = False
+    # the JAX package would hold this weight in transposed panels
+    panels: bool = False
+    # the JAX package's prepare would pad it (N > 32768 with G % 128 or
+    # N % 2048); a stack of prepared weights has no padding, as there
+    padded: bool = False
 
     @property
     def shape(self):
         return (self.data.shape[0], self.in_features)
 
 
-def prepare(qt: QuantizedTensor, act_bits: Optional[int] = 8
-            ) -> PackedQuantizedTensor:
+def prepare(qt: QuantizedTensor, act_bits: Optional[int] = 8,
+            batched: bool = False) -> PackedQuantizedTensor:
     """One-time conversion QuantizedTensor -> the kernel layout."""
-    if qt.bits != 4:
-        raise NotImplementedError(
-            f"{qt.bits}-bit weights: only the 4-bit K1 kernel is ported")
+    if qt.bits not in (4, 8):
+        raise NotImplementedError(f"{qt.bits}-bit weights: 4 and 8 bits "
+                                  f"are ported")
     if act_bits not in (8, None):
         raise ValueError(f"act_bits must be 8 or None, got {act_bits!r}")
     N, K = qt.q.shape
-    if K % 32 or K % qt.group_size or qt.group_size % 32:
-        raise ValueError(f"K={K}, group_size={qt.group_size}: K1 needs K "
-                         f"and the group size to be multiples of 32")
-    u = (qt.q.to(torch.int16) + 8).to(torch.uint8)
-    data = (u[:, 0::2] | (u[:, 1::2] << 4)).contiguous()
+    gs = qt.group_size
+    if K % 32 or K % gs or gs % 32:
+        raise ValueError(f"K={K}, group_size={gs}: the kernels need K and "
+                         f"the group size to be multiples of 32")
     scales = qt.scales.to(torch.bfloat16)
-    biases = (qt.biases.to(torch.bfloat16).float()
-              - 8.0 * scales.float()).to(torch.bfloat16)
+    if qt.bits == 4:
+        u = (qt.q.to(torch.int16) + 8).to(torch.uint8)
+        data = u[:, 0::2] | (u[:, 1::2] << 4)
+        biases = (qt.biases.to(torch.bfloat16).float()
+                  - 8.0 * scales.float()).to(torch.bfloat16)
+    else:
+        data = qt.q.to(torch.int8)
+        biases = qt.biases.to(torch.bfloat16)
+    G = K // gs
     return PackedQuantizedTensor(
-        data=data, scales=scales.contiguous(), biases=biases.contiguous(),
-        group_size=qt.group_size, bits=4, in_features=K, act_bits=act_bits)
+        data=data.contiguous(), scales=scales.contiguous(),
+        biases=biases.contiguous(), group_size=gs, bits=qt.bits,
+        in_features=K, act_bits=act_bits, batched=batched,
+        padded=N > SB_VMEM_MAX_N and bool(G % 128 or N % 2048))
 
 
 def _codes(data: torch.Tensor) -> torch.Tensor:
-    """uint8 [..., K/2] -> unsigned codes uint8 [..., K] in natural order."""
+    """uint8 [..., K/2] -> unsigned 4-bit codes uint8 [..., K] in natural
+    order."""
     lo = data & 15
     hi = data >> 4
     return torch.stack([lo, hi], -1).reshape(*data.shape[:-1],
                                              2 * data.shape[-1])
 
 
+def _code_values(data: torch.Tensor, bits: int) -> torch.Tensor:
+    """The stored codes as float32: unsigned u (4-bit) or signed q."""
+    return (_codes(data) if bits == 4 else data).float()
+
+
 def unpack(pqt: PackedQuantizedTensor) -> QuantizedTensor:
     """Inverse of ``prepare`` (canonical signed codes, un-folded biases)."""
+    if pqt.bits == 8:
+        return QuantizedTensor(q=pqt.data, scales=pqt.scales,
+                               biases=pqt.biases,
+                               group_size=pqt.group_size, bits=8)
     q = (_codes(pqt.data).to(torch.int16) - 8).to(torch.int8)
     biases = (pqt.biases.float() + 8.0 * pqt.scales.float()).to(
         torch.bfloat16)
@@ -103,18 +164,21 @@ def unpack(pqt: PackedQuantizedTensor) -> QuantizedTensor:
                            group_size=pqt.group_size, bits=pqt.bits)
 
 
-def _dequant_rows(data, scales, biases, gs: int) -> torch.Tensor:
-    """bf16 weights of the given packed rows: bf16(s * u + b') per element."""
-    u = _codes(data).float()
-    lead, K = u.shape[:-1], u.shape[-1]
-    g = u.reshape(*lead, K // gs, gs)
+def _dequant_rows(data, scales, biases, gs: int, bits: int = 4
+                  ) -> torch.Tensor:
+    """bf16 weights of the given packed rows: bf16(s * c + b) per element,
+    c the stored code and b the stored bias."""
+    c = _code_values(data, bits)
+    lead, K = c.shape[:-1], c.shape[-1]
+    g = c.reshape(*lead, K // gs, gs)
     w = g * scales.float()[..., None] + biases.float()[..., None]
     return w.reshape(*lead, K).to(torch.bfloat16)
 
 
 def dequantize_packed(pqt: PackedQuantizedTensor) -> torch.Tensor:
     """Dense bf16 [N, K] (the rounding of the JAX package's _dense_tn)."""
-    return _dequant_rows(pqt.data, pqt.scales, pqt.biases, pqt.group_size)
+    return _dequant_rows(pqt.data, pqt.scales, pqt.biases, pqt.group_size,
+                         pqt.bits)
 
 
 def gather_rows(pqt: PackedQuantizedTensor,
@@ -122,7 +186,7 @@ def gather_rows(pqt: PackedQuantizedTensor,
     """Quantized embedding lookup: dequantize only the gathered rows.
     Returns [..., K] bf16."""
     return _dequant_rows(pqt.data[tokens], pqt.scales[tokens],
-                         pqt.biases[tokens], pqt.group_size)
+                         pqt.biases[tokens], pqt.group_size, pqt.bits)
 
 
 def rms_norm(weight: torch.Tensor, x: torch.Tensor,
@@ -135,114 +199,311 @@ def rms_norm(weight: torch.Tensor, x: torch.Tensor,
     return (xf * inv).to(x.dtype) * weight
 
 
-def quantized_matmul_reference(x: torch.Tensor, w: PackedQuantizedTensor,
-                               norm_w: Optional[torch.Tensor] = None,
-                               norm_eps: float = 1e-6,
-                               act_bits: Optional[int] = None
-                               ) -> torch.Tensor:
-    """Plain PyTorch version of K1: x [M, K] -> [M, N] in x's dtype.
+# ------------------------------------------------------------- dispatch ---
 
-    act_bits=8 is the TPU M=1 kernel's w4a8 formula (quant_matmul.py
-    :771-827, :914-927): x in bf16, optional RMSNorm
-    ``xn = bf16(bf16(x * inv) * norm_w)``, per-row ``sx = max|xn|/127 +
-    1e-12``, ``cx = round(xn / sx)``, and
-    ``y = sx * sum_g s_g * P_g + sum_g b'_g * bf16(xg_g)`` where ``P_g`` is
-    the integer dot product of cx with the unsigned codes of group g and
-    ``xg_g`` the group sum of xn. act_bits=None is the exact path:
-    ``y = bf16(x) @ bf16(s * u + b')^T`` accumulated in float32.
+def _rows(w: PackedQuantizedTensor) -> int:
+    """N as the JAX package holds it: padded to 2048 where it pads."""
+    N = w.data.shape[0]
+    return N + (-N % 2048 if w.padded else 0)
+
+
+def panels_ok(w: PackedQuantizedTensor) -> bool:
+    """Would the JAX package's ``to_panels_t`` (ops/quant_matmul.py:142-155)
+    take this weight? Not batched; 4-bit: K/2 a multiple of 128 and of the
+    group size, and an even group count; 8-bit: K a multiple of 128; and a
+    panel of at least 128 rows (``_pick_tn``: N a multiple of 128)."""
+    K, gs = w.in_features, w.group_size
+    if w.batched or _rows(w) % 128:
+        return False
+    if w.bits == 4:
+        return (K // 2) % 128 == 0 and (K // 2) % gs == 0 \
+            and (K // gs) % 2 == 0
+    return w.bits == 8 and K % 128 == 0
+
+
+def to_panels(w):
+    """Mark a packed weight as held in panels where the JAX package would
+    re-tile it (``to_panels_t``); anything else passes through."""
+    if isinstance(w, PackedQuantizedTensor) and not w.panels \
+            and panels_ok(w):
+        return dataclasses.replace(w, panels=True)
+    return w
+
+
+def route(w: PackedQuantizedTensor, M: int) -> str:
+    """The formula the JAX package's TPU path computes for this weight at
+    M rows (``quantized_matmul``, ops/quant_matmul.py:1314-1402):
+    "k1", "k1_mn", "k6", "k7" or "dense" (see the module docstring). The
+    conditions are Mosaic's limits (``supported`` without its backend test,
+    ``_p_shape_ok``, A5's unpadded shapes), but they choose the formula, so
+    the port keeps them."""
+    if w.panels:
+        if M == 1:
+            return "k1"
+        return "k1_mn" if M <= DECODE_M_MAX else "dense"
+    N, K, gs = _rows(w), w.in_features, w.group_size
+    Kd = w.data.shape[1]
+    if K % gs or Kd % 128 or N % 128:            # supported()
+        return "dense"
+    G = K // gs
+    p_ok = G <= 128 or (K % (2 * gs) == 0 and (K // 2) % 128 == 0
+                        and G <= 256 and N <= SB_VMEM_MAX_N)
+    if 1 < M <= DECODE_M_MAX and w.batched:
+        return "k1_mn"
+    if M <= DECODE_M_MAX and p_ok and (w.bits == 8 or w.act_bits == 8):
+        return "k6"
+    if w.bits == 4 and M <= VPU_M_MAX and not w.padded:
+        return "k7"
+    return "dense"
+
+
+# ------------------------------------------------------ plain versions ---
+
+def qmm_p_reference(x: torch.Tensor, w: PackedQuantizedTensor,
+                    norm_w: Optional[torch.Tensor] = None,
+                    norm_eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of the P formula (K1 at M=1, K6): x [M, K] ->
+    [M, N] in x's dtype, a8 where ``w.act_bits == 8``.
+
+    The TPU kernels' formula (_pt_kernel, quant_matmul.py:771-838,
+    :914-927; _pm_kernel/_qmm_p, :417-577, :603-620): x in bf16, optional
+    RMSNorm ``xn = bf16(bf16(x * inv) * norm_w)`` (fused into A1's 4-bit
+    prologue), per-row ``sx = max|xn|/127 + 1e-12`` and ``cx = round(xn /
+    sx)`` (a8) or ``sx = 1``, ``cx = xn`` (a16), and
+    ``y = sx * sum_g s_g * P_g + sum_g bf16(xg_g) * b*_g``, ``P_g`` the dot
+    of cx with the stored codes of group g and ``xg_g`` the group sum of xn.
     """
     M, K = x.shape
     gs = w.group_size
-    if act_bits is None:
-        if norm_w is not None:
-            x = rms_norm(norm_w, x, norm_eps)
-        wd = dequantize_packed(w).float()
-        y = x.to(torch.bfloat16).float() @ wd.T
-        return y.to(x.dtype)
+    G = K // gs
     xb = x.to(torch.bfloat16)
     if norm_w is not None:
         xb = rms_norm(norm_w.to(torch.bfloat16), xb, norm_eps)
     xn = xb.float()
-    sx = over_127(xn.abs().amax(-1, keepdim=True)) + 1e-12
-    cx = torch.round(xn / sx)
-    G = K // gs
-    u = _codes(w.data).float().reshape(-1, G, gs)
-    # |P| <= 64 * 127 * 15 < 2^24: exact in float32
-    P = torch.einsum("mgk,ngk->mng", cx.reshape(M, G, gs), u)
+    if w.act_bits == 8:
+        sx = over_127(xn.abs().amax(-1, keepdim=True)) + 1e-12
+        cx = torch.round(xn / sx)
+    else:
+        sx, cx = torch.ones(M, 1, device=x.device), xn
+    c = _code_values(w.data, w.bits).reshape(-1, G, gs)
+    # a8: |P| <= gs * 127 * 128 < 2^24, exact in float32
+    P = torch.einsum("mgk,ngk->mng", cx.reshape(M, G, gs), c)
     acc_p = (P * w.scales.float()[None]).sum(-1)
     xg = xn.reshape(M, G, gs).sum(-1).to(torch.bfloat16).float()
     acc_b = xg @ w.biases.float().T
     return (sx * acc_p + acc_b).to(x.dtype)
 
 
-def _k1(x: torch.Tensor, w: PackedQuantizedTensor,
-        norm_w: Optional[torch.Tensor], norm_eps: float,
-        a8: bool) -> torch.Tensor:
-    """Launch K1 (csrc/qmm.cu) on the current stream; x [M, K] on CUDA."""
+def unfolded_biases(w: PackedQuantizedTensor) -> torch.Tensor:
+    """The dq formula's bias b: stored as is (8-bit), or bf16(b' + 8s)
+    (4-bit, as the JAX package unfolds its panel biases)."""
+    if w.bits == 8:
+        return w.biases
+    return (w.biases.float() + 8.0 * w.scales.float()).to(torch.bfloat16)
+
+
+def qmm_dq_reference(x: torch.Tensor,
+                     w: PackedQuantizedTensor) -> torch.Tensor:
+    """Plain PyTorch version of the dq formula (K1 at 2 <= M <= 16, K7):
+    x [M, K] -> [M, N] in x's dtype. The TPU kernels' rounding
+    (_dq_kernel, quant_matmul.py:1110-1135; _vpu_kernel, :1229-1250):
+    ``y = bf16(x) @ bf16(d * s)^T + bf16(xg) @ b^T`` in float32, d the
+    centred code, b ``unfolded_biases(w)``."""
+    M, K = x.shape
+    gs = w.group_size
+    G = K // gs
+    xb = x.to(torch.bfloat16).float()
+    d = _code_values(w.data, w.bits) - (8.0 if w.bits == 4 else 0.0)
+    wd = (d.reshape(-1, G, gs) * w.scales.float()[..., None]).to(
+        torch.bfloat16).float().reshape(-1, K)
+    xg = xb.reshape(M, G, gs).sum(-1).to(torch.bfloat16).float()
+    return (xb @ wd.T + xg @ unfolded_biases(w).float().T).to(x.dtype)
+
+
+def dense_matmul(x: torch.Tensor, w: PackedQuantizedTensor) -> torch.Tensor:
+    """The "dense" route: ``bf16(x) @ dequantize_packed(w)^T`` summed in
+    float32 (cuBLAS on CUDA). Not a kernel of the port: the JAX package
+    leaves this product to XLA."""
+    wd = dequantize_packed(w)
+    if x.is_cuda:
+        return torch.matmul(x.to(torch.bfloat16), wd.T).to(x.dtype)
+    return (x.to(torch.bfloat16).float() @ wd.float().T).to(x.dtype)
+
+
+def quantized_matmul_reference(x: torch.Tensor, w: PackedQuantizedTensor,
+                               path: str,
+                               norm_w: Optional[torch.Tensor] = None,
+                               norm_eps: float = 1e-6) -> torch.Tensor:
+    """The plain version of the formula of ``path`` (a name ``route``
+    returns): x [M, K] -> [M, N]. Only the P formula takes a norm (K1
+    fuses it at M=1)."""
+    if path in ("k1", "k6"):
+        return qmm_p_reference(x, w, norm_w, norm_eps)
+    if norm_w is not None:
+        raise ValueError(f"route {path!r} takes an already-normed x")
+    if path in ("k1_mn", "k7"):
+        return qmm_dq_reference(x, w)
+    if path == "dense":
+        return dense_matmul(x, w)
+    raise ValueError(f"route {path!r}")
+
+
+# ------------------------------------------------------------- kernels ---
+
+def _check_launch(what: str, x: torch.Tensor, w: PackedQuantizedTensor,
+                  m_max: int):
+    """Raise unless x [M, K] and w are what the kernels take."""
+    M, K = x.shape
+    N = w.data.shape[0]
+    G = K // w.group_size
+    dev = x.device
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"{what} takes contiguous bf16 x, got {x.dtype}")
+    if not 1 <= M <= m_max:
+        raise ValueError(f"{what} takes 1 <= M <= {m_max}, got M={M}")
+    if K != w.in_features or w.bits not in (4, 8) or K % 32 \
+            or w.group_size % 32:
+        raise ValueError(f"x has K={K}; {what} takes a 4- or 8-bit weight "
+                         f"with K={w.in_features} and the group size "
+                         f"multiples of 32")
+    dt, shp = ((torch.uint8, (N, K // 2)) if w.bits == 4
+               else (torch.int8, (N, K)))
+    for name, t, want_dt, want_shp in (
+            ("data", w.data, dt, shp),
+            ("scales", w.scales, torch.bfloat16, (N, G)),
+            ("biases", w.biases, torch.bfloat16, (N, G))):
+        if t.device != dev or t.dtype != want_dt \
+                or tuple(t.shape) != want_shp or not t.is_contiguous():
+            raise ValueError(f"{what} {name}: want contiguous {want_dt} "
+                             f"{want_shp} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if w.data.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError(f"{what} needs 16-byte aligned data and x")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"x is on {dev}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_p(what: str, x: torch.Tensor, w: PackedQuantizedTensor,
+              norm_w: Optional[torch.Tensor], norm_eps: float):
+    """The P formula on the card (csrc/qmm.cu ominix_qmm_p): the prologue
+    (norm, group sums, a8 quantisation) then a warp per output row over
+    the M rows of x."""
     from ominix_mlx_tpu_torch.ops import _build
 
     M, K = x.shape
     N = w.data.shape[0]
     G = K // w.group_size
     dev = x.device
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError(f"K1 takes contiguous bf16 x, got {x.dtype}")
-    if not 1 <= M <= DECODE_M_MAX or (a8 and M != 1):
-        raise ValueError(f"K1 takes 1 <= M <= {DECODE_M_MAX} (a8: M = 1), "
-                         f"got M={M}")
-    if K != w.in_features or w.bits != 4:
-        raise ValueError(f"x has K={K}; weight is {w.bits}-bit with "
-                         f"K={w.in_features}")
-    for name, t, dt, shp in (("data", w.data, torch.uint8, (N, K // 2)),
-                             ("scales", w.scales, torch.bfloat16, (N, G)),
-                             ("biases", w.biases, torch.bfloat16, (N, G))):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shp \
-                or not t.is_contiguous():
-            raise ValueError(f"K1 {name}: want contiguous {dt} {shp} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-    if w.data.data_ptr() % 16 or x.data_ptr() % 16:
-        raise ValueError("K1 needs 16-byte aligned data and x")
-    if norm_w is not None and (norm_w.device != dev
-                               or norm_w.dtype != torch.bfloat16
-                               or tuple(norm_w.shape) != (K,)
-                               or not norm_w.is_contiguous()):
-        raise ValueError("K1 norm weight: want contiguous bf16 [K] on "
-                         f"{dev}")
-    if dev.index != torch.cuda.current_device():
-        raise ValueError(f"x is on {dev}, current device is "
-                         f"cuda:{torch.cuda.current_device()}")
+    a8 = w.act_bits == 8
     lib = _build.library()
     y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
-    xq = xg = sx = xn = None
+    xg = torch.empty(M, G, dtype=torch.float32, device=dev)
+    xq = sx = xn = None
     if a8:
         xq = torch.empty(M, K, dtype=torch.int8, device=dev)
-        xg = torch.empty(M, G, dtype=torch.float32, device=dev)
         sx = torch.empty(M, dtype=torch.float32, device=dev)
     elif norm_w is not None:
         xn = torch.empty(M, K, dtype=torch.bfloat16, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    rc = lib.ominix_qmm_w4(
-        ptr(x), ptr(norm_w), float(norm_eps), ptr(w.data), ptr(w.scales),
-        ptr(w.biases), ptr(y), ptr(xq), ptr(xg), ptr(sx), ptr(xn),
-        M, N, K, w.group_size, int(a8),
+    rc = lib.ominix_qmm_p(
+        _ptr(x), _ptr(norm_w), float(norm_eps), _ptr(w.data),
+        _ptr(w.scales), _ptr(w.biases), _ptr(y), _ptr(xq), _ptr(xg),
+        _ptr(sx), _ptr(xn), M, N, K, w.group_size, w.bits, int(a8),
         torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "K1 (ominix_qmm_w4)")
-    _build.LAUNCHES["k1_m1" if M == 1 else "k1_mn"] += 1
+    _build.check(rc, f"{what} (ominix_qmm_p)")
+    return y
+
+
+def _launch_dq(what: str, entry: str, x: torch.Tensor,
+               w: PackedQuantizedTensor):
+    """The dq formula on the card: the group-sum prologue, then the
+    matmul (``entry``: ominix_qmm_dq for K1, ominix_qmm_w4a16_tc for K7;
+    one signature)."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    M, K = x.shape
+    N = w.data.shape[0]
+    dev = x.device
+    lib = _build.library()
+    y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+    xg = torch.empty(M, K // w.group_size, dtype=torch.float32, device=dev)
+    rc = getattr(lib, entry)(
+        x.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
+        w.biases.data_ptr(), y.data_ptr(), xg.data_ptr(), M, N, K,
+        w.group_size, w.bits, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, f"{what} ({entry})")
+    return y
+
+
+def _k1(x: torch.Tensor, w: PackedQuantizedTensor,
+        norm_w: Optional[torch.Tensor] = None,
+        norm_eps: float = 1e-6) -> torch.Tensor:
+    """Launch K1 (csrc/qmm.cu) on the current stream: bf16 x [M, K] on
+    CUDA -> bf16 [M, N]. M = 1: the P formula (A1), a8 where
+    ``w.act_bits == 8``, the RMSNorm fused for a 4-bit weight;
+    2 <= M <= 16: the dq formula (A3), x already normed."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    _check_launch("K1", x, w, DECODE_M_MAX)
+    M, K = x.shape
+    if norm_w is not None and (M != 1 or w.bits != 4
+                               or norm_w.device != x.device
+                               or norm_w.dtype != torch.bfloat16
+                               or tuple(norm_w.shape) != (K,)
+                               or not norm_w.is_contiguous()):
+        raise ValueError("K1 fuses the norm at M=1 on 4-bit weights only, "
+                         f"from a contiguous bf16 [K] weight on {x.device}")
+    w8 = "_w8" if w.bits == 8 else ""
+    if M == 1:
+        y = _launch_p("K1", x, w, norm_w, norm_eps)
+        _build.LAUNCHES["k1_m1" + w8] += 1
+    else:
+        y = _launch_dq("K1", "ominix_qmm_dq", x, w)
+        _build.LAUNCHES["k1_mn" + w8] += 1
+    return y
+
+
+def _k6(x: torch.Tensor, w: PackedQuantizedTensor) -> torch.Tensor:
+    """Launch K6 (csrc/qmm.cu, the P formula over up to 16 rows; replaces
+    A4 ``_pm_kernel``) on the current stream: bf16 x [M, K], already
+    normed, on CUDA -> bf16 [M, N]. Modes w4a8, w8a8 and w8a16."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    _check_launch("K6", x, w, DECODE_M_MAX)
+    if w.bits == 4 and w.act_bits != 8:
+        raise ValueError("K6 takes w4a8, w8a8 or w8a16: a 4-bit weight "
+                         "needs act_bits=8")
+    y = _launch_p("K6", x, w, None, 0.0)
+    _build.LAUNCHES["k6"] += 1
+    return y
+
+
+def _k7(x: torch.Tensor, w: PackedQuantizedTensor) -> torch.Tensor:
+    """Launch K7 (csrc/qmm_tc.cu, exact w4a16 on the tensor cores;
+    replaces A5 ``_vpu_kernel``) on the current stream: bf16 x [M, K],
+    M <= 64, already normed, on CUDA -> bf16 [M, N]."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    _check_launch("K7", x, w, VPU_M_MAX)
+    if w.bits != 4:
+        raise ValueError("K7 takes 4-bit weights")
+    y = _launch_dq("K7", "ominix_qmm_w4a16_tc", x, w)
+    _build.LAUNCHES["k7"] += 1
     return y
 
 
 def quantized_matmul(x: torch.Tensor, w,
                      norm_w: Optional[torch.Tensor] = None,
                      norm_eps: float = 1e-6) -> torch.Tensor:
-    """x [..., K] @ W^T -> [..., N] in x's dtype.
+    """x [..., K] @ W^T -> [..., N] in x's dtype, by ``route(w, M)``.
 
-    norm_w (optional [K]): RMSNorm x first; fused into K1's prologue at
-    M=1, applied before the matmul at M > 1 (and for channel-quantized
-    weights) with the same op order.
+    norm_w (optional [K]): RMSNorm x first; fused into K1's prologue where
+    the JAX package fuses it (route "k1" on a 4-bit weight), applied
+    before the matmul with the same op order everywhere else.
     """
     if isinstance(w, ChannelQuantizedTensor):
         if norm_w is not None:
@@ -253,26 +514,24 @@ def quantized_matmul(x: torch.Tensor, w,
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
     N = w.data.shape[0]
-    if M > 1 and norm_w is not None:
+    r = route(w, M)
+    if norm_w is not None and not (r == "k1" and w.bits == 4):
         x2 = rms_norm(norm_w, x2, norm_eps)
         norm_w = None
-    a8 = M == 1 and w.act_bits == 8
     if not x2.is_cuda:
-        y = quantized_matmul_reference(x2, w, norm_w, norm_eps,
-                                       act_bits=8 if a8 else None)
-    elif M > DECODE_M_MAX:
-        # prefill: dequantize once, dense matmul (plain XLA in the JAX
-        # package, _dense_tn)
-        y = torch.matmul(x2.to(torch.bfloat16),
-                         dequantize_packed(w).T).to(x.dtype)
+        y = quantized_matmul_reference(x2, w, r, norm_w, norm_eps)
+    elif r == "dense":
+        y = dense_matmul(x2, w)
     else:
         xk = x2.to(torch.bfloat16).contiguous()
-        if xk.data_ptr() % 16:      # a view at an odd offset: K1 loads
-            xk = xk.clone()         # x with 16-byte vector loads
-        y = _k1(xk, w,
-                None if norm_w is None else norm_w.to(torch.bfloat16),
-                norm_eps, a8).to(x.dtype)
-    return y.reshape(*lead, N)
+        if xk.data_ptr() % 16:      # a view at an odd offset: the kernels
+            xk = xk.clone()         # load x with 16-byte vector loads
+        if r == "k1":
+            y = _k1(xk, w, None if norm_w is None
+                    else norm_w.to(torch.bfloat16).contiguous(), norm_eps)
+        else:
+            y = {"k1_mn": _k1, "k6": _k6, "k7": _k7}[r](xk, w)
+    return y.to(x.dtype).reshape(*lead, N)
 
 
 # ------------------------------------- channelwise w8a8 (batched serving) ---
@@ -382,6 +641,9 @@ class PackedQuantizedExperts:
 def pack_experts(qt: QuantizedTensor, E: int,
                  act_bits: Optional[int] = 8) -> PackedQuantizedExperts:
     """Pack ``qt``, which holds E experts' rows stacked [E * N, K]."""
+    if qt.bits != 4:
+        raise NotImplementedError(
+            f"{qt.bits}-bit experts: only 4-bit experts are ported")
     p = prepare(qt, act_bits=act_bits)
     N = p.data.shape[0] // E
     return PackedQuantizedExperts(

@@ -116,7 +116,10 @@ class BatchedChatRunner:
     tensors).
 
     quantize_bits=8 serves channelwise w8a8 (``scheme="channel8"``);
-    quantize_bits=4 serves group w4 through K1 in its exact a16 mode.
+    quantize_bits=4 serves group w4 marked ``batched`` with act_bits=8, as
+    the JAX package does: the batch decode takes the dq formula (K1 at
+    2 <= M <= 16), adoption prefills up to 64 tokens K7, a lone row K6's
+    w4a8, and a MoE model's experts K4's w4a8.
     kv_bits=8 stores the paged pool as int8 pages."""
 
     def __init__(self, model, slots: int = 4, max_len: int = 2048,
@@ -133,7 +136,7 @@ class BatchedChatRunner:
         params = model.params
         if quantize_bits:
             params = base.quantize_params(
-                dict(model.params), bits=quantize_bits, act_bits=None,
+                dict(model.params), bits=quantize_bits, batched=True,
                 scheme="channel8" if quantize_bits == 8 else "group")
         mod, cfg = model.module, model.cfg
         fwd = lambda p, t, c: mod.forward(p, cfg, t, c)
@@ -298,7 +301,7 @@ class Server:
         CUDA); ``kv_bits=8`` stores it as int8 pages; ``prefix_cache=True``
         reuses pool pages across requests sharing a prompt prefix (both
         imply ``paged``). ``quantize_bits``: 8 = channelwise w8a8, 4 =
-        group w4 (K1). Speculative batching (``draft_dir`` or
+        group w4, batched (see ``BatchedChatRunner``). Speculative batching (``draft_dir`` or
         ``draft_layers``) is not ported and raises NotImplementedError."""
         if draft_dir is not None or draft_layers is not None:
             raise NotImplementedError(

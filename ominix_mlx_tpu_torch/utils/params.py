@@ -5,16 +5,21 @@ are arrays, and each quantized weight is a dict
 ``{"q", "scales", "biases", "group_size", "bits"}`` in the canonical
 layout (signed int8 codes, per-group scale and bias; what the JAX
 package's ``ops.quant_matmul.unpack`` returns; a 3-D ``q`` [E, N, K] holds a
-MoE layer's stacked experts), and each channel-quantized
+MoE layer's stacked experts), with optionally the JAX tensor's dispatch
+flags ``"batched"`` and ``"tn"`` (its panel width, 0 for row-major), which
+become the port's ``batched`` and ``panels``. The packed bytes are never
+carried: the JAX package's 4-bit row-major byte order is not the port's.
+Each channel-quantized
 (w8a8) weight is a dict ``{"data", "scale"}`` (the JAX package's
 ``ChannelQuantizedTensor`` as numpy: int8 codes [N, K], float32 scale
 [N]). The output lives on ``device``, with group-quantized weights packed
-for kernel K1 and stacked experts packed for kernel K4
-(``PackedQuantizedExperts``).
+for the routes of ``ops.quant_matmul`` and stacked experts packed for
+kernel K4 (``PackedQuantizedExperts``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -61,9 +66,13 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None,
                         scales=scales.reshape(E * N, -1),
                         biases=biases.reshape(E * N, -1), group_size=gs,
                         bits=bits), E, act_bits=act_bits)
-                return prepare(QuantizedTensor(q=q, scales=scales,
-                                               biases=biases, group_size=gs,
-                                               bits=bits), act_bits=act_bits)
+                p = prepare(QuantizedTensor(q=q, scales=scales,
+                                            biases=biases, group_size=gs,
+                                            bits=bits), act_bits=act_bits,
+                            batched=bool(node.get("batched", False)))
+                if node.get("tn", 0):
+                    p = dataclasses.replace(p, panels=True)
+                return p
             if node.keys() == _CKEYS:
                 return ChannelQuantizedTensor(
                     data=_tensor(node["data"], device).to(torch.int8),

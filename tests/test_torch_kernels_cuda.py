@@ -7,6 +7,8 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -29,16 +31,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _packed(dev, N, K, act_bits, seed=0):
+def _packed(dev, N, K, act_bits, seed=0, bits=4):
     g = torch.Generator(device=dev).manual_seed(seed)
+    lim = 1 << (bits - 1)
     qt = QuantizedTensor(
-        q=torch.randint(-8, 8, (N, K), generator=g, device=dev,
+        q=torch.randint(-lim, lim, (N, K), generator=g, device=dev,
                         dtype=torch.int8),
         scales=((torch.rand(N, K // 64, generator=g, device=dev) + 0.5)
-                * K ** -0.5 / 8).bfloat16(),
+                * K ** -0.5 / lim).bfloat16(),
         biases=(torch.randn(N, K // 64, generator=g, device=dev)
                 * K ** -0.5 / 4).bfloat16(),
-        group_size=64, bits=4)
+        group_size=64, bits=bits)
     return qm.prepare(qt, act_bits=act_bits), g
 
 
@@ -58,32 +61,87 @@ def _row_rel(a, b):
 @pytest.mark.parametrize("N,K", [(100, 2560), (2560, 9728), (6144, 2560)])
 @pytest.mark.parametrize("mode", ["a8", "a8_norm", "a16", "a16_norm"])
 def test_k1_m1_matches_plain(cuda, N, K, mode):
-    """K1 at M=1, ragged N and G=152 included: rel < 1e-2 (bf16 output,
-    another summation order)."""
+    """K1 at M=1 (the P formula), ragged N and G=152 included: rel < 1e-2
+    (bf16 output, another summation order)."""
     a8 = mode.startswith("a8")
     pq, g = _packed(cuda, N, K, 8 if a8 else None)
     x = torch.randn(1, K, generator=g, device=cuda).bfloat16()
     nw = ((1 + 0.1 * torch.randn(K, generator=g, device=cuda)).bfloat16()
           if mode.endswith("norm") else None)
-    got = qm._k1(x, pq, nw, EPS, a8)
-    want = qm.quantized_matmul_reference(x, pq, nw, EPS,
-                                         act_bits=8 if a8 else None)
+    got = qm._k1(x, pq, nw, EPS)
+    want = qm.qmm_p_reference(x, pq, nw, EPS)
     torch.cuda.synchronize()
     assert _rel(got, want) < 1e-2
 
 
 @pytest.mark.parametrize("M", [2, 5, 16])
 def test_k1_m_gt_1_matches_plain(cuda, M):
+    """K1 at 2 <= M <= 16 (the dq formula) on 4-bit weights."""
     pq, g = _packed(cuda, 2560, 9728, None, seed=M)
     x = torch.randn(M, 9728, generator=g, device=cuda).bfloat16()
-    got = qm._k1(x, pq, None, EPS, False)
-    want = qm.quantized_matmul_reference(x, pq)
+    got = qm._k1(x, pq)
+    want = qm.qmm_dq_reference(x, pq)
     torch.cuda.synchronize()
     assert _rel(got, want) < 1e-2
 
 
+@pytest.mark.parametrize("N,K", [(100, 2560), (2560, 9728)])
+@pytest.mark.parametrize("M,act_bits", [(1, 8), (1, None), (2, None),
+                                        (13, None), (16, None)])
+def test_k1_w8_matches_plain(cuda, N, K, M, act_bits):
+    """K1 on 8-bit weights: M=1 w8a8 and w8a16 (the P formula), 2..16 rows
+    the dq formula, odd M included: rel < 1e-2."""
+    pq, g = _packed(cuda, N, K, act_bits, seed=M, bits=8)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    _build.reset_launches()
+    got = qm._k1(x, pq)
+    want = (qm.qmm_p_reference(x, pq) if M == 1
+            else qm.qmm_dq_reference(x, pq))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["k1_m1_w8" if M == 1 else "k1_mn_w8"] == 1
+    assert _rel(got, want) < 1e-2
+
+
+@pytest.mark.parametrize("N,K", [(100, 2560), (2560, 9728), (6144, 2560)])
+@pytest.mark.parametrize("M", [1, 4, 13, 16])
+@pytest.mark.parametrize("mode", ["w4a8", "w8a8", "w8a16"])
+def test_k6_matches_plain(cuda, N, K, M, mode):
+    """K6 (the P formula row by row) against qmm_p_reference: rel < 1e-2
+    per row (bf16 output; a8 codes are exact, so only the float sums
+    differ)."""
+    bits = 4 if mode.startswith("w4") else 8
+    pq, g = _packed(cuda, N, K, 8 if mode.endswith("a8") else None,
+                    seed=M, bits=bits)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    _build.reset_launches()
+    got = qm._k6(x, pq)
+    want = qm.qmm_p_reference(x, pq)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["k6"] == 1
+    assert _row_rel(got, want) < 1e-2
+
+
+@pytest.mark.parametrize("N,K", [(100, 512), (2560, 9728), (6144, 2560)])
+@pytest.mark.parametrize("M", [1, 17, 37, 64])
+def test_k7_matches_plain(cuda, N, K, M):
+    """K7 (exact w4a16 on the tensor cores) against qmm_dq_reference: rel
+    < 1e-2 per row; ragged N and odd M included."""
+    pq, g = _packed(cuda, N, K, None, seed=M)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    _build.reset_launches()
+    got = qm._k7(x, pq)
+    again = qm._k7(x, pq)
+    want = qm.qmm_dq_reference(x, pq)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["k7"] == 2
+    assert torch.equal(got, again)
+    assert _row_rel(got, want) < 1e-2
+
+
 def test_k1_dispatch_counts_and_rejects(cuda):
     pq, g = _packed(cuda, 256, 512, 8)
+    pq = qm.to_panels(pq)
+    assert pq.panels
     _build.reset_launches()
     for M in (1, 4, 17):
         y = qm.quantized_matmul(
@@ -91,10 +149,43 @@ def test_k1_dispatch_counts_and_rejects(cuda):
         assert y.shape == (M, 256)
     assert _build.LAUNCHES["k1_m1"] == 1 and _build.LAUNCHES["k1_mn"] == 1
     with pytest.raises(ValueError):
-        qm._k1(torch.randn(1, 512, device=cuda), pq, None, EPS, True)
+        qm._k1(torch.randn(1, 512, device=cuda), pq, None, EPS)
+    with pytest.raises(ValueError):      # the norm fuses at M=1 only
+        qm._k1(torch.randn(2, 512, device=cuda).bfloat16(), pq,
+               torch.ones(512, device=cuda).bfloat16(), EPS)
+
+
+def test_routes_launch_their_kernel_or_raise(cuda, monkeypatch):
+    """On CUDA each route launches its kernel (row-major 4-bit w4a8 up to
+    16 rows and 8-bit: K6; 4-bit a16 up to 64 rows: K7; batched at 2..16
+    rows: K1) and never a plain version; a weight the kernel does not take
+    (its scales on another device, a 4-bit a16 weight handed to K6) raises
+    instead of falling back."""
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA")
+
+    monkeypatch.setattr(qm, "qmm_p_reference", no_plain)
+    monkeypatch.setattr(qm, "qmm_dq_reference", no_plain)
+    w4a8, g = _packed(cuda, 256, 512, 8)
+    w4, _ = _packed(cuda, 256, 512, None)
+    w8, _ = _packed(cuda, 256, 512, None, bits=8)
+    batched = dataclasses.replace(w4, batched=True)
+    cases = [(w4a8, 1, "k6"), (w4a8, 16, "k6"), (w4, 1, "k7"),
+             (w4, 40, "k7"), (w8, 3, "k6"), (batched, 8, "k1_mn")]
+    for w, M, key in cases:
+        assert qm.route(w, M) == key
+        _build.reset_launches()
+        y = qm.quantized_matmul(
+            torch.randn(M, 512, generator=g, device=cuda).bfloat16(), w)
+        assert y.shape == (M, 256) and torch.isfinite(y.float()).all()
+        assert dict(_build.LAUNCHES) == {key: 1}
+    x = torch.randn(4, 512, device=cuda).bfloat16()
+    off = dataclasses.replace(w4a8, scales=w4a8.scales.cpu())
+    for w in (off, dataclasses.replace(w4, scales=w4.scales.cpu())):
+        with pytest.raises(ValueError):
+            qm.quantized_matmul(x, w)
     with pytest.raises(ValueError):
-        qm._k1(torch.randn(2, 512, device=cuda).bfloat16(), pq, None, EPS,
-               True)
+        qm._k6(x, w4)
 
 
 @pytest.mark.parametrize("T,H,Hkv,D", [(2, 4, 4, 64), (33, 8, 2, 64),

@@ -35,12 +35,14 @@ TCFG = tqwen3.config_from_hf(HF)
 
 
 def _to_numpy(tree):
-    """JAX param tree -> numpy tree; packed weights in canonical form."""
+    """JAX param tree -> numpy tree; packed weights in canonical form with
+    their dispatch flags (batched, tn)."""
     if isinstance(tree, jqm.PackedQuantizedTensor):
         u = jqm.unpack(tree)
         return {"q": np.array(u.q), "scales": np.asarray(u.scales),
                 "biases": np.asarray(u.biases),
-                "group_size": u.group_size, "bits": u.bits}
+                "group_size": u.group_size, "bits": u.bits,
+                "batched": tree.batched, "tn": tree.tn}
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -55,6 +57,7 @@ def _quantized_pair(act_bits):
     assert jp["layers"][0]["qkv_proj"]["w"].tn    # the JAX main-path layout
     tp = params_from_numpy(_to_numpy(jp), "cpu", act_bits=act_bits)
     assert isinstance(tp["layers"][0]["qkv_proj"]["w"], PackedQuantizedTensor)
+    assert tp["layers"][0]["qkv_proj"]["w"].panels and tp["embed"].panels
     return jp, tp
 
 
@@ -182,3 +185,39 @@ def test_post_norm_layers_raise(key):
     with pytest.raises(NotImplementedError):
         tbase.forward(tp, cfg, torch.zeros(1, 1, dtype=torch.long),
                       tbase.init_cache(cfg, 1, 8, device="cpu"))
+
+
+@pytest.mark.parametrize("variant,act_bits", [
+    ("fused_w8", 8), ("fused_w8", None), ("rows_w4", 8), ("rows_w8", 8),
+    ("rows_w8", None), ("batched_w4", 8), ("batched_w4", None)])
+def test_quantized_layouts_logits_close_to_jax(variant, act_bits):
+    """The 2-layer model quantized by the JAX package fused at 8 bits
+    (panels: K1's 8-bit modes), unfused at 4 and 8 bits (row-major: K6 up
+    to 16 rows, K7 for 4-bit up to 64) and batched at 4 bits (the dq
+    formula at 2..16 rows), carried across by the bridge with its flags:
+    logits of a 20-token prefill and 4 decode steps against the JAX
+    package's CPU path, rel < 0.05 where the decode quantizes activations
+    to int8 (act_bits=8, bf16 activations), < 1e-2 for the exact formulas
+    (float32 embedding and activations, as in the MoE test: bf16
+    activations through 2 layers flip a logit by a bf16 ulp, 5.7e-3 of
+    the largest, whatever the formula)."""
+    bits = 8 if variant.endswith("w8") else 4
+    exact = act_bits is None
+    dense = jbase.init_params(JCFG, jax.random.PRNGKey(4), jnp.float32)
+    jp = jbase.quantize_params(dense, 64, bits, consume=False,
+                               quantize_embed=not exact,
+                               batched=variant.startswith("batched"))
+    if variant.startswith("fused"):
+        jp = jbase.fuse_layer_projections(jp)
+    tp = params_from_numpy(_to_numpy(jp), "cpu", act_bits=act_bits)
+    w = tp["layers"][0]["qkv_proj" if variant.startswith("fused")
+                        else "q_proj"]["w"]
+    assert w.bits == bits and w.panels == variant.startswith("fused")
+    assert w.batched == variant.startswith("batched")
+    prompt = np.random.default_rng(3).integers(0, 512, 20)
+    tol = 1e-2 if exact else 0.05
+    for jl, tl in _run_logits(jp, tp, prompt, 4,
+                              jnp.float32 if exact else jnp.bfloat16,
+                              torch.float32 if exact else torch.bfloat16):
+        rel = np.max(np.abs(jl - tl)) / np.max(np.abs(jl))
+        assert rel < tol, rel

@@ -32,6 +32,7 @@ from ominix_mlx_tpu_torch.ops import _build
 from ominix_mlx_tpu_torch.ops import grouped_matmul as tgmm
 from ominix_mlx_tpu_torch.ops import quant_matmul as tqm
 from ominix_mlx_tpu_torch.utils.params import params_from_numpy
+from torch.utils._pytree import tree_leaves
 
 torch.set_num_threads(2)
 # the router's float32 matmul must stay full float32 (no TF32 on a card)
@@ -490,7 +491,10 @@ def test_qwen3_moe_config_and_layers():
     assert all(isinstance(e, tqm.PackedQuantizedExperts) for e in ex)
     assert not torch.equal(ex[0].data, ex[1].data)   # each layer its own
     fused = tbase.fuse_layer_projections(tp)
-    assert fused["layers"][0]["moe"] is tp["layers"][0]["moe"]
+    # the MoE block passes through: every expert weight and router tensor
+    # is the same object
+    got, want = (tree_leaves(p["layers"][0]["moe"]) for p in (fused, tp))
+    assert len(got) == len(want) and all(a is b for a, b in zip(got, want))
     with pytest.raises(NotImplementedError):
         tbase.init_quantized_params(TCFG, torch.Generator(), device="cpu",
                                     scheme="channel8")

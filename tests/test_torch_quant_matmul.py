@@ -60,14 +60,6 @@ def test_prepare_unpack_roundtrip_exact():
         assert torch.equal(rt.biases, tt.biases)
 
 
-def test_prepare_rejects_8bit():
-    qt = QuantizedTensor(q=torch.zeros(8, 64, dtype=torch.int8),
-                         scales=torch.ones(8, 1), biases=torch.zeros(8, 1),
-                         group_size=64, bits=8)
-    with pytest.raises(NotImplementedError):
-        tqm.prepare(qt)
-
-
 @pytest.mark.parametrize("norm", [False, True])
 @pytest.mark.parametrize("M", [1, 4, 16, 32])
 def test_a16_matches_jax(M, norm):
@@ -76,7 +68,8 @@ def test_a16_matches_jax(M, norm):
     of the dequantised weights and of the output, summed in another
     order."""
     jt, tt = _weights(1)
-    pq = tqm.prepare(tt, act_bits=None)
+    pq = tqm.to_panels(tqm.prepare(tt, act_bits=None))
+    assert pq.panels
     rng = np.random.default_rng(2)
     x = _bf16(rng.standard_normal((M, K)))
     nw = _bf16(1.0 + 0.1 * rng.standard_normal(K)) if norm else None
@@ -95,7 +88,7 @@ def test_a8_matches_jax(norm):
     """w4a8 at M=1 against the JAX package's exact CPU path: rel < 0.05,
     the a8 tolerance of tests/test_quant_ops.py."""
     jt, tt = _weights(3)
-    pq = tqm.prepare(tt, act_bits=8)
+    pq = tqm.to_panels(tqm.prepare(tt, act_bits=8))
     rng = np.random.default_rng(4)
     x = _bf16(rng.standard_normal((1, K)))
     nw = _bf16(1.0 + 0.1 * rng.standard_normal(K))
@@ -154,9 +147,9 @@ def test_a8_reference_is_the_tpu_formula():
     x = _bf16(rng.standard_normal(K))
     nw = _bf16(1.0 + 0.1 * rng.standard_normal(K))
     want = _tpu_pt_a8(x, nw, jt)
-    got = tqm.quantized_matmul_reference(
+    got = tqm.qmm_p_reference(
         torch.from_numpy(x[None]).bfloat16(), pq,
-        torch.from_numpy(nw).bfloat16(), EPS, act_bits=8)
+        torch.from_numpy(nw).bfloat16(), EPS)
     assert _rel(got[0].float().numpy(), want) < 1e-3
 
 
@@ -176,10 +169,17 @@ def test_gather_rows_matches_jax():
 
 
 def test_cpu_dispatch_counts_no_launch():
-    """On CPU the wrapper runs the plain version and counts no launch."""
+    """On CPU the wrapper runs the plain version of every route (panels,
+    row-major, batched) and counts no launch."""
     _, tt = _weights(8, n=128, k=256)
-    pq = tqm.prepare(tt)
     _build.reset_launches()
-    tqm.quantized_matmul(torch.zeros(1, 256, dtype=torch.bfloat16), pq)
-    tqm.quantized_matmul(torch.zeros(4, 256, dtype=torch.bfloat16), pq)
+    routes = set()
+    for pq in (tqm.to_panels(tqm.prepare(tt)), tqm.prepare(tt),
+               tqm.prepare(tt, act_bits=None),
+               tqm.prepare(tt, batched=True)):
+        for M in (1, 4, 40):
+            tqm.quantized_matmul(torch.zeros(M, 256, dtype=torch.bfloat16),
+                                 pq)
+            routes.add(tqm.route(pq, M))
+    assert routes == {"k1", "k1_mn", "k6", "k7", "dense"}
     assert sum(_build.LAUNCHES.values()) == 0

@@ -271,3 +271,59 @@ def test_batched_step_error_answers_500(served_batched):
     finally:
         cb.fwd = fwd
     assert _chat_text(srv, "batched", "hi") == _chat_text(srv, "solo", "hi")
+
+
+def test_batched_w4_serves_a_moe_model(monkeypatch):
+    """enable_batching(quantize_bits=4) quantizes as the JAX package does:
+    group 4-bit weights marked batched with act_bits=8, so a MoE model's
+    experts take K4's w4a8 formula (experts with act_bits=None have no
+    CUDA path). A small Qwen3-MoE model answers concurrent chat requests
+    and every gathered-expert call sees w4a8 experts."""
+    from ominix_mlx_tpu_torch.models import moe as tmoe
+    from ominix_mlx_tpu_torch.models import qwen3_moe
+    from ominix_mlx_tpu_torch.ops import quant_matmul as tqm
+
+    cfg = qwen3_moe.config_from_hf({
+        "model_type": "qwen3_moe", "vocab_size": 512, "hidden_size": 64,
+        "num_hidden_layers": 2, "num_attention_heads": 4,
+        "num_key_value_heads": 2, "head_dim": 16, "intermediate_size": 128,
+        "moe_intermediate_size": 64, "num_experts": 8,
+        "num_experts_per_tok": 2, "norm_topk_prob": True,
+        "rope_theta": 1e6, "rms_norm_eps": 1e-6,
+        "tie_word_embeddings": False})
+    params = base.init_params(cfg, torch.Generator().manual_seed(2),
+                              torch.float32, device="cpu")
+    seen = []
+    gather = tmoe.gather_qmm
+
+    def recording_gather(x, w, ids):
+        seen.append((w.bits, w.act_bits))
+        return gather(x, w, ids)
+
+    monkeypatch.setattr(tmoe, "gather_qmm", recording_gather)
+    srv = Server(port=_free_port())
+    srv.add_model("moe", ChatModel("moe", params, cfg, ByteTokenizer(),
+                                   "cpu"))
+    srv.enable_batching("moe", slots=2, max_len=256, quantize_bits=4)
+    srv.start_background()
+    try:
+        bp = srv.batchers["moe"].batcher.params
+        ex = bp["layers"][0]["moe"]["experts"]["down_proj"]
+        assert isinstance(ex, tqm.PackedQuantizedExperts)
+        assert (ex.bits, ex.act_bits) == (4, 8)
+        q = bp["layers"][0]["q_proj"]["w"]
+        assert q.batched and q.act_bits == 8 and not q.panels
+        texts = [None, None]
+
+        def run(i):
+            texts[i] = _chat_text(srv, "moe", ["hi", "count to 3"][i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert all(isinstance(t, str) and t for t in texts)
+    finally:
+        srv.shutdown()
+    assert seen and set(seen) == {(4, 8)}
