@@ -25,7 +25,15 @@ Qwen3-30B-A3B with random weights (seeded):
     decode through K4, every prefill of more than 8 tokens through K5), the
     kernel-vs-plain logits check, the batch-1 decode rate, and a batch-8
     decode over a paged cache (K4 at 8 and 64 rows, K3 at 8 query heads
-    per KV head).
+    per KV head);
+  - serve_moe_q8: the same chat requests on Qwen3-30B-A3B w8a8 group-64
+    (K1 8-bit on panels, K4 8-bit at decode, K5 after the dequantize-once
+    at prefill), its logits check and decode rate;
+  - serve_moe_batched_w8: Qwen3-30B-A3B with channel-int8 experts on a
+    batched server, 8 concurrent chat requests each equal to the same
+    request alone (K8 at decode, the exact int8 all-expert pass at
+    adoption, K3), and enable_batching(quantize_bits=8) converting a bf16
+    cut of 8 layers.
 
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
@@ -116,6 +124,11 @@ W8A8_PANELS_LOGITS_TOL = 5e-2
 # - row-major w4a8 / w8a8 (a8 at every prefill row too, where a one-ulp
 #   flip moves int8 codes downstream): sound up to 5.24e-2, the fault 0.384
 ROWS_A8_LOGITS_TOL = 0.1
+# - w8a8 on panels with 8-bit experts, Qwen3-30B-A3B: sound up to 4.10e-2
+#   (the kernel path, where one routed row of 38 picks another expert set
+#   than the plain run, a router near-tie; the reversed control 3.81e-2,
+#   each kernel alone at most 1.20e-2), the fault 0.384
+MOE_W8A8_LOGITS_TOL = 0.1
 # chunked vs single-shot 8k prefill, last-token logits, bf16 through 36
 # layers: read 0.0 on the H100 (K2c walks a query's key tiles in K2's
 # order and cuBLAS gave the same rows at M=2048 and M=8192); the limit
@@ -534,55 +547,130 @@ def check_k3(dev, flush):
     return rows
 
 
+def random_experts(qm, g, dev, N, K, bits):
+    """Random packed experts [MOE_E, N, K] at 4 or 8 bits, act_bits=8."""
+    G, lim = K // GS, 1 << (bits - 1)
+    if bits == 4:
+        data = torch.randint(0, 256, (MOE_E, N, K // 2), generator=g,
+                             device=dev, dtype=torch.uint8)
+    else:
+        data = torch.randint(-lim, lim, (MOE_E, N, K), generator=g,
+                             device=dev, dtype=torch.int8)
+    return qm.PackedQuantizedExperts(
+        data=data,
+        scales=((torch.rand(MOE_E, N, G, generator=g, device=dev) + 0.5)
+                * (K ** -0.5 / lim)).bfloat16(),
+        biases=(torch.randn(MOE_E, N, G, generator=g, device=dev)
+                * (K ** -0.5 / 4)).bfloat16(),
+        group_size=GS, bits=bits, in_features=K, act_bits=8)
+
+
+def gather_ids(g, dev, T, k):
+    """Expert ids [T, k] out of order, with a repeat and the last expert."""
+    ids = torch.randint(0, MOE_E, (T, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids[0, -1] = MOE_E - 1
+    ids[-1, 0] = ids[0, 0]
+    return ids
+
+
 def check_k4(dev, flush):
     """K4 against gather_qmm_reference(act_bits=8) at Qwen3-30B-A3B's
-    shapes over 128 random experts, ids out of order with repeats and the
-    last expert; the error is held per (row, slot)."""
+    shapes over 128 random experts, 4- and 8-bit, ids out of order with
+    repeats and the last expert; the error is held per (row, slot)."""
     from ominix_mlx_tpu_torch.ops import quant_matmul as qm
 
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     rows = []
+    for bits in (4, 8):
+        for name, T, k, N, K in K4_SHAPES:
+            G = K // GS
+            w = random_experts(qm, g, dev, N, K, bits)
+            x = torch.randn(T, K, generator=g, device=dev).bfloat16()
+            ids = gather_ids(g, dev, T, k)
+            got = qm._k4(x, w, ids)
+            want = qm.gather_qmm_reference(x, w, ids, act_bits=8)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"K4 {bits}-bit {name} T={T}: non-finite")
+            d = (got.float() - want.float()).abs().max().item()
+            row_rel = row_rel_err(got, want)
+            del want
+            ms = time_ms(lambda: qm._k4(x, w, ids), 20, flush)
+            plain = time_ms(lambda: qm.gather_qmm_reference(x, w, ids, 8), 3,
+                            flush)
+            # K4 streams one expert row per (row, slot), so the slabs it
+            # reads count a repeated id again; the bound reads each expert
+            # once
+            row_bytes = N * (K * bits // 8 + 4 * G)
+            slab = T * k * row_bytes
+            used = int(torch.unique(ids).numel())
+            row = {"shape": name, "bits": bits, "T": T, "k": k, "N": N,
+                   "K": K, "E": MOE_E, "experts_used": used,
+                   "max_abs_err": d, "row_rel_err": row_rel, "ms": ms,
+                   "plain_ms": plain, "us": ms * 1e3,
+                   "plain_us": plain * 1e3, "library_ms": None,
+                   "library_error": "no PyTorch call gathers group-wise "
+                                    "quantized experts",
+                   "slab_GBps": slab / ms / 1e6,
+                   **bound(used * row_bytes + 2 * T * K + 4 * T * k
+                           + 2 * T * k * N, 2 * T * k * N * K, "int8")}
+            emit({"phase": "k4", **row})
+            if not row_rel < K4_TOL:
+                raise RuntimeError(f"K4 {bits}-bit {name} T={T} k={k}: error "
+                                   f"{row_rel} of a (row, slot)'s max "
+                                   f"|plain|")
+            rows.append(row)
+            del w
+            torch.cuda.empty_cache()
+    return rows
+
+
+def check_k8(dev, flush):
+    """K8 against channel_gather_qmm_reference at K4's shapes over 128
+    random channel-int8 experts, ids out of order with repeats and the
+    last expert: held exactly (the same int8 codes, exact int32 sums, the
+    same float32 rescale order), on x in the float32 the down projection
+    takes and in the bf16 the gate and up projections take."""
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    rows = []
     for name, T, k, N, K in K4_SHAPES:
-        G = K // GS
-        w = qm.PackedQuantizedExperts(
-            data=torch.randint(0, 256, (MOE_E, N, K // 2), generator=g,
-                               device=dev, dtype=torch.uint8),
-            scales=((torch.rand(MOE_E, N, G, generator=g, device=dev) + 0.5)
-                    * (K ** -0.5 / 8)).bfloat16(),
-            biases=(torch.randn(MOE_E, N, G, generator=g, device=dev)
-                    * (K ** -0.5 / 4)).bfloat16(),
-            group_size=GS, bits=4, in_features=K, act_bits=8)
-        x = torch.randn(T, K, generator=g, device=dev).bfloat16()
-        ids = torch.randint(0, MOE_E, (T, k), generator=g, device=dev,
-                            dtype=torch.int32)
-        ids[0, -1] = MOE_E - 1
-        ids[-1, 0] = ids[0, 0]
-        got = qm._k4(x, w, ids)
-        want = qm.gather_qmm_reference(x, w, ids, act_bits=8)
+        w = qm.ChannelQuantizedExperts(
+            data=torch.randint(-127, 128, (MOE_E, N, K), generator=g,
+                               device=dev, dtype=torch.int8),
+            scale=(torch.rand(MOE_E, N, generator=g, device=dev) + 0.5)
+            * (K ** -0.5 / 127))
+        x = torch.randn(T, K, generator=g, device=dev)
+        if name == "gate_up":
+            x = x.bfloat16().float()
+        ids = gather_ids(g, dev, T, k)
+        got = qm._k8(x, w, ids)
+        want = qm.channel_gather_qmm_reference(x, w, ids)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
-            raise RuntimeError(f"K4 {name} T={T}: non-finite")
-        d = (got.float() - want.float()).abs().max().item()
-        row_rel = row_rel_err(got, want)
-        ms = time_ms(lambda: qm._k4(x, w, ids), 20, flush)
-        plain = time_ms(lambda: qm.gather_qmm_reference(x, w, ids, 8), 3,
-                        flush)
-        # K4 streams one expert row per (row, slot), so the slabs it reads
-        # count a repeated id again; the bound reads each expert once
-        row_bytes = N * (K // 2 + 4 * G)
-        slab = T * k * row_bytes
+            raise RuntimeError(f"K8 {name} T={T}: non-finite")
+        d = (got - want).abs().max().item()
+        differ = int((got != want).sum())
+        ms = time_ms(lambda: qm._k8(x, w, ids), 20, flush)
+        plain = time_ms(lambda: qm.channel_gather_qmm_reference(x, w, ids),
+                        3, flush)
+        row_bytes = N * (K + 4)
         used = int(torch.unique(ids).numel())
         row = {"shape": name, "T": T, "k": k, "N": N, "K": K, "E": MOE_E,
                "experts_used": used, "max_abs_err": d,
-               "row_rel_err": row_rel, "ms": ms, "plain_ms": plain,
-               "us": ms * 1e3, "library_ms": None,
-               "slab_GBps": slab / ms / 1e6,
-               **bound(used * row_bytes + 2 * T * K + 4 * T * k
-                       + 2 * T * k * N, 2 * T * k * N * K, "int8")}
-        emit({"phase": "k4", **row})
-        if not row_rel < K4_TOL:
-            raise RuntimeError(f"K4 {name} T={T} k={k}: error {row_rel} of a "
-                               f"(row, slot)'s max |plain|")
+               "outputs_differ": differ, "ms": ms, "plain_ms": plain,
+               "us": ms * 1e3, "plain_us": plain * 1e3, "library_ms": None,
+               "library_error": "no PyTorch call gathers int8 experts "
+                                "against int8 activations",
+               "slab_GBps": T * k * row_bytes / ms / 1e6,
+               **bound(used * row_bytes + 4 * T * K + 4 * T * k
+                       + 4 * T * k * N, 2 * T * k * N * K, "int8")}
+        emit({"phase": "k8", **row})
+        if differ:
+            raise RuntimeError(f"K8 {name} T={T} k={k}: {differ} outputs "
+                               f"differ from the plain version (max {d})")
         rows.append(row)
         del w
         torch.cuda.empty_cache()
@@ -959,24 +1047,150 @@ def serve_main_path(dev, cfg, params, phase="serve", name="qwen3-4b",
     return counts
 
 
-def serve_moe(dev, cfg, params):
-    """Qwen3-30B-A3B w4a8: every decode token runs K4 three times in each
-    of the 48 MoE layers (gate, up, down), and every prefill (16 tokens
-    and more, so M > 8) runs K5 three times a layer; attention runs K1
-    and K2 as on the dense model."""
+def serve_moe(dev, cfg, params, phase="serve_moe", name="qwen3-30b-a3b",
+              w8=""):
+    """Qwen3-30B-A3B w4a8 (or, with w8="_w8", w8a8 group-64): every decode
+    token runs K4 three times in each of the 48 MoE layers (gate, up,
+    down), and every prefill (16 tokens and more, so M > 8) runs K5 three
+    times a layer after the dequantize-once; attention runs K1 (at the
+    experts' width) and K2 as on the dense model."""
     per_layer = 3 * cfg.num_layers
-    results, counts = serve_requests(dev, cfg, params, "qwen3-30b-a3b",
-                                     ("k1_m1", "k1_mn", "k2", "k4", "k5"))
+    k4 = "k4" + w8
+    results, counts = serve_requests(
+        dev, cfg, params, name, ("k1_m1" + w8, "k1_mn" + w8, "k2", k4, "k5"))
     for req, row in results.items():
         n_out, delta = row["completion_tokens"], row["launches"]
-        if delta["k4"] < per_layer * (n_out - 1):
-            raise RuntimeError(f"request {req}: K4 ran {delta['k4']} times "
+        if delta[k4] < per_layer * (n_out - 1):
+            raise RuntimeError(f"request {req}: K4 ran {delta[k4]} times "
                                f"for {n_out} tokens")
         if delta["k5"] < per_layer or delta["k2"] < 1:
             raise RuntimeError(f"request {req}: prefill ran K5 "
                                f"{delta['k5']} times, K2 {delta['k2']}")
-    emit({"phase": "serve_moe", "launches": counts, "ok": True})
+    emit({"phase": phase, "launches": counts, "ok": True})
     return counts
+
+
+def prefill_seconds(dev, cfg, params, T) -> float:
+    """Wall seconds of one fresh T-token prefill at batch 1 (the second of
+    two runs), ended by a device synchronize."""
+    from ominix_mlx_tpu_torch.models import base
+
+    prompt = torch.arange(1, T + 1, device=dev)[None]
+    for _ in range(2):
+        cache = base.init_cache(cfg, 1, T + 16, device=dev)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            base.forward(params, cfg, prompt, cache, fresh_prefill=True)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return dt
+
+
+def serve_moe_batched_w8(dev, cfg):
+    """The batched server's w8a8 scheme on Qwen3-30B-A3B. First its
+    channel-int8 weights made directly at full width and depth (30 GB)
+    on a batched server with 8 slots and a paged pool (quantize_bits=None:
+    they are w8a8 already): 8 concurrent chat requests (each adoption the
+    exact all-expert int8 pass, then K8 three times a layer at every batch
+    decode step, K3 for attention), then each greedy request alone, whose
+    text must equal its text in the batch; the wall time of one adoption
+    prefill of 16 and of 128 tokens beside. Then enable_batching(
+    quantize_bits=8) converting a bf16 Qwen3-30B-A3B of 8 layers (the
+    conversion keeps the bf16 weights, as the JAX package's consume=False
+    does, so 48 layers would not fit): 2 concurrent requests on the
+    converted weights. Returns the launches of both servers' runs."""
+    from ominix_mlx_tpu_torch.models import base, qwen3_moe
+    from ominix_mlx_tpu_torch.ops import _build
+    from ominix_mlx_tpu_torch.ops.quant_matmul import ChannelQuantizedExperts
+    from ominix_mlx_tpu_torch.serving.server import ChatModel, Server
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    params = base.fuse_layer_projections(qwen3_moe.init_quantized_params(
+        cfg, gen, device=dev, scheme="channel8"))
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": "Qwen3-30B-A3B",
+          "weights": "w8a8 channel8", "layers": cfg.num_layers,
+          "init_seconds": time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    adopt = {T: prefill_seconds(dev, cfg, params, T) for T in (16, 128)}
+    name = "qwen3-30b-a3b-batched-w8"
+    srv = Server(port=free_port())
+    srv.add_model(name, ChatModel(name, params, cfg, ByteTokenizer(), dev))
+    srv.enable_batching(name, slots=BATCH, max_len=1024, paged=True)
+    srv.start_background()
+    contents = ("Hi!", "What is 2+2?", "Say hello in French.",
+                "Name three colours.", "Count to five.", "Tell me a story.",
+                "Pick a number.", "Why is the sky blue?")
+    reqs = {f"r{i}": (c, {}) for i, c in enumerate(contents)}
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        together = send_concurrent(srv.port, name, reqs)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        alone = {}
+        for k in reqs:
+            alone.update(send_concurrent(srv.port, name, {k: reqs[k]}))
+    finally:
+        srv.shutdown()
+    del params, srv
+    free_device_memory()
+    same = {k: together[k][0] == alone[k][0] for k in reqs}
+    n_tok = sum(r[2] for r in together.values())
+    row = {"phase": "serve_moe_batched_w8", "weights": "w8a8 channel8",
+           "slots": BATCH, "launches": launches, "seconds": wall,
+           "completion_tokens": n_tok, "aggregate_tok_s": n_tok / wall,
+           "adoption_prefill_seconds": adopt, "equal_alone": same,
+           "prompt_tokens": {k: r[1] for k, r in together.items()},
+           "text": {k: r[0][:40] for k, r in together.items()}}
+    emit(row)
+    per_layer = 3 * cfg.num_layers
+    if launches.get("k8", 0) < per_layer * (MAX_TOKENS - 1) \
+            or launches.get("k3", 0) < cfg.num_layers * (MAX_TOKENS - 1) \
+            or launches.get("k2", 0) < cfg.num_layers:
+        raise RuntimeError(f"batched w8 MoE launched {launches}")
+    if not all(r[2] > 0 and r[0] for r in together.values()) \
+            or not all(same.values()):
+        raise RuntimeError(f"batched w8 MoE answers differ from solo or are "
+                           f"empty: {row}")
+
+    c8 = dataclasses.replace(cfg, num_layers=8)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    dense = base.init_params(c8, gen, torch.bfloat16, device=dev)
+    name = "qwen3-30b-a3b-8l-bf16"
+    srv = Server(port=free_port())
+    srv.add_model(name, ChatModel(name, dense, c8, ByteTokenizer(), dev))
+    t0 = time.perf_counter()
+    srv.enable_batching(name, slots=2, max_len=1024, quantize_bits=8)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    srv.start_background()
+    try:
+        ex = srv.batchers[name].batcher.params["layers"][0]["moe"]["experts"]
+        kinds = {type(v).__name__ for v in ex.values()}
+        _build.reset_launches()
+        res = send_concurrent(srv.port, name, {k: reqs[k] for k in ("r0",
+                                                                    "r1")})
+        conv_launches = dict(_build.LAUNCHES)
+    finally:
+        srv.shutdown()
+    del dense, srv
+    free_device_memory()
+    emit({"phase": "serve_moe_batched_w8_convert", "layers": 8,
+          "weights": "bf16 -> enable_batching(quantize_bits=8)",
+          "quantize_seconds": t_quant, "expert_types": sorted(kinds),
+          "launches": conv_launches,
+          "completion_tokens": {k: r[2] for k, r in res.items()},
+          "text": {k: r[0][:40] for k, r in res.items()}})
+    if kinds != {ChannelQuantizedExperts.__name__} \
+            or conv_launches.get("k8", 0) < 3 * 8 \
+            or not all(r[2] > 0 and r[0] for r in res.values()):
+        raise RuntimeError(f"enable_batching(quantize_bits=8) on a MoE model "
+                           f"gave {kinds}, launched {conv_launches}")
+    return {k: launches.get(k, 0) + conv_launches.get(k, 0)
+            for k in set(launches) | set(conv_launches)}
 
 
 def engine_for(cfg, params):
@@ -1779,6 +1993,7 @@ def main() -> int:
     k2c_rows = check_k2c(dev, flush_buf.zero_)
     k3_rows = check_k3(dev, flush_buf.zero_)
     k4_rows = check_k4(dev, flush_buf.zero_)
+    k8_rows = check_k8(dev, flush_buf.zero_)
     k5_rows = check_k5(dev, flush_buf.zero_)
     del flush_buf
     torch.cuda.empty_cache()
@@ -1854,7 +2069,7 @@ def main() -> int:
           "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
     phases["serve_moe"] = serve_moe(dev, moe_cfg, params)
     check_logits(dev, moe_cfg, params, "Qwen3-30B-A3B")
-    emit({**decode_rate(dev, moe_cfg, params, 64, 192),
+    emit({**decode_rate(dev, moe_cfg, params, 32, 96),
           "config": "Qwen3-30B-A3B", "card": smi})
     phases["moe_batch_decode"] = moe_batch_decode(dev, moe_cfg, params)
     if args.profile:
@@ -1862,6 +2077,26 @@ def main() -> int:
               "config": "Qwen3-30B-A3B", "card": smi})
     del params
     free_device_memory()
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    params = base.fuse_layer_projections(qwen3_moe.init_quantized_params(
+        moe_cfg, gen, GS, 8, act_bits=8, device=dev))
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": "Qwen3-30B-A3B", "weights": "w8a8 g64",
+          "layers": moe_cfg.num_layers, "init_seconds":
+          time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    phases["serve_moe_q8"] = serve_moe(dev, moe_cfg, params, "serve_moe_q8",
+                                       "qwen3-30b-a3b-q8", "_w8")
+    check_logits(dev, moe_cfg, params, "Qwen3-30B-A3B w8a8",
+                 tol=MOE_W8A8_LOGITS_TOL)
+    emit({**decode_rate(dev, moe_cfg, params, 32, 96),
+          "config": "Qwen3-30B-A3B", "weights": "w8a8 g64", "card": smi})
+    del params
+    free_device_memory()
+
+    phases["serve_moe_batched_w8"] = serve_moe_batched_w8(dev, moe_cfg)
 
     def launches(key):
         return sum(c.get(key, 0) for c in phases.values())
@@ -1918,8 +2153,17 @@ def main() -> int:
               "ominix_mlx_tpu_torch/csrc/paged_attn.cu", k3_rows,
               lambda rs: rs[0], "k3"),
         entry("k4_gather_qmm", "ominix_mlx_tpu/ops/quant_matmul.py:1606",
-              "ominix_mlx_tpu_torch/csrc/gather_qmm.cu", k4_rows,
-              lambda rs: rs[0], "k4"),
+              "ominix_mlx_tpu_torch/csrc/gather_qmm.cu",
+              [r for r in k4_rows if r["bits"] == 4], lambda rs: rs[0], "k4"),
+        entry("k4_gather_qmm_w8",
+              "ominix_mlx_tpu/ops/quant_matmul.py:1606 (bits=8)",
+              "ominix_mlx_tpu_torch/csrc/gather_qmm.cu",
+              [r for r in k4_rows if r["bits"] == 8], lambda rs: rs[0],
+              "k4_w8"),
+        entry("k8_channel_gather_qmm",
+              "XLA einsum ominix_mlx_tpu/ops/quant_matmul.py:1523, no Pallas "
+              "kernel", "ominix_mlx_tpu_torch/csrc/gather_qmm.cu", k8_rows,
+              lambda rs: rs[0], "k8"),
         entry("k5_grouped_mm", "ominix_mlx_tpu/models/moe.py:84",
               "ominix_mlx_tpu_torch/csrc/grouped_mm.cu", k5_rows,
               lambda rs: rs[0], "k5"),

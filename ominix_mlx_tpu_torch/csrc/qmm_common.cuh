@@ -1,8 +1,9 @@
-// Device code shared by K1 and K6 (qmm.cu), K4 (gather_qmm.cu) and K7
-// (qmm_tc.cu): warp and block reductions, the activation prologue (norm,
-// group sums, a8 quantisation), and the int8 x int4 dot of the w4a8 formula
-// over the 4-bit packed layout (uint8 [.., K/2], natural nibble order;
-// bf16 scales and folded biases b - 8s per group).
+// Device code shared by K1 and K6 (qmm.cu), K4 and K8 (gather_qmm.cu) and
+// K7 (qmm_tc.cu): warp and block reductions, the activation prologue (norm,
+// group sums, a8 quantisation), and the row dot of the a8 formula over the
+// packed layouts (4-bit: uint8 [.., K/2], natural nibble order, folded
+// biases b - 8s; 8-bit: int8 [.., K], biases b; bf16 scales and biases per
+// group).
 //
 // Everything here has internal linkage (an anonymous namespace), so each
 // kernel source that includes it gets its own copy.
@@ -113,27 +114,40 @@ __device__ __forceinline__ int dot8(uint32_t w, int X0, int X1, int acc) {
 
 // One warp's a8 dot of one packed weight row with one row of int8
 // activations, returned warp-reduced (every lane gets it):
-// y = sx * sum_g s_g * P_g + sum_g b'_g * xg_g. Lane c takes the 16-byte
-// chunk c (32 codes) of the row, stepping by 32 chunks, so the warp reads
-// 512 contiguous bytes per step. K and gs are multiples of 32.
+// y = sx * sum_g s_g * P_g + sum_g b*_g * xg_g, b* the stored bias (b - 8s
+// for 4-bit, b for 8-bit). Lane c takes the 16-byte chunk c of the row (32
+// unsigned 4-bit codes or 16 signed 8-bit codes), stepping by 32 chunks, so
+// the warp reads 512 contiguous bytes per step. K and gs are multiples of
+// 32.
+template <int BITS>
 __device__ __forceinline__ float a8_row_dot(
     const uint8_t* __restrict__ row, const __nv_bfloat16* __restrict__ srow,
     const __nv_bfloat16* __restrict__ brow, const int8_t* __restrict__ xq,
     const float* __restrict__ xg, float sx, int K, int gs, int lane) {
-  const int chunks = K / 32;
+  constexpr int NC = BITS == 4 ? 32 : 16;      // codes a chunk
+  const int chunks = K / NC;
   const uint4* wrow = reinterpret_cast<const uint4*>(row);
   const int4* xv = reinterpret_cast<const int4*>(xq);
   float acc_p = 0.f, acc_b = 0.f;
   for (int c = lane; c < chunks; c += 32) {
     const uint4 w = __ldg(wrow + c);
-    const int4 xa = __ldg(xv + 2 * c), xb = __ldg(xv + 2 * c + 1);
-    int p = dot8(w.x, xa.x, xa.y, 0);
-    p = dot8(w.y, xa.z, xa.w, p);
-    p = dot8(w.z, xb.x, xb.y, p);
-    p = dot8(w.w, xb.z, xb.w, p);
-    const int g = (c * 32) / gs;
+    int p;
+    if constexpr (BITS == 4) {
+      const int4 xa = __ldg(xv + 2 * c), xb = __ldg(xv + 2 * c + 1);
+      p = dot8(w.x, xa.x, xa.y, 0);
+      p = dot8(w.y, xa.z, xa.w, p);
+      p = dot8(w.z, xb.x, xb.y, p);
+      p = dot8(w.w, xb.z, xb.w, p);
+    } else {
+      const int4 x4 = __ldg(xv + c);
+      p = __dp4a((int)w.x, x4.x, 0);
+      p = __dp4a((int)w.y, x4.y, p);
+      p = __dp4a((int)w.z, x4.z, p);
+      p = __dp4a((int)w.w, x4.w, p);
+    }
+    const int g = (c * NC) / gs;
     acc_p = fmaf(__bfloat162float(srow[g]), (float)p, acc_p);
-    if ((c * 32) % gs == 0)
+    if ((c * NC) % gs == 0)
       acc_b = fmaf(__bfloat162float(brow[g]), xg[g], acc_b);
   }
   acc_p = warp_sum(acc_p);

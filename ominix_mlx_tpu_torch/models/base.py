@@ -187,10 +187,11 @@ def init_quantized_params(cfg: TransformerConfig, generator: torch.Generator,
     them for the batched-decode formula; ``fuse_layer_projections`` moves
     the eligible ones to panels). scheme="channel8" (w8a8): codes uniform
     in [-127, 127], scale in_f**-0.5 / 127 per output row. Unit norms
-    (bf16). With ``cfg.moe`` every layer is a MoE layer whose 4-bit
-    experts are made packed (``moe.init_quantized_moe_params``); channel8
-    and 8-bit experts are not ported. ``device`` defaults to the current
-    CUDA device."""
+    (bf16). With ``cfg.moe`` every layer is a MoE layer whose experts are
+    made directly in their packed form by the same scheme and ranges
+    (``moe.init_quantized_moe_params``: 4- or 8-bit group experts or
+    channel-int8 experts). ``device`` defaults to the current CUDA
+    device."""
     _check_supported(cfg)
     device = resolve_device(device)
     if scheme not in ("group", "channel8"):
@@ -223,13 +224,9 @@ def init_quantized_params(cfg: TransformerConfig, generator: torch.Generator,
         for name, shape in _layer_shapes(cfg).items():
             lp[name] = {"w": qrand(*shape)}
         if cfg.moe is not None:
-            if scheme != "group" or bits != 4:
-                raise NotImplementedError(
-                    "channel8 and 8-bit experts are not ported to the "
-                    "torch package")
             lp["moe"] = moe_mod.init_quantized_moe_params(
                 generator, cfg.hidden_size, cfg.moe, group_size, act_bits,
-                device)
+                device, bits, scheme)
         layers.append(lp)
     params = {"embed": qrand(cfg.vocab_size, cfg.hidden_size),
               "layers": layers,
@@ -256,10 +253,10 @@ def quantize_params(params: dict, group_size: int = 64, bits: int = 4,
     ``batched`` marks them for the batched-decode formula, as the JAX
     package's ``prepare(batched=True)``). scheme="channel8":
     per-output-channel symmetric int8 (w8a8), the batched-serving scheme.
-    A MoE layer's stacked experts quantize by the same group rule into
-    ``PackedQuantizedExperts`` (4-bit only: channel8 and 8-bit experts are
-    not ported and raise); its router gate stays dense and its shared
-    expert quantizes as plain linears."""
+    A MoE layer's stacked experts quantize by the same scheme, into
+    ``PackedQuantizedExperts`` (4 or 8 bits) or ``ChannelQuantizedExperts``
+    (channel8); its router gate stays dense and its shared expert
+    quantizes as plain linears."""
     from ominix_mlx_tpu_torch.core.quant import quantize_tensor
 
     if scheme not in ("group", "channel8"):

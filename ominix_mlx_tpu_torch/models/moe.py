@@ -1,21 +1,27 @@
 """Mixture-of-experts layer: SwiGLU experts and top-k routing (counterpart
 of ominix_mlx_tpu/models/moe.py).
 
-Expert weights are stacked [E, N, K] (HF output-major layout), dense bf16
-or 4-bit ``PackedQuantizedExperts``. ``moe_block`` branches on the rows M
-of the layer's input and the experts' type:
+Expert weights are stacked [E, N, K] (HF output-major layout): dense bf16,
+4- or 8-bit group ``PackedQuantizedExperts``, or channelwise int8
+``ChannelQuantizedExperts`` (the batched server's w8a8). ``moe_block``
+branches on the rows M of the layer's input and the experts' type:
 
-* packed experts, M <= 8 (decode): ``gather_qmm`` three times, kernel K4
-  on CUDA, reading only the selected experts' rows;
+* channel experts, M <= 8 (decode): ``channel_gather_qmm`` three times,
+  kernel K8 on CUDA, reading only the selected experts' int8 rows; the
+  hidden activation stays float32;
+* group experts, M <= 8: ``gather_qmm`` three times, kernel K4 on CUDA
+  where ``expert_route`` names it;
 * bf16 experts, M <= 8: gather the selected slabs and compute plainly;
-* M > 8 (prefill): ``sorted_expert_mlp``, the token copies sorted by
-  expert and three grouped matmuls, kernel K5 on CUDA. Packed experts are
+* channel experts, M > 8 (prefill): the JAX package's all-expert pass,
+  activations quantized once and every expert's exact int8 products
+  (``torch._int_mm``) combined by the routing weights in expert order,
+  E/k times the routed work;
+* other experts, M > 8: ``sorted_expert_mlp``, the token copies sorted by
+  expert and three grouped matmuls, kernel K5 on CUDA. Group experts are
   first dequantized to bf16 once per call (all experts, one elementwise
   pass).
 
-Channel-int8 experts (the JAX package's ``ChannelQuantizedExperts``) are
-not ported: their int8 gather-einsum has no CUDA op in PyTorch and needs a
-kernel of its own. The port reads no environment variable.
+The port reads no environment variable.
 """
 
 from __future__ import annotations
@@ -28,10 +34,10 @@ import torch
 from ominix_mlx_tpu_torch.core.device import resolve_device
 from ominix_mlx_tpu_torch.nn.layers import ACTIVATIONS, linear
 from ominix_mlx_tpu_torch.ops.grouped_matmul import grouped_matmul
-from ominix_mlx_tpu_torch.ops.quant_matmul import (PackedQuantizedExperts,
-                                                   dequantize_experts,
-                                                   gather_qmm,
-                                                   quantize_experts)
+from ominix_mlx_tpu_torch.ops.quant_matmul import (
+    ChannelQuantizedExperts, PackedQuantizedExperts, channel_expert_matmul_q,
+    channel_gather_qmm, channel_quantize_experts, dequantize_experts,
+    gather_qmm, quantize_act_channel, quantize_experts)
 
 EXPERT_NAMES = ("gate_proj", "up_proj", "down_proj")
 GATHER_M_MAX = 8    # up to this many token rows, the experts are gathered
@@ -143,9 +149,9 @@ def moe_block(lp: dict, mcfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
     """x: [B, T, D] -> [B, T, D].
 
     lp: {"gate": linear, "experts": {"gate_proj": [E, I, D], "up_proj":
-    [E, I, D], "down_proj": [E, D, I]} (dense or PackedQuantizedExperts),
-    optional "shared_expert": dense mlp params, optional
-    "shared_expert_gate", "e_score_correction_bias"}."""
+    [E, I, D], "down_proj": [E, D, I]} (dense, PackedQuantizedExperts or
+    ChannelQuantizedExperts), optional "shared_expert": dense mlp params,
+    optional "shared_expert_gate", "e_score_correction_bias"}."""
     B, T, D = x.shape
     act = ACTIVATIONS[mcfg.hidden_act]
     xt = x.reshape(B * T, D)
@@ -153,16 +159,28 @@ def moe_block(lp: dict, mcfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
     M = B * T
     k = mcfg.top_k
     ex = lp["experts"]
-    if not all(isinstance(ex[n], (torch.Tensor, PackedQuantizedExperts))
-               for n in EXPERT_NAMES):
+    kinds = (torch.Tensor, PackedQuantizedExperts, ChannelQuantizedExperts)
+    if not all(isinstance(ex[n], kinds) for n in EXPERT_NAMES):
         raise NotImplementedError(
             f"{type(ex['gate_proj']).__name__} experts are not ported to "
-            f"the torch package: only bf16/float and 4-bit group experts")
+            f"the torch package: bf16/float, 4- and 8-bit group and "
+            f"channel-int8 experts are")
     quant = isinstance(ex["gate_proj"], PackedQuantizedExperts)
+    chan = isinstance(ex["gate_proj"], ChannelQuantizedExperts)
 
-    if M <= GATHER_M_MAX and quant:
-        # decode, quantized experts: read ONLY the top-k experts' 4-bit
-        # rows (K4 on CUDA), as the TPU's gather_qmm kernel does
+    if M <= GATHER_M_MAX and chan:
+        # decode, channel-int8 experts: read ONLY the top-k experts' int8
+        # rows (K8 on CUDA); the products are exact, h stays float32
+        g = channel_gather_qmm(xt, ex["gate_proj"], idx)  # f32 [M, k, I]
+        u = channel_gather_qmm(xt, ex["up_proj"], idx)
+        h = act(g) * u
+        I = h.shape[-1]
+        y = channel_gather_qmm(h.reshape(M * k, I), ex["down_proj"],
+                               idx.reshape(M * k, 1)).reshape(M, k, D)
+        y = torch.einsum("mkd,mk->md", y, w.float())
+    elif M <= GATHER_M_MAX and quant:
+        # decode, quantized experts: read ONLY the top-k experts' 4- or
+        # 8-bit rows (K4 on CUDA), as the TPU's gather_qmm kernel does
         g = gather_qmm(xt, ex["gate_proj"], idx)         # [M, k, I]
         u = gather_qmm(xt, ex["up_proj"], idx)
         h = (act(g.float()) * u.float()).to(x.dtype)
@@ -177,6 +195,21 @@ def moe_block(lp: dict, mcfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
         wd = ex["down_proj"][idx]
         y = _expert_mlp(wg, wu, wd, xt[:, None, :], act)  # [M, k, D]
         y = torch.einsum("mkd,mk->md", y.float(), w.float())
+    elif chan:
+        # prefill, channel-int8 experts: the JAX package's all-expert pass
+        # (models/moe.py:206-222), activations quantized ONCE, each
+        # expert's products exact (torch._int_mm, XLA's dot_general there),
+        # accumulated in expert order as there, so the float32 sums match
+        comb = torch.zeros(M, mcfg.num_experts, device=x.device).scatter_add_(
+            1, idx, w.float())
+        xq, sx = quantize_act_channel(xt.float())
+        y = torch.zeros(M, D, device=x.device)
+        for e in range(mcfg.num_experts):
+            g = channel_expert_matmul_q(xq, sx, ex["gate_proj"], e)
+            u = channel_expert_matmul_q(xq, sx, ex["up_proj"], e)
+            hq, sh = quantize_act_channel(act(g) * u)
+            ye = channel_expert_matmul_q(hq, sh, ex["down_proj"], e)
+            y = y + ye * comb[:, e][:, None]
     else:
         if quant:
             # prefill, quantized experts: dequantize the layer's experts
@@ -206,17 +239,20 @@ def quantize_experts_params(lp: dict, group_size: int = 64, bits: int = 4,
                             scheme: str = "group",
                             act_bits: Optional[int] = 8) -> dict:
     """Quantize a MoE layer's stacked expert weights (returns a new dict);
-    the router gate stays dense. scheme="channel8" (channel-int8 experts)
-    is not ported and raises."""
-    if scheme != "group":
-        raise NotImplementedError(
-            f"scheme {scheme!r} experts are not ported to the torch package: "
-            f"channel-int8 experts need a kernel of their own")
+    the router gate stays dense. scheme="group": 4- or 8-bit
+    ``PackedQuantizedExperts``; scheme="channel8": per-(expert, output
+    channel) int8 ``ChannelQuantizedExperts`` (the batched-serving w8a8;
+    ``group_size``, ``bits`` and ``act_bits`` unused)."""
+    if scheme not in ("group", "channel8"):
+        raise ValueError(f"scheme {scheme!r}")
     out = dict(lp)
     ex = dict(lp["experts"])
     for name in EXPERT_NAMES:
         if isinstance(ex.get(name), torch.Tensor):
-            ex[name] = quantize_experts(ex[name], group_size, bits, act_bits)
+            ex[name] = (channel_quantize_experts(ex[name])
+                        if scheme == "channel8" else
+                        quantize_experts(ex[name], group_size, bits,
+                                         act_bits))
     out["experts"] = ex
     return out
 
@@ -243,23 +279,44 @@ def init_moe_params(generator: torch.Generator, hidden_size: int,
 def init_quantized_moe_params(generator: torch.Generator, hidden_size: int,
                               mcfg: MoEConfig, group_size: int = 64,
                               act_bits: Optional[int] = 8,
-                              device=None) -> dict:
-    """Random 4-bit MoE layer made directly in the packed layout (never
-    the dense weights): uniform codes, scales 1/(8 sqrt(in)), zero biases
-    (stored folded as -8s), and a dense bf16 router gate as in
+                              device=None, bits: int = 4,
+                              scheme: str = "group") -> dict:
+    """Random quantized MoE layer made directly in the packed layout (never
+    the dense weights), with the ranges of ``base.init_quantized_params``:
+    scheme="group", 4- or 8-bit codes uniform over their range, scales
+    1/(sqrt(in) 2^(bits-1)), zero biases (stored folded as -8s at 4 bits);
+    scheme="channel8", int8 codes uniform in [-127, 127] and scale
+    in**-0.5 / 127 per (expert, row). A dense bf16 router gate as in
     ``init_moe_params``."""
     device = resolve_device(device)
+    if scheme not in ("group", "channel8"):
+        raise ValueError(f"scheme {scheme!r}")
     E, I, D = mcfg.num_experts, mcfg.moe_intermediate_size, hidden_size
 
     def packed(N, K):
-        G = K // group_size
-        s = torch.full((E, N, G), (K ** -0.5) / 8, dtype=torch.bfloat16,
-                       device=device)
+        if scheme == "channel8":
+            return ChannelQuantizedExperts(
+                data=torch.randint(-127, 128, (E, N, K), generator=generator,
+                                   device=device, dtype=torch.int8),
+                scale=torch.full((E, N), (K ** -0.5) / 127.0,
+                                 dtype=torch.float32, device=device))
+        if bits not in (4, 8):
+            raise NotImplementedError(f"{bits}-bit experts: 4 and 8 bits "
+                                      f"are ported")
+        lim = 1 << (bits - 1)
+        s = torch.full((E, N, K // group_size), (K ** -0.5) / lim,
+                       dtype=torch.bfloat16, device=device)
+        if bits == 4:
+            data = torch.randint(0, 256, (E, N, K // 2), generator=generator,
+                                 device=device, dtype=torch.uint8)
+            b = (-8.0 * s.float()).to(torch.bfloat16)
+        else:
+            data = torch.randint(-lim, lim, (E, N, K), generator=generator,
+                                 device=device, dtype=torch.int8)
+            b = torch.zeros_like(s)
         return PackedQuantizedExperts(
-            data=torch.randint(0, 256, (E, N, K // 2), generator=generator,
-                               device=device, dtype=torch.uint8),
-            scales=s, biases=(-8.0 * s.float()).to(torch.bfloat16),
-            group_size=group_size, bits=4, in_features=K, act_bits=act_bits)
+            data=data, scales=s, biases=b, group_size=group_size, bits=bits,
+            in_features=K, act_bits=act_bits)
 
     gate = (torch.rand((E, D), generator=generator, device=device) * 2 - 1)
     return {"gate": {"w": (gate * D ** -0.5).to(torch.bfloat16)},

@@ -60,10 +60,12 @@ def init_params(cfg: TransformerConfig, generator, dtype=torch.bfloat16,
 
 
 def init_quantized_params(cfg: TransformerConfig, generator, group_size=64,
-                          bits=4, act_bits=8, device=None) -> dict:
-    """Random 4-bit tree made packed, every layer sparse: experts straight
-    into ``PackedQuantizedExperts``, never the dense weights (61 GB in
-    bf16 at Qwen3-30B-A3B's size)."""
+                          bits=4, act_bits=8, device=None,
+                          scheme="group") -> dict:
+    """Random quantized tree made packed, every layer sparse: 4- or 8-bit
+    group experts straight into ``PackedQuantizedExperts``, or
+    scheme="channel8" ones into ``ChannelQuantizedExperts``, never the
+    dense weights (61 GB in bf16 at Qwen3-30B-A3B's size)."""
     _require_moe(cfg)
     return base.init_quantized_params(cfg, generator, group_size, bits,
-                                      act_bits, device=device)
+                                      act_bits, device=device, scheme=scheme)

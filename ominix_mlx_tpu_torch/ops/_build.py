@@ -40,8 +40,9 @@ build_seconds = 0.0     # wall time of the build this process ran (0 if reused)
 # over up to 16 rows, "k7": exact w4a16 on the tensor cores up to 64 rows,
 # "k2": flash prefill, "k2c": flash continuation chunk,
 # "k3": paged decode attention, "k3_int8": the part of "k3" on int8
-# pages, "k4": MoE expert gather-qmm, "k5": grouped matmul). Plain-version
-# calls do not count.
+# pages, "k4": MoE expert gather-qmm on 4-bit experts, "k4_w8": the same
+# on 8-bit experts, "k5": grouped matmul, "k8": channelwise w8a8 expert
+# gather). Plain-version calls do not count.
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -85,9 +86,13 @@ def _declare(lib):
     lib.ominix_paged_decode.restype = i
     lib.ominix_paged_decode.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i,
                                         i, i, i, i, i, i, i, f, vp]
-    lib.ominix_gather_qmm_w4a8.restype = i
-    lib.ominix_gather_qmm_w4a8.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                           vp, i, i, i, i, i, i, vp]
+    for name in ("ominix_gather_qmm_w4a8", "ominix_gather_qmm_w8a8"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                       i, i, i, i, i, i, vp]
+    lib.ominix_channel_gather_qmm.restype = i
+    lib.ominix_channel_gather_qmm.argtypes = [vp, vp, vp, vp, vp, vp, vp, i,
+                                              i, i, i, i, vp]
     lib.ominix_grouped_mm.restype = i
     lib.ominix_grouped_mm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
     lib.ominix_cuda_error_string.restype = ctypes.c_char_p

@@ -49,17 +49,26 @@ A CPU tensor takes the plain PyTorch version of its route
 (``quantized_matmul_reference``); a CUDA tensor launches the route's kernel
 or raises.
 
-Stacked MoE experts (``PackedQuantizedExperts``, the 4-bit layout with an
-expert axis) go through ``gather_qmm``: kernel K4 (``csrc/gather_qmm.cu``,
-replaces the TPU's ``_gq_kernel``) reads only the rows of the experts each
-row of x selects, with K1's w4a8 formula; ``gather_qmm_reference`` is its
-plain version.
+Stacked MoE experts (``PackedQuantizedExperts``, the 4- or 8-bit layout
+with an expert axis) go through ``gather_qmm``. ``expert_route(w, T)``
+copies the JAX package's test for its TPU kernel (``gather_qmm``,
+ops/quant_matmul.py:1734-1738): on "k4", kernel K4 (``csrc/gather_qmm.cu``,
+replaces the TPU's ``_gq_kernel`` at 4 and 8 bits) reads only the rows of
+the experts each row of x selects, with K1's a8 formula
+(``gather_qmm_reference`` is its plain version); on "gathered", and for
+experts with act_bits=None, the JAX package's exact fallback (gathered rows
+dequantized in float32), plain PyTorch on either device as XLA computes it
+there.
 
 A ``ChannelQuantizedTensor`` (per-output-channel int8, the batched-serving
 w8a8 scheme) dispatches to ``channel_matmul``: dynamic per-token int8
 activations, an exact int8 x int8 product summed in int32, then a rank-1
 rescale. The JAX package computes that product in XLA, outside any Pallas
-kernel; here it is ``torch._int_mm``.
+kernel; here it is ``torch._int_mm``. Its stacked form,
+``ChannelQuantizedExperts``, goes through ``channel_gather_qmm``: PyTorch
+has no op for that gathered int8 product, so the port has a kernel of its
+own, K8 (``csrc/gather_qmm.cu``, in place of the XLA einsum at
+ops/quant_matmul.py:1523-1533).
 """
 
 from __future__ import annotations
@@ -73,7 +82,12 @@ from ominix_mlx_tpu_torch.core.quant import QuantizedTensor, over_127
 
 DECODE_M_MAX = 16   # up to this many rows, K1 and K6 run
 VPU_M_MAX = 64      # up to this many rows, K7 runs
-GATHER_T_MAX = 64   # K4 takes up to this many rows (M * k at the down proj)
+GATHER_PAIRS_MAX = 65535   # K4 and K8 run a CTA row per (row, slot) pair:
+                           # the grid's y dimension bounds T * k
+# the JAX package's TPU expert kernel DMAs whole expert slabs, double
+# buffered, and takes the weight only where both fit (ops/quant_matmul.py:
+# 1738)
+GATHER_NBUF, GATHER_SLAB_MAX = 2, 8 * 1024 * 1024
 # above this N the JAX package streams scales per panel and pads the rows
 # to 2048 and the groups to 128 (ops/quant_matmul.py:114-125, :343)
 SB_VMEM_MAX_N = 32768
@@ -377,15 +391,36 @@ def _check_launch(what: str, x: torch.Tensor, w: PackedQuantizedTensor,
             raise ValueError(f"{what} {name}: want contiguous {want_dt} "
                              f"{want_shp} on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if w.data.data_ptr() % 16 or x.data_ptr() % 16:
-        raise ValueError(f"{what} needs 16-byte aligned data and x")
-    if dev.index != torch.cuda.current_device():
-        raise ValueError(f"x is on {dev}, current device is "
-                         f"cuda:{torch.cuda.current_device()}")
+    _check_aligned(what, w.data, x)
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy where x is a view at an address the kernels' 16-byte
+    vector loads cannot take."""
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _check_aligned(what: str, data: torch.Tensor, x: torch.Tensor):
+    if data.data_ptr() % 16 or x.data_ptr() % 16:
+        raise ValueError(f"{what} needs 16-byte aligned data and x")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"x is on {x.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def _check_ids(what: str, ids: torch.Tensor, T: int, k: int, dev):
+    if ids.dtype != torch.int32 or not ids.is_contiguous() \
+            or ids.dim() != 2 or ids.shape[0] != T or ids.device != dev:
+        raise ValueError(f"{what} ids: want contiguous int32 [{T}, k] on "
+                         f"{dev}, got {ids.dtype} {tuple(ids.shape)} on "
+                         f"{ids.device}")
+    if not 1 <= T * k <= GATHER_PAIRS_MAX:
+        raise ValueError(f"{what} takes 1 to {GATHER_PAIRS_MAX} (row, slot) "
+                         f"pairs, got T={T}, k={k}")
 
 
 def _launch_p(what: str, x: torch.Tensor, w: PackedQuantizedTensor,
@@ -523,9 +558,7 @@ def quantized_matmul(x: torch.Tensor, w,
     elif r == "dense":
         y = dense_matmul(x2, w)
     else:
-        xk = x2.to(torch.bfloat16).contiguous()
-        if xk.data_ptr() % 16:      # a view at an odd offset: the kernels
-            xk = xk.clone()         # load x with 16-byte vector loads
+        xk = _aligned(x2.to(torch.bfloat16).contiguous())
         if r == "k1":
             y = _k1(xk, w, None if norm_w is None
                     else norm_w.to(torch.bfloat16).contiguous(), norm_eps)
@@ -614,20 +647,133 @@ def channel_gather_rows(w: ChannelQuantizedTensor,
     return (rows * w.scale[tokens][..., None]).to(torch.bfloat16)
 
 
+# --------------------------- channelwise w8a8 MoE experts (channel_gather_qmm,
+# K8; counterpart of ominix_mlx_tpu/ops/quant_matmul.py:1477-1533)
+
+@dataclasses.dataclass
+class ChannelQuantizedExperts:
+    """Stacked per-(expert, output-channel) symmetric int8 weights, the
+    batched-serving scheme of a MoE model: w[e, n, k] ~ data[e, n, k] *
+    scale[e, n]."""
+
+    data: torch.Tensor   # int8 [E, N, K]
+    scale: torch.Tensor  # f32 [E, N]
+
+    @property
+    def shape(self):
+        return tuple(self.data.shape)
+
+
+def channel_quantize_experts(w: torch.Tensor) -> ChannelQuantizedExperts:
+    """bf16/f32 stacked experts [E, N, K] -> per-(expert, row) int8, by
+    ``channel_quantize``'s rule."""
+    wf = w.float()
+    s = over_127(wf.abs().amax(-1)) + 1e-12
+    q = torch.clamp(torch.round(wf / s[..., None]), -127, 127).to(torch.int8)
+    return ChannelQuantizedExperts(data=q.contiguous(), scale=s)
+
+
+def channel_dequantize_expert(w: ChannelQuantizedExperts, e: int,
+                              dtype=torch.bfloat16) -> torch.Tensor:
+    """ONE expert's weights [N, K]."""
+    return (w.data[e].float() * w.scale[e][:, None]).to(dtype)
+
+
+def channel_expert_matmul_q(xq: torch.Tensor, sx: torch.Tensor,
+                            w: ChannelQuantizedExperts, e: int
+                            ) -> torch.Tensor:
+    """Already quantized activations (xq int8 [M, K], sx [M]) against ONE
+    expert: the exact int8 product (``torch._int_mm``; XLA's dot_general
+    in the JAX package), then ``* sx * scale`` -> f32 [M, N]."""
+    acc = _int8_matmul(xq, w.data[e])
+    return acc.float() * sx[:, None] * w.scale[e][None, :]
+
+
+def channel_gather_qmm_reference(x: torch.Tensor, w: ChannelQuantizedExperts,
+                                 ids: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K8: x [T, K], ids [T, k] -> f32 [T, k, N],
+    row t against the experts ids[t] (the JAX package's
+    ``channel_gather_qmm``): x quantized per row from float32
+    (``quantize_act_channel``), the int8 products summed exactly in int32
+    (up to K * 127^2, past float32's 2^24, so one ``_int8_matmul`` per
+    row over its k gathered experts, never a float32 einsum), then
+    ``acc * sx * scale`` in float32, in that order."""
+    T, K = x.shape
+    k = ids.shape[1]
+    ids = ids.long()
+    xq, sx = quantize_act_channel(x.float())
+    N = w.data.shape[1]
+    acc = torch.stack([_int8_matmul(xq[t:t + 1].contiguous(),
+                                    w.data[ids[t]].reshape(k * N, K))[0]
+                       for t in range(T)]).reshape(T, k, N)
+    return acc.float() * sx[:, None, None] * w.scale[ids]
+
+
+def _k8(x: torch.Tensor, w: ChannelQuantizedExperts,
+        ids: torch.Tensor) -> torch.Tensor:
+    """Launch K8 (csrc/gather_qmm.cu) on the current stream: float32 x
+    [T, K], int32 ids [T, k] on CUDA -> f32 [T, k, N]."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    T, K = x.shape
+    E, N, _ = w.data.shape
+    k = ids.shape[1] if ids.dim() == 2 else 0
+    dev = x.device
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"K8 takes contiguous float32 x, got {x.dtype}")
+    _check_ids("K8", ids, T, k, dev)
+    if K % 16:
+        raise ValueError(f"K8 takes K a multiple of 16, got K={K}")
+    for name, t, dt, shp in (("data", w.data, torch.int8, (E, N, K)),
+                             ("scale", w.scale, torch.float32, (E, N))):
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shp \
+                or not t.is_contiguous():
+            raise ValueError(f"K8 {name}: want contiguous {dt} {shp} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    _check_aligned("K8", w.data, x)
+    lib = _build.library()
+    y = torch.empty(T, k, N, dtype=torch.float32, device=dev)
+    xq = torch.empty(T, K, dtype=torch.int8, device=dev)
+    sx = torch.empty(T, dtype=torch.float32, device=dev)
+    rc = lib.ominix_channel_gather_qmm(
+        x.data_ptr(), ids.data_ptr(), w.data.data_ptr(), w.scale.data_ptr(),
+        y.data_ptr(), xq.data_ptr(), sx.data_ptr(), T, k, E, N, K,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "K8 (ominix_channel_gather_qmm)")
+    _build.LAUNCHES["k8"] += 1
+    return y
+
+
+def channel_gather_qmm(x: torch.Tensor, w: ChannelQuantizedExperts,
+                       ids: torch.Tensor) -> torch.Tensor:
+    """Expert-gathered w8a8 matmul (decode): x [T, K], ids [T, k] -> f32
+    [T, k, N], reading only the selected experts' int8 rows. A CUDA tensor
+    launches K8 (x widened to float32, which is exact); a CPU tensor takes
+    ``channel_gather_qmm_reference``."""
+    if not x.is_cuda:
+        return channel_gather_qmm_reference(x, w, ids)
+    return _k8(_aligned(x.float().contiguous()), w,
+               ids.to(torch.int32).contiguous())
+
+
 # ----------------------------------- MoE expert weights (gather_qmm, K4) ---
 # (counterpart of ominix_mlx_tpu/ops/quant_matmul.py:1536-1761)
 
 @dataclasses.dataclass
 class PackedQuantizedExperts:
-    """Stacked 4-bit expert weights [E, N, K] in K1's layout with an expert
-    axis: ``data`` uint8 [E, N, K/2] in natural nibble order, bf16
-    ``scales`` and ``biases`` [E, N, G], the biases holding the fold
-    ``b - 8s``. act_bits=8 is the TPU kernel's w4a8 formula; None is exact
-    (what the JAX package computes off the TPU)."""
+    """Stacked 4- or 8-bit expert weights [E, N, K] in K1's layout with an
+    expert axis: ``data`` uint8 [E, N, K/2] in natural nibble order with
+    the biases holding the fold ``b - 8s`` (4-bit), or int8 [E, N, K], the
+    signed codes, with the biases ``b`` as they are (8-bit, as the JAX
+    package's ``prepare`` stores them); bf16 ``scales`` and ``biases``
+    [E, N, G]. act_bits=8 is the TPU kernel's a8 formula where
+    ``expert_route`` names it; None is exact (what the JAX package computes
+    off the TPU)."""
 
-    data: torch.Tensor     # uint8 [E, N, K/2]
+    data: torch.Tensor     # uint8 [E, N, K/2] (4-bit) or int8 [E, N, K]
     scales: torch.Tensor   # bf16 [E, N, G]
-    biases: torch.Tensor   # bf16 [E, N, G], holds b - 8s
+    biases: torch.Tensor   # bf16 [E, N, G]: b - 8s (4-bit) or b (8-bit)
     group_size: int = 64
     bits: int = 4
     in_features: int = 0
@@ -640,10 +786,8 @@ class PackedQuantizedExperts:
 
 def pack_experts(qt: QuantizedTensor, E: int,
                  act_bits: Optional[int] = 8) -> PackedQuantizedExperts:
-    """Pack ``qt``, which holds E experts' rows stacked [E * N, K]."""
-    if qt.bits != 4:
-        raise NotImplementedError(
-            f"{qt.bits}-bit experts: only 4-bit experts are ported")
+    """Pack ``qt``, which holds E experts' rows stacked [E * N, K]
+    (``prepare``'s layout and bits; other than 4 or 8 bits raise)."""
     p = prepare(qt, act_bits=act_bits)
     N = p.data.shape[0] // E
     return PackedQuantizedExperts(
@@ -679,13 +823,30 @@ def experts_from_quantized(qts: list, act_bits: Optional[int] = 8
 def dequantize_expert(pqe: PackedQuantizedExperts, e: int) -> torch.Tensor:
     """ONE expert's weights as bf16 [N, K]."""
     return _dequant_rows(pqe.data[e], pqe.scales[e], pqe.biases[e],
-                         pqe.group_size)
+                         pqe.group_size, pqe.bits)
 
 
 def dequantize_experts(pqe: PackedQuantizedExperts) -> torch.Tensor:
     """Every expert's weights as bf16 [E, N, K], in one elementwise pass
     (``dequantize_expert`` of each e, stacked)."""
-    return _dequant_rows(pqe.data, pqe.scales, pqe.biases, pqe.group_size)
+    return _dequant_rows(pqe.data, pqe.scales, pqe.biases, pqe.group_size,
+                         pqe.bits)
+
+
+def expert_route(w: PackedQuantizedExperts, T: int) -> str:
+    """The formula the JAX package's ``gather_qmm`` computes on the TPU for
+    these experts (ops/quant_matmul.py:1734-1738): "k4", its kernel's a8
+    formula, where the kernel takes the shape (4 or 8 bits, at most 128
+    groups, the stored row and N multiples of 128, K a multiple of twice
+    the group size, and the double-buffered expert slab within 8 MiB);
+    else "gathered", its exact fallback. The TPU kernel runs every row of
+    x alone (``lax.map``), so the row count T does not enter."""
+    E, N, Kd = w.data.shape
+    K, gs = w.in_features, w.group_size
+    ok = (w.bits in (4, 8) and K // gs <= 128 and Kd % 128 == 0
+          and N % 128 == 0 and K % (2 * gs) == 0
+          and GATHER_NBUF * N * Kd <= GATHER_SLAB_MAX)
+    return "k4" if ok else "gathered"
 
 
 def gather_qmm_reference(x: torch.Tensor, w: PackedQuantizedExperts,
@@ -698,28 +859,31 @@ def gather_qmm_reference(x: torch.Tensor, w: PackedQuantizedExperts,
     (_gather_qmm_decode and _gq_kernel, ops/quant_matmul.py:1676-1718,
     :1606-1672): x in bf16, ``sx = max|x|/127 + 1e-12``,
     ``cx = round(x / sx)``, bf16 group sums ``xg``, and
-    ``y = sx * sum_g s_g * P_g + sum_g xg_g * (b - 8s)_g`` with ``P_g`` the
-    integer dot product of cx with the unsigned codes of group g.
-    act_bits=None is the JAX package's fallback (:1750-1760): the gathered
-    weights dequantized in float32 (no bf16 rounding), times float32 x."""
+    ``y = sx * sum_g s_g * P_g + sum_g xg_g * b*_g`` with ``P_g`` the
+    integer dot product of cx with the stored codes of group g (unsigned
+    4-bit codes against the folded b - 8s, or signed 8-bit codes against
+    b). act_bits=None is the JAX package's fallback (:1750-1760): the
+    gathered weights dequantized in float32 (no bf16 rounding), times
+    float32 x."""
     T, K = x.shape
     k = ids.shape[1]
     gs = w.group_size
     G = K // gs
     ids = ids.long()
-    u = _codes(w.data[ids]).float()                        # [T, k, N, K]
+    c = _code_values(w.data[ids], w.bits)                  # [T, k, N, K]
     s = w.scales[ids].float()                              # [T, k, N, G]
     b = w.biases[ids].float()
-    N = u.shape[2]
+    N = c.shape[2]
     if act_bits is None:
-        wd = (u.reshape(T, k, N, G, gs) * s[..., None]
+        wd = (c.reshape(T, k, N, G, gs) * s[..., None]
               + b[..., None]).reshape(T, k, N, K)
         return torch.einsum("tknd,td->tkn", wd, x.float()).to(x.dtype)
     xf = x.to(torch.bfloat16).float()
     sx = over_127(xf.abs().amax(-1)) + 1e-12               # [T]
     cx = torch.round(xf / sx[:, None]).reshape(T, G, gs)
-    # |P| <= gs * 127 * 15 < 2^24 for gs <= 64: exact in float32
-    P = torch.einsum("tkngc,tgc->tkng", u.reshape(T, k, N, G, gs), cx)
+    # |P| <= gs * 127 * 15 (4-bit) or gs * 127^2 (8-bit) < 2^24 for the
+    # group sizes the kernels take: exact in float32
+    P = torch.einsum("tkngc,tgc->tkng", c.reshape(T, k, N, G, gs), cx)
     xg = xf.reshape(T, G, gs).sum(-1).to(torch.bfloat16).float()
     y = (sx[:, None, None] * (s * P).sum(-1)
          + torch.einsum("tkng,tg->tkn", b, xg))
@@ -729,7 +893,7 @@ def gather_qmm_reference(x: torch.Tensor, w: PackedQuantizedExperts,
 def _k4(x: torch.Tensor, w: PackedQuantizedExperts,
         ids: torch.Tensor) -> torch.Tensor:
     """Launch K4 (csrc/gather_qmm.cu) on the current stream: bf16 x [T, K],
-    int32 ids [T, k] on CUDA -> bf16 [T, k, N]."""
+    int32 ids [T, k] on CUDA -> bf16 [T, k, N], w4a8 or w8a8."""
     from ominix_mlx_tpu_torch.ops import _build
 
     T, K = x.shape
@@ -739,64 +903,52 @@ def _k4(x: torch.Tensor, w: PackedQuantizedExperts,
     dev = x.device
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError(f"K4 takes contiguous bf16 x, got {x.dtype}")
-    if ids.dtype != torch.int32 or not ids.is_contiguous() \
-            or ids.dim() != 2 or ids.shape[0] != T or ids.device != dev:
-        raise ValueError(f"K4 ids: want contiguous int32 [{T}, k] on {dev}, "
-                         f"got {ids.dtype} {tuple(ids.shape)} on "
-                         f"{ids.device}")
-    if not 1 <= T <= GATHER_T_MAX or not 1 <= k <= 64:
-        raise ValueError(f"K4 takes 1 <= T <= {GATHER_T_MAX} rows and "
-                         f"1 <= k <= 64 slots, got T={T}, k={k}")
-    if K != w.in_features or w.bits != 4 or w.act_bits != 8 \
+    _check_ids("K4", ids, T, k, dev)
+    if K != w.in_features or w.bits not in (4, 8) or w.act_bits != 8 \
             or K % 32 or w.group_size % 32:
-        raise ValueError(f"K4 takes w4a8 experts with K and the group size "
-                         f"multiples of 32; x has K={K}, experts are "
-                         f"{w.bits}-bit, K={w.in_features}, act_bits="
+        raise ValueError(f"K4 takes w4a8 or w8a8 experts with K and the "
+                         f"group size multiples of 32; x has K={K}, experts "
+                         f"are {w.bits}-bit, K={w.in_features}, act_bits="
                          f"{w.act_bits}, group {w.group_size}")
-    for name, t, dt, shp in (("data", w.data, torch.uint8, (E, N, K // 2)),
-                             ("scales", w.scales, torch.bfloat16, (E, N, G)),
-                             ("biases", w.biases, torch.bfloat16, (E, N, G))):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shp \
+    dt, Kd = (torch.uint8, K // 2) if w.bits == 4 else (torch.int8, K)
+    for name, t, want_dt, shp in (
+            ("data", w.data, dt, (E, N, Kd)),
+            ("scales", w.scales, torch.bfloat16, (E, N, G)),
+            ("biases", w.biases, torch.bfloat16, (E, N, G))):
+        if t.device != dev or t.dtype != want_dt or tuple(t.shape) != shp \
                 or not t.is_contiguous():
-            raise ValueError(f"K4 {name}: want contiguous {dt} {shp} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+            raise ValueError(f"K4 {name}: want contiguous {want_dt} {shp} "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    if w.data.data_ptr() % 16 or x.data_ptr() % 16:
-        raise ValueError("K4 needs 16-byte aligned data and x")
-    if dev.index != torch.cuda.current_device():
-        raise ValueError(f"x is on {dev}, current device is "
-                         f"cuda:{torch.cuda.current_device()}")
+    _check_aligned("K4", w.data, x)
     lib = _build.library()
     y = torch.empty(T, k, N, dtype=torch.bfloat16, device=dev)
     xq = torch.empty(T, K, dtype=torch.int8, device=dev)
     xg = torch.empty(T, G, dtype=torch.float32, device=dev)
     sx = torch.empty(T, dtype=torch.float32, device=dev)
-    rc = lib.ominix_gather_qmm_w4a8(
+    entry = f"ominix_gather_qmm_w{w.bits}a8"
+    rc = getattr(lib, entry)(
         x.data_ptr(), ids.data_ptr(), w.data.data_ptr(),
         w.scales.data_ptr(), w.biases.data_ptr(), y.data_ptr(),
         xq.data_ptr(), xg.data_ptr(), sx.data_ptr(), T, k, E, N, K,
         w.group_size, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "K4 (ominix_gather_qmm_w4a8)")
-    _build.LAUNCHES["k4"] += 1
+    _build.check(rc, f"K4 ({entry})")
+    _build.LAUNCHES["k4" if w.bits == 4 else "k4_w8"] += 1
     return y
 
 
 def gather_qmm(x: torch.Tensor, w: PackedQuantizedExperts,
                ids: torch.Tensor) -> torch.Tensor:
     """Per-row expert-gathered quantized matmul: x [T, K], ids [T, k] ->
-    [T, k, N] in x's dtype, reading only the selected experts' rows. A
-    CUDA tensor launches K4 (w4a8; experts with act_bits=None raise there);
-    a CPU tensor takes ``gather_qmm_reference`` with the experts'
-    act_bits."""
-    if w.bits != 4:
-        raise NotImplementedError(
-            f"{w.bits}-bit experts: only 4-bit experts are ported")
+    [T, k, N] in x's dtype. On ``expert_route`` "k4", experts with
+    act_bits=8 take the TPU kernel's a8 formula: a CUDA tensor launches
+    K4 (reading only the selected experts' rows), a CPU tensor takes
+    ``gather_qmm_reference(act_bits=8)``. On "gathered", and for experts
+    with act_bits=None, both devices compute the JAX package's exact
+    fallback in plain PyTorch (XLA's product there too)."""
+    if w.act_bits != 8 or expert_route(w, x.shape[0]) == "gathered":
+        return gather_qmm_reference(x, w, ids, None)
     if not x.is_cuda:
-        return gather_qmm_reference(x, w, ids, w.act_bits)
-    if w.act_bits != 8:
-        raise ValueError("K4 computes w4a8 only: experts with act_bits="
-                         f"{w.act_bits!r} have no CUDA path")
-    xk = x.to(torch.bfloat16).contiguous()
-    if xk.data_ptr() % 16:
-        xk = xk.clone()
-    return _k4(xk, w, ids.to(torch.int32).contiguous()).to(x.dtype)
+        return gather_qmm_reference(x, w, ids, 8)
+    return _k4(_aligned(x.to(torch.bfloat16).contiguous()), w,
+               ids.to(torch.int32).contiguous()).to(x.dtype)

@@ -115,11 +115,14 @@ class BatchedChatRunner:
     and sampled requests share the one step (per-slot sampler settings are
     tensors).
 
-    quantize_bits=8 serves channelwise w8a8 (``scheme="channel8"``);
+    quantize_bits=8 serves channelwise w8a8 (``scheme="channel8"``),
+    a MoE model's experts as ``ChannelQuantizedExperts`` (K8 at decode,
+    the exact all-expert pass at adoption);
     quantize_bits=4 serves group w4 marked ``batched`` with act_bits=8, as
     the JAX package does: the batch decode takes the dq formula (K1 at
     2 <= M <= 16), adoption prefills up to 64 tokens K7, a lone row K6's
-    w4a8, and a MoE model's experts K4's w4a8.
+    w4a8, and a MoE model's experts K4's w4a8. Both quantize a copy of the
+    model's weights, as the JAX package's ``consume=False`` does.
     kv_bits=8 stores the paged pool as int8 pages."""
 
     def __init__(self, model, slots: int = 4, max_len: int = 2048,

@@ -12,9 +12,11 @@ carried: the JAX package's 4-bit row-major byte order is not the port's.
 Each channel-quantized
 (w8a8) weight is a dict ``{"data", "scale"}`` (the JAX package's
 ``ChannelQuantizedTensor`` as numpy: int8 codes [N, K], float32 scale
-[N]). The output lives on ``device``, with group-quantized weights packed
-for the routes of ``ops.quant_matmul`` and stacked experts packed for
-kernel K4 (``PackedQuantizedExperts``).
+[N]; its ``ChannelQuantizedExperts``: data [E, N, K], scale [E, N]). The
+output lives on ``device``, with group-quantized weights packed for the
+routes of ``ops.quant_matmul``, stacked 4- or 8-bit experts packed for
+kernel K4 (``PackedQuantizedExperts``) and stacked channel experts for
+kernel K8 (``ChannelQuantizedExperts``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 
 from ominix_mlx_tpu_torch.core.quant import QuantizedTensor
-from ominix_mlx_tpu_torch.ops.quant_matmul import (ChannelQuantizedTensor,
+from ominix_mlx_tpu_torch.ops.quant_matmul import (ChannelQuantizedExperts,
+                                                   ChannelQuantizedTensor,
                                                    pack_experts, prepare)
 
 _QKEYS = {"q", "scales", "biases", "group_size", "bits"}
@@ -74,9 +77,11 @@ def params_from_numpy(tree, device, dtype: Optional[torch.dtype] = None,
                     p = dataclasses.replace(p, panels=True)
                 return p
             if node.keys() == _CKEYS:
-                return ChannelQuantizedTensor(
-                    data=_tensor(node["data"], device).to(torch.int8),
-                    scale=_tensor(node["scale"], device).to(torch.float32))
+                data = _tensor(node["data"], device).to(torch.int8)
+                kind = (ChannelQuantizedExperts if data.dim() == 3
+                        else ChannelQuantizedTensor)
+                return kind(data=data, scale=_tensor(
+                    node["scale"], device).to(torch.float32))
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)

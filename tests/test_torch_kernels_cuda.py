@@ -449,36 +449,55 @@ def test_k3_at_32_over_4_heads(cuda, quant):
 
 # ------------------------------------------------- K4: expert gather-qmm ----
 
-def _experts(dev, E, N, K, act_bits=8, seed=0):
+def _experts(dev, E, N, K, act_bits=8, seed=0, bits=4):
     g = torch.Generator(device=dev).manual_seed(seed)
     G = K // 64
+    lim = 1 << (bits - 1)
+    if bits == 4:
+        data = torch.randint(0, 256, (E, N, K // 2), generator=g, device=dev,
+                             dtype=torch.uint8)
+    else:
+        data = torch.randint(-lim, lim, (E, N, K), generator=g, device=dev,
+                             dtype=torch.int8)
     w = qm.PackedQuantizedExperts(
-        data=torch.randint(0, 256, (E, N, K // 2), generator=g, device=dev,
-                           dtype=torch.uint8),
+        data=data,
         scales=((torch.rand(E, N, G, generator=g, device=dev) + 0.5)
-                * K ** -0.5 / 8).bfloat16(),
+                * K ** -0.5 / lim).bfloat16(),
         biases=(torch.randn(E, N, G, generator=g, device=dev)
                 * K ** -0.5 / 4).bfloat16(),
-        group_size=64, bits=4, in_features=K, act_bits=act_bits)
+        group_size=64, bits=bits, in_features=K, act_bits=act_bits)
     return w, g
 
 
+def _ids(g, dev, E, T, k):
+    """Expert ids out of order, with a repeat and the last expert."""
+    ids = torch.randint(0, E, (T, k), generator=g, device=dev)
+    ids[0, -1] = E - 1
+    ids[-1, 0] = ids[0, 0]
+    return ids
+
+
+@pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("T,k,N,K", [(1, 8, 768, 2048), (8, 8, 768, 2048),
                                      (8, 1, 2048, 768), (64, 1, 2048, 768),
                                      (3, 5, 100, 256)])
-def test_k4_matches_plain(cuda, T, k, N, K):
-    """K4 against gather_qmm_reference(act_bits=8), ids out of order with
-    repeats and the last expert: max error over max |plain| of each
-    (row, slot) < 1e-2 (bf16 output, another summation order)."""
+def test_k4_matches_plain(cuda, T, k, N, K, bits):
+    """K4 against gather_qmm_reference(act_bits=8) at 4 and 8 bits, ids out
+    of order with repeats and the last expert: max error over max |plain|
+    of each (row, slot) < 1e-2 (bf16 output, another summation order).
+    gather_qmm launches it on the "k4" route; N = 100, which the TPU
+    kernel refuses, calls the wrapper directly."""
     E = 128
-    w, g = _experts(cuda, E, N, K, seed=T * k)
+    w, g = _experts(cuda, E, N, K, seed=T * k, bits=bits)
     x = torch.randn(T, K, generator=g, device=cuda).bfloat16()
-    ids = torch.randint(0, E, (T, k), generator=g, device=cuda)
-    ids[0, -1] = E - 1
-    ids[-1, 0] = ids[0, 0]
+    ids = _ids(g, cuda, E, T, k)
+    key = "k4" if bits == 4 else "k4_w8"
     _build.reset_launches()
-    got = qm.gather_qmm(x, w, ids)
-    assert _build.LAUNCHES["k4"] == 1
+    if qm.expert_route(w, T) == "k4":
+        got = qm.gather_qmm(x, w, ids)
+    else:
+        got = qm._k4(x, w, ids.int())
+    assert dict(_build.LAUNCHES) == {key: 1}
     want = qm.gather_qmm_reference(x, w, ids, act_bits=8)
     torch.cuda.synchronize()
     assert got.shape == (T, k, N) and got.dtype == torch.bfloat16
@@ -486,23 +505,97 @@ def test_k4_matches_plain(cuda, T, k, N, K):
     assert _row_rel(got, want) < 1e-2
 
 
-def test_k4_rejects_and_flags_bad_ids(cuda):
-    w, g = _experts(cuda, 4, 64, 256)
+@pytest.mark.parametrize("bits", [4, 8])
+def test_k4_rejects_and_flags_bad_ids(cuda, bits):
+    w, g = _experts(cuda, 4, 128, 256, bits=bits)
     x = torch.randn(2, 256, generator=g, device=cuda).bfloat16()
-    ids = torch.tensor([[0, 3], [1, 2]], device=cuda)
-    with pytest.raises(ValueError):                   # exact experts on CUDA
-        qm.gather_qmm(x, qm.PackedQuantizedExperts(
-            w.data, w.scales, w.biases, 64, 4, 256, act_bits=None), ids)
-    with pytest.raises(ValueError):                   # T > 64
-        qm._k4(torch.zeros(65, 256, device=cuda).bfloat16(), w,
-               torch.zeros(65, 1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):                   # T * k > 65535
+        qm._k4(torch.zeros(2, 256, device=cuda).bfloat16(), w,
+               torch.zeros(2, 32768, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):                   # float32 x
-        qm._k4(x.float(), w, ids.int())
+        qm._k4(x.float(), w, torch.zeros(2, 1, dtype=torch.int32,
+                                         device=cuda))
+    with pytest.raises(ValueError):                   # exact experts
+        qm._k4(x, dataclasses.replace(w, act_bits=None),
+               torch.zeros(2, 1, dtype=torch.int32, device=cuda))
     bad = torch.tensor([[0, 4], [-1, 2]], dtype=torch.int32, device=cuda)
     got = qm._k4(x, w, bad)
     torch.cuda.synchronize()
     assert torch.isnan(got[0, 1]).all() and torch.isnan(got[1, 0]).all()
     assert torch.isfinite(got[0, 0]).all() and torch.isfinite(got[1, 1]).all()
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_gather_qmm_exact_and_gathered_routes_launch_no_k4(cuda, bits):
+    """Experts with act_bits=None, and experts on the "gathered" route
+    (N = 200, which the TPU kernel refuses), compute the JAX package's
+    exact fallback on the card as on the CPU: no K4 launch, equal to the
+    plain version. Experts of 4096 x 2048 at 8 bits (a 16 MiB double
+    buffer) are "gathered" too."""
+    w, g = _experts(cuda, 4, 128, 256, bits=bits)
+    ragged, _ = _experts(cuda, 4, 200, 256, bits=bits)
+    x = torch.randn(3, 256, generator=g, device=cuda).bfloat16()
+    ids = torch.tensor([[0, 3], [1, 1], [2, 0]], device=cuda)
+    for experts in (dataclasses.replace(w, act_bits=None), ragged):
+        _build.reset_launches()
+        got = qm.gather_qmm(x, experts, ids)
+        assert sum(_build.LAUNCHES.values()) == 0
+        want = qm.gather_qmm_reference(x, experts, ids, act_bits=None)
+        assert torch.equal(got, want)
+    big = qm.PackedQuantizedExperts(
+        torch.empty(2, 4096, 2048, dtype=torch.int8, device="meta"),
+        torch.empty(2, 4096, 32, device="meta"),
+        torch.empty(2, 4096, 32, device="meta"), 64, 8, 2048)
+    assert qm.expert_route(big, 1) == "gathered"
+    assert qm.expert_route(dataclasses.replace(w, bits=bits), 1) == "k4"
+
+
+# ------------------------------------- K8: channel w8a8 expert gather-qmm ----
+
+def _channel_experts(dev, E, N, K, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return qm.channel_quantize_experts(
+        torch.randn(E, N, K, generator=g, device=dev)), g
+
+
+@pytest.mark.parametrize("T,k,N,K", [(1, 8, 768, 2048), (8, 8, 768, 2048),
+                                     (8, 1, 2048, 768), (64, 1, 2048, 768),
+                                     (70, 2, 40, 48)])
+def test_k8_matches_plain_exactly(cuda, T, k, N, K):
+    """K8 against channel_gather_qmm_reference on the same inputs: equal
+    bit for bit (the same int8 codes from an IEEE division, exact int32
+    sums, the same float32 rescale order). The reference computes the
+    activations' codes from float32 x as K8's prologue does, so bf16 x
+    and float32 x both hold."""
+    E = 128
+    w, g = _channel_experts(cuda, E, N, K, seed=T * k)
+    x = torch.randn(T, K, generator=g, device=cuda) * 3
+    ids = _ids(g, cuda, E, T, k)
+    for xx in (x, x.bfloat16()):
+        _build.reset_launches()
+        got = qm.channel_gather_qmm(xx, w, ids)
+        assert dict(_build.LAUNCHES) == {"k8": 1}
+        want = qm.channel_gather_qmm_reference(xx, w, ids)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == (T, k, N)
+        assert torch.equal(got, want)
+
+
+def test_k8_flags_bad_ids_and_rejects(cuda):
+    w, g = _channel_experts(cuda, 4, 64, 256)
+    x = torch.randn(2, 256, generator=g, device=cuda)
+    bad = torch.tensor([[0, 4], [-1, 2]], dtype=torch.int32, device=cuda)
+    got = qm._k8(x, w, bad)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[0, 1]).all() and torch.isnan(got[1, 0]).all()
+    assert torch.isfinite(got[0, 0]).all() and torch.isfinite(got[1, 1]).all()
+    with pytest.raises(ValueError):                   # bf16 x
+        qm._k8(x.bfloat16(), w, bad)
+    with pytest.raises(ValueError):                   # K not a multiple of 16
+        qm._k8(torch.zeros(2, 248, device=cuda), qm.ChannelQuantizedExperts(
+            w.data[:, :, :248].contiguous(), w.scale), bad)
+    with pytest.raises(ValueError):                   # scale on the CPU
+        qm._k8(x, qm.ChannelQuantizedExperts(w.data, w.scale.cpu()), bad)
 
 
 # --------------------------------------------------- K5: grouped matmul -----
@@ -562,22 +655,32 @@ def test_k5_zeroes_rows_past_the_groups_and_rejects(cuda):
                  gs.int())
 
 
-def test_moe_block_runs_k4_and_k5(cuda):
-    """A MoE layer on CUDA sends decode (M <= 8) to K4 three times and a
-    prefill (M > 8) to K5 three times, on 4-bit and on bf16 experts."""
+def test_moe_block_runs_k4_k5_and_k8(cuda):
+    """A MoE layer on CUDA sends decode (M <= 8) to K4 three times (4- and
+    8-bit experts) or K8 three times (channel-int8 experts), and a prefill
+    (M > 8) to K5 three times (group experts, after the dequantize-once)
+    or to the exact int8 all-expert pass, which runs torch._int_mm and no
+    kernel of the port; bf16 experts prefill through K5."""
     from ominix_mlx_tpu_torch.models import moe
 
     mcfg = moe.MoEConfig(num_experts=16, top_k=4, norm_topk_prob=True,
-                         moe_intermediate_size=128)
+                         moe_intermediate_size=256)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    lpq = moe.init_quantized_moe_params(gen, 256, mcfg, device=cuda)
+    cases = (
+        (moe.init_quantized_moe_params(gen, 256, mcfg, device=cuda),
+         {"k4": 3}, {"k5": 3}),
+        (moe.init_quantized_moe_params(gen, 256, mcfg, device=cuda, bits=8),
+         {"k4_w8": 3}, {"k5": 3}),
+        (moe.init_quantized_moe_params(gen, 256, mcfg, device=cuda,
+                                       scheme="channel8"), {"k8": 3}, {}))
     lpd = moe.init_moe_params(gen, 256, mcfg, device=cuda)
-    for M, want in ((2, {"k4": 3}), (24, {"k5": 3})):
-        x = torch.randn(1, M, 256, generator=gen, device=cuda).bfloat16()
-        _build.reset_launches()
-        y = moe.moe_block(lpq, mcfg, x)
-        assert {k: v for k, v in _build.LAUNCHES.items() if v} == want
-        assert torch.isfinite(y).all()
+    for lpq, decode, prefill in cases:
+        for M, want in ((2, decode), (24, prefill)):
+            x = torch.randn(1, M, 256, generator=gen, device=cuda).bfloat16()
+            _build.reset_launches()
+            y = moe.moe_block(lpq, mcfg, x)
+            assert {k: v for k, v in _build.LAUNCHES.items() if v} == want
+            assert torch.isfinite(y).all()
     _build.reset_launches()
     moe.moe_block(lpd, mcfg, torch.randn(1, 24, 256, device=cuda).bfloat16())
     assert _build.LAUNCHES["k5"] == 3

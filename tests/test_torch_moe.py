@@ -246,17 +246,26 @@ def test_experts_from_quantized_equals_the_stacked_bridge():
 
 
 def test_experts_raise_where_not_ported():
-    """8-bit experts and channel-int8 experts have no port yet: they raise
-    rather than take another path."""
+    """What has no port still raises rather than take another path: 3-bit
+    experts (quantize_experts, quantize_experts_params and the packed
+    init), an unknown scheme, and an unknown expert type in moe_block.
+    8-bit and channel-int8 experts are ported (tests/test_torch_moe8.py)."""
     w = torch.zeros(2, 8, 64)
     with pytest.raises(NotImplementedError):
-        tqm.quantize_experts(w, 64, bits=8)
+        tqm.quantize_experts(w, 64, bits=3)
     lp = {"gate": {"w": torch.zeros(2, 64)},
           "experts": {n: w for n in tmoe.EXPERT_NAMES}}
     with pytest.raises(NotImplementedError):
-        tmoe.quantize_experts_params(lp, scheme="channel8")
+        tmoe.quantize_experts_params(lp, 64, bits=3)
+    mcfg = tmoe.MoEConfig(num_experts=2, top_k=1, moe_intermediate_size=64)
+    with pytest.raises(NotImplementedError):
+        tmoe.init_quantized_moe_params(torch.Generator(), 64, mcfg, bits=3,
+                                       device="cpu")
+    with pytest.raises(ValueError):
+        tmoe.quantize_experts_params(lp, scheme="channel4")
+    assert isinstance(tmoe.quantize_experts_params(lp, scheme="channel8")[
+        "experts"]["up_proj"], tqm.ChannelQuantizedExperts)
     lp["experts"]["gate_proj"] = object()
-    mcfg = tmoe.MoEConfig(num_experts=2, top_k=1, moe_intermediate_size=8)
     with pytest.raises(NotImplementedError):
         tmoe.moe_block(lp, mcfg, torch.zeros(1, 1, 64))
 
@@ -495,9 +504,11 @@ def test_qwen3_moe_config_and_layers():
     # is the same object
     got, want = (tree_leaves(p["layers"][0]["moe"]) for p in (fused, tp))
     assert len(got) == len(want) and all(a is b for a, b in zip(got, want))
-    with pytest.raises(NotImplementedError):
-        tbase.init_quantized_params(TCFG, torch.Generator(), device="cpu",
-                                    scheme="channel8")
+    ch = tbase.init_quantized_params(TCFG, torch.Generator().manual_seed(1),
+                                     device="cpu", scheme="channel8")
+    assert all(isinstance(lp["moe"]["experts"][n],
+                          tqm.ChannelQuantizedExperts)
+               for lp in ch["layers"] for n in tmoe.EXPERT_NAMES)
 
 
 def test_moe_cpu_dispatch_counts_no_launch():

@@ -276,9 +276,10 @@ def test_batched_step_error_answers_500(served_batched):
 def test_batched_w4_serves_a_moe_model(monkeypatch):
     """enable_batching(quantize_bits=4) quantizes as the JAX package does:
     group 4-bit weights marked batched with act_bits=8, so a MoE model's
-    experts take K4's w4a8 formula (experts with act_bits=None have no
-    CUDA path). A small Qwen3-MoE model answers concurrent chat requests
-    and every gathered-expert call sees w4a8 experts."""
+    experts take K4's w4a8 formula where the TPU kernel would run (with
+    act_bits=None they would compute the exact formula instead). A small
+    Qwen3-MoE model answers concurrent chat requests and every
+    gathered-expert call sees w4a8 experts."""
     from ominix_mlx_tpu_torch.models import moe as tmoe
     from ominix_mlx_tpu_torch.models import qwen3_moe
     from ominix_mlx_tpu_torch.ops import quant_matmul as tqm
