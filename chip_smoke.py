@@ -37,6 +37,7 @@ Qwen3-30B-A3B with random weights (seeded):
 
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
+    python3 chip_smoke.py --parent DIR # K2/K2c against another checkout's
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero without a result line. The last line is
@@ -102,6 +103,8 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 K1_TOL = 1e-2     # max error / max |plain|: bf16 output, another sum order
 K2_TOL = 1e-2     # the same for K2's and K2c's bf16 output
 K2_LSE_TOL = 1e-2  # max abs error of K2's float32 row LSE (wrong scores)
+K2_DESIGN = ("tensor cores: wgmma (m64nBKk16 Q.K^T, m64nDk16 P.V from "
+             "registers), TMA ring of K/V tiles, producer warpgroup")
 # K3 vs the gathered view + masked sdpa, held per (row, head): max error
 # over max |plain| of that row and head, so a long row's small output is
 # not measured against a length-1 row's raw V. The plain version rounds its
@@ -114,20 +117,23 @@ K3_TOL = 3e-2
 # layers. Each limit sits above every sound reading on the H100 (the kernel
 # path, a second seed, the plain path with its sums reversed) and below the
 # reading of a planted fault (every quantized matmul without its last
-# group of K), both read by check_logits itself:
+# group of K), both read by check_logits itself. K2 rounds its softmax
+# weights to bf16 where the TPU kernel does, the plain version keeps them
+# in float32, so K2 alone reads as much as a quantized kernel:
 # - w4a8 on panels, exact copies (w4a16 / w8a16), Qwen3-30B-A3B: sound
-#   readings up to 1.15e-2, the fault 8.5e-2 (w4a8 panels) and more
+#   readings up to 1.72e-2 (K2 alone on Qwen3-30B-A3B), the fault 8.5e-2
+#   (w4a8 panels) and more
 LOGITS_TOL = 2e-2
-# - w8a8 on panels (a8 at every decode row): sound up to 1.73e-2, the
-#   fault 0.327
+# - w8a8 on panels (a8 at every decode row): sound up to 2.22e-2 (K2
+#   alone), the fault 0.328
 W8A8_PANELS_LOGITS_TOL = 5e-2
 # - row-major w4a8 / w8a8 (a8 at every prefill row too, where a one-ulp
-#   flip moves int8 codes downstream): sound up to 5.24e-2, the fault 0.384
+#   flip moves int8 codes downstream): sound up to 5.32e-2, the fault 0.389
 ROWS_A8_LOGITS_TOL = 0.1
 # - w8a8 on panels with 8-bit experts, Qwen3-30B-A3B: sound up to 4.10e-2
 #   (the kernel path, where one routed row of 38 picks another expert set
 #   than the plain run, a router near-tie; the reversed control 3.81e-2,
-#   each kernel alone at most 1.20e-2), the fault 0.384
+#   each kernel alone at most 1.35e-2, K2), the fault 0.384
 MOE_W8A8_LOGITS_TOL = 0.1
 # chunked vs single-shot 8k prefill, last-token logits, bf16 through 36
 # layers: read 0.0 on the H100 (K2c walks a query's key tiles in K2's
@@ -176,6 +182,14 @@ def bound(nbytes: float, ops: float, kind: str) -> dict:
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_bytes": nbytes, "bound_ops": ops, "bound_kind": kind}
+
+
+def versus(row: dict) -> dict:
+    """share_of_bound (bound_ms / ms) and vs_library (ms / library_ms,
+    null without a library time) of a kernel row."""
+    lib = row["library_ms"]
+    return {"share_of_bound": row["bound_ms"] / row["ms"],
+            "vs_library": row["ms"] / lib if lib else None}
 
 
 def time_library(fn, iters: int, flush):
@@ -428,6 +442,7 @@ def check_k2(dev, flush):
                "TFLOPs": flop / ms / 1e9,
                **bound(2 * D * T * (2 * H + 2 * Hkv) + 4 * H * T, flop,
                        "bf16")}
+        row.update(versus(row))
         emit({"phase": "k2", **row})
         if not (rel < K2_TOL and dl < K2_LSE_TOL):
             raise RuntimeError(f"K2 T={T}: rel error {rel}, lse {dl}")
@@ -478,6 +493,7 @@ def check_k2c(dev, flush):
                "library_error": lib_err, "TFLOPs": flop / ms / 1e9,
                **bound(2 * D * (2 * H * T + 2 * Hkv * (pos + T)) + 4 * H * T,
                        flop, "bf16")}
+        row.update(versus(row))
         emit({"phase": "k2c", **row})
         if not (rel < K2_TOL and dl < K2_LSE_TOL):
             raise RuntimeError(f"K2c pos={pos} T={T}: rel error {rel}, "
@@ -485,6 +501,61 @@ def check_k2c(dev, flush):
         rows.append(row)
         torch.cuda.empty_cache()
     return rows
+
+
+def compare_flash(parent: str, dev, flush):
+    """K2 and K2c of the checkout at ``parent`` (its kernels built by its
+    own ``ops/_build.py``, called through the same C entry points) against
+    this checkout's, on the same inputs at every shape of K2_T and
+    K2C_SHAPES, timed in turns: parent, this, this, parent. One
+    ``k2_vs_parent`` line per shape."""
+    import importlib.util
+
+    from ominix_mlx_tpu_torch.ops import flash_attention as fa
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_build",
+        os.path.join(parent, "ominix_mlx_tpu_torch", "ops", "_build.py"))
+    pbuild = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pbuild)
+    plib = pbuild.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    H, Hkv, D = 32, 8, 128
+    scale = D ** -0.5
+    cases = [("k2", 0, T) for T in K2_T] + [("k2c", p, T)
+                                            for p, T in K2C_SHAPES]
+    for kernel, pos, T in cases:
+        q = torch.randn(1, H, T, D, generator=g, device=dev).bfloat16()
+        k = torch.randn(1, Hkv, pos + T, D, generator=g, device=dev).bfloat16()
+        v = torch.randn(1, Hkv, pos + T, D, generator=g, device=dev).bfloat16()
+        out = torch.empty_like(q)
+        lse = torch.empty(1, H, T, dtype=torch.float32, device=dev)
+
+        def parent_call():
+            if kernel == "k2":
+                rc = plib.ominix_flash_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), 1, H, Hkv, T, D, scale, stream)
+            else:
+                rc = plib.ominix_flash_chunk_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), 1, H, Hkv, T, pos, D, *k.stride()[:3],
+                    *v.stride()[:3], scale, stream)
+            if rc != 0:
+                raise RuntimeError(f"parent {kernel}: CUDA error {rc}")
+
+        def this_call():
+            if kernel == "k2":
+                fa._k2(q, k, v, scale)
+            else:
+                fa._k2c(q, k, v, pos, scale)
+
+        turns = [time_ms(fn, 10, flush) for fn in
+                 (parent_call, this_call, this_call, parent_call)]
+        emit({"phase": "k2_vs_parent", "kernel": kernel, "pos": pos, "T": T,
+              "parent_ms": [turns[0], turns[3]], "ms": turns[1:3],
+              "speedup": min(turns[0], turns[3]) / max(turns[1:3])})
 
 
 def check_k3(dev, flush):
@@ -1210,11 +1281,13 @@ def engine_for(cfg, params):
             p, cfg, t, c, kv_limit=kl, skip_logits=True))
 
 
-def prefill_chunked_path(dev, cfg, params):
+def prefill_chunked_path(dev, cfg, params, profiled=False):
     """bf16 Qwen3-4B, an 8192-token prompt prefilled in 2048-token chunks
     as bench.py's prefill cell does (chunk 0 through K2, chunks 1-3
     through K2c): launch counts, tok/s (best of 2 after a first run), and
-    the last-token logits against a single-shot K2 prefill."""
+    the last-token logits against a single-shot K2 prefill. profiled=True
+    adds a ``profile_prefill`` line: one more chunked prefill under
+    torch.profiler (device busy time, idle share, top kernels)."""
     from ominix_mlx_tpu_torch.models import base
     from ominix_mlx_tpu_torch.ops import _build
 
@@ -1259,6 +1332,18 @@ def prefill_chunked_path(dev, cfg, params):
     if offset != PREFILL_LEN or not rel < PREFILL_TOL \
             or not row["argmax_equal"]:
         raise RuntimeError(f"chunked vs single-shot prefill: {row}")
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = run()[1]
+        busy_us, by_name = device_time(prof)
+        emit({"phase": "profile_prefill", "prompt": PREFILL_LEN,
+              "chunk": PREFILL_CHUNK, "wall_ms": wall * 1e3,
+              "device_busy_ms": busy_us / 1e3,
+              "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
+              "top_device": top_kernels(by_name, busy_us, 12)})
     return launches
 
 
@@ -1953,11 +2038,15 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="only build this checkout's and DIR's kernels and "
+                         "time K2/K2c against DIR's, in turns")
     ap.add_argument("--profile", action="store_true",
                     help="profile decode steps on the device "
                          "(torch.profiler) and the host (cProfile): batch 1 "
                          "w4a8, batch 8 w8a8 over a paged cache, and "
-                         "batch 1 Qwen3-30B-A3B w4a8")
+                         "batch 1 Qwen3-30B-A3B w4a8; and one 8k chunked "
+                         "prefill")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1986,6 +2075,9 @@ def main() -> int:
           "nvcc_seconds": _build.build_seconds})
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    if args.parent:
+        compare_flash(args.parent, dev, flush_buf.zero_)
+        return 0
     k1_rows = check_k1(dev, flush_buf.zero_)
     k6_rows = check_k6(dev, flush_buf.zero_)
     k7_rows = check_k7(dev, flush_buf.zero_)
@@ -2048,7 +2140,8 @@ def main() -> int:
         cfg, gen, torch.bfloat16, device=dev))
     emit({"phase": "model", "config": "Qwen3-4B", "weights": "bf16",
           "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
-    phases["prefill_chunked"] = prefill_chunked_path(dev, cfg, params)
+    phases["prefill_chunked"] = prefill_chunked_path(dev, cfg, params,
+                                                     args.profile)
     torch.cuda.empty_cache()
     phases["serve_batched"] = serve_batched(dev, cfg, params)
     free_device_memory()
@@ -2101,9 +2194,9 @@ def main() -> int:
     def launches(key):
         return sum(c.get(key, 0) for c in phases.values())
 
-    def entry(name, replaces, source, rows, pick, key):
+    def entry(name, replaces, source, rows, pick, key, **extra):
         rep = pick(rows)
-        return {"name": name, "route": "cuda", "source": source,
+        return {"name": name, "route": "cuda", "source": source, **extra,
                 "replaces": replaces, "launches": launches(key),
                 "launches_by_phase": {p: c.get(key, 0)
                                       for p, c in phases.items()},
@@ -2145,10 +2238,11 @@ def main() -> int:
               at("gate_up_proj", 64), "k7"),
         entry("k2_flash_prefill", "ominix_mlx_tpu/ops/flash_attention.py:60",
               "ominix_mlx_tpu_torch/csrc/flash_attn.cu", k2_rows,
-              lambda rs: rs[-1], "k2"),
+              lambda rs: rs[-1], "k2", design=K2_DESIGN),
         entry("k2c_flash_chunk", "ominix_mlx_tpu/ops/flash_attention.py:117",
               "ominix_mlx_tpu_torch/csrc/flash_attn.cu", k2c_rows,
-              lambda rs: next(r for r in rs if r["pos"] == 6144), "k2c"),
+              lambda rs: next(r for r in rs if r["pos"] == 6144), "k2c",
+              design=K2_DESIGN),
         entry("k3_paged_decode", "ominix_mlx_tpu/ops/paged_attention.py:73",
               "ominix_mlx_tpu_torch/csrc/paged_attn.cu", k3_rows,
               lambda rs: rs[0], "k3"),

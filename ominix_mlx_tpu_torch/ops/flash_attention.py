@@ -18,22 +18,51 @@ import torch
 HEAD_DIMS = (64, 128, 256)
 
 
+def scaled_queries(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q * scale as the JAX package hands it to the TPU flash kernel
+    (ops/flash_attention.py:65, :124): the scale rounded to q's dtype, the
+    product rounded to q's dtype (exact for float32 q), as float32."""
+    s = torch.tensor(scale, dtype=q.dtype).float()
+    return (q.float() * s).to(q.dtype).float()
+
+
+def kernel_scale(scale: float) -> float:
+    """The scale as K2/K2c take it: rounded to bf16, so that the kernel's
+    bf16(q * scale) is the one ``scaled_queries`` computes."""
+    return float(torch.tensor(scale, dtype=torch.bfloat16))
+
+
 def flash_prefill_reference(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, scale: float):
     """Plain version of K2: causal attention of q [B, H, T, D] over
     k/v [B, Hkv, T, D] (query head h reads KV head h // (H / Hkv)).
+    q is scaled as ``scaled_queries`` does, as the TPU kernel is fed; the
+    softmax weights stay float32 (the TPU kernel and K2 round them to
+    bf16 per key block, which no dense version reproduces).
     Returns (out [B, H, T, D] in q's dtype, lse [B, H, T] float32)."""
     B, H, T, D = q.shape
     Hkv = k.shape[1]
     G = H // Hkv
-    qg = q.float().reshape(B, Hkv, G, T, D)
-    s = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float()) * scale
+    qg = scaled_queries(q, scale).reshape(B, Hkv, G, T, D)
+    s = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float())
     causal = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
     s = s.masked_fill(~causal, float("-inf"))
     lse = torch.logsumexp(s, -1)
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bhgts,bhsd->bhgtd", p, v.float())
     return (out.reshape(B, H, T, D).to(q.dtype), lse.reshape(B, H, T))
+
+
+def _check_copyable(what: str, name: str, t: torch.Tensor):
+    """The kernel copies rows with TMA: the base and the stride of every
+    dimension but D (of more than one element) must be 16-byte multiples
+    (8 bf16). Raises rather than copy."""
+    if t.data_ptr() % 16 or t.stride(-1) != 1 or any(
+            st % 8 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1):
+        raise ValueError(f"{what} {name}: want a 16-byte aligned base and "
+                         f"strides that are multiples of 8 elements with "
+                         f"unit stride along D, got strides {t.stride()} "
+                         f"at address {t.data_ptr():#x}")
 
 
 def _k2(q, k, v, scale: float):
@@ -51,6 +80,8 @@ def _k2(q, k, v, scale: float):
         raise ValueError(f"K2 shapes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; head dim "
                          f"must be one of {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_copyable("K2", name, t)
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"q is on {q.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
@@ -59,7 +90,7 @@ def _k2(q, k, v, scale: float):
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     rc = lib.ominix_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), B, H, Hkv, T, D, float(scale),
+        lse.data_ptr(), B, H, Hkv, T, D, kernel_scale(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "K2 (ominix_flash_fwd)")
     _build.LAUNCHES["k2"] += 1
@@ -99,14 +130,15 @@ def flash_chunk_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           pos: int, scale: float):
     """Plain version of K2c: queries q [B, H, T, D] at absolute positions
     pos..pos+T-1 over k/v [B, Hkv, pos+T, D] (the written prefix including
-    this chunk); query t attends keys 0..pos+t. Returns (out [B, H, T, D]
-    in q's dtype, lse [B, H, T] float32)."""
+    this chunk); query t attends keys 0..pos+t; q scaled as in
+    ``flash_prefill_reference``. Returns (out [B, H, T, D] in q's dtype,
+    lse [B, H, T] float32)."""
     B, H, T, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     if S != pos + T:
         raise ValueError(f"k/v hold {S} positions, want pos + T = {pos + T}")
-    qg = q.float().reshape(B, Hkv, H // Hkv, T, D)
-    s = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float()) * scale
+    qg = scaled_queries(q, scale).reshape(B, Hkv, H // Hkv, T, D)
+    s = torch.einsum("bhgtd,bhsd->bhgts", qg, k.float())
     ok = (torch.arange(S, device=q.device)[None, :]
           <= pos + torch.arange(T, device=q.device)[:, None])
     s = s.masked_fill(~ok, float("-inf"))
@@ -118,8 +150,9 @@ def flash_chunk_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _k2c(q, k, v, pos: int, scale: float):
     """Launch K2c. q contiguous bf16 [B, H, T, D]; k/v bf16 [B, Hkv,
-    pos+T, D] with unit stride along D (strided views of a larger cache
-    are read in place)."""
+    pos+T, D] with unit stride along D, a 16-byte aligned base and the
+    other strides multiples of 8 elements (strided views of a larger cache
+    are read in place; any other view raises)."""
     from ominix_mlx_tpu_torch.ops import _build
 
     B, H, T, D = q.shape
@@ -137,6 +170,8 @@ def _k2c(q, k, v, pos: int, scale: float):
         raise ValueError(f"K2c shapes: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, pos {pos}; "
                          f"head dim must be one of {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_copyable("K2c", name, t)
     if q.device.index != torch.cuda.current_device():
         raise ValueError(f"q is on {q.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
@@ -146,7 +181,7 @@ def _k2c(q, k, v, pos: int, scale: float):
     rc = lib.ominix_flash_chunk_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, H, Hkv, T, pos, D, *k.stride()[:3],
-        *v.stride()[:3], float(scale),
+        *v.stride()[:3], kernel_scale(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "K2c (ominix_flash_chunk_fwd)")
     _build.LAUNCHES["k2c"] += 1

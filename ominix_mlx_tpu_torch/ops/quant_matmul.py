@@ -271,6 +271,16 @@ def route(w: PackedQuantizedTensor, M: int) -> str:
     return "dense"
 
 
+def rounds_x(path: str, w: PackedQuantizedTensor, M: int) -> bool:
+    """Whether the JAX formula of ``path`` rounds x to bf16 before it
+    quantizes or group-sums it: A1 and A4 read a raw bf16 x at M=1 on
+    4-bit weights (``act_ik``, ops/quant_matmul.py:599, :946), A5 and the
+    dense product cast x first (:1258, :1393). Every other formula takes
+    float32 x as it is (:603-608, :980-983, :1150-1153)."""
+    return path in ("k7", "dense") or (
+        path in ("k1", "k6") and w.bits == 4 and M == 1)
+
+
 # ------------------------------------------------------ plain versions ---
 
 def qmm_p_reference(x: torch.Tensor, w: PackedQuantizedTensor,
@@ -280,17 +290,18 @@ def qmm_p_reference(x: torch.Tensor, w: PackedQuantizedTensor,
     [M, N] in x's dtype, a8 where ``w.act_bits == 8``.
 
     The TPU kernels' formula (_pt_kernel, quant_matmul.py:771-838,
-    :914-927; _pm_kernel/_qmm_p, :417-577, :603-620): x in bf16, optional
+    :914-927; _pm_kernel/_qmm_p, :417-577, :603-620): x as given (bf16 at
+    M=1 on 4-bit weights, where the kernels read a raw bf16 x), optional
     RMSNorm ``xn = bf16(bf16(x * inv) * norm_w)`` (fused into A1's 4-bit
     prologue), per-row ``sx = max|xn|/127 + 1e-12`` and ``cx = round(xn /
-    sx)`` (a8) or ``sx = 1``, ``cx = xn`` (a16), and
+    sx)`` (a8) or ``sx = 1``, ``cx = bf16(xn)`` (a16), and
     ``y = sx * sum_g s_g * P_g + sum_g bf16(xg_g) * b*_g``, ``P_g`` the dot
     of cx with the stored codes of group g and ``xg_g`` the group sum of xn.
     """
     M, K = x.shape
     gs = w.group_size
     G = K // gs
-    xb = x.to(torch.bfloat16)
+    xb = x.to(torch.bfloat16) if rounds_x("k1", w, M) else x
     if norm_w is not None:
         xb = rms_norm(norm_w.to(torch.bfloat16), xb, norm_eps)
     xn = xb.float()
@@ -298,7 +309,8 @@ def qmm_p_reference(x: torch.Tensor, w: PackedQuantizedTensor,
         sx = over_127(xn.abs().amax(-1, keepdim=True)) + 1e-12
         cx = torch.round(xn / sx)
     else:
-        sx, cx = torch.ones(M, 1, device=x.device), xn
+        sx = torch.ones(M, 1, device=x.device)
+        cx = xn.to(torch.bfloat16).float()
     c = _code_values(w.data, w.bits).reshape(-1, G, gs)
     # a8: |P| <= gs * 127 * 128 < 2^24, exact in float32
     P = torch.einsum("mgk,ngk->mng", cx.reshape(M, G, gs), c)
@@ -316,21 +328,24 @@ def unfolded_biases(w: PackedQuantizedTensor) -> torch.Tensor:
     return (w.biases.float() + 8.0 * w.scales.float()).to(torch.bfloat16)
 
 
-def qmm_dq_reference(x: torch.Tensor,
-                     w: PackedQuantizedTensor) -> torch.Tensor:
+def qmm_dq_reference(x: torch.Tensor, w: PackedQuantizedTensor,
+                     raw_sums: bool = True) -> torch.Tensor:
     """Plain PyTorch version of the dq formula (K1 at 2 <= M <= 16, K7):
     x [M, K] -> [M, N] in x's dtype. The TPU kernels' rounding
     (_dq_kernel, quant_matmul.py:1110-1135; _vpu_kernel, :1229-1250):
     ``y = bf16(x) @ bf16(d * s)^T + bf16(xg) @ b^T`` in float32, d the
-    centred code, b ``unfolded_biases(w)``."""
+    centred code, b ``unfolded_biases(w)``, xg the group sums of x as
+    given (raw_sums, A3 :1150-1153) or of bf16(x) (A5 rounds x first,
+    :1258)."""
     M, K = x.shape
     gs = w.group_size
     G = K // gs
     xb = x.to(torch.bfloat16).float()
+    xs = x.float() if raw_sums else xb
     d = _code_values(w.data, w.bits) - (8.0 if w.bits == 4 else 0.0)
     wd = (d.reshape(-1, G, gs) * w.scales.float()[..., None]).to(
         torch.bfloat16).float().reshape(-1, K)
-    xg = xb.reshape(M, G, gs).sum(-1).to(torch.bfloat16).float()
+    xg = xs.reshape(M, G, gs).sum(-1).to(torch.bfloat16).float()
     return (xb @ wd.T + xg @ unfolded_biases(w).float().T).to(x.dtype)
 
 
@@ -356,7 +371,7 @@ def quantized_matmul_reference(x: torch.Tensor, w: PackedQuantizedTensor,
     if norm_w is not None:
         raise ValueError(f"route {path!r} takes an already-normed x")
     if path in ("k1_mn", "k7"):
-        return qmm_dq_reference(x, w)
+        return qmm_dq_reference(x, w, raw_sums=path == "k1_mn")
     if path == "dense":
         return dense_matmul(x, w)
     raise ValueError(f"route {path!r}")
@@ -558,6 +573,10 @@ def quantized_matmul(x: torch.Tensor, w,
     elif r == "dense":
         y = dense_matmul(x2, w)
     else:
+        if x2.dtype != torch.bfloat16 and not rounds_x(r, w, M):
+            raise ValueError(
+                f"route {r!r}: {x2.dtype} activations; the kernel takes bf16 "
+                f"and the JAX formula quantizes and sums x unrounded here")
         xk = _aligned(x2.to(torch.bfloat16).contiguous())
         if r == "k1":
             y = _k1(xk, w, None if norm_w is None
@@ -857,7 +876,7 @@ def gather_qmm_reference(x: torch.Tensor, w: PackedQuantizedExperts,
 
     act_bits=8 is the TPU decode kernel's formula per row
     (_gather_qmm_decode and _gq_kernel, ops/quant_matmul.py:1676-1718,
-    :1606-1672): x in bf16, ``sx = max|x|/127 + 1e-12``,
+    :1606-1672): x as given, ``sx = max|x|/127 + 1e-12``,
     ``cx = round(x / sx)``, bf16 group sums ``xg``, and
     ``y = sx * sum_g s_g * P_g + sum_g xg_g * b*_g`` with ``P_g`` the
     integer dot product of cx with the stored codes of group g (unsigned
@@ -878,7 +897,7 @@ def gather_qmm_reference(x: torch.Tensor, w: PackedQuantizedExperts,
         wd = (c.reshape(T, k, N, G, gs) * s[..., None]
               + b[..., None]).reshape(T, k, N, K)
         return torch.einsum("tknd,td->tkn", wd, x.float()).to(x.dtype)
-    xf = x.to(torch.bfloat16).float()
+    xf = x.float()
     sx = over_127(xf.abs().amax(-1)) + 1e-12               # [T]
     cx = torch.round(xf / sx[:, None]).reshape(T, G, gs)
     # |P| <= gs * 127 * 15 (4-bit) or gs * 127^2 (8-bit) < 2^24 for the
@@ -950,5 +969,8 @@ def gather_qmm(x: torch.Tensor, w: PackedQuantizedExperts,
         return gather_qmm_reference(x, w, ids, None)
     if not x.is_cuda:
         return gather_qmm_reference(x, w, ids, 8)
-    return _k4(_aligned(x.to(torch.bfloat16).contiguous()), w,
-               ids.to(torch.int32).contiguous()).to(x.dtype)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"K4: {x.dtype} activations; the kernel takes bf16 "
+                         f"and the JAX formula quantizes and sums x "
+                         f"unrounded")
+    return _k4(_aligned(x.contiguous()), w, ids.to(torch.int32).contiguous())

@@ -188,14 +188,19 @@ def test_routes_launch_their_kernel_or_raise(cuda, monkeypatch):
         qm._k6(x, w4)
 
 
-@pytest.mark.parametrize("T,H,Hkv,D", [(2, 4, 4, 64), (33, 8, 2, 64),
-                                       (128, 32, 8, 128), (777, 32, 8, 128),
-                                       (100, 4, 1, 256)])
+@pytest.mark.parametrize("T,H,Hkv,D", [
+    (2, 4, 4, 64), (33, 8, 2, 64), (128, 32, 8, 128), (777, 32, 8, 128),
+    (100, 4, 1, 256), (16, 32, 8, 128),
+    # either side of the 64-key and 128-query tile edges
+    (63, 8, 2, 128), (64, 8, 2, 128), (65, 8, 2, 128), (127, 8, 2, 128),
+    (128, 8, 2, 128), (129, 8, 2, 128), (2048, 16, 4, 64),
+    (2048, 8, 2, 256)])
 def test_k2_matches_plain(cuda, T, H, Hkv, D):
     """K2 against its plain version: max error over max |plain| < 1e-2
     (bf16 output, relative so that an output above 4, where one bf16 ulp
     is 3.1e-2, cannot fail a right kernel); LSE within 1e-3 absolute,
-    the check that catches wrong scores."""
+    the check that catches wrong scores (both sides score bf16(q * scale),
+    the scale rounded to bf16)."""
     g = torch.Generator(device=cuda).manual_seed(T)
     q = torch.randn(1, H, T, D, generator=g, device=cuda).bfloat16()
     k = torch.randn(1, Hkv, T, D, generator=g, device=cuda).bfloat16()
@@ -213,12 +218,38 @@ def test_k2_rejects(cuda):
     q = torch.randn(1, 4, 8, 96, device=cuda).bfloat16()
     with pytest.raises(ValueError):
         fa._k2(q, q[:, :2], q[:, :2], 0.1)
+    q = torch.randn(1, 4, 8, 64, device=cuda).bfloat16()
+    off = torch.randn(4 * 8 * 64 + 4, device=cuda).bfloat16()[4:]
+    with pytest.raises(ValueError, match="16-byte"):    # misaligned base
+        fa._k2(off.view(1, 4, 8, 64), q, q, 0.1)
+
+
+@pytest.mark.parametrize("T,H,Hkv,D", [(256, 8, 2, 128), (2048, 32, 8, 128),
+                                       (300, 4, 1, 64)])
+def test_k2c_rows_equal_k2_rows(cuda, T, H, Hkv, D):
+    """K2 over T keys and K2c for the chunk of queries T/2..T-1 over the
+    same keys give the same rows, output and LSE bit for bit: key tiles
+    start at absolute position 0 in both, so a query walks the same tiles
+    in the same order (the chunked and single-shot prefills agree)."""
+    g = torch.Generator(device=cuda).manual_seed(T + D)
+    q = torch.randn(1, H, T, D, generator=g, device=cuda).bfloat16()
+    k = torch.randn(1, Hkv, T, D, generator=g, device=cuda).bfloat16()
+    v = torch.randn(1, Hkv, T, D, generator=g, device=cuda).bfloat16()
+    out, lse = fa._k2(q, k, v, D ** -0.5)
+    pos = T // 2
+    out_c, lse_c = fa._k2c(q[:, :, pos:].contiguous(), k, v, pos, D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out_c, out[:, :, pos:])
+    assert torch.equal(lse_c, lse[:, :, pos:])
 
 
 @pytest.mark.parametrize("B,H,Hkv,D,pos,T", [
     (1, 32, 8, 128, 2048, 2048), (1, 32, 8, 128, 6144, 2048),
     (1, 32, 8, 128, 128, 100), (1, 32, 8, 128, 300, 17),
-    (2, 4, 4, 64, 1, 1), (2, 8, 2, 64, 5, 33), (2, 4, 1, 256, 77, 100)])
+    (2, 4, 4, 64, 1, 1), (2, 8, 2, 64, 5, 33), (2, 4, 1, 256, 77, 100),
+    # pos not a multiple of the 64-key tile, chunks across tile edges
+    (1, 8, 2, 128, 65, 63), (1, 8, 2, 128, 100, 129),
+    (1, 8, 2, 256, 190, 200), (1, 16, 4, 64, 1000, 2048)])
 def test_k2c_matches_plain(cuda, B, H, Hkv, D, pos, T):
     """K2c over the [:pos+T] prefix of a larger cache, read in place
     (strided view): output max error over max |plain| < 1e-2, LSE within
@@ -251,6 +282,15 @@ def test_k2c_rejects(cuda):
         fa._k2c(q, kt.transpose(2, 3), k, 4, 0.1)
     with pytest.raises(ValueError):                   # CPU tensors
         fa._k2c(q.cpu(), k.cpu(), k.cpu(), 4, 0.1)
+    # views whose rows the kernel cannot copy in 16-byte units raise, and
+    # are never copied in silence: a row pitch of 68 elements, and a base
+    # 8 bytes off
+    wide = torch.randn(1, 2, 12, 68, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fa._k2c(q, wide[..., :64], k, 4, 0.1)
+    flat = torch.randn(2 * 12 * 64 + 4, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._k2c(q, k, flat[4:].view(1, 2, 12, 64), 4, 0.1)
 
 
 def _paged_inputs(dev, B, H, Hkv, D, ps, MP, lengths, quant, seed=0):
@@ -503,6 +543,31 @@ def test_k4_matches_plain(cuda, T, k, N, K, bits):
     assert got.shape == (T, k, N) and got.dtype == torch.bfloat16
     assert torch.isfinite(got).all()
     assert _row_rel(got, want) < 1e-2
+
+
+def test_float32_x_raises_where_the_formula_reads_it_unrounded(cuda):
+    """The quantized kernels take bf16 x. Where the JAX formula quantizes
+    and group-sums float32 x unrounded (A1 8-bit, A3, A4 past one 4-bit
+    row, A6), quantized_matmul and gather_qmm raise on CUDA rather than
+    round it; where the formula rounds x to bf16 first (A5, and A1/A4 at
+    one 4-bit row) the kernel runs and float32 comes back."""
+    w8, g = _packed(cuda, 256, 512, 8, bits=8)
+    assert qm.route(w8, 4) == "k6"
+    with pytest.raises(ValueError, match="float32"):
+        qm.quantized_matmul(torch.randn(4, 512, generator=g, device=cuda),
+                            w8)
+    w4, _ = _packed(cuda, 256, 512, None)
+    assert qm.route(w4, 40) == "k7"
+    x = torch.randn(40, 512, generator=g, device=cuda)
+    _build.reset_launches()
+    y = qm.quantized_matmul(x, w4)
+    assert dict(_build.LAUNCHES) == {"k7": 1} and y.dtype == torch.float32
+    for bits in (4, 8):
+        w, g = _experts(cuda, 128, 768, 2048, bits=bits)
+        assert qm.expert_route(w, 1) == "k4"
+        with pytest.raises(ValueError, match="float32"):
+            qm.gather_qmm(torch.randn(1, 2048, generator=g, device=cuda), w,
+                          _ids(g, cuda, 128, 1, 8))
 
 
 @pytest.mark.parametrize("bits", [4, 8])

@@ -147,7 +147,7 @@ def test_quantize_experts_8bit_matches_jax():
         np.testing.assert_array_equal(all_e[e].float().numpy(), want)
 
 
-def _tpu_gq8_a8(x, ids, jw):
+def _tpu_gq8_a8(x, ids, jw, out_bf16=True):
     """numpy transcription of the TPU decode kernel at bits=8
     (_gather_qmm_decode and _gq_kernel, ops/quant_matmul.py:1606-1718) for
     each row of x: P the integer dot of cx with the signed int8 codes,
@@ -170,7 +170,7 @@ def _tpu_gq8_a8(x, ids, jw):
         for j, e in enumerate(ids[t]):
             P = (q[e].reshape(N, G, gs) * cx.reshape(G, gs)).sum(-1)
             out[t, j] = (sx * s[e] * P).sum(-1) + b[e] @ xg
-    return bf(out)
+    return bf(out) if out_bf16 else out
 
 
 def test_gather_qmm_8bit_a8_reference_is_the_tpu_formula():
@@ -190,6 +190,27 @@ def test_gather_qmm_8bit_a8_reference_is_the_tpu_formula():
     assert got.dtype == torch.bfloat16
     for t in range(4):
         assert _rel(got[t].float().numpy(), want[t]) < 1e-3
+
+
+def test_gather_qmm_float32_x_takes_the_tpu_formula():
+    """float32 activations: the TPU decode kernel's prologue quantizes and
+    group-sums x as it is (_gather_qmm_decode, ops/quant_matmul.py
+    :1682-1685), so the port's plain version on float32 x is within rel
+    1e-5 per row of the numpy transcription given the same x, with float32
+    out (rounding x to bf16 first, as the port did before this test, read
+    4.4e-3 on the first row)."""
+    rng = np.random.default_rng(23)
+    w = rng.standard_normal((6, 64, 256)).astype(np.float32) * 0.05
+    jw = jqm.quantize_experts(jnp.asarray(w), 64, 8)
+    x = rng.standard_normal((4, 256)).astype(np.float32)
+    ids = np.array([[5, 1, 3], [0, 0, 5], [2, 4, 1], [3, 5, 0]], np.int32)
+    want = _tpu_gq8_a8(x, ids, jw, out_bf16=False)
+    tw = params_from_numpy(_to_numpy(jw), "cpu", act_bits=8)
+    got = tqm.gather_qmm_reference(torch.from_numpy(x), tw,
+                                   torch.from_numpy(ids), act_bits=8)
+    assert got.dtype == torch.float32
+    for t in range(4):
+        assert _rel(got[t].numpy(), want[t]) < 1e-5
 
 
 @pytest.mark.parametrize("act_bits", [None, 8])

@@ -518,3 +518,52 @@ def test_quantize_tree_channel8_and_scheme_check():
                       ["head"]["w"], jqm.PackedQuantizedTensor)
     with pytest.raises(ValueError):
         tquant.quantize_tree(_to_torch(src), scheme="int3")
+
+
+# (layout, bits, act_bits, M, route) of the float32-activation test
+F32_CASES = {"k1_w8a8": ("panels", 8, 8, 1, "k1"),
+             "k1_w8a16": ("panels", 8, None, 1, "k1"),
+             "k1_w4a8": ("panels", 4, 8, 1, "k1"),
+             "k1_mn_w4": ("batched", 4, None, 5, "k1_mn"),
+             "k1_mn_w8": ("batched", 8, 8, 16, "k1_mn"),
+             "k6_w4a8_m1": ("rows", 4, 8, 1, "k6"),
+             "k6_w4a8": ("rows", 4, 8, 4, "k6"),
+             "k6_w8a8": ("rows", 8, 8, 16, "k6"),
+             "k6_w8a16": ("rows", 8, None, 4, "k6"),
+             "k7": ("rows", 4, None, 40, "k7")}
+
+
+@pytest.mark.parametrize("case", list(F32_CASES))
+def test_float32_x_takes_the_tpu_formula(case):
+    """float32 activations: the JAX formulas quantize and group-sum x as it
+    is, unrounded (A4 quant_matmul.py:603-608, A1 8-bit :980-983, the dq
+    formula's group sums :1150-1153), and round it to bf16 first only where
+    A1 and A4 read a raw bf16 x at M=1 on 4-bit weights (act_ik) and in A5
+    (:1256). The port's plain version on float32 x within rel 1e-5 of the
+    numpy transcription given the same float32 x, and float32 out. Rounding
+    x to bf16 where the formula does not (the port before this test) read
+    1.6e-4 to 7.9e-3 here."""
+    layout, bits, act_bits, M, path = F32_CASES[case]
+    can = _canonical(30, 256, 512, bits, exact_fold=layout != "panels")
+    jw, tw = _pair(can, bits, act_bits, batched=layout == "batched",
+                   panels=layout == "panels")
+    x = np.random.default_rng(31 + M).standard_normal((M, 512)).astype(f32)
+    assert tqm.route(tw, M) == path
+    got = tqm.quantized_matmul(torch.from_numpy(x), tw)
+    assert got.dtype == torch.float32
+    if path == "k7" or (bits == 4 and M == 1):
+        # the formula rounds x first: the same float32 result as x in bf16
+        via_bf16 = tqm.quantized_matmul(torch.from_numpy(_bf16(x)), tw)
+        assert torch.equal(got, via_bf16)
+        x = _bf16(x)
+    if path == "k1" and bits == 4:
+        return              # 4-bit panels: as bf16 x (the tests above)
+    if path == "k1":
+        want = _tpu_pt8(x[0], jw)[None]
+    elif path == "k1_mn":
+        want = _tpu_dq(x, jw.data, jw.scales, jw.biases, bits)
+    elif path == "k7":
+        want = _tpu_vpu(x, jw)
+    else:
+        want = _tpu_pm(x, jw)
+    assert _rel(got.numpy(), want) < 1e-5
