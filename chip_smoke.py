@@ -37,7 +37,8 @@ Qwen3-30B-A3B with random weights (seeded):
 
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
-    python3 chip_smoke.py --parent DIR # K2/K2c against another checkout's
+    python3 chip_smoke.py --parent DIR # K2/K2c and the dq kernel against
+                                       # another checkout's
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero without a result line. The last line is
@@ -105,6 +106,13 @@ K2_TOL = 1e-2     # the same for K2's and K2c's bf16 output
 K2_LSE_TOL = 1e-2  # max abs error of K2's float32 row LSE (wrong scores)
 K2_DESIGN = ("tensor cores: wgmma (m64nBKk16 Q.K^T, m64nDk16 P.V from "
              "registers), TMA ring of K/V tiles, producer warpgroup")
+DQ_DESIGN = ("tensor cores: wgmma m64nMPk16 with 64 output rows as A "
+             "dequantized in registers (fma.rn.bf16x2, one rounding) and x "
+             "staged once per CTA as B in shared memory (K permuted per "
+             "128-column step); a per-thread cp.async ring of packed codes "
+             "and scales (4 stages, 8 past 16 rows of x); K split by "
+             "dq_plan where N cannot fill the card, partials summed in "
+             "slice order")
 # K3 vs the gathered view + masked sdpa, held per (row, head): max error
 # over max |plain| of that row and head, so a long row's small output is
 # not measured against a length-1 row's raw V. The plain version rounds its
@@ -294,6 +302,7 @@ def qmm_row(kernel, x, pq, launch, plain, lib_call, lib_err, a8, **keys):
            "library_rel_err": lib_rel, "GBps": wbytes / ms / 1e6,
            **bound(wbytes + 2 * M * (K + N) + (2 * K if norm else 0),
                    2 * M * N * K, "int8" if a8 else "bf16")}
+    row.update(versus(row))
     emit({"phase": kernel, **row})
     if not rel < K1_TOL:
         raise RuntimeError(f"{kernel} {keys} M={M}: rel error {rel} >= "
@@ -503,22 +512,27 @@ def check_k2c(dev, flush):
     return rows
 
 
-def compare_flash(parent: str, dev, flush):
-    """K2 and K2c of the checkout at ``parent`` (its kernels built by its
-    own ``ops/_build.py``, called through the same C entry points) against
-    this checkout's, on the same inputs at every shape of K2_T and
-    K2C_SHAPES, timed in turns: parent, this, this, parent. One
-    ``k2_vs_parent`` line per shape."""
+def parent_library(parent: str):
+    """The kernel library of the checkout at ``parent``, built by its own
+    ``ops/_build.py``."""
     import importlib.util
-
-    from ominix_mlx_tpu_torch.ops import flash_attention as fa
 
     spec = importlib.util.spec_from_file_location(
         "parent_build",
         os.path.join(parent, "ominix_mlx_tpu_torch", "ops", "_build.py"))
     pbuild = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(pbuild)
-    plib = pbuild.library()
+    return pbuild.library()
+
+
+def compare_flash(plib, dev, flush):
+    """K2 and K2c of a parent checkout (``plib``, its kernel library,
+    called through the same C entry points) against
+    this checkout's, on the same inputs at every shape of K2_T and
+    K2C_SHAPES, timed in turns: parent, this, this, parent. One
+    ``k2_vs_parent`` line per shape."""
+    from ominix_mlx_tpu_torch.ops import flash_attention as fa
+
     stream = torch.cuda.current_stream(dev).cuda_stream
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     H, Hkv, D = 32, 8, 128
@@ -2036,17 +2050,99 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
                               for (f, ln, fn), v in host]}
 
 
+def profile_prefill16(dev, cfg, params, T: int = 16):
+    """One fresh T-token prefill at batch 1 (the chat bucket: every
+    projection and the lm_head take the dq formula at 16 rows on panels)
+    under torch.profiler, after a warm-up: device busy time and the dq
+    kernel's share of it (its main and reduce kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ominix_mlx_tpu_torch.models import base
+
+    def run():
+        cache = base.init_cache(cfg, 1, 1024, device=dev)
+        prompt = torch.ones(1, T, dtype=torch.long, device=dev)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            base.forward(params, cfg, prompt, cache, fresh_prefill=True)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = run()
+    busy_us, by_name = device_time(prof)
+    dq = [(c, us) for name, (c, us) in by_name.items() if "qmm_dq" in name]
+    return {"phase": "profile_prefill16", "tokens": T,
+            "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+            "dq_launches": sum(c for c, _ in dq),
+            "dq_ms": sum(us for _, us in dq) / 1e3,
+            "dq_share_of_busy": sum(us for _, us in dq) / busy_us,
+            "top_device": top_kernels(by_name, busy_us, 8)}
+
+
+def compare_dq(plib, dev, flush):
+    """The dq formula of a parent checkout (``plib``: its K1 dq kernel
+    ``ominix_qmm_dq`` and K7 ``ominix_qmm_w4a16_tc``, one signature with
+    the group-sum scratch) against this checkout's kernel, on the same
+    inputs, timed in turns (parent, this, this, parent): K1 at every
+    K1_SHAPES shape at M = 2 and 16, 4 and 8 bits; K7 at the four K7
+    shapes at M = 17, 40 and 64. One ``dq_vs_parent`` line per shape."""
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    cases = [("k1_mn", bits, shape, M) for bits in (4, 8)
+             for shape in K1_SHAPES for M in (2, 16)]
+    cases += [("k7", 4, shape, M) for shape in K1_SHAPES[:4]
+              for M in (17, 40, 64)]
+    for route, bits, (name, N, K, _), M in cases:
+        _, pq = random_packed(qm, g, dev, N, K, bits, None)
+        x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+        y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+        xg = torch.empty(M, K // GS, dtype=torch.float32, device=dev)
+        entry = getattr(plib, "ominix_qmm_dq" if route == "k1_mn"
+                        else "ominix_qmm_w4a16_tc")
+
+        def parent_call():
+            rc = entry(x.data_ptr(), pq.data.data_ptr(),
+                       pq.scales.data_ptr(), pq.biases.data_ptr(),
+                       y.data_ptr(), xg.data_ptr(), M, N, K, GS, bits,
+                       stream)
+            if rc != 0:
+                raise RuntimeError(f"parent {route}: CUDA error {rc}")
+
+        def this_call():
+            (qm._k1 if route == "k1_mn" else qm._k7)(x, pq)
+
+        parent_call()
+        rel = row_rel_err(y, (qm._k1 if route == "k1_mn" else qm._k7)(x, pq))
+        turns = [time_ms(fn, 10, flush) for fn in
+                 (parent_call, this_call, this_call, parent_call)]
+        emit({"phase": "dq_vs_parent", "route": route, "shape": name,
+              "bits": bits, "M": M, "N": N, "K": K,
+              "plan": dataclasses.asdict(qm.dq_plan(M, N, K, GS)),
+              "parent_vs_this_rel": rel,
+              "parent_ms": [turns[0], turns[3]], "ms": turns[1:3],
+              "speedup": min(turns[0], turns[3]) / max(turns[1:3])})
+        del pq, x, y, xg
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="only build this checkout's and DIR's kernels and "
-                         "time K2/K2c against DIR's, in turns")
+                         "time K2/K2c and the dq formula against DIR's, in "
+                         "turns")
     ap.add_argument("--profile", action="store_true",
                     help="profile decode steps on the device "
                          "(torch.profiler) and the host (cProfile): batch 1 "
                          "w4a8, batch 8 w8a8 over a paged cache, and "
-                         "batch 1 Qwen3-30B-A3B w4a8; and one 8k chunked "
-                         "prefill")
+                         "batch 1 Qwen3-30B-A3B w4a8; one 16-token w4a8 "
+                         "prefill; and one 8k chunked prefill")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2076,7 +2172,9 @@ def main() -> int:
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     if args.parent:
-        compare_flash(args.parent, dev, flush_buf.zero_)
+        plib = parent_library(args.parent)
+        compare_flash(plib, dev, flush_buf.zero_)
+        compare_dq(plib, dev, flush_buf.zero_)
         return 0
     k1_rows = check_k1(dev, flush_buf.zero_)
     k6_rows = check_k6(dev, flush_buf.zero_)
@@ -2105,6 +2203,7 @@ def main() -> int:
     emit({**decode_rate(dev, cfg, params, 64, 256), "card": smi})
     if args.profile:
         emit({**profile_decode(dev, cfg, params), "card": smi})
+        emit({**profile_prefill16(dev, cfg, params), "card": smi})
     del params
     free_device_memory()
 
@@ -2217,25 +2316,37 @@ def main() -> int:
                                and r["M"] == M
                                and mode in (None, r["mode"]))
 
+    def worst_vs_library(shape, M):
+        """The row furthest behind its PyTorch call, or (no library time
+        in any row) the row at ``shape`` and M."""
+        def pick(rs):
+            timed = [r for r in rs if r["vs_library"] is not None]
+            if timed:
+                return max(timed, key=lambda r: r["vs_library"])
+            return at(shape, M)(rs)
+        return pick
+
     kernels = [
         entry("k1_qmm_w4_m1", "ominix_mlx_tpu/ops/quant_matmul.py:719",
               "ominix_mlx_tpu_torch/csrc/qmm.cu", k1_rows_of(4, True),
               at("lm_head", 1, "a8"), "k1_m1"),
         entry("k1_qmm_w4_m2_16", "ominix_mlx_tpu/ops/quant_matmul.py:1062",
-              "ominix_mlx_tpu_torch/csrc/qmm.cu", k1_rows_of(4, False),
-              at("gate_up_proj", 16), "k1_mn"),
+              "ominix_mlx_tpu_torch/csrc/qmm_tc.cu", k1_rows_of(4, False),
+              worst_vs_library("gate_up_proj", 16), "k1_mn",
+              design=DQ_DESIGN),
         entry("k1_qmm_w8_m1", "ominix_mlx_tpu/ops/quant_matmul.py:719",
               "ominix_mlx_tpu_torch/csrc/qmm.cu", k1_rows_of(8, True),
               at("lm_head", 1, "a8"), "k1_m1_w8"),
         entry("k1_qmm_w8_m2_16", "ominix_mlx_tpu/ops/quant_matmul.py:1062",
-              "ominix_mlx_tpu_torch/csrc/qmm.cu", k1_rows_of(8, False),
-              at("gate_up_proj", 16), "k1_mn_w8"),
+              "ominix_mlx_tpu_torch/csrc/qmm_tc.cu", k1_rows_of(8, False),
+              worst_vs_library("gate_up_proj", 16), "k1_mn_w8",
+              design=DQ_DESIGN),
         entry("k6_qmm_rows", "ominix_mlx_tpu/ops/quant_matmul.py:358",
               "ominix_mlx_tpu_torch/csrc/qmm.cu", k6_rows,
               at("gate_up_proj", 1, "w4a8"), "k6"),
         entry("k7_qmm_w4a16_tc", "ominix_mlx_tpu/ops/quant_matmul.py:1229",
               "ominix_mlx_tpu_torch/csrc/qmm_tc.cu", k7_rows,
-              at("gate_up_proj", 64), "k7"),
+              worst_vs_library("gate_up_proj", 64), "k7", design=DQ_DESIGN),
         entry("k2_flash_prefill", "ominix_mlx_tpu/ops/flash_attention.py:60",
               "ominix_mlx_tpu_torch/csrc/flash_attn.cu", k2_rows,
               lambda rs: rs[-1], "k2", design=K2_DESIGN),

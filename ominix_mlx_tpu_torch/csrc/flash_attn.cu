@@ -67,6 +67,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr int kBQ = 128;          // query rows per CTA, 64 per consumer
@@ -83,10 +85,6 @@ struct Cfg {
   // 1024 bytes of slack to align the swizzled tiles to 1024
   static constexpr size_t smem = 1024 + Q_BYTES + 2 * kStages * KV_BYTES;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -136,28 +134,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma descriptor of a 128-byte-swizzled tile: 1024 bytes between groups
-// of 8 rows; lbo, the bytes between 64-element column blocks, is read only
-// for an MN-major operand wider than 64
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this warpgroup are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // The two consumer warpgroups take turns to issue their products (named
 // barriers 3 and 4, all 256 consumer threads): one's softmax runs while
 // the other's products do.
@@ -167,27 +143,6 @@ __device__ __forceinline__ void turn_wait(int c) {
 
 __device__ __forceinline__ void turn_pass(int c) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - c) : "memory");
-}
-
-// Pin registers that an asynchronous wgmma reads or writes at this point,
-// so the compiler keeps them in place between issue and wait.
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void keep(unsigned (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared

@@ -1,15 +1,14 @@
-// K1 and K6: quantized skinny matmuls y[M, N] = x[M, K] @ W^T for M in
-// [1, 16], W group-affine 4- or 8-bit (per-group bf16 scale and bias).
+// K1 and K6: quantized skinny matmuls y[M, N] = x[M, K] @ W^T with the P
+// formula, W group-affine 4- or 8-bit (per-group bf16 scale and bias).
 //
-// Replaces three TPU kernels of ominix_mlx_tpu/ops/quant_matmul.py:
+// Replaces two TPU kernels of ominix_mlx_tpu/ops/quant_matmul.py:
 //   * _pt_kernel (A1; M = 1 over transposed panels, w4/w8, a8/a16, RMSNorm
-//     fused for 4-bit): K1 at M = 1, the P formula;
-//   * _dq_kernel (A3; 2 <= M <= 16, exact bf16 activations, w4/w8): K1 at
-//     2 <= M <= 16, the dq formula;
+//     fused for 4-bit): K1 at M = 1;
 //   * _pm_kernel (A4; row-major, M <= 16, w4a8 / w8a8 / w8a16): K6, the P
 //     formula over M rows.
-// The port keeps one row-major layout for all three; ops/quant_matmul.py
-// route() picks the formula the JAX package would.
+// K1 at 2 <= M <= 16 (A3, the dq formula) runs on the tensor cores in
+// qmm_tc.cu. The port keeps one row-major layout for all of them;
+// ops/quant_matmul.py route() picks the formula the JAX package would.
 //
 // Weight layout (ops/quant_matmul.py prepare): 4-bit data uint8 [N, K/2],
 // byte j of a row = u[2j] | u[2j+1] << 4 with unsigned codes u = q + 8,
@@ -17,14 +16,12 @@
 // Scales and biases bf16 [N, G]. Below, c is the stored code (u or q) and
 // b* the stored bias.
 //
-// Formulas (the plain versions are qmm_p_reference / qmm_dq_reference):
-//   P  (qmm_p): per row m, a8: sx = max|x| / 127 + 1e-12, cx = rint(x / sx)
-//       as int8, P_g = sum_{k in g} c_k * cx_k in int32 (__dp4a, exact like
-//       the MXU's int32); a16: sx = 1, P_g = sum c_k * x_k in f32. Then
-//       y = sx * sum_g s_g * P_g + sum_g b*_g * xg_g, xg the bf16-rounded
-//       group sums of x (of the normed x when K1 fuses the norm).
-//   dq (qmm_dq): y = sum_k bf16(d_k * s_g) * x_k + sum_g bh_g * xg_g in f32,
-//       d = u - 8 or q, bh = bf16(b' + 8s) or b (quant_matmul.py:1110-1135).
+// The P formula (qmm_p; the plain version is qmm_p_reference): per row m,
+// a8: sx = max|x| / 127 + 1e-12, cx = rint(x / sx) as int8, P_g =
+// sum_{k in g} c_k * cx_k in int32 (__dp4a, exact like the MXU's int32);
+// a16: sx = 1, P_g = sum c_k * x_k in f32. Then
+// y = sx * sum_g s_g * P_g + sum_g b*_g * xg_g, xg the bf16-rounded group
+// sums of x (of the normed x when K1 fuses the norm).
 //
 // What bounds it on an H100: bytes. At M = 1 every weight byte is read once
 // and used for one or two multiply-adds, far below the card's ~295
@@ -35,10 +32,9 @@
 // activation prologue (norm, group sums, int8 quantisation) runs once per
 // call in a small kernel, not once per output tile. Each lane reuses its
 // chunk for every row of x, but x is read again for every output row (from
-// L1/L2), which is what limits M = 16. Reductions are warp butterflies in a
-// fixed order with no atomics, so greedy decode is deterministic.
-// Later work: split-K for the small-N projections, x staged in shared
-// memory, cp.async/TMA pipelining.
+// L1/L2), which is what limits K6 at M = 16. Reductions are warp
+// butterflies in a fixed order with no atomics, so greedy decode is
+// deterministic.
 
 #include "qmm_common.cuh"
 
@@ -155,57 +151,6 @@ qmm_p(const uint8_t* __restrict__ data, const __nv_bfloat16* __restrict__ sc,
   }
 }
 
-// The dq formula over M <= MT rows of bf16 x [M, K], xg f32 [M, G]. Each
-// lane dequantises its chunk once, with the TPU kernel's rounding, and
-// reuses it for every row of x.
-template <int BITS, int MT>
-__global__ void __launch_bounds__(kThreads)
-qmm_dq(const uint8_t* __restrict__ data, const __nv_bfloat16* __restrict__ sc,
-       const __nv_bfloat16* __restrict__ bs,
-       const __nv_bfloat16* __restrict__ x, const float* __restrict__ xg,
-       __nv_bfloat16* __restrict__ y, int M, int N, int K, int gs) {
-  constexpr int NC = BITS == 4 ? 32 : 16;   // codes a chunk
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (n >= N) return;
-  const int G = K / gs, chunks = K / NC;
-  const uint4* wrow =
-      reinterpret_cast<const uint4*>(data + (size_t)n * (K / 8 * BITS));
-  const __nv_bfloat16* srow = sc + (size_t)n * G;
-  const __nv_bfloat16* brow = bs + (size_t)n * G;
-  float acc[MT], acc_b[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = acc_b[m] = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    const uint4 w = __ldg(wrow + c);
-    const int k0 = c * NC, g = k0 / gs;
-    const float s = __bfloat162float(srow[g]);
-    const bool first = k0 % gs == 0;
-    float bh = 0.f;
-    if (first) {
-      bh = __bfloat162float(brow[g]);
-      if constexpr (BITS == 4) bh = bf16r(bh + 8.f * s);   // unfold b - 8s
-    }
-    float wd[NC];
-    unpack_chunk<BITS>(w, wd);
-#pragma unroll
-    for (int i = 0; i < NC; ++i)
-      wd[i] = bf16r((BITS == 4 ? wd[i] - 8.f : wd[i]) * s);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        acc[m] = dot_bf16<NC>(wd, x + (size_t)m * K + k0, acc[m]);
-        if (first) acc_b[m] = fmaf(bh, xg[(size_t)m * G + g], acc_b[m]);
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const float v = warp_sum(acc[m]) + warp_sum(acc_b[m]);
-    if (lane == 0 && m < M) y[(size_t)m * N + n] = __float2bfloat16(v);
-  }
-}
-
 template <int BITS, bool A8, int MT>
 void launch_p(const uint8_t* d, const __nv_bfloat16* sc,
               const __nv_bfloat16* bs, const int8_t* xq,
@@ -227,26 +172,6 @@ void launch_p_rows(const uint8_t* d, const __nv_bfloat16* sc,
   else if (M <= 4) launch_p<BITS, A8, 4>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
   else if (M <= 8) launch_p<BITS, A8, 8>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
   else launch_p<BITS, A8, 16>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
-}
-
-template <int BITS, int MT>
-void launch_dq(const uint8_t* d, const __nv_bfloat16* sc,
-               const __nv_bfloat16* bs, const __nv_bfloat16* x,
-               const float* xg, __nv_bfloat16* y, int M, int N, int K,
-               int gs, cudaStream_t st) {
-  qmm_dq<BITS, MT><<<(N + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      d, sc, bs, x, xg, y, M, N, K, gs);
-}
-
-template <int BITS>
-void launch_dq_rows(const uint8_t* d, const __nv_bfloat16* sc,
-                    const __nv_bfloat16* bs, const __nv_bfloat16* x,
-                    const float* xg, __nv_bfloat16* y, int M, int N, int K,
-                    int gs, cudaStream_t st) {
-  if (M <= 2) launch_dq<BITS, 2>(d, sc, bs, x, xg, y, M, N, K, gs, st);
-  else if (M <= 4) launch_dq<BITS, 4>(d, sc, bs, x, xg, y, M, N, K, gs, st);
-  else if (M <= 8) launch_dq<BITS, 8>(d, sc, bs, x, xg, y, M, N, K, gs, st);
-  else launch_dq<BITS, 16>(d, sc, bs, x, xg, y, M, N, K, gs, st);
 }
 
 }  // namespace
@@ -285,28 +210,6 @@ int ominix_qmm_p(const void* x, const void* norm_w, float eps,
   else if (bits == 4) launch_p_rows<4, false>(d, sc, bs, q8, xa, g, s, yb, M, N, K, gs, st);
   else if (a8) launch_p_rows<8, true>(d, sc, bs, q8, xa, g, s, yb, M, N, K, gs, st);
   else launch_p_rows<8, false>(d, sc, bs, q8, xa, g, s, yb, M, N, K, gs, st);
-  return (int)cudaGetLastError();
-}
-
-// The dq formula (K1 at 2 <= M <= 16) on `stream`: the group-sum prologue
-// (scratch xg [M, G] f32 from the caller), then the rows. Returns
-// cudaGetLastError().
-int ominix_qmm_dq(const void* x, const void* data, const void* scales,
-                  const void* biases, void* y, void* xg, int M, int N, int K,
-                  int gs, int bits, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const auto* xb = (const __nv_bfloat16*)x;
-  qmm_prep<<<M, kPrepThreads, 0, st>>>(xb, nullptr, 0.f, K, gs, nullptr,
-                                       (float*)xg, nullptr, nullptr);
-  const auto* d = (const uint8_t*)data;
-  const auto* sc = (const __nv_bfloat16*)scales;
-  const auto* bs = (const __nv_bfloat16*)biases;
-  if (bits == 4)
-    launch_dq_rows<4>(d, sc, bs, xb, (const float*)xg, (__nv_bfloat16*)y, M,
-                      N, K, gs, st);
-  else
-    launch_dq_rows<8>(d, sc, bs, xb, (const float*)xg, (__nv_bfloat16*)y, M,
-                      N, K, gs, st);
   return (int)cudaGetLastError();
 }
 

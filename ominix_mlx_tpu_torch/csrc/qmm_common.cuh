@@ -1,6 +1,7 @@
 // Device code shared by K1 and K6 (qmm.cu), K4 and K8 (gather_qmm.cu) and
-// K7 (qmm_tc.cu): warp and block reductions, the activation prologue (norm,
-// group sums, a8 quantisation), and the row dot of the a8 formula over the
+// the dq kernel (qmm_tc.cu): warp and block reductions, the activation
+// prologue (norm, group sums, a8 quantisation), and the row dot of the a8
+// formula over the
 // packed layouts (4-bit: uint8 [.., K/2], natural nibble order, folded
 // biases b - 8s; 8-bit: int8 [.., K], biases b; bf16 scales and biases per
 // group).

@@ -35,9 +35,10 @@ build_seconds = 0.0     # wall time of the build this process ran (0 if reused)
 
 # Kernel launch counts, by kernel: incremented by each wrapper where it
 # launches its kernel and nowhere else ("k1_m1": K1 at M=1 on a 4-bit
-# weight, "k1_mn": K1 at 2 <= M <= 16 on a 4-bit weight, "k1_m1_w8" and
-# "k1_mn_w8": the same on an 8-bit weight, "k6": the row-major P formula
-# over up to 16 rows, "k7": exact w4a16 on the tensor cores up to 64 rows,
+# weight, "k1_mn": K1 at 2 <= M <= 16 on a 4-bit weight (the dq kernel),
+# "k1_m1_w8" and "k1_mn_w8": the same on an 8-bit weight, "k6": the
+# row-major P formula over up to 16 rows, "k7": the dq kernel on row-major
+# 4-bit weights up to 64 rows,
 # "k2": flash prefill, "k2c": flash continuation chunk,
 # "k3": paged decode attention, "k3_int8": the part of "k3" on int8
 # pages, "k4": MoE expert gather-qmm on 4-bit experts, "k4_w8": the same
@@ -72,10 +73,9 @@ def _declare(lib):
     lib.ominix_qmm_p.restype = i
     lib.ominix_qmm_p.argtypes = [vp, vp, f, vp, vp, vp, vp, vp, vp, vp, vp,
                                  i, i, i, i, i, i, vp]
-    lib.ominix_qmm_dq.restype = i
-    lib.ominix_qmm_dq.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
-    lib.ominix_qmm_w4a16_tc.restype = i
-    lib.ominix_qmm_w4a16_tc.argtypes = lib.ominix_qmm_dq.argtypes
+    lib.ominix_qmm_dq_tc.restype = i
+    lib.ominix_qmm_dq_tc.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+                                     i, i, i, i, i, vp]
     lib.ominix_flash_fwd.restype = i
     lib.ominix_flash_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, f,
                                      vp]

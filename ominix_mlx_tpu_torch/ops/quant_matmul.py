@@ -44,7 +44,9 @@ The formulas, on x taken in bf16 (the model's activations):
   biases; against a row-major weight's own b it is off by at most one
   bf16 ulp of |b| + 8s, and exact for the zero biases of a random init).
 
-K1, K6 and K7 are hand-written CUDA (``csrc/qmm.cu``, ``csrc/qmm_tc.cu``).
+K1 at one row and K6 are hand-written CUDA in ``csrc/qmm.cu``; the dq
+formula ("k1_mn" and "k7", 1 to 64 rows, 4 and 8 bits) is one tensor-core
+kernel in ``csrc/qmm_tc.cu``, planned by ``dq_plan``.
 A CPU tensor takes the plain PyTorch version of its route
 (``quantized_matmul_reference``); a CUDA tensor launches the route's kernel
 or raises.
@@ -74,6 +76,7 @@ ops/quant_matmul.py:1523-1533).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -468,34 +471,124 @@ def _launch_p(what: str, x: torch.Tensor, w: PackedQuantizedTensor,
     return y
 
 
-def _launch_dq(what: str, entry: str, x: torch.Tensor,
-               w: PackedQuantizedTensor):
-    """The dq formula on the card: the group-sum prologue, then the
-    matmul (``entry``: ominix_qmm_dq for K1, ominix_qmm_w4a16_tc for K7;
-    one signature)."""
+# The dq kernel's plan (csrc/qmm_tc.cu): a warpgroup owns 64-row tiles of
+# the output, a pipeline stage is 128 columns of K, a CTA holds 1 to 4
+# warpgroups (2 where x has more than 16 rows, whose warpgroups hold more
+# registers) and the x slice of its split in shared memory. SMS is the
+# H100's SM count and DQ_SMEM_MAX the dynamic shared memory a block may use
+# on sm_90.
+SMS = 132
+DQ_TILE_N, DQ_STEP_K, DQ_MAX_WG = 64, 128, 4
+DQ_SMEM_MAX = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class DqPlan:
+    """How the dq kernel covers an [M, N, K] product: x padded to ``mp``
+    rows, ``warpgroups`` a CTA, each over ``tiles`` 64-row tiles of N in
+    turn, and K cut into ``splits`` slices of ``k_slice`` columns (the last
+    may be shorter)."""
+
+    mp: int
+    warpgroups: int
+    tiles: int
+    splits: int
+    k_slice: int
+
+
+def dq_ring_bytes(mp: int, bits: int) -> int:
+    """A thread's ring (``Ring`` in csrc/qmm_tc.cu): 4 stages where x is at
+    most 16 rows, else 8, of two (4-bit) or four (8-bit) 16-byte chunks of
+    codes and two scale words."""
+    return (4 if mp <= 16 else 8) * ((2 if bits == 4 else 4) * 16 + 8)
+
+
+def dq_smem(mp: int, warpgroups: int, k_slice: int, gs: int,
+            bits: int = 4) -> int:
+    """Shared memory of one CTA of the dq kernel, alignment slack included
+    (``smem_bytes`` in csrc/qmm_tc.cu): the x slice in 128-column steps,
+    the bias operand in boxes of 64 groups, the 32-column sums, the
+    ring."""
+    nst = -(-k_slice // DQ_STEP_K)
+    nbb = -(-(k_slice // gs) // 64)
+    return (1024 + nst * mp * 256 + nbb * mp * 128 + mp * nst * 16
+            + dq_ring_bytes(mp, bits) * 128 * warpgroups)
+
+
+def dq_plan(M: int, N: int, K: int, gs: int, bits: int = 4) -> DqPlan:
+    """The dq kernel's plan for x [M, K] against a ``bits``-bit W [N, K] at
+    group size gs.
+
+    K is split where the 64-row tiles of N cannot give every SM a
+    warpgroup, and further where the CTA's x slice does not fit shared
+    memory; a slice is a whole number of groups and of 128-column steps.
+    A CTA takes as many warpgroups as one wave over the SMs needs (at most
+    4, fewer where shared memory is short), and each warpgroup as many
+    tiles as keep the CTAs within one wave, so each staged x slice serves
+    every tile of its CTA."""
+    if not 1 <= M <= VPU_M_MAX or K % 32 or gs % 32 or K % gs:
+        raise ValueError(f"the dq kernel takes 1 <= M <= {VPU_M_MAX} and K "
+                         f"a multiple of the group size, both multiples of "
+                         f"32; got M={M}, K={K}, group size {gs}")
+    mp = next(p for p in (8, 16, 32, 64) if M <= p)
+    tiles = -(-N // DQ_TILE_N)
+    step = math.lcm(gs, DQ_STEP_K)
+    units = -(-K // step)
+    # steps per slice: the most that still gives every SM a tile, then
+    # fewer until the CTA fits shared memory
+    per = max(1, -(-units // -(-SMS // tiles)))
+    while per > 1 and tiles * -(-units // per) < SMS:
+        per -= 1
+    while True:
+        k_slice = per * step
+        splits = -(-K // k_slice)
+        want = min(DQ_MAX_WG if mp <= 16 else 2, -(-tiles * splits // SMS))
+        for wgs in range(want, 0, -1):
+            if dq_smem(mp, wgs, k_slice, gs, bits) <= DQ_SMEM_MAX:
+                per_wg = -(-tiles * splits // (SMS * wgs))
+                return DqPlan(mp, wgs, per_wg, splits, k_slice)
+        if per == 1:
+            raise ValueError(f"no dq plan fits shared memory at M={M}, "
+                             f"group size {gs}")
+        per -= 1
+
+
+def _launch_dq(what: str, x: torch.Tensor, w: PackedQuantizedTensor):
+    """The dq formula on the card (csrc/qmm_tc.cu ominix_qmm_dq_tc): one
+    launch, or two where ``dq_plan`` splits K (the partials summed in
+    slice order by a second kernel)."""
     from ominix_mlx_tpu_torch.ops import _build
 
     M, K = x.shape
     N = w.data.shape[0]
     dev = x.device
+    if w.scales.data_ptr() % 4 or w.biases.data_ptr() % 4:
+        raise ValueError(f"{what} needs 4-byte aligned scales and biases")
+    if w.data.numel() >= 2 ** 31:
+        raise ValueError(f"{what} indexes the weight with 32-bit offsets: "
+                         f"{w.data.numel()} bytes is too many")
+    plan = dq_plan(M, N, K, w.group_size, w.bits)
     lib = _build.library()
     y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
-    xg = torch.empty(M, K // w.group_size, dtype=torch.float32, device=dev)
-    rc = getattr(lib, entry)(
+    part = (torch.empty(plan.splits, M, N, dtype=torch.float32, device=dev)
+            if plan.splits > 1 else None)
+    rc = lib.ominix_qmm_dq_tc(
         x.data_ptr(), w.data.data_ptr(), w.scales.data_ptr(),
-        w.biases.data_ptr(), y.data_ptr(), xg.data_ptr(), M, N, K,
-        w.group_size, w.bits, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, f"{what} ({entry})")
+        w.biases.data_ptr(), y.data_ptr(), _ptr(part), M, N, K,
+        w.group_size, w.bits, plan.mp, plan.warpgroups, plan.tiles,
+        plan.splits, plan.k_slice, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, f"{what} (ominix_qmm_dq_tc)")
     return y
 
 
 def _k1(x: torch.Tensor, w: PackedQuantizedTensor,
         norm_w: Optional[torch.Tensor] = None,
         norm_eps: float = 1e-6) -> torch.Tensor:
-    """Launch K1 (csrc/qmm.cu) on the current stream: bf16 x [M, K] on
-    CUDA -> bf16 [M, N]. M = 1: the P formula (A1), a8 where
+    """Launch K1 on the current stream: bf16 x [M, K] on CUDA -> bf16
+    [M, N]. M = 1: the P formula (A1, csrc/qmm.cu), a8 where
     ``w.act_bits == 8``, the RMSNorm fused for a 4-bit weight;
-    2 <= M <= 16: the dq formula (A3), x already normed."""
+    2 <= M <= 16: the dq formula (A3) on the tensor cores
+    (csrc/qmm_tc.cu), x already normed."""
     from ominix_mlx_tpu_torch.ops import _build
 
     _check_launch("K1", x, w, DECODE_M_MAX)
@@ -512,7 +605,7 @@ def _k1(x: torch.Tensor, w: PackedQuantizedTensor,
         y = _launch_p("K1", x, w, norm_w, norm_eps)
         _build.LAUNCHES["k1_m1" + w8] += 1
     else:
-        y = _launch_dq("K1", "ominix_qmm_dq", x, w)
+        y = _launch_dq("K1", x, w)
         _build.LAUNCHES["k1_mn" + w8] += 1
     return y
 
@@ -533,15 +626,15 @@ def _k6(x: torch.Tensor, w: PackedQuantizedTensor) -> torch.Tensor:
 
 
 def _k7(x: torch.Tensor, w: PackedQuantizedTensor) -> torch.Tensor:
-    """Launch K7 (csrc/qmm_tc.cu, exact w4a16 on the tensor cores;
-    replaces A5 ``_vpu_kernel``) on the current stream: bf16 x [M, K],
-    M <= 64, already normed, on CUDA -> bf16 [M, N]."""
+    """Launch K7 (the dq kernel of csrc/qmm_tc.cu on a row-major 4-bit
+    weight; replaces A5 ``_vpu_kernel``) on the current stream: bf16 x
+    [M, K], M <= 64, already normed, on CUDA -> bf16 [M, N]."""
     from ominix_mlx_tpu_torch.ops import _build
 
     _check_launch("K7", x, w, VPU_M_MAX)
     if w.bits != 4:
         raise ValueError("K7 takes 4-bit weights")
-    y = _launch_dq("K7", "ominix_qmm_w4a16_tc", x, w)
+    y = _launch_dq("K7", x, w)
     _build.LAUNCHES["k7"] += 1
     return y
 

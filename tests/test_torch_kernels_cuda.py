@@ -138,6 +138,120 @@ def test_k7_matches_plain(cuda, N, K, M):
     assert _row_rel(got, want) < 1e-2
 
 
+# Qwen3-4B's projections (K1_SHAPES of chip_smoke.py) and a ragged N
+DQ_SHAPES = [(6144, 2560), (2560, 4096), (19456, 2560), (2560, 9728),
+             (151936, 2560), (100, 2560)]
+
+
+@pytest.mark.parametrize("N,K", DQ_SHAPES)
+@pytest.mark.parametrize("bits,M", [(4, 2), (4, 5), (4, 16), (4, 17),
+                                    (4, 37), (4, 64), (8, 2), (8, 13),
+                                    (8, 16)])
+def test_dq_kernel_matches_plain(cuda, N, K, bits, M):
+    """The dq kernel (csrc/qmm_tc.cu, the routes k1_mn, k1_mn_w8 and k7)
+    against qmm_dq_reference: rel < 1e-2 per row (bf16 output, another
+    summation order), whatever dq_plan splits."""
+    pq, g = _packed(cuda, N, K, None, seed=M + bits, bits=bits)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    got = qm._launch_dq("dq", x, pq)
+    want = qm.qmm_dq_reference(x, pq)
+    torch.cuda.synchronize()
+    assert got.shape == (M, N) and torch.isfinite(got.float()).all()
+    assert _row_rel(got, want) < 1e-2
+
+
+@pytest.mark.parametrize("gs,K", [(96, 1056), (128, 1152), (32, 1248)])
+@pytest.mark.parametrize("bits,M", [(4, 3), (4, 16), (4, 40), (8, 3),
+                                    (8, 16)])
+def test_dq_kernel_odd_group_counts(cuda, bits, gs, K, M):
+    """Group sizes other than 64, odd group counts per row and per slice
+    (G = 11, 9, 39), a ragged N: rel < 1e-2 per row against
+    qmm_dq_reference."""
+    N, G = 200, K // gs
+    g = torch.Generator(device=cuda).manual_seed(gs + M)
+    lim = 1 << (bits - 1)
+    qt = QuantizedTensor(
+        q=torch.randint(-lim, lim, (N, K), generator=g, device=cuda,
+                        dtype=torch.int8),
+        scales=((torch.rand(N, G, generator=g, device=cuda) + 0.5)
+                * K ** -0.5 / lim).bfloat16(),
+        biases=(torch.randn(N, G, generator=g, device=cuda)
+                * K ** -0.5 / 4).bfloat16(),
+        group_size=gs, bits=bits)
+    pq = qm.prepare(qt, act_bits=None)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    got = qm._launch_dq("dq", x, pq)
+    want = qm.qmm_dq_reference(x, pq)
+    torch.cuda.synchronize()
+    assert _row_rel(got, want) < 1e-2
+
+
+@pytest.mark.parametrize("bits,N,K,M", [(4, 2560, 9728, 64),
+                                        (4, 19456, 2560, 16),
+                                        (4, 100, 512, 37),
+                                        (8, 2560, 9728, 16),
+                                        (8, 6144, 2560, 13)])
+def test_dq_kernel_dequantizes_bit_for_bit(cuda, bits, N, K, M):
+    """With the unfolded bias zero (stored b' = -8s at 4 bits, b = 0 at 8)
+    and one-hot rows of x, row m of the output is column k_m of the
+    dequantized weight bf16(d * s), bit for bit: the in-register rounding
+    is the TPU kernels' one rounding, with or without a split of K."""
+    g = torch.Generator(device=cuda).manual_seed(N + M)
+    lim, G = 1 << (bits - 1), K // 64
+    qt = QuantizedTensor(
+        q=torch.randint(-lim, lim, (N, K), generator=g, device=cuda,
+                        dtype=torch.int8),
+        scales=((torch.rand(N, G, generator=g, device=cuda) + 0.5)
+                * K ** -0.5 / lim).bfloat16(),
+        biases=torch.zeros(N, G, device=cuda).bfloat16(),
+        group_size=64, bits=bits)
+    pq = qm.prepare(qt, act_bits=None)
+    assert not qm.unfolded_biases(pq).float().any()
+    cols = torch.randint(0, K, (M,), generator=g, device=cuda)
+    x = torch.zeros(M, K, device=cuda).bfloat16()
+    x[torch.arange(M, device=cuda), cols] = 1
+    got = qm._launch_dq("dq", x, pq)
+    d = qt.q.float()
+    wd = (d.reshape(N, G, 64) * qt.scales.float()[..., None]).reshape(
+        N, K).bfloat16()
+    torch.cuda.synchronize()
+    assert torch.equal(got, wd[:, cols].T)
+    assert torch.equal(got, qm.qmm_dq_reference(x, pq))
+
+
+@pytest.mark.parametrize("N,K,M,splits", [(2560, 9728, 16, 4),
+                                          (19456, 2560, 16, 1)])
+def test_dq_kernel_launches_are_bit_equal(cuda, N, K, M, splits):
+    """Two launches on the same inputs are bit-equal, where dq_plan splits
+    K (down_proj) and where it does not (gate_up): the partials are summed
+    in slice order, with no atomics."""
+    assert qm.dq_plan(M, N, K, 64).splits == splits
+    pq, g = _packed(cuda, N, K, None, seed=3)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    a = qm._launch_dq("dq", x, pq)
+    b = qm._launch_dq("dq", x, pq)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_dq_kernel_split_agrees_with_one_slice(cuda, bits, monkeypatch):
+    """o_proj at M = 16 under dq_plan (K in 4 slices) and under a plan
+    forced to one slice of all of K agree within the tolerance."""
+    N, K, M = 2560, 4096, 16
+    plan = qm.dq_plan(M, N, K, 64, bits)
+    assert plan.splits == 4
+    pq, g = _packed(cuda, N, K, None, seed=5, bits=bits)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    split = qm._launch_dq("dq", x, pq)
+    monkeypatch.setattr(qm, "dq_plan", lambda *a: qm.DqPlan(
+        plan.mp, 1, 1, 1, K))
+    whole = qm._launch_dq("dq", x, pq)
+    torch.cuda.synchronize()
+    assert _row_rel(split, whole) < 1e-2
+    assert _row_rel(whole, qm.qmm_dq_reference(x, pq)) < 1e-2
+
+
 def test_k1_dispatch_counts_and_rejects(cuda):
     pq, g = _packed(cuda, 256, 512, 8)
     pq = qm.to_panels(pq)
