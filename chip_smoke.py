@@ -22,23 +22,27 @@ Qwen3-30B-A3B with random weights (seeded):
   - serve_batched_w4: enable_batching(quantize_bits=4), four concurrent
     chat requests (K7 at adoption, K1's dq formula at the batch decode);
   - serve_moe: HTTP chat requests on Qwen3-30B-A3B w4a8 (every MoE layer's
-    decode through K4, every prefill of more than 8 tokens through K5), the
+    decode through K4, every prefill of more than 8 tokens through K5 on
+    the packed experts, no dequantize_experts), a profiled 128-token
+    prefill (moe_prefill: wall, device busy, peak memory), the
     kernel-vs-plain logits check, the batch-1 decode rate, and a batch-8
     decode over a paged cache (K4 at 8 and 64 rows, K3 at 8 query heads
     per KV head);
   - serve_moe_q8: the same chat requests on Qwen3-30B-A3B w8a8 group-64
-    (K1 8-bit on panels, K4 8-bit at decode, K5 after the dequantize-once
-    at prefill), its logits check and decode rate;
+    (K1 8-bit on panels, K4 8-bit at decode, K5 on the 8-bit experts at
+    prefill), its moe_prefill line, logits check and decode rate;
   - serve_moe_batched_w8: Qwen3-30B-A3B with channel-int8 experts on a
     batched server, 8 concurrent chat requests each equal to the same
     request alone (K8 at decode, the exact int8 all-expert pass at
-    adoption, K3), and enable_batching(quantize_bits=8) converting a bf16
-    cut of 8 layers.
+    adoption, K3); then a bf16 cut of 8 layers: the chat requests on its
+    bf16 experts (serve_moe_bf16: K5 bf16 at prefill), and
+    enable_batching(quantize_bits=8) converting it.
 
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
-    python3 chip_smoke.py --parent DIR # K2/K2c and the dq kernel against
-                                       # another checkout's
+    python3 chip_smoke.py --parent DIR # K5 (bf16) and the 128-token MoE
+                                       # prefill against another
+                                       # checkout's
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero without a result line. The last line is
@@ -89,11 +93,16 @@ K4_SHAPES = (("gate_up", 1, 8, 768, 2048), ("gate_up", 8, 8, 768, 2048),
 # prefill routes S = 16384 token copies, the 16-token bucket 128
 K5_SHAPES = (("gate", 16384, 768, 2048), ("down", 16384, 2048, 768),
              ("gate", 128, 768, 2048), ("down", 128, 2048, 768))
+# K5 on packed experts: the 16-token bucket, the 128-token prefill (S =
+# 1024) and a 2048-token one, gate (and up) and down
+K5_PACKED_SHAPES = (("gate", 768, 2048), ("down", 2048, 768))
+K5_PACKED_S = (128, 1024, 16384)
 MOE_E = 128
 K4_TOL = 1e-2     # max error over max |plain| per (row, slot)
 # K5 vs its float32 plain version, max error over max |plain|: both sum
 # bf16 products in float32 (read 1.1e-6 to 2.8e-6 on the H100); a bf16
-# output or accumulator would read about 4e-3
+# output or accumulator would read about 4e-3. Packed experts are held to
+# the same limit: the kernel dequantizes with the plain version's rounding
 K5_TOL = 1e-4
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W): the
 # least time a kernel could take is the larger of bytes over the memory
@@ -113,6 +122,13 @@ DQ_DESIGN = ("tensor cores: wgmma m64nMPk16 with 64 output rows as A "
              "and scales (4 stages, 8 past 16 rows of x); K split by "
              "dq_plan where N cannot fill the card, partials summed in "
              "slice order")
+K5_DESIGN = ("tensor cores: 128 expert rows as A (bf16 read by wgmma from "
+             "128-byte-swizzled shared memory, or packed codes dequantized "
+             "in registers with the plain version's rounding) against up "
+             "to 128 rows of one group as B, NP = 8..128 picked per item "
+             "(wgmma m64nNPk16; mma.sync for packed items of at most 32 "
+             "rows); persistent CTAs, a producer thread's TMA rings of x "
+             "and weight slots")
 # K3 vs the gathered view + masked sdpa, held per (row, head): max error
 # over max |plain| of that row and head, so a long row's small output is
 # not measured against a length-1 row's raw V. The plain version rounds its
@@ -525,53 +541,6 @@ def parent_library(parent: str):
     return pbuild.library()
 
 
-def compare_flash(plib, dev, flush):
-    """K2 and K2c of a parent checkout (``plib``, its kernel library,
-    called through the same C entry points) against
-    this checkout's, on the same inputs at every shape of K2_T and
-    K2C_SHAPES, timed in turns: parent, this, this, parent. One
-    ``k2_vs_parent`` line per shape."""
-    from ominix_mlx_tpu_torch.ops import flash_attention as fa
-
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    H, Hkv, D = 32, 8, 128
-    scale = D ** -0.5
-    cases = [("k2", 0, T) for T in K2_T] + [("k2c", p, T)
-                                            for p, T in K2C_SHAPES]
-    for kernel, pos, T in cases:
-        q = torch.randn(1, H, T, D, generator=g, device=dev).bfloat16()
-        k = torch.randn(1, Hkv, pos + T, D, generator=g, device=dev).bfloat16()
-        v = torch.randn(1, Hkv, pos + T, D, generator=g, device=dev).bfloat16()
-        out = torch.empty_like(q)
-        lse = torch.empty(1, H, T, dtype=torch.float32, device=dev)
-
-        def parent_call():
-            if kernel == "k2":
-                rc = plib.ominix_flash_fwd(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), 1, H, Hkv, T, D, scale, stream)
-            else:
-                rc = plib.ominix_flash_chunk_fwd(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), 1, H, Hkv, T, pos, D, *k.stride()[:3],
-                    *v.stride()[:3], scale, stream)
-            if rc != 0:
-                raise RuntimeError(f"parent {kernel}: CUDA error {rc}")
-
-        def this_call():
-            if kernel == "k2":
-                fa._k2(q, k, v, scale)
-            else:
-                fa._k2c(q, k, v, pos, scale)
-
-        turns = [time_ms(fn, 10, flush) for fn in
-                 (parent_call, this_call, this_call, parent_call)]
-        emit({"phase": "k2_vs_parent", "kernel": kernel, "pos": pos, "T": T,
-              "parent_ms": [turns[0], turns[3]], "ms": turns[1:3],
-              "speedup": min(turns[0], turns[3]) / max(turns[1:3])})
-
-
 def check_k3(dev, flush):
     """K3 against paged_decode_reference at B=8, H=32, Hkv=8, D=128, page
     128, 16 pages per row, shuffled tables, ragged lengths: bf16 pages,
@@ -776,14 +745,55 @@ def skewed_groups(S: int, g) -> torch.Tensor:
     return gs + torch.bincount(picks, minlength=MOE_E)
 
 
+def k5_row(name, S, N, K, gs, xs, w, launch, plain, lib_call, lib_label,
+           flush, bits=16):
+    """One K5 line: the kernel twice (bitwise repeatable) against its plain
+    version, timed with L2 flushed beside its bound and ``lib_call``
+    (the nearest PyTorch composition, ``lib_label``)."""
+    got = launch()
+    again = launch()
+    want = plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"K5 {bits}-bit {name} S={S}: non-finite")
+    d = (got - want).abs().max().item()
+    rel = d / max(want.abs().max().item(), 1e-12)
+    ms = time_ms(launch, 10, flush)
+    plain_ms = time_ms(plain, 3, flush)
+    lib, lib_err = None, "torch._grouped_mm is not in this PyTorch"
+    if hasattr(torch, "_grouped_mm"):
+        lib, lib_err = time_library(lib_call, 10, flush)
+    used = int((gs > 0).sum())            # experts whose slab is read
+    G = K // GS
+    wbytes = (2 * used * N * K if bits == 16 else
+              used * N * K * bits // 8 + used * N * G * 4)
+    row = {"shape": name, "S": S, "N": N, "K": K, "E": MOE_E, "bits": bits,
+           "experts_used": used, "max_abs_err": d, "rel_err": rel,
+           "bitwise_repeatable": bool(torch.equal(got, again)),
+           "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+           "library": lib_label, "library_error": lib_err,
+           "TFLOPs": 2 * S * N * K / ms / 1e9,
+           **bound(2 * S * K + wbytes + 4 * S * N + 4 * MOE_E,
+                   2 * S * N * K, "bf16")}
+    row.update(versus(row))
+    emit({"phase": "k5", **row})
+    if not (rel < K5_TOL and row["bitwise_repeatable"]):
+        raise RuntimeError(f"K5 {bits}-bit {name} S={S}: rel error {rel}, "
+                           f"repeatable {row['bitwise_repeatable']}")
+    return row
+
+
 def check_k5(dev, flush):
     """K5 against grouped_matmul_reference over Qwen3-30B-A3B's 128
-    experts at a 2048-token prefill (S = 16384) and at the 16-token bucket
-    (S = 128), on skewed groups (empty ones, a one-row group, one of
-    S/2); and the same bits on a second launch. torch._grouped_mm, where
-    the installed PyTorch has it, is timed as the library yardstick (bf16
-    out; the port never calls it)."""
+    experts on skewed groups (empty ones, a one-row group, one of S/2),
+    and the same bits on a second launch: bf16 experts at K5_SHAPES
+    (torch._grouped_mm, where the installed PyTorch has it, timed as the
+    library yardstick, bf16 out); 4- and 8-bit experts read packed at
+    K5_PACKED_S rows, gate and down, with dequantize_experts +
+    torch._grouped_mm as the nearest PyTorch composition (no single call
+    computes it). The port never calls either."""
     from ominix_mlx_tpu_torch.ops import grouped_matmul as gmm
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
 
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     cpu_g = torch.Generator().manual_seed(SEED + 9)
@@ -793,40 +803,77 @@ def check_k5(dev, flush):
         w = (torch.randn(MOE_E, N, K, generator=g, device=dev)
              * K ** -0.5).bfloat16()
         gs = skewed_groups(S, cpu_g).to(dev)
-        got = gmm._k5(xs, w, gs.int())
-        again = gmm._k5(xs, w, gs.int())
-        want = gmm.grouped_matmul_reference(xs, w, gs)
-        torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise RuntimeError(f"K5 {name} S={S}: non-finite")
-        d = (got - want).abs().max().item()
-        rel = d / max(want.abs().max().item(), 1e-12)
-        ms = time_ms(lambda: gmm._k5(xs, w, gs.int()), 10, flush)
-        plain = time_ms(lambda: gmm.grouped_matmul_reference(xs, w, gs), 3,
-                        flush)
-        lib, lib_err = None, "torch._grouped_mm is not in this PyTorch"
-        if hasattr(torch, "_grouped_mm"):
-            offs = torch.cumsum(gs, 0).to(torch.int32)
-            wt = w.transpose(1, 2)
-            lib, lib_err = time_library(
-                lambda: torch._grouped_mm(xs, wt, offs=offs), 10, flush)
-        used = int((gs > 0).sum())            # experts whose slab is read
-        row = {"shape": name, "S": S, "N": N, "K": K, "E": MOE_E,
-               "experts_used": used, "max_abs_err": d, "rel_err": rel,
-               "bitwise_repeatable": bool(torch.equal(got, again)),
-               "ms": ms, "plain_ms": plain, "library_ms": lib,
-               "library": "torch._grouped_mm (bf16 out)",
-               "library_error": lib_err, "TFLOPs": 2 * S * N * K / ms / 1e9,
-               **bound(2 * S * K + 2 * used * N * K + 4 * S * N + 4 * MOE_E,
-                       2 * S * N * K, "bf16")}
-        emit({"phase": "k5", **row})
-        if not (rel < K5_TOL and row["bitwise_repeatable"]):
-            raise RuntimeError(f"K5 {name} S={S}: rel error {rel}, "
-                               f"repeatable {row['bitwise_repeatable']}")
-        rows.append(row)
-        del xs, w, want, got, again
+        gi = gs.int()
+        offs = torch.cumsum(gs, 0).to(torch.int32)
+        rows.append(k5_row(
+            name, S, N, K, gs, xs, w, lambda: gmm._k5(xs, w, gi),
+            lambda: gmm.grouped_matmul_reference(xs, w, gs),
+            lambda: torch._grouped_mm(xs, w.transpose(1, 2), offs=offs),
+            "torch._grouped_mm (bf16 out)", flush))
+        del xs, w
         torch.cuda.empty_cache()
+    for bits in (4, 8):
+        for name, N, K in K5_PACKED_SHAPES:
+            w = random_experts(qm, g, dev, N, K, bits)
+            for S in K5_PACKED_S:
+                xs = torch.randn(S, K, generator=g, device=dev).bfloat16()
+                gs = skewed_groups(S, cpu_g).to(dev)
+                gi = gs.int()
+                offs = torch.cumsum(gs, 0).to(torch.int32)
+                rows.append(k5_row(
+                    name, S, N, K, gs, xs, w,
+                    lambda: gmm._k5(xs, w, gi),
+                    lambda: gmm.grouped_matmul_reference(xs, w, gs),
+                    lambda: torch._grouped_mm(
+                        xs, qm.dequantize_experts(w).transpose(1, 2),
+                        offs=offs),
+                    "dequantize_experts + torch._grouped_mm (bf16 out)",
+                    flush, bits))
+                del xs
+            del w
+            torch.cuda.empty_cache()
     return rows
+
+
+def compare_k5(plib, dev, flush):
+    """The bf16 K5 of a parent checkout (``plib``: its kernel library,
+    entry ``ominix_grouped_mm(xs, w, gs, out, tile_map, S, N, K, E,
+    stream)``) against this checkout's on the same inputs at every
+    K5_SHAPES shape, timed in turns (parent, this, this, parent). One
+    ``k5_vs_parent`` line per shape."""
+    from ominix_mlx_tpu_torch.ops import grouped_matmul as gmm
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    cpu_g = torch.Generator().manual_seed(SEED + 9)
+    for name, S, N, K in K5_SHAPES:
+        xs = torch.randn(S, K, generator=g, device=dev).bfloat16()
+        w = (torch.randn(MOE_E, N, K, generator=g, device=dev)
+             * K ** -0.5).bfloat16()
+        gs = skewed_groups(S, cpu_g).to(dev).int()
+        out = torch.empty(S, N, dtype=torch.float32, device=dev)
+        tmap = torch.empty(2 * (MOE_E + 1), dtype=torch.int32, device=dev)
+
+        def parent_call():
+            rc = plib.ominix_grouped_mm(
+                xs.data_ptr(), w.data_ptr(), gs.data_ptr(), out.data_ptr(),
+                tmap.data_ptr(), S, N, K, MOE_E, stream)
+            if rc != 0:
+                raise RuntimeError(f"parent K5: CUDA error {rc}")
+
+        def this_call():
+            gmm._k5(xs, w, gs)
+
+        parent_call()
+        rel = row_rel_err(out, gmm._k5(xs, w, gs))
+        turns = [time_ms(fn, 10, flush) for fn in
+                 (parent_call, this_call, this_call, parent_call)]
+        emit({"phase": "k5_vs_parent", "shape": name, "S": S, "N": N,
+              "K": K, "parent_vs_this_rel": rel,
+              "parent_ms": [turns[0], turns[3]], "ms": turns[1:3],
+              "speedup": min(turns[0], turns[3]) / max(turns[1:3])})
+        del xs, w, out
+        torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------- main path ------
@@ -964,7 +1011,7 @@ def send_concurrent(port, model, requests) -> dict:
 
 
 # the kernels whose wrappers take x [M, K] and a packed weight first
-QMM_KERNELS = ("k1", "k4", "k6", "k7")
+QMM_KERNELS = ("k1", "k4", "k5", "k6", "k7")
 
 
 def plain_versions() -> dict:
@@ -1132,27 +1179,95 @@ def serve_main_path(dev, cfg, params, phase="serve", name="qwen3-4b",
     return counts
 
 
+@contextlib.contextmanager
+def counting_dequantize_experts():
+    """Count the calls of quant_matmul.dequantize_experts (the bf16 copy of
+    every expert that K5 on packed experts replaces) for the duration:
+    yields a dict whose "calls" grows with each."""
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    seen, real = {"calls": 0}, qm.dequantize_experts
+
+    def counted(*a, **k):
+        seen["calls"] += 1
+        return real(*a, **k)
+    qm.dequantize_experts = counted
+    try:
+        yield seen
+    finally:
+        qm.dequantize_experts = real
+
+
 def serve_moe(dev, cfg, params, phase="serve_moe", name="qwen3-30b-a3b",
               w8=""):
     """Qwen3-30B-A3B w4a8 (or, with w8="_w8", w8a8 group-64): every decode
     token runs K4 three times in each of the 48 MoE layers (gate, up,
-    down), and every prefill (16 tokens and more, so M > 8) runs K5 three
-    times a layer after the dequantize-once; attention runs K1 (at the
-    experts' width) and K2 as on the dense model."""
+    down), and every prefill (16 tokens and more, so M > 8) runs K5 on the
+    packed experts exactly three times a layer, and dequantize_experts
+    never; attention runs K1 (at the experts' width) and K2 as on the
+    dense model."""
     per_layer = 3 * cfg.num_layers
-    k4 = "k4" + w8
-    results, counts = serve_requests(
-        dev, cfg, params, name, ("k1_m1" + w8, "k1_mn" + w8, "k2", k4, "k5"))
+    k4, k5 = "k4" + w8, "k5_w8" if w8 else "k5_w4"
+    with counting_dequantize_experts() as deq:
+        results, counts = serve_requests(
+            dev, cfg, params, name, ("k1_m1" + w8, "k1_mn" + w8, "k2", k4,
+                                     k5))
     for req, row in results.items():
         n_out, delta = row["completion_tokens"], row["launches"]
         if delta[k4] < per_layer * (n_out - 1):
             raise RuntimeError(f"request {req}: K4 ran {delta[k4]} times "
                                f"for {n_out} tokens")
-        if delta["k5"] < per_layer or delta["k2"] < 1:
+        if delta[k5] != per_layer or delta["k2"] < 1:
             raise RuntimeError(f"request {req}: prefill ran K5 "
-                               f"{delta['k5']} times, K2 {delta['k2']}")
-    emit({"phase": phase, "launches": counts, "ok": True})
+                               f"{delta[k5]} times on packed experts (want "
+                               f"{per_layer}), K2 {delta['k2']}")
+    if counts.get("k5", 0):
+        raise RuntimeError(f"{phase}: K5 ran {counts['k5']} times on bf16 "
+                           f"experts")
+    emit({"phase": phase, "launches": counts,
+          "dequantize_experts_calls": deq["calls"], "ok": True})
+    if deq["calls"]:
+        raise RuntimeError(f"{phase}: dequantize_experts ran {deq['calls']} "
+                           f"times on the card")
     return counts
+
+
+def moe_prefill(dev, cfg, params, T: int = 128) -> dict:
+    """One fresh T-token prefill at batch 1 after a warm-up: its wall ms
+    alone, then under torch.profiler its wall ms, device busy ms and top
+    device kernels, and the device memory it needs
+    (torch.cuda.max_memory_allocated across it, and that peak over what
+    was allocated at its start)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ominix_mlx_tpu_torch.models import base
+
+    prompt = torch.ones(1, T, dtype=torch.long, device=dev)
+
+    def run():
+        cache = base.init_cache(cfg, 1, 1024, device=dev)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            base.forward(params, cfg, prompt, cache, fresh_prefill=True)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, start
+
+    run()
+    wall, _ = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled, start = run()
+    peak = torch.cuda.max_memory_allocated()
+    busy_us, by_name = device_time(prof)
+    return {"tokens": T, "wall_ms": wall * 1e3,
+            "profiled_wall_ms": profiled * 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "max_memory_allocated_gib": peak / 2 ** 30,
+            "prefill_extra_gib": (peak - start) / 2 ** 30,
+            "top_device": top_kernels(by_name, busy_us, 8)}
 
 
 def prefill_seconds(dev, cfg, params, T) -> float:
@@ -1180,8 +1295,10 @@ def serve_moe_batched_w8(dev, cfg):
     exact all-expert int8 pass, then K8 three times a layer at every batch
     decode step, K3 for attention), then each greedy request alone, whose
     text must equal its text in the batch; the wall time of one adoption
-    prefill of 16 and of 128 tokens beside. Then enable_batching(
-    quantize_bits=8) converting a bf16 Qwen3-30B-A3B of 8 layers (the
+    prefill of 16 and of 128 tokens beside. Then a bf16 Qwen3-30B-A3B of
+    8 layers: the four chat requests on its bf16 experts (K5 bf16 at each
+    prefill, ``serve_moe_bf16``), and enable_batching(
+    quantize_bits=8) converting it (the
     conversion keeps the bf16 weights, as the JAX package's consume=False
     does, so 48 layers would not fit): 2 concurrent requests on the
     converted weights. Returns the launches of both servers' runs."""
@@ -1245,6 +1362,7 @@ def serve_moe_batched_w8(dev, cfg):
     gen = torch.Generator(device=dev).manual_seed(SEED + 20)
     dense = base.init_params(c8, gen, torch.bfloat16, device=dev)
     name = "qwen3-30b-a3b-8l-bf16"
+    bf16_counts = serve_moe_bf16(dev, c8, dense, name)
     srv = Server(port=free_port())
     srv.add_model(name, ChatModel(name, dense, c8, ByteTokenizer(), dev))
     t0 = time.perf_counter()
@@ -1275,7 +1393,23 @@ def serve_moe_batched_w8(dev, cfg):
         raise RuntimeError(f"enable_batching(quantize_bits=8) on a MoE model "
                            f"gave {kinds}, launched {conv_launches}")
     return {k: launches.get(k, 0) + conv_launches.get(k, 0)
-            for k in set(launches) | set(conv_launches)}
+            + bf16_counts.get(k, 0)
+            for k in set(launches) | set(conv_launches) | set(bf16_counts)}
+
+
+def serve_moe_bf16(dev, cfg, params, name):
+    """Qwen3-30B-A3B with bf16 experts (a cut of ``cfg.num_layers``
+    layers): the four chat requests, each prefill running K5 on the bf16
+    experts exactly three times a layer."""
+    per_layer = 3 * cfg.num_layers
+    results, counts = serve_requests(dev, cfg, params, name, ("k2", "k5"))
+    for req, row in results.items():
+        if row["launches"]["k5"] != per_layer or row["launches"]["k2"] < 1:
+            raise RuntimeError(f"request {req} on bf16 experts launched "
+                               f"{row['launches']}")
+    emit({"phase": "serve_moe_bf16", "layers": cfg.num_layers,
+          "launches": counts, "ok": True})
+    return counts
 
 
 def engine_for(cfg, params):
@@ -1748,10 +1882,11 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
                  tol=LOGITS_TOL):
     """Kernel path vs plain path on a 2-layer cut of the full-width model:
     an 11-token prefill (bucket 16: K1's dq formula or K6 at 16 rows, K2;
-    K5 on a MoE model) then 3 decode steps (K1 or K6 at one row; K4 on a
-    MoE model). Held: logits finite, of shape [4, 1, vocab], max error
-    over max |plain| below ``tol``; and at every call of a quantized
-    matmul (K1, K4, K6, K7) in the kernel run, the kernel against its
+    K5 on the packed experts of a MoE model) then 3 decode steps (K1 or K6
+    at one row; K4 on a MoE model). Held: logits finite, of shape
+    [4, 1, vocab], max error over max |plain| below ``tol``; and at every
+    call of a quantized matmul (K1, K4, K5 packed, K6, K7) in the kernel
+    run, the kernel against its
     plain version on the same inputs, per row, below K1_TOL; and the
     "last_group" control below at or above ``tol`` (the limit catches
     it).
@@ -1913,7 +2048,8 @@ def decode_rate(dev, cfg, params, short=128, long=512):
 
 def moe_batch_decode(dev, cfg, params, short=32, long=96):
     """Qwen3-30B-A3B w4a8 decode at batch 8 over init_paged_cache after a
-    128-token prompt (prefill M = 1024: K5 at S = 8192): each step runs K4
+    128-token prompt (prefill M = 1024: K5 on the packed experts at S =
+    8192): each step runs K4
     at 8 rows (gate, up) and 64 rows (down) and K3 at 32 query heads over
     4 KV heads. Aggregate tok/s by the difference quotient (generate_scan
     of ``long`` vs ``short`` tokens, best of 2), the launch counts of the
@@ -1951,7 +2087,7 @@ def moe_batch_decode(dev, cfg, params, short=32, long=96):
     emit(row)
     if launches.get("k4", 0) < per_step * (short - 1) \
             or launches.get("k3", 0) < cfg.num_layers * (short - 1) \
-            or launches.get("k5", 0) < per_step:
+            or launches.get("k5_w4", 0) < per_step:
         raise RuntimeError(f"batch-8 MoE decode launched {launches}")
     if first.shape != (BATCH, short) or not row["greedy_repeatable"]:
         raise RuntimeError(f"batch-8 MoE decode: {row}")
@@ -1983,14 +2119,59 @@ def top_kernels(by_name, busy_us, n):
              "share_of_busy": us / busy_us} for name, (c, us) in top]
 
 
+def prefill_probe(root: str) -> dict:
+    """``moe_prefill`` of the package under ``root`` (this checkout's or a
+    parent's: the caller put ``root`` first on sys.path) on full-width,
+    full-depth Qwen3-30B-A3B w4a8 with the smoke's random weights."""
+    import ominix_mlx_tpu_torch
+    from ominix_mlx_tpu_torch.models import base, qwen3_moe
+
+    pkg = os.path.dirname(os.path.abspath(ominix_mlx_tpu_torch.__file__))
+    if os.path.dirname(pkg) != root:
+        raise RuntimeError(f"imported {pkg}, not the package under {root}")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = qwen3_30b_a3b()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    params = base.fuse_layer_projections(qwen3_moe.init_quantized_params(
+        cfg, gen, GS, 4, act_bits=8, device=dev))
+    return {"phase": "prefill_probe", "package": pkg,
+            **moe_prefill(dev, cfg, params)}
+
+
+def compare_moe_prefill(parent: str, here: str):
+    """The 128-token Qwen3-30B-A3B w4a8 prefill of the parent's package
+    against this one's, each in a process of its own (``--prefill-probe``),
+    in turns: parent, this, this, parent. One ``moe_prefill_vs_parent``
+    line."""
+    runs = {}
+    for who, root in (("parent", parent), ("this", here), ("this", here),
+                      ("parent", parent)):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--prefill-probe", root], capture_output=True,
+                           text=True, timeout=900)
+        if r.returncode != 0:
+            raise RuntimeError(f"prefill probe of {root} failed "
+                               f"({r.returncode}):\n{r.stderr[-3000:]}")
+        runs.setdefault(who, []).append(
+            json.loads(r.stdout.strip().splitlines()[-1]))
+    emit({"phase": "moe_prefill_vs_parent", **{
+        f"{who}_{key}": [run[key] for run in rs]
+        for who, rs in runs.items()
+        for key in ("wall_ms", "profiled_wall_ms", "device_busy_ms",
+                    "max_memory_allocated_gib", "prefill_extra_gib")},
+        "parent_top_device": runs["parent"][0]["top_device"],
+        "this_top_device": runs["this"][0]["top_device"]})
+
+
 def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
                    paged: bool = False):
     """Where a decode step's time goes: greedy decode steps of ``batch``
     rows (over a dense or a paged cache) after a 128-token prompt, first
     under torch.profiler (device side), then under cProfile (host side).
     Each probe covers the decode steps alone; the prompt's prefill is
-    profiled as a window of its own (on a MoE model it dequantizes every
-    layer's experts). The device's busy time is the union of the intervals
+    profiled as a window of its own, with torch.cuda.max_memory_allocated
+    across it. The device's busy time is the union of the intervals
     of every kernel, copy and fill it ran; the idle share is one minus
     busy over the window's wall time on the host clock."""
     from torch.profiler import ProfilerActivity, profile
@@ -2008,12 +2189,15 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
         prompt = torch.ones(batch, 128, dtype=torch.long, device=dev)
         with torch.inference_mode():
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mem[:] = [torch.cuda.memory_allocated()]
             with prefill_probe():
                 t0 = time.perf_counter()
                 _, cache = base.forward(params, cfg, prompt, cache,
                                         fresh_prefill=True)
                 torch.cuda.synchronize()
                 prefill_s = time.perf_counter() - t0
+            mem.append(torch.cuda.max_memory_allocated())
             tok = torch.ones(batch, 1, dtype=torch.long, device=dev)
             with steps_probe():
                 t0 = time.perf_counter()
@@ -2023,9 +2207,11 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
                 tok.cpu()
                 return prefill_s, time.perf_counter() - t0
 
+    mem = []        # allocated at the prefill's start, the peak across it
     decode(4)
     pre_prof, prof = probe(), probe()
     prefill_s, wall = decode(steps, lambda: pre_prof, lambda: prof)
+    prefill_mem = list(mem)
     busy_us, by_name = device_time(prof)
     pre_busy_us, pre_by_name = device_time(pre_prof)
     cprof = cProfile.Profile()
@@ -2041,6 +2227,8 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
             "top_device": top_kernels(by_name, busy_us, 12),
             "prefill_tokens": 128 * batch, "prefill_wall_ms": prefill_s * 1e3,
             "prefill_device_busy_ms": pre_busy_us / 1e3,
+            "prefill_max_memory_allocated_gib": prefill_mem[1] / 2 ** 30,
+            "prefill_extra_gib": (prefill_mem[1] - prefill_mem[0]) / 2 ** 30,
             "prefill_top_device": top_kernels(pre_by_name, pre_busy_us, 8),
             "host_cprofile_steps": 2 * steps,
             "host_cprofile_s": host_wall,
@@ -2083,60 +2271,16 @@ def profile_prefill16(dev, cfg, params, T: int = 16):
             "top_device": top_kernels(by_name, busy_us, 8)}
 
 
-def compare_dq(plib, dev, flush):
-    """The dq formula of a parent checkout (``plib``: its K1 dq kernel
-    ``ominix_qmm_dq`` and K7 ``ominix_qmm_w4a16_tc``, one signature with
-    the group-sum scratch) against this checkout's kernel, on the same
-    inputs, timed in turns (parent, this, this, parent): K1 at every
-    K1_SHAPES shape at M = 2 and 16, 4 and 8 bits; K7 at the four K7
-    shapes at M = 17, 40 and 64. One ``dq_vs_parent`` line per shape."""
-    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
-
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    g = torch.Generator(device=dev).manual_seed(SEED + 19)
-    cases = [("k1_mn", bits, shape, M) for bits in (4, 8)
-             for shape in K1_SHAPES for M in (2, 16)]
-    cases += [("k7", 4, shape, M) for shape in K1_SHAPES[:4]
-              for M in (17, 40, 64)]
-    for route, bits, (name, N, K, _), M in cases:
-        _, pq = random_packed(qm, g, dev, N, K, bits, None)
-        x = torch.randn(M, K, generator=g, device=dev).bfloat16()
-        y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
-        xg = torch.empty(M, K // GS, dtype=torch.float32, device=dev)
-        entry = getattr(plib, "ominix_qmm_dq" if route == "k1_mn"
-                        else "ominix_qmm_w4a16_tc")
-
-        def parent_call():
-            rc = entry(x.data_ptr(), pq.data.data_ptr(),
-                       pq.scales.data_ptr(), pq.biases.data_ptr(),
-                       y.data_ptr(), xg.data_ptr(), M, N, K, GS, bits,
-                       stream)
-            if rc != 0:
-                raise RuntimeError(f"parent {route}: CUDA error {rc}")
-
-        def this_call():
-            (qm._k1 if route == "k1_mn" else qm._k7)(x, pq)
-
-        parent_call()
-        rel = row_rel_err(y, (qm._k1 if route == "k1_mn" else qm._k7)(x, pq))
-        turns = [time_ms(fn, 10, flush) for fn in
-                 (parent_call, this_call, this_call, parent_call)]
-        emit({"phase": "dq_vs_parent", "route": route, "shape": name,
-              "bits": bits, "M": M, "N": N, "K": K,
-              "plan": dataclasses.asdict(qm.dq_plan(M, N, K, GS)),
-              "parent_vs_this_rel": rel,
-              "parent_ms": [turns[0], turns[3]], "ms": turns[1:3],
-              "speedup": min(turns[0], turns[3]) / max(turns[1:3])})
-        del pq, x, y, xg
-        torch.cuda.empty_cache()
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
-                    help="only build this checkout's and DIR's kernels and "
-                         "time K2/K2c and the dq formula against DIR's, in "
+                    help="only build this checkout's and DIR's kernels, "
+                         "time the bf16 K5 against DIR's, and the 128-token "
+                         "Qwen3-30B-A3B w4a8 prefill of both packages, in "
                          "turns")
+    ap.add_argument("--prefill-probe", metavar="ROOT",
+                    help=argparse.SUPPRESS)   # one prefill_probe of ROOT's
+                                              # package (--parent runs it)
     ap.add_argument("--profile", action="store_true",
                     help="profile decode steps on the device "
                          "(torch.profiler) and the host (cProfile): batch 1 "
@@ -2149,6 +2293,12 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
+    if args.prefill_probe:
+        root = os.path.abspath(args.prefill_probe)
+        sys.path[:] = [root] + [p for p in sys.path
+                                if os.path.abspath(p or os.curdir) != here]
+        emit(prefill_probe(root))
+        return 0
     sys.path.insert(0, here)
     from ominix_mlx_tpu_torch.models import base, qwen3_moe
     from ominix_mlx_tpu_torch.ops import _build
@@ -2172,9 +2322,10 @@ def main() -> int:
 
     flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     if args.parent:
-        plib = parent_library(args.parent)
-        compare_flash(plib, dev, flush_buf.zero_)
-        compare_dq(plib, dev, flush_buf.zero_)
+        compare_k5(parent_library(args.parent), dev, flush_buf.zero_)
+        del flush_buf
+        free_device_memory()
+        compare_moe_prefill(os.path.abspath(args.parent), here)
         return 0
     k1_rows = check_k1(dev, flush_buf.zero_)
     k6_rows = check_k6(dev, flush_buf.zero_)
@@ -2260,6 +2411,9 @@ def main() -> int:
           time.perf_counter() - t0,
           "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
     phases["serve_moe"] = serve_moe(dev, moe_cfg, params)
+    emit({"phase": "moe_prefill", "config": "Qwen3-30B-A3B",
+          "weights": "w4a8 g64", **moe_prefill(dev, moe_cfg, params),
+          "card": smi})
     check_logits(dev, moe_cfg, params, "Qwen3-30B-A3B")
     emit({**decode_rate(dev, moe_cfg, params, 32, 96),
           "config": "Qwen3-30B-A3B", "card": smi})
@@ -2281,6 +2435,9 @@ def main() -> int:
           "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
     phases["serve_moe_q8"] = serve_moe(dev, moe_cfg, params, "serve_moe_q8",
                                        "qwen3-30b-a3b-q8", "_w8")
+    emit({"phase": "moe_prefill", "config": "Qwen3-30B-A3B",
+          "weights": "w8a8 g64", **moe_prefill(dev, moe_cfg, params),
+          "card": smi})
     check_logits(dev, moe_cfg, params, "Qwen3-30B-A3B w8a8",
                  tol=MOE_W8A8_LOGITS_TOL)
     emit({**decode_rate(dev, moe_cfg, params, 32, 96),
@@ -2326,6 +2483,10 @@ def main() -> int:
             return at(shape, M)(rs)
         return pick
 
+    def worst_k5(rs):
+        """The row furthest from its bound."""
+        return min(rs, key=lambda r: r["share_of_bound"])
+
     kernels = [
         entry("k1_qmm_w4_m1", "ominix_mlx_tpu/ops/quant_matmul.py:719",
               "ominix_mlx_tpu_torch/csrc/qmm.cu", k1_rows_of(4, True),
@@ -2370,8 +2531,19 @@ def main() -> int:
               "kernel", "ominix_mlx_tpu_torch/csrc/gather_qmm.cu", k8_rows,
               lambda rs: rs[0], "k8"),
         entry("k5_grouped_mm", "ominix_mlx_tpu/models/moe.py:84",
-              "ominix_mlx_tpu_torch/csrc/grouped_mm.cu", k5_rows,
-              lambda rs: rs[0], "k5"),
+              "ominix_mlx_tpu_torch/csrc/grouped_mm.cu",
+              [r for r in k5_rows if r["bits"] == 16], worst_k5, "k5",
+              design=K5_DESIGN),
+        entry("k5_grouped_mm_w4",
+              "ominix_mlx_tpu/models/moe.py:84 (4-bit experts, read packed)",
+              "ominix_mlx_tpu_torch/csrc/grouped_mm.cu",
+              [r for r in k5_rows if r["bits"] == 4], worst_k5, "k5_w4",
+              design=K5_DESIGN),
+        entry("k5_grouped_mm_w8",
+              "ominix_mlx_tpu/models/moe.py:84 (8-bit experts, read packed)",
+              "ominix_mlx_tpu_torch/csrc/grouped_mm.cu",
+              [r for r in k5_rows if r["bits"] == 8], worst_k5, "k5_w8",
+              design=K5_DESIGN),
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -67,6 +67,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -85,54 +86,6 @@ struct Cfg {
   // 1024 bytes of slack to align the swizzled tiles to 1024
   static constexpr size_t smem = 1024 + Q_BYTES + 2 * kStages * KV_BYTES;
 };
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// waits for the phase of parity `parity` to complete; a wait of more than
-// about 5 s (a broken pipeline) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    else if (clock64() - t0 > 10000000000LL) __trap();
-  }
-}
-
-// one 4-D box of a tensor map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 // The two consumer warpgroups take turns to issue their products (named
 // barriers 3 and 4, all 256 consumer threads): one's softmax runs while
@@ -564,25 +517,6 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
     if ((lane & 3) == 0)
       lse[((size_t)b * H + h) * Tq + qi] = (m_run[r] + log2f(l)) * kLn2;
   }
-}
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point lookup, so the
-// library links no libcuda of its own
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault) == cudaSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // a 4-D map [D, T, heads, B] of bf16 with the given element strides of T,

@@ -159,77 +159,6 @@ __device__ __forceinline__ void dq_word8(uint32_t e0, uint32_t e1, float s,
   out[3] = pack_bf16(qs(x1, 1), qs(x1, 3));
 }
 
-// D[64 x N] += A[64 x 16] . B[16 x N], A in registers, B K-major in
-// shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_k(float (&d)[N / 2],
-                                        const unsigned (&a)[4], uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_k<8>(float (&d)[4],
-                                           const unsigned (&a)[4],
-                                           uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_k<16>(float (&d)[8],
-                                            const unsigned (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
-      "0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_k<32>(float (&d)[16],
-                                            const unsigned (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_k<64>(float (&d)[32],
-                                            const unsigned (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // Shared-memory bytes of a CTA (before the 1024-byte alignment slack):
 // the x slice (2 swizzled boxes [MP][64] per stage), the bias operand
 // (bf16(xg), boxes of 64 groups), the 32-column sums, the ring.
@@ -481,10 +410,10 @@ qmm_dq_tc(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int bb = 0; bb < 4; ++bb)
         if (b0 + bb < nbs)
-          wgmma_k<MP>(acc, ab[bb],
-                      gmma_desc(xgs_u + ((b0 + bb) >> 2) * MP * 128 +
-                                    ((b0 + bb) & 3) * 32,
-                                16));
+          wgmma_rs_k<MP>(acc, ab[bb],
+                         gmma_desc(xgs_u + ((b0 + bb) >> 2) * MP * 128 +
+                                       ((b0 + bb) & 3) * 32,
+                                   16));
       wgmma_commit();
       wgmma_wait<0>();
       keep(acc);
@@ -545,10 +474,10 @@ qmm_dq_tc(const __nv_bfloat16* __restrict__ x,
       wgmma_fence();
 #pragma unroll
       for (int s = 0; s < 8; ++s)
-        wgmma_k<MP>(acc, a[s],
-                    gmma_desc(xs_u + (2 * j + (s >> 2)) * MP * 128 +
-                                  (s & 3) * 32,
-                              16));
+        wgmma_rs_k<MP>(acc, a[s],
+                       gmma_desc(xs_u + (2 * j + (s >> 2)) * MP * 128 +
+                                     (s & 3) * 32,
+                                 16));
       wgmma_commit();
     };
     // two A buffers: stage j + 1 is dequantized while stage j multiplies;

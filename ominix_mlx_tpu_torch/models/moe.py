@@ -17,9 +17,9 @@ branches on the rows M of the layer's input and the experts' type:
   (``torch._int_mm``) combined by the routing weights in expert order,
   E/k times the routed work;
 * other experts, M > 8: ``sorted_expert_mlp``, the token copies sorted by
-  expert and three grouped matmuls, kernel K5 on CUDA. Group experts are
-  first dequantized to bf16 once per call (all experts, one elementwise
-  pass).
+  expert and three grouped matmuls, kernel K5 on CUDA, which reads group
+  experts packed (each routed expert's weights dequantized in registers,
+  no bf16 copy).
 
 The port reads no environment variable.
 """
@@ -36,8 +36,8 @@ from ominix_mlx_tpu_torch.nn.layers import ACTIVATIONS, linear
 from ominix_mlx_tpu_torch.ops.grouped_matmul import grouped_matmul
 from ominix_mlx_tpu_torch.ops.quant_matmul import (
     ChannelQuantizedExperts, PackedQuantizedExperts, channel_expert_matmul_q,
-    channel_gather_qmm, channel_quantize_experts, dequantize_experts,
-    gather_qmm, quantize_act_channel, quantize_experts)
+    channel_gather_qmm, channel_quantize_experts, gather_qmm,
+    quantize_act_channel, quantize_experts)
 
 EXPERT_NAMES = ("gate_proj", "up_proj", "down_proj")
 GATHER_M_MAX = 8    # up to this many token rows, the experts are gathered
@@ -107,7 +107,8 @@ def sorted_expert_mlp(xt: torch.Tensor, ex: dict, w: torch.Tensor,
 
     xt: [M, D] tokens; w / idx: [M, k] routing weights / expert ids;
     ex: stacked expert weights {gate_proj / up_proj [E, I, D], down_proj
-    [E, D, I]}. Returns float32 [M, D].
+    [E, D, I]}, bf16 or ``PackedQuantizedExperts``. Returns float32
+    [M, D].
 
     The combine un-permutes ``ys * w`` into [M, k, D] and sums over k in a
     fixed order, where the JAX package adds into the token rows
@@ -211,16 +212,14 @@ def moe_block(lp: dict, mcfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
             ye = channel_expert_matmul_q(hq, sh, ex["down_proj"], e)
             y = y + ye * comb[:, e][:, None]
     else:
-        if quant:
-            # prefill, quantized experts: dequantize the layer's experts
-            # to bf16 once, then the sorted dispatch. The JAX package
-            # scans every expert over every token instead, dropping the
-            # unrouted terms by zero weights (models/moe.py:223-234): the
-            # same function at k/E of its FLOPs, but rounded at other
-            # points (its matmuls round to bf16 before the activation and
-            # after the down projection; here g, u and the down
-            # projection stay float32, and h rounds to bf16 once)
-            ex = {n: dequantize_experts(ex[n]) for n in EXPERT_NAMES}
+        # prefill: the sorted dispatch. Group experts go to the grouped
+        # matmul packed, each routed expert's weights equal to its
+        # dequantize_expert. The JAX package scans every expert over every
+        # token instead, dropping the unrouted terms by zero weights
+        # (models/moe.py:223-234): the same function at k/E of its FLOPs,
+        # but rounded at other points (its matmuls round to bf16 before
+        # the activation and after the down projection; here g, u and the
+        # down projection stay float32, and h rounds to bf16 once)
         y = sorted_expert_mlp(xt, ex, w, idx, mcfg.num_experts, act)
 
     y = y.to(x.dtype)

@@ -42,8 +42,9 @@ build_seconds = 0.0     # wall time of the build this process ran (0 if reused)
 # "k2": flash prefill, "k2c": flash continuation chunk,
 # "k3": paged decode attention, "k3_int8": the part of "k3" on int8
 # pages, "k4": MoE expert gather-qmm on 4-bit experts, "k4_w8": the same
-# on 8-bit experts, "k5": grouped matmul, "k8": channelwise w8a8 expert
-# gather). Plain-version calls do not count.
+# on 8-bit experts, "k5": grouped matmul on bf16 experts, "k5_w4" and
+# "k5_w8": the same on 4- and 8-bit experts read packed, "k8": channelwise
+# w8a8 expert gather). Plain-version calls do not count.
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -94,7 +95,8 @@ def _declare(lib):
     lib.ominix_channel_gather_qmm.argtypes = [vp, vp, vp, vp, vp, vp, vp, i,
                                               i, i, i, i, vp]
     lib.ominix_grouped_mm.restype = i
-    lib.ominix_grouped_mm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
+    lib.ominix_grouped_mm.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i,
+                                      i, i, i, i, vp]
     lib.ominix_cuda_error_string.restype = ctypes.c_char_p
     lib.ominix_cuda_error_string.argtypes = [i]
     return lib

@@ -832,14 +832,96 @@ def test_k5_zeroes_rows_past_the_groups_and_rejects(cuda):
     with pytest.raises(ValueError):                   # K not a multiple of 8
         tgmm._k5(xs[:, :60].contiguous(), w[:, :, :60].contiguous(),
                  gs.int())
+    wq = _k5_experts(cuda, 3, 24, 64, 4, seed=1)
+    with pytest.raises(ValueError):                   # float32 xs
+        tgmm._k5(xs.float(), wq, gs.int())
+    with pytest.raises(ValueError):                   # int8 codes at 4 bits
+        tgmm._k5(xs, dataclasses.replace(wq, data=wq.data.view(torch.int8)),
+                  gs.int())
+    with pytest.raises(ValueError):                   # N not a multiple of 8
+        tgmm._k5(xs, _k5_experts(cuda, 3, 20, 64, 4, seed=1), gs.int())
+    with pytest.raises(ValueError):                   # misaligned xs
+        tgmm._k5(torch.empty(200 * 64 + 1, dtype=torch.bfloat16,
+                              device=cuda)[1:].view(200, 64), wq, gs.int())
+    with pytest.raises(ValueError):                   # K of x vs experts
+        tgmm._k5(xs[:, :32].contiguous(), wq, gs.int())
+
+
+def _k5_experts(dev, E, N, K, bits, seed, gs=64):
+    """Random packed experts [E, N, K] at 4 or 8 bits with non-zero
+    biases."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G, lim = K // gs, 1 << (bits - 1)
+    if bits == 4:
+        data = torch.randint(0, 256, (E, N, K // 2), generator=g, device=dev,
+                             dtype=torch.uint8)
+    else:
+        data = torch.randint(-lim, lim, (E, N, K), generator=g, device=dev,
+                             dtype=torch.int8)
+    return qm.PackedQuantizedExperts(
+        data=data,
+        scales=((torch.rand(E, N, G, generator=g, device=dev) + 0.5)
+                * (K ** -0.5 / lim)).bfloat16(),
+        biases=(torch.randn(E, N, G, generator=g, device=dev)
+                * (K ** -0.5 / 4)).bfloat16(),
+        group_size=gs, bits=bits, in_features=K, act_bits=8)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("S,N,K,gs", [(1024, 768, 2048, 64),
+                                      (16384, 2048, 768, 64),
+                                      (1000, 136, 2048, 64),
+                                      (130, 40, 96, 32), (300, 64, 512, 128)])
+def test_k5_packed_matches_plain(cuda, bits, S, N, K, gs):
+    """K5 on 4- and 8-bit experts read packed, against the plain version
+    (each routed expert dequantized, a float32 matmul per group) on
+    ragged groups (empty ones, a one-row group, one of S/2; S a multiple
+    of no tile width but 8 in one case): max error over max |plain| <
+    1e-4, the same bits on a second launch, rows past sum(gs) zero, one
+    launch under its own key."""
+    E = 128
+    g = torch.Generator(device=cuda).manual_seed(S + bits)
+    xs = torch.randn(S, K, generator=g, device=cuda).bfloat16()
+    w = _k5_experts(cuda, E, N, K, bits, seed=S, gs=gs)
+    gs_ = _ragged(E, S - 5, cuda, seed=S)
+    _build.reset_launches()
+    got = tgmm.grouped_matmul(xs, w, gs_)
+    assert dict(_build.LAUNCHES) == {f"k5_w{bits}": 1}
+    want = tgmm.grouped_matmul_reference(xs, w, gs_)
+    again = tgmm.grouped_matmul(xs, w, gs_)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (S, N)
+    assert _rel(got, want) < 1e-4
+    assert torch.equal(got, again)
+    assert torch.equal(got[S - 5:], torch.zeros_like(got[S - 5:]))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_k5_packed_one_hot_rows_return_dequantized(cuda, bits):
+    """A one-hot row of x against packed experts returns a column of
+    dequantize_experts(w) bit for bit: the kernel dequantizes with the
+    plain version's rounding (the exact product, one f32 rounding of the
+    sum, one bf16 rounding)."""
+    E, N, K = 4, 256, 512
+    w = _k5_experts(cuda, E, N, K, bits, seed=bits)
+    dense = qm.dequantize_experts(w)
+    cols = torch.arange(0, K, 3, device=cuda)[:100]      # 100 rows a group
+    counts = torch.tensor([100, 0, 100, 100], device=cuda)
+    xs = torch.zeros(300, K, device=cuda, dtype=torch.bfloat16)
+    xs[torch.arange(300, device=cuda), cols.repeat(3)] = 1
+    got = tgmm.grouped_matmul(xs, w, counts)
+    want = torch.cat([dense[e][:, cols].T.float() for e in (0, 2, 3)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_moe_block_runs_k4_k5_and_k8(cuda):
     """A MoE layer on CUDA sends decode (M <= 8) to K4 three times (4- and
     8-bit experts) or K8 three times (channel-int8 experts), and a prefill
-    (M > 8) to K5 three times (group experts, after the dequantize-once)
-    or to the exact int8 all-expert pass, which runs torch._int_mm and no
-    kernel of the port; bf16 experts prefill through K5."""
+    (M > 8) to K5 three times (group experts read packed, under "k5_w4"
+    or "k5_w8"; no dequantize-once) or to the exact int8 all-expert pass,
+    which runs torch._int_mm and no kernel of the port; bf16 experts
+    prefill through K5 ("k5")."""
     from ominix_mlx_tpu_torch.models import moe
 
     mcfg = moe.MoEConfig(num_experts=16, top_k=4, norm_topk_prob=True,
@@ -847,9 +929,9 @@ def test_moe_block_runs_k4_k5_and_k8(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     cases = (
         (moe.init_quantized_moe_params(gen, 256, mcfg, device=cuda),
-         {"k4": 3}, {"k5": 3}),
+         {"k4": 3}, {"k5_w4": 3}),
         (moe.init_quantized_moe_params(gen, 256, mcfg, device=cuda, bits=8),
-         {"k4_w8": 3}, {"k5": 3}),
+         {"k4_w8": 3}, {"k5_w8": 3}),
         (moe.init_quantized_moe_params(gen, 256, mcfg, device=cuda,
                                        scheme="channel8"), {"k8": 3}, {}))
     lpd = moe.init_moe_params(gen, 256, mcfg, device=cuda)

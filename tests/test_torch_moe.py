@@ -300,6 +300,232 @@ def test_grouped_matmul_rows_past_the_groups_are_zero():
     assert torch.equal(out[:7], torch.full((7, 4), 16.0))
 
 
+def _packed_experts(E, N, K, bits, seed, gs=32):
+    """Random packed experts with non-zero biases (scales and biases from
+    a seeded numpy generator)."""
+    rng = np.random.default_rng(seed)
+    G = K // gs
+    if bits == 4:
+        data = torch.from_numpy(rng.integers(0, 256, (E, N, K // 2),
+                                             dtype=np.uint8))
+    else:
+        data = torch.from_numpy(rng.integers(-128, 128, (E, N, K),
+                                             dtype=np.int8))
+    lim = 1 << (bits - 1)
+    s = (rng.random((E, N, G)) + 0.5) * K ** -0.5 / lim
+    b = rng.standard_normal((E, N, G)) * K ** -0.5 / 4
+    return tqm.PackedQuantizedExperts(
+        data=data, scales=torch.from_numpy(s).float().bfloat16(),
+        biases=torch.from_numpy(b).float().bfloat16(), group_size=gs,
+        bits=bits, in_features=K, act_bits=8)
+
+
+def _skewed_counts(E, S, seed):
+    """Group sizes summing to S: empty groups, a one-row group and one of
+    S / 2, the rest at random."""
+    rng = np.random.default_rng(seed)
+    gs = np.zeros(E, np.int64)
+    gs[E // 3] = S // 2
+    gs[1] = 1
+    free = [e for e in range(E) if e not in (1, E // 3) and e % 4]
+    for e in rng.choice(free, S - int(gs.sum())):
+        gs[e] += 1
+    return torch.from_numpy(gs)
+
+
+@pytest.mark.parametrize("S,N,K", [(37, 48, 64), (200, 40, 96)])
+def test_grouped_matmul_packed_4bit_equals_dequantized(S, N, K):
+    """4-bit packed experts through grouped_matmul (the plain version on
+    the CPU: each expert that has rows dequantized alone) give the bf16
+    form on dequantize_experts(w) bit for bit, empty groups and a one-row
+    group included; rows past sum(gs) are zero."""
+    E = 8
+    w = _packed_experts(E, N, K, 4, seed=S)
+    gs = _skewed_counts(E, S - 3, seed=S)
+    xs = torch.from_numpy(np.random.default_rng(S).standard_normal(
+        (S, K)).astype(np.float32)).bfloat16()
+    _build.reset_launches()
+    got = tgmm.grouped_matmul(xs, w, gs)
+    want = tgmm.grouped_matmul_reference(xs, tqm.dequantize_experts(w), gs)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (S, N)
+    assert torch.equal(got, want)
+    assert torch.equal(got[S - 3:], torch.zeros(3, N))
+    assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantized_prefill_same_bits_as_dequantize_once(bits):
+    """The quantized moe_block prefill (M > 8) sends packed experts to the
+    grouped matmul; on the CPU its output equals, bit for bit, the
+    dequantize-once pipeline it replaces (every expert to bf16, then the
+    sorted dispatch on the bf16 stack)."""
+    mcfg = tmoe.MoEConfig(num_experts=8, top_k=2, norm_topk_prob=True,
+                          moe_intermediate_size=64)
+    lp = tmoe.init_quantized_moe_params(torch.Generator().manual_seed(bits),
+                                        64, mcfg, group_size=32,
+                                        device="cpu", bits=bits)
+    ex = lp["experts"]
+    for n in tmoe.EXPERT_NAMES:      # non-zero biases: the fold matters
+        ex[n].biases = (ex[n].scales.float()
+                        * torch.linspace(-9, 3, ex[n].scales.numel())
+                        .reshape(ex[n].scales.shape)).bfloat16()
+    x = torch.from_numpy(np.random.default_rng(bits).standard_normal(
+        (1, 24, 64)).astype(np.float32)).bfloat16()
+    got = tmoe.moe_block(lp, mcfg, x)
+    xt = x.reshape(24, 64)
+    w, idx = tmoe.route(lp, mcfg, xt)
+    deq = {n: tqm.dequantize_experts(ex[n]) for n in tmoe.EXPERT_NAMES}
+    want = tmoe.sorted_expert_mlp(xt, deq, w, idx, 8,
+                                  torch.nn.functional.silu).to(x.dtype)
+    assert torch.equal(got, want.reshape(1, 24, 64))
+
+
+def _k5_tiles(gs: list) -> list:
+    """What K5's device-side tile map gives (a model of ``gmm_tile_map``
+    and the kernel's tile lookup): (group, first row, rows, width) of each
+    row tile, in launch order. Group e takes ceil(gs[e] / 128) tiles; a
+    tile's width is the least of K5_WIDTHS that holds its rows."""
+    tiles, row = [], 0
+    for e, n in enumerate(gs):
+        n = max(int(n), 0)
+        for r0 in range(row, row + n, tgmm.K5_TILE):
+            rows = min(tgmm.K5_TILE, row + n - r0)
+            tiles.append((e, r0, rows,
+                          next(w for w in tgmm.K5_WIDTHS if rows <= w)))
+        row += n
+    return tiles
+
+
+
+# Qwen3-30B-A3B's expert projections (gate/up, down) and chip_smoke's
+# K5_SHAPES, at the row counts of a 9-token to a 2048-token prefill (k = 8)
+QWEN3_MOE_PROJ = ((768, 2048), (2048, 768))
+
+
+@pytest.mark.parametrize("S", [72, 128, 1000, 1024, 8192, 16384])
+def test_k5_plan_fits_and_tiles_cover_every_row_once(S):
+    """K5's host plan fits shared memory (227 KB less the barriers) for
+    every form at Qwen3-30B-A3B's projections with at least 4 slots in
+    each ring, and the model of its tile
+    map covers every row of every group exactly once, each tile inside
+    its group at a width that holds its rows, within the launch's
+    ceil(S / 128) + E + 1 row tiles."""
+    E = 128
+    for N, K in QWEN3_MOE_PROJ:
+        for bits, gs in ((16, 0), (4, 64), (8, 64), (4, 32), (8, 128)):
+            plan = tgmm.k5_plan(K, bits, gs)
+            assert 4 <= plan.x_slots <= tgmm.K5_MAX_SLOTS
+            assert 4 <= plan.w_slots <= tgmm.K5_MAX_SLOTS
+            assert plan.smem <= tgmm.K5_SMEM_MAX < 232448
+    counts = _skewed_counts(E, S, seed=S).tolist()
+    tiles = _k5_tiles(counts)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    seen = np.zeros(S, np.int64)
+    for e, r0, rows, width in tiles:
+        assert starts[e] <= r0 and r0 + rows <= starts[e + 1]
+        assert 1 <= rows <= width <= 128 and width in tgmm.K5_WIDTHS
+        assert width == 8 or rows > tgmm.K5_WIDTHS[
+            tgmm.K5_WIDTHS.index(width) - 1]
+        seen[r0:r0 + rows] += 1
+    assert (seen == 1).all()
+    assert len(tiles) <= -(-S // 128) + E + 1
+    assert len(tiles) == sum(-(-c // 128) for c in counts)
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm (default mode) on Python ints."""
+    b = [(x >> (8 * i)) & 255 for i in range(4)] + \
+        [(y >> (8 * i)) & 255 for i in range(4)]
+    return sum(b[(sel >> (4 * k)) & 7] << (8 * k) for k in range(4))
+
+
+def _f32(bits):
+    return float(np.array([bits], np.uint32).view(np.float32)[0])
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_k5_a_fragment_index_math(bits):
+    """A numpy model of how a K5 lane builds its A fragment from a weight
+    slot (csrc/grouped_mm.cu consume): the slot as TMA writes it (128
+    rows of 128 bytes, 16-byte chunk q of row r at chunk q ^ (r & 7)),
+    the lane's swizzled reads, byte gathers, the 2^23 mantissa placement
+    and the offset taken off. For every warpgroup, warp, lane, step of the
+    slot, k16 slice and register, the two codes it yields are those of
+    wgmma's A layout (rows r and r + 8, columns 16s + 2t, + 1 and
+    16s + 8 + 2t, + 1 of the step), in natural K order. And fma(c, s, b)
+    with the exact product is the plain version's f32(c * s) + b."""
+    rng = np.random.default_rng(bits)
+    cols = 256 if bits == 4 else 128               # columns a slot holds
+    if bits == 4:
+        codes = rng.integers(0, 16, (128, cols))
+        raw = (codes[:, 0::2] | (codes[:, 1::2] << 4)).astype(np.uint8)
+    else:
+        codes = rng.integers(-128, 128, (128, cols))
+        raw = codes.astype(np.int8).view(np.uint8)
+    slot = np.zeros(128 * 128, np.int64)
+    for row in range(128):
+        for q in range(8):
+            dst = row * 128 + ((q ^ (row & 7)) << 4)
+            slot[dst:dst + 16] = raw[row, 16 * q:16 * q + 16]
+
+    def word(addr):                     # ld.shared.u32 at a byte address
+        return int(slot[addr] | slot[addr + 1] << 8 | slot[addr + 2] << 16
+                   | slot[addr + 3] << 24)
+
+    def chunk(row, q):                  # swz_chunk
+        return row * 128 + ((q ^ (row & 7)) << 4)
+
+    for c in range(2):
+        for warp in range(4):
+            for lane in range(32):
+                g8, tq = lane >> 2, lane & 3
+                r = c * 64 + warp * 16 + g8
+                for sub in range(cols // 64):
+                    for s in range(4):
+                        got = []
+                        for reg in range(4):
+                            h, hi8 = reg & 1, reg >> 1
+                            row = r + 8 * h
+                            if bits == 4:
+                                w = [word(chunk(row, 2 * sub + k // 4)
+                                          + 4 * (k % 4)) for k in range(8)]
+                                sel = tq | (tq + 4) << 4
+                                wv = [_byte_perm(
+                                    _byte_perm(w[4 * i], w[4 * i + 1], sel),
+                                    _byte_perm(w[4 * i + 2], w[4 * i + 3],
+                                               sel), 0x5410)
+                                    for i in range(2)]
+                                W = wv[s >> 1]
+                                i = 2 * (s & 1) + hi8
+                                pair = [_byte_perm(W & 0x0F0F0F0F,
+                                                   0x4B000000, 0x7650 | i),
+                                        _byte_perm((W >> 4) & 0x0F0F0F0F,
+                                                   0x4B000000, 0x7650 | i)]
+                                off = 8388608.0
+                            else:
+                                X = word(chunk(row, 4 * sub + s)
+                                         + 4 * (tq >> 1) + 8 * hi8)
+                                X ^= 0x80808080
+                                i = 2 * (tq & 1)
+                                pair = [_byte_perm(X, 0x4B000000, 0x7650 | i),
+                                        _byte_perm(X, 0x4B000000,
+                                                   0x7650 | (i + 1))]
+                                off = 8388736.0
+                            got.append([_f32(p) - off for p in pair])
+                        col = 64 * sub + 16 * s + 2 * tq
+                        want = [[codes[r + 8 * h, col + 8 * hi8 + d]
+                                 for d in range(2)]
+                                for hi8 in range(2) for h in range(2)]
+                        assert got == want, (c, warp, lane, sub, s)
+    cs = codes.astype(np.float32).ravel()
+    sv = rng.random(cs.size).astype(np.float32) * 0.01
+    sv = torch.from_numpy(sv).bfloat16().float().numpy()
+    bv = torch.from_numpy(rng.standard_normal(cs.size).astype(np.float32)
+                          * 0.01).bfloat16().float().numpy()
+    fma = (cs.astype(np.float64) * sv + bv).astype(np.float32)
+    np.testing.assert_array_equal(fma, cs * sv + bv)
+
+
 # ---------------------------------------------------- sorted dispatch -------
 
 def _dense_experts(E, D, I, seed):

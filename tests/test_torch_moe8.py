@@ -33,6 +33,7 @@ from ominix_mlx_tpu_torch.models import base as tbase
 from ominix_mlx_tpu_torch.models import moe as tmoe
 from ominix_mlx_tpu_torch.models import qwen3_moe as tqwen3_moe
 from ominix_mlx_tpu_torch.ops import _build
+from ominix_mlx_tpu_torch.ops import grouped_matmul as tgmm
 from ominix_mlx_tpu_torch.ops import quant_matmul as tqm
 from ominix_mlx_tpu_torch.serving.server import ChatModel, Server
 from ominix_mlx_tpu_torch.utils.params import params_from_numpy
@@ -229,6 +230,34 @@ def test_gather_qmm_8bit_exact_matches_jax_cpu(act_bits):
     got = tqm.gather_qmm(torch.from_numpy(x), tw, torch.from_numpy(ids))
     assert got.dtype == torch.float32 and tuple(got.shape) == (3, 2, 48)
     assert _rel(got.numpy(), want) < 1e-5
+
+
+@pytest.mark.parametrize("gs", [32, 64])
+def test_grouped_matmul_packed_8bit_equals_dequantized(gs):
+    """8-bit packed experts through grouped_matmul (the plain version on
+    the CPU) give the bf16 form on dequantize_experts(w) bit for bit, with
+    empty groups, a one-row group and rows past sum(gs) (zero)."""
+    rng = np.random.default_rng(gs)
+    E, N, K, S = 6, 40, 128, 50
+    G = K // gs
+    w = tqm.PackedQuantizedExperts(
+        data=torch.from_numpy(rng.integers(-128, 128, (E, N, K),
+                                           dtype=np.int8)),
+        scales=torch.from_numpy((rng.random((E, N, G)) + 0.5) / 1000)
+        .float().bfloat16(),
+        biases=torch.from_numpy(rng.standard_normal((E, N, G)) / 100)
+        .float().bfloat16(),
+        group_size=gs, bits=8, in_features=K, act_bits=8)
+    counts = torch.tensor([0, 1, 24, 0, 20, 0])
+    xs = torch.from_numpy(rng.standard_normal((S, K)).astype(np.float32)
+                          ).bfloat16()
+    _build.reset_launches()
+    got = tgmm.grouped_matmul(xs, w, counts)
+    want = tgmm.grouped_matmul_reference(xs, tqm.dequantize_experts(w),
+                                         counts)
+    assert torch.equal(got, want)
+    assert torch.equal(got[45:], torch.zeros(5, N))
+    assert sum(_build.LAUNCHES.values()) == 0
 
 
 # --------------------------------------------------------- expert_route -----
