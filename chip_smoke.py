@@ -40,7 +40,8 @@ Qwen3-30B-A3B with random weights (seeded):
 
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
-    python3 chip_smoke.py --parent DIR # K5 (bf16) and the 128-token MoE
+    python3 chip_smoke.py --parent DIR # K3, K1/K6 (qmm_p), K4, K8, K5
+                                       # (bf16) and the 128-token MoE
                                        # prefill against another
                                        # checkout's
 
@@ -85,6 +86,11 @@ K2_T = (16, 128, 777, 2048)
 # (pos, Tq) of K2c: the 8k prefill's chunks at 2048 and 6144, and ragged
 K2C_SHAPES = ((2048, 2048), (6144, 2048), (128, 100), (300, 17))
 K3_LENGTHS = (1, 127, 128, 129, 700, 1500, 2047, 2048)
+# (name, lengths, pages per row) of K3's timed shapes, Qwen3-4B heads at
+# page 128: the ragged batch of 8, a uniform batch of 8 x 2048, and one
+# long request of 32768 tokens on the batched server
+K3_SHAPES = (("B8_ragged", K3_LENGTHS, 16), ("B8x2048", (2048,) * 8, 16),
+             ("B1x32768", (32768,), 256))
 # (name, T rows, k slots, N, K) of K4 on Qwen3-30B-A3B: gate/up at one and
 # at 8 decode rows (k = 8), down at 8 and 64 rows (M * k rows, one id each)
 K4_SHAPES = (("gate_up", 1, 8, 768, 2048), ("gate_up", 8, 8, 768, 2048),
@@ -113,6 +119,20 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 K1_TOL = 1e-2     # max error / max |plain|: bf16 output, another sum order
 K2_TOL = 1e-2     # the same for K2's and K2c's bf16 output
 K2_LSE_TOL = 1e-2  # max abs error of K2's float32 row LSE (wrong scores)
+K3_DESIGN = ("split-KV (flash-decoding): splits of whole pages from "
+             "k3_plan (shapes only), a CTA per (split, KV head, row) with "
+             "all its query heads; a CTA-wide cp.async ring of 64-key "
+             "tiles (3 stages bf16, 4 int8, rows XOR-swizzled); q.K^T and "
+             "P.V on mma.sync m16n8k16 (int8 codes widened to bf16 in "
+             "shared memory); partials merged in split order by a second "
+             "kernel")
+QMM_P_DESIGN = ("the prologue (qmm_prep_pdl) then the rows kernel behind "
+                "it by programmatic dependent launch: weight, scale and "
+                "bias loads issued before griddepcontrol.wait; a warp owns "
+                "1, 2 or 4 output rows (qmm_p_rows_per_warp; one with bf16 "
+                "x), a lane 8 chunk loads in flight with int8 x (1-2 with "
+                "bf16 x) and x's codes read once for all its rows; a lane's "
+                "chunks in order, then a warp butterfly")
 K2_DESIGN = ("tensor cores: wgmma (m64nBKk16 Q.K^T, m64nDk16 P.V from "
              "registers), TMA ring of K/V tiles, producer warpgroup")
 DQ_DESIGN = ("tensor cores: wgmma m64nMPk16 with 64 output rows as A "
@@ -224,6 +244,16 @@ def time_library(fn, iters: int, flush):
         return time_ms(fn, iters, flush), None
     except (RuntimeError, TypeError, NotImplementedError) as e:
         return None, f"{type(e).__name__}: {str(e)[:120]}"
+
+
+def l2_flush(buf):
+    """A call that evicts L2 by reading ``buf`` (256 MB, five times the
+    H100's 50 MB L2). A read leaves L2 full of clean lines, so the timed
+    kernel that follows shares DRAM with no write-back of dirty ones (a
+    flush that writes the buffer would leave up to 50 MB to be written back
+    under the timed kernel)."""
+    words = buf.view(torch.int32)
+    return lambda: words.max()
 
 
 def time_ms(fn, iters: int, flush) -> float:
@@ -541,64 +571,270 @@ def parent_library(parent: str):
     return pbuild.library()
 
 
+def in_turns(parent_call, this_call, flush) -> dict:
+    """Times a parent checkout's launch and this one's in turns (parent,
+    this, this, parent; 10 launches each, L2 flushed before each):
+    parent_ms, ms and the speedup of the slower of this checkout's turns
+    over the faster of the parent's."""
+    t = [time_ms(fn, 10, flush) for fn in
+         (parent_call, this_call, this_call, parent_call)]
+    return {"parent_ms": [t[0], t[3]], "ms": t[1:3],
+            "speedup": min(t[0], t[3]) / max(t[1:3])}
+
+
+def paced_p_formula(call, flush, n: int = 10) -> dict:
+    """The P formula's two kernels at a host-bound decode step's pace:
+    ``n`` calls of ``call``, each issued to an idle card (L2 flushed,
+    then a synchronize), under torch.profiler. Per call, from the
+    kernels' device start and end: the prologue's time (``prep_us``,
+    kernels named ``qmm_prep*``), the rows kernel's (``rows_us``,
+    ``qmm_p<``), the rows kernel's time after its prologue ended
+    (``rows_after_prep_us``: what is left of it once x's codes are
+    ready, the whole of it where it starts later), the span from the
+    prologue's start to the rows kernel's end, and how many rows kernels
+    started before their prologue ended. Medians over the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush()
+            torch.cuda.synchronize()
+            call()
+            torch.cuda.synchronize()
+    ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                for e in prof.events() if e.device_type == DeviceType.CUDA)
+    prep = [(t0, t1) for t0, t1, name in ev if "qmm_prep" in name]
+    rows = [(t0, t1) for t0, t1, name in ev if "qmm_p<" in name]
+    if len(prep) != n or len(rows) != n:
+        raise RuntimeError(f"paced P formula: {len(prep)} prologues and "
+                           f"{len(rows)} rows kernels in {n} calls")
+    med = statistics.median
+    return {"prep_us": med(p1 - p0 for p0, p1 in prep),
+            "rows_us": med(r1 - r0 for r0, r1 in rows),
+            "rows_after_prep_us": med(r1 - max(r0, p1) for (_, p1), (r0, r1)
+                                      in zip(prep, rows)),
+            "span_us": med(r1 - p0 for (p0, _), (_, r1) in zip(prep, rows)),
+            "rows_started_before_prep_ended": sum(
+                r0 < p1 for (_, p1), (r0, _) in zip(prep, rows))}
+
+
+def k3_pools(g, dev, B, MP, quant, Hkv=8, D=128, ps=128):
+    """Random pools of B * MP + 1 pages (page 0 the null page; bf16, or
+    int8 codes with f32 per-token scales) and a shuffled table."""
+    P = B * MP + 1
+    table = (torch.randperm(P - 1, generator=g, device=dev) + 1).reshape(
+        B, MP).to(torch.int32)
+    if not quant:
+        return (torch.randn(P, Hkv, ps, D, generator=g, device=dev).bfloat16(),
+                torch.randn(P, Hkv, ps, D, generator=g, device=dev).bfloat16(),
+                None, None, table)
+    codes = [torch.randint(-127, 128, (P, Hkv, ps, D), generator=g,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(P, Hkv, ps, generator=g, device=dev) / 64 + 1e-3
+              for _ in range(2)]
+    return codes[0], codes[1], scales[0], scales[1], table
+
+
+def k3_cases():
+    """(shape, lengths, pages per row, mode, window) of every K3 row."""
+    for name, lengths, MP in K3_SHAPES:
+        for mode in ("bf16", "int8"):
+            yield name, lengths, MP, mode, 0
+        if name == "B8_ragged":
+            yield name, lengths, MP, "bf16", 512
+
+
 def check_k3(dev, flush):
-    """K3 against paged_decode_reference at B=8, H=32, Hkv=8, D=128, page
-    128, 16 pages per row, shuffled tables, ragged lengths: bf16 pages,
-    int8 pages, and a 512-token window."""
+    """K3 against paged_decode_reference at Qwen3-4B's heads (H=32, Hkv=8,
+    D=128, page 128), shuffled tables, at every K3_SHAPES shape: bf16 and
+    int8 pages, and a 512-token window on the ragged batch. Held per (row,
+    head); the same bits on a second launch."""
     from ominix_mlx_tpu_torch.ops import paged_attention as pa
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    B, H, Hkv, D, ps, MP = BATCH, 32, 8, 128, 128, 16
-    P = B * MP + 1
-    lens = torch.tensor(K3_LENGTHS, dtype=torch.int32, device=dev)
-    table = (torch.randperm(P - 1, generator=g, device=dev) + 1).reshape(
-        B, MP).to(torch.int32)
-    q = torch.randn(B, H, D, generator=g, device=dev).bfloat16()
-    kb = torch.randn(P, Hkv, ps, D, generator=g, device=dev).bfloat16()
-    vb = torch.randn(P, Hkv, ps, D, generator=g, device=dev).bfloat16()
-    kq = torch.randint(-127, 128, (P, Hkv, ps, D), generator=g, device=dev,
-                       dtype=torch.int8)
-    vq = torch.randint(-127, 128, (P, Hkv, ps, D), generator=g, device=dev,
-                       dtype=torch.int8)
-    ks = torch.rand(P, Hkv, ps, generator=g, device=dev) / 64 + 1e-3
-    vs = torch.rand(P, Hkv, ps, generator=g, device=dev) / 64 + 1e-3
+    H, Hkv, D, ps = 32, 8, 128, 128
     rows = []
-    for mode, window, pools in (("bf16", 0, (kb, vb, None, None)),
-                                ("int8", 0, (kq, vq, ks, vs)),
-                                ("bf16", 512, (kb, vb, None, None))):
-        kp, vp, kscale, vscale = pools
+    pools = {}
+    for name, lengths, MP, mode, window in k3_cases():
+        B = len(lengths)
+        key = (name, mode)
+        if key not in pools:
+            pools.clear()
+            torch.cuda.empty_cache()
+            pools[key] = k3_pools(g, dev, B, MP, mode == "int8")
+        kp, vp, kscale, vscale, table = pools[key]
+        q = torch.randn(B, H, D, generator=g, device=dev).bfloat16()
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         args = (q, kp, vp, table, lens, D ** -0.5, window, kscale, vscale)
         got = pa._k3(*args)
+        again = pa._k3(*args)
         want = pa.paged_decode_reference(
             q, kp, vp, table, lens, D ** -0.5, window=window,
             k_scale=kscale, v_scale=vscale)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
-            raise RuntimeError(f"K3 {mode} window={window}: non-finite")
+            raise RuntimeError(f"K3 {name} {mode} window={window}: "
+                               f"non-finite")
         d = (got.float() - want.float()).abs().max().item()
         rel = d / max(want.float().abs().max().item(), 1e-12)
         row_rel = row_rel_err(got, want)
+        del want
         ms = time_ms(lambda: pa._k3(*args), 20, flush)
         plain = time_ms(lambda: pa.paged_decode_reference(
             q, kp, vp, table, lens, D ** -0.5, window=window, k_scale=kscale,
             v_scale=vscale), 5, flush)
-        toks = sum(min(n, window) if window else n for n in K3_LENGTHS)
+        toks = sum(min(n, window) if window else n for n in lengths)
         per_tok = 2 * Hkv * D * kp.element_size() + (
             2 * Hkv * 4 if kscale is not None else 0)
-        row = {"mode": mode, "window": window, "B": B, "H": H, "Hkv": Hkv,
-               "D": D, "page": ps, "max_abs_err": d, "rel_err": rel,
-               "row_rel_err": row_rel, "ms": ms, "plain_ms": plain, "us": ms * 1e3,
+        # a yardstick of the timer, not of K3: two PyTorch reductions that
+        # read as many K and V bytes, contiguous (what a plain read of them
+        # takes here, launches and a cold L2 and TLB included)
+        side = toks * Hkv * D * kp.element_size() // 4
+        k32, v32 = (t.view(-1).view(torch.int32)[:side] for t in (kp, vp))
+        read_ms = time_ms(lambda: (k32.max(), v32.max()), 20, flush)
+        row = {"shape": name, "mode": mode, "window": window, "B": B,
+               "tokens": toks, "H": H, "Hkv": Hkv, "D": D, "page": ps,
+               "splits": pa.k3_plan(B, Hkv, 1, MP, ps).splits,
+               "max_abs_err": d, "rel_err": rel, "row_rel_err": row_rel,
+               "bitwise_repeatable": bool(torch.equal(got, again)),
+               "ms": ms, "plain_ms": plain, "us": ms * 1e3,
                "plain_us": plain * 1e3,
                "library_ms": None,    # no one PyTorch call reads the pages
                "kv_GBps": toks * per_tok / ms / 1e6,
+               "read_same_kv_bytes_ms": read_ms,
                **bound(toks * per_tok + 4 * B * H * D + 4 * B * (MP + 1),
                        4 * H * D * toks, "bf16")}
         emit({"phase": "k3", **row})
-        if not row_rel < K3_TOL:
-            raise RuntimeError(f"K3 {mode} window={window}: error {row_rel} "
-                               f"of a (row, head)'s max |plain|")
+        if not (row_rel < K3_TOL and row["bitwise_repeatable"]):
+            raise RuntimeError(f"K3 {name} {mode} window={window}: error "
+                               f"{row_rel} of a (row, head)'s max |plain|, "
+                               f"repeatable {row['bitwise_repeatable']}")
         rows.append(row)
     return rows
+
+
+def compare_k3(plib, dev, flush):
+    """The parent's K3 (``plib``: its kernel library, entry
+    ``ominix_paged_decode(q, kp, vp, ks, vs, table, lengths, out, B, H,
+    Hkv, D, ps, MP, window, rows_per_cta, quant, scale, stream)``) against
+    this checkout's on the same inputs at every K3 row, timed in turns
+    (parent, this, this, parent). One ``k3_vs_parent`` line per row."""
+    from ominix_mlx_tpu_torch.ops import paged_attention as pa
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    H, Hkv, D, ps = 32, 8, 128, 128
+    pools = {}
+    for name, lengths, MP, mode, window in k3_cases():
+        B = len(lengths)
+        if (name, mode) not in pools:
+            pools.clear()
+            torch.cuda.empty_cache()
+            pools[(name, mode)] = k3_pools(g, dev, B, MP, mode == "int8")
+        kp, vp, kscale, vscale, table = pools[(name, mode)]
+        q = torch.randn(B, H, D, generator=g, device=dev).bfloat16()
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        out = torch.empty_like(q)
+
+        def parent_call():
+            rc = plib.ominix_paged_decode(
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                None if kscale is None else kscale.data_ptr(),
+                None if vscale is None else vscale.data_ptr(),
+                table.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, Hkv,
+                D, ps, MP, window, H // Hkv, int(kscale is not None),
+                D ** -0.5, stream)
+            if rc != 0:
+                raise RuntimeError(f"parent K3: CUDA error {rc}")
+
+        def this_call():
+            pa._k3(q, kp, vp, table, lens, D ** -0.5, window, kscale, vscale)
+
+        parent_call()
+        rel = row_rel_err(out, pa._k3(q, kp, vp, table, lens, D ** -0.5,
+                                      window, kscale, vscale))
+        emit({"phase": "k3_vs_parent", "shape": name, "mode": mode,
+              "window": window, "parent_vs_this_row_rel": rel,
+              **in_turns(parent_call, this_call, flush)})
+    pools.clear()
+    torch.cuda.empty_cache()
+
+
+def qmm_p_cases():
+    """(kernel, shape, N, K, mode, M, fused norm) of every timed P-formula
+    row: K1 at one row (w4a8, w4a16 with the norm where the model fuses
+    it, w8a8) and K6 at 1, 4 and 16 rows (w4a8, w8a8, w8a16), at every
+    K1_SHAPES shape."""
+    for name, N, K, norm in K1_SHAPES:
+        for mode in ("w4a8", "w4a16", "w8a8"):
+            yield "k1", name, N, K, mode, 1, norm and mode == "w4a16"
+        for mode in ("w4a8", "w8a8", "w8a16"):
+            for M in (1, 4, 16):
+                yield "k6", name, N, K, mode, M, False
+
+
+def compare_qmm_p(plib, dev, flush):
+    """The parent's P-formula kernel (``plib``'s ``ominix_qmm_p(x, norm_w,
+    eps, data, scales, biases, y, xq, xg, sx, xn, M, N, K, gs, bits, a8,
+    stream)``) against this checkout's on the same inputs at every
+    ``qmm_p_cases`` row, in turns (parent, this, this, parent). One
+    ``qmm_p_vs_parent`` line per row; K1's one-row rows, the decode
+    step's, also carry ``paced``: ``paced_p_formula`` of the parent's
+    launch and this one's (in that order), where the in-turns timer's
+    back-to-back launches let the rows kernel overlap its prologue and a
+    host-bound step may not."""
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    weights = {}
+    for kernel, name, N, K, mode, M, norm in qmm_p_cases():
+        bits, a8 = (4 if mode.startswith("w4") else 8), mode.endswith("a8")
+        if (name, bits, a8) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            weights[(name, bits, a8)] = random_packed(
+                qm, g, dev, N, K, bits, 8 if a8 else None)[1]
+        pq = weights[(name, bits, a8)]
+        G = K // GS
+        x = torch.randn(M, K, generator=g, device=dev).bfloat16()
+        nw = ((1 + 0.1 * torch.randn(K, generator=g, device=dev)).bfloat16()
+              if norm else None)
+        y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+        xq = torch.empty(M, K, dtype=torch.int8, device=dev)
+        xg = torch.empty(M, G, dtype=torch.float32, device=dev)
+        sx = torch.empty(M, dtype=torch.float32, device=dev)
+        xn = torch.empty(M, K, dtype=torch.bfloat16, device=dev)
+
+        def parent_call():
+            rc = plib.ominix_qmm_p(
+                x.data_ptr(), None if nw is None else nw.data_ptr(), EPS,
+                pq.data.data_ptr(), pq.scales.data_ptr(),
+                pq.biases.data_ptr(), y.data_ptr(), xq.data_ptr(),
+                xg.data_ptr(), sx.data_ptr(), xn.data_ptr(), M, N, K, GS,
+                bits, int(a8), stream)
+            if rc != 0:
+                raise RuntimeError(f"parent qmm_p: CUDA error {rc}")
+
+        def this_call():
+            return qm._k1(x, pq, nw, EPS) if kernel == "k1" else qm._k6(x, pq)
+
+        parent_call()
+        mine = this_call()
+        rel = row_rel_err(y, mine)
+        paced = ({"paced": {"parent": paced_p_formula(parent_call, flush),
+                            "this": paced_p_formula(this_call, flush)}}
+                 if kernel == "k1" else {})
+        emit({"phase": "qmm_p_vs_parent", "kernel": kernel, "shape": name,
+              "mode": mode, "M": M, "N": N, "K": K, "norm": norm,
+              "parent_vs_this_rel": rel,
+              "bitwise_equal": bool(torch.equal(y, mine)),
+              **in_turns(parent_call, this_call, flush), **paced})
+    weights.clear()
+    torch.cuda.empty_cache()
 
 
 def random_experts(qm, g, dev, N, K, bits):
@@ -731,6 +967,67 @@ def check_k8(dev, flush):
     return rows
 
 
+def compare_gather(plib, dev, flush):
+    """K4 (4 and 8 bits) and K8 of a parent checkout (``plib``; entries
+    ``ominix_gather_qmm_w{4,8}a8`` and ``ominix_channel_gather_qmm``, whose
+    signatures this checkout keeps) against this one's at every
+    K4_SHAPES shape, in turns (parent, this, this, parent): they share the
+    activation prologue with K1 and K6. One ``k4_vs_parent`` or
+    ``k8_vs_parent`` line per shape."""
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    for bits in (4, 8, None):
+        for name, T, k, N, K in K4_SHAPES:
+            ids = gather_ids(g, dev, T, k)
+            x = torch.randn(T, K, generator=g, device=dev).bfloat16()
+            y = torch.empty(T, k, N, device=dev,
+                            dtype=torch.bfloat16 if bits else torch.float32)
+            xq = torch.empty(T, K, dtype=torch.int8, device=dev)
+            xg = torch.empty(T, K // GS, dtype=torch.float32, device=dev)
+            sx = torch.empty(T, dtype=torch.float32, device=dev)
+            if bits:
+                w = random_experts(qm, g, dev, N, K, bits)
+                args = (x.data_ptr(), ids.data_ptr(), w.data.data_ptr(),
+                        w.scales.data_ptr(), w.biases.data_ptr(),
+                        y.data_ptr(), xq.data_ptr(), xg.data_ptr(),
+                        sx.data_ptr(), T, k, MOE_E, N, K, GS, stream)
+                entry = getattr(plib, f"ominix_gather_qmm_w{bits}a8")
+
+                def this_call():
+                    return qm._k4(x, w, ids)
+            else:
+                x = x.float()
+                w = qm.ChannelQuantizedExperts(
+                    data=torch.randint(-127, 128, (MOE_E, N, K), generator=g,
+                                       device=dev, dtype=torch.int8),
+                    scale=torch.rand(MOE_E, N, generator=g, device=dev)
+                    * (K ** -0.5 / 127))
+                args = (x.data_ptr(), ids.data_ptr(), w.data.data_ptr(),
+                        w.scale.data_ptr(), y.data_ptr(), xq.data_ptr(),
+                        sx.data_ptr(), T, k, MOE_E, N, K, stream)
+                entry = plib.ominix_channel_gather_qmm
+
+                def this_call():
+                    return qm._k8(x, w, ids)
+
+            def parent_call():
+                rc = entry(*args)
+                if rc != 0:
+                    raise RuntimeError(f"parent gather ({bits}): CUDA error "
+                                       f"{rc}")
+
+            parent_call()
+            mine = this_call()
+            emit({"phase": "k8_vs_parent" if bits is None else "k4_vs_parent",
+                  "shape": name, "bits": bits, "T": T, "k": k, "N": N,
+                  "K": K, "bitwise_equal": bool(torch.equal(y, mine)),
+                  **in_turns(parent_call, this_call, flush)})
+            del w
+            torch.cuda.empty_cache()
+
+
 def skewed_groups(S: int, g) -> torch.Tensor:
     """Group sizes over MOE_E experts summing to S: a quarter of the
     experts empty, expert 1 one row, expert 42 S/2 rows, the rest spread
@@ -837,9 +1134,10 @@ def check_k5(dev, flush):
 
 def compare_k5(plib, dev, flush):
     """The bf16 K5 of a parent checkout (``plib``: its kernel library,
-    entry ``ominix_grouped_mm(xs, w, gs, out, tile_map, S, N, K, E,
-    stream)``) against this checkout's on the same inputs at every
-    K5_SHAPES shape, timed in turns (parent, this, this, parent). One
+    entry ``ominix_grouped_mm(xs, w, scales, biases, gs, out, tile_map, S,
+    N, K, E, group, bits, x_slots, w_slots, stream)``, the signature this
+    checkout has too) against this checkout's on the same inputs at
+    every K5_SHAPES shape, timed in turns (parent, this, this, parent). One
     ``k5_vs_parent`` line per shape."""
     from ominix_mlx_tpu_torch.ops import grouped_matmul as gmm
 
@@ -853,11 +1151,13 @@ def compare_k5(plib, dev, flush):
         gs = skewed_groups(S, cpu_g).to(dev).int()
         out = torch.empty(S, N, dtype=torch.float32, device=dev)
         tmap = torch.empty(2 * (MOE_E + 1), dtype=torch.int32, device=dev)
+        plan = gmm.k5_plan(K, 16, 1)
 
         def parent_call():
             rc = plib.ominix_grouped_mm(
-                xs.data_ptr(), w.data_ptr(), gs.data_ptr(), out.data_ptr(),
-                tmap.data_ptr(), S, N, K, MOE_E, stream)
+                xs.data_ptr(), w.data_ptr(), None, None, gs.data_ptr(),
+                out.data_ptr(), tmap.data_ptr(), S, N, K, MOE_E, 1, 16,
+                plan.x_slots, plan.w_slots, stream)
             if rc != 0:
                 raise RuntimeError(f"parent K5: CUDA error {rc}")
 
@@ -866,12 +1166,9 @@ def compare_k5(plib, dev, flush):
 
         parent_call()
         rel = row_rel_err(out, gmm._k5(xs, w, gs))
-        turns = [time_ms(fn, 10, flush) for fn in
-                 (parent_call, this_call, this_call, parent_call)]
         emit({"phase": "k5_vs_parent", "shape": name, "S": S, "N": N,
               "K": K, "parent_vs_this_rel": rel,
-              "parent_ms": [turns[0], turns[3]], "ms": turns[1:3],
-              "speedup": min(turns[0], turns[3]) / max(turns[1:3])})
+              **in_turns(parent_call, this_call, flush)})
         del xs, w, out
         torch.cuda.empty_cache()
 
@@ -1854,6 +2151,7 @@ def p_formula_on_kernel_prologue(x, w) -> dict:
         x.data_ptr(), None, 0.0, w.data.data_ptr(), w.scales.data_ptr(),
         w.biases.data_ptr(), y.data_ptr(), xq.data_ptr(), xg.data_ptr(),
         sx.data_ptr(), None, M, N, K, gs, w.bits, 1,
+        qm.qmm_p_rows_per_warp(M, N),
         torch.cuda.current_stream().cuda_stream), "K6 (prologue witness)")
     c = qm._code_values(w.data, w.bits).reshape(N, G, gs)
     P = torch.einsum("mgk,ngk->mng", xq.float().reshape(M, G, gs), c)
@@ -2113,6 +2411,25 @@ def device_time(prof):
     return busy_us, by_name
 
 
+# kernel-name pieces of the port's kernels whose share of a profiled step
+# --profile reports: the P formula's rows kernel, the activation prologue
+# (K1, K4, K6, K8), K3 with its merge
+SHARE_OF = {"qmm_p": ("qmm_p<",), "qmm_prep": ("qmm_prep",),
+            "k3": ("paged_decode<", "paged_merge(")}
+
+
+def kernel_shares(by_name, busy_us) -> dict:
+    """{label: {calls, ms, share_of_busy}} of each SHARE_OF group."""
+    out = {}
+    for label, pieces in SHARE_OF.items():
+        hit = [(c, us) for name, (c, us) in by_name.items()
+               if any(p in name for p in pieces)]
+        us = sum(u for _, u in hit)
+        out[label] = {"calls": sum(c for c, _ in hit), "ms": us / 1e3,
+                      "share_of_busy": us / busy_us}
+    return out
+
+
 def top_kernels(by_name, busy_us, n):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:n]
     return [{"name": name[:90], "calls": c, "ms": us / 1e3,
@@ -2225,6 +2542,7 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
             "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
             "device_ms_per_step": busy_us / 1e3 / steps,
             "top_device": top_kernels(by_name, busy_us, 12),
+            "kernel_shares": kernel_shares(by_name, busy_us),
             "prefill_tokens": 128 * batch, "prefill_wall_ms": prefill_s * 1e3,
             "prefill_device_busy_ms": pre_busy_us / 1e3,
             "prefill_max_memory_allocated_gib": prefill_mem[1] / 2 ** 30,
@@ -2275,9 +2593,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="only build this checkout's and DIR's kernels, "
-                         "time the bf16 K5 against DIR's, and the 128-token "
-                         "Qwen3-30B-A3B w4a8 prefill of both packages, in "
-                         "turns")
+                         "time K3, the P formula (K1 at one row, K6), K4, "
+                         "K8 and the bf16 K5 against DIR's, and the "
+                         "128-token Qwen3-30B-A3B w4a8 prefill of both "
+                         "packages, in turns")
     ap.add_argument("--prefill-probe", metavar="ROOT",
                     help=argparse.SUPPRESS)   # one prefill_probe of ROOT's
                                               # package (--parent runs it)
@@ -2320,23 +2639,28 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_seconds})
 
-    flush_buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    flush_buf = torch.zeros(256 << 20, dtype=torch.uint8, device=dev)
+    flush = l2_flush(flush_buf)
     if args.parent:
-        compare_k5(parent_library(args.parent), dev, flush_buf.zero_)
-        del flush_buf
+        plib = parent_library(args.parent)
+        compare_k3(plib, dev, flush)
+        compare_qmm_p(plib, dev, flush)
+        compare_gather(plib, dev, flush)
+        compare_k5(plib, dev, flush)
+        del flush_buf, flush
         free_device_memory()
         compare_moe_prefill(os.path.abspath(args.parent), here)
         return 0
-    k1_rows = check_k1(dev, flush_buf.zero_)
-    k6_rows = check_k6(dev, flush_buf.zero_)
-    k7_rows = check_k7(dev, flush_buf.zero_)
-    k2_rows = check_k2(dev, flush_buf.zero_)
-    k2c_rows = check_k2c(dev, flush_buf.zero_)
-    k3_rows = check_k3(dev, flush_buf.zero_)
-    k4_rows = check_k4(dev, flush_buf.zero_)
-    k8_rows = check_k8(dev, flush_buf.zero_)
-    k5_rows = check_k5(dev, flush_buf.zero_)
-    del flush_buf
+    k1_rows = check_k1(dev, flush)
+    k6_rows = check_k6(dev, flush)
+    k7_rows = check_k7(dev, flush)
+    k2_rows = check_k2(dev, flush)
+    k2c_rows = check_k2c(dev, flush)
+    k3_rows = check_k3(dev, flush)
+    k4_rows = check_k4(dev, flush)
+    k8_rows = check_k8(dev, flush)
+    k5_rows = check_k5(dev, flush)
+    del flush_buf, flush
     torch.cuda.empty_cache()
 
     cfg = qwen3_4b()
@@ -2490,21 +2814,21 @@ def main() -> int:
     kernels = [
         entry("k1_qmm_w4_m1", "ominix_mlx_tpu/ops/quant_matmul.py:719",
               "ominix_mlx_tpu_torch/csrc/qmm.cu", k1_rows_of(4, True),
-              at("lm_head", 1, "a8"), "k1_m1"),
+              at("lm_head", 1, "a8"), "k1_m1", design=QMM_P_DESIGN),
         entry("k1_qmm_w4_m2_16", "ominix_mlx_tpu/ops/quant_matmul.py:1062",
               "ominix_mlx_tpu_torch/csrc/qmm_tc.cu", k1_rows_of(4, False),
               worst_vs_library("gate_up_proj", 16), "k1_mn",
               design=DQ_DESIGN),
         entry("k1_qmm_w8_m1", "ominix_mlx_tpu/ops/quant_matmul.py:719",
               "ominix_mlx_tpu_torch/csrc/qmm.cu", k1_rows_of(8, True),
-              at("lm_head", 1, "a8"), "k1_m1_w8"),
+              at("lm_head", 1, "a8"), "k1_m1_w8", design=QMM_P_DESIGN),
         entry("k1_qmm_w8_m2_16", "ominix_mlx_tpu/ops/quant_matmul.py:1062",
               "ominix_mlx_tpu_torch/csrc/qmm_tc.cu", k1_rows_of(8, False),
               worst_vs_library("gate_up_proj", 16), "k1_mn_w8",
               design=DQ_DESIGN),
         entry("k6_qmm_rows", "ominix_mlx_tpu/ops/quant_matmul.py:358",
               "ominix_mlx_tpu_torch/csrc/qmm.cu", k6_rows,
-              at("gate_up_proj", 1, "w4a8"), "k6"),
+              at("gate_up_proj", 1, "w4a8"), "k6", design=QMM_P_DESIGN),
         entry("k7_qmm_w4a16_tc", "ominix_mlx_tpu/ops/quant_matmul.py:1229",
               "ominix_mlx_tpu_torch/csrc/qmm_tc.cu", k7_rows,
               worst_vs_library("gate_up_proj", 64), "k7", design=DQ_DESIGN),
@@ -2517,7 +2841,7 @@ def main() -> int:
               design=K2_DESIGN),
         entry("k3_paged_decode", "ominix_mlx_tpu/ops/paged_attention.py:73",
               "ominix_mlx_tpu_torch/csrc/paged_attn.cu", k3_rows,
-              lambda rs: rs[0], "k3"),
+              lambda rs: rs[0], "k3", design=K3_DESIGN),
         entry("k4_gather_qmm", "ominix_mlx_tpu/ops/quant_matmul.py:1606",
               "ominix_mlx_tpu_torch/csrc/gather_qmm.cu",
               [r for r in k4_rows if r["bits"] == 4], lambda rs: rs[0], "k4"),

@@ -26,21 +26,36 @@
 // What bounds it on an H100: bytes. At M = 1 every weight byte is read once
 // and used for one or two multiply-adds, far below the card's ~295
 // FLOP/byte ridge, so the kernel is a stream of the code bytes plus 4 bytes
-// of scale and bias per group. One warp per output row, lanes on
-// consecutive 16-byte chunks (a warp reads 512 contiguous bytes), codes
-// dequantised in registers, no intermediate in device memory. The
-// activation prologue (norm, group sums, int8 quantisation) runs once per
-// call in a small kernel, not once per output tile. Each lane reuses its
-// chunk for every row of x, but x is read again for every output row (from
-// L1/L2), which is what limits K6 at M = 16. Reductions are warp
-// butterflies in a fixed order with no atomics, so greedy decode is
-// deterministic.
+// of scale and bias per group. The design keeps that stream going:
+//   * the activation prologue (norm, group sums, int8 quantisation) is a
+//     kernel of M CTAs (qmm_prep_pdl, each staging its row of x in shared
+//     memory with one round of loads) that the rows kernel follows by
+//     programmatic dependent launch: the rows kernel starts at once, issues
+//     its weight, scale and bias loads, and only then waits for the
+//     prologue (griddep_wait) before it reads x's codes, so the prologue
+//     runs under the first weight bytes instead of ahead of them (where
+//     the host issues the rows kernel after the prologue has run, as in a
+//     host-bound decode step, there is nothing to overlap). A prologue run
+//     by every CTA itself at one row measured slower: its latency is
+//     repeated in every wave of CTAs;
+//   * a warp owns RW consecutive output rows (1, 2 or 4, from
+//     qmm_p_rows_per_warp in ops/quant_matmul.py: as many as still leave
+//     16 warps an SM), its lanes on 16-byte chunks of K (lane c takes
+//     chunks c, c + 32, ...); a lane issues the loads of a batch of chunk
+//     positions of all RW rows (8 chunks, 128 bytes, with int8 x up to 4
+//     rows; fewer with bf16 x) before it uses any of them;
+//   * with int8 x, each lane reads x's codes for a chunk once and applies
+//     them to all RW rows, so x is read from L1 once per RW rows, not once
+//     per row (bf16 x is read once a row: its unpacked codes come first).
+// Each output row is summed in one fixed order whatever RW is (a lane's
+// chunks in order, then a warp butterfly; no atomics), so greedy decode
+// is deterministic and the plan does not change a bit of the output.
 
 #include "qmm_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;                 // output rows per CTA
+constexpr int kWarps = 4;                 // warps a CTA
 constexpr int kThreads = kWarps * 32;
 
 // The chunk's codes as floats: 4-bit unsigned u in natural order, 8-bit q.
@@ -85,8 +100,9 @@ __device__ __forceinline__ float dot_bf16(const float* c,
 }
 
 // The P formula over M <= MT rows of x: xq int8 [M, K] (a8) or xa bf16
-// [M, K] (a16), xg f32 [M, G], sx [M] (a8).
-template <int BITS, bool A8, int MT>
+// [M, K] (a16), xg f32 [M, G], sx [M] (a8), all read after griddep_wait().
+// Warp w of CTA i owns rows (4i + w) * RW .. + RW - 1.
+template <int BITS, bool A8, int MT, int RW>
 __global__ void __launch_bounds__(kThreads)
 qmm_p(const uint8_t* __restrict__ data, const __nv_bfloat16* __restrict__ sc,
       const __nv_bfloat16* __restrict__ bs, const int8_t* __restrict__ xq,
@@ -94,84 +110,161 @@ qmm_p(const uint8_t* __restrict__ data, const __nv_bfloat16* __restrict__ sc,
       const float* __restrict__ sx, __nv_bfloat16* __restrict__ y, int M,
       int N, int K, int gs) {
   constexpr int NC = BITS == 4 ? 32 : 16;   // codes a chunk
+  // chunk positions a lane loads a batch: with int8 x, 8 chunks of 16
+  // bytes in flight up to 4 rows of x, 4 past them (their accumulators
+  // take the registers); 16 at one row measured slower (fewer warps an
+  // SM). With bf16 x each chunk's unpacked codes take the registers: 2
+  // chunks at one row of x and one row a warp, else 1 (8 chunks measured
+  // slower at every one-row shape)
+  constexpr int U =
+      A8 ? (MT <= 4 ? 8 : 4) / RW : MT == 1 && RW == 1 ? 2 : 1;
   const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (n >= N) return;
+  const int n0 = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * RW;
+  if (n0 >= N) return;
   const int G = K / gs, chunks = K / NC;
-  const uint4* wrow =
-      reinterpret_cast<const uint4*>(data + (size_t)n * (K / 8 * BITS));
-  const __nv_bfloat16* srow = sc + (size_t)n * G;
-  const __nv_bfloat16* brow = bs + (size_t)n * G;
-  float acc_p[MT], acc_b[MT];
+  const uint4* wrow[RW];
+  const __nv_bfloat16 *srow[RW], *brow[RW];
 #pragma unroll
-  for (int m = 0; m < MT; ++m) acc_p[m] = acc_b[m] = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    const uint4 w = __ldg(wrow + c);
-    const int k0 = c * NC, g = k0 / gs;
-    const float s = __bfloat162float(srow[g]);
-    const bool first = k0 % gs == 0;       // the lane that adds the bias
-    const float b = first ? __bfloat162float(brow[g]) : 0.f;
-    float cw[NC];
-    if constexpr (!A8) unpack_chunk<BITS>(w, cw);
+  for (int r = 0; r < RW; ++r) {            // rows past N repeat row N - 1
+    const int n = min(n0 + r, N - 1);
+    wrow[r] = reinterpret_cast<const uint4*>(data + (size_t)n * (K / 8 * BITS));
+    srow[r] = sc + (size_t)n * G;
+    brow[r] = bs + (size_t)n * G;
+  }
+  float acc_p[MT][RW], acc_b[MT][RW];
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        float p;
-        if constexpr (A8) {
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int r = 0; r < RW; ++r) acc_p[m][r] = acc_b[m][r] = 0.f;
+  for (int base = 0; base < chunks; base += 32 * U) {
+    uint4 w[U][RW];
+    float s[U][RW], b[U][RW];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = base + lane + 32 * u;
+      if (c < chunks) {
+        const int k0 = c * NC, g = k0 / gs;
+        const bool first = k0 % gs == 0;     // the lane that adds the bias
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          w[u][r] = __ldg(wrow[r] + c);
+          s[u][r] = __bfloat162float(srow[r][g]);
+          b[u][r] = first ? __bfloat162float(brow[r][g]) : 0.f;
+        }
+      }
+    }
+    if (base == 0) griddep_wait();          // x's codes and sums are ready
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = base + lane + 32 * u;
+      if (c >= chunks) continue;
+      const int k0 = c * NC, g = k0 / gs;
+      const bool first = k0 % gs == 0;
+      if constexpr (A8) {                   // x's codes read once a row
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          if (m >= M) continue;
+          const float xgv = first ? xg[(size_t)m * G + g] : 0.f;
           const int4* xv =
               reinterpret_cast<const int4*>(xq + (size_t)m * K + k0);
-          int ip;
-          if constexpr (BITS == 4) {
-            const int4 xa4 = __ldg(xv), xb4 = __ldg(xv + 1);
-            ip = dot8(w.x, xa4.x, xa4.y, 0);
-            ip = dot8(w.y, xa4.z, xa4.w, ip);
-            ip = dot8(w.z, xb4.x, xb4.y, ip);
-            ip = dot8(w.w, xb4.z, xb4.w, ip);
-          } else {
-            const int4 x4 = __ldg(xv);
-            ip = __dp4a((int)w.x, x4.x, 0);
-            ip = __dp4a((int)w.y, x4.y, ip);
-            ip = __dp4a((int)w.z, x4.z, ip);
-            ip = __dp4a((int)w.w, x4.w, ip);
+          const int4 xa4 = xv[0];
+          const int4 xb4 = BITS == 4 ? xv[1] : xa4;
+#pragma unroll
+          for (int r = 0; r < RW; ++r) {
+            int ip;
+            if constexpr (BITS == 4) {
+              ip = dot8(w[u][r].x, xa4.x, xa4.y, 0);
+              ip = dot8(w[u][r].y, xa4.z, xa4.w, ip);
+              ip = dot8(w[u][r].z, xb4.x, xb4.y, ip);
+              ip = dot8(w[u][r].w, xb4.z, xb4.w, ip);
+            } else {
+              ip = __dp4a((int)w[u][r].x, xa4.x, 0);
+              ip = __dp4a((int)w[u][r].y, xa4.y, ip);
+              ip = __dp4a((int)w[u][r].z, xa4.z, ip);
+              ip = __dp4a((int)w[u][r].w, xa4.w, ip);
+            }
+            acc_p[m][r] = fmaf(s[u][r], (float)ip, acc_p[m][r]);
+            if (first) acc_b[m][r] = fmaf(b[u][r], xgv, acc_b[m][r]);
           }
-          p = (float)ip;
-        } else {
-          p = dot_bf16<NC>(cw, xa + (size_t)m * K + k0, 0.f);
         }
-        acc_p[m] = fmaf(s, p, acc_p[m]);
-        if (first) acc_b[m] = fmaf(b, xg[(size_t)m * G + g], acc_b[m]);
+      } else {                              // codes unpacked once a row
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          float cw[NC];
+          unpack_chunk<BITS>(w[u][r], cw);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            if (m >= M) continue;
+            const float p = dot_bf16<NC>(cw, xa + (size_t)m * K + k0, 0.f);
+            acc_p[m][r] = fmaf(s[u][r], p, acc_p[m][r]);
+            if (first)
+              acc_b[m][r] = fmaf(b[u][r], xg[(size_t)m * G + g], acc_b[m][r]);
+          }
+        }
       }
     }
   }
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
-    const float p = warp_sum(acc_p[m]), b = warp_sum(acc_b[m]);
-    if (lane == 0 && m < M)
-      y[(size_t)m * N + n] = __float2bfloat16(fmaf(A8 ? sx[m] : 1.f, p, b));
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const float p = warp_sum(acc_p[m][r]), b = warp_sum(acc_b[m][r]);
+      if (lane == 0 && m < M && n0 + r < N)
+        y[(size_t)m * N + n0 + r] =
+            __float2bfloat16(fmaf(A8 ? sx[m] : 1.f, p, b));
+    }
   }
 }
 
+struct PArgs {
+  const uint8_t* d;
+  const __nv_bfloat16 *sc, *bs;
+  const int8_t* xq;
+  const __nv_bfloat16* xa;
+  const float *xg, *sx;
+  __nv_bfloat16* y;
+  int M, N, K, gs;
+};
+
+// The rows kernel behind the prologue, by programmatic dependent launch.
+template <int BITS, bool A8, int MT, int RW>
+int launch_p(const PArgs& a, cudaStream_t st) {
+  const int warps = (a.N + RW - 1) / RW;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((warps + kWarps - 1) / kWarps);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, qmm_p<BITS, A8, MT, RW>, a.d, a.sc,
+                                 a.bs, a.xq, a.xa, a.xg, a.sx, a.y, a.M,
+                                 a.N, a.K, a.gs);
+}
+
 template <int BITS, bool A8, int MT>
-void launch_p(const uint8_t* d, const __nv_bfloat16* sc,
-              const __nv_bfloat16* bs, const int8_t* xq,
-              const __nv_bfloat16* xa, const float* xg, const float* sx,
-              __nv_bfloat16* y, int M, int N, int K, int gs,
-              cudaStream_t st) {
-  qmm_p<BITS, A8, MT><<<(N + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs);
+int launch_p_rw(int rw, const PArgs& a, cudaStream_t st) {
+  if (rw == 1) return launch_p<BITS, A8, MT, 1>(a, st);
+  if (rw == 2) return launch_p<BITS, A8, MT, 2>(a, st);
+  if constexpr (MT <= 4)
+    if (rw == 4) return launch_p<BITS, A8, MT, 4>(a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int BITS, bool A8>
-void launch_p_rows(const uint8_t* d, const __nv_bfloat16* sc,
-                   const __nv_bfloat16* bs, const int8_t* xq,
-                   const __nv_bfloat16* xa, const float* xg, const float* sx,
-                   __nv_bfloat16* y, int M, int N, int K, int gs,
-                   cudaStream_t st) {
-  if (M == 1) launch_p<BITS, A8, 1>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
-  else if (M <= 2) launch_p<BITS, A8, 2>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
-  else if (M <= 4) launch_p<BITS, A8, 4>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
-  else if (M <= 8) launch_p<BITS, A8, 8>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
-  else launch_p<BITS, A8, 16>(d, sc, bs, xq, xa, xg, sx, y, M, N, K, gs, st);
+int launch_p_rows(int rw, const PArgs& a, cudaStream_t st) {
+  if (a.M == 1) return launch_p_rw<BITS, A8, 1>(rw, a, st);
+  if constexpr (BITS == 4 && !A8) {       // w4a16 is K1's, at one row only
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (a.M <= 2) return launch_p_rw<BITS, A8, 2>(rw, a, st);
+    if (a.M <= 4) return launch_p_rw<BITS, A8, 4>(rw, a, st);
+    if (a.M <= 8) return launch_p_rw<BITS, A8, 8>(rw, a, st);
+    return launch_p_rw<BITS, A8, 16>(rw, a, st);
+  }
 }
 
 }  // namespace
@@ -183,34 +276,41 @@ const char* ominix_cuda_error_string(int code) {
 }
 
 // The P formula (K1 at M = 1, K6 at M <= 16) on `stream`: the prologue
-// (norm when norm_w is given, group sums, a8 quantisation) then the rows.
-// Scratch xg [M, G] f32 always, xq [M, K] int8 and sx [M] f32 for a8, xn
-// [M, K] bf16 for a16 with a norm, all allocated by the caller. Returns
-// cudaGetLastError().
+// (norm when norm_w is given, group sums, a8 quantisation), then the rows
+// kernel behind it by programmatic dependent launch, rows_per_warp (1, 2,
+// or 4 up to 4 rows of x) output rows a warp. Scratch xg [M, G] f32
+// always, xq [M, K] int8 and sx [M] f32 for a8, xn [M, K] bf16 for a16
+// with a norm, all allocated by the caller. Returns the first CUDA error.
 int ominix_qmm_p(const void* x, const void* norm_w, float eps,
                  const void* data, const void* scales, const void* biases,
                  void* y, void* xq, void* xg, void* sx, void* xn, int M,
-                 int N, int K, int gs, int bits, int a8, void* stream) {
+                 int N, int K, int gs, int bits, int a8, int rows_per_warp,
+                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (M < 1 || M > 16 || (bits != 4 && bits != 8))
+    return (int)cudaErrorInvalidValue;
   const auto* xb = (const __nv_bfloat16*)x;
   const auto* nw = (const __nv_bfloat16*)norm_w;
-  const auto* d = (const uint8_t*)data;
-  const auto* sc = (const __nv_bfloat16*)scales;
-  const auto* bs = (const __nv_bfloat16*)biases;
-  auto* yb = (__nv_bfloat16*)y;
   const bool norm_out = !a8 && nw != nullptr;
-  qmm_prep<<<M, kPrepThreads, 0, st>>>(
+  const int xs_bytes = K * 2;                // the staged row of x
+  if (xs_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        qmm_prep_pdl, cudaFuncAttributeMaxDynamicSharedMemorySize, xs_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  qmm_prep_pdl<<<M, kPrepThreads, xs_bytes, st>>>(
       xb, nw, eps, K, gs, a8 ? (int8_t*)xq : nullptr, (float*)xg,
       a8 ? (float*)sx : nullptr, norm_out ? (__nv_bfloat16*)xn : nullptr);
-  const auto* xa = norm_out ? (const __nv_bfloat16*)xn : xb;
-  const auto* q8 = (const int8_t*)xq;
-  const auto* g = (const float*)xg;
-  const auto* s = (const float*)sx;
-  if (bits == 4 && a8) launch_p_rows<4, true>(d, sc, bs, q8, xa, g, s, yb, M, N, K, gs, st);
-  else if (bits == 4) launch_p_rows<4, false>(d, sc, bs, q8, xa, g, s, yb, M, N, K, gs, st);
-  else if (a8) launch_p_rows<8, true>(d, sc, bs, q8, xa, g, s, yb, M, N, K, gs, st);
-  else launch_p_rows<8, false>(d, sc, bs, q8, xa, g, s, yb, M, N, K, gs, st);
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const PArgs a{(const uint8_t*)data, (const __nv_bfloat16*)scales,
+                (const __nv_bfloat16*)biases, (const int8_t*)xq,
+                norm_out ? (const __nv_bfloat16*)xn : xb, (const float*)xg,
+                (const float*)sx, (__nv_bfloat16*)y, M, N, K, gs};
+  if (bits == 4 && a8) return launch_p_rows<4, true>(rows_per_warp, a, st);
+  if (bits == 4) return launch_p_rows<4, false>(rows_per_warp, a, st);
+  if (a8) return launch_p_rows<8, true>(rows_per_warp, a, st);
+  return launch_p_rows<8, false>(rows_per_warp, a, st);
 }
 
 }  // extern "C"

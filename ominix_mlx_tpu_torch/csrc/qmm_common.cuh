@@ -1,10 +1,10 @@
 // Device code shared by K1 and K6 (qmm.cu), K4 and K8 (gather_qmm.cu) and
 // the dq kernel (qmm_tc.cu): warp and block reductions, the activation
-// prologue (norm, group sums, a8 quantisation), and the row dot of the a8
-// formula over the
-// packed layouts (4-bit: uint8 [.., K/2], natural nibble order, folded
-// biases b - 8s; 8-bit: int8 [.., K], biases b; bf16 scales and biases per
-// group).
+// prologue (norm, group sums, a8 quantisation; qmm_prep, and qmm_prep_pdl
+// for a kernel launched behind it with programmatic dependent launch), and
+// the row dot of the a8 formula over the packed layouts (4-bit: uint8
+// [.., K/2], natural nibble order, folded biases b - 8s; 8-bit: int8
+// [.., K], biases b; bf16 scales and biases per group).
 //
 // Everything here has internal linkage (an anonymous namespace), so each
 // kernel source that includes it gets its own copy.
@@ -50,33 +50,31 @@ __device__ float block_reduce(float v, float* red) {
   return r;
 }
 
-// Activation prologue, one CTA per row m of x [M, K] (bf16), after an
-// RMSNorm xn = bf16(bf16(x * inv) * w_norm) when norm_w is given. It writes
+// Activation prologue of row m of x [M, K] (bf16; xat(k) reads x[m, k] as
+// a float), run by one CTA of kPrepThreads, after an RMSNorm
+// xn = bf16(bf16(x * inv) * w_norm) when norm_w is given. It writes
 // whichever outputs it is given:
 //   xn [M, K] bf16: the normed row;
 //   xg [M, G] f32: the row's group sums, rounded to bf16;
 //   xq [M, K] int8 and sx [M] f32: the a8 quantisation,
 //       sx = max|xn| / 127 + 1e-12, xq = rint(xn / sx).
-__global__ void __launch_bounds__(kPrepThreads)
-qmm_prep(const __nv_bfloat16* __restrict__ x,
-         const __nv_bfloat16* __restrict__ norm_w, float eps, int K, int gs,
-         int8_t* __restrict__ xq, float* __restrict__ xg,
-         float* __restrict__ sx, __nv_bfloat16* __restrict__ xn) {
-  __shared__ float red[32];
-  const int m = blockIdx.x;
-  const __nv_bfloat16* xr = x + (size_t)m * K;
+template <typename X>
+__device__ __forceinline__ void prep_row(
+    int m, X xat, const __nv_bfloat16* __restrict__ norm_w, float eps, int K,
+    int gs, int8_t* __restrict__ xq, float* __restrict__ xg,
+    float* __restrict__ sx, __nv_bfloat16* __restrict__ xn, float* red) {
   float inv = 1.f;
   if (norm_w != nullptr) {
     float ss = 0.f;
     for (int k = threadIdx.x; k < K; k += blockDim.x) {
-      const float v = __bfloat162float(xr[k]);
+      const float v = xat(k);
       ss = fmaf(v, v, ss);
     }
     ss = block_reduce<false>(ss, red);
     inv = 1.f / sqrtf(ss / (float)K + eps);
   }
   auto norm_at = [&](int k) {
-    const float v = __bfloat162float(xr[k]);
+    const float v = xat(k);
     if (norm_w == nullptr) return v;
     return bf16r(bf16r(v * inv) * __bfloat162float(norm_w[k]));
   };
@@ -102,6 +100,46 @@ qmm_prep(const __nv_bfloat16* __restrict__ x,
       if (lane == 0) xg[(size_t)m * G + g] = bf16r(acc);
     }
   }
+}
+
+// The prologue, one CTA per row (K4 and K8 launch it ahead of their rows).
+__global__ void __launch_bounds__(kPrepThreads)
+qmm_prep(const __nv_bfloat16* __restrict__ x,
+         const __nv_bfloat16* __restrict__ norm_w, float eps, int K, int gs,
+         int8_t* __restrict__ xq, float* __restrict__ xg,
+         float* __restrict__ sx, __nv_bfloat16* __restrict__ xn) {
+  __shared__ float red[32];
+  const __nv_bfloat16* xr = x + (size_t)blockIdx.x * K;
+  prep_row(blockIdx.x, [&](int k) { return __bfloat162float(xr[k]); },
+           norm_w, eps, K, gs, xq, xg, sx, xn, red);
+}
+
+// The same prologue for a kernel launched behind it with programmatic
+// dependent launch (qmm.cu): it lets that kernel start at once, so the
+// kernel's weight loads are in flight while the prologue runs; the kernel
+// reads the prologue's outputs after griddep_wait(). The row is staged in
+// shared memory (K * 2 bytes, dynamic) with one round of 16-byte loads, so
+// the passes over it wait on no global load; the numbers are qmm_prep's.
+__global__ void __launch_bounds__(kPrepThreads)
+qmm_prep_pdl(const __nv_bfloat16* __restrict__ x,
+             const __nv_bfloat16* __restrict__ norm_w, float eps, int K,
+             int gs, int8_t* __restrict__ xq, float* __restrict__ xg,
+             float* __restrict__ sx, __nv_bfloat16* __restrict__ xn) {
+  __shared__ float red[32];
+  extern __shared__ uint4 xs4[];           // the row, K / 8 pieces
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)blockIdx.x * K);
+  for (int i = threadIdx.x; i < K / 8; i += blockDim.x) xs4[i] = src[i];
+  __syncthreads();
+  const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(xs4);
+  prep_row(blockIdx.x, [&](int k) { return __bfloat162float(xs[k]); },
+           norm_w, eps, K, gs, xq, xg, sx, xn, red);
+}
+
+// Waits until the grid this one depends on (programmatic dependent launch)
+// has finished and its writes are visible; a no-op without one.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 // 8 int4 codes (one 32-bit word, natural nibble order) . 8 int8 activations

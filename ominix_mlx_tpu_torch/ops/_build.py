@@ -28,6 +28,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
+# The SM count of the H100 (SXM) that the kernels are built for; the host
+# plans (dq_plan, qmm_p_rows_per_warp, k3_plan) size their grids to it.
+SMS = 132
 
 _lock = threading.Lock()
 _lib = None
@@ -73,7 +76,7 @@ def _declare(lib):
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ominix_qmm_p.restype = i
     lib.ominix_qmm_p.argtypes = [vp, vp, f, vp, vp, vp, vp, vp, vp, vp, vp,
-                                 i, i, i, i, i, i, vp]
+                                 i, i, i, i, i, i, i, vp]
     lib.ominix_qmm_dq_tc.restype = i
     lib.ominix_qmm_dq_tc.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
                                      i, i, i, i, i, vp]
@@ -85,8 +88,9 @@ def _declare(lib):
     lib.ominix_flash_chunk_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i,
                                            i, ll, ll, ll, ll, ll, ll, f, vp]
     lib.ominix_paged_decode.restype = i
-    lib.ominix_paged_decode.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i,
-                                        i, i, i, i, i, i, i, f, vp]
+    lib.ominix_paged_decode.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                        vp, i, i, i, i, i, i, i, i, i, f, i,
+                                        i, vp]
     for name in ("ominix_gather_qmm_w4a8", "ominix_gather_qmm_w8a8"):
         getattr(lib, name).restype = i
         getattr(lib, name).argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,

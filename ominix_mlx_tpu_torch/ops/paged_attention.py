@@ -3,7 +3,10 @@ whose ``_pa_kernel`` is a hand-pipelined Pallas TPU kernel).
 
 Kernel K3 (``csrc/paged_attn.cu``) attends one query token per row over the
 pages its table maps, in one pass over K and V, with bf16 pages or int8
-pages and per-token scales, and an optional sliding window. The plain
+pages and per-token scales, and an optional sliding window. It splits each
+row's pages into runs (``k3_plan``, from shapes alone: no host read of the
+lengths) that CTAs take in parallel, and merges a row's partial softmaxes
+in split order. The plain
 version ``paged_decode_reference`` is the JAX package's default path: the
 gathered page view plus masked ``sdpa``. A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises. On the TPU the
@@ -15,14 +18,48 @@ Pool layout: ``core/paged_cache.py`` (k and v both [P, n_kv, ps, D]).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
 
 from ominix_mlx_tpu_torch.core.attention import NEG_INF, sdpa
 from ominix_mlx_tpu_torch.core.paged_cache import gather_pages
+from ominix_mlx_tpu_torch.ops._build import SMS
 
 HEAD_DIMS = (64, 128, 256)
+# K3's plan (csrc/paged_attn.cu): a CTA streams 64-key tiles of one split;
+# a split holds at least K3_MIN_SPLIT_TOKENS tokens' worth of whole pages,
+# and the plan aims at K3_CTAS_PER_SM CTAs an SM (two fit at once, so two
+# waves even out ragged rows).
+K3_TILE = 64
+K3_MIN_SPLIT_TOKENS = 256
+K3_CTAS_PER_SM = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class K3Plan:
+    """How K3 cuts each row's table of ``MP`` pages: ``splits`` runs of
+    ``pages_per_split`` pages (the last may be shorter), one CTA each per
+    (row, KV head, query-head group)."""
+
+    splits: int
+    pages_per_split: int
+
+
+def k3_plan(B: int, Hkv: int, groups: int, MP: int, ps: int) -> K3Plan:
+    """K3's split of an [B, MP] page table of ``ps``-token pages with Hkv
+    KV heads and ``groups`` CTAs of query heads per KV head, from shapes
+    alone (the lengths stay on the device, so a captured decode step can
+    replay it). Splits that a row's length or window leaves empty exit at
+    once in the kernel."""
+    if min(B, Hkv, groups, MP, ps) < 1:
+        raise ValueError(f"k3_plan: B={B}, Hkv={Hkv}, groups={groups}, "
+                         f"MP={MP}, ps={ps}")
+    units = B * Hkv * groups
+    want = max(1, -(-K3_CTAS_PER_SM * SMS // units))
+    pps = min(MP, max(-(-K3_MIN_SPLIT_TOKENS // ps), -(-MP // want)))
+    return K3Plan(splits=-(-MP // pps), pages_per_split=pps)
 
 
 def paged_decode_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -94,8 +131,16 @@ def _k3(q, k_pool, v_pool, page_table, lengths, scale: float, window: int,
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"q is on {dev}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
+    MP = page_table.shape[1]
+    plan = k3_plan(B, Hkv, (H // Hkv) // R, MP, ps)
     lib = _build.library()
     out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if plan.splits > 1:
+        part_acc = torch.empty(B, H, plan.splits, D, dtype=torch.float32,
+                               device=dev)
+        part_ml = torch.empty(B, H, plan.splits, 2, dtype=torch.float32,
+                              device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -103,8 +148,9 @@ def _k3(q, k_pool, v_pool, page_table, lengths, scale: float, window: int,
     rc = lib.ominix_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale),
         ptr(v_scale), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, Hkv, D, ps, page_table.shape[1], int(window),
-        R, int(quant), float(scale), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), ptr(part_acc), ptr(part_ml), B, H, Hkv, D, ps, MP,
+        int(window), R, int(quant), float(scale), plan.pages_per_split,
+        plan.splits, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "K3 (ominix_paged_decode)")
     _build.LAUNCHES["k3"] += 1
     if quant:

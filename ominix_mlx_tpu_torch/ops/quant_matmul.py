@@ -44,7 +44,8 @@ The formulas, on x taken in bf16 (the model's activations):
   biases; against a row-major weight's own b it is off by at most one
   bf16 ulp of |b| + 8s, and exact for the zero biases of a random init).
 
-K1 at one row and K6 are hand-written CUDA in ``csrc/qmm.cu``; the dq
+K1 at one row and K6 are one hand-written CUDA kernel, ``qmm_p`` in
+``csrc/qmm.cu`` (planned by ``qmm_p_rows_per_warp``); the dq
 formula ("k1_mn" and "k7", 1 to 64 rows, 4 and 8 bits) is one tensor-core
 kernel in ``csrc/qmm_tc.cu``, planned by ``dq_plan``.
 A CPU tensor takes the plain PyTorch version of its route
@@ -82,6 +83,7 @@ from typing import Optional
 import torch
 
 from ominix_mlx_tpu_torch.core.quant import QuantizedTensor, over_127
+from ominix_mlx_tpu_torch.ops._build import SMS
 
 DECODE_M_MAX = 16   # up to this many rows, K1 and K6 run
 VPU_M_MAX = 64      # up to this many rows, K7 runs
@@ -441,11 +443,32 @@ def _check_ids(what: str, ids: torch.Tensor, T: int, k: int, dev):
                          f"pairs, got T={T}, k={k}")
 
 
+# The P formula's plan (csrc/qmm.cu qmm_p): a warp owns ``rows_per_warp``
+# output rows, as many as still leave QMM_P_MIN_WARPS warps over the card
+# (16 an SM), at most 4 (2 past 4 rows of x, whose accumulators take the
+# registers; one with bf16 activations past 4 rows, where a16's
+# accumulators and unpacked codes leave too few warps an SM). The C
+# launch derives the grid from N and the rows a warp.
+QMM_P_MIN_WARPS = 16 * SMS
+
+
+def qmm_p_rows_per_warp(M: int, N: int, a8: bool = True) -> int:
+    """Output rows a warp of the rows kernel owns, for x [M, K] against
+    W [N, K], int8 (a8) or bf16 activations; K and the bits do not enter
+    (a lane walks the whole row)."""
+    if not 1 <= M <= DECODE_M_MAX or N < 1:
+        raise ValueError(f"the P formula takes 1 <= M <= {DECODE_M_MAX} "
+                         f"and N >= 1; got M={M}, N={N}")
+    widths = (4, 2, 1) if M <= 4 else (2, 1) if a8 else (1,)
+    return next(r for r in widths
+                if r == 1 or -(-N // r) >= QMM_P_MIN_WARPS)
+
+
 def _launch_p(what: str, x: torch.Tensor, w: PackedQuantizedTensor,
               norm_w: Optional[torch.Tensor], norm_eps: float):
     """The P formula on the card (csrc/qmm.cu ominix_qmm_p): the prologue
-    (norm, group sums, a8 quantisation) then a warp per output row over
-    the M rows of x."""
+    (norm, group sums, a8 quantisation), then the rows kernel behind it by
+    programmatic dependent launch, ``qmm_p_rows_per_warp`` rows a warp."""
     from ominix_mlx_tpu_torch.ops import _build
 
     M, K = x.shape
@@ -453,6 +476,7 @@ def _launch_p(what: str, x: torch.Tensor, w: PackedQuantizedTensor,
     G = K // w.group_size
     dev = x.device
     a8 = w.act_bits == 8
+    rw = qmm_p_rows_per_warp(M, N, a8)
     lib = _build.library()
     y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
     xg = torch.empty(M, G, dtype=torch.float32, device=dev)
@@ -466,7 +490,7 @@ def _launch_p(what: str, x: torch.Tensor, w: PackedQuantizedTensor,
         _ptr(x), _ptr(norm_w), float(norm_eps), _ptr(w.data),
         _ptr(w.scales), _ptr(w.biases), _ptr(y), _ptr(xq), _ptr(xg),
         _ptr(sx), _ptr(xn), M, N, K, w.group_size, w.bits, int(a8),
-        torch.cuda.current_stream(dev).cuda_stream)
+        rw, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, f"{what} (ominix_qmm_p)")
     return y
 
@@ -474,10 +498,8 @@ def _launch_p(what: str, x: torch.Tensor, w: PackedQuantizedTensor,
 # The dq kernel's plan (csrc/qmm_tc.cu): a warpgroup owns 64-row tiles of
 # the output, a pipeline stage is 128 columns of K, a CTA holds 1 to 4
 # warpgroups (2 where x has more than 16 rows, whose warpgroups hold more
-# registers) and the x slice of its split in shared memory. SMS is the
-# H100's SM count and DQ_SMEM_MAX the dynamic shared memory a block may use
-# on sm_90.
-SMS = 132
+# registers) and the x slice of its split in shared memory. DQ_SMEM_MAX is
+# the dynamic shared memory a block may use on sm_90.
 DQ_TILE_N, DQ_STEP_K, DQ_MAX_WG = 64, 128, 4
 DQ_SMEM_MAX = 232448
 

@@ -121,6 +121,77 @@ def test_k6_matches_plain(cuda, N, K, M, mode):
     assert _row_rel(got, want) < 1e-2
 
 
+# (N, K) of every projection of one Qwen3-4B decode token: qkv, o,
+# gate_up, down, the tied lm_head
+QWEN3_4B_NK = [(6144, 2560), (2560, 4096), (19456, 2560), (2560, 9728),
+               (151936, 2560)]
+
+
+@pytest.mark.parametrize("N,K", QWEN3_4B_NK)
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 16])
+@pytest.mark.parametrize("mode", ["w4a8", "w8a8", "w8a16"])
+def test_qmm_p_at_model_shapes(cuda, N, K, M, mode):
+    """The P formula's kernel (K6; K1 at one row is the same launch) at
+    every Qwen3-4B projection and 1-16 rows: per row within 1e-2 of
+    qmm_p_reference, the same bits on a second call."""
+    bits = 4 if mode.startswith("w4") else 8
+    pq, g = _packed(cuda, N, K, 8 if mode.endswith("a8") else None,
+                    seed=M + N, bits=bits)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    got, again = qm._k6(x, pq), qm._k6(x, pq)
+    want = qm.qmm_p_reference(x, pq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _row_rel(got, want) < 1e-2
+
+
+@pytest.mark.parametrize("mode,M", [
+    ("w4a16", 1), *((m, M) for m in ("w4a8", "w8a8", "w8a16")
+                    for M in (1, 2, 3, 7, 13))])
+def test_qmm_p_every_instantiation(cuda, monkeypatch, mode, M):
+    """Every rows-a-warp template of the rows kernel at each padded row
+    count (1, 2, 4, 8, 16) and a ragged N (777 rows: the last CTA's warps
+    run past N): per row within 1e-2 of qmm_p_reference at one row a
+    warp, and every other rows-a-warp gives the same bits (each row is
+    summed in one order whatever the plan)."""
+    bits, a8 = (4 if mode.startswith("w4") else 8), mode.endswith("a8")
+    N, K = 777, 2560
+    pq, g = _packed(cuda, N, K, 8 if a8 else None, seed=M, bits=bits)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    widths = (1, 2, 4) if M <= 4 else (1, 2) if a8 else (1,)
+    # the fewest warps the plan keeps: 10**9 -> 1 row a warp, 300 -> 2
+    # (389 warps of 2 rows, 195 of 4), 1 -> the most the template allows
+    outs = {}
+    for min_warps in (10 ** 9, 300, 1):
+        monkeypatch.setattr(qm, "QMM_P_MIN_WARPS", min_warps)
+        rw = qm.qmm_p_rows_per_warp(M, N, a8)
+        outs[rw] = qm._k1(x, pq, None, EPS) if M == 1 else qm._k6(x, pq)
+    assert sorted(outs) == list(widths)
+    want = qm.qmm_p_reference(x, pq)
+    torch.cuda.synchronize()
+    assert _row_rel(outs[1], want) < 1e-2
+    for rw in widths[1:]:
+        assert torch.equal(outs[rw], outs[1]), rw
+
+
+@pytest.mark.parametrize("N,K", [QWEN3_4B_NK[0], QWEN3_4B_NK[2],
+                                 QWEN3_4B_NK[4]])
+@pytest.mark.parametrize("a8", [True, False])
+def test_k1_fused_norm_at_model_shapes(cuda, N, K, a8):
+    """K1 at one row with the RMSNorm fused (w4a8 and w4a16) where
+    Qwen3-4B fuses it: within 1e-2 of the plain version, repeatable."""
+    pq, g = _packed(cuda, N, K, 8 if a8 else None, seed=N)
+    x = torch.randn(1, K, generator=g, device=cuda).bfloat16()
+    nw = (1 + 0.1 * torch.randn(K, generator=g, device=cuda)).bfloat16()
+    _build.reset_launches()
+    got, again = qm._k1(x, pq, nw, EPS), qm._k1(x, pq, nw, EPS)
+    assert dict(_build.LAUNCHES) == {"k1_m1": 2}
+    want = qm.qmm_p_reference(x, pq, nw, EPS)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _row_rel(got, want) < 1e-2
+
+
 @pytest.mark.parametrize("N,K", [(100, 512), (2560, 9728), (6144, 2560)])
 @pytest.mark.parametrize("M", [1, 17, 37, 64])
 def test_k7_matches_plain(cuda, N, K, M):
@@ -504,6 +575,77 @@ def test_k3_rejects(cuda):
                ks.cpu(), vs.cpu())
 
 
+def _k3_both(args, window=0):
+    """K3 twice and the plain version on the same inputs."""
+    q, kp, vp, ks, vs, table, lens = args
+    scale = q.shape[-1] ** -0.5
+    _build.reset_launches()
+    got = pa.paged_decode_attention(q, kp, vp, table, lens, scale,
+                                    window=window, k_scale=ks, v_scale=vs)
+    again = pa.paged_decode_attention(q, kp, vp, table, lens, scale,
+                                      window=window, k_scale=ks, v_scale=vs)
+    assert _build.LAUNCHES["k3"] == 2
+    want = pa.paged_decode_reference(q, kp, vp, table, lens, scale,
+                                     window=window, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)            # bitwise repeatable
+    return got, want
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_k3_one_long_request(cuda, quant):
+    """One row of 32768 tokens at Qwen3-4B's heads (64 splits of 4 pages):
+    per (row, head) within 3e-2 of the plain version, the same bits on a
+    second call."""
+    assert pa.k3_plan(1, 8, 1, 256, 128) == pa.K3Plan(64, 4)
+    got, want = _k3_both(_paged_inputs(cuda, 1, 32, 8, 128, 128, 256,
+                                       (32768,), quant, seed=7))
+    assert _row_rel(got, want) < 3e-2
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("lengths", [
+    (1,) * 8, (255, 256, 257, 511, 512, 513, 2047, 2048),
+    (1, 128, 129, 767, 768, 769, 1, 1024)])
+def test_k3_lengths_at_split_boundaries(cuda, quant, lengths):
+    """B=8 rows of 16 pages (8 splits of 256 tokens): every row of length
+    1, and lengths at split boundaries +-1."""
+    assert pa.k3_plan(8, 8, 1, 16, 128) == pa.K3Plan(8, 2)
+    got, want = _k3_both(_paged_inputs(cuda, 8, 32, 8, 128, 128, 16, lengths,
+                                       quant, seed=sum(lengths)))
+    assert _row_rel(got, want) < 3e-2
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [1, 256, 300, 1000])
+def test_k3_window_across_splits(cuda, quant, window):
+    """A sliding window of one token, one that starts at a split's first
+    token (row 0: 1536 - 256 = 1280), and ones that span two or more
+    splits, so the splits before them are skipped."""
+    lengths = (1536, 1000, 2048, 700, 257, 1, 1792, 1300)
+    got, want = _k3_both(_paged_inputs(cuda, 8, 32, 8, 128, 128, 16, lengths,
+                                       quant, seed=window), window)
+    assert _row_rel(got, want) < 3e-2
+
+
+def test_k3_split_never_reads_table_past_length(cuda):
+    """As test_k3_never_reads_table_past_length, with splits: 8 rows of 16
+    pages, garbage page ids past each row's length."""
+    lengths = (1, 200, 256, 257, 600, 1024, 1500, 2048)
+    q, kp, vp, ks, vs, table, lens = _paged_inputs(
+        cuda, 8, 32, 8, 128, 128, 16, lengths, True, seed=3)
+    bad = table.clone()
+    for b, n in enumerate(lengths):
+        bad[b, -(-n // 128):] = (1 << 28) * (1 if b % 2 else -1)
+    got = pa.paged_decode_attention(q, kp, vp, bad, lens, 0.1, k_scale=ks,
+                                    v_scale=vs)
+    want = pa.paged_decode_attention(q, kp, vp, table, lens, 0.1,
+                                     k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_model_attention_runs_kernels_or_raises(cuda):
     """On CUDA the model sends a fresh prefill, a continuation chunk and a
     paged decode step to K2, K2c and K3 whatever the shape: a head dim the
@@ -657,6 +799,33 @@ def test_k4_matches_plain(cuda, T, k, N, K, bits):
     assert got.shape == (T, k, N) and got.dtype == torch.bfloat16
     assert torch.isfinite(got).all()
     assert _row_rel(got, want) < 1e-2
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_k4_k8_repeat_beside_the_p_formula(cuda, bits):
+    """K4 and K8 share the activation prologue with K1 and K6: at
+    Qwen3-30B-A3B's gate shape (T=1, k=8) K4 gives the same bits on a
+    second call, within 1e-2 of its plain version, also when a K6 launch
+    (the prologue launched for a dependent kernel) runs between them; K8
+    equals its plain version."""
+    w, g = _experts(cuda, 128, 768, 2048, seed=bits, bits=bits)
+    x = torch.randn(1, 2048, generator=g, device=cuda).bfloat16()
+    ids = _ids(g, cuda, 128, 1, 8).int()
+    first = qm._k4(x, w, ids)
+    pq, _ = _packed(cuda, 2560, 2048, 8, seed=1, bits=bits)
+    qm._k6(x, pq)
+    second = qm._k4(x, w, ids)
+    want = qm.gather_qmm_reference(x, w, ids, act_bits=8)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _row_rel(first, want) < 1e-2
+    cw = qm.ChannelQuantizedExperts(
+        data=torch.randint(-127, 128, (128, 768, 2048), generator=g,
+                           device=cuda, dtype=torch.int8),
+        scale=torch.rand(128, 768, generator=g, device=cuda) / 2048)
+    xf = x.float()
+    assert torch.equal(qm._k8(xf, cw, ids),
+                       qm.channel_gather_qmm_reference(xf, cw, ids))
 
 
 def test_float32_x_raises_where_the_formula_reads_it_unrounded(cuda):
