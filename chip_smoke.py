@@ -22,7 +22,8 @@ Qwen3-30B-A3B with random weights (seeded):
   - serve_batched_w4: enable_batching(quantize_bits=4), four concurrent
     chat requests (K7 at adoption, K1's dq formula at the batch decode);
   - serve_moe: HTTP chat requests on Qwen3-30B-A3B w4a8 (every MoE layer's
-    decode through K4, every prefill of more than 8 tokens through K5 on
+    decode through K4, two launches a layer: gate and up in one, down;
+    every prefill of more than 8 tokens through K5 on
     the packed experts, no dequantize_experts), a profiled 128-token
     prefill (moe_prefill: wall, device busy, peak memory), the
     kernel-vs-plain logits check, the batch-1 decode rate, and a batch-8
@@ -40,10 +41,15 @@ Qwen3-30B-A3B with random weights (seeded):
 
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
-    python3 chip_smoke.py --parent DIR # K3, K1/K6 (qmm_p), K4, K8, K5
-                                       # (bf16) and the 128-token MoE
-                                       # prefill against another
-                                       # checkout's
+    python3 chip_smoke.py --parent DIR # K3, K1/K6 (qmm_p), K4, K8 (also
+                                       # gate and up, paced, replayed
+                                       # from CUDA graphs, and one MoE
+                                       # layer's expert path), K5 (bf16)
+                                       # and the 128-token MoE prefill
+                                       # against another checkout's
+
+The kernel checks end with a ``launch_floor`` line: an empty kernel's
+device time on an idle card, alone and behind a one-CTA kernel.
 
 Each phase prints one JSON line; any failure raises and the script exits
 non-zero without a result line. The last line is
@@ -142,6 +148,16 @@ DQ_DESIGN = ("tensor cores: wgmma m64nMPk16 with 64 output rows as A "
              "and scales (4 stages, 8 past 16 rows of x); K split by "
              "dq_plan where N cannot fill the card, partials summed in "
              "slice order")
+GATHER_DESIGN = ("the prologue (qmm_prep_pdl for K4, chan_prep for K8) "
+                 "then the rows kernel behind it by programmatic dependent "
+                 "launch: expert id and first weight, scale and bias loads "
+                 "before griddepcontrol.wait; gate and up in one launch; "
+                 "8 rows a warp, in lane groups of 16 lanes a row (8 at "
+                 "the 24-chunk 4-bit down rows: no idle lane; "
+                 "gather_plan), 8 chunk loads a lane in flight, "
+                 "x's codes read once for a group's rows; each row summed "
+                 "in one order, a warp a row's (a lane's chunks, then the "
+                 "butterfly, folded where a group stands for a warp)")
 K5_DESIGN = ("tensor cores: 128 expert rows as A (bf16 read by wgmma from "
              "128-byte-swizzled shared memory, or packed codes dequantized "
              "in registers with the plain version's rounding) against up "
@@ -582,43 +598,74 @@ def in_turns(parent_call, this_call, flush) -> dict:
             "speedup": min(t[0], t[3]) / max(t[1:3])}
 
 
-def paced_p_formula(call, flush, n: int = 10) -> dict:
-    """The P formula's two kernels at a host-bound decode step's pace:
-    ``n`` calls of ``call``, each issued to an idle card (L2 flushed,
-    then a synchronize), under torch.profiler. Per call, from the
-    kernels' device start and end: the prologue's time (``prep_us``,
-    kernels named ``qmm_prep*``), the rows kernel's (``rows_us``,
-    ``qmm_p<``), the rows kernel's time after its prologue ended
-    (``rows_after_prep_us``: what is left of it once x's codes are
-    ready, the whole of it where it starts later), the span from the
-    prologue's start to the rows kernel's end, and how many rows kernels
-    started before their prologue ended. Medians over the calls."""
+def device_events(run, complete, tries: int = 5):
+    """The device kernels (start, end, name), sorted, of one
+    torch.profiler window around ``run()``; the window is taken again
+    while ``complete(events)`` is false (on the H100 a window now and
+    then returns some or none of its device events); raises after
+    ``tries`` windows that all missed some."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+        ev = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        if complete(ev):
+            return ev
+    raise RuntimeError(f"the profiler missed device kernels in each of "
+                       f"{tries} windows")
+
+
+def paced(call, flush, prep: str = "qmm_prep", rows: str = "qmm_p<",
+          n: int = 10):
+    """A prologue-and-rows kernel launch at a host-bound decode step's
+    pace: ``n`` calls of ``call``, each issued to an idle card (L2 flushed,
+    then a synchronize), under torch.profiler. The device kernels whose
+    names hold ``prep`` are prologues, those that hold ``rows`` rows
+    kernels; a call may launch several of each (a parent's gate and up:
+    two pairs), taken in order. Per call, from the kernels' device start
+    and end: the prologues' time (``prep_us``), the rows kernels'
+    (``rows_us``), the rows kernels' time after their prologue ended
+    (``rows_after_prep_us``: what is left once x's codes are ready, the
+    whole of it where it starts later), the span from the first
+    prologue's start to the last rows kernel's end, and how many rows
+    kernels started before their prologue ended. Medians over the calls
+    (the count over all)."""
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(n):
             flush()
             torch.cuda.synchronize()
             call()
             torch.cuda.synchronize()
-    ev = sorted((e.time_range.start, e.time_range.end, e.name)
-                for e in prof.events() if e.device_type == DeviceType.CUDA)
-    prep = [(t0, t1) for t0, t1, name in ev if "qmm_prep" in name]
-    rows = [(t0, t1) for t0, t1, name in ev if "qmm_p<" in name]
-    if len(prep) != n or len(rows) != n:
-        raise RuntimeError(f"paced P formula: {len(prep)} prologues and "
-                           f"{len(rows)} rows kernels in {n} calls")
+
+    def split(ev):
+        return ([(t0, t1) for t0, t1, name in ev if prep in name],
+                [(t0, t1) for t0, t1, name in ev if rows in name])
+
+    def complete(ev):
+        preps, rowss = split(ev)
+        m = len(preps) // n
+        return m >= 1 and len(preps) == m * n == len(rowss)
+    preps, rowss = split(device_events(run, complete))
+    m = len(preps) // n
     med = statistics.median
-    return {"prep_us": med(p1 - p0 for p0, p1 in prep),
-            "rows_us": med(r1 - r0 for r0, r1 in rows),
-            "rows_after_prep_us": med(r1 - max(r0, p1) for (_, p1), (r0, r1)
-                                      in zip(prep, rows)),
-            "span_us": med(r1 - p0 for (p0, _), (_, r1) in zip(prep, rows)),
-            "rows_started_before_prep_ended": sum(
-                r0 < p1 for (_, p1), (r0, _) in zip(prep, rows))}
+    cs = [list(zip(preps[i * m:(i + 1) * m], rowss[i * m:(i + 1) * m]))
+          for i in range(n)]
+    return {
+        "prep_us": med(sum(p1 - p0 for (p0, p1), _ in c) for c in cs),
+        "rows_us": med(sum(r1 - r0 for _, (r0, r1) in c) for c in cs),
+        "rows_after_prep_us": med(sum(r1 - max(r0, p1)
+                                      for (_, p1), (r0, r1) in c)
+                                  for c in cs),
+        "span_us": med(c[-1][1][1] - c[0][0][0] for c in cs),
+        "rows_started_before_prep_ended": sum(
+            r0 < p1 for c in cs for (_, p1), (r0, _) in c)}
 
 
 def k3_pools(g, dev, B, MP, quant, Hkv=8, D=128, ps=128):
@@ -717,11 +764,13 @@ def check_k3(dev, flush):
 
 
 def compare_k3(plib, dev, flush):
-    """The parent's K3 (``plib``: its kernel library, entry
-    ``ominix_paged_decode(q, kp, vp, ks, vs, table, lengths, out, B, H,
-    Hkv, D, ps, MP, window, rows_per_cta, quant, scale, stream)``) against
-    this checkout's on the same inputs at every K3 row, timed in turns
-    (parent, this, this, parent). One ``k3_vs_parent`` line per row."""
+    """The parent's K3 (``plib``: its kernel library, the split-KV entry
+    ``ominix_paged_decode(q, kp, vp, ks, vs, table, lengths, out,
+    part_acc, part_ml, B, H, Hkv, D, ps, MP, window, rows_per_cta, quant,
+    scale, pages_per_split, splits, stream)``, given this checkout's
+    ``k3_plan``) against this checkout's on the same inputs at every K3
+    row, timed in turns (parent, this, this, parent). One
+    ``k3_vs_parent`` line per row."""
     from ominix_mlx_tpu_torch.ops import paged_attention as pa
 
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -738,15 +787,21 @@ def compare_k3(plib, dev, flush):
         q = torch.randn(B, H, D, generator=g, device=dev).bfloat16()
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         out = torch.empty_like(q)
+        R = pa._rows_per_cta(H // Hkv)
+        plan = pa.k3_plan(B, Hkv, (H // Hkv) // R, MP, ps)
+        part = [torch.empty(B, H, plan.splits, n, dtype=torch.float32,
+                            device=dev) if plan.splits > 1 else None
+                for n in (D, 2)]
 
         def parent_call():
             rc = plib.ominix_paged_decode(
                 q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                 None if kscale is None else kscale.data_ptr(),
                 None if vscale is None else vscale.data_ptr(),
-                table.data_ptr(), lens.data_ptr(), out.data_ptr(), B, H, Hkv,
-                D, ps, MP, window, H // Hkv, int(kscale is not None),
-                D ** -0.5, stream)
+                table.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                *(None if t is None else t.data_ptr() for t in part), B,
+                H, Hkv, D, ps, MP, window, R, int(kscale is not None),
+                D ** -0.5, plan.pages_per_split, plan.splits, stream)
             if rc != 0:
                 raise RuntimeError(f"parent K3: CUDA error {rc}")
 
@@ -779,10 +834,11 @@ def qmm_p_cases():
 def compare_qmm_p(plib, dev, flush):
     """The parent's P-formula kernel (``plib``'s ``ominix_qmm_p(x, norm_w,
     eps, data, scales, biases, y, xq, xg, sx, xn, M, N, K, gs, bits, a8,
-    stream)``) against this checkout's on the same inputs at every
-    ``qmm_p_cases`` row, in turns (parent, this, this, parent). One
+    rows_per_warp, stream)``, given this checkout's
+    ``qmm_p_rows_per_warp``) against this checkout's on the same inputs at
+    every ``qmm_p_cases`` row, in turns (parent, this, this, parent). One
     ``qmm_p_vs_parent`` line per row; K1's one-row rows, the decode
-    step's, also carry ``paced``: ``paced_p_formula`` of the parent's
+    step's, also carry ``paced``: ``paced`` of the parent's
     launch and this one's (in that order), where the in-turns timer's
     back-to-back launches let the rows kernel overlap its prologue and a
     host-bound step may not."""
@@ -815,7 +871,7 @@ def compare_qmm_p(plib, dev, flush):
                 pq.data.data_ptr(), pq.scales.data_ptr(),
                 pq.biases.data_ptr(), y.data_ptr(), xq.data_ptr(),
                 xg.data_ptr(), sx.data_ptr(), xn.data_ptr(), M, N, K, GS,
-                bits, int(a8), stream)
+                bits, int(a8), qm.qmm_p_rows_per_warp(M, N, a8), stream)
             if rc != 0:
                 raise RuntimeError(f"parent qmm_p: CUDA error {rc}")
 
@@ -825,14 +881,14 @@ def compare_qmm_p(plib, dev, flush):
         parent_call()
         mine = this_call()
         rel = row_rel_err(y, mine)
-        paced = ({"paced": {"parent": paced_p_formula(parent_call, flush),
-                            "this": paced_p_formula(this_call, flush)}}
+        paced_rows = ({"paced": {"parent": paced(parent_call, flush),
+                                 "this": paced(this_call, flush)}}
                  if kernel == "k1" else {})
         emit({"phase": "qmm_p_vs_parent", "kernel": kernel, "shape": name,
               "mode": mode, "M": M, "N": N, "K": K, "norm": norm,
               "parent_vs_this_rel": rel,
               "bitwise_equal": bool(torch.equal(y, mine)),
-              **in_turns(parent_call, this_call, flush), **paced})
+              **in_turns(parent_call, this_call, flush), **paced_rows})
     weights.clear()
     torch.cuda.empty_cache()
 
@@ -867,7 +923,9 @@ def gather_ids(g, dev, T, k):
 def check_k4(dev, flush):
     """K4 against gather_qmm_reference(act_bits=8) at Qwen3-30B-A3B's
     shapes over 128 random experts, 4- and 8-bit, ids out of order with
-    repeats and the last expert; the error is held per (row, slot)."""
+    repeats and the last expert; the error is held per (row, slot). At
+    the gate_up shapes one launch against two stacks (gate and up) is held
+    bit for bit to a single launch on each."""
     from ominix_mlx_tpu_torch.ops import quant_matmul as qm
 
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
@@ -879,6 +937,13 @@ def check_k4(dev, flush):
             x = torch.randn(T, K, generator=g, device=dev).bfloat16()
             ids = gather_ids(g, dev, T, k)
             got = qm._k4(x, w, ids)
+            pair_equal = None
+            if name == "gate_up":
+                w_up = random_experts(qm, g, dev, N, K, bits)
+                pg, pu = qm._k4(x, w, ids, w_up)
+                pair_equal = bool(torch.equal(pg, got) and torch.equal(
+                    pu, qm._k4(x, w_up, ids)))
+                del w_up, pg, pu
             want = qm.gather_qmm_reference(x, w, ids, act_bits=8)
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
@@ -897,7 +962,9 @@ def check_k4(dev, flush):
             used = int(torch.unique(ids).numel())
             row = {"shape": name, "bits": bits, "T": T, "k": k, "N": N,
                    "K": K, "E": MOE_E, "experts_used": used,
-                   "max_abs_err": d, "row_rel_err": row_rel, "ms": ms,
+                   "plan": list(qm.gather_plan(K, bits)),
+                   "max_abs_err": d, "row_rel_err": row_rel,
+                   "gate_up_equal_to_single": pair_equal, "ms": ms,
                    "plain_ms": plain, "us": ms * 1e3,
                    "plain_us": plain * 1e3, "library_ms": None,
                    "library_error": "no PyTorch call gathers group-wise "
@@ -906,14 +973,24 @@ def check_k4(dev, flush):
                    **bound(used * row_bytes + 2 * T * K + 4 * T * k
                            + 2 * T * k * N, 2 * T * k * N * K, "int8")}
             emit({"phase": "k4", **row})
-            if not row_rel < K4_TOL:
+            if not row_rel < K4_TOL or pair_equal is False:
                 raise RuntimeError(f"K4 {bits}-bit {name} T={T} k={k}: error "
                                    f"{row_rel} of a (row, slot)'s max "
-                                   f"|plain|")
+                                   f"|plain|, gate and up in one launch "
+                                   f"equal to single launches: {pair_equal}")
             rows.append(row)
             del w
             torch.cuda.empty_cache()
     return rows
+
+
+def random_channel_experts(qm, g, dev, N, K):
+    """Random channel-int8 experts [MOE_E, N, K]."""
+    return qm.ChannelQuantizedExperts(
+        data=torch.randint(-127, 128, (MOE_E, N, K), generator=g,
+                           device=dev, dtype=torch.int8),
+        scale=(torch.rand(MOE_E, N, generator=g, device=dev) + 0.5)
+        * (K ** -0.5 / 127))
 
 
 def check_k8(dev, flush):
@@ -921,22 +998,27 @@ def check_k8(dev, flush):
     random channel-int8 experts, ids out of order with repeats and the
     last expert: held exactly (the same int8 codes, exact int32 sums, the
     same float32 rescale order), on x in the float32 the down projection
-    takes and in the bf16 the gate and up projections take."""
+    takes and in the bf16 the gate and up projections take (the prologue
+    widens it); at the gate_up shapes one launch against two stacks is
+    held bit for bit to a single launch on each."""
     from ominix_mlx_tpu_torch.ops import quant_matmul as qm
 
     g = torch.Generator(device=dev).manual_seed(SEED + 17)
     rows = []
     for name, T, k, N, K in K4_SHAPES:
-        w = qm.ChannelQuantizedExperts(
-            data=torch.randint(-127, 128, (MOE_E, N, K), generator=g,
-                               device=dev, dtype=torch.int8),
-            scale=(torch.rand(MOE_E, N, generator=g, device=dev) + 0.5)
-            * (K ** -0.5 / 127))
+        w = random_channel_experts(qm, g, dev, N, K)
         x = torch.randn(T, K, generator=g, device=dev)
         if name == "gate_up":
-            x = x.bfloat16().float()
+            x = x.bfloat16()
         ids = gather_ids(g, dev, T, k)
         got = qm._k8(x, w, ids)
+        pair_equal = None
+        if name == "gate_up":
+            w_up = random_channel_experts(qm, g, dev, N, K)
+            pg, pu = qm._k8(x, w, ids, w_up)
+            pair_equal = bool(torch.equal(pg, got) and torch.equal(
+                pu, qm._k8(x, w_up, ids)))
+            del w_up, pg, pu
         want = qm.channel_gather_qmm_reference(x, w, ids)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
@@ -949,83 +1031,290 @@ def check_k8(dev, flush):
         row_bytes = N * (K + 4)
         used = int(torch.unique(ids).numel())
         row = {"shape": name, "T": T, "k": k, "N": N, "K": K, "E": MOE_E,
-               "experts_used": used, "max_abs_err": d,
-               "outputs_differ": differ, "ms": ms, "plain_ms": plain,
-               "us": ms * 1e3, "plain_us": plain * 1e3, "library_ms": None,
+               "x": str(x.dtype).replace("torch.", ""),
+               "experts_used": used,
+               "plan": list(qm.gather_plan(K, 8)),
+               "max_abs_err": d, "outputs_differ": differ,
+               "gate_up_equal_to_single": pair_equal, "ms": ms,
+               "plain_ms": plain, "us": ms * 1e3, "plain_us": plain * 1e3,
+               "library_ms": None,
                "library_error": "no PyTorch call gathers int8 experts "
                                 "against int8 activations",
                "slab_GBps": T * k * row_bytes / ms / 1e6,
-               **bound(used * row_bytes + 4 * T * K + 4 * T * k
-                       + 4 * T * k * N, 2 * T * k * N * K, "int8")}
+               **bound(used * row_bytes + x.element_size() * T * K
+                       + 4 * T * k + 4 * T * k * N, 2 * T * k * N * K,
+                       "int8")}
         emit({"phase": "k8", **row})
-        if differ:
+        if differ or pair_equal is False:
             raise RuntimeError(f"K8 {name} T={T} k={k}: {differ} outputs "
-                               f"differ from the plain version (max {d})")
+                               f"differ from the plain version (max {d}), "
+                               f"gate and up in one launch equal to single "
+                               f"launches: {pair_equal}")
         rows.append(row)
         del w
         torch.cuda.empty_cache()
     return rows
 
 
+def parent_gather(plib, bits, w, T, k, N, K):
+    """``call(x, ids)``: the parent's K4 (``bits`` 4 or 8) or K8 (``bits``
+    None) through its one-stack C signatures
+    (``ominix_gather_qmm_w{4,8}a8(x, ids,
+    data, scales, biases, y, xq, xg, sx, T, k, E, N, K, gs, stream)``,
+    ``ominix_channel_gather_qmm(x, ids, data, scale, y, xq, sx, T, k, E, N,
+    K, stream)``, float32 x for K8) on the current stream, into ``call.y``;
+    its scratch and output are allocated once."""
+    dev = w.data.device
+    y = torch.empty(T, k, N, device=dev,
+                    dtype=torch.bfloat16 if bits else torch.float32)
+    xq = torch.empty(T, K, dtype=torch.int8, device=dev)
+    xg = torch.empty(T, K // GS, dtype=torch.float32, device=dev)
+    sx = torch.empty(T, dtype=torch.float32, device=dev)
+
+    def call(x, ids):
+        if bits:
+            rc = getattr(plib, f"ominix_gather_qmm_w{bits}a8")(
+                x.data_ptr(), ids.data_ptr(), w.data.data_ptr(),
+                w.scales.data_ptr(), w.biases.data_ptr(), y.data_ptr(),
+                xq.data_ptr(), xg.data_ptr(), sx.data_ptr(), T, k, MOE_E, N,
+                K, GS, torch.cuda.current_stream().cuda_stream)
+        else:
+            rc = plib.ominix_channel_gather_qmm(
+                x.data_ptr(), ids.data_ptr(), w.data.data_ptr(),
+                w.scale.data_ptr(), y.data_ptr(), xq.data_ptr(),
+                sx.data_ptr(), T, k, MOE_E, N, K,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"parent gather ({bits}): CUDA error {rc}")
+        return y
+    call.y = y
+    return call
+
+
+def graph_of(fn):
+    """``fn`` captured in a CUDA graph after a warm-up call on a side
+    stream (its programmatic dependent launches become programmatic edges,
+    which needs CUDA 12.3 or later)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    torch.cuda.synchronize()
+    return g
+
+
+def graphs_in_turns(parent_call, this_call, flush) -> dict:
+    """Both calls captured in CUDA graphs and replayed in turns (parent,
+    this, this, parent; L2 flushed before each replay): ``in_turns`` of
+    the replays, or the error where a capture was refused."""
+    try:
+        gp, gt = graph_of(parent_call), graph_of(this_call)
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return {"graph_error": f"{type(e).__name__}: {str(e)[:200]}"}
+    out = in_turns(gp.replay, gt.replay, flush)
+    del gp, gt
+    return out
+
+
+def gather_prep_rows(bits):
+    """The kernel-name pieces of the prologue and the rows kernel of K4
+    (``bits`` 4 or 8) or K8 (None), the parent's and this checkout's."""
+    return ("qmm_prep", "gather_qmm_a8<") if bits else (
+        "chan_prep", "chan_gather_qmm")
+
+
 def compare_gather(plib, dev, flush):
-    """K4 (4 and 8 bits) and K8 of a parent checkout (``plib``; entries
-    ``ominix_gather_qmm_w{4,8}a8`` and ``ominix_channel_gather_qmm``, whose
-    signatures this checkout keeps) against this one's at every
-    K4_SHAPES shape, in turns (parent, this, this, parent): they share the
-    activation prologue with K1 and K6. One ``k4_vs_parent`` or
-    ``k8_vs_parent`` line per shape."""
+    """K4 (4 and 8 bits) and K8 of a parent checkout (``plib``, called
+    through ``parent_gather``) against this one's at every K4_SHAPES
+    shape, on the x each projection takes (bf16; float32 at K8's down;
+    the parent's K8 gets bf16 x widened, as its wrapper did). One
+    ``k4_vs_parent`` or ``k8_vs_parent`` line per shape: the outputs bit
+    for bit, the single-stack calls in turns (parent, this, this, parent),
+    ``paced`` (each call issued to an idle card: ``paced``), ``graph``
+    (each call captured in a CUDA graph and replayed, in turns); at the
+    gate_up shapes also ``gate_up``: the parent's two calls against this
+    one's single launch for gate and up, bit for bit, in turns, paced and
+    replayed."""
     from ominix_mlx_tpu_torch.ops import quant_matmul as qm
 
-    stream = torch.cuda.current_stream(dev).cuda_stream
     g = torch.Generator(device=dev).manual_seed(SEED + 8)
     for bits in (4, 8, None):
         for name, T, k, N, K in K4_SHAPES:
             ids = gather_ids(g, dev, T, k)
             x = torch.randn(T, K, generator=g, device=dev).bfloat16()
-            y = torch.empty(T, k, N, device=dev,
-                            dtype=torch.bfloat16 if bits else torch.float32)
-            xq = torch.empty(T, K, dtype=torch.int8, device=dev)
-            xg = torch.empty(T, K // GS, dtype=torch.float32, device=dev)
-            sx = torch.empty(T, dtype=torch.float32, device=dev)
             if bits:
-                w = random_experts(qm, g, dev, N, K, bits)
-                args = (x.data_ptr(), ids.data_ptr(), w.data.data_ptr(),
-                        w.scales.data_ptr(), w.biases.data_ptr(),
-                        y.data_ptr(), xq.data_ptr(), xg.data_ptr(),
-                        sx.data_ptr(), T, k, MOE_E, N, K, GS, stream)
-                entry = getattr(plib, f"ominix_gather_qmm_w{bits}a8")
-
-                def this_call():
-                    return qm._k4(x, w, ids)
+                ws = [random_experts(qm, g, dev, N, K, bits)]
+                if name == "gate_up":
+                    ws.append(random_experts(qm, g, dev, N, K, bits))
+                px, kern = x, qm._k4
             else:
-                x = x.float()
-                w = qm.ChannelQuantizedExperts(
-                    data=torch.randint(-127, 128, (MOE_E, N, K), generator=g,
-                                       device=dev, dtype=torch.int8),
-                    scale=torch.rand(MOE_E, N, generator=g, device=dev)
-                    * (K ** -0.5 / 127))
-                args = (x.data_ptr(), ids.data_ptr(), w.data.data_ptr(),
-                        w.scale.data_ptr(), y.data_ptr(), xq.data_ptr(),
-                        sx.data_ptr(), T, k, MOE_E, N, K, stream)
-                entry = plib.ominix_channel_gather_qmm
-
-                def this_call():
-                    return qm._k8(x, w, ids)
+                ws = [random_channel_experts(qm, g, dev, N, K)]
+                if name == "gate_up":
+                    ws.append(random_channel_experts(qm, g, dev, N, K))
+                else:
+                    x = x.float()
+                px, kern = x.float(), qm._k8
+            parents = [parent_gather(plib, bits, w, T, k, N, K)
+                       for w in ws]
 
             def parent_call():
-                rc = entry(*args)
-                if rc != 0:
-                    raise RuntimeError(f"parent gather ({bits}): CUDA error "
-                                       f"{rc}")
+                return parents[0](px, ids)
 
-            parent_call()
+            def this_call():
+                return kern(x, ws[0], ids)
+
             mine = this_call()
-            emit({"phase": "k8_vs_parent" if bits is None else "k4_vs_parent",
-                  "shape": name, "bits": bits, "T": T, "k": k, "N": N,
-                  "K": K, "bitwise_equal": bool(torch.equal(y, mine)),
-                  **in_turns(parent_call, this_call, flush)})
-            del w
+            parent_call()
+            prep, rows = gather_prep_rows(bits)
+            row = {"phase": "k8_vs_parent" if bits is None
+                   else "k4_vs_parent", "shape": name, "bits": bits, "T": T,
+                   "k": k, "N": N, "K": K,
+                   "bitwise_equal": bool(torch.equal(parents[0].y, mine)),
+                   **in_turns(parent_call, this_call, flush),
+                   "paced": {"parent": paced(parent_call, flush, prep, rows),
+                             "this": paced(this_call, flush, prep, rows)},
+                   "graph": graphs_in_turns(parent_call, this_call, flush),
+                   "plan": list(qm.gather_plan(K, bits or 8))}
+            if name == "gate_up":
+                def parent_pair():
+                    parents[0](px, ids)
+                    parents[1](px, ids)
+
+                def this_pair():
+                    return kern(x, ws[0], ids, ws[1])
+
+                pg, pu = this_pair()
+                parent_pair()
+                row["gate_up"] = {
+                    "bitwise_equal": bool(torch.equal(parents[0].y, pg)
+                                          and torch.equal(parents[1].y, pu)),
+                    **in_turns(parent_pair, this_pair, flush),
+                    "paced": {"parent": paced(parent_pair, flush, prep,
+                                              rows),
+                              "this": paced(this_pair, flush, prep, rows)},
+                    "graph": graphs_in_turns(parent_pair, this_pair, flush)}
+            emit(row)
+            del ws, parents
             torch.cuda.empty_cache()
+
+
+def moe_expert_graph(plib, dev, flush):
+    """One MoE layer's decode expert path on Qwen3-30B-A3B's experts (128
+    of gate and up [768, 2048], down [2048, 768], top 8) at 1 and 8 rows,
+    from the router's int64 ids to the down projection's [M, k, D] output,
+    as moe_block computes it: the parent's (gate, up and down each a
+    call that casts the ids to int32, K8's gate and up each widening bf16
+    x to float32 first) and this one's (the ids cast once, gate and up one
+    launch, down one), for K4 at 4 and 8 bits and for K8. Each captured in
+    a CUDA graph and replayed in turns (L2 flushed before each replay), the
+    outputs bit for bit; one ``moe_expert_graph`` line each."""
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    N, D, k = 768, 2048, 8
+    for bits in (4, 8, None):
+        if bits:
+            wg, wu = (random_experts(qm, g, dev, N, D, bits)
+                      for _ in range(2))
+            wd = random_experts(qm, g, dev, D, N, bits)
+        else:
+            wg, wu = (random_channel_experts(qm, g, dev, N, D)
+                      for _ in range(2))
+            wd = random_channel_experts(qm, g, dev, D, N)
+        for M in (1, 8):
+            xt = torch.randn(M, D, generator=g, device=dev).bfloat16()
+            idx = gather_ids(g, dev, M, k).long()
+            pg, pu = (parent_gather(plib, bits, w, M, k, N, D)
+                      for w in (wg, wu))
+            pd = parent_gather(plib, bits, wd, M * k, 1, D, N)
+
+            def parent_path():
+                for call in (pg, pu):           # the parent's gather_qmm or
+                    x = xt if bits else xt.float()  # channel_gather_qmm
+                    call(x, idx.to(torch.int32).contiguous())
+                if bits:
+                    h = (F.silu(pg.y.float()) * pu.y.float()).to(
+                        torch.bfloat16)
+                else:
+                    h = F.silu(pg.y) * pu.y
+                return pd(h.reshape(M * k, N), idx.reshape(M * k, 1).to(
+                    torch.int32).contiguous()).reshape(M, k, D)
+
+            def this_path():
+                ids = idx.to(torch.int32)
+                if bits:
+                    gg, uu = qm._k4(xt, wg, ids, wu)
+                    h = (F.silu(gg.float()) * uu.float()).to(torch.bfloat16)
+                    return qm._k4(h.reshape(M * k, N), wd,
+                                  ids.reshape(M * k, 1)).reshape(M, k, D)
+                gg, uu = qm._k8(xt, wg, ids, wu)
+                return qm._k8((F.silu(gg) * uu).reshape(M * k, N), wd,
+                              ids.reshape(M * k, 1)).reshape(M, k, D)
+
+            equal = bool(torch.equal(parent_path(), this_path()))
+            emit({"phase": "moe_expert_graph", "bits": bits, "M": M, "k": k,
+                  "D": D, "I": N, "bitwise_equal": equal,
+                  "parent_kernel_launches": 6, "this_kernel_launches": 4,
+                  **graphs_in_turns(parent_path, this_path, flush)})
+            if not equal:
+                raise RuntimeError(f"moe_expert_graph bits={bits} M={M}: "
+                                   f"this path's output differs from the "
+                                   f"parent's")
+        del wg, wu, wd
+        torch.cuda.empty_cache()
+
+
+def launch_floor(dev, n: int = 20) -> dict:
+    """What a launch costs on an idle card (``ominix_launch_probe``,
+    csrc/launch_probe.cu): an empty kernel alone, and behind a one-CTA
+    kernel that lets its dependents start at once, launched after it by
+    programmatic dependent launch or plainly; over 1 CTA and over 768
+    (K4's gate-and-up grid at one row). Each call issued to an idle card
+    under torch.profiler; medians over ``n`` calls of the kernels' device
+    times: ``empty_us``, ``first_us`` (the one-CTA kernel), ``gap_us``
+    (the empty kernel's start less the first kernel's end: negative where
+    it started before that one ended) and ``span_us`` (first start to
+    last end)."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    lib = _build.library()
+    med = statistics.median
+    out = {"phase": "launch_floor", "calls": n}
+    for ctas in (1, 768):
+        for mode, label in ((0, "alone"), (1, "pdl"), (2, "plain")):
+            def call():
+                _build.check(lib.ominix_launch_probe(
+                    mode, ctas, torch.cuda.current_stream().cuda_stream),
+                    "launch probe")
+            call()
+            torch.cuda.synchronize()
+
+            def run():
+                for _ in range(n):
+                    torch.cuda.synchronize()
+                    call()
+                    torch.cuda.synchronize()
+
+            def split(ev):
+                return tuple([(t0, t1) for t0, t1, nm in ev if piece in nm]
+                             for piece in ("probe_empty", "probe_one"))
+
+            empty, first = split(device_events(run, lambda ev: tuple(
+                map(len, split(ev))) == (n, n if mode else 0)))
+            r = {"empty_us": med(t1 - t0 for t0, t1 in empty)}
+            if mode:
+                r.update(first_us=med(f1 - f0 for f0, f1 in first),
+                         gap_us=med(e0 - f1 for (_, f1), (e0, _)
+                                    in zip(first, empty)),
+                         span_us=med(e1 - f0 for (f0, _), (_, e1)
+                                     in zip(first, empty)))
+            out[f"{label}_ctas{ctas}"] = r
+    return out
 
 
 def skewed_groups(S: int, g) -> torch.Tensor:
@@ -1322,8 +1611,10 @@ def plain_versions() -> dict:
                 qm.qmm_p_reference(x, w, nw, eps) if x.shape[0] == 1
                 else qm.qmm_dq_reference(x, w))),
             "k2": (fa, "_k2", fa.flash_prefill_reference),
-            "k4": (qm, "_k4",
-                   lambda x, w, ids: qm.gather_qmm_reference(x, w, ids, 8)),
+            "k4": (qm, "_k4", lambda x, w, ids, up=None: (
+                qm.gather_qmm_reference(x, w, ids, 8) if up is None else
+                (qm.gather_qmm_reference(x, w, ids, 8),
+                 qm.gather_qmm_reference(x, up, ids, 8)))),
             "k5": (gmm, "_k5", gmm.grouped_matmul_reference),
             "k6": (qm, "_k6", qm.qmm_p_reference),
             "k7": (qm, "_k7", qm.qmm_dq_reference)}
@@ -1399,6 +1690,8 @@ def control_args(transform):
             x = x.flip(-1).contiguous()
             if k == "k1" and rest and rest[0] is not None:
                 rest[0] = rest[0].flip(-1).contiguous()
+        if k == "k4" and len(rest) > 1 and rest[1] is not None:
+            rest[1] = weight(rest[1])        # the up stack of gate and up
         return (x, weight(w), *rest)
     return args
 
@@ -1495,14 +1788,37 @@ def counting_dequantize_experts():
         qm.dequantize_experts = real
 
 
+@contextlib.contextmanager
+def counting_gather_layers():
+    """Count the MoE layers that take moe_block's decode branch (at most
+    GATHER_M_MAX rows of x: the experts gathered, K4 or K8 on quantized
+    ones) for the duration: yields a dict whose "calls" grows with each."""
+    from ominix_mlx_tpu_torch.models import moe
+
+    seen, real = {"calls": 0}, moe.moe_block
+
+    def counted(lp, mcfg, x):
+        if x.shape[0] * x.shape[1] <= moe.GATHER_M_MAX:
+            seen["calls"] += 1
+        return real(lp, mcfg, x)
+    moe.moe_block = counted
+    try:
+        yield seen
+    finally:
+        moe.moe_block = real
+
+
 def serve_moe(dev, cfg, params, phase="serve_moe", name="qwen3-30b-a3b",
               w8=""):
     """Qwen3-30B-A3B w4a8 (or, with w8="_w8", w8a8 group-64): every decode
-    token runs K4 three times in each of the 48 MoE layers (gate, up,
-    down), and every prefill (16 tokens and more, so M > 8) runs K5 on the
-    packed experts exactly three times a layer, and dequantize_experts
-    never; attention runs K1 (at the experts' width) and K2 as on the
-    dense model."""
+    token launches K4 twice in each of the 48 MoE layers (gate and up in
+    one launch, down in another: 2 x 48 a decode step, and a request of n
+    tokens runs n - 1 steps, n + 1 where a stop token ends it), and every
+    prefill (16 tokens and
+    more, so M > 8) runs K5 on the packed experts exactly three times a
+    layer, and dequantize_experts never; attention runs K1 (at the
+    experts' width) and K2 as on the dense model."""
+    k4_per_token = 2 * cfg.num_layers
     per_layer = 3 * cfg.num_layers
     k4, k5 = "k4" + w8, "k5_w8" if w8 else "k5_w4"
     with counting_dequantize_experts() as deq:
@@ -1511,9 +1827,11 @@ def serve_moe(dev, cfg, params, phase="serve_moe", name="qwen3-30b-a3b",
                                      k5))
     for req, row in results.items():
         n_out, delta = row["completion_tokens"], row["launches"]
-        if delta[k4] < per_layer * (n_out - 1):
+        if not k4_per_token * (n_out - 1) <= delta[k4] \
+                <= k4_per_token * (n_out + 1):
             raise RuntimeError(f"request {req}: K4 ran {delta[k4]} times "
-                               f"for {n_out} tokens")
+                               f"for {n_out} tokens (want 2 a MoE layer "
+                               f"and decode step)")
         if delta[k5] != per_layer or delta["k2"] < 1:
             raise RuntimeError(f"request {req}: prefill ran K5 "
                                f"{delta[k5]} times on packed experts (want "
@@ -1589,8 +1907,8 @@ def serve_moe_batched_w8(dev, cfg):
     channel-int8 weights made directly at full width and depth (30 GB)
     on a batched server with 8 slots and a paged pool (quantize_bits=None:
     they are w8a8 already): 8 concurrent chat requests (each adoption the
-    exact all-expert int8 pass, then K8 three times a layer at every batch
-    decode step, K3 for attention), then each greedy request alone, whose
+    exact all-expert int8 pass, then K8 twice a layer at every batch
+    decode step (gate and up in one launch, down), K3 for attention), then each greedy request alone, whose
     text must equal its text in the batch; the wall time of one adoption
     prefill of 16 and of 128 tokens beside. Then a bf16 Qwen3-30B-A3B of
     8 layers: the four chat requests on its bf16 experts (K5 bf16 at each
@@ -1626,7 +1944,8 @@ def serve_moe_batched_w8(dev, cfg):
     try:
         _build.reset_launches()
         t0 = time.perf_counter()
-        together = send_concurrent(srv.port, name, reqs)
+        with counting_gather_layers() as gathered:
+            together = send_concurrent(srv.port, name, reqs)
         wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
         alone = {}
@@ -1639,17 +1958,21 @@ def serve_moe_batched_w8(dev, cfg):
     same = {k: together[k][0] == alone[k][0] for k in reqs}
     n_tok = sum(r[2] for r in together.values())
     row = {"phase": "serve_moe_batched_w8", "weights": "w8a8 channel8",
-           "slots": BATCH, "launches": launches, "seconds": wall,
+           "slots": BATCH, "launches": launches,
+           "gather_layers": gathered["calls"], "seconds": wall,
            "completion_tokens": n_tok, "aggregate_tok_s": n_tok / wall,
            "adoption_prefill_seconds": adopt, "equal_alone": same,
            "prompt_tokens": {k: r[1] for k, r in together.items()},
            "text": {k: r[0][:40] for k, r in together.items()}}
     emit(row)
-    per_layer = 3 * cfg.num_layers
-    if launches.get("k8", 0) < per_layer * (MAX_TOKENS - 1) \
+    # K8 twice a decode layer (gate and up, then down), and a decode step
+    # for each token the longest request adds
+    if launches.get("k8", 0) != 2 * gathered["calls"] \
+            or gathered["calls"] < cfg.num_layers * (MAX_TOKENS - 1) \
             or launches.get("k3", 0) < cfg.num_layers * (MAX_TOKENS - 1) \
             or launches.get("k2", 0) < cfg.num_layers:
-        raise RuntimeError(f"batched w8 MoE launched {launches}")
+        raise RuntimeError(f"batched w8 MoE launched {launches} over "
+                           f"{gathered['calls']} decode MoE layers")
     if not all(r[2] > 0 and r[0] for r in together.values()) \
             or not all(same.values()):
         raise RuntimeError(f"batched w8 MoE answers differ from solo or are "
@@ -1671,8 +1994,9 @@ def serve_moe_batched_w8(dev, cfg):
         ex = srv.batchers[name].batcher.params["layers"][0]["moe"]["experts"]
         kinds = {type(v).__name__ for v in ex.values()}
         _build.reset_launches()
-        res = send_concurrent(srv.port, name, {k: reqs[k] for k in ("r0",
-                                                                    "r1")})
+        with counting_gather_layers() as conv_gathered:
+            res = send_concurrent(srv.port, name, {k: reqs[k] for k in (
+                "r0", "r1")})
         conv_launches = dict(_build.LAUNCHES)
     finally:
         srv.shutdown()
@@ -1682,13 +2006,16 @@ def serve_moe_batched_w8(dev, cfg):
           "weights": "bf16 -> enable_batching(quantize_bits=8)",
           "quantize_seconds": t_quant, "expert_types": sorted(kinds),
           "launches": conv_launches,
+          "gather_layers": conv_gathered["calls"],
           "completion_tokens": {k: r[2] for k, r in res.items()},
           "text": {k: r[0][:40] for k, r in res.items()}})
     if kinds != {ChannelQuantizedExperts.__name__} \
-            or conv_launches.get("k8", 0) < 3 * 8 \
+            or conv_launches.get("k8", 0) != 2 * conv_gathered["calls"] \
+            or conv_gathered["calls"] < 8 \
             or not all(r[2] > 0 and r[0] for r in res.values()):
         raise RuntimeError(f"enable_batching(quantize_bits=8) on a MoE model "
-                           f"gave {kinds}, launched {conv_launches}")
+                           f"gave {kinds}, launched {conv_launches} over "
+                           f"{conv_gathered['calls']} decode MoE layers")
     return {k: launches.get(k, 0) + conv_launches.get(k, 0)
             + bf16_counts.get(k, 0)
             for k in set(launches) | set(conv_launches) | set(bf16_counts)}
@@ -2252,11 +2579,15 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
                                      "differ": 0, "reversed_max_rel_err": 0.0,
                                      "reversed_differ": 0, "outputs": 0})
             c["calls"] += 1
-            c["outputs"] += want.numel()
-            for key, v in (("", y), ("reversed_", rev)):
-                c[key + "max_rel_err"] = max(c[key + "max_rel_err"],
-                                             row_rel_err(v, want))
-                c[key + "differ"] += int((v != want).sum())
+            # K4 on gate and up at once returns a pair
+            pair = isinstance(y, tuple)
+            for yi, wi, ri in (zip(y, want, rev) if pair
+                               else ((y, want, rev),)):
+                c["outputs"] += wi.numel()
+                for key, v in (("", yi), ("reversed_", ri)):
+                    c[key + "max_rel_err"] = max(c[key + "max_rel_err"],
+                                                 row_rel_err(v, wi))
+                    c[key + "differ"] += int((v != wi).sum())
             if k == "k6" and a[1].act_bits == 8:
                 for key, v in p_formula_on_kernel_prologue(*a).items():
                     c.setdefault("prologue", {})
@@ -2347,9 +2678,9 @@ def decode_rate(dev, cfg, params, short=128, long=512):
 def moe_batch_decode(dev, cfg, params, short=32, long=96):
     """Qwen3-30B-A3B w4a8 decode at batch 8 over init_paged_cache after a
     128-token prompt (prefill M = 1024: K5 on the packed experts at S =
-    8192): each step runs K4
-    at 8 rows (gate, up) and 64 rows (down) and K3 at 32 query heads over
-    4 KV heads. Aggregate tok/s by the difference quotient (generate_scan
+    8192): each step launches K4
+    twice a layer, at 8 rows (gate and up in one launch) and 64 rows
+    (down), and K3 at 32 query heads over 4 KV heads. Aggregate tok/s by the difference quotient (generate_scan
     of ``long`` vs ``short`` tokens, best of 2), the launch counts of the
     first run, and the greedy tokens of two runs equal."""
     from ominix_mlx_tpu_torch.models import base
@@ -2374,7 +2705,7 @@ def moe_batch_decode(dev, cfg, params, short=32, long=96):
     t_short = min(run(short)[0] for _ in range(2))
     longs = [run(long) for _ in range(2)]
     t_long = min(t for t, _ in longs)
-    per_step = 3 * cfg.num_layers
+    k4_per_step, k5_per_prefill = 2 * cfg.num_layers, 3 * cfg.num_layers
     row = {"phase": "moe_batch_decode", "weights": "w4a8 g64",
            "batch": BATCH, "prompt": 128, "launches": launches,
            "tok_s": BATCH * (long - short) / (t_long - t_short),
@@ -2383,9 +2714,10 @@ def moe_batch_decode(dev, cfg, params, short=32, long=96):
                                      and torch.equal(first,
                                                      longs[0][1][:, :short]))}
     emit(row)
-    if launches.get("k4", 0) < per_step * (short - 1) \
+    if not k4_per_step * (short - 1) <= launches.get("k4", 0) \
+            <= k4_per_step * short \
             or launches.get("k3", 0) < cfg.num_layers * (short - 1) \
-            or launches.get("k5_w4", 0) < per_step:
+            or launches.get("k5_w4", 0) < k5_per_prefill:
         raise RuntimeError(f"batch-8 MoE decode launched {launches}")
     if first.shape != (BATCH, short) or not row["greedy_repeatable"]:
         raise RuntimeError(f"batch-8 MoE decode: {row}")
@@ -2412,9 +2744,11 @@ def device_time(prof):
 
 
 # kernel-name pieces of the port's kernels whose share of a profiled step
-# --profile reports: the P formula's rows kernel, the activation prologue
-# (K1, K4, K6, K8), K3 with its merge
-SHARE_OF = {"qmm_p": ("qmm_p<",), "qmm_prep": ("qmm_prep",),
+# --profile reports: the P formula's rows kernel, the activation
+# prologues (K1, K4 and K6's qmm_prep_pdl, K8's chan_prep), K4's and K8's
+# rows kernels, K3 with its merge
+SHARE_OF = {"qmm_p": ("qmm_p<",), "qmm_prep": ("qmm_prep", "chan_prep"),
+            "k4_k8": ("gather_qmm_a8<", "chan_gather_qmm<"),
             "k3": ("paged_decode<", "paged_merge(")}
 
 
@@ -2436,8 +2770,9 @@ def top_kernels(by_name, busy_us, n):
              "share_of_busy": us / busy_us} for name, (c, us) in top]
 
 
-def prefill_probe(root: str) -> dict:
-    """``moe_prefill`` of the package under ``root`` (this checkout's or a
+def package_probe(root: str, what: str) -> dict:
+    """``moe_prefill`` (``what`` "prefill") or ``profile_decode`` at batch
+    1 ("decode") of the package under ``root`` (this checkout's or a
     parent's: the caller put ``root`` first on sys.path) on full-width,
     full-depth Qwen3-30B-A3B w4a8 with the smoke's random weights."""
     import ominix_mlx_tpu_torch
@@ -2452,33 +2787,36 @@ def prefill_probe(root: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     params = base.fuse_layer_projections(qwen3_moe.init_quantized_params(
         cfg, gen, GS, 4, act_bits=8, device=dev))
-    return {"phase": "prefill_probe", "package": pkg,
-            **moe_prefill(dev, cfg, params)}
+    if what == "prefill":
+        return {"phase": "prefill_probe", "package": pkg,
+                **moe_prefill(dev, cfg, params)}
+    return {**profile_decode(dev, cfg, params), "package": pkg}
 
 
-def compare_moe_prefill(parent: str, here: str):
-    """The 128-token Qwen3-30B-A3B w4a8 prefill of the parent's package
-    against this one's, each in a process of its own (``--prefill-probe``),
-    in turns: parent, this, this, parent. One ``moe_prefill_vs_parent``
-    line."""
+def compare_probes(parent: str, here: str, what: str, keys: tuple):
+    """``package_probe(what)`` of the parent's package against this one's,
+    each in a process of its own (``--prefill-probe`` or
+    ``--decode-probe``), in turns: parent, this, this, parent. One
+    ``moe_prefill_vs_parent`` or ``moe_decode_vs_parent`` line with
+    ``keys`` of each run and the first runs' leading kernels (and, for
+    decode, their kernel shares)."""
     runs = {}
     for who, root in (("parent", parent), ("this", here), ("this", here),
                       ("parent", parent)):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--prefill-probe", root], capture_output=True,
+                            f"--{what}-probe", root], capture_output=True,
                            text=True, timeout=900)
         if r.returncode != 0:
-            raise RuntimeError(f"prefill probe of {root} failed "
+            raise RuntimeError(f"{what} probe of {root} failed "
                                f"({r.returncode}):\n{r.stderr[-3000:]}")
         runs.setdefault(who, []).append(
             json.loads(r.stdout.strip().splitlines()[-1]))
-    emit({"phase": "moe_prefill_vs_parent", **{
+    emit({"phase": f"moe_{what}_vs_parent", **{
         f"{who}_{key}": [run[key] for run in rs]
-        for who, rs in runs.items()
-        for key in ("wall_ms", "profiled_wall_ms", "device_busy_ms",
-                    "max_memory_allocated_gib", "prefill_extra_gib")},
-        "parent_top_device": runs["parent"][0]["top_device"],
-        "this_top_device": runs["this"][0]["top_device"]})
+        for who, rs in runs.items() for key in keys},
+        **{f"{who}_{key}": runs[who][0][key] for who in runs
+           for key in ("top_device", "kernel_shares")
+           if key in runs[who][0]}})
 
 
 def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
@@ -2489,8 +2827,9 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
     Each probe covers the decode steps alone; the prompt's prefill is
     profiled as a window of its own, with torch.cuda.max_memory_allocated
     across it. The device's busy time is the union of the intervals
-    of every kernel, copy and fill it ran; the idle share is one minus
-    busy over the window's wall time on the host clock."""
+    of every kernel, copy and fill it ran (``device_ops_per_step``: how
+    many a step); the idle share is one minus busy over the window's wall
+    time on the host clock."""
     from torch.profiler import ProfilerActivity, profile
 
     from ominix_mlx_tpu_torch.models import base
@@ -2541,6 +2880,8 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
             "device_sum_ms": sum(us for _, us in by_name.values()) / 1e3,
             "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
             "device_ms_per_step": busy_us / 1e3 / steps,
+            "device_ops_per_step": sum(c for c, _ in by_name.values())
+            / steps,
             "top_device": top_kernels(by_name, busy_us, 12),
             "kernel_shares": kernel_shares(by_name, busy_us),
             "prefill_tokens": 128 * batch, "prefill_wall_ms": prefill_s * 1e3,
@@ -2594,12 +2935,14 @@ def main() -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="only build this checkout's and DIR's kernels, "
                          "time K3, the P formula (K1 at one row, K6), K4, "
-                         "K8 and the bf16 K5 against DIR's, and the "
-                         "128-token Qwen3-30B-A3B w4a8 prefill of both "
+                         "K8 (and one MoE layer's decode expert path from "
+                         "CUDA graphs) and the bf16 K5 against DIR's, and "
+                         "the 128-token Qwen3-30B-A3B w4a8 prefill of both "
                          "packages, in turns")
     ap.add_argument("--prefill-probe", metavar="ROOT",
-                    help=argparse.SUPPRESS)   # one prefill_probe of ROOT's
-                                              # package (--parent runs it)
+                    help=argparse.SUPPRESS)   # one package_probe of ROOT's
+    ap.add_argument("--decode-probe", metavar="ROOT",   # package (--parent
+                    help=argparse.SUPPRESS)             # runs them)
     ap.add_argument("--profile", action="store_true",
                     help="profile decode steps on the device "
                          "(torch.profiler) and the host (cProfile): batch 1 "
@@ -2612,11 +2955,12 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    if args.prefill_probe:
-        root = os.path.abspath(args.prefill_probe)
+    if args.prefill_probe or args.decode_probe:
+        root = os.path.abspath(args.prefill_probe or args.decode_probe)
         sys.path[:] = [root] + [p for p in sys.path
                                 if os.path.abspath(p or os.curdir) != here]
-        emit(prefill_probe(root))
+        emit(package_probe(root, "prefill" if args.prefill_probe
+                           else "decode"))
         return 0
     sys.path.insert(0, here)
     from ominix_mlx_tpu_torch.models import base, qwen3_moe
@@ -2646,10 +2990,17 @@ def main() -> int:
         compare_k3(plib, dev, flush)
         compare_qmm_p(plib, dev, flush)
         compare_gather(plib, dev, flush)
+        moe_expert_graph(plib, dev, flush)
         compare_k5(plib, dev, flush)
         del flush_buf, flush
         free_device_memory()
-        compare_moe_prefill(os.path.abspath(args.parent), here)
+        parent = os.path.abspath(args.parent)
+        compare_probes(parent, here, "prefill",
+                       ("wall_ms", "profiled_wall_ms", "device_busy_ms",
+                        "max_memory_allocated_gib", "prefill_extra_gib"))
+        compare_probes(parent, here, "decode",
+                       ("device_ms_per_step", "device_ops_per_step",
+                        "device_idle_share", "wall_ms", "host_cprofile_s"))
         return 0
     k1_rows = check_k1(dev, flush)
     k6_rows = check_k6(dev, flush)
@@ -2660,6 +3011,7 @@ def main() -> int:
     k4_rows = check_k4(dev, flush)
     k8_rows = check_k8(dev, flush)
     k5_rows = check_k5(dev, flush)
+    emit({**launch_floor(dev), "card": smi})
     del flush_buf, flush
     torch.cuda.empty_cache()
 
@@ -2844,16 +3196,17 @@ def main() -> int:
               lambda rs: rs[0], "k3", design=K3_DESIGN),
         entry("k4_gather_qmm", "ominix_mlx_tpu/ops/quant_matmul.py:1606",
               "ominix_mlx_tpu_torch/csrc/gather_qmm.cu",
-              [r for r in k4_rows if r["bits"] == 4], lambda rs: rs[0], "k4"),
+              [r for r in k4_rows if r["bits"] == 4], lambda rs: rs[0], "k4",
+              design=GATHER_DESIGN),
         entry("k4_gather_qmm_w8",
               "ominix_mlx_tpu/ops/quant_matmul.py:1606 (bits=8)",
               "ominix_mlx_tpu_torch/csrc/gather_qmm.cu",
               [r for r in k4_rows if r["bits"] == 8], lambda rs: rs[0],
-              "k4_w8"),
+              "k4_w8", design=GATHER_DESIGN),
         entry("k8_channel_gather_qmm",
               "XLA einsum ominix_mlx_tpu/ops/quant_matmul.py:1523, no Pallas "
               "kernel", "ominix_mlx_tpu_torch/csrc/gather_qmm.cu", k8_rows,
-              lambda rs: rs[0], "k8"),
+              lambda rs: rs[0], "k8", design=GATHER_DESIGN),
         entry("k5_grouped_mm", "ominix_mlx_tpu/models/moe.py:84",
               "ominix_mlx_tpu_torch/csrc/grouped_mm.cu",
               [r for r in k5_rows if r["bits"] == 16], worst_k5, "k5",

@@ -230,19 +230,10 @@ struct PArgs {
 template <int BITS, bool A8, int MT, int RW>
 int launch_p(const PArgs& a, cudaStream_t st) {
   const int warps = (a.N + RW - 1) / RW;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((warps + kWarps - 1) / kWarps);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, qmm_p<BITS, A8, MT, RW>, a.d, a.sc,
-                                 a.bs, a.xq, a.xa, a.xg, a.sx, a.y, a.M,
-                                 a.N, a.K, a.gs);
+  return (int)launch_kernel(qmm_p<BITS, A8, MT, RW>,
+                            dim3((warps + kWarps - 1) / kWarps),
+                            dim3(kThreads), 0, true, st, a.d, a.sc, a.bs,
+                            a.xq, a.xa, a.xg, a.sx, a.y, a.M, a.N, a.K, a.gs);
 }
 
 template <int BITS, bool A8, int MT>
@@ -292,16 +283,9 @@ int ominix_qmm_p(const void* x, const void* norm_w, float eps,
   const auto* xb = (const __nv_bfloat16*)x;
   const auto* nw = (const __nv_bfloat16*)norm_w;
   const bool norm_out = !a8 && nw != nullptr;
-  const int xs_bytes = K * 2;                // the staged row of x
-  if (xs_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        qmm_prep_pdl, cudaFuncAttributeMaxDynamicSharedMemorySize, xs_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  qmm_prep_pdl<<<M, kPrepThreads, xs_bytes, st>>>(
-      xb, nw, eps, K, gs, a8 ? (int8_t*)xq : nullptr, (float*)xg,
-      a8 ? (float*)sx : nullptr, norm_out ? (__nv_bfloat16*)xn : nullptr);
-  const cudaError_t e = cudaGetLastError();
+  const cudaError_t e = launch_prep_pdl(
+      xb, nw, eps, M, K, gs, a8 ? (int8_t*)xq : nullptr, (float*)xg,
+      a8 ? (float*)sx : nullptr, norm_out ? (__nv_bfloat16*)xn : nullptr, st);
   if (e != cudaSuccess) return (int)e;
   const PArgs a{(const uint8_t*)data, (const __nv_bfloat16*)scales,
                 (const __nv_bfloat16*)biases, (const int8_t*)xq,

@@ -1,10 +1,9 @@
 // Device code shared by K1 and K6 (qmm.cu), K4 and K8 (gather_qmm.cu) and
 // the dq kernel (qmm_tc.cu): warp and block reductions, the activation
-// prologue (norm, group sums, a8 quantisation; qmm_prep, and qmm_prep_pdl
-// for a kernel launched behind it with programmatic dependent launch), and
-// the row dot of the a8 formula over the packed layouts (4-bit: uint8
-// [.., K/2], natural nibble order, folded biases b - 8s; 8-bit: int8
-// [.., K], biases b; bf16 scales and biases per group).
+// prologue of bf16 x (norm, group sums, a8 quantisation: qmm_prep_pdl,
+// which K1, K6 and K4 launch ahead of their rows kernels, launched behind
+// it by programmatic dependent launch), the 4-bit code dot, and the
+// launch helpers of that pattern (launch_kernel, launch_prep_pdl).
 //
 // Everything here has internal linkage (an anonymous namespace), so each
 // kernel source that includes it gets its own copy.
@@ -102,24 +101,25 @@ __device__ __forceinline__ void prep_row(
   }
 }
 
-// The prologue, one CTA per row (K4 and K8 launch it ahead of their rows).
-__global__ void __launch_bounds__(kPrepThreads)
-qmm_prep(const __nv_bfloat16* __restrict__ x,
-         const __nv_bfloat16* __restrict__ norm_w, float eps, int K, int gs,
-         int8_t* __restrict__ xq, float* __restrict__ xg,
-         float* __restrict__ sx, __nv_bfloat16* __restrict__ xn) {
-  __shared__ float red[32];
-  const __nv_bfloat16* xr = x + (size_t)blockIdx.x * K;
-  prep_row(blockIdx.x, [&](int k) { return __bfloat162float(xr[k]); },
-           norm_w, eps, K, gs, xq, xg, sx, xn, red);
+// Waits until the grid this one depends on (programmatic dependent launch)
+// has finished and its writes are visible; a no-op without one.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// The same prologue for a kernel launched behind it with programmatic
-// dependent launch (qmm.cu): it lets that kernel start at once, so the
-// kernel's weight loads are in flight while the prologue runs; the kernel
-// reads the prologue's outputs after griddep_wait(). The row is staged in
-// shared memory (K * 2 bytes, dynamic) with one round of 16-byte loads, so
-// the passes over it wait on no global load; the numbers are qmm_prep's.
+// Lets the grids launched behind this one by programmatic dependent launch
+// start now (each still waits in griddep_wait for this grid's writes).
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// The prologue, one CTA per row, for a rows kernel launched behind it with
+// programmatic dependent launch (K1 and K6 in qmm.cu, K4 in gather_qmm.cu;
+// launch_prep_pdl): it lets that kernel start at once, so the kernel's
+// weight loads are in flight while the prologue runs; the kernel reads the
+// prologue's outputs after griddep_wait(). The row is staged in shared
+// memory (K * 2 bytes, dynamic) with one round of 16-byte loads, so the
+// passes over it wait on no global load.
 __global__ void __launch_bounds__(kPrepThreads)
 qmm_prep_pdl(const __nv_bfloat16* __restrict__ x,
              const __nv_bfloat16* __restrict__ norm_w, float eps, int K,
@@ -127,7 +127,7 @@ qmm_prep_pdl(const __nv_bfloat16* __restrict__ x,
              float* __restrict__ sx, __nv_bfloat16* __restrict__ xn) {
   __shared__ float red[32];
   extern __shared__ uint4 xs4[];           // the row, K / 8 pieces
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  griddep_launch_dependents();
   const uint4* src = reinterpret_cast<const uint4*>(x + (size_t)blockIdx.x * K);
   for (int i = threadIdx.x; i < K / 8; i += blockDim.x) xs4[i] = src[i];
   __syncthreads();
@@ -136,10 +136,41 @@ qmm_prep_pdl(const __nv_bfloat16* __restrict__ x,
            norm_w, eps, K, gs, xq, xg, sx, xn, red);
 }
 
-// Waits until the grid this one depends on (programmatic dependent launch)
-// has finished and its writes are visible; a no-op without one.
-__device__ __forceinline__ void griddep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+// Launches kernel on st with smem bytes of dynamic shared memory (first
+// raising its limit where smem passes 48 KB). With pdl, behind the launch
+// before it on st by programmatic dependent launch: it may start before
+// that one ends, and waits for its writes in griddep_wait().
+template <typename... Params, typename... Args>
+cudaError_t launch_kernel(void (*kernel)(Params...), dim3 grid, dim3 block,
+                          int smem, bool pdl, cudaStream_t st,
+                          Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Launches qmm_prep_pdl over the M rows of bf16 x [M, K] on st, after the
+// work before it (the rows kernel follows it with pdl).
+inline cudaError_t launch_prep_pdl(const __nv_bfloat16* x,
+                                   const __nv_bfloat16* norm_w, float eps,
+                                   int M, int K, int gs, int8_t* xq,
+                                   float* xg, float* sx, __nv_bfloat16* xn,
+                                   cudaStream_t st) {
+  return launch_kernel(qmm_prep_pdl, dim3(M), dim3(kPrepThreads), K * 2,
+                       false, st, x, norm_w, eps, K, gs, xq, xg, sx, xn);
 }
 
 // 8 int4 codes (one 32-bit word, natural nibble order) . 8 int8 activations
@@ -149,49 +180,6 @@ __device__ __forceinline__ int dot8(uint32_t w, int X0, int X1, int acc) {
   const int hi = (int)((w >> 4) & 0x0F0F0F0Fu);   // u1, u3, u5, u7
   acc = __dp4a(lo, (int)__byte_perm(X0, X1, 0x6420), acc);
   return __dp4a(hi, (int)__byte_perm(X0, X1, 0x7531), acc);
-}
-
-// One warp's a8 dot of one packed weight row with one row of int8
-// activations, returned warp-reduced (every lane gets it):
-// y = sx * sum_g s_g * P_g + sum_g b*_g * xg_g, b* the stored bias (b - 8s
-// for 4-bit, b for 8-bit). Lane c takes the 16-byte chunk c of the row (32
-// unsigned 4-bit codes or 16 signed 8-bit codes), stepping by 32 chunks, so
-// the warp reads 512 contiguous bytes per step. K and gs are multiples of
-// 32.
-template <int BITS>
-__device__ __forceinline__ float a8_row_dot(
-    const uint8_t* __restrict__ row, const __nv_bfloat16* __restrict__ srow,
-    const __nv_bfloat16* __restrict__ brow, const int8_t* __restrict__ xq,
-    const float* __restrict__ xg, float sx, int K, int gs, int lane) {
-  constexpr int NC = BITS == 4 ? 32 : 16;      // codes a chunk
-  const int chunks = K / NC;
-  const uint4* wrow = reinterpret_cast<const uint4*>(row);
-  const int4* xv = reinterpret_cast<const int4*>(xq);
-  float acc_p = 0.f, acc_b = 0.f;
-  for (int c = lane; c < chunks; c += 32) {
-    const uint4 w = __ldg(wrow + c);
-    int p;
-    if constexpr (BITS == 4) {
-      const int4 xa = __ldg(xv + 2 * c), xb = __ldg(xv + 2 * c + 1);
-      p = dot8(w.x, xa.x, xa.y, 0);
-      p = dot8(w.y, xa.z, xa.w, p);
-      p = dot8(w.z, xb.x, xb.y, p);
-      p = dot8(w.w, xb.z, xb.w, p);
-    } else {
-      const int4 x4 = __ldg(xv + c);
-      p = __dp4a((int)w.x, x4.x, 0);
-      p = __dp4a((int)w.y, x4.y, p);
-      p = __dp4a((int)w.z, x4.z, p);
-      p = __dp4a((int)w.w, x4.w, p);
-    }
-    const int g = (c * NC) / gs;
-    acc_p = fmaf(__bfloat162float(srow[g]), (float)p, acc_p);
-    if ((c * NC) % gs == 0)
-      acc_b = fmaf(__bfloat162float(brow[g]), xg[g], acc_b);
-  }
-  acc_p = warp_sum(acc_p);
-  acc_b = warp_sum(acc_b);
-  return fmaf(sx, acc_p, acc_b);
 }
 
 }  // namespace

@@ -6,11 +6,13 @@ Expert weights are stacked [E, N, K] (HF output-major layout): dense bf16,
 ``ChannelQuantizedExperts`` (the batched server's w8a8). ``moe_block``
 branches on the rows M of the layer's input and the experts' type:
 
-* channel experts, M <= 8 (decode): ``channel_gather_qmm`` three times,
-  kernel K8 on CUDA, reading only the selected experts' int8 rows; the
-  hidden activation stays float32;
-* group experts, M <= 8: ``gather_qmm`` three times, kernel K4 on CUDA
-  where ``expert_route`` names it;
+* channel experts, M <= 8 (decode): ``channel_gather_qmm_gate_up`` then
+  ``channel_gather_qmm`` for down, kernel K8 on CUDA (one launch for gate
+  and up, one for down), reading only the selected experts' int8 rows;
+  the hidden activation stays float32;
+* group experts, M <= 8: ``gather_qmm_gate_up`` then ``gather_qmm``,
+  kernel K4 on CUDA where ``expert_route`` names it (one launch for gate
+  and up, one for down);
 * bf16 experts, M <= 8: gather the selected slabs and compute plainly;
 * channel experts, M > 8 (prefill): the JAX package's all-expert pass,
   activations quantized once and every expert's exact int8 products
@@ -36,8 +38,8 @@ from ominix_mlx_tpu_torch.nn.layers import ACTIVATIONS, linear
 from ominix_mlx_tpu_torch.ops.grouped_matmul import grouped_matmul
 from ominix_mlx_tpu_torch.ops.quant_matmul import (
     ChannelQuantizedExperts, PackedQuantizedExperts, channel_expert_matmul_q,
-    channel_gather_qmm, channel_quantize_experts, gather_qmm,
-    quantize_act_channel, quantize_experts)
+    channel_gather_qmm, channel_gather_qmm_gate_up, channel_quantize_experts,
+    gather_qmm, gather_qmm_gate_up, quantize_act_channel, quantize_experts)
 
 EXPERT_NAMES = ("gate_proj", "up_proj", "down_proj")
 GATHER_M_MAX = 8    # up to this many token rows, the experts are gathered
@@ -169,25 +171,30 @@ def moe_block(lp: dict, mcfg: MoEConfig, x: torch.Tensor) -> torch.Tensor:
     quant = isinstance(ex["gate_proj"], PackedQuantizedExperts)
     chan = isinstance(ex["gate_proj"], ChannelQuantizedExperts)
 
+    if M <= GATHER_M_MAX and (chan or quant):
+        # the kernels take int32 ids: cast once for the layer's launches
+        ids = idx.to(torch.int32)
     if M <= GATHER_M_MAX and chan:
         # decode, channel-int8 experts: read ONLY the top-k experts' int8
-        # rows (K8 on CUDA); the products are exact, h stays float32
-        g = channel_gather_qmm(xt, ex["gate_proj"], idx)  # f32 [M, k, I]
-        u = channel_gather_qmm(xt, ex["up_proj"], idx)
+        # rows (K8 on CUDA, gate and up in one launch); the products are
+        # exact, h stays float32
+        g, u = channel_gather_qmm_gate_up(xt, ex["gate_proj"],
+                                          ex["up_proj"], ids)  # [M, k, I]
         h = act(g) * u
         I = h.shape[-1]
         y = channel_gather_qmm(h.reshape(M * k, I), ex["down_proj"],
-                               idx.reshape(M * k, 1)).reshape(M, k, D)
+                               ids.reshape(M * k, 1)).reshape(M, k, D)
         y = torch.einsum("mkd,mk->md", y, w.float())
     elif M <= GATHER_M_MAX and quant:
         # decode, quantized experts: read ONLY the top-k experts' 4- or
-        # 8-bit rows (K4 on CUDA), as the TPU's gather_qmm kernel does
-        g = gather_qmm(xt, ex["gate_proj"], idx)         # [M, k, I]
-        u = gather_qmm(xt, ex["up_proj"], idx)
+        # 8-bit rows (K4 on CUDA, gate and up in one launch), as the TPU's
+        # gather_qmm kernel does
+        g, u = gather_qmm_gate_up(xt, ex["gate_proj"], ex["up_proj"],
+                                  ids)                   # [M, k, I]
         h = (act(g.float()) * u.float()).to(x.dtype)
         I = h.shape[-1]
         y = gather_qmm(h.reshape(M * k, I), ex["down_proj"],
-                       idx.reshape(M * k, 1)).reshape(M, k, D)
+                       ids.reshape(M * k, 1)).reshape(M, k, D)
         y = torch.einsum("mkd,mk->md", y.float(), w.float())
     elif M <= GATHER_M_MAX:
         # decode: gather only the selected experts' weights

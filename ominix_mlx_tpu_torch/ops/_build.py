@@ -91,13 +91,13 @@ def _declare(lib):
     lib.ominix_paged_decode.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                         vp, i, i, i, i, i, i, i, i, i, f, i,
                                         i, vp]
-    for name in ("ominix_gather_qmm_w4a8", "ominix_gather_qmm_w8a8"):
-        getattr(lib, name).restype = i
-        getattr(lib, name).argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                                       i, i, i, i, i, i, vp]
+    lib.ominix_gather_qmm.restype = i
+    lib.ominix_gather_qmm.argtypes = [vp] * 13 + [i] * 9 + [vp]
     lib.ominix_channel_gather_qmm.restype = i
-    lib.ominix_channel_gather_qmm.argtypes = [vp, vp, vp, vp, vp, vp, vp, i,
-                                              i, i, i, i, vp]
+    lib.ominix_channel_gather_qmm.argtypes = [vp, i] + [vp] * 9 + [i] * 7 \
+        + [vp]
+    lib.ominix_launch_probe.restype = i
+    lib.ominix_launch_probe.argtypes = [i, i, vp]
     lib.ominix_grouped_mm.restype = i
     lib.ominix_grouped_mm.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i,
                                       i, i, i, i, vp]

@@ -843,52 +843,117 @@ def channel_gather_qmm_reference(x: torch.Tensor, w: ChannelQuantizedExperts,
     return acc.float() * sx[:, None, None] * w.scale[ids]
 
 
-def _k8(x: torch.Tensor, w: ChannelQuantizedExperts,
-        ids: torch.Tensor) -> torch.Tensor:
-    """Launch K8 (csrc/gather_qmm.cu) on the current stream: float32 x
-    [T, K], int32 ids [T, k] on CUDA -> f32 [T, k, N]."""
+# The plan of K4's and K8's rows kernel (csrc/gather_qmm.cu): a warp's
+# lanes form groups of ``lanes`` that each own ``rows`` consecutive output
+# rows of one (row, slot) pair and stack, 8 rows a warp: 16 lanes a row
+# where 16 divides a row's 16-byte chunks, else 8 (no lane idle at the
+# down projection's 24-chunk 4-bit rows). Every decode call of moe_block
+# (gate and up in one launch, and down) needs more than one wave of CTAs
+# at Qwen3-30B-A3B's widths, where 8 rows a warp read fastest of the
+# plans timed on the H100, or within 3.3 % of the fastest (PERF.md, "The
+# plan"). GATHER_PLANS lists the (lanes, rows) the C launch has a
+# template for; it derives the grid from them.
+GATHER_PLANS = ((16, 4), (8, 2))
+
+
+def gather_plan(K: int, bits: int) -> tuple:
+    """(lanes, rows) of the rows kernel on experts of K ``bits``-bit codes
+    a row (K8's int8 rows: 8), from shapes alone."""
+    if bits not in (4, 8) or K < 1 or K * bits % 128:
+        raise ValueError(f"no gather plan for K={K}, bits={bits}")
+    return GATHER_PLANS[0] if K * bits // 128 % 16 == 0 else GATHER_PLANS[1]
+
+
+def _ids32(ids: torch.Tensor) -> torch.Tensor:
+    """ids as the kernels take them: contiguous int32 (no copy where they
+    are already)."""
+    return ids.to(torch.int32).contiguous()
+
+
+def _check_pair(what: str, w, up, fields):
+    """Raise unless ``up`` (the second stack of a launch) matches ``w``."""
+    if up is not None and (up.data.shape != w.data.shape or any(
+            getattr(up, f) != getattr(w, f) for f in fields)):
+        raise ValueError(f"{what}: the second stack must match the first "
+                         f"({tuple(w.data.shape)}, {fields}), got "
+                         f"{tuple(up.data.shape)}")
+
+
+def _k8(x: torch.Tensor, w: ChannelQuantizedExperts, ids: torch.Tensor,
+        up: Optional[ChannelQuantizedExperts] = None):
+    """Launch K8 (csrc/gather_qmm.cu) on the current stream: float32 or
+    bf16 x [T, K], int32 ids [T, k] on CUDA -> f32 [T, k, N]; with ``up``
+    (a second stack of the same shape), (y, y_up) from one launch."""
     from ominix_mlx_tpu_torch.ops import _build
 
     T, K = x.shape
     E, N, _ = w.data.shape
     k = ids.shape[1] if ids.dim() == 2 else 0
     dev = x.device
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"K8 takes contiguous float32 x, got {x.dtype}")
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or not x.is_contiguous():
+        raise ValueError(f"K8 takes contiguous float32 or bf16 x, got "
+                         f"{x.dtype}")
     _check_ids("K8", ids, T, k, dev)
     if K % 16:
         raise ValueError(f"K8 takes K a multiple of 16, got K={K}")
-    for name, t, dt, shp in (("data", w.data, torch.int8, (E, N, K)),
-                             ("scale", w.scale, torch.float32, (E, N))):
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shp \
-                or not t.is_contiguous():
-            raise ValueError(f"K8 {name}: want contiguous {dt} {shp} on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-    _check_aligned("K8", w.data, x)
+    _check_pair("K8", w, up, ())
+    stacks = (w,) if up is None else (w, up)
+    for ws in stacks:
+        for name, t, dt, shp in (("data", ws.data, torch.int8, (E, N, K)),
+                                 ("scale", ws.scale, torch.float32, (E, N))):
+            if t.device != dev or t.dtype != dt or tuple(t.shape) != shp \
+                    or not t.is_contiguous():
+                raise ValueError(f"K8 {name}: want contiguous {dt} {shp} on "
+                                 f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                                 f"{t.device}")
+        _check_aligned("K8", ws.data, x)
+    lanes, rows = gather_plan(K, 8)
     lib = _build.library()
-    y = torch.empty(T, k, N, dtype=torch.float32, device=dev)
+    ys = [torch.empty(T, k, N, dtype=torch.float32, device=dev)
+          for _ in stacks]
     xq = torch.empty(T, K, dtype=torch.int8, device=dev)
     sx = torch.empty(T, dtype=torch.float32, device=dev)
+    second = (up.data, up.scale, ys[1]) if up is not None else (None,) * 3
     rc = lib.ominix_channel_gather_qmm(
-        x.data_ptr(), ids.data_ptr(), w.data.data_ptr(), w.scale.data_ptr(),
-        y.data_ptr(), xq.data_ptr(), sx.data_ptr(), T, k, E, N, K,
-        torch.cuda.current_stream(dev).cuda_stream)
+        x.data_ptr(), int(x.dtype == torch.bfloat16), ids.data_ptr(),
+        w.data.data_ptr(), w.scale.data_ptr(), ys[0].data_ptr(),
+        *map(_ptr, second), xq.data_ptr(), sx.data_ptr(), T, k, E, N, K,
+        lanes, rows, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "K8 (ominix_channel_gather_qmm)")
     _build.LAUNCHES["k8"] += 1
-    return y
+    return ys[0] if up is None else tuple(ys)
+
+
+def _k8_x(x: torch.Tensor) -> torch.Tensor:
+    """x as K8 takes it: float32 or bf16 as it is (the prologue widens bf16
+    exactly), other types widened to float32; contiguous and aligned."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    return _aligned(x.contiguous())
 
 
 def channel_gather_qmm(x: torch.Tensor, w: ChannelQuantizedExperts,
                        ids: torch.Tensor) -> torch.Tensor:
     """Expert-gathered w8a8 matmul (decode): x [T, K], ids [T, k] -> f32
     [T, k, N], reading only the selected experts' int8 rows. A CUDA tensor
-    launches K8 (x widened to float32, which is exact); a CPU tensor takes
-    ``channel_gather_qmm_reference``."""
+    launches K8; a CPU tensor takes ``channel_gather_qmm_reference``."""
     if not x.is_cuda:
         return channel_gather_qmm_reference(x, w, ids)
-    return _k8(_aligned(x.float().contiguous()), w,
-               ids.to(torch.int32).contiguous())
+    return _k8(_k8_x(x), w, _ids32(ids))
+
+
+def channel_gather_qmm_gate_up(x: torch.Tensor, wg: ChannelQuantizedExperts,
+                               wu: ChannelQuantizedExperts,
+                               ids: torch.Tensor) -> tuple:
+    """A MoE layer's gate and up projections at decode, against the same x
+    [T, K] and ids [T, k]: (channel_gather_qmm(x, wg, ids),
+    channel_gather_qmm(x, wu, ids)). On a CUDA tensor with stacks of one
+    shape, one K8 launch (one prologue, one rows kernel, both outputs);
+    else the two calls."""
+    if x.is_cuda and wg.data.shape == wu.data.shape:
+        return _k8(_k8_x(x), wg, _ids32(ids), wu)
+    return channel_gather_qmm(x, wg, ids), channel_gather_qmm(x, wu, ids)
 
 
 # ----------------------------------- MoE expert weights (gather_qmm, K4) ---
@@ -1024,10 +1089,12 @@ def gather_qmm_reference(x: torch.Tensor, w: PackedQuantizedExperts,
     return y.to(x.dtype)
 
 
-def _k4(x: torch.Tensor, w: PackedQuantizedExperts,
-        ids: torch.Tensor) -> torch.Tensor:
+def _k4(x: torch.Tensor, w: PackedQuantizedExperts, ids: torch.Tensor,
+        up: Optional[PackedQuantizedExperts] = None):
     """Launch K4 (csrc/gather_qmm.cu) on the current stream: bf16 x [T, K],
-    int32 ids [T, k] on CUDA -> bf16 [T, k, N], w4a8 or w8a8."""
+    int32 ids [T, k] on CUDA -> bf16 [T, k, N], w4a8 or w8a8; with ``up``
+    (a second stack of the same shape, bits and group size), (y, y_up)
+    from one launch."""
     from ominix_mlx_tpu_torch.ops import _build
 
     T, K = x.shape
@@ -1044,31 +1111,53 @@ def _k4(x: torch.Tensor, w: PackedQuantizedExperts,
                          f"group size multiples of 32; x has K={K}, experts "
                          f"are {w.bits}-bit, K={w.in_features}, act_bits="
                          f"{w.act_bits}, group {w.group_size}")
+    _check_pair("K4", w, up, ("bits", "group_size", "in_features",
+                              "act_bits"))
+    stacks = (w,) if up is None else (w, up)
     dt, Kd = (torch.uint8, K // 2) if w.bits == 4 else (torch.int8, K)
-    for name, t, want_dt, shp in (
-            ("data", w.data, dt, (E, N, Kd)),
-            ("scales", w.scales, torch.bfloat16, (E, N, G)),
-            ("biases", w.biases, torch.bfloat16, (E, N, G))):
-        if t.device != dev or t.dtype != want_dt or tuple(t.shape) != shp \
-                or not t.is_contiguous():
-            raise ValueError(f"K4 {name}: want contiguous {want_dt} {shp} "
-                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
-    _check_aligned("K4", w.data, x)
+    for ws in stacks:
+        for name, t, want_dt, shp in (
+                ("data", ws.data, dt, (E, N, Kd)),
+                ("scales", ws.scales, torch.bfloat16, (E, N, G)),
+                ("biases", ws.biases, torch.bfloat16, (E, N, G))):
+            if t.device != dev or t.dtype != want_dt \
+                    or tuple(t.shape) != shp or not t.is_contiguous():
+                raise ValueError(f"K4 {name}: want contiguous {want_dt} "
+                                 f"{shp} on {dev}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+        _check_aligned("K4", ws.data, x)
+    lanes, rows = gather_plan(K, w.bits)
     lib = _build.library()
-    y = torch.empty(T, k, N, dtype=torch.bfloat16, device=dev)
+    ys = [torch.empty(T, k, N, dtype=torch.bfloat16, device=dev)
+          for _ in stacks]
     xq = torch.empty(T, K, dtype=torch.int8, device=dev)
     xg = torch.empty(T, G, dtype=torch.float32, device=dev)
     sx = torch.empty(T, dtype=torch.float32, device=dev)
-    entry = f"ominix_gather_qmm_w{w.bits}a8"
-    rc = getattr(lib, entry)(
+    second = ((up.data, up.scales, up.biases, ys[1]) if up is not None
+              else (None,) * 4)
+    rc = lib.ominix_gather_qmm(
         x.data_ptr(), ids.data_ptr(), w.data.data_ptr(),
-        w.scales.data_ptr(), w.biases.data_ptr(), y.data_ptr(),
-        xq.data_ptr(), xg.data_ptr(), sx.data_ptr(), T, k, E, N, K,
-        w.group_size, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, f"K4 ({entry})")
+        w.scales.data_ptr(), w.biases.data_ptr(), ys[0].data_ptr(),
+        *map(_ptr, second), xq.data_ptr(), xg.data_ptr(), sx.data_ptr(), T,
+        k, E, N, K, w.group_size, w.bits, lanes, rows,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "K4 (ominix_gather_qmm)")
     _build.LAUNCHES["k4" if w.bits == 4 else "k4_w8"] += 1
-    return y
+    return ys[0] if up is None else tuple(ys)
+
+
+def _on_k4(x: torch.Tensor, w: PackedQuantizedExperts) -> bool:
+    """Whether gather_qmm launches K4 for x against w (a CUDA tensor, a8
+    experts on ``expert_route`` "k4"); raises for x the kernel does not
+    take."""
+    if w.act_bits != 8 or expert_route(w, x.shape[0]) == "gathered" \
+            or not x.is_cuda:
+        return False
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"K4: {x.dtype} activations; the kernel takes bf16 "
+                         f"and the JAX formula quantizes and sums x "
+                         f"unrounded")
+    return True
 
 
 def gather_qmm(x: torch.Tensor, w: PackedQuantizedExperts,
@@ -1080,12 +1169,24 @@ def gather_qmm(x: torch.Tensor, w: PackedQuantizedExperts,
     ``gather_qmm_reference(act_bits=8)``. On "gathered", and for experts
     with act_bits=None, both devices compute the JAX package's exact
     fallback in plain PyTorch (XLA's product there too)."""
+    if _on_k4(x, w):
+        return _k4(_aligned(x.contiguous()), w, _ids32(ids))
     if w.act_bits != 8 or expert_route(w, x.shape[0]) == "gathered":
         return gather_qmm_reference(x, w, ids, None)
-    if not x.is_cuda:
-        return gather_qmm_reference(x, w, ids, 8)
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"K4: {x.dtype} activations; the kernel takes bf16 "
-                         f"and the JAX formula quantizes and sums x "
-                         f"unrounded")
-    return _k4(_aligned(x.contiguous()), w, ids.to(torch.int32).contiguous())
+    return gather_qmm_reference(x, w, ids, 8)
+
+
+def gather_qmm_gate_up(x: torch.Tensor, wg: PackedQuantizedExperts,
+                       wu: PackedQuantizedExperts, ids: torch.Tensor
+                       ) -> tuple:
+    """A MoE layer's gate and up projections at decode, against the same x
+    [T, K] and ids [T, k]: (gather_qmm(x, wg, ids), gather_qmm(x, wu,
+    ids)). Where both launch K4 on stacks of one shape, bits and group
+    size, one launch (one prologue, one rows kernel, both outputs, each
+    bit-equal to its own call); else the two calls."""
+    same = wg.data.shape == wu.data.shape and all(
+        getattr(wg, f) == getattr(wu, f)
+        for f in ("bits", "group_size", "in_features", "act_bits"))
+    if same and _on_k4(x, wg) and _on_k4(x, wu):
+        return _k4(_aligned(x.contiguous()), wg, _ids32(ids), wu)
+    return gather_qmm(x, wg, ids), gather_qmm(x, wu, ids)

@@ -937,13 +937,172 @@ def test_k8_flags_bad_ids_and_rejects(cuda):
     torch.cuda.synchronize()
     assert torch.isnan(got[0, 1]).all() and torch.isnan(got[1, 0]).all()
     assert torch.isfinite(got[0, 0]).all() and torch.isfinite(got[1, 1]).all()
-    with pytest.raises(ValueError):                   # bf16 x
-        qm._k8(x.bfloat16(), w, bad)
+    with pytest.raises(ValueError):                   # float16 x
+        qm._k8(x.half(), w, bad)
     with pytest.raises(ValueError):                   # K not a multiple of 16
         qm._k8(torch.zeros(2, 248, device=cuda), qm.ChannelQuantizedExperts(
             w.data[:, :, :248].contiguous(), w.scale), bad)
     with pytest.raises(ValueError):                   # scale on the CPU
         qm._k8(x, qm.ChannelQuantizedExperts(w.data, w.scale.cpu()), bad)
+
+
+# ------------------------------ K4 and K8: plans, gate and up, the prologue --
+
+# (T rows, k slots, N, K) of Qwen3-30B-A3B's expert projections (gate and
+# up at 1 and 8 decode rows, down at 8 and 64 rows of one slot) and an
+# odd N that the TPU kernel refuses
+GATHER_SHAPES = [(1, 8, 768, 2048), (8, 8, 768, 2048), (8, 1, 2048, 768),
+                 (64, 1, 2048, 768), (3, 5, 100, 256)]
+GATHER_KERNELS = ["w4a8", "w8a8", "k8"]
+
+
+def _gather_case(dev, kernel, T, k, N, K, seed=0, stacks=1):
+    """Experts (``stacks`` of them), x in the type the model sends (bf16)
+    and ids for K4 at 4 or 8 bits or K8; and the kernel wrapper."""
+    E = 128
+    if kernel == "k8":
+        ws = [_channel_experts(dev, E, N, K, seed=seed + i)[0]
+              for i in range(stacks)]
+        launch = qm._k8
+    else:
+        ws = [_experts(dev, E, N, K, seed=seed + i,
+                       bits=4 if kernel == "w4a8" else 8)[0]
+              for i in range(stacks)]
+        launch = qm._k4
+    g = torch.Generator(device=dev).manual_seed(seed + 100)
+    x = torch.randn(T, K, generator=g, device=dev).bfloat16()
+    return ws, x, _ids(g, dev, E, T, k).int(), launch
+
+
+@pytest.mark.parametrize("T,k,N,K", GATHER_SHAPES)
+@pytest.mark.parametrize("kernel", GATHER_KERNELS)
+def test_gather_every_plan_gives_the_same_bits(cuda, monkeypatch, kernel,
+                                               T, k, N, K):
+    """Every (lanes, rows) template of K4's and K8's rows kernel, forced
+    through gather_plan, gives the bits of the plan's own choice: each
+    output row is summed in one order whatever the plan (K4: a lane
+    group's partial sums folded as the warp butterfly folds them; K8:
+    exact int32 sums). The plan's choice is within 1e-2 per (row, slot)
+    of the plain version (K4) or equal to it (K8)."""
+    (w,), x, ids, launch = _gather_case(cuda, kernel, T, k, N, K, seed=T)
+    if kernel == "k8" and k == 1:        # the down projection's float32 h
+        x = x.float()
+    base = launch(x, w, ids)
+    real = qm.gather_plan
+    outs = {}
+    for plan in qm.GATHER_PLANS:
+        monkeypatch.setattr(qm, "gather_plan", lambda *a, p=plan: p)
+        outs[plan] = launch(x, w, ids)
+    monkeypatch.setattr(qm, "gather_plan", real)
+    if kernel == "k8":      # on the CPU: torch._int_mm on the card takes
+        # no k * N that is not a multiple of 8 (here 5 x 100)
+        want = qm.channel_gather_qmm_reference(
+            x.cpu(), qm.ChannelQuantizedExperts(w.data.cpu(), w.scale.cpu()),
+            ids.cpu())
+    else:
+        want = qm.gather_qmm_reference(x, w, ids, act_bits=8)
+    torch.cuda.synchronize()
+    for plan, y in outs.items():
+        assert torch.equal(y, base), plan
+    if kernel == "k8":
+        assert torch.equal(base.cpu(), want)
+    else:
+        assert _row_rel(base, want) < 1e-2
+
+
+@pytest.mark.parametrize("T,k,N,K", GATHER_SHAPES)
+@pytest.mark.parametrize("kernel", GATHER_KERNELS)
+def test_gather_gate_up_one_launch_equals_two(cuda, kernel, T, k, N, K):
+    """Gate and up in one launch (one prologue, one rows kernel, two
+    stacks that are separate allocations) give each stack's single-launch
+    output bit for bit, and count one launch; the model's entries
+    gather_qmm_gate_up and channel_gather_qmm_gate_up launch it once where
+    the stacks take the kernel."""
+    (wg, wu), x, ids, launch = _gather_case(cuda, kernel, T, k, N, K,
+                                            seed=3, stacks=2)
+    key = {"w4a8": "k4", "w8a8": "k4_w8", "k8": "k8"}[kernel]
+    _build.reset_launches()
+    g, u = launch(x, wg, ids, wu)
+    assert dict(_build.LAUNCHES) == {key: 1}
+    assert torch.equal(g, launch(x, wg, ids))
+    assert torch.equal(u, launch(x, wu, ids))
+    if kernel == "k8":
+        entry, single = qm.channel_gather_qmm_gate_up, qm.channel_gather_qmm
+    else:
+        entry, single = qm.gather_qmm_gate_up, qm.gather_qmm
+    _build.reset_launches()
+    eg, eu = entry(x, wg, wu, ids.long())
+    on_kernel = kernel == "k8" or qm.expert_route(wg, T) == "k4"
+    assert sum(_build.LAUNCHES.values()) == (1 if on_kernel else 0)
+    assert torch.equal(eg, single(x, wg, ids)) and torch.equal(
+        eu, single(x, wu, ids))
+
+
+@pytest.mark.parametrize("T,k,N,K", GATHER_SHAPES)
+def test_k8_bf16_x_equals_x_widened(cuda, T, k, N, K):
+    """K8's prologue reads bf16 x and widens it exactly: the outputs on
+    bf16 x equal those on the same x as float32 bit for bit, single and
+    with gate and up in one launch."""
+    (wg, wu), x, ids, _ = _gather_case(cuda, "k8", T, k, N, K, seed=5,
+                                       stacks=2)
+    assert torch.equal(qm._k8(x, wg, ids), qm._k8(x.float(), wg, ids))
+    pair, widened = qm._k8(x, wg, ids, wu), qm._k8(x.float(), wg, ids, wu)
+    assert torch.equal(pair[0], widened[0])
+    assert torch.equal(pair[1], widened[1])
+
+
+@pytest.mark.parametrize("T,k,N,K", GATHER_SHAPES)
+@pytest.mark.parametrize("kernel", GATHER_KERNELS)
+def test_gather_consecutive_calls_read_their_own_x(cuda, kernel, T, k, N,
+                                                   K):
+    """Calls queued back to back with different x each return their own
+    x's result: a rows kernel that read the prologue's scratch (x's codes,
+    group sums, sx) before griddepcontrol.wait would read the call
+    before's. Each call alone (synchronised) is the reference; single
+    launches and gate and up in one launch, alternating."""
+    (wg, wu), x1, ids, launch = _gather_case(cuda, kernel, T, k, N, K,
+                                             seed=7, stacks=2)
+    g2 = torch.Generator(device=cuda).manual_seed(11)
+    x2 = (torch.randn(T, K, generator=g2, device=cuda) * 3).to(x1.dtype)
+    alone = {}
+    for name, x in (("x1", x1), ("x2", x2)):
+        alone[name] = (launch(x, wg, ids), launch(x, wg, ids, wu))
+        torch.cuda.synchronize()
+    queued = []
+    for name, x in (("x1", x1), ("x2", x2)) * 3:
+        queued.append((name, launch(x, wg, ids), launch(x, wg, ids, wu)))
+    torch.cuda.synchronize()
+    assert not torch.equal(alone["x1"][0], alone["x2"][0])
+    for name, single, pair in queued:
+        assert torch.equal(single, alone[name][0]), name
+        assert torch.equal(pair[0], alone[name][1][0]), name
+        assert torch.equal(pair[1], alone[name][1][1]), name
+
+
+@pytest.mark.parametrize("T,k,N,K", [(2, 2, 768, 2048), (2, 2, 2048, 768),
+                                     (2, 2, 100, 256)])
+@pytest.mark.parametrize("kernel", GATHER_KERNELS)
+def test_gather_bad_ids_write_nan_at_every_plan(cuda, monkeypatch, kernel,
+                                                T, k, N, K):
+    """An expert id outside [0, E) writes NaN to its output rows, in both
+    stacks of a gate-and-up launch and at every plan (lane groups of 8
+    lanes with 2 rows and of 16 with 4), and its neighbours stay finite
+    and equal to their own result."""
+    (wg, wu), x, _, launch = _gather_case(cuda, kernel, T, k, N, K, seed=9,
+                                          stacks=2)
+    bad = torch.tensor([[0, 128], [-1, 2]], dtype=torch.int32, device=cuda)
+    good = torch.tensor([[0, 1], [1, 2]], dtype=torch.int32, device=cuda)
+    want = launch(x, wg, good)
+    for plan in qm.GATHER_PLANS:
+        monkeypatch.setattr(qm, "gather_plan", lambda *a, p=plan: p)
+        for y in (launch(x, wg, bad), *launch(x, wg, bad, wu)):
+            torch.cuda.synchronize()
+            assert torch.isnan(y[0, 1]).all() and torch.isnan(y[1, 0]).all()
+            assert torch.isfinite(y[0, 0]).all() and torch.isfinite(
+                y[1, 1]).all()
+        y = launch(x, wg, bad)
+        assert torch.equal(y[0, 0], want[0, 0]) and torch.equal(
+            y[1, 1], want[1, 1]), plan
 
 
 # --------------------------------------------------- K5: grouped matmul -----
@@ -1085,8 +1244,9 @@ def test_k5_packed_one_hot_rows_return_dequantized(cuda, bits):
 
 
 def test_moe_block_runs_k4_k5_and_k8(cuda):
-    """A MoE layer on CUDA sends decode (M <= 8) to K4 three times (4- and
-    8-bit experts) or K8 three times (channel-int8 experts), and a prefill
+    """A MoE layer on CUDA sends decode (M <= 8) to K4 twice (4- and 8-bit
+    experts) or K8 twice (channel-int8 experts): gate and up in one
+    launch, down in another; and a prefill
     (M > 8) to K5 three times (group experts read packed, under "k5_w4"
     or "k5_w8"; no dequantize-once) or to the exact int8 all-expert pass,
     which runs torch._int_mm and no kernel of the port; bf16 experts
@@ -1098,11 +1258,11 @@ def test_moe_block_runs_k4_k5_and_k8(cuda):
     gen = torch.Generator(device=cuda).manual_seed(0)
     cases = (
         (moe.init_quantized_moe_params(gen, 256, mcfg, device=cuda),
-         {"k4": 3}, {"k5_w4": 3}),
+         {"k4": 2}, {"k5_w4": 3}),
         (moe.init_quantized_moe_params(gen, 256, mcfg, device=cuda, bits=8),
-         {"k4_w8": 3}, {"k5_w8": 3}),
+         {"k4_w8": 2}, {"k5_w8": 3}),
         (moe.init_quantized_moe_params(gen, 256, mcfg, device=cuda,
-                                       scheme="channel8"), {"k8": 3}, {}))
+                                       scheme="channel8"), {"k8": 2}, {}))
     lpd = moe.init_moe_params(gen, 256, mcfg, device=cuda)
     for lpq, decode, prefill in cases:
         for M, want in ((2, decode), (24, prefill)):

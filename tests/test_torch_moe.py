@@ -202,6 +202,47 @@ def test_gather_qmm_a8_reference_is_the_tpu_formula():
         assert _rel(got[t].float().numpy(), want[t]) < 1e-3
 
 
+@pytest.mark.parametrize("act_bits", [None, 8])
+def test_gather_qmm_gate_up_cpu_is_two_plain_calls(act_bits):
+    """gather_qmm_gate_up, the one launch for a MoE layer's gate and up
+    projections on the card, is on the CPU gather_qmm of each stack (the
+    plain version), with no launch; and it equals the JAX package as the
+    single calls do: the exact mode its CPU gather_qmm (rel < 1e-5 in
+    float32), the a8 mode the numpy transcription of _gq_kernel (per row
+    < 1e-3), on experts of the shape the TPU kernel takes (route "k4")."""
+    rng = np.random.default_rng(31)
+    E, N, K = 6, 128, 256
+    ids = np.array([[5, 1, 3], [0, 0, 5], [2, 4, 1]], np.int32)
+    x = rng.standard_normal((3, K)).astype(np.float32)
+    if act_bits is None:
+        cs = [_exact_fold_experts(rng, E, N, K, 32) for _ in range(2)]
+        wants = [jqm.gather_qmm(jnp.asarray(x), _jax_experts(c),
+                                jnp.asarray(ids)) for c in cs]
+        tws = [params_from_numpy(c, "cpu", act_bits=None) for c in cs]
+        xt = torch.from_numpy(x)
+    else:
+        x = x.astype(jnp.bfloat16).astype(np.float32)
+        jws = [jqm.quantize_experts(jnp.asarray(
+            rng.standard_normal((E, N, K)).astype(np.float32) * 0.05), 64, 4)
+            for _ in range(2)]
+        wants = [_tpu_gq_a8(x, ids, jw) for jw in jws]
+        tws = [params_from_numpy(_to_numpy(jw), "cpu", act_bits=8)
+               for jw in jws]
+        assert tqm.expert_route(tws[0], 3) == "k4"
+        xt = torch.from_numpy(x).bfloat16()
+    tids = torch.from_numpy(ids)
+    _build.reset_launches()
+    got = tqm.gather_qmm_gate_up(xt, tws[0], tws[1], tids)
+    assert sum(_build.LAUNCHES.values()) == 0
+    for g, tw, want in zip(got, tws, wants):
+        assert torch.equal(g, tqm.gather_qmm(xt, tw, tids))
+        if act_bits is None:
+            assert _rel(g.numpy(), want) < 1e-5
+        else:
+            for t in range(3):
+                assert _rel(g[t].float().numpy(), want[t]) < 1e-3
+
+
 def test_quantize_experts_matches_jax():
     """The port's expert quantizer gives the JAX package's codes and bf16
     scales exactly, and biases within the bf16 rounding of the stored fold
@@ -616,6 +657,42 @@ def test_moe_block_branch_matches_jax(branch):
     assert got.dtype == torch.float32 and tuple(got.shape) == (2, T, D)
     tol = 1e-4 if branch == "packed_prefill" else 1e-5
     assert _rel(got.numpy(), want) < tol
+
+
+@pytest.mark.parametrize("experts", ["4bit", "8bit", "channel8"])
+def test_moe_block_decode_makes_one_gate_up_call(experts, monkeypatch):
+    """moe_block's decode branch sends gate and up to one call
+    (gather_qmm_gate_up or channel_gather_qmm_gate_up: one kernel launch
+    on the card) and down to another, with the ids cast to int32 once for
+    both; its output equals the branch computed with separate gate and up
+    calls bit for bit (the JAX parity of the branch is held by
+    test_moe_block_branch_matches_jax and the 8-bit file's)."""
+    mcfg = tmoe.MoEConfig(num_experts=8, top_k=2, norm_topk_prob=True,
+                          moe_intermediate_size=32)
+    gen = torch.Generator().manual_seed(3)
+    kw = ({"scheme": "channel8"} if experts == "channel8"
+          else {"bits": 4 if experts == "4bit" else 8, "group_size": 32})
+    lp = tmoe.init_quantized_moe_params(gen, 64, mcfg, device="cpu", **kw)
+    x = torch.randn(1, 3, 64, generator=gen).bfloat16()
+    pair = ("channel_gather_qmm_gate_up" if experts == "channel8"
+            else "gather_qmm_gate_up")
+    single = ("channel_gather_qmm" if experts == "channel8"
+              else "gather_qmm")
+    calls = []
+
+    def counted(name, fn):
+        def call(*a):
+            calls.append((name, a[-1].dtype))
+            return fn(*a)
+        return call
+    monkeypatch.setattr(tmoe, pair, counted(pair, getattr(tmoe, pair)))
+    monkeypatch.setattr(tmoe, single, counted(single, getattr(tmoe, single)))
+    got = tmoe.moe_block(lp, mcfg, x)
+    assert calls == [(pair, torch.int32), (single, torch.int32)]
+    separate = getattr(tqm, single)
+    monkeypatch.setattr(tmoe, pair, lambda x, wg, wu, ids: (
+        separate(x, wg, ids), separate(x, wu, ids)))
+    assert torch.equal(got, tmoe.moe_block(lp, mcfg, x))
 
 
 # ------------------------------------------------------- 2-layer model ------

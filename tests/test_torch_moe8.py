@@ -193,6 +193,31 @@ def test_gather_qmm_8bit_a8_reference_is_the_tpu_formula():
         assert _rel(got[t].float().numpy(), want[t]) < 1e-3
 
 
+def test_gather_qmm_gate_up_8bit_cpu_is_two_plain_calls():
+    """gather_qmm_gate_up on 8-bit a8 experts is on the CPU gather_qmm of
+    each stack, with no launch, and each output is within rel 1e-3 per row
+    of the numpy transcription of _gq_kernel's bits=8 formula, on
+    experts of the shape the TPU kernel takes (route "k4")."""
+    rng = np.random.default_rng(25)
+    x = rng.standard_normal((3, 256)).astype(np.float32)
+    x = x.astype(jnp.bfloat16).astype(np.float32)
+    ids = np.array([[5, 1, 3], [0, 0, 5], [2, 4, 1]], np.int32)
+    jws = [jqm.quantize_experts(jnp.asarray(
+        rng.standard_normal((6, 128, 256)).astype(np.float32) * 0.05), 64, 8)
+        for _ in range(2)]
+    tws = [params_from_numpy(_to_numpy(jw), "cpu", act_bits=8) for jw in jws]
+    assert tqm.expert_route(tws[0], 3) == "k4"
+    xt, tids = torch.from_numpy(x).bfloat16(), torch.from_numpy(ids)
+    _build.reset_launches()
+    got = tqm.gather_qmm_gate_up(xt, tws[0], tws[1], tids)
+    assert sum(_build.LAUNCHES.values()) == 0
+    for g, tw, jw in zip(got, tws, jws):
+        assert torch.equal(g, tqm.gather_qmm(xt, tw, tids))
+        want = _tpu_gq8_a8(x, ids, jw)
+        for t in range(3):
+            assert _rel(g[t].float().numpy(), want[t]) < 1e-3
+
+
 def test_gather_qmm_float32_x_takes_the_tpu_formula():
     """float32 activations: the TPU decode kernel's prologue quantizes and
     group-sums x as it is (_gather_qmm_decode, ops/quant_matmul.py
@@ -382,6 +407,31 @@ def test_channel_experts_match_jax():
     assert int(np.abs(np.asarray(jnp.einsum(
         "td,tknd->tkn", xq, jw.data[ids],
         preferred_element_type=jnp.int32))).max()) > 2 ** 24
+
+
+def test_channel_gather_qmm_gate_up_cpu_is_two_plain_calls():
+    """channel_gather_qmm_gate_up (one K8 launch for gate and up on the
+    card) is on the CPU channel_gather_qmm of each stack bit for bit, with
+    no launch, on float32 and bf16 x, and equals the JAX package's
+    channel_gather_qmm within 1e-6 relative (the same int32 sums and
+    rescale order)."""
+    rng = np.random.default_rng(26)
+    E, N, K = 6, 40, 256
+    jws = [jqm.channel_quantize_experts(jnp.asarray(
+        rng.standard_normal((E, N, K)).astype(np.float32))) for _ in range(2)]
+    tws = [params_from_numpy(_to_numpy(jw), "cpu") for jw in jws]
+    x = rng.standard_normal((4, K)).astype(np.float32)
+    ids = np.array([[3, 0], [1, 1], [5, 4], [0, 2]], np.int32)
+    tids = torch.from_numpy(ids)
+    for xt in (torch.from_numpy(x), torch.from_numpy(x).bfloat16()):
+        _build.reset_launches()
+        got = tqm.channel_gather_qmm_gate_up(xt, tws[0], tws[1], tids)
+        assert sum(_build.LAUNCHES.values()) == 0
+        for g, tw, jw in zip(got, tws, jws):
+            assert torch.equal(g, tqm.channel_gather_qmm(xt, tw, tids))
+            want = np.asarray(jqm.channel_gather_qmm(
+                jnp.asarray(xt.float().numpy()), jw, jnp.asarray(ids)))
+            assert _rel(g.numpy(), want) < 1e-6
 
 
 # ----------------------------------------------------- moe_block branches ---
