@@ -37,7 +37,28 @@ Qwen3-30B-A3B with random weights (seeded):
     request alone (K8 at decode, the exact int8 all-expert pass at
     adoption, K3); then a bf16 cut of 8 layers: the chat requests on its
     bf16 experts (serve_moe_bf16: K5 bf16 at prefill), and
-    enable_batching(quantize_bits=8) converting it.
+    enable_batching(quantize_bits=8) converting it;
+  - serve_mistral: Mistral-7B-Instruct-v0.2 w4a8 at full width and depth,
+    the same chat requests (K1, the dq kernel, K2), logits check and
+    decode rate;
+  - serve_glm4: GLM-4-9B-0414 w4a8 at full width and depth (sandwich
+    norms, q/k/v biases, partial interleaved RoPE; down_proj on the dense
+    route, its share of the step printed), the same checks; then channel
+    w8a8 at batch 8 over a paged cache (K3 at 16 query heads a KV head,
+    every call held per (row, head) against its plain version);
+  - prefill_window: bf16 Mistral-7B-v0.1 (sliding window 4096), an
+    8192-token prefill in 2048-token chunks (K2, then K2c, each with the
+    window) against single-shot prefills through K2 and through the plain
+    versions, then decode steps on a paged cache (K3 with the window);
+  - load_checkpoint: a 2-layer GLM-4-9B-width checkpoint written in HF
+    names by the port's writer (two shards and an index), loaded onto the
+    card through models.registry (every tensor bit-equal, seconds and
+    GB/s), quantized and served one HTTP request; and the same weights as
+    an MLX 4-bit checkpoint, loaded as QuantizedTensor weights.
+
+The kernel checks include K2 and K2c with the sliding window (k2_window,
+k2c_window: T=8192 and the 8k prefill's last chunk, windows 4096 and
+4000, 8 and 2 KV heads).
 
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
@@ -91,6 +112,26 @@ K1_SHAPES = (("qkv_proj", 6144, 2560, True), ("o_proj", 2560, 4096, False),
 K2_T = (16, 128, 777, 2048)
 # (pos, Tq) of K2c: the 8k prefill's chunks at 2048 and 6144, and ragged
 K2C_SHAPES = ((2048, 2048), (6144, 2048), (128, 100), (300, 17))
+# K2 and K2c with Mistral-7B-v0.1's sliding window (4096) and one that is
+# not a multiple of the 128-key tile: K2 over an 8192-token prompt, K2c
+# on the 8k prefill's last chunk
+K2W_T = 8192
+K2W_WINDOWS = (4096, 4000)
+K2CW_POS_T = (6144, 2048)
+# HF config.json widths of Mistral-7B (v0.1 and Instruct-v0.2 differ only
+# in rope_theta and sliding_window; bench.py:49-52) and GLM-4-9B-0414
+# (bench.py:55-59)
+MISTRAL_7B_HF = {"model_type": "mistral", "vocab_size": 32000,
+                 "hidden_size": 4096, "num_hidden_layers": 32,
+                 "num_attention_heads": 32, "num_key_value_heads": 8,
+                 "head_dim": 128, "intermediate_size": 14336,
+                 "rms_norm_eps": 1e-5, "tie_word_embeddings": False}
+GLM4_9B_HF = {"model_type": "glm4", "vocab_size": 151552, "hidden_size": 4096,
+              "num_hidden_layers": 40, "num_attention_heads": 32,
+              "num_key_value_heads": 2, "head_dim": 128,
+              "intermediate_size": 13696, "partial_rotary_factor": 0.5,
+              "attention_bias": True, "rope_theta": 10000.0,
+              "rms_norm_eps": 1e-5, "tie_word_embeddings": False}
 K3_LENGTHS = (1, 127, 128, 129, 700, 1500, 2047, 2048)
 # (name, lengths, pages per row) of K3's timed shapes, Qwen3-4B heads at
 # page 128: the ragged batch of 8, a uniform batch of 8 x 2048, and one
@@ -200,7 +241,10 @@ MOE_W8A8_LOGITS_TOL = 0.1
 # order and cuBLAS gave the same rows at M=2048 and M=8192); the limit
 # leaves room for a GEMM that sums the two M's in another order
 PREFILL_TOL = 1e-2
-# paged (K3) vs dense (sdpa) first decode step, bf16 through 36 layers
+# paged (K3) vs dense (sdpa) first decode step, w8a8 channel8 Qwen3-4B
+# through 36 layers (read 2.09e-2 on the H100) and bf16 GLM-4-9B through 40
+# (glm4_paged_witness); w8a8 channel8 GLM-4-9B is held at
+# ROWS_A8_LOGITS_TOL (a8 at every row, as there)
 PAGED_TOL = 5e-2
 PREFILL_LEN, PREFILL_CHUNK = 8192, 2048
 BATCH = 8
@@ -686,32 +730,37 @@ def k3_pools(g, dev, B, MP, quant, Hkv=8, D=128, ps=128):
 
 
 def k3_cases():
-    """(shape, lengths, pages per row, mode, window) of every K3 row."""
+    """(shape, lengths, pages per row, mode, window, KV heads) of every K3
+    row: Qwen3-4B's 8 KV heads at every K3_SHAPES shape, and GLM-4-9B's 2
+    (16 query heads a KV head) on the ragged batch."""
     for name, lengths, MP in K3_SHAPES:
         for mode in ("bf16", "int8"):
-            yield name, lengths, MP, mode, 0
+            yield name, lengths, MP, mode, 0, 8
         if name == "B8_ragged":
-            yield name, lengths, MP, "bf16", 512
+            yield name, lengths, MP, "bf16", 512, 8
+            for mode in ("bf16", "int8"):
+                yield name + "_glm4", lengths, MP, mode, 0, 2
 
 
 def check_k3(dev, flush):
     """K3 against paged_decode_reference at Qwen3-4B's heads (H=32, Hkv=8,
     D=128, page 128), shuffled tables, at every K3_SHAPES shape: bf16 and
-    int8 pages, and a 512-token window on the ragged batch. Held per (row,
-    head); the same bits on a second launch."""
+    int8 pages, and a 512-token window on the ragged batch; and at
+    GLM-4-9B's (Hkv=2) on the ragged batch. Held per (row, head); the same
+    bits on a second launch."""
     from ominix_mlx_tpu_torch.ops import paged_attention as pa
 
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    H, Hkv, D, ps = 32, 8, 128, 128
+    H, D, ps = 32, 128, 128
     rows = []
     pools = {}
-    for name, lengths, MP, mode, window in k3_cases():
+    for name, lengths, MP, mode, window, Hkv in k3_cases():
         B = len(lengths)
         key = (name, mode)
         if key not in pools:
             pools.clear()
             torch.cuda.empty_cache()
-            pools[key] = k3_pools(g, dev, B, MP, mode == "int8")
+            pools[key] = k3_pools(g, dev, B, MP, mode == "int8", Hkv)
         kp, vp, kscale, vscale, table = pools[key]
         q = torch.randn(B, H, D, generator=g, device=dev).bfloat16()
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -744,7 +793,9 @@ def check_k3(dev, flush):
         read_ms = time_ms(lambda: (k32.max(), v32.max()), 20, flush)
         row = {"shape": name, "mode": mode, "window": window, "B": B,
                "tokens": toks, "H": H, "Hkv": Hkv, "D": D, "page": ps,
-               "splits": pa.k3_plan(B, Hkv, 1, MP, ps).splits,
+               "splits": pa.k3_plan(
+                   B, Hkv, H // Hkv // pa._rows_per_cta(H // Hkv), MP,
+                   ps).splits,
                "max_abs_err": d, "rel_err": rel, "row_rel_err": row_rel,
                "bitwise_repeatable": bool(torch.equal(got, again)),
                "ms": ms, "plain_ms": plain, "us": ms * 1e3,
@@ -1467,15 +1518,20 @@ def compare_k5(plib, dev, flush):
 class ByteTokenizer:
     """Byte-level tokenizer: UTF-8 bytes are ids 0..255, the ChatML role
     words are one id each (as in Qwen's vocabulary), and Qwen3's special
-    ids mark the turns. Any other id decodes as ``<id>``."""
+    ids mark the turns; a vocabulary too small for those (Mistral's 32000,
+    GLM-4's 151552) takes ids 259-261 for them. Any other id decodes as
+    ``<id>``."""
 
     SPECIAL = {"<|endoftext|>": 151643, "<|im_start|>": 151644,
                "<|im_end|>": 151645, "user": 256, "assistant": 257,
                "system": 258}
-    eos_token_id = 151645
     _split = re.compile("(" + "|".join(re.escape(s) for s in SPECIAL) + ")")
 
-    def __init__(self):
+    def __init__(self, vocab_size: int = 151936):
+        if vocab_size <= max(self.SPECIAL.values()):
+            self.SPECIAL = {**self.SPECIAL, "<|endoftext|>": 259,
+                            "<|im_start|>": 260, "<|im_end|>": 261}
+        self.eos_token_id = self.SPECIAL["<|im_end|>"]
         self._names = {v: k for k, v in self.SPECIAL.items()}
 
     def encode(self, text):
@@ -1696,15 +1752,17 @@ def control_args(transform):
     return args
 
 
-def serve_requests(dev, cfg, params, name, keys):
+def serve_requests(dev, cfg, params, name, keys, module=None):
     """Four HTTP chat requests through Server + ChatModel, one at a time:
     short, long (256 bucket), streamed, and short again. Returns
     ({request: row}, launch counts of the whole run); each row holds the
     launches of ``keys`` in that request."""
+    from ominix_mlx_tpu_torch.models import base
     from ominix_mlx_tpu_torch.ops import _build
     from ominix_mlx_tpu_torch.serving.server import ChatModel, Server
 
-    model = ChatModel(name, params, cfg, ByteTokenizer(), dev)
+    model = ChatModel(name, params, cfg, ByteTokenizer(cfg.vocab_size), dev,
+                      module or base)
     port = free_port()
     srv = Server(port=port)
     srv.add_model(name, model)
@@ -1748,14 +1806,17 @@ def serve_requests(dev, cfg, params, name, keys):
 
 
 def serve_main_path(dev, cfg, params, phase="serve", name="qwen3-4b",
-                    w8=""):
+                    w8="", panel_projections=4, module=None):
     """Qwen3-4B w4a8 (or, with w8="_w8", w8a8) on panels: every decode
-    token runs K1 at M=1 for 4 projections a layer and the lm_head; the
-    16-token bucket's prefill K1 at M=16 (the dq formula)."""
+    token runs K1 at M=1 for ``panel_projections`` projections a layer
+    (qkv, o, gate_up, down: 4; GLM-4-9B's down_proj takes the dense route:
+    3) and the lm_head; the 16-token bucket's prefill K1 at M=16 (the dq
+    formula)."""
     layers = cfg.num_layers
-    per_token = 4 * layers + 1
+    per_token = panel_projections * layers + 1
     m1, mn = "k1_m1" + w8, "k1_mn" + w8
-    results, counts = serve_requests(dev, cfg, params, name, (m1, mn, "k2"))
+    results, counts = serve_requests(dev, cfg, params, name, (m1, mn, "k2"),
+                                     module)
     for req, row in results.items():
         n_out, delta = row["completion_tokens"], row["launches"]
         if delta[m1] < per_token * (n_out - 1):
@@ -2119,12 +2180,87 @@ def prefill_chunked_path(dev, cfg, params, profiled=False):
     return launches
 
 
-def batch_decode(dev, cfg, params, short=32, long=128):
+def prefill_kv(layer, T: int):
+    """The first T positions of a layer's cache as [B, Hkv, T, D] (K, V):
+    a dense cache's slice, or a paged pool gathered through its table."""
+    if not hasattr(layer, "k_pool"):
+        return layer.k[:, :, :T].clone(), layer.v[:, :, :T].clone()
+    pages = -(-T // layer.k_pool.shape[2])
+    table = layer.page_table[:, :pages].long()
+
+    def gather(pool):
+        B, Hkv, D = table.shape[0], pool.shape[1], pool.shape[3]
+        rows = pool[table].permute(0, 2, 1, 3, 4)
+        return rows.reshape(B, Hkv, -1, D)[:, :, :T]
+
+    return gather(layer.k_pool), gather(layer.v_pool)
+
+
+def paged_first_step(dev, cfg, params, prompt):
+    """The first decode step after ``prompt``'s prefill, over a dense cache
+    (sdpa) and over init_paged_cache (K3). The paged pool must hold, after
+    the prefill, the dense cache's K/V bit for bit in every layer (the
+    same prefill kernels write both, so a wrong page write shows here,
+    which K3's per-call checks on the same pool cannot see). Every K3 call
+    of the paged step is held against its plain version on the same inputs
+    per (row, head), as check_k3 holds K3 (K3_TOL). Returns the step's
+    logits rel error (max |paged - dense| over max |dense|) and the K3
+    calls' errors."""
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.ops import paged_attention as pa
+
+    eng = engine_for(cfg, params)
+    B, T = prompt.shape
+    k3_calls, real_k3 = [], pa._k3
+
+    def checked_k3(q, kp, vp, table, lens, scale, window, ks, vs):
+        out = real_k3(q, kp, vp, table, lens, scale, window, ks, vs)
+        want = pa.paged_decode_reference(q, kp, vp, table, lens, scale,
+                                         window=window, k_scale=ks,
+                                         v_scale=vs)
+        k3_calls.append(row_rel_err(out, want))
+        return out
+
+    def first_step(paged):
+        cache = (base.init_paged_cache(cfg, B, 1024, device=dev) if paged
+                 else base.init_cache(cfg, B, 1024, device=dev))
+        with torch.inference_mode():
+            logits, cache = eng.prefill(prompt, cache)
+            kv = [prefill_kv(lc, T) for lc in cache.layers]
+            tok = logits.argmax(-1, keepdim=True)
+            step, _ = base.forward(params, cfg, tok, cache)
+        return step[:, -1].float(), kv
+
+    dense, dense_kv = first_step(False)
+    pa._k3 = checked_k3
+    try:
+        paged, paged_kv = first_step(True)
+    finally:
+        pa._k3 = real_k3
+    if dense.shape != (B, cfg.vocab_size) \
+            or not torch.isfinite(paged).all():
+        raise RuntimeError(f"bad decode logits {tuple(paged.shape)}")
+    for i, (d, p) in enumerate(zip(dense_kv, paged_kv)):
+        if not (torch.equal(d[0], p[0]) and torch.equal(d[1], p[1])):
+            raise RuntimeError(f"layer {i}: the paged pool after the "
+                               f"prefill differs from the dense cache")
+    if len(k3_calls) != cfg.num_layers or not max(k3_calls) < K3_TOL:
+        raise RuntimeError(f"K3 against its plain version on the decode "
+                           f"step's inputs: {len(k3_calls)} calls, max "
+                           f"{max(k3_calls)} of a (row, head)'s max |plain|")
+    rel = ((paged - dense).abs().max() / dense.abs().max()).item()
+    return rel, k3_calls
+
+
+def batch_decode(dev, cfg, params, short=32, long=128, config="Qwen3-4B",
+                 logits_tol=PAGED_TOL):
     """w8a8 Qwen3-4B decode at batch 8 after a 128-token prompt, aggregate
     tok/s by bench.py's difference quotient (generate_scan of `long` vs
     `short` tokens, best of 2), over a dense cache and over
-    init_paged_cache (K3); then the first decode step's logits, paged vs
-    dense, and how many greedy tokens the two runs share."""
+    init_paged_cache (K3); then the first decode step, paged vs dense
+    (paged_first_step: the pool bit-equal to the dense cache, each K3 call
+    against its plain version), its logits held at ``logits_tol``, and how
+    many greedy tokens the two runs share."""
     from ominix_mlx_tpu_torch.models import base
     from ominix_mlx_tpu_torch.ops import _build
 
@@ -2133,13 +2269,9 @@ def batch_decode(dev, cfg, params, short=32, long=128):
     prompt = torch.randint(0, cfg.vocab_size, (BATCH, 128), generator=g,
                            device=dev)
 
-    def cache_for(paged):
-        if paged:
-            return base.init_paged_cache(cfg, BATCH, 1024, device=dev)
-        return base.init_cache(cfg, BATCH, 1024, device=dev)
-
     def run(n, paged):
-        cache = cache_for(paged)
+        cache = (base.init_paged_cache(cfg, BATCH, 1024, device=dev) if paged
+                 else base.init_cache(cfg, BATCH, 1024, device=dev))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks, _ = eng.generate_scan(prompt, cache, max_tokens=n)
@@ -2162,27 +2294,19 @@ def batch_decode(dev, cfg, params, short=32, long=128):
         raise RuntimeError(f"paged decode launched {launches['paged']}")
     if launches["dense"].get("k3", 0):
         raise RuntimeError("dense decode launched K3")
-
-    def first_step(paged):
-        cache = cache_for(paged)
-        with torch.inference_mode():
-            logits, cache = eng.prefill(prompt, cache)
-            tok = logits.argmax(-1, keepdim=True)
-            step, _ = base.forward(params, cfg, tok, cache)
-        return step[:, -1].float()
-
-    dense, paged = first_step(False), first_step(True)
-    if dense.shape != (BATCH, cfg.vocab_size) \
-            or not torch.isfinite(paged).all():
-        raise RuntimeError(f"bad decode logits {tuple(paged.shape)}")
-    rel = ((paged - dense).abs().max() / dense.abs().max()).item()
+    rel, k3_calls = paged_first_step(dev, cfg, params, prompt)
     same = int((toks["paged"] == toks["dense"]).sum())
-    emit({"phase": "batch_decode", "weights": "w8a8 channel8", "batch": BATCH,
+    emit({"phase": "batch_decode", "config": config,
+          "weights": "w8a8 channel8", "batch": BATCH,
           "prompt": 128, **{f"{k}_{m}": v for k, d in out.items()
                             for m, v in d.items()},
           "launches": launches, "first_step_rel_err_paged_vs_dense": rel,
+          "first_step_limit": logits_tol, "pool_equals_dense_cache": True,
+          "k3_calls_checked": len(k3_calls),
+          "k3_per_call_max_row_rel_err": max(k3_calls),
+          "per_call_limit": K3_TOL,
           "greedy_tokens_equal": same, "greedy_tokens": toks["dense"].numel()})
-    if not rel < PAGED_TOL:
+    if not rel < logits_tol:
         raise RuntimeError(f"paged vs dense decode logits rel {rel}")
     return launches["paged"]
 
@@ -2536,8 +2660,8 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
 
     c2 = dataclasses.replace(cfg, num_layers=2)
     p2 = {**params, "layers": params["layers"][:2]}
-    prompt = torch.tensor(ByteTokenizer().encode("Hello there"),
-                          device=dev)
+    prompt = torch.tensor(ByteTokenizer(cfg.vocab_size).encode(
+        "Hello there"), device=dev)
 
     routes, route = [], moe.route
 
@@ -2930,6 +3054,601 @@ def profile_prefill16(dev, cfg, params, T: int = 16):
             "top_device": top_kernels(by_name, busy_us, 8)}
 
 
+# ------------------------------------------------- sliding window (K2) -----
+
+def window_pairs(q_pos0: int, T: int, window: int) -> int:
+    """Visible (query, key) pairs of T queries at positions q_pos0..: query
+    p sees min(p + 1, window) keys (all p + 1 without a window)."""
+    p = torch.arange(q_pos0, q_pos0 + T, dtype=torch.float64) + 1
+    if window:
+        p = p.clamp(max=window)
+    return int(p.sum().item())
+
+
+def window_mask(q_pos0: int, T: int, S: int, window: int, dev):
+    """[T, S] bool of visible keys (the plain versions' rule) for sdpa."""
+    from ominix_mlx_tpu_torch.ops import flash_attention as fa
+    return fa.visible(q_pos0 + torch.arange(T, device=dev),
+                      torch.arange(S, device=dev), window)
+
+
+def check_k2_window(dev, flush):
+    """K2 with Mistral's sliding window at T=8192, windows 4096 and 4000
+    (not a multiple of the 128-key tile), at 32 query heads over 8 KV heads
+    (Mistral-7B) and over 2 (GLM-4-9B's grouping), D=128, against the
+    plain version; bound: the windowed pairs' FLOPs over the bf16 peak;
+    library: sdpa with the boolean window mask."""
+    from ominix_mlx_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    rows = []
+    T, H, D = K2W_T, 32, 128
+    scale = D ** -0.5
+    for Hkv in (8, 2):
+        q = torch.randn(1, H, T, D, generator=g, device=dev).bfloat16()
+        k = torch.randn(1, Hkv, T, D, generator=g, device=dev).bfloat16()
+        v = torch.randn(1, Hkv, T, D, generator=g, device=dev).bfloat16()
+        for window in K2W_WINDOWS:
+            out, lse = fa._k2(q, k, v, scale, window)
+            want, want_lse = fa.flash_prefill_reference(q, k, v, scale,
+                                                        window)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+                raise RuntimeError(f"K2 window={window}: non-finite")
+            d = (out.float() - want.float()).abs().max().item()
+            rel = d / max(want.float().abs().max().item(), 1e-12)
+            dl = (lse - want_lse).abs().max().item()
+            del want, want_lse
+            ms = time_ms(lambda: fa._k2(q, k, v, scale, window), 10, flush)
+            plain = time_ms(lambda: fa.flash_prefill_reference(
+                q, k, v, scale, window), 2, flush)
+            mask = window_mask(0, T, T, window, dev)
+            lib, lib_err = time_library(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale, enable_gqa=True),
+                10, flush)
+            del mask
+            flop = 4 * H * D * window_pairs(0, T, window)
+            row = {"T": T, "H": H, "Hkv": Hkv, "D": D, "window": window,
+                   "max_abs_err": d, "rel_err": rel, "lse_max_abs_err": dl,
+                   "ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "library": "F.scaled_dot_product_attention(attn_mask="
+                              "window, enable_gqa=True)",
+                   "library_error": lib_err, "TFLOPs": flop / ms / 1e9,
+                   **bound(2 * D * T * (2 * H + 2 * Hkv) + 4 * H * T, flop,
+                           "bf16")}
+            row.update(versus(row))
+            emit({"phase": "k2_window", **row})
+            if not (rel < K2_TOL and dl < K2_LSE_TOL):
+                raise RuntimeError(f"K2 window={window} Hkv={Hkv}: rel "
+                                   f"error {rel}, lse {dl}")
+            rows.append(row)
+            torch.cuda.empty_cache()
+        del q, k, v
+    return rows
+
+
+def check_k2c_window(dev, flush):
+    """K2c with the window: the 8k prefill's last chunk (pos=6144,
+    Tq=2048) over the strided prefix of a capacity-sized cache, windows
+    4096 and 4000, Hkv 8 and 2, against the plain version. The kernel
+    reads no key tile below the first one a chunk row sees (keys from
+    pos - window + 1 on)."""
+    from ominix_mlx_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    rows = []
+    pos, T = K2CW_POS_T
+    H, D = 32, 128
+    scale = D ** -0.5
+    cap = PREFILL_LEN + 64
+    for Hkv in (8, 2):
+        kc = torch.randn(1, Hkv, cap, D, generator=g, device=dev).bfloat16()
+        vc = torch.randn(1, Hkv, cap, D, generator=g, device=dev).bfloat16()
+        q = torch.randn(1, H, T, D, generator=g, device=dev).bfloat16()
+        k, v = kc[:, :, :pos + T], vc[:, :, :pos + T]
+        for window in K2W_WINDOWS:
+            out, lse = fa._k2c(q, k, v, pos, scale, window)
+            want, want_lse = fa.flash_chunk_reference(q, k, v, pos, scale,
+                                                      window)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+                raise RuntimeError(f"K2c window={window}: non-finite")
+            d = (out.float() - want.float()).abs().max().item()
+            rel = d / max(want.float().abs().max().item(), 1e-12)
+            dl = (lse - want_lse).abs().max().item()
+            del want, want_lse
+            ms = time_ms(lambda: fa._k2c(q, k, v, pos, scale, window), 10,
+                         flush)
+            plain = time_ms(lambda: fa.flash_chunk_reference(
+                q, k, v, pos, scale, window), 3, flush)
+            mask = window_mask(pos, T, pos + T, window, dev)
+            lib, lib_err = time_library(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale, enable_gqa=True),
+                10, flush)
+            del mask
+            flop = 4 * H * D * window_pairs(pos, T, window)
+            keys = pos + T - max(0, pos - window + 1)   # keys any row sees
+            row = {"pos": pos, "T": T, "H": H, "Hkv": Hkv, "D": D,
+                   "window": window, "max_abs_err": d, "rel_err": rel,
+                   "lse_max_abs_err": dl, "ms": ms, "plain_ms": plain,
+                   "library_ms": lib,
+                   "library": "F.scaled_dot_product_attention(attn_mask="
+                              "shifted window, enable_gqa=True)",
+                   "library_error": lib_err, "TFLOPs": flop / ms / 1e9,
+                   **bound(2 * D * (2 * H * T + 2 * Hkv * keys) + 4 * H * T,
+                           flop, "bf16")}
+            row.update(versus(row))
+            emit({"phase": "k2c_window", **row})
+            if not (rel < K2_TOL and dl < K2_LSE_TOL):
+                raise RuntimeError(f"K2c window={window} Hkv={Hkv}: rel "
+                                   f"error {rel}, lse {dl}")
+            rows.append(row)
+            torch.cuda.empty_cache()
+        del kc, vc, q, k, v
+    return rows
+
+
+# -------------------------------------------------- Mistral and GLM-4 ------
+
+def mistral_7b_instruct_v02():
+    """Mistral-7B-Instruct-v0.2 (HF config.json; bench.py:49-52): no
+    sliding window, rope_theta 1e6, rms_norm_eps 1e-5."""
+    from ominix_mlx_tpu_torch.models import mistral
+    return mistral.config_from_hf(dict(MISTRAL_7B_HF, rope_theta=1e6,
+                                       sliding_window=None))
+
+
+def mistral_7b_v01():
+    """Mistral-7B-v0.1 (HF config.json of mistralai/Mistral-7B-v0.1):
+    sliding_window 4096, rope_theta 1e4."""
+    from ominix_mlx_tpu_torch.models import mistral
+    return mistral.config_from_hf(dict(MISTRAL_7B_HF, rope_theta=10000.0,
+                                       sliding_window=4096))
+
+
+def glm4_9b():
+    """GLM-4-9B-0414 (HF config.json; bench.py:55-59): 2 KV heads, partial
+    interleaved RoPE over half of each head, q/k/v biases, sandwich norms,
+    rms_norm_eps 1e-5."""
+    from ominix_mlx_tpu_torch.models import glm4
+    return glm4.config_from_hf(GLM4_9B_HF)
+
+
+def glm4_layer_extras(params, cfg, g, dev):
+    """Give a GLM-4 tree made by init_*params what a checkpoint brings
+    through glm4.params_from_flat: unit sandwich norms and q/k/v biases
+    (random, so the fused biases are exercised)."""
+    for lp in params["layers"]:
+        for n in ("post_self_attn_layernorm", "post_mlp_layernorm"):
+            lp[n] = torch.ones(cfg.hidden_size, dtype=torch.bfloat16,
+                               device=dev)
+        for n in ("q_proj", "k_proj", "v_proj"):
+            rows = (cfg.num_heads if n == "q_proj"
+                    else cfg.num_kv_heads) * cfg.hd
+            lp[n]["b"] = (torch.randn(rows, generator=g, device=dev)
+                          * 0.1).bfloat16()
+    return params
+
+
+def serve_family(dev, smi, cfg, name, family, seed, panel_projections,
+                 profile=False, rate_tokens=(32, 96)):
+    """A full-width, full-depth w4a8 g64 model from init_quantized_params
+    plus fuse_layer_projections: 4 HTTP chat requests one at a time (K1,
+    the dq kernel, K2), the kernel-vs-plain logits check on a 2-layer cut,
+    the batch-1 decode rate (and with ``profile`` a profile line of batch-1
+    decode steps). Returns the launches, the params and the rate."""
+    from ominix_mlx_tpu_torch.models import base
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = base.init_quantized_params(cfg, gen, GS, 4, act_bits=8,
+                                        device=dev)
+    if family.__name__.endswith("glm4"):
+        params = glm4_layer_extras(params, cfg, gen, dev)
+    params = base.fuse_layer_projections(params)
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": name, "weights": "w4a8 g64",
+          "layers": cfg.num_layers,
+          "init_seconds": time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    counts = serve_main_path(dev, cfg, params, "serve_" + name.lower(),
+                             name.lower(), panel_projections=panel_projections,
+                             module=family)
+    check_logits(dev, cfg, params, name)
+    rate = decode_rate(dev, cfg, params, *rate_tokens)
+    emit({**rate, "config": name, "weights": "w4a8 g64", "card": smi})
+    if profile:
+        emit({**profile_decode(dev, cfg, params), "config": name,
+              "weights": "w4a8 g64", "card": smi})
+    return counts, params, rate
+
+
+def dense_route_share(dev, cfg, params, rate, smi):
+    """GLM-4-9B's down_proj (K = 13696: K/2 is not a multiple of 128, so
+    neither panels nor the row-major kernels take it, as on the TPU)
+    takes route "dense": the whole weight dequantized, then cuBLAS, each
+    call. Its time at one row, and its share of the decode step (one a
+    layer)."""
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    w = params["layers"][0]["down_proj"]["w"]
+    if qm.route(w, 1) != "dense":
+        raise RuntimeError(f"GLM-4 down_proj takes {qm.route(w, 1)!r}")
+    buf = torch.zeros(256 << 20, dtype=torch.uint8, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    x = torch.randn(1, w.in_features, generator=g, device=dev).bfloat16()
+    ms = time_ms(lambda: qm.quantized_matmul(x, w), 10, l2_flush(buf))
+    step_ms = rate["ms_per_token"]
+    emit({"phase": "glm4_dense_down_proj", "N": w.data.shape[0],
+          "K": w.in_features, "route": "dense", "ms": ms,
+          "calls_per_token": cfg.num_layers, "decode_ms_per_token": step_ms,
+          "share_of_decode_step": cfg.num_layers * ms / step_ms,
+          "card": smi})
+
+
+def serve_mistral(dev, smi, profile=False):
+    """serve_mistral: Mistral-7B-Instruct-v0.2 w4a8 at full width and
+    depth through the Mistral module."""
+    from ominix_mlx_tpu_torch.models import mistral
+
+    counts, params, _ = serve_family(dev, smi, mistral_7b_instruct_v02(),
+                                     "Mistral-7B", mistral, SEED + 24, 4,
+                                     profile)
+    del params
+    free_device_memory()
+    return counts
+
+
+def serve_glm4(dev, smi, profile=False):
+    """serve_glm4: GLM-4-9B-0414 w4a8 at full width and depth (sandwich
+    norms, q/k/v biases fused into qkv_proj, down_proj on the dense
+    route), the dense route's share of the step; then channel w8a8 at
+    batch 8 over a dense and a paged cache (K3 at 16 query heads a KV
+    head), and glm4_paged_witness."""
+    from ominix_mlx_tpu_torch.models import base, glm4
+
+    cfg = glm4_9b()
+    counts, params, rate = serve_family(dev, smi, cfg, "GLM-4-9B", glm4,
+                                        SEED + 25, 3, profile, (16, 48))
+    dense_route_share(dev, cfg, params, rate, smi)
+    del params
+    free_device_memory()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    params = base.fuse_layer_projections(glm4_layer_extras(
+        base.init_quantized_params(cfg, gen, device=dev, scheme="channel8"),
+        cfg, gen, dev))
+    paged = batch_decode(dev, cfg, params, 8, 24, config="GLM-4-9B",
+                         logits_tol=ROWS_A8_LOGITS_TOL)
+    del params
+    free_device_memory()
+    glm4_paged_witness(dev, cfg, smi)
+    return {k: counts.get(k, 0) + paged.get(k, 0)
+            for k in set(counts) | set(paged)}
+
+
+def glm4_paged_witness(dev, cfg, smi):
+    """GLM-4-9B's paged vs dense first decode step (paged_first_step) on
+    other weights than batch_decode's: a bf16 tree (no int8 activations)
+    held at PAGED_TOL, then its channel w8a8 copy (quantize_params) held
+    at ROWS_A8_LOGITS_TOL, as batch_decode holds GLM-4-9B. The two read
+    the same weights, so the gap between them is what per-token int8
+    activations add to K3's rounding through 40 layers."""
+    from ominix_mlx_tpu_torch.models import base
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    bf16 = glm4_layer_extras(base.init_params(cfg, gen, torch.bfloat16,
+                                              device=dev), cfg, gen, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, 128), generator=g,
+                           device=dev)
+    row = {"phase": "glm4_paged_witness", "config": "GLM-4-9B",
+           "batch": BATCH, "prompt": 128}
+    for weights, limit in (("bf16", PAGED_TOL),
+                           ("w8a8 channel8", ROWS_A8_LOGITS_TOL)):
+        params = bf16 if weights == "bf16" else base.fuse_layer_projections(
+            base.quantize_params(bf16, scheme="channel8"))
+        rel, k3_calls = paged_first_step(dev, cfg, params, prompt)
+        row[weights] = {"first_step_rel_err_paged_vs_dense": rel,
+                        "limit": limit,
+                        "k3_per_call_max_row_rel_err": max(k3_calls)}
+        if not rel < limit:
+            emit({**row, "card": smi})
+            raise RuntimeError(f"GLM-4-9B {weights}: paged vs dense decode "
+                               f"logits rel {rel}")
+    emit({**row, "pool_equals_dense_cache": True, "card": smi})
+    del bf16, params
+    free_device_memory()
+
+
+def prefill_window(dev, smi):
+    """prefill_window: bf16 Mistral-7B-v0.1 (sliding window 4096) at full
+    width and depth, an 8192-token prompt in 2048-token chunks: chunk 0
+    through K2 and chunks 1-3 through K2c, each with the window. The last
+    token's logits held against a single-shot prefill through K2 with
+    prefill_chunked's limit (PREFILL_TOL; K2c walks a row's key tiles in
+    K2's order, so it reads 0.0), and against a single-shot prefill
+    through the plain versions (the attention's plain version with the
+    window) at LOGITS_TOL, the limit of K2 against its plain version (K2
+    rounds its softmax weights to bf16, as the TPU kernel does; through 32
+    layers that reads 1.09e-2 on the H100, above PREFILL_TOL), the argmax
+    equal in both; the control "no window" (the plain single shot with the window
+    left out) must read at least LOGITS_TOL (0.49 on the H100). Then 3
+    decode steps on a paged cache after the chunked prefill (K3 with the window) against the same steps on the
+    dense cache (the masked sdpa)."""
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.ops import _build
+
+    cfg = mistral_7b_v01()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    params = base.fuse_layer_projections(base.init_params(
+        cfg, gen, torch.bfloat16, device=dev))
+    emit({"phase": "model", "config": "Mistral-7B-v0.1", "weights": "bf16",
+          "sliding_window": cfg.sliding_window,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    prompt = torch.randint(0, cfg.vocab_size, (1, PREFILL_LEN),
+                           generator=gen, device=dev)
+    cap = PREFILL_LEN + 128
+
+    def run(c, chunked=True, paged=False):
+        eng = engine_for(c, params)
+        cache = (base.init_paged_cache(c, 1, cap, device=dev) if paged
+                 else base.init_cache(c, 1, cap, device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            if chunked:
+                last, cache = eng.prefill_chunked(prompt, cache,
+                                                  chunk_size=PREFILL_CHUNK)
+            else:
+                last, cache = eng.prefill(prompt, cache)
+        torch.cuda.synchronize()
+        return last.float(), time.perf_counter() - t0, cache
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    _build.reset_launches()
+    got, t_first, dense_cache = run(cfg)
+    launches = dict(_build.LAUNCHES)
+    L, n_chunks = cfg.num_layers, PREFILL_LEN // PREFILL_CHUNK
+    want_counts = {"k2": L, "k2_window": L, "k2c": L * (n_chunks - 1),
+                   "k2c_window": L * (n_chunks - 1)}
+    if any(launches.get(k) != n for k, n in want_counts.items()):
+        raise RuntimeError(f"windowed chunked prefill launched {launches}, "
+                           f"want {want_counts}")
+    seconds = min(run(cfg)[1] for _ in range(2))
+    single, t_single, _ = run(cfg, chunked=False)
+    with plain_kernels():
+        plain, t_plain, _ = run(cfg, chunked=False)
+        no_window, _, _ = run(dataclasses.replace(cfg, sliding_window=None),
+                              chunked=False)
+    # decode after the chunked prefill: paged (K3, window) vs dense (sdpa)
+    _build.reset_launches()
+    _, _, paged_cache = run(cfg, paged=True)
+    # both caches are fed the dense run's greedy tokens
+    feed = [got.argmax(-1, keepdim=True)]
+    steps = {"dense": [], "paged": []}
+    k3_before = _build.LAUNCHES["k3"]
+    with torch.inference_mode():
+        for kind, cache in (("dense", dense_cache), ("paged", paged_cache)):
+            for i in range(3):
+                lg, cache = base.forward(params, cfg, feed[i], cache)
+                steps[kind].append(lg[:, -1].float())
+                if kind == "dense":
+                    feed.append(steps[kind][-1].argmax(-1, keepdim=True))
+    k3 = _build.LAUNCHES["k3"] - k3_before
+    step_rel = max(rel(p, d) for p, d in zip(steps["paged"],
+                                             steps["dense"]))
+    row = {"phase": "prefill_window", "config": "Mistral-7B-v0.1",
+           "window": cfg.sliding_window, "prompt": PREFILL_LEN,
+           "chunk": PREFILL_CHUNK, "launches": launches,
+           "tok_s": PREFILL_LEN / seconds, "seconds": seconds,
+           "first_run_seconds": t_first, "single_shot_seconds": t_single,
+           "plain_single_shot_seconds": t_plain,
+           "rel_err_vs_plain_single_shot": rel(got, plain),
+           "argmax_equal": int(got.argmax()) == int(plain.argmax()),
+           "rel_err_vs_kernel_single_shot": rel(got, single),
+           "rel_err_control_no_window": rel(no_window, plain),
+           "decode_k3_launches": k3,
+           "decode_rel_err_paged_vs_dense": step_rel, "card": smi}
+    emit(row)
+    if got.shape != (1, cfg.vocab_size) or not torch.isfinite(got).all():
+        raise RuntimeError(f"bad windowed logits {tuple(got.shape)}")
+    if not (row["rel_err_vs_kernel_single_shot"] < PREFILL_TOL
+            and row["rel_err_vs_plain_single_shot"] < LOGITS_TOL
+            and row["argmax_equal"]):
+        raise RuntimeError(f"windowed chunked prefill: {row}")
+    if not row["rel_err_control_no_window"] >= LOGITS_TOL:
+        raise RuntimeError("the window does not move the logits: the "
+                           "check cannot see a kernel that ignores it")
+    if k3 != 3 * L or not step_rel < PAGED_TOL:
+        raise RuntimeError(f"windowed paged decode: K3 {k3}, rel {step_rel}")
+    counts = dict(launches)
+    counts["k3"] = counts.get("k3", 0) + k3
+    del params, dense_cache, paged_cache
+    free_device_memory()
+    return counts
+
+
+def load_checkpoint(dev, smi):
+    """load_checkpoint: a GLM-4-9B-width checkpoint of 2 layers in HF names
+    (bf16, random from the seed, sandwich norms and biases not at their
+    defaults), written by the port's writer as two shards and an index,
+    loaded by registry.load_model onto the card: every tensor bit-equal to
+    what was written, seconds and GB/s (from the page cache: just
+    written). Then quantize_params(bits=4) plus fuse_layer_projections,
+    with logits equal bit for bit to the in-memory tree's (the same
+    function of the same weights), and one HTTP request through
+    Server.add_model. And the same weights as an MLX-layout 4-bit
+    checkpoint (uint32 words, group 64; every projection, the embedding and
+    the lm_head): the loaded QuantizedTensor tree equal to
+    core.quant.quantize_tensor of the weights in memory, and its logits
+    (the JAX package's dequantize-then-product formula, no kernel but K2)
+    equal to the in-memory QuantizedTensor tree's, bit for bit."""
+    import tempfile
+
+    from ominix_mlx_tpu_torch.core import quant
+    from ominix_mlx_tpu_torch.models import base, glm4, registry
+    from ominix_mlx_tpu_torch.ops import _build
+    from ominix_mlx_tpu_torch.serving.server import ChatModel, Server
+    from ominix_mlx_tpu_torch.utils import loading
+
+    raw = dict(GLM4_9B_HF, num_hidden_layers=2)
+    cfg = glm4.config_from_hf(raw)
+    g = torch.Generator(device=dev).manual_seed(SEED + 28)
+    D, hd, I = cfg.hidden_size, cfg.hd, cfg.intermediate_size
+
+    def uniform(rows, cols):
+        return ((torch.rand(rows, cols, generator=g, device=dev) * 2 - 1)
+                * cols ** -0.5).bfloat16()
+
+    def near_one():
+        return (torch.rand(D, generator=g, device=dev) + 0.5).bfloat16()
+
+    flat = {"model.embed_tokens.weight": (torch.randn(
+                cfg.vocab_size, D, generator=g, device=dev) * 0.02).bfloat16(),
+            "model.norm.weight": near_one(),
+            "lm_head.weight": uniform(cfg.vocab_size, D)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}"
+        for n in ("input_layernorm", "post_attention_layernorm",
+                  "post_self_attn_layernorm", "post_mlp_layernorm"):
+            flat[f"{p}.{n}.weight"] = near_one()
+        for n, rows in (("q_proj", cfg.num_heads * hd),
+                        ("k_proj", cfg.num_kv_heads * hd),
+                        ("v_proj", cfg.num_kv_heads * hd)):
+            flat[f"{p}.self_attn.{n}.weight"] = uniform(rows, D)
+            flat[f"{p}.self_attn.{n}.bias"] = (torch.randn(
+                rows, generator=g, device=dev) * 0.1).bfloat16()
+        flat[f"{p}.self_attn.o_proj.weight"] = uniform(D, cfg.num_heads * hd)
+        flat[f"{p}.mlp.gate_up_proj.weight"] = uniform(2 * I, D)
+        flat[f"{p}.mlp.down_proj.weight"] = uniform(D, I)
+    nbytes = sum(t.numel() * t.element_size() for t in flat.values())
+    in_memory = glm4.params_from_flat(flat, cfg)
+    toks = torch.tensor([ByteTokenizer(cfg.vocab_size).encode(
+        "Hello there")], device=dev)
+
+    def logits(params):
+        cache = base.init_cache(cfg, 1, 64, device=dev)
+        with torch.inference_mode():
+            lg, cache = base.forward(params, cfg, toks, cache,
+                                     fresh_prefill=True)
+            out = [lg[:, -1]]
+            for t in (1, 2, 3):
+                lg, cache = base.forward(params, cfg, torch.tensor(
+                    [[t]], device=dev), cache)
+                out.append(lg[:, -1])
+        return torch.stack(out).float()
+
+    leaves = loading.flatten_params
+
+    row = {"phase": "load_checkpoint", "config": "GLM-4-9B", "layers": 2,
+           "bytes": nbytes, "card": smi}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        loading.save_sharded(d, flat, shards=2)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(raw, f)
+        row["write_seconds"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod, params, lcfg = registry.load_model(d)
+        torch.cuda.synchronize()
+        row["load_seconds"] = time.perf_counter() - t0
+        row["load_GBps"] = nbytes / row["load_seconds"] / 1e9
+    want, have = leaves(in_memory), leaves(params)
+    row["tensors"] = len(have)
+    row["bit_equal"] = want.keys() == have.keys() and all(
+        have[k].device == dev and torch.equal(have[k].view(torch.int16),
+                                              want[k].view(torch.int16))
+        for k in want)
+    if mod is not glm4 or lcfg != cfg or not row["bit_equal"]:
+        raise RuntimeError(f"loaded checkpoint differs: {row}")
+    q_loaded = base.fuse_layer_projections(base.quantize_params(
+        params, GS, 4))
+    del params, have
+    q_memory = base.fuse_layer_projections(base.quantize_params(
+        in_memory, GS, 4))
+    _build.reset_launches()
+    a, b = logits(q_loaded), logits(q_memory)
+    row["quantized_logits_bit_equal"] = bool(torch.equal(a, b))
+    row["quantized_launches"] = dict(_build.LAUNCHES)
+    if not (row["quantized_logits_bit_equal"] and torch.isfinite(a).all()):
+        raise RuntimeError(f"quantized loaded tree differs: {row}")
+    port = free_port()
+    srv = Server(port=port)
+    srv.add_model("glm4-ckpt", ChatModel("glm4-ckpt", q_loaded, cfg,
+                                         ByteTokenizer(cfg.vocab_size), dev,
+                                         glm4))
+    srv.start_background()
+    try:
+        text, n_prompt, n_out = chat(port, "Hi!", model="glm4-ckpt")
+    finally:
+        srv.shutdown()
+    row.update({"request_prompt_tokens": n_prompt,
+                "request_completion_tokens": n_out, "request_text": text[:40]})
+    if n_out <= 0 or not text:
+        raise RuntimeError("the loaded checkpoint answered nothing")
+    del q_loaded, q_memory, a, b
+    free_device_memory()
+
+    # the MLX layout: uint32 words of the unsigned codes, bf16 scales and
+    # biases, the config's "quantization"
+    mlx, qt_memory = {}, {}
+    for k, t in flat.items():
+        if k.endswith(("proj.weight", "embed_tokens.weight",
+                       "lm_head.weight")):
+            codes, scales, biases = quant.quantize(t, GS, 4)
+            stem = k[:-len(".weight")]
+            mlx[k] = quant.pack_codes(codes, 4)
+            mlx[stem + ".scales"], mlx[stem + ".biases"] = scales, biases
+            qt_memory[stem] = quant.quantize_tensor(t, GS, 4)
+        else:
+            mlx[k] = t
+    with tempfile.TemporaryDirectory() as d:
+        loading.save_sharded(d, mlx, shards=2)
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(dict(raw, quantization={"group_size": GS, "bits": 4}),
+                      f)
+        t0 = time.perf_counter()
+        _, params, _ = registry.load_model(d)
+        torch.cuda.synchronize()
+        row["mlx_load_seconds"] = time.perf_counter() - t0
+    lp = params["layers"][1]
+    got_qt = {"model.layers.1.self_attn.q_proj": lp["q_proj"]["w"],
+              "model.layers.1.mlp.gate_up_proj": lp["gate_up_proj"]["w"],
+              "model.layers.1.mlp.down_proj": lp["down_proj"]["w"],
+              "lm_head": params["lm_head"]["w"],
+              "model.embed_tokens": params["embed"]}
+    row["mlx_quantized_equal"] = all(
+        isinstance(w, quant.QuantizedTensor)
+        and torch.equal(w.q, qt_memory[k].q)
+        and torch.equal(w.scales.view(torch.int16),
+                        qt_memory[k].scales.view(torch.int16))
+        and torch.equal(w.biases.view(torch.int16),
+                        qt_memory[k].biases.view(torch.int16))
+        for k, w in got_qt.items())
+    memory_tree = glm4.params_from_flat(flat, cfg)
+    for i, lpm in enumerate(memory_tree["layers"]):
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            lpm[n]["w"] = qt_memory[f"model.layers.{i}.self_attn.{n}"]
+        for n in ("gate_up_proj", "down_proj"):
+            lpm[n]["w"] = qt_memory[f"model.layers.{i}.mlp.{n}"]
+    memory_tree["lm_head"]["w"] = qt_memory["lm_head"]
+    memory_tree["embed"] = qt_memory["model.embed_tokens"]
+    a, b = logits(params), logits(memory_tree)
+    row["mlx_logits_bit_equal"] = bool(torch.equal(a, b))
+    emit(row)
+    if not (row["mlx_quantized_equal"] and row["mlx_logits_bit_equal"]
+            and torch.isfinite(a).all()):
+        raise RuntimeError(f"MLX-layout checkpoint differs: {row}")
+    del params, memory_tree, flat, mlx, qt_memory, in_memory
+    free_device_memory()
+    return row["quantized_launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
@@ -3007,6 +3726,8 @@ def main() -> int:
     k7_rows = check_k7(dev, flush)
     k2_rows = check_k2(dev, flush)
     k2c_rows = check_k2c(dev, flush)
+    k2w_rows = check_k2_window(dev, flush)
+    k2cw_rows = check_k2c_window(dev, flush)
     k3_rows = check_k3(dev, flush)
     k4_rows = check_k4(dev, flush)
     k8_rows = check_k8(dev, flush)
@@ -3122,6 +3843,12 @@ def main() -> int:
     free_device_memory()
 
     phases["serve_moe_batched_w8"] = serve_moe_batched_w8(dev, moe_cfg)
+    free_device_memory()
+
+    phases["serve_mistral"] = serve_mistral(dev, smi, args.profile)
+    phases["serve_glm4"] = serve_glm4(dev, smi, args.profile)
+    phases["prefill_window"] = prefill_window(dev, smi)
+    phases["load_checkpoint"] = load_checkpoint(dev, smi)
 
     def launches(key):
         return sum(c.get(key, 0) for c in phases.values())
@@ -3191,6 +3918,16 @@ def main() -> int:
               "ominix_mlx_tpu_torch/csrc/flash_attn.cu", k2c_rows,
               lambda rs: next(r for r in rs if r["pos"] == 6144), "k2c",
               design=K2_DESIGN),
+        entry("k2_flash_prefill_window",
+              "ominix_mlx_tpu/ops/flash_attention.py:60 (the masked sdpa of "
+              "causal_mask(window), ominix_mlx_tpu/models/base.py:200-213)",
+              "ominix_mlx_tpu_torch/csrc/flash_attn.cu", k2w_rows,
+              lambda rs: rs[0], "k2_window", design=K2_DESIGN),
+        entry("k2c_flash_chunk_window",
+              "ominix_mlx_tpu/ops/flash_attention.py:117 (the masked sdpa "
+              "of causal_mask(window), ominix_mlx_tpu/models/base.py:"
+              "206-213)", "ominix_mlx_tpu_torch/csrc/flash_attn.cu",
+              k2cw_rows, lambda rs: rs[0], "k2c_window", design=K2_DESIGN),
         entry("k3_paged_decode", "ominix_mlx_tpu/ops/paged_attention.py:73",
               "ominix_mlx_tpu_torch/csrc/paged_attn.cu", k3_rows,
               lambda rs: rs[0], "k3", design=K3_DESIGN),

@@ -7,13 +7,17 @@ relative path. It imports ``torch`` and never ``jax``.
 Layering:
 
     HTTP server               (serving.server, serving.batching)
+    loading                   (models.registry, utils.loading,
+                               utils.tokenizer)
     model                     (models.base, models.qwen3,
-                               models.qwen3_moe, models.moe)
+                               models.qwen3_moe, models.moe,
+                               models.mistral, models.glm4)
     core                      (core: device, quant, rope, attention,
                                cache, paged_cache, sampling, generate)
     layers                    (nn.layers)
     kernels                   (ops: quantized matmul K1, flash prefill
-                               K2 and K2c, paged decode attention K3,
+                               K2 and K2c (with a sliding window),
+                               paged decode attention K3,
                                expert gather-qmm K4, grouped matmul K5;
                                hand-written CUDA for sm_90a in csrc/)
     PyTorch / CUDA

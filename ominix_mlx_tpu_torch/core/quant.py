@@ -5,6 +5,12 @@ Canonical form: ``QuantizedTensor`` holds signed int8 codes in
 [-2^(bits-1), 2^(bits-1)), and a scale and a bias per group of
 ``group_size`` input features: ``w = scales * q + biases``. Kernels take
 the packed layout of ``ops.quant_matmul.prepare`` instead.
+
+MLX checkpoints (mlx-community) store a quantized linear as ``weight``
+uint32 [out, in * bits / 32], element j of a word in bits [j * bits,
+(j + 1) * bits), with the UNSIGNED code, and ``scales`` / ``biases`` [out,
+in / group_size]; ``from_mlx_arrays`` centres the codes and folds the
+offset into the biases, ``pack_codes`` writes that layout.
 """
 
 from __future__ import annotations
@@ -43,8 +49,7 @@ def quantize(w: torch.Tensor, group_size: int = 64, bits: int = 4):
     Same affine rule as the JAX package's ``quantize``: per group,
     ``scale = (max - min) / (2^bits - 1)`` (1e-8 where zero), ``bias = min``
     and ``q = clip(round((w - bias) / scale), 0, 2^bits - 1)``. The codes
-    are returned unpacked; the MLX uint32 word packing is a checkpoint
-    format this port does not read yet.
+    are returned unpacked (``pack_codes`` gives MLX's uint32 words).
     """
     out_f, in_f = w.shape
     if in_f % group_size:
@@ -60,6 +65,60 @@ def quantize(w: torch.Tensor, group_size: int = 64, bits: int = 4):
                     0, n_levels)
     return (q.to(torch.uint8).reshape(out_f, in_f), scale.to(w.dtype),
             w_min.to(w.dtype))
+
+
+def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Unsigned codes [out, in] -> MLX's uint32 words [out, in * bits /
+    32] (element j of a word in bits [j * bits, (j + 1) * bits))."""
+    per_word = 32 // bits
+    out_f, in_f = codes.shape
+    if 32 % bits or in_f % per_word:
+        raise ValueError(f"{in_f} codes of {bits} bits do not fill words")
+    c = codes.to(torch.int64).reshape(out_f, in_f // per_word, per_word)
+    shifts = torch.arange(per_word, device=codes.device) * bits
+    w = (c << shifts).sum(-1)
+    # the words' bit patterns as int32, then read as uint32
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(
+        torch.int32).view(torch.uint32)
+
+
+def unpack_to_int8(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """MLX's uint32 words [out, n] -> the unsigned codes [out, n * 32 /
+    bits] as int8 bit patterns (an 8-bit code above 127 reads negative, as
+    the JAX package's ``unpack_to_int8`` returns it). The words are read
+    as int32, and each shift is masked, so no sign bit leaks in."""
+    per_word = 32 // bits
+    out_f, n_words = packed.shape
+    w = packed.view(torch.int32) if packed.dtype == torch.uint32 \
+        else packed.to(torch.int32)
+    shifts = torch.arange(per_word, dtype=torch.int32,
+                          device=packed.device) * bits
+    codes = (w[..., None] >> shifts) & ((1 << bits) - 1)
+    return codes.reshape(out_f, n_words * per_word).to(torch.uint8).view(
+        torch.int8)
+
+
+def from_mlx_arrays(packed: torch.Tensor, scales: torch.Tensor,
+                    biases: torch.Tensor, group_size: int,
+                    bits: int) -> QuantizedTensor:
+    """A ``QuantizedTensor`` from an MLX checkpoint's arrays: the unsigned
+    codes centred into signed int8 and the offset folded into the biases,
+    ``biases' = biases + scales * 2^(bits-1)`` in float32, rounded to the
+    biases' type (as the JAX package's ``from_mlx_arrays``)."""
+    center = 1 << (bits - 1)
+    unsigned = unpack_to_int8(packed, bits).view(torch.uint8)
+    q = (unsigned.to(torch.int16) - center).to(torch.int8)
+    biases = (biases.float() + scales.float() * center).to(biases.dtype)
+    return QuantizedTensor(q=q, scales=scales, biases=biases,
+                           group_size=group_size, bits=bits)
+
+
+def quantized_matmul(x: torch.Tensor, qt: QuantizedTensor,
+                     dtype=torch.bfloat16) -> torch.Tensor:
+    """x @ W^T for a plain ``QuantizedTensor`` W: the JAX package's XLA
+    path (dequantize in float32, round to ``dtype``, then one product in
+    ``dtype``). No kernel computes it there either."""
+    return torch.matmul(x.to(dtype), dequantize(qt, dtype).T)
 
 
 def quantize_tensor(w: torch.Tensor, group_size: int = 64,

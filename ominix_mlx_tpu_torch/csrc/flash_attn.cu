@@ -9,7 +9,10 @@
 // is top-left aligned. Here one kernel shifts the causal diagonal instead.
 //
 // One kernel serves both: Tq queries at absolute positions pos..pos+Tq-1
-// attend keys 0..pos+t (Tk = pos + Tq keys). K2 is the case pos = 0. q
+// attend keys 0..pos+t (Tk = pos + Tq keys). K2 is the case pos = 0. With a
+// sliding window w > 0 (Mistral's), query position p attends only keys
+// p - w < k <= p: the masked sdpa that the JAX package computes with
+// causal_mask(..., window) (ominix_mlx_tpu/core/attention.py:25-45). q
 // [B, H, Tq, D] bf16 contiguous; k/v bf16 with unit stride along D and
 // batch, head and sequence strides that are multiples of 16 bytes on a
 // 16-byte aligned base (what TMA takes), so a chunk reads the [:pos+Tq]
@@ -56,10 +59,16 @@
 //   warpgroup's rows (at most one, when pos is not a multiple of BK) is
 //   masked rather than skipped;
 // - the epilogue writes O / l in bf16 and LSE = m + log(l) from registers.
-// Key tiles start at absolute position 0, so K2c walks a query's keys in
+// Key tiles sit at absolute multiples of BK, so K2c walks a query's keys in
 // K2's tiles and order: a chunk's rows equal the single-shot rows bit for
-// bit. CTAs are issued heaviest first (last query tile first). Later work:
-// a persistent schedule over (head, query tile), and a sliding window.
+// bit. With a window a CTA starts at the tile that holds the first key its
+// first row sees, so the work is O(Tq * w), not O(Tq * Tk); the tiles that
+// straddle a warpgroup's lower edge are masked beside the diagonal's, and a
+// tile a row sees no key of leaves that row's running max, sum and output
+// as they were (a fully masked row takes 0 as its reference max, never
+// -inf - -inf). CTAs are issued heaviest first (last query tile first): a
+// CTA's tile count does not fall with its first row, with a window or
+// without. Later work: a persistent schedule over (head, query tile).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -289,7 +298,7 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
           const __grid_constant__ CUtensorMap tk,
           const __grid_constant__ CUtensorMap tv,
           __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
-          int Hkv, int Tq, int pos, float scale) {
+          int Hkv, int Tq, int pos, int window, float scale) {
   using C = Cfg<D>;
   constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -306,7 +315,10 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;   // heaviest first
   const int Tk = pos + Tq;
-  const int n_tiles = (pos + min(Tq, q0 + kBQ) - 1) / BK + 1;
+  // key tiles t_first .. t_last: the first holds the first key the CTA's
+  // first row sees, the last the CTA's last row's own key
+  const int t_first = window > 0 ? max(0, pos + q0 - window + 1) / BK : 0;
+  const int n_tiles = (pos + min(Tq, q0 + kBQ) - 1) / BK + 1 - t_first;
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
@@ -330,16 +342,17 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
         tma_load(qs + j * kBQ * 128, &tq, q_full, 64 * j, q0, h, b);
       for (int tile = 0; tile < n_tiles; ++tile) {
         const int s = tile % kStages, n = tile / kStages;
+        const int k0 = (t_first + tile) * BK;
         if (n > 0) mbar_wait(k_empty + s, (n - 1) & 1);
         mbar_expect_tx(k_full + s, C::KV_BYTES);
         for (int j = 0; j < D / 64; ++j)
           tma_load(ks + s * C::KV_BYTES + j * BK * 128, &tk, k_full + s,
-                   64 * j, tile * BK, hk, b);
+                   64 * j, k0, hk, b);
         if (n > 0) mbar_wait(v_empty + s, (n - 1) & 1);
         mbar_expect_tx(v_full + s, C::KV_BYTES);
         for (int j = 0; j < D / 64; ++j)
           tma_load(vs + s * C::KV_BYTES + j * BK * 128, &tv, v_full + s,
-                   64 * j, tile * BK, hk, b);
+                   64 * j, k0, hk, b);
       }
     }
     return;
@@ -401,17 +414,21 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
   // the online softmax of the tile's scores, in place in sc; returns the
   // factor of the running output, alpha[r] for rows r0 and r0 + 8
   auto softmax = [&](int tile, float (&alpha)[2]) {
-    const int k0 = tile * BK;
+    const int k0 = (t_first + tile) * BK;
     // scores to the log2 domain; mask only tiles that cross the diagonal
-    // of the warpgroup's first row or the end of the keys
-    const bool edge = k0 + BK - 1 > pos + rq0 || k0 + BK > Tk;
+    // of the warpgroup's first row, the end of the keys, or the window's
+    // lower edge of the warpgroup's last row
+    const bool edge = k0 + BK - 1 > pos + rq0 || k0 + BK > Tk ||
+                      (window > 0 && k0 + window < pos + rq0 + 64);
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       float x = sc[i] * kLog2e;
       if (edge) {
         const int kj = k0 + (i / 4) * 8 + (lane & 3) * 2 + (i & 1);
         const int qi = r0 + ((i >> 1) & 1) * 8;
-        if (kj >= Tk || kj > pos + qi) x = -INFINITY;
+        if (kj >= Tk || kj > pos + qi ||
+            (window > 0 && kj + window <= pos + qi))
+          x = -INFINITY;
       }
       sc[i] = x;
     }
@@ -423,16 +440,20 @@ flash_fwd(const __grid_constant__ CUtensorMap tq,
         mx = fmaxf(mx, fmaxf(sc[n * 4 + 2 * r], sc[n * 4 + 2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // key 0 is valid for every row, so m_new is finite from tile 0 on
+      // a row that has seen no key yet (below its window) has m_new =
+      // -inf: it takes 0 as its reference, so alpha and p are 0, not NaN.
+      // Without a window key 0 is valid for every row and m_new is finite
+      // from tile 0 on
       const float m_new = fmaxf(m_run[r], mx);
-      alpha[r] = exp2f(m_run[r] - m_new);
+      const float m_ref = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2f(m_run[r] - m_ref);
       m_run[r] = m_new;
       float sum = 0.f;
 #pragma unroll
       for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p = exp2f(sc[n * 4 + 2 * r + e] - m_new);
+          const float p = exp2f(sc[n * 4 + 2 * r + e] - m_ref);
           sc[n * 4 + 2 * r + e] = p;
           sum += p;
         }
@@ -543,8 +564,8 @@ struct KVStrides {    // element strides of K and V (D has unit stride)
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int Hkv, int Tq, int pos, KVStrides st, float scale,
-           cudaStream_t stream) {
+           int B, int H, int Hkv, int Tq, int pos, int window, KVStrides st,
+           float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
   const long long qt = (long long)Tq * D;
@@ -560,40 +581,50 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(H, B, (Tq + kBQ - 1) / kBQ);
   flash_fwd<D><<<grid, kThreads, C::smem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, (float*)lse, H, Hkv, Tq, pos, scale);
+      tq, tk, tv, (__nv_bfloat16*)o, (float*)lse, H, Hkv, Tq, pos, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, void* lse,
-             int B, int H, int Hkv, int Tq, int pos, int D, KVStrides st,
-             float scale, void* stream) {
+             int B, int H, int Hkv, int Tq, int pos, int window, int D,
+             KVStrides st, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (window < 0) return (int)cudaErrorInvalidValue;
   switch (D) {
-    case 64: return launch<64>(q, k, v, o, lse, B, H, Hkv, Tq, pos, st, scale, s);
-    case 128: return launch<128>(q, k, v, o, lse, B, H, Hkv, Tq, pos, st, scale, s);
-    case 256: return launch<256>(q, k, v, o, lse, B, H, Hkv, Tq, pos, st, scale, s);
+    case 64:
+      return launch<64>(q, k, v, o, lse, B, H, Hkv, Tq, pos, window, st, scale, s);
+    case 128:
+      return launch<128>(q, k, v, o, lse, B, H, Hkv, Tq, pos, window, st, scale, s);
+    case 256:
+      return launch<256>(q, k, v, o, lse, B, H, Hkv, Tq, pos, window, st, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// K2: contiguous q/k/v [B, H(kv), T, D], keys 0..t for query t.
+// K2: contiguous q/k/v [B, H(kv), T, D], keys 0..t for query t (keys
+// t - window + 1..t with a window > 0).
 extern "C" int ominix_flash_fwd(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int B, int H, int Hkv,
-                                int T, int D, float scale, void* stream) {
+                                int T, int D, int window, float scale,
+                                void* stream) {
   const long long t = (long long)T * D;
   const KVStrides st{Hkv * t, t, D, Hkv * t, t, D};
-  return dispatch(q, k, v, o, lse, B, H, Hkv, T, 0, D, st, scale, stream);
+  return dispatch(q, k, v, o, lse, B, H, Hkv, T, 0, window, D, st, scale,
+                  stream);
 }
 
 // K2c: Tq chunk queries at pos..pos+Tq-1 over the first pos+Tq keys of
-// strided k/v (element strides per batch, head and position).
+// strided k/v (element strides per batch, head and position), and the
+// window as in K2.
 extern "C" int ominix_flash_chunk_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int Hkv, int Tq, int pos, int D, long long k_sb, long long k_sh,
     long long k_st, long long v_sb, long long v_sh, long long v_st,
-    float scale, void* stream) {
+    int window, float scale, void* stream) {
   const KVStrides st{k_sb, k_sh, k_st, v_sb, v_sh, v_st};
-  return dispatch(q, k, v, o, lse, B, H, Hkv, Tq, pos, D, st, scale, stream);
+  return dispatch(q, k, v, o, lse, B, H, Hkv, Tq, pos, window, D, st, scale,
+                  stream);
 }

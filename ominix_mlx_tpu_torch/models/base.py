@@ -1,14 +1,17 @@
 """Generic dense decoder-only transformer (counterpart of
 ominix_mlx_tpu/models/base.py): GQA attention with optional QK-RMSNorm,
-SwiGLU MLP, tied or separate lm_head. Params are nested dicts mirroring HF
-tensor names; ``forward`` is a function of (params, cfg, tokens, cache).
+q/k/v biases, partial and interleaved RoPE, a sliding window, GLM-4's
+sandwich norms, SwiGLU MLP, tied or separate lm_head.
+Params are nested dicts mirroring HF tensor names; ``forward`` is a
+function of (params, cfg, tokens, cache); ``params_from_flat`` builds the
+tree from a checkpoint's flat {HF name: tensor} dict.
 
-This port covers the dense / GQA / QK-norm / tied-embedding decoder, and
-its mixture-of-experts form (a layer holding "moe" runs
-``models.moe.moe_block`` in place of the MLP), over a dense or paged KV
-cache, with per-row offsets (continuous batching) and chunked prefill
-(``kv_limit``). The JAX package's MLA, DeltaNet and ring-attention
-branches raise ``NotImplementedError`` here.
+This port covers the dense / GQA / QK-norm / tied-embedding decoder of
+Qwen2, Qwen3, Mistral and GLM-4, and its mixture-of-experts form (a layer
+holding "moe" runs ``models.moe.moe_block`` in place of the MLP), over a
+dense or paged KV cache, with per-row offsets (continuous batching) and
+chunked prefill (``kv_limit``). The JAX package's MLA, DeltaNet and
+ring-attention branches raise ``NotImplementedError`` here.
 
 The ``init_*`` functions allocate on the current CUDA device unless the
 caller names a device (``device="cpu"`` for the CPU).
@@ -26,7 +29,7 @@ from ominix_mlx_tpu_torch.core.attention import causal_mask, sdpa
 from ominix_mlx_tpu_torch.core.cache import KVCache, ModelCache
 from ominix_mlx_tpu_torch.core.device import resolve_device
 from ominix_mlx_tpu_torch.core.paged_cache import PagedKVCache
-from ominix_mlx_tpu_torch.core.quant import QuantizedTensor
+from ominix_mlx_tpu_torch.core.quant import QuantizedTensor, from_mlx_arrays
 from ominix_mlx_tpu_torch.core.rope import RopeConfig, apply_rope, make_rope
 from ominix_mlx_tpu_torch.nn.layers import (ACTIVATIONS, embedding,
                                             embedding_as_linear, linear,
@@ -52,9 +55,10 @@ class TransformerConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     rope_scaling: Optional[dict] = None
+    rope_traditional: bool = False     # interleaved-pair rotary (GLM)
     partial_rotary_factor: float = 1.0
-    use_qk_norm: bool = False
-    attention_bias: bool = False
+    use_qk_norm: bool = False          # Qwen3
+    attention_bias: bool = False       # Qwen2 / GLM-4 q/k/v bias
     tie_word_embeddings: bool = False
     hidden_act: str = "silu"
     sliding_window: Optional[int] = None
@@ -69,7 +73,8 @@ class TransformerConfig:
 
     def rope(self) -> RopeConfig:
         return make_rope(self.hd, self.rope_theta, self.rope_scaling,
-                         self.partial_rotary_factor)
+                         self.partial_rotary_factor,
+                         traditional=self.rope_traditional)
 
     @staticmethod
     def from_hf(d: dict) -> "TransformerConfig":
@@ -139,8 +144,9 @@ def _norms(cfg: TransformerConfig, dtype, device) -> dict:
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device=None) -> dict:
     """Random dense parameter tree (tests and benchmarks): uniform
-    +-1/sqrt(in) projections, N(0, 0.02) embedding, unit norms. With
-    ``cfg.moe`` every layer is a MoE layer (``moe.init_moe_params``).
+    +-1/sqrt(in) projections, zero q/k/v biases where ``cfg`` asks for
+    them, N(0, 0.02) embedding, unit norms. With ``cfg.moe`` every layer
+    is a MoE layer (``moe.init_moe_params``).
     ``device`` defaults to the current CUDA device; the generator must
     live on the same device."""
     _check_supported(cfg)
@@ -298,9 +304,15 @@ def quantize_params(params: dict, group_size: int = 64, bits: int = 4,
 
 
 def _stack_weights(ws: list):
-    """Row-concatenate linear weights (dense, packed or channel-quantized)
-    for fused projections."""
+    """Row-concatenate linear weights (dense, packed, channel-quantized or
+    plain ``QuantizedTensor``) for fused projections."""
     w0 = ws[0]
+    if isinstance(w0, QuantizedTensor):
+        return QuantizedTensor(
+            q=torch.cat([w.q for w in ws], 0),
+            scales=torch.cat([w.scales for w in ws], 0),
+            biases=torch.cat([w.biases for w in ws], 0),
+            group_size=w0.group_size, bits=w0.bits)
     if isinstance(w0, PackedQuantizedTensor):
         return PackedQuantizedTensor(
             data=torch.cat([w.data for w in ws], 0),
@@ -362,13 +374,6 @@ def _positions(offset, T: int, device) -> torch.Tensor:
     return offset + ar
 
 
-def _no_window(cfg: TransformerConfig, kernel: str):
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            f"{kernel} takes no sliding window: prefill of a sliding-window "
-            f"model has no CUDA kernel yet")
-
-
 def attention_block(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
                     cache, offset, mask: Callable[[], torch.Tensor],
                     rope: RopeConfig, fresh_prefill: bool = False,
@@ -383,10 +388,11 @@ def attention_block(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
     (``kv_limit``) attends only the first kv_limit cache slots, through K2c
     on CUDA; a one-token step on a paged cache runs K3 on CUDA. On CUDA
     these go to the kernel whatever the shape, and its wrapper raises for
-    one it does not take; K2 and K2c take no sliding window, so those two
-    branches raise for a sliding-window model there. Everything else, and
-    every branch off CUDA, is the masked ``sdpa`` (the JAX package's paths
-    off the TPU)."""
+    one it does not take; each takes the model's sliding window (where the
+    JAX package computes the masked ``sdpa`` of ``causal_mask(...,
+    window)`` instead of its flash kernels). Everything else, and every
+    branch off CUDA, is the masked ``sdpa`` (the JAX package's paths off
+    the TPU)."""
     B, T, _ = x.shape
     hd = cfg.hd
     if "qkv_proj" in lp:
@@ -412,9 +418,10 @@ def attention_block(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
     k = apply_rope(k, positions, rope)
     cache = cache.update(k, v, offset)
     scale = hd ** -0.5
+    window = cfg.sliding_window or 0
     if fresh_prefill and fa.use_flash(T, x.device):
-        _no_window(cfg, "K2")
-        out = fa.flash_prefill(q, k.to(q.dtype), v.to(q.dtype), scale=scale)
+        out = fa.flash_prefill(q, k.to(q.dtype), v.to(q.dtype), scale=scale,
+                               window=window)
     elif kv_limit is not None:
         # continuation chunk of a long prefill: attend only the prefix of
         # the cache that can hold written keys, O(kv_limit) per chunk
@@ -424,8 +431,7 @@ def attention_block(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
                              f"{offset}: a chunk must end at kv_limit")
         ck, cv = cache.k[:, :, :kv_limit], cache.v[:, :, :kv_limit]
         if x.is_cuda:
-            _no_window(cfg, "K2c")
-            out = fa.flash_chunk_prefill(q, ck, cv, pos, scale)
+            out = fa.flash_chunk_prefill(q, ck, cv, pos, scale, window)
         else:
             out = sdpa(q, ck, cv, scale=scale, mask=mask())
     elif T == 1 and isinstance(cache, PagedKVCache) and x.is_cuda:
@@ -434,7 +440,7 @@ def attention_block(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
                    else torch.full((B,), offset, device=x.device)) + 1
         o = pa.paged_decode_attention(
             q[:, :, 0, :], cache.k_pool, cache.v_pool, cache.page_table,
-            lengths, scale, window=cfg.sliding_window or 0,
+            lengths, scale, window=window,
             k_scale=cache.k_scale, v_scale=cache.v_scale)
         out = o[:, :, None, :]
     else:
@@ -462,20 +468,25 @@ def mlp_block(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
 def decoder_layer(lp: dict, cfg: TransformerConfig, x, cache, offset, mask,
                   rope, fresh_prefill: bool = False,
                   kv_limit: Optional[int] = None):
-    for key in ("linear_attn", "kv_a_proj_with_mqa",
-                "post_self_attn_layernorm", "post_mlp_layernorm"):
+    for key in ("linear_attn", "kv_a_proj_with_mqa"):
         if key in lp:
             raise NotImplementedError(
                 f"{key!r} layers are not ported to the torch package yet")
     in_norm = (lp["input_layernorm"], cfg.rms_norm_eps)
     h, cache = attention_block(lp, cfg, x, cache, offset, mask, rope,
                                fresh_prefill, kv_limit, in_norm=in_norm)
+    if "post_self_attn_layernorm" in lp:     # GLM-4 sandwich norm
+        h = rms_norm(lp["post_self_attn_layernorm"], h, cfg.rms_norm_eps)
     x = x + h
     if "moe" in lp:
         h2 = rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)
-        return x + moe_mod.moe_block(lp["moe"], cfg.moe, h2), cache
-    return x + mlp_block(lp, cfg, x, norm=(lp["post_attention_layernorm"],
-                                           cfg.rms_norm_eps)), cache
+        h2 = moe_mod.moe_block(lp["moe"], cfg.moe, h2)
+    else:
+        h2 = mlp_block(lp, cfg, x, norm=(lp["post_attention_layernorm"],
+                                         cfg.rms_norm_eps))
+    if "post_mlp_layernorm" in lp:           # GLM-4 sandwich norm
+        h2 = rms_norm(lp["post_mlp_layernorm"], h2, cfg.rms_norm_eps)
+    return x + h2, cache
 
 
 def forward(params: dict, cfg: TransformerConfig, tokens: torch.Tensor,
@@ -561,3 +572,73 @@ def init_paged_cache(cfg: TransformerConfig, batch: int, max_len: int,
                                 device=device)
               for _ in range(cfg.num_layers)]
     return ModelCache(layers=layers, offset=0)
+
+
+# ------------------------------------------------- HF weight loading --------
+
+def _maybe_quantized(flat: dict, prefix: str, qcfg: Optional[dict],
+                     device=None):
+    """The weight of ``prefix`` on ``device``: dense [out, in], or a
+    ``QuantizedTensor`` where the checkpoint carries MLX's {weight (packed
+    uint32), scales, biases} (``core.quant.from_mlx_arrays``; group size
+    and bits from the config's "quantization", 64 and 4 by default)."""
+    if f"{prefix}.scales" in flat:
+        gs = qcfg.get("group_size", 64) if qcfg else 64
+        bits = qcfg.get("bits", 4) if qcfg else 4
+        return from_mlx_arrays(_on(flat[f"{prefix}.weight"], device),
+                               _on(flat[f"{prefix}.scales"], device),
+                               _on(flat[f"{prefix}.biases"], device), gs,
+                               bits)
+    return _on(flat[f"{prefix}.weight"], device)
+
+
+def _on(t: torch.Tensor, device) -> torch.Tensor:
+    return t if device is None else t.to(device)
+
+
+def _linear_params(flat: dict, prefix: str, qcfg, device=None) -> dict:
+    p = {"w": _maybe_quantized(flat, prefix, qcfg, device)}
+    if f"{prefix}.bias" in flat:
+        p["b"] = _on(flat[f"{prefix}.bias"], device)
+    return p
+
+
+def params_from_flat(flat: dict, cfg: TransformerConfig,
+                     qcfg: Optional[dict] = None, device=None) -> dict:
+    """The parameter tree from a flat {HF name: tensor} dict (HF float
+    checkpoints and MLX-quantized ones alike), each tensor moved to
+    ``device`` where one is named (else left where it is). GLM-4's
+    sandwich norms and its fused ``mlp.gate_up_proj`` are taken where the
+    checkpoint carries them."""
+    def t(name):
+        return _on(flat[name], device)
+
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}"
+        lp = {"input_layernorm": t(f"{p}.input_layernorm.weight"),
+              "post_attention_layernorm":
+                  t(f"{p}.post_attention_layernorm.weight")}
+        for n in ("post_self_attn_layernorm", "post_mlp_layernorm"):
+            if f"{p}.{n}.weight" in flat:
+                lp[n] = t(f"{p}.{n}.weight")
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            lp[n] = _linear_params(flat, f"{p}.self_attn.{n}", qcfg, device)
+        if f"{p}.mlp.gate_up_proj.weight" in flat:
+            mlp = ("gate_up_proj", "down_proj")
+        elif f"{p}.mlp.down_proj.weight" in flat:
+            mlp = ("gate_proj", "up_proj", "down_proj")
+        else:
+            mlp = ()    # a MoE layer: models.qwen3_moe adds its experts
+        for n in mlp:
+            lp[n] = _linear_params(flat, f"{p}.mlp.{n}", qcfg, device)
+        if cfg.use_qk_norm:
+            lp["q_norm"] = t(f"{p}.self_attn.q_norm.weight")
+            lp["k_norm"] = t(f"{p}.self_attn.k_norm.weight")
+        layers.append(lp)
+    params = {"embed": _maybe_quantized(flat, "model.embed_tokens", qcfg,
+                                        device),
+              "layers": layers, "norm": t("model.norm.weight")}
+    if not cfg.tie_word_embeddings and "lm_head.weight" in flat:
+        params["lm_head"] = _linear_params(flat, "lm_head", qcfg, device)
+    return params

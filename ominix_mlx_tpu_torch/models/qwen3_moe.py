@@ -1,8 +1,9 @@
 """Qwen3-MoE (counterpart of ominix_mlx_tpu/models/qwen3_moe.py): QK-norm
 GQA attention and a SwiGLU MoE with softmax-then-top-k routing and
 ``norm_topk_prob``, stacked expert weights, on the shared decoder in
-models/base.py. Loading checkpoints (``params_from_flat``,
-``load_model``) waits until weight files are available to the port.
+models/base.py. ``params_from_flat`` and ``load_model`` read a checkpoint
+whose sparse layers (``moe_layer_indices``) may be mixed with dense ones;
+the loaded experts are dense stacks, which ``base.quantize_params`` packs.
 
 The random inits give every layer its own expert weights (the JAX
 package's ``init_params`` reuses one key, so there every layer's experts
@@ -15,13 +16,16 @@ import dataclasses
 
 import torch
 
+from ominix_mlx_tpu_torch.core.device import resolve_device
 from ominix_mlx_tpu_torch.models import base
 from ominix_mlx_tpu_torch.models.base import (TransformerConfig, forward,
                                               init_cache)
-from ominix_mlx_tpu_torch.models.moe import MoEConfig
+from ominix_mlx_tpu_torch.models.moe import EXPERT_NAMES, MoEConfig
+from ominix_mlx_tpu_torch.utils.loading import load_config, load_safetensors
 
 __all__ = ["config_from_hf", "forward", "init_cache", "init_params",
-           "init_quantized_params", "moe_layer_indices"]
+           "init_quantized_params", "load_model", "moe_layer_indices",
+           "params_from_flat"]
 
 
 def config_from_hf(d: dict) -> TransformerConfig:
@@ -45,6 +49,42 @@ def moe_layer_indices(d: dict) -> list:
     mlp_only = set(d.get("mlp_only_layers", []))
     return [i for i in range(n)
             if step > 0 and (i + 1) % step == 0 and i not in mlp_only]
+
+
+def params_from_flat(flat: dict, cfg: TransformerConfig, d: dict,
+                     qcfg=None, device=None) -> dict:
+    """The tree from a flat {HF name: tensor} dict: ``base.params_from_flat``
+    (attention, and a dense MLP where the layer has one), then each sparse
+    layer's experts stacked [E, N, K] (dense), its router gate, and a
+    shared expert (Qwen2-MoE) where the checkpoint has one."""
+    def t(name):
+        return base._on(flat[name], device)
+
+    params = base.params_from_flat(flat, cfg, qcfg, device)
+    for i in moe_layer_indices(d):
+        p = f"model.layers.{i}"
+        experts = {n: torch.stack([
+            t(f"{p}.mlp.experts.{e}.{n}.weight")
+            for e in range(cfg.moe.num_experts)]) for n in EXPERT_NAMES}
+        moe = {"gate": {"w": t(f"{p}.mlp.gate.weight")}, "experts": experts}
+        if f"{p}.mlp.shared_expert.gate_proj.weight" in flat:
+            moe["shared_expert"] = {
+                n: {"w": t(f"{p}.mlp.shared_expert.{n}.weight")}
+                for n in EXPERT_NAMES}
+            moe["shared_expert_gate"] = {
+                "w": t(f"{p}.mlp.shared_expert_gate.weight")}
+        params["layers"][i]["moe"] = moe
+    return params
+
+
+def load_model(model_dir: str, device=None):
+    """A Qwen3-MoE / Qwen2-MoE checkpoint directory -> (params, config),
+    on ``device`` (default: the current CUDA device)."""
+    device = resolve_device(device)
+    raw = load_config(model_dir)
+    cfg = config_from_hf(raw)
+    return params_from_flat(load_safetensors(model_dir), cfg, raw,
+                            raw.get("quantization"), device), cfg
 
 
 def _require_moe(cfg: TransformerConfig):

@@ -1,6 +1,8 @@
 """Functional layers over plain dicts of tensors (counterpart of
 ominix_mlx_tpu/nn/layers.py). Quantized layers are the same function
-dispatching on the weight's type."""
+dispatching on the weight's type: a packed or channel-quantized weight
+takes ``ops.quant_matmul``, a plain ``QuantizedTensor`` (as an MLX
+checkpoint loads) the JAX package's dequantize-then-product path."""
 
 from __future__ import annotations
 
@@ -9,11 +11,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ominix_mlx_tpu_torch.core.quant import (QuantizedTensor, dequantize,
+                                            quantized_matmul)
+from ominix_mlx_tpu_torch.ops import quant_matmul as qm
 from ominix_mlx_tpu_torch.ops.quant_matmul import (ChannelQuantizedTensor,
                                                    PackedQuantizedTensor,
                                                    channel_gather_rows,
                                                    gather_rows,
-                                                   quantized_matmul,
                                                    rms_norm)
 
 QUANTIZED = (PackedQuantizedTensor, ChannelQuantizedTensor)
@@ -22,16 +26,22 @@ QUANTIZED = (PackedQuantizedTensor, ChannelQuantizedTensor)
 def linear(params: dict, x: torch.Tensor,
            norm: Optional[tuple] = None) -> torch.Tensor:
     """y = x @ W^T (+ b). params: {"w": [out, in] | PackedQuantizedTensor |
-    ChannelQuantizedTensor, "b"?}. norm (optional (weight, eps)): RMSNorm x
-    first; fused into K1's prologue where the JAX package fuses it (a 4-bit
-    panel weight at M=1). A packed weight takes the formula
-    ``ops.quant_matmul.route`` names."""
+    ChannelQuantizedTensor | QuantizedTensor, "b"?}. norm (optional
+    (weight, eps)): RMSNorm x first; fused into K1's prologue where the
+    JAX package fuses it (a 4-bit panel weight at M=1). A packed weight
+    takes the formula ``ops.quant_matmul.route`` names; a QuantizedTensor
+    is dequantized to x's type and multiplied (``core.quant.
+    quantized_matmul``), as the JAX package's ``quantized_matmul`` does."""
     w = params["w"]
     if isinstance(w, QUANTIZED):
         if norm is not None:
-            y = quantized_matmul(x, w, norm_w=norm[0], norm_eps=norm[1])
+            y = qm.quantized_matmul(x, w, norm_w=norm[0], norm_eps=norm[1])
         else:
-            y = quantized_matmul(x, w)
+            y = qm.quantized_matmul(x, w)
+    elif isinstance(w, QuantizedTensor):
+        if norm is not None:
+            x = rms_norm(norm[0], x, norm[1])
+        y = quantized_matmul(x, w, x.dtype)
     else:
         if norm is not None:
             x = rms_norm(norm[0], x, norm[1])
@@ -43,12 +53,18 @@ def linear(params: dict, x: torch.Tensor,
 
 
 def embedding(weight, tokens: torch.Tensor) -> torch.Tensor:
-    """weight: [V, D] tensor, PackedQuantizedTensor or
-    ChannelQuantizedTensor (dequantizes only the gathered rows, bf16)."""
+    """weight: [V, D] tensor, PackedQuantizedTensor, ChannelQuantizedTensor
+    or QuantizedTensor (dequantizes only the gathered rows, bf16)."""
     if isinstance(weight, PackedQuantizedTensor):
         return gather_rows(weight, tokens)
     if isinstance(weight, ChannelQuantizedTensor):
         return channel_gather_rows(weight, tokens)
+    if isinstance(weight, QuantizedTensor):
+        flat = tokens.reshape(-1)
+        rows = QuantizedTensor(q=weight.q[flat], scales=weight.scales[flat],
+                               biases=weight.biases[flat],
+                               group_size=weight.group_size, bits=weight.bits)
+        return dequantize(rows).reshape(*tokens.shape, -1)
     return weight[tokens]
 
 

@@ -42,7 +42,8 @@ build_seconds = 0.0     # wall time of the build this process ran (0 if reused)
 # "k1_m1_w8" and "k1_mn_w8": the same on an 8-bit weight, "k6": the
 # row-major P formula over up to 16 rows, "k7": the dq kernel on row-major
 # 4-bit weights up to 64 rows,
-# "k2": flash prefill, "k2c": flash continuation chunk,
+# "k2": flash prefill, "k2c": flash continuation chunk ("k2_window",
+# "k2c_window": the part of each with a sliding window),
 # "k3": paged decode attention, "k3_int8": the part of "k3" on int8
 # pages, "k4": MoE expert gather-qmm on 4-bit experts, "k4_w8": the same
 # on 8-bit experts, "k5": grouped matmul on bf16 experts, "k5_w4" and
@@ -81,12 +82,13 @@ def _declare(lib):
     lib.ominix_qmm_dq_tc.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i,
                                      i, i, i, i, i, vp]
     lib.ominix_flash_fwd.restype = i
-    lib.ominix_flash_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, f,
-                                     vp]
+    lib.ominix_flash_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                                     f, vp]
     ll = ctypes.c_longlong
     lib.ominix_flash_chunk_fwd.restype = i
     lib.ominix_flash_chunk_fwd.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i,
-                                           i, ll, ll, ll, ll, ll, ll, f, vp]
+                                           i, ll, ll, ll, ll, ll, ll, i, f,
+                                           vp]
     lib.ominix_paged_decode.restype = i
     lib.ominix_paged_decode.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp,
                                         vp, i, i, i, i, i, i, i, i, i, f, i,

@@ -6,6 +6,13 @@ ominix_mlx_tpu/serving/server.py, chat surface):
   GET  /health
   GET  /metrics                  (Prometheus text, counters)
 
+``Server.load_model(name, dir)`` loads a checkpoint directory through
+``models.registry`` (Qwen3, Qwen2, Qwen3-MoE, Mistral, GLM-4) with the
+directory's ``utils.tokenizer.Tokenizer``; ``add_model`` registers a model
+built in memory. ``main()`` is the command line:
+
+    python -m ominix_mlx_tpu_torch.serving.server --model name=DIR
+
 HTTP threads hand each request to ONE inference thread
 (``InferenceWorker``); an Engine is cached per sampler configuration.
 ``Server.enable_batching`` turns on continuous batching for a model: its
@@ -19,6 +26,8 @@ answers 501.
 
 from __future__ import annotations
 
+import argparse
+import inspect
 import json
 import queue
 import sys
@@ -90,16 +99,29 @@ class ChatModel:
         self._engines: dict = {}
 
     def engine(self, sampler: SamplerConfig) -> Engine:
+        """The Engine of ``sampler``, with the module's fresh prefill (K2)
+        and, where its ``forward`` takes ``kv_limit``, its continuation
+        chunks (K2c) and their logits-free form, as the JAX package's
+        ``LoadedModel.engine`` wires them."""
         eng = self._engines.get(sampler)
         if eng is None:
             if len(self._engines) >= self.MAX_ENGINES:
                 self._engines.pop(next(iter(self._engines)))
             mod, cfg = self.module, self.cfg
-            eng = Engine(
-                lambda p, t, c: mod.forward(p, cfg, t, c), self.params,
-                sampler,
-                prefill_forward_fn=lambda p, t, c: mod.forward(
-                    p, cfg, t, c, fresh_prefill=True))
+            takes = inspect.signature(mod.forward).parameters
+            kw = {}
+            if "fresh_prefill" in takes:
+                kw["prefill_forward_fn"] = lambda p, t, c: mod.forward(
+                    p, cfg, t, c, fresh_prefill=True)
+            if "kv_limit" in takes:
+                kw["chunk_forward_fn"] = lambda p, t, c, kl: mod.forward(
+                    p, cfg, t, c, kv_limit=kl)
+                if "skip_logits" in takes:
+                    kw["chunk_hidden_forward_fn"] = \
+                        lambda p, t, c, kl: mod.forward(
+                            p, cfg, t, c, kv_limit=kl, skip_logits=True)
+            eng = Engine(lambda p, t, c: mod.forward(p, cfg, t, c),
+                         self.params, sampler, **kw)
             self._engines[sampler] = eng
         return eng
 
@@ -286,6 +308,26 @@ class Server:
                 lines.append(f"# TYPE ominix_{key} {kind}")
                 lines.append(f'ominix_{key}{{model="{name}"}} {val}')
         return "\n".join(lines) + "\n"
+
+    def load_model(self, name: str, model_dir: str, device=None):
+        """Load a checkpoint directory through ``models.registry.
+        load_pipeline``: a chat family becomes a ``ChatModel`` with the
+        directory's ``Tokenizer``; a pipeline family raises
+        NotImplementedError (none is ported yet)."""
+        from ominix_mlx_tpu_torch.core.device import resolve_device
+        from ominix_mlx_tpu_torch.models import registry
+        from ominix_mlx_tpu_torch.utils.tokenizer import Tokenizer
+
+        device = resolve_device(device)
+        cap, obj = registry.load_pipeline(model_dir, device)
+        if cap != "chat":
+            raise NotImplementedError(f"{cap} pipelines are not ported")
+        module, params, cfg = obj
+        m = ChatModel(name, params, cfg, Tokenizer(model_dir), device,
+                      module)
+        m.dir = model_dir
+        self.models[name] = m
+        return m
 
     def add_model(self, name: str, model: ChatModel):
         """Register a model built in memory (random or bridged weights)."""
@@ -623,3 +665,77 @@ class Server:
         self.worker.stop()
         for runner in self.batchers.values():
             runner.stop()
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The JAX package's server flags (ominix_mlx_tpu/serving/server.py
+    ``main``)."""
+    ap = argparse.ArgumentParser(
+        description="ominix inference server on one CUDA card")
+    ap.add_argument("--model", action="append", required=True,
+                    help="name=path or path (repeatable)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--batch-slots", type=int, default=0,
+                    help="continuous-batching slots for chat models "
+                         "(0 = per-request decode)")
+    ap.add_argument("--batch-max-len", type=int, default=4096)
+    ap.add_argument("--batch-quantize-bits", type=int, default=None,
+                    help="serve the continuous batcher quantized: 8 = "
+                         "channelwise w8a8, 4 = group w4")
+    ap.add_argument("--batch-paged", action="store_true",
+                    help="back batching slots with a shared paged KV pool")
+    ap.add_argument("--batch-num-pages", type=int, default=None,
+                    help="physical pages in the shared pool (default: "
+                         "fully backed)")
+    ap.add_argument("--kv-bits", type=int, default=None, choices=(8,),
+                    help="int8 KV pages in the paged pool")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="reuse KV pages across requests that share a "
+                         "prompt prefix; implies --batch-paged")
+    ap.add_argument("--draft-model", default=None,
+                    help="draft checkpoint for speculative decoding (not "
+                         "ported: raises)")
+    ap.add_argument("--draft-layers", type=int, default=None,
+                    help="self-speculation on the first N layers (not "
+                         "ported: raises)")
+    ap.add_argument("--draft-tokens", type=int, default=4)
+    return ap.parse_args(argv)
+
+
+def build_server(args: argparse.Namespace, device=None) -> Server:
+    """A Server with every ``--model`` loaded (on ``device``, default the
+    current CUDA device) and, with ``--batch-slots``, batching enabled on
+    each. Speculative decoding (``--draft-*``) raises
+    NotImplementedError."""
+    if args.draft_model or args.draft_layers:
+        raise NotImplementedError(
+            "speculative decoding (--draft-model, --draft-layers) is not "
+            "ported to the torch package yet")
+    srv = Server(args.host, args.port)
+    for spec in args.model:
+        name, _, path = spec.rpartition("=")
+        name = name or path.rstrip("/").rsplit("/", 1)[-1]
+        srv.load_model(name, path, device)
+        if args.batch_slots:
+            srv.enable_batching(
+                name, slots=args.batch_slots, max_len=args.batch_max_len,
+                quantize_bits=args.batch_quantize_bits,
+                paged=(args.batch_paged or bool(args.kv_bits)
+                       or args.prefix_cache),
+                num_pages=args.batch_num_pages, kv_bits=args.kv_bits,
+                prefix_cache=args.prefix_cache)
+    return srv
+
+
+def main(argv=None):
+    srv = build_server(parse_args(argv))
+    print(f"serving on http://{srv.host}:{srv.port}", flush=True)
+    try:
+        srv.serve_forever()
+    finally:
+        srv.shutdown()
+
+
+if __name__ == "__main__":
+    main()

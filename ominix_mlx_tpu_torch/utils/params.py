@@ -16,7 +16,10 @@ Each channel-quantized
 output lives on ``device``, with group-quantized weights packed for the
 routes of ``ops.quant_matmul``, stacked 4- or 8-bit experts packed for
 kernel K4 (``PackedQuantizedExperts``) and stacked channel experts for
-kernel K8 (``ChannelQuantizedExperts``).
+kernel K8 (``ChannelQuantizedExperts``). Every key of the tree is
+carried as it is named, so GLM-4's sandwich norms
+(``post_self_attn_layernorm``, ``post_mlp_layernorm``) and biases ("b")
+reach the port's ``decoder_layer`` and ``linear``.
 """
 
 from __future__ import annotations

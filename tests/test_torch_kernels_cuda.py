@@ -648,9 +648,9 @@ def test_k3_split_never_reads_table_past_length(cuda):
 
 def test_model_attention_runs_kernels_or_raises(cuda):
     """On CUDA the model sends a fresh prefill, a continuation chunk and a
-    paged decode step to K2, K2c and K3 whatever the shape: a head dim the
-    kernels do not take raises, and so does a sliding window in K2's and
-    K2c's branches, never a quiet dense path."""
+    paged decode step to K2, K2c and K3 whatever the shape, a sliding
+    window included (each kernel takes it): a head dim the kernels do not
+    take raises, never a quiet dense path."""
     from ominix_mlx_tpu_torch.models import base
 
     def run(head_dim, window):
@@ -685,7 +685,7 @@ def test_model_attention_runs_kernels_or_raises(cuda):
 
     assert run(64, None) == [{"k2": 1}, {"k2c": 1}, {"k3": 1}]
     assert run(96, None) == ["ValueError"] * 3
-    assert run(64, 4) == ["NotImplementedError"] * 2 + [{"k3": 1}]
+    assert run(64, 4) == [{"k2": 1}, {"k2c": 1}, {"k3": 1}]
 
 
 @pytest.mark.parametrize("M", [1, 8, 17, 64])
@@ -741,6 +741,155 @@ def test_k3_at_32_over_4_heads(cuda, quant):
                                      k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
     assert _row_rel(got, want) < 3e-2
+
+
+# ------------------------------------------- sliding window (Mistral) ------
+
+@pytest.mark.parametrize("window", [0, 128, 256, 100, 4000, 5000])
+@pytest.mark.parametrize("T,H,Hkv,D", [(1000, 8, 2, 128), (777, 32, 2, 128),
+                                       (300, 4, 1, 64), (500, 4, 2, 256)])
+def test_k2_window_matches_plain(cuda, T, H, Hkv, D, window):
+    """K2 with a sliding window (0: none; multiples of the 128-key tile,
+    one that is not, one longer than T) against its plain version, as
+    test_k2_matches_plain holds K2: output 1e-2 of max |plain|, LSE 1e-3.
+    A windowed launch also counts as "k2_window"."""
+    g = torch.Generator(device=cuda).manual_seed(T + window)
+    q = torch.randn(1, H, T, D, generator=g, device=cuda).bfloat16()
+    k = torch.randn(1, Hkv, T, D, generator=g, device=cuda).bfloat16()
+    v = torch.randn(1, Hkv, T, D, generator=g, device=cuda).bfloat16()
+    _build.reset_launches()
+    out, lse = fa.flash_prefill_lse(q, k, v, D ** -0.5, window)
+    assert _build.LAUNCHES["k2"] == 1
+    assert _build.LAUNCHES["k2_window"] == int(window > 0)
+    want, want_lse = fa.flash_prefill_reference(q, k, v, D ** -0.5, window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert _rel(out, want) < 1e-2
+    assert (lse - want_lse).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("window", [0, 128, 256, 100, 4000, 9000])
+@pytest.mark.parametrize("pos,T,H,Hkv,D", [
+    (6144, 2048, 32, 8, 128),     # the 8k prefill's last chunk
+    (6144, 2048, 32, 2, 128),     # GLM-4's 16 query heads a KV head
+    (300, 100, 8, 2, 128),        # the window's edge inside the chunk
+    (90, 33, 4, 1, 64), (200, 130, 4, 2, 256)])
+def test_k2c_window_matches_plain(cuda, pos, T, H, Hkv, D, window):
+    """K2c over the strided prefix of a larger cache with a window, against
+    its plain version (1e-2, LSE 1e-3)."""
+    g = torch.Generator(device=cuda).manual_seed(pos + T + window)
+    cap = pos + T + 37
+    q = torch.randn(1, H, T, D, generator=g, device=cuda).bfloat16()
+    kc = torch.randn(1, Hkv, cap, D, generator=g, device=cuda).bfloat16()
+    vc = torch.randn(1, Hkv, cap, D, generator=g, device=cuda).bfloat16()
+    k, v = kc[:, :, :pos + T], vc[:, :, :pos + T]
+    _build.reset_launches()
+    out, lse = fa.flash_chunk_prefill_lse(q, k, v, pos, D ** -0.5, window)
+    assert _build.LAUNCHES["k2c"] == 1
+    assert _build.LAUNCHES["k2c_window"] == int(window > 0)
+    want, want_lse = fa.flash_chunk_reference(q, k, v, pos, D ** -0.5,
+                                              window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert _rel(out, want) < 1e-2
+    assert (lse - want_lse).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("window", [128, 100, 1000])
+def test_k2c_window_rows_equal_k2_window_rows(cuda, window):
+    """With a window too, K2c's chunk rows equal K2's single-shot rows bit
+    for bit: the key tiles sit at absolute multiples of the tile, and a
+    tile a row sees no key of leaves its state as it was."""
+    T, H, Hkv, D = 2048, 8, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(window)
+    q = torch.randn(1, H, T, D, generator=g, device=cuda).bfloat16()
+    k = torch.randn(1, Hkv, T, D, generator=g, device=cuda).bfloat16()
+    v = torch.randn(1, Hkv, T, D, generator=g, device=cuda).bfloat16()
+    out, lse = fa._k2(q, k, v, D ** -0.5, window)
+    for pos in (1024, 1500):
+        out_c, lse_c = fa._k2c(q[:, :, pos:].contiguous(), k, v, pos,
+                               D ** -0.5, window)
+        torch.cuda.synchronize()
+        assert torch.equal(out_c, out[:, :, pos:])
+        assert torch.equal(lse_c, lse[:, :, pos:])
+
+
+def test_window_model_prefill_runs_k2_and_k2c(cuda):
+    """A sliding-window model's fresh prefill launches K2 and a
+    continuation chunk K2c, each with the window: no branch falls back to
+    sdpa (every launch also counts as the windowed kind)."""
+    from ominix_mlx_tpu_torch.core.generate import Engine
+    from ominix_mlx_tpu_torch.models import base
+
+    cfg = base.TransformerConfig(
+        vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+        num_kv_heads=2, head_dim=64, intermediate_size=512,
+        sliding_window=100)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = base.init_params(cfg, g, device=cuda)
+    eng = Engine(lambda p, t, c: base.forward(p, cfg, t, c), params,
+                 prefill_forward_fn=lambda p, t, c: base.forward(
+                     p, cfg, t, c, fresh_prefill=True),
+                 chunk_forward_fn=lambda p, t, c, kl: base.forward(
+                     p, cfg, t, c, kv_limit=kl))
+    prompt = torch.randint(0, 256, (1, 600), generator=g, device=cuda)
+    _build.reset_launches()
+    last, _ = eng.prefill_chunked(prompt, base.init_cache(
+        cfg, 1, 640, device=cuda), chunk_size=256)
+    assert torch.isfinite(last).all()
+    assert _build.LAUNCHES["k2"] == _build.LAUNCHES["k2_window"] == 2
+    assert _build.LAUNCHES["k2c"] == _build.LAUNCHES["k2c_window"] == 4
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [0, 4096])
+def test_k3_at_32_over_2_heads(cuda, quant, window):
+    """GLM-4-9B's heads (32 query over 2 KV, a group of 16, D=128) at
+    batch 8, ragged, with and without a window: per (row, head) error
+    < 3e-2 of max |plain|, as test_k3_main_shape_matches_plain."""
+    lengths = [1, 127, 128, 129, 700, 1500, 4097, 5000]
+    q, kp, vp, ks, vs, table, lens = _paged_inputs(
+        cuda, 8, 32, 2, 128, 128, 40, lengths, quant, seed=16)
+    got = pa.paged_decode_attention(q, kp, vp, table, lens, 128 ** -0.5,
+                                    window=window, k_scale=ks, v_scale=vs)
+    want = pa.paged_decode_reference(q, kp, vp, table, lens, 128 ** -0.5,
+                                     window=window, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _row_rel(got, want) < 3e-2
+
+
+def test_loader_reads_onto_the_card(cuda, tmp_path):
+    """The port's safetensors writer and reader: every dtype lands on the
+    card bit for bit, and MLX's uint32 words unpack there as on the CPU."""
+    from ominix_mlx_tpu_torch.core.quant import from_mlx_arrays, pack_codes
+    from ominix_mlx_tpu_torch.utils import loading
+
+    g = torch.Generator().manual_seed(0)
+    codes = torch.randint(0, 16, (64, 256), generator=g, dtype=torch.uint8)
+    ts = {"bf16": torch.randn(33, 17, generator=g).bfloat16(),
+          "f32": torch.randn(5, generator=g),
+          "i8": torch.randint(-128, 128, (9,), generator=g,
+                              dtype=torch.int8),
+          "w": pack_codes(codes, 4),
+          "s": torch.rand(64, 4, generator=g).bfloat16(),
+          "b": torch.randn(64, 4, generator=g).bfloat16()}
+    path = str(tmp_path / "m.safetensors")
+    loading.save_safetensors(path, ts)
+    got = loading.read_safetensors(path, device=cuda)
+    for k, t in ts.items():
+        assert got[k].is_cuda and got[k].dtype == t.dtype
+        words = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                 torch.uint32: torch.int32}.get(t.dtype)
+        a, b = got[k].cpu(), t
+        if words is not None:
+            a, b = a.view(words), b.view(words)
+        assert torch.equal(a, b), k
+    on_card = from_mlx_arrays(got["w"], got["s"], got["b"], 64, 4)
+    on_host = from_mlx_arrays(ts["w"], ts["s"], ts["b"], 64, 4)
+    assert torch.equal(on_card.q.cpu(), on_host.q)
+    assert torch.equal(on_card.biases.cpu().view(torch.int16),
+                       on_host.biases.view(torch.int16))
 
 
 # ------------------------------------------------- K4: expert gather-qmm ----

@@ -175,16 +175,23 @@ def test_unported_branches_raise():
 @pytest.mark.parametrize("key", ["post_self_attn_layernorm",
                                  "post_mlp_layernorm"])
 def test_post_norm_layers_raise(key):
-    """Families with extra post-attention / post-MLP norms (Gemma-style)
-    are not ported: a tree holding one raises instead of skipping it."""
-    import dataclasses
-    cfg = dataclasses.replace(TCFG, num_layers=1)
-    tp = tbase.init_quantized_params(cfg, torch.Generator().manual_seed(0),
-                                     device="cpu")
-    tp["layers"][0][key] = torch.ones(cfg.hidden_size, dtype=torch.bfloat16)
+    """GLM-4's sandwich norms (a norm on the attention output, one on the
+    MLP output) are applied where the JAX package applies them: a tree
+    holding one, with a weight that is not all ones, gives the JAX
+    package's logits (float32, 1e-4), and so does not skip it. The layer
+    kinds still not ported (a DeltaNet or MLA layer) raise."""
+    jp = jbase.init_params(JCFG, jax.random.PRNGKey(2), jnp.float32)
+    w = np.random.default_rng(0).uniform(0.5, 1.5, JCFG.hidden_size)
+    jp["layers"][0][key] = jnp.asarray(w, jnp.float32)
+    tp = params_from_numpy(_to_numpy(jp), "cpu")
+    prompt = np.random.default_rng(1).integers(0, 512, 6)
+    for jl, tl in _run_logits(jp, tp, prompt, 2, jnp.float32,
+                              torch.float32):
+        assert np.max(np.abs(jl - tl)) < 1e-4
+    tp["layers"][0]["linear_attn"] = {}
     with pytest.raises(NotImplementedError):
-        tbase.forward(tp, cfg, torch.zeros(1, 1, dtype=torch.long),
-                      tbase.init_cache(cfg, 1, 8, device="cpu"))
+        tbase.forward(tp, TCFG, torch.zeros(1, 1, dtype=torch.long),
+                      tbase.init_cache(TCFG, 1, 8, device="cpu"))
 
 
 @pytest.mark.parametrize("variant,act_bits", [
