@@ -34,8 +34,10 @@ def causal_mask(q_len: int, kv_capacity: int, offset,
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: [B, H, T, D]; k, v: [B, Hkv, S, D]; mask: additive float32
-    [T, S] or per-row [B, T, S]. Returns [B, H, T, D] in v's dtype."""
+    """q: [B, H, T, D]; k: [B, Hkv, S, D]; v: [B, Hkv, S, Dv] (Dv may
+    differ from D: MLA's latent v is narrower than its k); mask: additive
+    float32 [T, S] or per-row [B, T, S]. Returns [B, H, T, Dv] in v's
+    dtype."""
     B, H, T, D = q.shape
     Hkv = k.shape[1]
     if H % Hkv:

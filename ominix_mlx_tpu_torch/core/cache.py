@@ -1,5 +1,7 @@
 """KV caches: fixed capacity, preallocated once (counterpart of
-ominix_mlx_tpu/core/cache.py). Layout [B, n_kv_heads, max_len, head_dim].
+ominix_mlx_tpu/core/cache.py). Layout [B, n_kv_heads, max_len, head_dim];
+v may be narrower than k (MLA's latent cache: k [B, 1, L, Ckv + rope], v
+[B, 1, L, Ckv], ``models.mla.init_cache_layer``).
 
 Unlike the JAX package, whose caches are immutable values, ``update``
 writes into the preallocated buffers IN PLACE and returns the same object.
@@ -11,7 +13,7 @@ JAX package's semantics.
 from __future__ import annotations
 
 import dataclasses
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -25,17 +27,20 @@ class KVCache:
     """Per-layer fixed-capacity KV cache."""
 
     k: torch.Tensor  # [B, n_kv, max_len, head_dim]
-    v: torch.Tensor
+    v: torch.Tensor  # [B, n_kv, max_len, v_dim]
 
     @staticmethod
     def init(batch: int, n_kv: int, max_len: int, head_dim: int,
-             dtype=torch.bfloat16, device=None) -> "KVCache":
+             dtype=torch.bfloat16, device=None,
+             v_dim: Optional[int] = None) -> "KVCache":
         """Zeroed buffers on ``device`` (default: the current CUDA
-        device; see ``core.device.resolve_device``)."""
+        device; see ``core.device.resolve_device``); v is ``v_dim`` wide
+        (default: ``head_dim``)."""
         device = resolve_device(device)
         shape = (batch, n_kv, max_len, head_dim)
+        vshape = shape[:3] + (v_dim or head_dim,)
         return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                       v=torch.zeros(shape, dtype=dtype, device=device))
+                       v=torch.zeros(vshape, dtype=dtype, device=device))
 
     @property
     def max_len(self) -> int:
@@ -43,7 +48,8 @@ class KVCache:
 
     def update(self, k_new: torch.Tensor, v_new: torch.Tensor,
                offset: Offset) -> "KVCache":
-        """Write [B, n_kv, T, D] at positions offset..offset+T-1, in place.
+        """Write k [B, n_kv, T, D] and v [B, n_kv, T, Dv] at positions
+        offset..offset+T-1, in place.
 
         An int offset raises if the write would run past capacity. A [B]
         tensor writes each row at its own offset without a host sync; as

@@ -1,6 +1,11 @@
 """Rotary position embeddings (counterpart of ominix_mlx_tpu/core/rope.py):
 default RoPE with ``theta``, linear scaling, partial rotary dims, and the
-interleaved-pair ("traditional") or half-split conventions."""
+interleaved-pair ("traditional") or half-split conventions.
+
+As in the JAX package's ``make_rope``, every scaling type but "linear"
+(yarn, llama3, ...) resolves to the default frequencies: a DeepSeek
+config's yarn scaling enters only through MLA's softmax scale
+(``models.mla.MLAConfig.scale``)."""
 
 from __future__ import annotations
 
@@ -29,10 +34,17 @@ def make_rope(head_dim: int, theta: float = 10000.0,
         rtype = rope_scaling.get("type") or rope_scaling.get("rope_type")
         if rtype == "linear":
             scale = 1.0 / float(rope_scaling["factor"])
-        elif rtype not in (None, "default"):
-            raise NotImplementedError(f"rope scaling {rtype!r}")
     return RopeConfig(dims=dims, theta=theta, scale=scale,
                       traditional=traditional)
+
+
+def positions_of(offset, T: int, device) -> torch.Tensor:
+    """Absolute positions [T] of T tokens at an int offset, or [B, T] at
+    per-row offsets (a [B] tensor: continuous batching)."""
+    ar = torch.arange(T, device=device)
+    if isinstance(offset, torch.Tensor):
+        return offset.to(device).long()[:, None] + ar
+    return offset + ar
 
 
 def _angles(positions: torch.Tensor, dims: int, theta: float, scale: float):

@@ -39,6 +39,15 @@
 //   f32 rounding, one cvt packs two bf16), while the last stage's wgmma
 //   run (two A buffers; the stage count is made even, a zero stage past K
 //   where needed).
+// - Streamed scales: where those two buffers would not leave shared memory
+//   for two slots of each ring (K / gs > 153 groups: Mixtral's down
+//   projection, K = 14336 at gs 64, needs 229376 bytes), nothing is
+//   staged. Each lane reads the scale and bias of its two rows at each
+//   new group straight from global memory (ld.global.nc: one 32-byte
+//   sector holds 16 groups of a row, so 15 of 16 reads hit L1, and the
+//   next sector is prefetched into L1 when a lane enters one), the rings
+//   take all of shared memory, and every item runs on wgmma. Same
+//   products, same roundings.
 // - A persistent grid, one CTA an SM, walks the items (row tile, weight
 //   tile), weight tiles fastest, so the items of one expert run together
 //   and its slab comes from L2. The producer runs ahead across items, so
@@ -130,6 +139,10 @@ __device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
   return v;
 }
 
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
 __device__ __forceinline__ uint4 lds_v4(uint32_t addr) {
   uint4 v;
   asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
@@ -167,6 +180,7 @@ __device__ __forceinline__ uint32_t dq8(uint32_t X, int i, float s, float b) {
 struct Ctx {
   int S, N, E, G, gs, XS, WS, nk, ntn;
   uint32_t xring, wring, scales;   // shared addresses
+  const unsigned short *sc, *bs;   // streamed: the scales and biases
 };
 
 // The widths of an item's x rows, and the boxes of x [S, K] a step loads
@@ -240,14 +254,19 @@ __device__ __forceinline__ uint32_t swz_chunk(uint32_t slot, int r, int q) {
 // steps (x from its ring every step, the weights from theirs every kSteps
 // steps), then the f32 tile straight from the accumulators into out (a
 // warp's store covers 32-byte runs of 8 output columns).
-template <int FORM, int NP>
+template <int FORM, int NP, bool STREAM>
 __device__ __forceinline__ void consume(const Ctx& C, const Work& W, int it,
                                         Ring& XR, Ring& WR, uint64_t* bars,
                                         float* out) {
   constexpr int R = Form<FORM>::kSteps;
+  constexpr bool kStaged = FORM != 16 && !STREAM;
   // packed weights against at most 32 rows of x: mma.sync, whose short
-  // latency the next step's dequantization overlaps; else wgmma
-  constexpr bool kSync = FORM != 16 && NP <= 32;
+  // latency the next step's dequantization overlaps; else wgmma. Streamed
+  // scales take wgmma at every width: with mma.sync, runs of the streamed
+  // form at ring depths of 9 slots and more returned a wrong step in some
+  // items (Mixtral's down projection, K = 14336), and with wgmma none did
+  // at any of 43 ring depths
+  constexpr bool kSync = FORM != 16 && NP <= 32 && !STREAM;
   uint64_t* xfull = bars;
   uint64_t* xempty = bars + kMaxSlots;
   uint64_t* wfull = bars + 2 * kMaxSlots;
@@ -264,7 +283,12 @@ __device__ __forceinline__ void consume(const Ctx& C, const Work& W, int it,
   const int sb = it & 1;                        // the item's scale buffer
   const uint32_t scs = C.scales + sb * 4 * kTileW * C.G;
   const uint32_t bss = scs + 2 * kTileW * C.G;
-  if constexpr (FORM != 16) mbar_wait(sfull + sb, (it >> 1) & 1);
+  if constexpr (kStaged) mbar_wait(sfull + sb, (it >> 1) & 1);
+  // streamed: element offsets of rows r and r + 8's groups (rows past N
+  // read row N - 1: their products are never stored)
+  const uint32_t go0 = ((uint32_t)W.e * C.N + min(W.n0 + r, C.N - 1)) * C.G;
+  const uint32_t go1 =
+      ((uint32_t)W.e * C.N + min(W.n0 + r + 8, C.N - 1)) * C.G;
 
   int xprev = -1, wprev = -1, wcur = 0;
   // packed forms: the group of the next k16 slice, walked in order
@@ -325,11 +349,26 @@ __device__ __forceinline__ void consume(const Ctx& C, const Work& W, int it,
         const int g = min(gcur, C.G - 1);
         if (g != gl) {
           gl = g;
-          const uint32_t o0 = (r * C.G + g) * 2, o1 = ((r + 8) * C.G + g) * 2;
-          s0 = bf16_bits(lds_u16(scs + o0));
-          s1 = bf16_bits(lds_u16(scs + o1));
-          b0 = bf16_bits(lds_u16(bss + o0));
-          b1 = bf16_bits(lds_u16(bss + o1));
+          if constexpr (STREAM) {
+            const uint32_t o0 = go0 + g, o1 = go1 + g;
+            s0 = bf16_bits(__ldg(C.sc + o0));
+            s1 = bf16_bits(__ldg(C.sc + o1));
+            b0 = bf16_bits(__ldg(C.bs + o0));
+            b1 = bf16_bits(__ldg(C.bs + o1));
+            if ((g & 15) == 0 && g + 16 < C.G) {
+              prefetch_l1(C.sc + o0 + 16);
+              prefetch_l1(C.sc + o1 + 16);
+              prefetch_l1(C.bs + o0 + 16);
+              prefetch_l1(C.bs + o1 + 16);
+            }
+          } else {
+            const uint32_t o0 = (r * C.G + g) * 2,
+                           o1 = ((r + 8) * C.G + g) * 2;
+            s0 = bf16_bits(lds_u16(scs + o0));
+            s1 = bf16_bits(lds_u16(scs + o1));
+            b0 = bf16_bits(lds_u16(bss + o0));
+            b1 = bf16_bits(lds_u16(bss + o1));
+          }
         }
         if (++grem == sl_per_g) { grem = 0; ++gcur; }
         if constexpr (FORM == 4) {
@@ -413,7 +452,7 @@ __device__ __forceinline__ void consume(const Ctx& C, const Work& W, int it,
       mbar_arrive(wempty + wprev);
     }
   }
-  if (FORM != 16 && lane == 0) mbar_arrive(sempty + sb);
+  if (kStaged && lane == 0) mbar_arrive(sempty + sb);
 #pragma unroll
   for (int q = 0; q < NP / 2; ++q) {
     const int n = W.n0 + r + 8 * ((q >> 1) & 1);
@@ -424,12 +463,13 @@ __device__ __forceinline__ void consume(const Ctx& C, const Work& W, int it,
 }
 
 // A persistent grid of one CTA an SM, kThreads threads; FORM 16 (bf16),
-// 4 or 8 (packed). xm: the x boxes; tw: the weights [E, N, K(/2)] in
+// 4 or 8 (packed; STREAM: scales read from global memory, not staged).
+// xm: the x boxes; tw: the weights [E, N, K(/2)] in
 // boxes of 128 rows x 128 bytes, 128-byte swizzled. CTA b takes the items
 // b, b + gridDim.x, ... of the list (row tile, weight tile), weight tiles
 // fastest; its producer runs ahead across items as far as the rings let
 // it.
-template <int FORM>
+template <int FORM, bool STREAM>
 __global__ void __launch_bounds__(kThreads, 1)
 gmm_kernel(const __grid_constant__ XMaps xm,
            const __grid_constant__ CUtensorMap tw,
@@ -438,6 +478,7 @@ gmm_kernel(const __grid_constant__ XMaps xm,
            float* __restrict__ out, int S, int N, int K, int E, int gs,
            int XS, int WS) {
   constexpr int R = Form<FORM>::kSteps;
+  constexpr bool kStaged = FORM != 16 && !STREAM;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[4 * kMaxSlots + 4];
   const int tid = threadIdx.x;
@@ -457,6 +498,8 @@ gmm_kernel(const __grid_constant__ XMaps xm,
   C.xring = smem_u32(base);
   C.wring = smem_u32(wring);
   C.scales = smem_u32(scales);
+  C.sc = (const unsigned short*)sc;
+  C.bs = (const unsigned short*)bs;
   // the tile map, for the items' lookups
   __shared__ int smap[2 * 1024 + 2];
   for (int i = tid; i < 2 * E + 2; i += kThreads) smap[i] = map[i];
@@ -502,7 +545,7 @@ gmm_kernel(const __grid_constant__ XMaps xm,
       Work W;
       if (!work_of(smap, C, w, W)) continue;
       const int wi = width_of(W.rows);
-      if constexpr (FORM != 16) {
+      if constexpr (kStaged) {
         const int sb = it & 1;
         if (it >= 2) mbar_wait(sempty + sb, ((it >> 1) - 1) & 1);
         const uint32_t bytes = (uint32_t)min(kTileW, N - W.n0) * C.G * 2;
@@ -535,12 +578,17 @@ gmm_kernel(const __grid_constant__ XMaps xm,
     Work W;
     if (!work_of(smap, C, w, W)) continue;
     switch (width_of(W.rows)) {
-      case 0: consume<FORM, 8>(C, W, it, XR, WR, bars, out); break;
-      case 1: consume<FORM, 16>(C, W, it, XR, WR, bars, out); break;
-      case 2: consume<FORM, 32>(C, W, it, XR, WR, bars, out); break;
-      case 3: consume<FORM, 64>(C, W, it, XR, WR, bars, out); break;
-      case 4: consume<FORM, 96>(C, W, it, XR, WR, bars, out); break;
-      default: consume<FORM, 128>(C, W, it, XR, WR, bars, out);
+      case 0: consume<FORM, 8, STREAM>(C, W, it, XR, WR, bars, out);
+        break;
+      case 1: consume<FORM, 16, STREAM>(C, W, it, XR, WR, bars, out);
+        break;
+      case 2: consume<FORM, 32, STREAM>(C, W, it, XR, WR, bars, out);
+        break;
+      case 3: consume<FORM, 64, STREAM>(C, W, it, XR, WR, bars, out);
+        break;
+      case 4: consume<FORM, 96, STREAM>(C, W, it, XR, WR, bars, out);
+        break;
+      default: consume<FORM, 128, STREAM>(C, W, it, XR, WR, bars, out);
     }
     ++it;
   }
@@ -566,9 +614,12 @@ int launch(const void* xs, const void* w, const void* sc, const void* bs,
            const int* counts, int* map, float* out, int S, int N, int K,
            int E, int gs, int XS, int WS, cudaStream_t st) {
   const int G = FORM == 16 ? 0 : K / gs;
-  const int smem = 1024 + (XS + WS) * kSlot + 8 * kTileW * G;
+  // the scales stream where staging them would not fit beside the rings
+  const int rings = 1024 + (XS + WS) * kSlot;
+  const bool stream = rings + 8 * kTileW * G > kSmemMax;
+  const int smem = stream ? rings : rings + 8 * kTileW * G;
   if (XS < 2 || XS > kMaxSlots || WS < 2 || WS > kMaxSlots ||
-      smem > kSmemMax)
+      smem > kSmemMax || (stream && (long long)E * N * G >= (1LL << 32)))
     return (int)cudaErrorInvalidValue;
   XMaps xm;
   CUtensorMap tw;
@@ -591,8 +642,11 @@ int launch(const void* xs, const void* w, const void* sc, const void* bs,
                 w, 3, wd, wstr, wbox))
     return (int)cudaErrorInvalidValue;
   // set on every launch: the limit is per device, and cheap to set
+  auto kernel = gmm_kernel<FORM, false>;
+  if constexpr (FORM != 16)
+    if (stream) kernel = gmm_kernel<FORM, true>;
   const cudaError_t e = cudaFuncSetAttribute(
-      gmm_kernel<FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -600,7 +654,7 @@ int launch(const void* xs, const void* w, const void* sc, const void* bs,
           cudaSuccess)
     return (int)cudaGetLastError();
   gmm_tile_map<<<1, (E + 31) / 32 * 32, 0, st>>>(counts, E, map);
-  gmm_kernel<FORM><<<sms, kThreads, smem, st>>>(
+  kernel<<<sms, kThreads, smem, st>>>(
       xm, tw, (const __nv_bfloat16*)sc, (const __nv_bfloat16*)bs, map, out,
       S, N, K, E, gs, XS, WS);
   return (int)cudaGetLastError();
@@ -614,7 +668,9 @@ extern "C" {
 // the caller) then the tiles. bits = 16: w bf16 [E, N, K] (scales, biases
 // and gs unused); 4 or 8: packed codes with bf16 scales and biases
 // [E, N, K / gs]. x_slots and w_slots are the depths (2 .. 8) of the x
-// and weight rings the caller planned.
+// and weight rings the caller planned; packed scales and biases are
+// staged in shared memory where 8 * 128 * K / gs bytes fit beside the
+// rings, and read from global memory otherwise.
 // Needs E <= 1024 and K % 8 == 0; packed: K % 32 == 0, gs % 32 == 0,
 // K % gs == 0 and N % 8 == 0. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape or plan the kernel does not take.

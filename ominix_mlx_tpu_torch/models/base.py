@@ -7,11 +7,15 @@ function of (params, cfg, tokens, cache); ``params_from_flat`` builds the
 tree from a checkpoint's flat {HF name: tensor} dict.
 
 This port covers the dense / GQA / QK-norm / tied-embedding decoder of
-Qwen2, Qwen3, Mistral and GLM-4, and its mixture-of-experts form (a layer
-holding "moe" runs ``models.moe.moe_block`` in place of the MLP), over a
-dense or paged KV cache, with per-row offsets (continuous batching) and
-chunked prefill (``kv_limit``). The JAX package's MLA, DeltaNet and
-ring-attention branches raise ``NotImplementedError`` here.
+Qwen2, Qwen3, Mistral and GLM-4, its mixture-of-experts form (a layer
+holding "moe" runs ``models.moe.moe_block`` in place of the MLP; Mixtral,
+GLM-4-MoE and DeepSeek mix leading dense layers with MoE ones) and
+DeepSeek's latent attention (a layer holding "kv_a_proj_with_mqa" runs
+``models.mla.attention_block`` over a latent cache), over a dense or
+paged KV cache (paged: GQA layers only), with per-row offsets
+(continuous batching) and chunked prefill (``kv_limit``). The JAX
+package's DeltaNet and ring-attention branches raise
+``NotImplementedError`` here.
 
 The ``init_*`` functions allocate on the current CUDA device unless the
 caller names a device (``device="cpu"`` for the CPU).
@@ -30,10 +34,12 @@ from ominix_mlx_tpu_torch.core.cache import KVCache, ModelCache
 from ominix_mlx_tpu_torch.core.device import resolve_device
 from ominix_mlx_tpu_torch.core.paged_cache import PagedKVCache
 from ominix_mlx_tpu_torch.core.quant import QuantizedTensor, from_mlx_arrays
-from ominix_mlx_tpu_torch.core.rope import RopeConfig, apply_rope, make_rope
+from ominix_mlx_tpu_torch.core.rope import (RopeConfig, apply_rope,
+                                            make_rope, positions_of)
 from ominix_mlx_tpu_torch.nn.layers import (ACTIVATIONS, embedding,
                                             embedding_as_linear, linear,
                                             rms_norm)
+from ominix_mlx_tpu_torch.models import mla as mla_mod
 from ominix_mlx_tpu_torch.models import moe as moe_mod
 from ominix_mlx_tpu_torch.ops import flash_attention as fa
 from ominix_mlx_tpu_torch.ops import paged_attention as pa
@@ -103,10 +109,13 @@ class TransformerConfig:
 
 
 def _check_supported(cfg: TransformerConfig):
-    for name in ("mla", "deltanet", "layer_types"):
+    for name in ("deltanet", "layer_types"):
         if getattr(cfg, name) is not None:
             raise NotImplementedError(
                 f"{name} layers are not ported to the torch package yet")
+    if cfg.mla is not None and not isinstance(cfg.mla, mla_mod.MLAConfig):
+        raise NotImplementedError(
+            f"mla config {type(cfg.mla).__name__}: want models.mla.MLAConfig")
     if cfg.moe is not None and not isinstance(cfg.moe, moe_mod.MoEConfig):
         raise NotImplementedError(
             f"moe config {type(cfg.moe).__name__}: want models.moe.MoEConfig")
@@ -116,14 +125,29 @@ def _check_supported(cfg: TransformerConfig):
 
 # ------------------------------------------------------------ init ----------
 
-def _layer_shapes(cfg: TransformerConfig):
-    """Projection shapes of one layer; a MoE layer has no dense MLP."""
+def _layer_shapes(cfg: TransformerConfig, moe: bool):
+    """Projection shapes [out, in] of one layer, by the names that
+    ``quantize_params`` quantizes (``PROJ_NAMES``) or leaves dense (MLA's
+    "kv_a_proj_with_mqa", "q_a_proj" and "q_b_proj"); a MoE layer has no
+    dense MLP."""
     hd, D = cfg.hd, cfg.hidden_size
-    shapes = {"q_proj": (cfg.num_heads * hd, D),
-              "k_proj": (cfg.num_kv_heads * hd, D),
-              "v_proj": (cfg.num_kv_heads * hd, D),
-              "o_proj": (D, cfg.num_heads * hd)}
-    if cfg.moe is None:
+    m = cfg.mla
+    if m is None:
+        shapes = {"q_proj": (cfg.num_heads * hd, D),
+                  "k_proj": (cfg.num_kv_heads * hd, D),
+                  "v_proj": (cfg.num_kv_heads * hd, D),
+                  "o_proj": (D, cfg.num_heads * hd)}
+    else:
+        shapes = {"kv_a_proj_with_mqa": (m.kv_lora_rank
+                                         + m.qk_rope_head_dim, D),
+                  "o_proj": (D, m.num_heads * m.v_head_dim)}
+        if m.q_lora_rank is None:
+            shapes["q_proj"] = (m.num_heads * m.qk_head_dim, D)
+        else:
+            shapes["q_a_proj"] = (m.q_lora_rank, D)
+            shapes["q_b_proj"] = (m.num_heads * m.qk_head_dim,
+                                  m.q_lora_rank)
+    if not moe:
         shapes.update({"gate_proj": (cfg.intermediate_size, D),
                        "up_proj": (cfg.intermediate_size, D),
                        "down_proj": (D, cfg.intermediate_size)})
@@ -131,22 +155,45 @@ def _layer_shapes(cfg: TransformerConfig):
 
 
 def _norms(cfg: TransformerConfig, dtype, device) -> dict:
-    lp = {"input_layernorm": torch.ones(cfg.hidden_size, dtype=dtype,
-                                        device=device),
-          "post_attention_layernorm": torch.ones(cfg.hidden_size,
-                                                 dtype=dtype, device=device)}
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    lp = {"input_layernorm": ones(cfg.hidden_size),
+          "post_attention_layernorm": ones(cfg.hidden_size)}
     if cfg.use_qk_norm:
-        lp["q_norm"] = torch.ones(cfg.hd, dtype=dtype, device=device)
-        lp["k_norm"] = torch.ones(cfg.hd, dtype=dtype, device=device)
+        lp["q_norm"] = ones(cfg.hd)
+        lp["k_norm"] = ones(cfg.hd)
+    if cfg.mla is not None:
+        lp["kv_a_layernorm"] = ones(cfg.mla.kv_lora_rank)
+        if cfg.mla.q_lora_rank is not None:
+            lp["q_a_layernorm"] = ones(cfg.mla.q_lora_rank)
     return lp
 
 
+def _mla_absorbed(cfg: TransformerConfig, uniform, dtype) -> dict:
+    """W_UK and W_UV of a random kv_b_proj [H (nope + v), Ckv]
+    (``mla.absorb_kv_b``), in ``dtype``."""
+    m = cfg.mla
+    kv_b = uniform((m.num_heads * (m.qk_nope_head_dim + m.v_head_dim),
+                    m.kv_lora_rank))
+    w_uk, w_uv = mla_mod.absorb_kv_b(kv_b, m)
+    return {"w_uk": w_uk.to(dtype), "w_uv": w_uv.to(dtype)}
+
+
+def _is_moe_layer(cfg: TransformerConfig, i: int, dense_layers: int):
+    return cfg.moe is not None and i >= dense_layers
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
-                dtype=torch.bfloat16, device=None) -> dict:
+                dtype=torch.bfloat16, device=None,
+                dense_layers: int = 0) -> dict:
     """Random dense parameter tree (tests and benchmarks): uniform
     +-1/sqrt(in) projections, zero q/k/v biases where ``cfg`` asks for
     them, N(0, 0.02) embedding, unit norms. With ``cfg.moe`` every layer
-    is a MoE layer (``moe.init_moe_params``).
+    from ``dense_layers`` on is a MoE layer (``moe.init_moe_params``), the
+    ones before it dense (DeepSeek's and GLM-4-MoE's
+    ``first_k_dense_replace``); with ``cfg.mla`` the attention is MLA's
+    (W_UK and W_UV folded from a random kv_b_proj).
     ``device`` defaults to the current CUDA device; the generator must
     live on the same device."""
     _check_supported(cfg)
@@ -158,15 +205,18 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         return (w * lim).to(dtype)
 
     layers = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
+        moe = _is_moe_layer(cfg, i, dense_layers)
         lp = _norms(cfg, dtype, device)
-        for name, shape in _layer_shapes(cfg).items():
+        for name, shape in _layer_shapes(cfg, moe).items():
             lp[name] = {"w": uniform(shape)}
             if cfg.attention_bias and name in ("q_proj", "k_proj",
-                                               "v_proj"):
+                                               "v_proj") and cfg.mla is None:
                 lp[name]["b"] = torch.zeros(shape[0], dtype=dtype,
                                             device=device)
-        if cfg.moe is not None:
+        if cfg.mla is not None:
+            lp.update(_mla_absorbed(cfg, uniform, dtype))
+        if moe:
             lp["moe"] = moe_mod.init_moe_params(generator, cfg.hidden_size,
                                                 cfg.moe, dtype, device)
         layers.append(lp)
@@ -185,7 +235,8 @@ def init_quantized_params(cfg: TransformerConfig, generator: torch.Generator,
                           group_size: int = 64, bits: int = 4,
                           act_bits: Optional[int] = 8,
                           device=None, scheme: str = "group",
-                          batched: bool = False) -> dict:
+                          batched: bool = False,
+                          dense_layers: int = 0) -> dict:
     """Random quantized tree made directly (never materialises dense
     weights), as ``base.init_quantized_params`` does. scheme="group":
     4- or 8-bit codes uniform in [-2^(bits-1), 2^(bits-1)), scales
@@ -193,43 +244,38 @@ def init_quantized_params(cfg: TransformerConfig, generator: torch.Generator,
     them for the batched-decode formula; ``fuse_layer_projections`` moves
     the eligible ones to panels). scheme="channel8" (w8a8): codes uniform
     in [-127, 127], scale in_f**-0.5 / 127 per output row. Unit norms
-    (bf16). With ``cfg.moe`` every layer is a MoE layer whose experts are
-    made directly in their packed form by the same scheme and ranges
-    (``moe.init_quantized_moe_params``: 4- or 8-bit group experts or
-    channel-int8 experts). ``device`` defaults to the current CUDA
-    device."""
+    (bf16). With ``cfg.moe`` every layer from ``dense_layers`` on is a
+    MoE layer whose experts are made directly in their packed form by the
+    same scheme and ranges (``moe.init_quantized_moe_params``: 4- or 8-bit
+    group experts or channel-int8 experts, and a shared expert where the
+    config has one). With ``cfg.mla``, the projections that
+    ``quantize_params`` leaves dense (kv_a_proj_with_mqa, q_a_proj,
+    q_b_proj, W_UK, W_UV) are bf16, uniform +-1/sqrt(in). ``device``
+    defaults to the current CUDA device."""
     _check_supported(cfg)
     device = resolve_device(device)
     if scheme not in ("group", "channel8"):
         raise ValueError(f"scheme {scheme!r}")
-    lim = 1 << (bits - 1)
 
     def qrand(out_f, in_f):
-        if scheme == "channel8":
-            return ChannelQuantizedTensor(
-                data=torch.randint(-127, 128, (out_f, in_f),
-                                   generator=generator, device=device,
-                                   dtype=torch.int8),
-                scale=torch.full((out_f,), (in_f ** -0.5) / 127.0,
-                                 dtype=torch.float32, device=device))
-        q = torch.randint(-lim, lim, (out_f, in_f), generator=generator,
-                          device=device, dtype=torch.int8)
-        G = in_f // group_size
-        qt = QuantizedTensor(
-            q=q,
-            scales=torch.full((out_f, G), (in_f ** -0.5) / lim,
-                              dtype=torch.bfloat16, device=device),
-            biases=torch.zeros((out_f, G), dtype=torch.bfloat16,
-                               device=device),
-            group_size=group_size, bits=bits)
-        return prepare(qt, act_bits=act_bits, batched=batched)
+        return moe_mod.random_quantized_linear(
+            generator, out_f, in_f, group_size, bits, act_bits, device,
+            scheme, batched)
+
+    def uniform(shape):
+        w = torch.rand(shape, generator=generator, device=device) * 2 - 1
+        return (w * shape[1] ** -0.5).to(torch.bfloat16)
 
     layers = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
+        moe = _is_moe_layer(cfg, i, dense_layers)
         lp = _norms(cfg, torch.bfloat16, device)
-        for name, shape in _layer_shapes(cfg).items():
-            lp[name] = {"w": qrand(*shape)}
-        if cfg.moe is not None:
+        for name, shape in _layer_shapes(cfg, moe).items():
+            lp[name] = {"w": qrand(*shape) if name in PROJ_NAMES
+                        else uniform(shape)}
+        if cfg.mla is not None:
+            lp.update(_mla_absorbed(cfg, uniform, torch.bfloat16))
+        if moe:
             lp["moe"] = moe_mod.init_quantized_moe_params(
                 generator, cfg.hidden_size, cfg.moe, group_size, act_bits,
                 device, bits, scheme)
@@ -366,14 +412,6 @@ def fuse_layer_projections(params: dict) -> dict:
 
 # ------------------------------------------------------- forward ------------
 
-def _positions(offset, T: int, device) -> torch.Tensor:
-    """Absolute positions [T] (int offset) or [B, T] (per-row offsets)."""
-    ar = torch.arange(T, device=device)
-    if isinstance(offset, torch.Tensor):
-        return offset.to(device).long()[:, None] + ar
-    return offset + ar
-
-
 def attention_block(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
                     cache, offset, mask: Callable[[], torch.Tensor],
                     rope: RopeConfig, fresh_prefill: bool = False,
@@ -413,7 +451,7 @@ def attention_block(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
     q = q.transpose(1, 2)
     k = k.transpose(1, 2)
     v = v.transpose(1, 2)
-    positions = _positions(offset, T, x.device)
+    positions = positions_of(offset, T, x.device)
     q = apply_rope(q, positions, rope)
     k = apply_rope(k, positions, rope)
     cache = cache.update(k, v, offset)
@@ -468,13 +506,20 @@ def mlp_block(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
 def decoder_layer(lp: dict, cfg: TransformerConfig, x, cache, offset, mask,
                   rope, fresh_prefill: bool = False,
                   kv_limit: Optional[int] = None):
-    for key in ("linear_attn", "kv_a_proj_with_mqa"):
-        if key in lp:
-            raise NotImplementedError(
-                f"{key!r} layers are not ported to the torch package yet")
-    in_norm = (lp["input_layernorm"], cfg.rms_norm_eps)
-    h, cache = attention_block(lp, cfg, x, cache, offset, mask, rope,
-                               fresh_prefill, kv_limit, in_norm=in_norm)
+    if "linear_attn" in lp:
+        raise NotImplementedError(
+            "'linear_attn' layers are not ported to the torch package yet")
+    if "kv_a_proj_with_mqa" in lp:           # MLA (DeepSeek, GLM-4.7)
+        if isinstance(cache, PagedKVCache):
+            raise ValueError("MLA layers need a dense latent cache "
+                             "(mla.init_cache_layer), not a paged one")
+        h_in = rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps)
+        h, cache = mla_mod.attention_block(lp, cfg.mla, h_in, cache, offset,
+                                           mask, kv_limit)
+    else:
+        in_norm = (lp["input_layernorm"], cfg.rms_norm_eps)
+        h, cache = attention_block(lp, cfg, x, cache, offset, mask, rope,
+                                   fresh_prefill, kv_limit, in_norm=in_norm)
     if "post_self_attn_layernorm" in lp:     # GLM-4 sandwich norm
         h = rms_norm(lp["post_self_attn_layernorm"], h, cfg.rms_norm_eps)
     x = x + h
@@ -545,7 +590,14 @@ def forward_embeds(params: dict, cfg: TransformerConfig, x: torch.Tensor,
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> ModelCache:
-    """Dense KV cache on ``device`` (default: the current CUDA device)."""
+    """Dense KV cache on ``device`` (default: the current CUDA device):
+    with ``cfg.mla``, each layer's latent cache
+    (``mla.init_cache_layer``; the JAX package builds that one in
+    ``deepseek_v3.init_cache`` only)."""
+    if cfg.mla is not None:
+        return ModelCache(layers=[
+            mla_mod.init_cache_layer(batch, cfg.mla, max_len, dtype, device)
+            for _ in range(cfg.num_layers)], offset=0)
     return ModelCache.init_dense(cfg.num_layers, batch, cfg.num_kv_heads,
                                  max_len, cfg.hd, dtype, device)
 
@@ -558,7 +610,12 @@ def init_paged_cache(cfg: TransformerConfig, batch: int, max_len: int,
     attention runs K3 on CUDA and streams only the pages written so far.
     quantized=True stores int8 pages with per-(head, token) scales. The
     layers share one page-table tensor (updated in place by its owner).
-    ``device`` defaults to the current CUDA device."""
+    ``device`` defaults to the current CUDA device. An MLA model raises:
+    its latent cache has one shared head whose k and v differ in width,
+    and the pool (like the JAX package's) backs GQA layers only."""
+    if cfg.mla is not None:
+        raise ValueError("a paged cache backs GQA layers; MLA models use "
+                         "the dense latent cache (init_cache)")
     device = resolve_device(device)
     if max_len % page_size:
         raise ValueError(f"max_len {max_len} is not a multiple of the page "

@@ -34,12 +34,14 @@ from typing import Optional
 import torch
 
 from ominix_mlx_tpu_torch.core.device import resolve_device
+from ominix_mlx_tpu_torch.core.quant import QuantizedTensor
 from ominix_mlx_tpu_torch.nn.layers import ACTIVATIONS, linear
 from ominix_mlx_tpu_torch.ops.grouped_matmul import grouped_matmul
 from ominix_mlx_tpu_torch.ops.quant_matmul import (
-    ChannelQuantizedExperts, PackedQuantizedExperts, channel_expert_matmul_q,
-    channel_gather_qmm, channel_gather_qmm_gate_up, channel_quantize_experts,
-    gather_qmm, gather_qmm_gate_up, quantize_act_channel, quantize_experts)
+    ChannelQuantizedExperts, ChannelQuantizedTensor, PackedQuantizedExperts,
+    channel_expert_matmul_q, channel_gather_qmm, channel_gather_qmm_gate_up,
+    channel_quantize_experts, gather_qmm, gather_qmm_gate_up, prepare,
+    quantize_act_channel, quantize_experts)
 
 EXPERT_NAMES = ("gate_proj", "up_proj", "down_proj")
 GATHER_M_MAX = 8    # up to this many token rows, the experts are gathered
@@ -55,6 +57,8 @@ class MoEConfig:
                                       # "sigmoid" (glm4-moe)
     softmax_after_topk: bool = False  # mixtral: softmax over the k scores
     routed_scaling_factor: float = 1.0
+    n_shared_experts: int = 0         # a shared expert of this many
+                                      # experts' width (GLM4-MoE, DeepSeek)
     hidden_act: str = "silu"
     moe_intermediate_size: int = 0
     # DeepSeek-style node-limited group routing (glm4-moe): pick topk_group
@@ -263,12 +267,21 @@ def quantize_experts_params(lp: dict, group_size: int = 64, bits: int = 4,
     return out
 
 
+def _shared_shapes(mcfg: MoEConfig, D: int) -> dict:
+    """The shared expert's projections [out, in]: a SwiGLU MLP of
+    ``n_shared_experts`` experts' width (the JAX package's checkpoints'
+    ``mlp.shared_experts``)."""
+    Is = mcfg.n_shared_experts * mcfg.moe_intermediate_size
+    return {"gate_proj": (Is, D), "up_proj": (Is, D), "down_proj": (D, Is)}
+
+
 def init_moe_params(generator: torch.Generator, hidden_size: int,
                     mcfg: MoEConfig, dtype=torch.bfloat16,
                     device=None) -> dict:
     """Random dense MoE layer: uniform +-1/sqrt(in) router gate and
-    experts (the JAX package's init_moe_params), on ``device`` (default:
-    the current CUDA device)."""
+    experts (the JAX package's init_moe_params) and, where
+    ``n_shared_experts`` > 0, a shared expert, on ``device``
+    (default: the current CUDA device)."""
     device = resolve_device(device)
     E, I, D = mcfg.num_experts, mcfg.moe_intermediate_size, hidden_size
 
@@ -276,10 +289,45 @@ def init_moe_params(generator: torch.Generator, hidden_size: int,
         u = torch.rand(shape, generator=generator, device=device) * 2 - 1
         return (u * lim).to(dtype)
 
-    return {"gate": {"w": uniform((E, D), D ** -0.5)},
-            "experts": {"gate_proj": uniform((E, I, D), D ** -0.5),
-                        "up_proj": uniform((E, I, D), D ** -0.5),
-                        "down_proj": uniform((E, D, I), I ** -0.5)}}
+    lp = {"gate": {"w": uniform((E, D), D ** -0.5)},
+          "experts": {"gate_proj": uniform((E, I, D), D ** -0.5),
+                      "up_proj": uniform((E, I, D), D ** -0.5),
+                      "down_proj": uniform((E, D, I), I ** -0.5)}}
+    _add_shared(lp, mcfg, D, lambda o, i: uniform((o, i), i ** -0.5))
+    return lp
+
+
+def _add_shared(lp: dict, mcfg: MoEConfig, D: int, make):
+    if mcfg.n_shared_experts > 0:
+        lp["shared_expert"] = {n: {"w": make(*shape)} for n, shape in
+                               _shared_shapes(mcfg, D).items()}
+
+
+def random_quantized_linear(generator: torch.Generator, out_f: int,
+                            in_f: int, group_size: int = 64, bits: int = 4,
+                            act_bits: Optional[int] = 8, device=None,
+                            scheme: str = "group", batched: bool = False):
+    """One random quantized [out_f, in_f] weight made directly:
+    scheme="group", 4- or 8-bit codes uniform over their range, scales
+    1/(sqrt(in) 2^(bits-1)), zero biases, packed row-major
+    (``ops.quant_matmul.prepare``); scheme="channel8", int8 codes uniform
+    in [-127, 127] and scale in**-0.5 / 127 per row."""
+    if scheme == "channel8":
+        return ChannelQuantizedTensor(
+            data=torch.randint(-127, 128, (out_f, in_f), generator=generator,
+                               device=device, dtype=torch.int8),
+            scale=torch.full((out_f,), (in_f ** -0.5) / 127.0,
+                             dtype=torch.float32, device=device))
+    lim = 1 << (bits - 1)
+    q = torch.randint(-lim, lim, (out_f, in_f), generator=generator,
+                      device=device, dtype=torch.int8)
+    G = in_f // group_size
+    qt = QuantizedTensor(
+        q=q, scales=torch.full((out_f, G), (in_f ** -0.5) / lim,
+                               dtype=torch.bfloat16, device=device),
+        biases=torch.zeros((out_f, G), dtype=torch.bfloat16, device=device),
+        group_size=group_size, bits=bits)
+    return prepare(qt, act_bits=act_bits, batched=batched)
 
 
 def init_quantized_moe_params(generator: torch.Generator, hidden_size: int,
@@ -292,8 +340,10 @@ def init_quantized_moe_params(generator: torch.Generator, hidden_size: int,
     scheme="group", 4- or 8-bit codes uniform over their range, scales
     1/(sqrt(in) 2^(bits-1)), zero biases (stored folded as -8s at 4 bits);
     scheme="channel8", int8 codes uniform in [-127, 127] and scale
-    in**-0.5 / 127 per (expert, row). A dense bf16 router gate as in
-    ``init_moe_params``."""
+    in**-0.5 / 127 per (expert, row). A dense bf16 router gate, and the
+    shared expert, as in ``init_moe_params`` (the
+    shared expert's weights quantized by the same scheme:
+    ``random_quantized_linear``)."""
     device = resolve_device(device)
     if scheme not in ("group", "channel8"):
         raise ValueError(f"scheme {scheme!r}")
@@ -325,6 +375,9 @@ def init_quantized_moe_params(generator: torch.Generator, hidden_size: int,
             in_features=K, act_bits=act_bits)
 
     gate = (torch.rand((E, D), generator=generator, device=device) * 2 - 1)
-    return {"gate": {"w": (gate * D ** -0.5).to(torch.bfloat16)},
-            "experts": {"gate_proj": packed(I, D), "up_proj": packed(I, D),
-                        "down_proj": packed(D, I)}}
+    lp = {"gate": {"w": (gate * D ** -0.5).to(torch.bfloat16)},
+          "experts": {"gate_proj": packed(I, D), "up_proj": packed(I, D),
+                      "down_proj": packed(D, I)}}
+    _add_shared(lp, mcfg, D, lambda o, i: random_quantized_linear(
+        generator, o, i, group_size, bits, act_bits, device, scheme))
+    return lp

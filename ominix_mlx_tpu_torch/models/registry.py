@@ -31,7 +31,8 @@ MODEL_TYPES = {
     "minicpm4": "minicpm_sala",
 }
 # the families of MODEL_TYPES this package holds
-PORTED = {"qwen3", "qwen3_moe", "mistral", "glm4"}
+PORTED = {"qwen3", "qwen3_moe", "mistral", "glm4", "mixtral", "glm4_moe",
+          "deepseek_v3"}
 
 # the JAX package's non-LLM families: model_type -> (its module there,
 # capability); none is ported yet

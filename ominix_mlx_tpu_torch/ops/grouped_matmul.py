@@ -27,8 +27,10 @@ from ominix_mlx_tpu_torch.ops.quant_matmul import (PackedQuantizedExperts,
 # 16 KB slots feed them: x, 64 columns of up to 128 rows a slot, and the
 # weights, 128 bytes of each of 128 rows a slot (64 columns of bf16, 128
 # of 8-bit codes, 256 of 4-bit ones); packed forms add two buffers of an
-# item's scales and biases. The block may use 232448 bytes of shared
-# memory, less the kernel's static barriers and tile map.
+# item's scales and biases where those leave room for two slots of each
+# ring, and otherwise read them from global memory ("streamed", any K).
+# The block may use 232448 bytes of shared memory, less the kernel's
+# static barriers and tile map.
 K5_TILE = 128
 K5_WIDTHS = (8, 16, 32, 64, 96, 128)
 K5_MAX_SLOTS = 8
@@ -39,26 +41,31 @@ LAUNCH_KEYS = {16: "k5", 4: "k5_w4", 8: "k5_w8"}
 
 @dataclasses.dataclass(frozen=True)
 class K5Plan:
-    """Ring depths and dynamic shared memory of one K5 launch."""
+    """Ring depths and dynamic shared memory of one K5 launch; ``stream``:
+    packed scales and biases read from global memory, not staged (the
+    kernel decides the same from K, the group size and the depths)."""
 
     x_slots: int
     w_slots: int
     smem: int
+    stream: bool = False
 
 
 def k5_plan(K: int, bits: int = 16, gs: int = 0) -> K5Plan:
     """As many 16 KB slots (at most 8 a ring) as fit shared memory beside
     the two buffers of an item's scales and biases (packed forms: 128 x
     K/gs of each) and the 1024-byte alignment slack, half of them (at
-    most 8) for the weights, the rest for x."""
+    most 8) for the weights, the rest for x. Where those buffers leave
+    fewer than two slots a ring (K/gs > 153), the scales stream and the
+    rings take all of it."""
     side = 0 if bits == 16 else 8 * K5_TILE * (K // gs)
+    stream = (K5_SMEM_MAX - 1024 - side) // K5_SLOT < 4
+    if stream:
+        side = 0
     slots = (K5_SMEM_MAX - 1024 - side) // K5_SLOT
     w = min(K5_MAX_SLOTS, slots // 2)
     x = min(K5_MAX_SLOTS, slots - w)
-    if w < 2 or x < 2:
-        raise ValueError(f"K5 has no plan for K={K} at group size {gs}: the "
-                         f"scales and biases of 128 rows take {side} bytes")
-    return K5Plan(x, w, 1024 + (x + w) * K5_SLOT + side)
+    return K5Plan(x, w, 1024 + (x + w) * K5_SLOT + side, stream)
 
 
 def grouped_matmul_reference(xs: torch.Tensor, w, gs: torch.Tensor

@@ -88,12 +88,12 @@ def paged_decode_reference(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def _rows_per_cta(G: int) -> int:
-    if G in (1, 2, 4, 8):
-        return G
-    if G % 8 == 0:
-        return 8
-    raise ValueError(f"K3 takes H / Hkv in (1, 2, 4) or a multiple of 8, "
-                     f"got {G}")
+    """Query heads a CTA of K3 takes, of the G that share a KV head: the
+    largest of 8, 4, 2 and 1 that divides G (GLM-4.5-Air's 12: 4, so three
+    CTAs a KV head)."""
+    if G < 1:
+        raise ValueError(f"K3: {G} query heads a KV head")
+    return next(R for R in (8, 4, 2, 1) if G % R == 0)
 
 
 def _k3(q, k_pool, v_pool, page_table, lengths, scale: float, window: int,

@@ -19,7 +19,11 @@ kernel K4 (``PackedQuantizedExperts``) and stacked channel experts for
 kernel K8 (``ChannelQuantizedExperts``). Every key of the tree is
 carried as it is named, so GLM-4's sandwich norms
 (``post_self_attn_layernorm``, ``post_mlp_layernorm``) and biases ("b")
-reach the port's ``decoder_layer`` and ``linear``.
+reach the port's ``decoder_layer`` and ``linear``, and MLA's absorbed
+``w_uk`` / ``w_uv`` [H, d, Ckv], ``kv_a_layernorm`` and
+``q_a_layernorm``, a MoE layer's ``e_score_correction_bias`` and its
+``shared_expert`` (dense or quantized linears) reach ``models.mla`` and
+``models.moe``.
 """
 
 from __future__ import annotations

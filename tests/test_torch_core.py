@@ -44,22 +44,71 @@ def test_rms_norm_matches_jax():
     assert d.max() / np.abs(np.asarray(wb, np.float32)).max() < 1e-2
 
 
+def _rope64(x, pos, dims, theta, traditional):
+    """RoPE in float64 numpy: the exact function both packages round."""
+    half = dims // 2
+    freqs = np.exp(-np.arange(half, dtype=np.float64) * (np.log(theta)
+                                                         / half))
+    ang = pos.astype(np.float64)[:, None] * freqs
+    cos, sin = np.cos(ang), np.sin(ang)
+    rot = x[..., :dims].astype(np.float64)
+    if traditional:
+        x1, x2 = rot[..., 0::2], rot[..., 1::2]
+        out = np.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                       -1).reshape(rot.shape)
+    else:
+        x1, x2 = rot[..., :half], rot[..., half:]
+        out = np.concatenate([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return np.concatenate([out, x[..., dims:]], -1), float(ang.max())
+
+
+def _rope_bound(x, max_angle):
+    """A float32 resolution bound on |RoPE_f32 - RoPE_exact|, from the unit
+    roundoff u = eps / 2: the frequency exp(-i ln(theta) / half) carries
+    its argument's two roundings times the argument a (at most a u for
+    the product, a u for ln) plus exp's own ulp, and the angle one more
+    rounding, so with ang = pos e^-a the angle is off by at most
+    u ang (2 a + 2) <= 2 u pos (a e^-a + e^-a) <= 3 u max|angle|
+    (a e^-a <= 1/e, e^-a <= 1); cos and sin add an ulp each, the two
+    products and their sum three roundings of at most |x1| + |x2|. An
+    output is |x1| cos -/+ |x2| sin, so it moves by at most
+    (|x1| + |x2|) (3 u max|angle| + 4 u) <= 2 max|x| (3 u max|angle| + 4 u).
+    """
+    u = np.finfo(np.float32).eps / 2
+    return 2 * float(np.abs(x).max()) * (3 * u * max_angle + 4 * u)
+
+
 @pytest.mark.parametrize("traditional,factor", [(False, 1.0), (True, 0.5)])
 def test_apply_rope_matches_jax(traditional, factor):
-    """float32 max abs < 1e-5 (same cos/sin formula), at positions far
-    from zero."""
+    """The same config, then the port's and the JAX package's float32 RoPE
+    each within the float32 resolution bound (``_rope_bound``) of a
+    float64 RoPE at positions 1000-1006; and the two within twice that
+    bound of each other at positions 57-63. Neither rounds exactly: XLA's
+    and torch's float32 exp give some frequencies one ulp apart, and one
+    ulp of an angle near 1000 moves an output by about 3e-5, so a fixed
+    bound below float32's resolution there passes or fails with the CPU's
+    math library."""
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 4, 7, 64)).astype(np.float32)
-    pos = np.arange(7) + 1000
     jcfg = jrope.make_rope(64, 1e6, partial_rotary_factor=factor,
                            traditional=traditional)
     tcfg = trope.make_rope(64, 1e6, partial_rotary_factor=factor,
                            traditional=traditional)
     assert tcfg == trope.RopeConfig(jcfg.dims, jcfg.theta, jcfg.scale,
                                     jcfg.traditional)
-    want = jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos), jcfg)
-    got = trope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), tcfg)
-    assert np.max(np.abs(got.numpy() - np.asarray(want))) < 1e-5
+    for pos, exact in ((np.arange(7) + 1000, True),
+                       (np.arange(57, 64), False)):
+        want = np.asarray(jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                           jcfg))
+        got = trope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                               tcfg).numpy()
+        ref, max_angle = _rope64(x, pos, tcfg.dims, 1e6, traditional)
+        bound = _rope_bound(x, max_angle)
+        if exact:
+            assert np.max(np.abs(got - ref)) <= bound
+            assert np.max(np.abs(want - ref)) <= bound
+        else:
+            assert np.max(np.abs(got - want)) <= 2 * bound
 
 
 def test_causal_mask_and_sdpa_match_jax():

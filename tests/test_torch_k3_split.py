@@ -194,6 +194,28 @@ def test_k3_model_window_across_splits(quant, length, window):
     assert _row_rel(got, want) < K3_TOL
 
 
+def test_k3_rows_per_cta():
+    """The largest of 8, 4, 2 and 1 that divides the query heads a KV
+    head: GLM-4.5-Air's 96 over 8 (12) take 4, so 3 CTAs a KV head."""
+    got = {G: pa._rows_per_cta(G) for G in (1, 2, 3, 4, 6, 8, 12, 16, 24)}
+    assert got == {1: 1, 2: 2, 3: 1, 4: 4, 6: 2, 8: 8, 12: 4, 16: 8, 24: 8}
+    with pytest.raises(ValueError):
+        pa._rows_per_cta(0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [0, 45])
+def test_k3_model_at_12_heads_a_kv_head(quant, window):
+    """24 query heads over 2 KV heads (GLM-4.5-Air's 12 a KV head): three
+    CTAs of 4 rows a KV head, across splits, with and without a window."""
+    q, kp, vp, ks, vs, table, bad, lens = _inputs(
+        2, 24, 2, 64, PS, MP, [700, 300], quant, seed=12 + window)
+    got = k3_model(q, kp, vp, bad, lens, 64 ** -0.5, window, ks, vs)
+    want = pa.paged_decode_reference(q, kp, vp, table, lens, 64 ** -0.5,
+                                     window=window, k_scale=ks, v_scale=vs)
+    assert _row_rel(got, want) < K3_TOL
+
+
 @pytest.mark.parametrize("quant", [False, True])
 def test_k3_model_matches_jax_kernel(quant):
     """The model against the JAX package's Pallas kernel in interpret mode

@@ -859,6 +859,27 @@ def test_k3_at_32_over_2_heads(cuda, quant, window):
     assert _row_rel(got, want) < 3e-2
 
 
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("window", [0, 1000])
+def test_k3_at_96_over_8_heads(cuda, quant, window):
+    """GLM-4.5-Air's heads (96 query over 8 KV: 12 a KV head, three CTAs
+    of 4 rows each) at batch 8, ragged, with and without a window: per
+    (row, head) error < 3e-2 of max |plain|, as
+    test_k3_main_shape_matches_plain."""
+    lengths = [1, 127, 128, 129, 700, 1500, 2047, 2048]
+    q, kp, vp, ks, vs, table, lens = _paged_inputs(
+        cuda, 8, 96, 8, 128, 128, 16, lengths, quant, seed=12)
+    _build.reset_launches()
+    got = pa.paged_decode_attention(q, kp, vp, table, lens, 128 ** -0.5,
+                                    window=window, k_scale=ks, v_scale=vs)
+    assert _build.LAUNCHES["k3"] == 1
+    want = pa.paged_decode_reference(q, kp, vp, table, lens, 128 ** -0.5,
+                                     window=window, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _row_rel(got, want) < 3e-2
+
+
 def test_loader_reads_onto_the_card(cuda, tmp_path):
     """The port's safetensors writer and reader: every dtype lands on the
     card bit for bit, and MLX's uint32 words unpack there as on the CPU."""
@@ -1374,12 +1395,38 @@ def test_k5_packed_matches_plain(cuda, bits, S, N, K, gs):
 
 
 @pytest.mark.parametrize("bits", [4, 8])
-def test_k5_packed_one_hot_rows_return_dequantized(cuda, bits):
+@pytest.mark.parametrize("S", [9, 100, 1000])
+def test_k5_streamed_scales_at_mixtral_down(cuda, bits, S):
+    """Mixtral-8x7B's down projection (8 experts, N = 4096, K = 14336,
+    group 64: 224 groups a row, whose scales and biases K5 streams from
+    global memory instead of staging them), packed, on skewed groups
+    (empty ones, a one-row group, one of S/2): max error over max |plain|
+    < 1e-4, the same bits on a second launch, one launch."""
+    E, N, K = 8, 4096, 14336
+    assert tgmm.k5_plan(K, bits, 64).stream
+    g = torch.Generator(device=cuda).manual_seed(S + bits)
+    xs = torch.randn(S, K, generator=g, device=cuda).bfloat16()
+    w = _k5_experts(cuda, E, N, K, bits, seed=S, gs=64)
+    gs_ = _ragged(E, S, cuda, seed=S)
+    _build.reset_launches()
+    got = tgmm.grouped_matmul(xs, w, gs_)
+    assert dict(_build.LAUNCHES) == {f"k5_w{bits}": 1}
+    want = tgmm.grouped_matmul_reference(xs, w, gs_)
+    again = tgmm.grouped_matmul(xs, w, gs_)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-4
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("K", [512, 14336])
+def test_k5_packed_one_hot_rows_return_dequantized(cuda, bits, K):
     """A one-hot row of x against packed experts returns a column of
     dequantize_experts(w) bit for bit: the kernel dequantizes with the
     plain version's rounding (the exact product, one f32 rounding of the
-    sum, one bf16 rounding)."""
-    E, N, K = 4, 256, 512
+    sum, one bf16 rounding), with its scales staged (K = 512) and
+    streamed (K = 14336)."""
+    E, N = 4, 256
     w = _k5_experts(cuda, E, N, K, bits, seed=bits)
     dense = qm.dequantize_experts(w)
     cols = torch.arange(0, K, 3, device=cuda)[:100]      # 100 rows a group

@@ -153,11 +153,11 @@ def test_quantize_params_matches_jax():
 
 
 def test_unported_branches_raise():
-    """MLA and DeltaNet (GatedDeltaNet) layers are not ported: a config
-    or a tree that holds one raises instead of skipping it. (MoE layers
-    are ported: tests/test_torch_moe.py.)"""
+    """DeltaNet (GatedDeltaNet) layers are not ported: a config or a tree
+    that holds one raises instead of skipping it. (MoE layers are ported:
+    tests/test_torch_moe.py; MLA layers: tests/test_torch_mla.py.)"""
     import dataclasses
-    for name in ("mla", "deltanet"):
+    for name in ("deltanet",):
         with pytest.raises(NotImplementedError):
             tbase.init_params(dataclasses.replace(TCFG, **{name: object()}),
                               torch.Generator().manual_seed(0),
@@ -179,7 +179,7 @@ def test_post_norm_layers_raise(key):
     MLP output) are applied where the JAX package applies them: a tree
     holding one, with a weight that is not all ones, gives the JAX
     package's logits (float32, 1e-4), and so does not skip it. The layer
-    kinds still not ported (a DeltaNet or MLA layer) raise."""
+    kind still not ported (a DeltaNet layer) raises."""
     jp = jbase.init_params(JCFG, jax.random.PRNGKey(2), jnp.float32)
     w = np.random.default_rng(0).uniform(0.5, 1.5, JCFG.hidden_size)
     jp["layers"][0][key] = jnp.asarray(w, jnp.float32)

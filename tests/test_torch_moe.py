@@ -473,6 +473,38 @@ def test_k5_plan_fits_and_tiles_cover_every_row_once(S):
     assert len(tiles) == sum(-(-c // 128) for c in counts)
 
 
+# the expert projections' K of Mixtral-8x7B (4096, 14336), GLM-4.5-Air
+# (4096, 1408) and DeepSeek-V2-Lite (2048, 1408)
+MOE_FAMILY_K = (1408, 2048, 4096, 14336)
+
+
+@pytest.mark.parametrize("K", MOE_FAMILY_K)
+def test_k5_plan_streams_the_scales_where_they_do_not_fit(K):
+    """Every packed form at group sizes 32, 64 and 128 has a plan within
+    shared memory. Where the two buffers of 128 rows' scales and biases
+    (8 * 128 * K/gs bytes) leave room for two slots of each ring, the
+    plan stages them as before (the same depths as the former rule);
+    otherwise (Mixtral's down projection, K = 14336: 224 groups at gs 64)
+    it streams them and the rings take all of shared memory."""
+    for bits in (4, 8):
+        for gs in (32, 64, 128):
+            plan = tgmm.k5_plan(K, bits, gs)
+            side = 8 * tgmm.K5_TILE * (K // gs)
+            slots = (tgmm.K5_SMEM_MAX - 1024 - side) // tgmm.K5_SLOT
+            assert plan.stream == (slots < 4)
+            assert plan.smem <= tgmm.K5_SMEM_MAX
+            assert 2 <= plan.w_slots <= plan.x_slots <= tgmm.K5_MAX_SLOTS
+            if not plan.stream:
+                w = min(tgmm.K5_MAX_SLOTS, slots // 2)
+                assert (plan.w_slots, plan.x_slots) == (
+                    w, min(tgmm.K5_MAX_SLOTS, slots - w))
+                assert plan.smem == 1024 + (plan.x_slots
+                                            + plan.w_slots) * 16384 + side
+    assert tgmm.k5_plan(14336, 4, 64).stream
+    assert tgmm.k5_plan(14336, 8, 128).stream is False
+    assert not tgmm.k5_plan(4096, 4, 32).stream
+
+
 def _byte_perm(x, y, sel):
     """CUDA's __byte_perm (default mode) on Python ints."""
     b = [(x >> (8 * i)) & 255 for i in range(4)] + \

@@ -5,8 +5,10 @@ writer) loaded by the port's ``registry.load_model(dir, device="cpu")``,
 its logits equal to the JAX registry's on the same directory (float32,
 1e-5; an MLX 4-bit checkpoint through both packages' dequantize-then-
 product path, 1e-5 in float32 activations); ``Server.load_model`` then a
-chat completion; the ``main()`` flags onto ``enable_batching``; and the
-model types and pipelines not ported raising ``NotImplementedError``."""
+chat completion; the same for a random HF Mixtral, GLM-4-MoE,
+DeepSeek-V3 and DeepSeek-V2 checkpoint (1e-4); the ``main()`` flags onto
+``enable_batching``; and the model types and pipelines not ported raising
+``NotImplementedError``."""
 
 import json
 import os
@@ -209,8 +211,8 @@ def test_main_draft_flags_raise(flag, checkpoint):
 
 
 @pytest.mark.parametrize("model_type,family", [
-    ("mixtral", "mixtral"), ("glm4_moe", "glm4_moe"),
-    ("deepseek_v3", "deepseek_v3"), ("qwen3_next", "qwen3_next"),
+    ("minicpm_sala", "minicpm_sala"), ("qwen3_asr", "qwen3_asr"),
+    ("flux_klein", "flux_klein"), ("qwen3_next", "qwen3_next"),
     ("paraformer", "paraformer"), ("qwen3_tts", "qwen3_tts")])
 def test_unported_types_raise(model_type, family, tmp_path):
     with open(tmp_path / "config.json", "w") as f:
@@ -311,5 +313,74 @@ def test_loaded_glm4_tree_serves_fused_and_quantized(tmp_path):
             "model": "glm", "max_tokens": 3,
             "messages": [{"role": "user", "content": "hello"}]})
         assert out["usage"]["completion_tokens"] >= 1
+    finally:
+        srv.shutdown()
+
+
+MOE_SMALL = dict(vocab_size=64, hidden_size=32, num_hidden_layers=2,
+                 num_attention_heads=2, intermediate_size=48,
+                 tie_word_embeddings=False, pad_token_id=0)
+MLA_SMALL = dict(MOE_SMALL, num_key_value_heads=2, moe_intermediate_size=16,
+                 n_routed_experts=4, num_experts_per_tok=2,
+                 n_shared_experts=1, first_k_dense_replace=1,
+                 norm_topk_prob=True, routed_scaling_factor=1.5,
+                 kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8,
+                 v_head_dim=8, head_dim=8, n_group=1, topk_group=1)
+
+
+def _hf_model(model_type):
+    """A random HF model of ``model_type`` and its flat float32 weights;
+    a DeepSeek-V2 checkpoint gets the correction bias that the JAX
+    package's loader reads for every DeepSeek model (it has none)."""
+    import transformers as tf
+
+    torch.manual_seed(0)
+    if model_type == "mixtral":
+        hf = tf.MixtralForCausalLM(tf.MixtralConfig(
+            **MOE_SMALL, num_key_value_heads=1, num_local_experts=4,
+            num_experts_per_tok=2))
+    elif model_type == "glm4_moe":
+        hf = tf.Glm4MoeForCausalLM(tf.Glm4MoeConfig(
+            **MOE_SMALL, num_key_value_heads=1, head_dim=16,
+            moe_intermediate_size=16, n_routed_experts=4,
+            num_experts_per_tok=2, n_shared_experts=1,
+            first_k_dense_replace=1, attention_bias=True))
+    elif model_type == "deepseek_v3":
+        hf = tf.DeepseekV3ForCausalLM(tf.DeepseekV3Config(
+            **MLA_SMALL, q_lora_rank=16))
+    else:
+        hf = tf.DeepseekV2ForCausalLM(tf.DeepseekV2Config(
+            **MLA_SMALL, q_lora_rank=None))
+    flat = {k: jnp.asarray(v.detach().float().numpy())
+            for k, v in hf.state_dict().items()}
+    if model_type == "deepseek_v2":
+        g = np.random.default_rng(0)
+        flat["model.layers.1.mlp.gate.e_score_correction_bias"] = \
+            jnp.asarray(g.standard_normal(4).astype(np.float32) * 0.1)
+    return flat, hf.config.to_dict() | {"model_type": model_type}
+
+
+@pytest.mark.parametrize("model_type", ["mixtral", "glm4_moe",
+                                        "deepseek_v3", "deepseek_v2"])
+def test_registry_loads_and_serves_moe_families(model_type, tmp_path):
+    """A saved random HF checkpoint of each newly ported type through
+    ``registry.load_model``: the family's module, dense experts stacked
+    [E, N, K], logits within 1e-4 of the JAX registry's; then served
+    through ``Server.load_model`` (a chat completion of up to 4 tokens)."""
+    flat, cfg_json = _hf_model(model_type)
+    d = _write_dir(str(tmp_path / model_type), flat, cfg_json)
+    jl, tl, tp = _both_logits(d)
+    np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+    mod, _, cfg = registry.load_model(d, device="cpu")
+    assert mod.__name__.endswith(registry.MODEL_TYPES[model_type])
+    assert (cfg.mla is not None) == model_type.startswith("deepseek")
+    assert tp["layers"][1]["moe"]["experts"]["gate_proj"].dim() == 3
+    srv = tserver.Server(port=0)
+    try:
+        srv.load_model("m", d, device="cpu")
+        out = srv.chat_completion({
+            "model": "m", "max_tokens": 4,
+            "messages": [{"role": "user", "content": "hi there"}]})
+        assert 1 <= out["usage"]["completion_tokens"] <= 4
     finally:
         srv.shutdown()
