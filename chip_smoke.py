@@ -64,13 +64,24 @@ Qwen3-30B-A3B with random weights (seeded):
     memory), the batch-1 decode rate and decode at batch 8 (Mixtral and
     GLM-4.5-Air over a paged cache: K3, its first step held per call
     against its plain version; DeepSeek over the dense latent cache, and
-    its greedy tokens after a 40-token prefill equal on two runs).
+    its greedy tokens after a 40-token prefill equal on two runs);
+  - serve_qwen3_next: Qwen3-Next-80B-A3B-Instruct at full width and all
+    48 layers (36 Gated DeltaNet, 12 gated attention; 512 experts top 10
+    and a gated shared expert), w4a8 g64, about 45 GB: the route of each
+    projection, 4 HTTP chat requests one at a time with K9, K2, K4 and K5
+    launched exactly as many times as their forwards need, a 128-token
+    prefill, the logits check on 4 layers (every K9 call against its
+    plain version), the decode rate, and 8 concurrent requests on the
+    dense continuous batcher, each equal to the same request alone.
 
 The kernel checks include K2 and K2c with the sliding window (k2_window,
 k2c_window: T=8192 and the 8k prefill's last chunk, windows 4096 and
 4000, 8 and 2 KV heads), K3 at GLM-4.5-Air's 12 query heads a KV head,
 and K5 at Mixtral's down projection (K = 14336, whose scales it streams)
-at 4 and 8 bits.
+at 4 and 8 bits; and at Qwen3-Next's shapes K9 (k9: decode at batch 1
+and 8, prompts of 128 and 2048 tokens), K2 at 16 over 2 heads of 256
+(k2_d256), K4 over 512 experts top 10 (k4_e512) and K5 on 512 packed
+experts at a 128-token prompt's 1280 rows.
 
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
@@ -94,6 +105,7 @@ import argparse
 import contextlib
 import cProfile
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -177,6 +189,33 @@ DEEPSEEK_V2_LITE_HF = {
                      "beta_slow": 1,
                      "original_max_position_embeddings": 4096},
     "tie_word_embeddings": False}
+# HF config.json of Qwen/Qwen3-Next-80B-A3B-Instruct: 48 layers, three
+# Gated DeltaNet layers to one gated attention layer (16 query heads over
+# 2 KV heads of 256, partial RoPE over 64 dims), 512 experts top 10 and a
+# gated shared expert of 512
+QWEN3_NEXT_80B_HF = {
+    "model_type": "qwen3_next", "vocab_size": 151936, "hidden_size": 2048,
+    "num_hidden_layers": 48, "num_attention_heads": 16,
+    "num_key_value_heads": 2, "head_dim": 256, "intermediate_size": 5120,
+    "moe_intermediate_size": 512, "shared_expert_intermediate_size": 512,
+    "num_experts": 512, "num_experts_per_tok": 10, "norm_topk_prob": True,
+    "decoder_sparse_step": 1, "mlp_only_layers": [],
+    "full_attention_interval": 4, "linear_conv_kernel_dim": 4,
+    "linear_key_head_dim": 128, "linear_num_key_heads": 16,
+    "linear_num_value_heads": 32, "linear_value_head_dim": 128,
+    "partial_rotary_factor": 0.25, "rope_theta": 10000000,
+    "rms_norm_eps": 1e-6, "hidden_act": "silu", "tie_word_embeddings": False}
+QWEN3_NEXT_E = 512
+# (B, T) of K9 at Qwen3-Next's widths (16 key heads, 32 value heads,
+# dk = dv = 128): decode at batch 1 and 8, the 128-token prefill, and a
+# 2048-token chunk
+K9_SHAPES = ((1, 1), (8, 1), (1, 128), (1, 2048))
+# (name, T rows, k slots, N, K) of K4 on Qwen3-Next-80B-A3B's 512 experts,
+# top 10: gate/up at one decode row, down at its 10 (row, slot) pairs
+K4_NEXT_SHAPES = (("gate_up", 1, 10, 512, 2048), ("down", 10, 1, 2048, 512))
+# (name, S rows, N, K) of K5 there: a 128-token prompt routes S = 1280
+# token copies over 512 experts (about 2.5 a group)
+K5_NEXT_SHAPES = (("gate", 1280, 512, 2048), ("down", 1280, 2048, 512))
 K3_LENGTHS = (1, 127, 128, 129, 700, 1500, 2047, 2048)
 # (name, lengths, pages per row) of K3's timed shapes, Qwen3-4B heads at
 # page 128: the ragged batch of 8, a uniform batch of 8 x 2048, and one
@@ -212,10 +251,14 @@ K5_TOL = 1e-4
 # rate and operations over the rate for their type
 HBM_BYTES_PER_S = 3.35e12
 SPIN_CYCLES = 200_000   # ~0.1 ms at the H100's clock: see time_ms
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 K1_TOL = 1e-2     # max error / max |plain|: bf16 output, another sum order
 K2_TOL = 1e-2     # the same for K2's and K2c's bf16 output
 K2_LSE_TOL = 1e-2  # max abs error of K2's float32 row LSE (wrong scores)
+# K9 vs its plain version, max error over max |plain| of the outputs and
+# of the final state: both sum in float32, in another order (the card
+# tests read at most this at T = 1000 and r = 2)
+K9_TOL = 1e-4
 K3_DESIGN = ("split-KV (flash-decoding): splits of whole pages from "
              "k3_plan (shapes only), a CTA per (split, KV head, row) with "
              "all its query heads; a CTA-wide cp.async ring of 64-key "
@@ -249,6 +292,13 @@ GATHER_DESIGN = ("the prologue (qmm_prep_pdl for K4, chan_prep for K8) "
                  "x's codes read once for a group's rows; each row summed "
                  "in one order, a warp a row's (a lane's chunks, then the "
                  "butterfly, folded where a group stands for a warp)")
+K9_DESIGN = ("the loop over T inside one launch: a CTA of 128 threads per "
+             "(row, value head, 32 value columns), four threads a column "
+             "holding dk/4 state rows in registers; each token's q and k "
+             "staged in double-buffered shared memory (one barrier a "
+             "token), the next token's inputs loaded while this one "
+             "computes; S^T k and S^T q as four fma chains a thread, "
+             "folded across a column's four lanes by two shuffles")
 K5_DESIGN = ("tensor cores: 128 expert rows as A (bf16 read by wgmma from "
              "128-byte-swizzled shared memory, or packed codes dequantized "
              "in registers with the plain version's rounding) against up "
@@ -297,6 +347,18 @@ PREFILL_TOL = 1e-2
 # ROWS_A8_LOGITS_TOL (a8 at every row, as there)
 PAGED_TOL = 5e-2
 PREFILL_LEN, PREFILL_CHUNK = 8192, 2048
+# Qwen3-Next's chunked prefill (1024 tokens in chunks of 256, every chunk
+# at its exact width through the DeltaNet layers) vs a single-shot one,
+# the last prompt token's logits and the next decode step's, max error
+# over max |single-shot| of each: w4a8 through 48 layers, the chunks'
+# products at other row counts (cuBLAS on the dense route, K5 items of
+# other widths). Read 5.8e-3 (one bf16 ulp of the largest logit) and 0.0
+# on the H100; the limit is check_logits' for w4a8 MoE models. The state
+# forgotten at each chunk reads only 8.8e-3 to 1.5e-2 there (random
+# weights make the last tokens depend little on those a chunk back), so
+# that control is reported, not held: the CPU tests hold the carry in
+# float32 (tests/test_torch_qwen3_next.py, chunked vs whole at 2e-4)
+HYBRID_PREFILL_TOL = LOGITS_TOL
 BATCH = 8
 
 
@@ -579,14 +641,16 @@ def check_k7(dev, flush):
     return rows
 
 
-def check_k2(dev, flush):
+def check_k2(dev, flush, H=32, Hkv=8, D=128, Ts=K2_T, seed=SEED + 1,
+             phase="k2"):
+    """K2 against flash_prefill_reference at T in ``Ts`` (Qwen3-4B's 32
+    query heads over 8 KV heads of 128 by default), timed beside sdpa."""
     from ominix_mlx_tpu_torch.ops import flash_attention as fa
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    g = torch.Generator(device=dev).manual_seed(seed)
     rows = []
-    H, Hkv, D = 32, 8, 128
     scale = D ** -0.5
-    for T in K2_T:
+    for T in Ts:
         q = torch.randn(1, H, T, D, generator=g, device=dev).bfloat16()
         k = torch.randn(1, Hkv, T, D, generator=g, device=dev).bfloat16()
         v = torch.randn(1, Hkv, T, D, generator=g, device=dev).bfloat16()
@@ -613,7 +677,7 @@ def check_k2(dev, flush):
                **bound(2 * D * T * (2 * H + 2 * Hkv) + 4 * H * T, flop,
                        "bf16")}
         row.update(versus(row))
-        emit({"phase": "k2", **row})
+        emit({"phase": phase, **row})
         if not (rel < K2_TOL and dl < K2_LSE_TOL):
             raise RuntimeError(f"K2 T={T}: rel error {rel}, lse {dl}")
         rows.append(row)
@@ -1021,11 +1085,11 @@ def random_experts(qm, g, dev, N, K, bits, E=MOE_E):
         group_size=GS, bits=bits, in_features=K, act_bits=8)
 
 
-def gather_ids(g, dev, T, k):
+def gather_ids(g, dev, T, k, E=MOE_E):
     """Expert ids [T, k] out of order, with a repeat and the last expert."""
-    ids = torch.randint(0, MOE_E, (T, k), generator=g, device=dev,
+    ids = torch.randint(0, E, (T, k), generator=g, device=dev,
                         dtype=torch.int32)
-    ids[0, -1] = MOE_E - 1
+    ids[0, -1] = E - 1
     ids[-1, 0] = ids[0, 0]
     return ids
 
@@ -1042,56 +1106,62 @@ def check_k4(dev, flush):
     rows = []
     for bits in (4, 8):
         for name, T, k, N, K in K4_SHAPES:
-            G = K // GS
-            w = random_experts(qm, g, dev, N, K, bits)
-            x = torch.randn(T, K, generator=g, device=dev).bfloat16()
-            ids = gather_ids(g, dev, T, k)
-            got = qm._k4(x, w, ids)
-            pair_equal = None
-            if name == "gate_up":
-                w_up = random_experts(qm, g, dev, N, K, bits)
-                pg, pu = qm._k4(x, w, ids, w_up)
-                pair_equal = bool(torch.equal(pg, got) and torch.equal(
-                    pu, qm._k4(x, w_up, ids)))
-                del w_up, pg, pu
-            want = qm.gather_qmm_reference(x, w, ids, act_bits=8)
-            torch.cuda.synchronize()
-            if not torch.isfinite(got).all():
-                raise RuntimeError(f"K4 {bits}-bit {name} T={T}: non-finite")
-            d = (got.float() - want.float()).abs().max().item()
-            row_rel = row_rel_err(got, want)
-            del want
-            ms = time_ms(lambda: qm._k4(x, w, ids), 20, flush)
-            plain = time_ms(lambda: qm.gather_qmm_reference(x, w, ids, 8), 3,
-                            flush)
-            # K4 streams one expert row per (row, slot), so the slabs it
-            # reads count a repeated id again; the bound reads each expert
-            # once
-            row_bytes = N * (K * bits // 8 + 4 * G)
-            slab = T * k * row_bytes
-            used = int(torch.unique(ids).numel())
-            row = {"shape": name, "bits": bits, "T": T, "k": k, "N": N,
-                   "K": K, "E": MOE_E, "experts_used": used,
-                   "plan": list(qm.gather_plan(K, bits)),
-                   "max_abs_err": d, "row_rel_err": row_rel,
-                   "gate_up_equal_to_single": pair_equal, "ms": ms,
-                   "plain_ms": plain, "us": ms * 1e3,
-                   "plain_us": plain * 1e3, "library_ms": None,
-                   "library_error": "no PyTorch call gathers group-wise "
-                                    "quantized experts",
-                   "slab_GBps": slab / ms / 1e6,
-                   **bound(used * row_bytes + 2 * T * K + 4 * T * k
-                           + 2 * T * k * N, 2 * T * k * N * K, "int8")}
-            emit({"phase": "k4", **row})
-            if not row_rel < K4_TOL or pair_equal is False:
-                raise RuntimeError(f"K4 {bits}-bit {name} T={T} k={k}: error "
-                                   f"{row_rel} of a (row, slot)'s max "
-                                   f"|plain|, gate and up in one launch "
-                                   f"equal to single launches: {pair_equal}")
-            rows.append(row)
-            del w
+            rows.append(k4_row(qm, g, dev, flush, name, T, k, N, K, bits))
             torch.cuda.empty_cache()
     return rows
+
+
+def k4_row(qm, g, dev, flush, name, T, k, N, K, bits, E=MOE_E,
+           phase="k4"):
+    """One K4 line: random experts [E, N, K], x [T, K] and ids [T, k] (out
+    of order, a repeat, the last expert) from ``g``; the error held per
+    (row, slot); at a gate_up shape, one launch against two stacks held
+    bit for bit to a single launch on each."""
+    G = K // GS
+    w = random_experts(qm, g, dev, N, K, bits, E)
+    x = torch.randn(T, K, generator=g, device=dev).bfloat16()
+    ids = gather_ids(g, dev, T, k, E)
+    got = qm._k4(x, w, ids)
+    pair_equal = None
+    if name == "gate_up":
+        w_up = random_experts(qm, g, dev, N, K, bits, E)
+        pg, pu = qm._k4(x, w, ids, w_up)
+        pair_equal = bool(torch.equal(pg, got) and torch.equal(
+            pu, qm._k4(x, w_up, ids)))
+        del w_up, pg, pu
+    want = qm.gather_qmm_reference(x, w, ids, act_bits=8)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"K4 {bits}-bit {name} T={T}: non-finite")
+    d = (got.float() - want.float()).abs().max().item()
+    row_rel = row_rel_err(got, want)
+    del want
+    ms = time_ms(lambda: qm._k4(x, w, ids), 20, flush)
+    plain = time_ms(lambda: qm.gather_qmm_reference(x, w, ids, 8), 3, flush)
+    # K4 streams one expert row per (row, slot), so the slabs it reads
+    # count a repeated id again; the bound reads each expert once
+    row_bytes = N * (K * bits // 8 + 4 * G)
+    slab = T * k * row_bytes
+    used = int(torch.unique(ids).numel())
+    row = {"shape": name, "bits": bits, "T": T, "k": k, "N": N, "K": K,
+           "E": E, "experts_used": used,
+           "plan": list(qm.gather_plan(K, bits)),
+           "max_abs_err": d, "row_rel_err": row_rel,
+           "gate_up_equal_to_single": pair_equal, "ms": ms,
+           "plain_ms": plain, "us": ms * 1e3, "plain_us": plain * 1e3,
+           "library_ms": None,
+           "library_error": "no PyTorch call gathers group-wise "
+                            "quantized experts",
+           "slab_GBps": slab / ms / 1e6,
+           **bound(used * row_bytes + 2 * T * K + 4 * T * k
+                   + 2 * T * k * N, 2 * T * k * N * K, "int8")}
+    emit({"phase": phase, **row})
+    if not row_rel < K4_TOL or pair_equal is False:
+        raise RuntimeError(f"K4 {bits}-bit {name} T={T} k={k}: error "
+                           f"{row_rel} of a (row, slot)'s max |plain|, gate "
+                           f"and up in one launch equal to single launches: "
+                           f"{pair_equal}")
+    return row
 
 
 def random_channel_experts(qm, g, dev, N, K):
@@ -1340,6 +1410,104 @@ def check_k5(dev, flush):
     return rows
 
 
+def k9_inputs(g, dev, B, T, Hk=16, Hv=32, dk=128, dv=128):
+    """A DeltaNet layer's recurrence inputs: l2-normed q (scaled by
+    dk^-0.5) and k, v, g < 0, beta in (0, 1), a carried state."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    return (F.normalize(randn(B, T, Hk, dk), dim=-1) * dk ** -0.5,
+            F.normalize(randn(B, T, Hk, dk), dim=-1), randn(B, T, Hv, dv),
+            -torch.rand(B, T, Hv, generator=g, device=dev) * 1.5,
+            torch.rand(B, T, Hv, generator=g, device=dev),
+            randn(B, Hv, dk, dv) * 0.1)
+
+
+def check_k9(dev, flush):
+    """K9 against gated_delta_rule_reference at Qwen3-Next's widths and
+    K9_SHAPES: outputs and final state (written in place) within K9_TOL
+    of max |plain|, the same bits on a second launch; timed beside its
+    bound: bytes (q, k, v, g, beta and o once, the state read and written
+    once) or float32 operations (7 dk dv a token and value head), off the
+    tensor cores. No PyTorch call computes the rule."""
+    from ominix_mlx_tpu_torch.ops import gated_delta as gd
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 36)
+    rows = []
+    for B, T in K9_SHAPES:
+        q, k, v, gg, beta, state = k9_inputs(g, dev, B, T)
+        s1, s2, s3 = state.clone(), state.clone(), state.clone()
+        got = gd._k9(q, k, v, gg, beta, s1)
+        again = gd._k9(q, k, v, gg, beta, s3)
+        want = gd.gated_delta_rule_reference(q, k, v, gg, beta, s2)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got).all() and torch.isfinite(s1).all()):
+            raise RuntimeError(f"K9 B={B} T={T}: non-finite")
+        d = (got - want).abs().max().item()
+        rel = d / max(want.abs().max().item(), 1e-12)
+        rel_state = ((s1 - s2).abs().max() / s2.abs().max()).item()
+        repeatable = bool(torch.equal(got, again) and torch.equal(s1, s3))
+        ms = time_ms(lambda: gd._k9(q, k, v, gg, beta, s1), 10, flush)
+        plain_ms = time_ms(lambda: gd.gated_delta_rule_reference(
+            q, k, v, gg, beta, s2), 3, flush)
+        Hk, dk = q.shape[2], q.shape[3]
+        Hv, dv = v.shape[2], v.shape[3]
+        nbytes = 4 * (2 * B * T * Hk * dk + 2 * B * T * Hv * dv
+                      + 2 * B * T * Hv + 2 * B * Hv * dk * dv)
+        row = {"B": B, "T": T, "Hk": Hk, "Hv": Hv, "dk": dk, "dv": dv,
+               "max_abs_err": d, "rel_err": rel, "state_rel_err": rel_state,
+               "bitwise_repeatable": repeatable,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+               "library_error": "no PyTorch call computes the gated delta "
+                                "rule",
+               "us_per_token": ms * 1e3 / T,
+               **bound(nbytes, 7 * B * T * Hv * dk * dv, "fp32")}
+        row.update(versus(row))
+        emit({"phase": "k9", **row})
+        if not (rel < K9_TOL and rel_state < K9_TOL
+                and row["bitwise_repeatable"]):
+            raise RuntimeError(f"K9 B={B} T={T}: rel error {rel}, state "
+                               f"{rel_state}, repeatable "
+                               f"{row['bitwise_repeatable']}")
+        rows.append(row)
+        del q, k, v, state, s1, s2, s3
+    return rows
+
+
+def check_next_experts(dev, flush):
+    """K4 and K5 at Qwen3-Next-80B-A3B's 512 experts, 4-bit (its w4a8
+    main path): K4 at top 10 (K4_NEXT_SHAPES), K5 on the packed experts
+    at a 128-token prompt's S = 1280 token copies routed uniformly at
+    random (K5_NEXT_SHAPES), beside dequantize_experts +
+    torch._grouped_mm. Returns (K4 rows, K5 rows)."""
+    from ominix_mlx_tpu_torch.ops import grouped_matmul as gmm
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    E = QWEN3_NEXT_E
+    g = torch.Generator(device=dev).manual_seed(SEED + 37)
+    k4_rows = [k4_row(qm, g, dev, flush, name, T, k, N, K, 4, E,
+                      "k4_e512") for name, T, k, N, K in K4_NEXT_SHAPES]
+    k5_rows = []
+    for name, S, N, K in K5_NEXT_SHAPES:
+        w = random_experts(qm, g, dev, N, K, 4, E)
+        xs = torch.randn(S, K, generator=g, device=dev).bfloat16()
+        ids = torch.randint(0, E, (S,), generator=g, device=dev)
+        gs = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+            0, ids, torch.ones_like(ids))
+        gi = gs.int()
+        offs = torch.cumsum(gs, 0).to(torch.int32)
+        k5_rows.append(k5_row(
+            name, S, N, K, gs, xs, w, lambda: gmm._k5(xs, w, gi),
+            lambda: gmm.grouped_matmul_reference(xs, w, gs),
+            lambda: torch._grouped_mm(
+                xs, qm.dequantize_experts(w).transpose(1, 2), offs=offs),
+            "dequantize_experts + torch._grouped_mm (bf16 out)", flush, 4,
+            E))
+        del w, xs
+        torch.cuda.empty_cache()
+    return k4_rows, k5_rows
+
+
 def compare_k5(plib, dev, flush):
     """K5 of a parent checkout (``plib``: its kernel library, entry
     ``ominix_grouped_mm(xs, w, scales, biases, gs, out, tile_map, S, N, K,
@@ -1545,6 +1713,7 @@ def plain_versions() -> dict:
     """{kernel: (module, wrapper name, plain version)} for every kernel
     wrapper on the model paths."""
     from ominix_mlx_tpu_torch.ops import flash_attention as fa
+    from ominix_mlx_tpu_torch.ops import gated_delta as gd
     from ominix_mlx_tpu_torch.ops import grouped_matmul as gmm
     from ominix_mlx_tpu_torch.ops import quant_matmul as qm
 
@@ -1558,7 +1727,8 @@ def plain_versions() -> dict:
                  qm.gather_qmm_reference(x, up, ids, 8)))),
             "k5": (gmm, "_k5", gmm.grouped_matmul_reference),
             "k6": (qm, "_k6", qm.qmm_p_reference),
-            "k7": (qm, "_k7", qm.qmm_dq_reference)}
+            "k7": (qm, "_k7", qm.qmm_dq_reference),
+            "k9": (gd, "_k9", gd.gated_delta_rule_reference)}
 
 
 @contextlib.contextmanager
@@ -2513,8 +2683,10 @@ def p_formula_on_kernel_prologue(x, w) -> dict:
 
 
 def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
-                 tol=LOGITS_TOL):
-    """Kernel path vs plain path on a 2-layer cut of the full-width model:
+                 tol=LOGITS_TOL, layers=2):
+    """Kernel path vs plain path on a ``layers``-layer cut of the
+    full-width model (2; a hybrid's 4 hold its three DeltaNet layers and
+    one attention layer):
     an 11-token prefill (bucket 16: K1's dq formula or K6 at 16 rows, K2;
     K5 on the packed experts of a MoE model) then 3 decode steps (K1 or K6
     at one row; K4 on a MoE model). Held: logits finite, of shape
@@ -2538,13 +2710,16 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
     On a MoE model it counts the rows (token, layer) whose set of routed
     experts differs between the kernel and the plain run: a router
     near-tie that one run breaks the other way moves that row's output by
-    a whole expert, not by a rounding."""
+    a whole expert, not by a rounding. Every K9 call of the kernel run
+    (a DeltaNet layer's recurrence) is held against its plain version on
+    the same inputs and a copy of the same state, outputs and final
+    state, below K9_TOL (``per_call_k9``)."""
     from ominix_mlx_tpu_torch.core.generate import Engine
     from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
     from ominix_mlx_tpu_torch.models import base, moe
 
-    c2 = dataclasses.replace(cfg, num_layers=2)
-    p2 = {**params, "layers": params["layers"][:2]}
+    c2 = dataclasses.replace(cfg, num_layers=layers)
+    p2 = {**params, "layers": params["layers"][:layers]}
     prompt = torch.tensor(ByteTokenizer(cfg.vocab_size).encode(
         "Hello there"), device=dev)
 
@@ -2575,9 +2750,26 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
         return ((got - want).abs().max() / want.abs().max()).item()
 
     calls = {}
+    k9 = {"calls": 0, "max_rel_err": 0.0, "state_max_rel_err": 0.0}
     reverse = control_args("reversed")
 
+    def checked_k9(kern, plain):
+        def call(q, k, v, g, beta, state):
+            s0 = state.clone()
+            y = kern(q, k, v, g, beta, state)
+            want = plain(q, k, v, g, beta, s0)
+            k9["calls"] += 1
+            k9["max_rel_err"] = max(k9["max_rel_err"],
+                                    row_rel_err(y, want))
+            k9["state_max_rel_err"] = max(
+                k9["state_max_rel_err"],
+                ((state - s0).abs().max() / s0.abs().max()).item())
+            return y
+        return call
+
     def checked(k, kern, plain):
+        if k == "k9":
+            return checked_k9(kern, plain)
         if k not in QMM_KERNELS:
             return kern
 
@@ -2634,13 +2826,21 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
                     **({"prologue": c["prologue"]} if "prologue" in c
                        else {})}
                 for k, c in calls.items()}
-    emit({"phase": "logits", "config": name, "layers": 2, "rel_err": rel,
+    emit({"phase": "logits", "config": name, "layers": layers,
+          "rel_err": rel,
           "limit": tol, "rel_err_one_kernel": alone,
           "rel_err_control": controls, "per_call": per_call,
           "per_call_limit": K1_TOL,
+          **({"per_call_k9": k9, "per_call_k9_limit": K9_TOL}
+             if cfg.deltanet is not None else {}),
           "routed_rows": sum(r.shape[0] for r in routes[0]),
           "routed_rows_differ": sum(int((a != b).any(-1).sum())
                                     for a, b in zip(routes[0], routes[1]))})
+    if cfg.deltanet is not None and not (
+            k9["calls"] and k9["max_rel_err"] < K9_TOL
+            and k9["state_max_rel_err"] < K9_TOL):
+        raise RuntimeError(f"{name}: K9 against its plain version on the "
+                           f"path's inputs: {k9}")
     if not rel < tol:
         raise RuntimeError(f"{name}: kernel vs plain logits rel {rel}")
     if not controls["last_group"] >= tol:
@@ -2755,10 +2955,11 @@ def device_time(prof):
 # kernel-name pieces of the port's kernels whose share of a profiled step
 # --profile reports: the P formula's rows kernel, the activation
 # prologues (K1, K4 and K6's qmm_prep_pdl, K8's chan_prep), K4's and K8's
-# rows kernels, K3 with its merge
+# rows kernels, K3 with its merge, K9
 SHARE_OF = {"qmm_p": ("qmm_p<",), "qmm_prep": ("qmm_prep", "chan_prep"),
             "k4_k8": ("gather_qmm_a8<", "chan_gather_qmm<"),
-            "k3": ("paged_decode<", "paged_merge(")}
+            "k3": ("paged_decode<", "paged_merge("),
+            "k9": ("gated_delta_k9<",)}
 
 
 def kernel_shares(by_name, busy_us) -> dict:
@@ -3611,6 +3812,294 @@ def serve_glm4_moe(dev, smi, profile=False):
                             paged=True, profile=profile)
 
 
+def lin_layers(cfg) -> int:
+    """How many of the model's layers are DeltaNet layers."""
+    return sum(lt == "linear_attention" for lt in cfg.layer_types)
+
+
+def qwen3_next_gib(cfg, shared: int, bits: int = 4) -> float:
+    """The reckoned size of the w4a8 g64 tree of ``init_quantized_params``:
+    every projection and expert at bits/8 bytes a weight plus a bf16 scale
+    and bias per group, the router and shared-expert gates and the conv
+    taps bf16, norms and the DeltaNet's per-head vectors beside."""
+    D, L, m, d = cfg.hidden_size, cfg.num_layers, cfg.moe, cfg.deltanet
+    q = bits / 8 + 4 / GS                          # bytes a packed weight
+    lin = lin_layers(cfg)
+    attn = L - lin
+    delta = (2 * d.key_dim + 2 * d.value_dim) * D + 2 * d.num_v_heads * D \
+        + D * d.value_dim
+    gated = (2 * cfg.num_heads * cfg.hd + 2 * cfg.num_kv_heads * cfg.hd) \
+        * D + D * cfg.num_heads * cfg.hd
+    experts = 3 * m.num_experts * m.moe_intermediate_size * D
+    packed = (lin * delta + attn * gated
+              + L * (experts + 3 * shared * D) + 2 * cfg.vocab_size * D)
+    dense = 2 * (L * (m.num_experts + 1) * D + lin * d.conv_dim
+                 * d.conv_kernel)
+    return (packed * q + dense) / 2 ** 30
+
+
+@contextlib.contextmanager
+def counting_forwards(module):
+    """Record (rows B * T, fresh_prefill) of each call of ``module.forward``
+    (what a ChatModel and the batcher call, by the module's attribute) for
+    the duration: yields the list."""
+    seen, real = [], module.forward
+
+    @functools.wraps(real)      # the engines read forward's signature
+    def counted(params, cfg, tokens, cache, **kw):
+        seen.append((tokens.shape[0] * tokens.shape[1],
+                     bool(kw.get("fresh_prefill", False))))
+        return real(params, cfg, tokens, cache, **kw)
+    module.forward = counted
+    try:
+        yield seen
+    finally:
+        module.forward = real
+
+
+def check_hybrid_launches(cfg, forwards, launches, where):
+    """The launch counts of a run of ``forwards`` on the hybrid, exactly:
+    K9 once per DeltaNet layer and forward; K4 twice per MoE layer at each
+    forward of at most GATHER_M_MAX rows (decode), K5 on the packed
+    experts three times per MoE layer at each longer one (prefill); K2
+    once per attention layer at each fresh prefill."""
+    from ominix_mlx_tpu_torch.models import moe
+
+    lin = lin_layers(cfg)
+    attn = cfg.num_layers - lin
+    decode = sum(m <= moe.GATHER_M_MAX for m, _ in forwards)
+    fresh = sum(f for m, f in forwards if m > 1)
+    want = {"k9": lin * len(forwards), "k4": 2 * cfg.num_layers * decode,
+            "k5_w4": 3 * cfg.num_layers * (len(forwards) - decode),
+            "k2": attn * fresh}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise RuntimeError(f"{where}: launched {got}, want {want} for "
+                           f"{len(forwards)} forwards ({decode} decode, "
+                           f"{fresh} fresh prefills)")
+    return want
+
+
+def hybrid_routes(cfg, params) -> dict:
+    """The formula each projection of the hybrid takes at one row: a
+    DeltaNet layer's, an attention layer's, the shared expert's
+    (ops.quant_matmul ``route``) and the routed experts'
+    (``expert_route``)."""
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    def of(tree):
+        return {n: qm.route(v["w"], 1) for n, v in tree.items()
+                if isinstance(v, dict)
+                and isinstance(v.get("w"), qm.PackedQuantizedTensor)}
+
+    lin = next(i for i in range(cfg.num_layers)
+               if base.is_linear_layer(cfg, i))
+    att = next(i for i in range(cfg.num_layers)
+               if not base.is_linear_layer(cfg, i))
+    moe = params["layers"][lin]["moe"]
+    return {"deltanet_layer": of(params["layers"][lin]["linear_attn"]),
+            "attention_layer": of(params["layers"][att]),
+            "shared_expert": of(moe["shared_expert"]),
+            "experts": {n: qm.expert_route(w, 1)
+                        for n, w in moe["experts"].items()}}
+
+
+def hybrid_batched(dev, cfg, params, name, module):
+    """The hybrid on a batched server (enable_batching(paged=False): the
+    dense continuous batcher, 8 slots; each adoption prefills at exactly T
+    into its slot's rows, the recurrent ones zeroed first): 8 concurrent
+    HTTP chat requests of up to 16 tokens, then each alone on the same
+    server (its slot rows reused), whose text must equal its text in the
+    batch. Launch counts of the concurrent run, held exactly
+    (check_hybrid_launches over its forwards)."""
+    from ominix_mlx_tpu_torch.ops import _build
+    from ominix_mlx_tpu_torch.serving.server import ChatModel, Server
+
+    srv = Server(port=free_port())
+    srv.add_model(name, ChatModel(name, params, cfg,
+                                  ByteTokenizer(cfg.vocab_size), dev, module))
+    srv.enable_batching(name, slots=BATCH, max_len=512, paged=False)
+    srv.start_background()
+    contents = ("Hi!", "What is 2+2?", "Say hello in French.",
+                "Name three colours.", "Count to five.", "Tell me a story.",
+                "Pick a number.", "Why is the sky blue?")
+    reqs = {f"r{i}": (c, {"max_tokens": 16}) for i, c in enumerate(contents)}
+    try:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with counting_forwards(module) as forwards:
+            together = send_concurrent(srv.port, name, reqs)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        alone = {}
+        for k in reqs:
+            alone.update(send_concurrent(srv.port, name, {k: reqs[k]}))
+    finally:
+        srv.shutdown()
+    same = {k: together[k][0] == alone[k][0] for k in reqs}
+    n_tok = sum(r[2] for r in together.values())
+    emit({"phase": "request_batched", "model": name, "slots": BATCH,
+          "cache": "dense (hybrid)", "requests": len(together),
+          "completion_tokens": n_tok, "seconds": wall,
+          "aggregate_tok_s": n_tok / wall, "forwards": len(forwards),
+          "launches": launches, "equal_alone": same,
+          "prompt_tokens": {k: r[1] for k, r in together.items()},
+          "text": {k: r[0][:40] for k, r in together.items()}})
+    check_hybrid_launches(cfg, forwards, launches, f"{name} batched")
+    if not all(r[2] > 0 and r[0] for r in together.values()) \
+            or not all(same.values()):
+        raise RuntimeError(f"{name}: batched answers differ from solo or "
+                           f"are empty: {same}")
+    return launches
+
+
+def hybrid_chunked_prefill(dev, cfg, params, T=1024, chunk=256):
+    """The hybrid's long-prompt path through Engine.prefill_chunked: a
+    T-token prompt in ``chunk``-token chunks (the first through K2, the
+    rest K2c over the written prefix; every chunk at its exact width
+    through the recurrent layers, K9 once a chunk and layer), against
+    Engine.prefill of the whole prompt: the launches exact; the last
+    prompt token's logits and those of one decode step after it (which
+    read the state the prefill left) within HYBRID_PREFILL_TOL, the same
+    argmax; and, reported beside, the chunks run with every recurrent
+    state zeroed before each continuation chunk."""
+    from ominix_mlx_tpu_torch.core.generate import Engine
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.models.deltanet import RecurrentCache
+    from ominix_mlx_tpu_torch.ops import _build
+
+    eng = engine_for(cfg, params)
+    g = torch.Generator(device=dev).manual_seed(SEED + 40)
+    prompt = torch.randint(0, cfg.vocab_size, (1, T), generator=g,
+                           device=dev)
+
+    def forgetting(fn):
+        def call(p, t, c, kl):
+            for lc in c.layers:
+                if isinstance(lc, RecurrentCache):
+                    lc.zero_()
+            return fn(p, t, c, kl)
+        return call
+
+    def run(engine, chunked=True):
+        """(last prompt logits and the next step's [2, V], seconds of
+        the prefill, offset after it, the prefill's launches)."""
+        cache = base.init_cache(cfg, 1, T + 64, device=dev)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if chunked:
+            last, cache = engine.prefill_chunked(prompt, cache, chunk)
+        else:
+            last, cache = engine.prefill(prompt, cache)
+        torch.cuda.synchronize()
+        seconds, offset = time.perf_counter() - t0, cache.offset
+        launches = dict(_build.LAUNCHES)
+        with torch.inference_mode():
+            step, _ = base.forward(params, cfg, prompt[:, :1], cache)
+        return (torch.cat([last.float(), step[:, -1].float()]), seconds,
+                offset, launches)
+
+    got, t_chunked, offset, launches = run(eng)
+    n = -(-T // chunk)
+    lin = lin_layers(cfg)
+    attn = cfg.num_layers - lin
+    want_counts = {"k9": lin * n, "k2": attn, "k2c": attn * (n - 1),
+                   "k5_w4": 3 * cfg.num_layers * n}
+    want, t_single = run(eng, chunked=False)[:2]
+    control = Engine(
+        eng.forward_fn, eng.params, eng.sampler,
+        prefill_forward_fn=eng.prefill_forward_fn,
+        chunk_forward_fn=forgetting(eng.chunk_forward_fn),
+        chunk_hidden_forward_fn=forgetting(eng.chunk_hidden_forward_fn))
+    forgot = run(control)[0]
+
+    def rel(a):
+        return max(((a[i] - want[i]).abs().max()
+                    / want[i].abs().max()).item() for i in (0, 1))
+
+    row = {"phase": "hybrid_prefill_chunked", "prompt": T, "chunk": chunk,
+           "offset": offset, "launches": launches, "want": want_counts,
+           "chunked_seconds": t_chunked, "single_shot_seconds": t_single,
+           "rel_err_vs_single_shot": rel(got), "limit": HYBRID_PREFILL_TOL,
+           "rel_err_control_state_forgotten": rel(forgot),
+           "argmax_equal": torch.equal(got.argmax(-1), want.argmax(-1))}
+    emit(row)
+    if {k: launches.get(k, 0) for k in want_counts} != want_counts:
+        raise RuntimeError(f"hybrid chunked prefill launched {launches}, "
+                           f"want {want_counts}")
+    if offset != T or not torch.isfinite(got).all() \
+            or not row["rel_err_vs_single_shot"] < HYBRID_PREFILL_TOL \
+            or not row["argmax_equal"]:
+        raise RuntimeError(f"hybrid chunked vs single-shot prefill: {row}")
+    return launches
+
+
+def serve_qwen3_next(dev, smi, profile=False):
+    """serve_qwen3_next: Qwen3-Next-80B-A3B-Instruct at full width and all
+    48 layers, w4a8 g64 random weights made packed (about 45 GB: its
+    reckoning and the allocation printed): the route of each projection;
+    4 HTTP chat requests one at a time (every prefill at exactly its
+    length: K9 in the 36 DeltaNet layers, K2 at 16 over 2 heads of 256 in
+    the 12 attention layers, K5 on the 512 packed experts; every decode
+    step K9, K1 and K4 twice a MoE layer at top 10), their launches held
+    exactly (check_hybrid_launches); a profiled 128-token prefill (wall,
+    device busy, peak memory); the kernel-vs-plain logits check on 4
+    layers (K9 alone against its plain version, every K9 call held per
+    call); the batch-1 decode rate; with ``profile`` a profile line of
+    decode steps; 8 concurrent requests on enable_batching(paged=False),
+    each equal to the same request alone. Returns the phase's launches."""
+    from ominix_mlx_tpu_torch.models import base, qwen3_next
+
+    cfg = qwen3_next.config_from_hf(QWEN3_NEXT_80B_HF)
+    name = "Qwen3-Next-80B-A3B"
+    shared = QWEN3_NEXT_80B_HF["shared_expert_intermediate_size"]
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 38)
+    params = base.fuse_layer_projections(qwen3_next.init_quantized_params(
+        cfg, gen, GS, 4, 8, device=dev, shared_width=shared))
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": name, "weights": "w4a8 g64",
+          "layers": cfg.num_layers, "layer_types": {
+              lt: cfg.layer_types.count(lt) for lt in set(cfg.layer_types)},
+          "init_seconds": time.perf_counter() - t0,
+          "reckoned_gib": qwen3_next_gib(cfg, shared),
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
+          "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    emit({"phase": "routes", "config": name, **hybrid_routes(cfg, params)})
+    with counting_forwards(qwen3_next) as forwards:
+        _, counts = serve_requests(dev, cfg, params, name.lower(),
+                                   ("k1_m1", "k1_mn", "k2", "k4", "k5_w4",
+                                    "k9"), qwen3_next)
+    want = check_hybrid_launches(cfg, forwards, counts, f"{name} serve")
+    emit({"phase": "serve_qwen3_next_launches", "forwards": len(forwards),
+          "launches": counts, "want": want})
+    runs = [counts]
+    emit({"phase": "moe_prefill", "config": name, "weights": "w4a8 g64",
+          **moe_prefill(dev, cfg, params), "card": smi})
+    check_logits(dev, cfg, params, name,
+                 kernels=("k1", "k2", "k4", "k5", "k9"), layers=4)
+    emit({**decode_rate(dev, cfg, params, 16, 48), "config": name,
+          "weights": "w4a8 g64", "card": smi})
+    if profile:
+        emit({**profile_decode(dev, cfg, params, steps=16), "config": name,
+              "weights": "w4a8 g64", "card": smi})
+    runs.append(hybrid_chunked_prefill(dev, cfg, params))
+    runs.append(hybrid_batched(dev, cfg, params, name.lower() + "-batched",
+                               qwen3_next))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params
+    free_device_memory()
+    total = {k: sum(r.get(k, 0) for r in runs)
+             for k in set().union(*runs)}
+    emit({"phase": "serve_qwen3_next", "launches": total,
+          "max_memory_gib": peak, "ok": True})
+    return total
+
+
 def load_checkpoint(dev, smi):
     """load_checkpoint: a GLM-4-9B-width checkpoint of 2 layers in HF names
     (bf16, random from the seed, sandwich norms and biases not at their
@@ -3870,6 +4359,10 @@ def main() -> int:
     k4_rows = check_k4(dev, flush)
     k8_rows = check_k8(dev, flush)
     k5_rows = check_k5(dev, flush)
+    k9_rows = check_k9(dev, flush)
+    k2_d256_rows = check_k2(dev, flush, H=16, Hkv=2, D=256, Ts=(128, 2048),
+                            seed=SEED + 39, phase="k2_d256")
+    k4_e512_rows, k5_e512_rows = check_next_experts(dev, flush)
     emit({**launch_floor(dev), "card": smi})
     del flush_buf, flush
     torch.cuda.empty_cache()
@@ -3992,14 +4485,16 @@ def main() -> int:
                                                               args.profile)
     phases["serve_mixtral"] = serve_mixtral(dev, smi, args.profile)
     phases["serve_glm4_moe"] = serve_glm4_moe(dev, smi, args.profile)
+    phases["serve_qwen3_next"] = serve_qwen3_next(dev, smi, args.profile)
 
-    def launches(key):
-        return sum(c.get(key, 0) for c in phases.values())
+    def launches(key, only=None):
+        return sum(c.get(key, 0) for p, c in phases.items()
+                   if only is None or p in only)
 
-    def entry(name, replaces, source, rows, pick, key, **extra):
+    def entry(name, replaces, source, rows, pick, key, only=None, **extra):
         rep = pick(rows)
         return {"name": name, "route": "cuda", "source": source, **extra,
-                "replaces": replaces, "launches": launches(key),
+                "replaces": replaces, "launches": launches(key, only),
                 "launches_by_phase": {p: c.get(key, 0)
                                       for p, c in phases.items()},
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -4008,7 +4503,8 @@ def main() -> int:
                 "library_ms": rep["library_ms"],
                 "timed_at": {k: rep[k] for k in rep
                              if k in ("shape", "N", "K", "M", "mode", "bits",
-                                      "T", "pos", "window", "k", "S")}}
+                                      "T", "pos", "window", "k", "S", "B",
+                                      "D", "E")}}
 
     def k1_rows_of(bits, m1):
         return [r for r in k1_rows
@@ -4100,6 +4596,27 @@ def main() -> int:
               "ominix_mlx_tpu/models/moe.py:84 (8-bit experts, read packed)",
               "ominix_mlx_tpu_torch/csrc/grouped_mm.cu",
               [r for r in k5_rows if r["bits"] == 8], worst_k5, "k5_w8",
+              design=K5_DESIGN),
+        entry("k9_gated_delta",
+              "XLA scan ominix_mlx_tpu/models/deltanet.py:132-144, no Pallas "
+              "kernel", "ominix_mlx_tpu_torch/csrc/gated_delta.cu", k9_rows,
+              lambda rs: next(r for r in rs if r["T"] == 128), "k9",
+              design=K9_DESIGN),
+        entry("k2_flash_prefill_d256",
+              "ominix_mlx_tpu/ops/flash_attention.py:60 (Qwen3-Next: 16 "
+              "over 2 heads of 256)",
+              "ominix_mlx_tpu_torch/csrc/flash_attn.cu", k2_d256_rows,
+              lambda rs: rs[0], "k2", only=("serve_qwen3_next",),
+              design=K2_DESIGN),
+        entry("k4_gather_qmm_e512",
+              "ominix_mlx_tpu/ops/quant_matmul.py:1606 (512 experts, top 10)",
+              "ominix_mlx_tpu_torch/csrc/gather_qmm.cu", k4_e512_rows,
+              lambda rs: rs[0], "k4", only=("serve_qwen3_next",),
+              design=GATHER_DESIGN),
+        entry("k5_grouped_mm_w4_e512",
+              "ominix_mlx_tpu/models/moe.py:84 (512 4-bit experts, read "
+              "packed)", "ominix_mlx_tpu_torch/csrc/grouped_mm.cu",
+              k5_e512_rows, worst_k5, "k5_w4", only=("serve_qwen3_next",),
               design=K5_DESIGN),
     ]
     for k in kernels:

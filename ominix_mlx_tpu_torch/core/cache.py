@@ -74,6 +74,18 @@ class KVCache:
         return self
 
 
+def ingests_padding(layer_cache) -> bool:
+    """True for recurrent-state layer caches (``models.deltanet.
+    RecurrentCache``): every position feeds the state, so padded prefill
+    buckets or chunks would corrupt it and prefill must run exact
+    lengths. Positional KV caches (dense, paged) expose ``max_len`` and
+    mask padding by offset. Copied from ominix_mlx_tpu/core/cache.py:118-
+    133 (the port has no ``RotatingKVCache``, the one positional cache
+    there without ``max_len``); the engine's bucketing, chunked prefill's
+    widths and the batcher's adoption consult it."""
+    return not hasattr(layer_cache, "max_len")
+
+
 @dataclasses.dataclass
 class ModelCache:
     """Whole-model cache: per-layer caches and one offset: tokens processed

@@ -17,7 +17,7 @@ from typing import Callable, Iterator, Optional
 import torch
 import torch.nn.functional as F
 
-from ominix_mlx_tpu_torch.core.cache import ModelCache
+from ominix_mlx_tpu_torch.core.cache import ModelCache, ingests_padding
 from ominix_mlx_tpu_torch.core.sampling import SamplerConfig, sample
 
 
@@ -29,8 +29,16 @@ def bucket_length(n: int, minimum: int = 16) -> int:
 
 
 def _kv_capacity(cache: ModelCache) -> Optional[int]:
+    """The least KV capacity of the cache's layers; None where no layer
+    has one (every layer recurrent)."""
     caps = [lc.max_len for lc in cache.layers if hasattr(lc, "max_len")]
     return min(caps) if caps else None
+
+
+def _exact(cache: ModelCache) -> bool:
+    """Whether a layer ingests padding (a recurrent layer's state takes
+    every position it is given): prefill then runs exact lengths."""
+    return any(ingests_padding(lc) for lc in cache.layers)
 
 
 @dataclasses.dataclass
@@ -85,7 +93,9 @@ class Engine:
         """tokens: [B, T] on the model's device -> (last_logits [B, V],
         cache). The prompt is zero-padded to a power-of-two bucket (>= 16);
         the padded tail writes KV slots past offset + T that the causal
-        mask never exposes and decode overwrites."""
+        mask never exposes and decode overwrites. Where a layer ingests
+        padding (a hybrid's recurrent layers), the prompt runs at exactly
+        T, as the JAX package does."""
         B, T = tokens.shape
         if isinstance(cache.offset, torch.Tensor):
             raise ValueError("prefill takes a cache at one shared offset")
@@ -97,6 +107,8 @@ class Engine:
         bucket = bucket_length(T) if cap is None else min(bucket_length(T),
                                                           cap)
         start = cache.offset
+        if _exact(cache):
+            bucket = T
         if not fresh and cap is not None:
             free = cap - start
             if T > free:
@@ -116,9 +128,12 @@ class Engine:
         memory. The first chunk rides the fresh path (K2); continuation
         chunks attend the first ``kv_limit`` cache slots through
         ``chunk_forward_fn`` (K2c on CUDA), O(tokens written so far) per
-        chunk instead of O(capacity). Returns (last_logits [B, V], cache)."""
+        chunk instead of O(capacity). Where a layer ingests padding, every
+        chunk runs at its exact width. Returns (last_logits [B, V],
+        cache)."""
         B, T = tokens.shape
         cap = _kv_capacity(cache)
+        exact = _exact(cache)
         last = None
         pos = 0
         while pos < T:
@@ -133,6 +148,8 @@ class Engine:
                 real = end - pos
                 width = chunk_size if cap is None else min(chunk_size,
                                                            cap - pos)
+                if exact:
+                    width = real
                 padded = F.pad(tokens[:, pos:end], (0, width - real))
                 final = end >= T
                 fn = (self.chunk_forward_fn
@@ -223,6 +240,11 @@ class Engine:
         lengths [B]), on the device."""
         B, T = prompts.shape
         dev = prompts.device
+        if prompt_lengths is not None and _exact(cache) \
+                and any(int(n) != T for n in prompt_lengths):
+            raise ValueError("a recurrent layer's state takes every "
+                             "position: right-padded prompts of other "
+                             "lengths need one prefill each")
         lengths = (torch.full((B,), T, dtype=torch.long, device=dev)
                    if prompt_lengths is None
                    else torch.as_tensor(prompt_lengths, device=dev).long())

@@ -9,13 +9,15 @@ tree from a checkpoint's flat {HF name: tensor} dict.
 This port covers the dense / GQA / QK-norm / tied-embedding decoder of
 Qwen2, Qwen3, Mistral and GLM-4, its mixture-of-experts form (a layer
 holding "moe" runs ``models.moe.moe_block`` in place of the MLP; Mixtral,
-GLM-4-MoE and DeepSeek mix leading dense layers with MoE ones) and
+GLM-4-MoE and DeepSeek mix leading dense layers with MoE ones),
 DeepSeek's latent attention (a layer holding "kv_a_proj_with_mqa" runs
-``models.mla.attention_block`` over a latent cache), over a dense or
+``models.mla.attention_block`` over a latent cache) and Qwen3-Next's
+hybrid (a layer holding "linear_attn" runs ``models.deltanet.block`` over
+a recurrent cache, ``cfg.layer_types`` names each layer's kind, and an
+attention layer holding "g_proj" gates its output), over a dense or
 paged KV cache (paged: GQA layers only), with per-row offsets
 (continuous batching) and chunked prefill (``kv_limit``). The JAX
-package's DeltaNet and ring-attention branches raise
-``NotImplementedError`` here.
+package's ring-attention branch is not ported.
 
 The ``init_*`` functions allocate on the current CUDA device unless the
 caller names a device (``device="cpu"`` for the CPU).
@@ -30,7 +32,8 @@ from typing import Callable, Optional
 import torch
 
 from ominix_mlx_tpu_torch.core.attention import causal_mask, sdpa
-from ominix_mlx_tpu_torch.core.cache import KVCache, ModelCache
+from ominix_mlx_tpu_torch.core.cache import (KVCache, ModelCache,
+                                            ingests_padding)
 from ominix_mlx_tpu_torch.core.device import resolve_device
 from ominix_mlx_tpu_torch.core.paged_cache import PagedKVCache
 from ominix_mlx_tpu_torch.core.quant import QuantizedTensor, from_mlx_arrays
@@ -39,6 +42,7 @@ from ominix_mlx_tpu_torch.core.rope import (RopeConfig, apply_rope,
 from ominix_mlx_tpu_torch.nn.layers import (ACTIVATIONS, embedding,
                                             embedding_as_linear, linear,
                                             rms_norm)
+from ominix_mlx_tpu_torch.models import deltanet as dn_mod
 from ominix_mlx_tpu_torch.models import mla as mla_mod
 from ominix_mlx_tpu_torch.models import moe as moe_mod
 from ominix_mlx_tpu_torch.ops import flash_attention as fa
@@ -70,7 +74,9 @@ class TransformerConfig:
     sliding_window: Optional[int] = None
     moe: Optional[object] = None
     mla: Optional[object] = None
-    deltanet: Optional[object] = None
+    deltanet: Optional[object] = None  # DeltaNetConfig of "linear_attn"
+    # the hybrid layer plan ("linear_attention" / "full_attention" per
+    # layer); None: every layer full attention
     layer_types: Optional[tuple] = None
 
     @property
@@ -109,10 +115,14 @@ class TransformerConfig:
 
 
 def _check_supported(cfg: TransformerConfig):
-    for name in ("deltanet", "layer_types"):
-        if getattr(cfg, name) is not None:
-            raise NotImplementedError(
-                f"{name} layers are not ported to the torch package yet")
+    if cfg.deltanet is not None \
+            and not isinstance(cfg.deltanet, dn_mod.DeltaNetConfig):
+        raise NotImplementedError(
+            f"deltanet config {type(cfg.deltanet).__name__}: want "
+            f"models.deltanet.DeltaNetConfig")
+    if any(lt == "linear_attention" for lt in cfg.layer_types or ()) \
+            and cfg.deltanet is None:
+        raise ValueError("linear_attention layers need cfg.deltanet")
     if cfg.mla is not None and not isinstance(cfg.mla, mla_mod.MLAConfig):
         raise NotImplementedError(
             f"mla config {type(cfg.mla).__name__}: want models.mla.MLAConfig")
@@ -125,18 +135,25 @@ def _check_supported(cfg: TransformerConfig):
 
 # ------------------------------------------------------------ init ----------
 
-def _layer_shapes(cfg: TransformerConfig, moe: bool):
+def _layer_shapes(cfg: TransformerConfig, moe: bool,
+                  linear_attn: bool = False):
     """Projection shapes [out, in] of one layer, by the names that
     ``quantize_params`` quantizes (``PROJ_NAMES``) or leaves dense (MLA's
-    "kv_a_proj_with_mqa", "q_a_proj" and "q_b_proj"); a MoE layer has no
-    dense MLP."""
+    "kv_a_proj_with_mqa", "q_a_proj" and "q_b_proj", the hybrid's
+    "g_proj"); a MoE layer has no dense MLP, a DeltaNet layer no
+    attention (its projections live under "linear_attn"). A hybrid
+    config's attention layers carry Qwen3-Next's output gate "g_proj"."""
     hd, D = cfg.hd, cfg.hidden_size
     m = cfg.mla
-    if m is None:
+    if linear_attn:
+        shapes = {}
+    elif m is None:
         shapes = {"q_proj": (cfg.num_heads * hd, D),
                   "k_proj": (cfg.num_kv_heads * hd, D),
                   "v_proj": (cfg.num_kv_heads * hd, D),
                   "o_proj": (D, cfg.num_heads * hd)}
+        if cfg.deltanet is not None:
+            shapes["g_proj"] = (cfg.num_heads * hd, D)
     else:
         shapes = {"kv_a_proj_with_mqa": (m.kv_lora_rank
                                          + m.qk_rope_head_dim, D),
@@ -154,12 +171,15 @@ def _layer_shapes(cfg: TransformerConfig, moe: bool):
     return shapes
 
 
-def _norms(cfg: TransformerConfig, dtype, device) -> dict:
+def _norms(cfg: TransformerConfig, dtype, device,
+           linear_attn: bool = False) -> dict:
     def ones(n):
         return torch.ones(n, dtype=dtype, device=device)
 
     lp = {"input_layernorm": ones(cfg.hidden_size),
           "post_attention_layernorm": ones(cfg.hidden_size)}
+    if linear_attn:
+        return lp
     if cfg.use_qk_norm:
         lp["q_norm"] = ones(cfg.hd)
         lp["k_norm"] = ones(cfg.hd)
@@ -184,16 +204,27 @@ def _is_moe_layer(cfg: TransformerConfig, i: int, dense_layers: int):
     return cfg.moe is not None and i >= dense_layers
 
 
+def is_linear_layer(cfg: TransformerConfig, i: int) -> bool:
+    """Whether layer i is a DeltaNet ("linear_attention") layer."""
+    return cfg.layer_types is not None \
+        and cfg.layer_types[i] == "linear_attention"
+
+
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device=None,
-                dense_layers: int = 0) -> dict:
+                dense_layers: int = 0, gated_shared: int = 0) -> dict:
     """Random dense parameter tree (tests and benchmarks): uniform
     +-1/sqrt(in) projections, zero q/k/v biases where ``cfg`` asks for
     them, N(0, 0.02) embedding, unit norms. With ``cfg.moe`` every layer
     from ``dense_layers`` on is a MoE layer (``moe.init_moe_params``), the
     ones before it dense (DeepSeek's and GLM-4-MoE's
     ``first_k_dense_replace``); with ``cfg.mla`` the attention is MLA's
-    (W_UK and W_UV folded from a random kv_b_proj).
+    (W_UK and W_UV folded from a random kv_b_proj); with
+    ``cfg.layer_types`` each "linear_attention" layer holds a random
+    "linear_attn" tree (``deltanet.init_layer_params``) and each attention
+    layer an output gate "g_proj"; ``gated_shared`` > 0 gives each MoE
+    layer a shared expert of that width behind a sigmoid gate
+    (``moe.init_moe_params``).
     ``device`` defaults to the current CUDA device; the generator must
     live on the same device."""
     _check_supported(cfg)
@@ -207,18 +238,24 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     layers = []
     for i in range(cfg.num_layers):
         moe = _is_moe_layer(cfg, i, dense_layers)
-        lp = _norms(cfg, dtype, device)
-        for name, shape in _layer_shapes(cfg, moe).items():
+        lin = is_linear_layer(cfg, i)
+        lp = _norms(cfg, dtype, device, lin)
+        for name, shape in _layer_shapes(cfg, moe, lin).items():
             lp[name] = {"w": uniform(shape)}
             if cfg.attention_bias and name in ("q_proj", "k_proj",
                                                "v_proj") and cfg.mla is None:
                 lp[name]["b"] = torch.zeros(shape[0], dtype=dtype,
                                             device=device)
-        if cfg.mla is not None:
+        if lin:
+            lp["linear_attn"] = dn_mod.init_layer_params(
+                cfg.deltanet, cfg.hidden_size, generator,
+                lambda o, n: uniform((o, n)), dtype, device)
+        if cfg.mla is not None and not lin:
             lp.update(_mla_absorbed(cfg, uniform, dtype))
         if moe:
             lp["moe"] = moe_mod.init_moe_params(generator, cfg.hidden_size,
-                                                cfg.moe, dtype, device)
+                                                cfg.moe, dtype, device,
+                                                gated_shared)
         layers.append(lp)
     embed = torch.randn((cfg.vocab_size, cfg.hidden_size),
                         generator=generator, device=device) * 0.02
@@ -236,7 +273,8 @@ def init_quantized_params(cfg: TransformerConfig, generator: torch.Generator,
                           act_bits: Optional[int] = 8,
                           device=None, scheme: str = "group",
                           batched: bool = False,
-                          dense_layers: int = 0) -> dict:
+                          dense_layers: int = 0,
+                          gated_shared: int = 0) -> dict:
     """Random quantized tree made directly (never materialises dense
     weights), as ``base.init_quantized_params`` does. scheme="group":
     4- or 8-bit codes uniform in [-2^(bits-1), 2^(bits-1)), scales
@@ -250,8 +288,12 @@ def init_quantized_params(cfg: TransformerConfig, generator: torch.Generator,
     group experts or channel-int8 experts, and a shared expert where the
     config has one). With ``cfg.mla``, the projections that
     ``quantize_params`` leaves dense (kv_a_proj_with_mqa, q_a_proj,
-    q_b_proj, W_UK, W_UV) are bf16, uniform +-1/sqrt(in). ``device``
-    defaults to the current CUDA device."""
+    q_b_proj, W_UK, W_UV) are bf16, uniform +-1/sqrt(in). With
+    ``cfg.layer_types``, every projection of a "linear_attn" tree and
+    each attention layer's "g_proj" are quantized by the same scheme (as
+    a quantized checkpoint holds them; ``quantize_params``, as the JAX
+    package's, leaves them dense). ``gated_shared``: as in
+    ``init_params``. ``device`` defaults to the current CUDA device."""
     _check_supported(cfg)
     device = resolve_device(device)
     if scheme not in ("group", "channel8"):
@@ -269,16 +311,22 @@ def init_quantized_params(cfg: TransformerConfig, generator: torch.Generator,
     layers = []
     for i in range(cfg.num_layers):
         moe = _is_moe_layer(cfg, i, dense_layers)
-        lp = _norms(cfg, torch.bfloat16, device)
-        for name, shape in _layer_shapes(cfg, moe).items():
-            lp[name] = {"w": qrand(*shape) if name in PROJ_NAMES
+        lin = is_linear_layer(cfg, i)
+        lp = _norms(cfg, torch.bfloat16, device, lin)
+        for name, shape in _layer_shapes(cfg, moe, lin).items():
+            lp[name] = {"w": qrand(*shape)
+                        if name in PROJ_NAMES or name == "g_proj"
                         else uniform(shape)}
-        if cfg.mla is not None:
+        if lin:
+            lp["linear_attn"] = dn_mod.init_layer_params(
+                cfg.deltanet, cfg.hidden_size, generator, qrand,
+                torch.bfloat16, device)
+        if cfg.mla is not None and not lin:
             lp.update(_mla_absorbed(cfg, uniform, torch.bfloat16))
         if moe:
             lp["moe"] = moe_mod.init_quantized_moe_params(
                 generator, cfg.hidden_size, cfg.moe, group_size, act_bits,
-                device, bits, scheme)
+                device, bits, scheme, gated_shared)
         layers.append(lp)
     params = {"embed": qrand(cfg.vocab_size, cfg.hidden_size),
               "layers": layers,
@@ -488,6 +536,8 @@ def attention_block(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
     # the JAX package's type promotion does
     out = out.transpose(1, 2).reshape(B, T, cfg.num_heads * hd).to(
         torch.promote_types(out.dtype, x.dtype))
+    if "g_proj" in lp:      # Qwen3-Next's gated attention output
+        out = out * torch.sigmoid(linear(lp["g_proj"], x, norm=in_norm))
     return linear(lp["o_proj"], out), cache
 
 
@@ -506,10 +556,14 @@ def mlp_block(lp: dict, cfg: TransformerConfig, x: torch.Tensor,
 def decoder_layer(lp: dict, cfg: TransformerConfig, x, cache, offset, mask,
                   rope, fresh_prefill: bool = False,
                   kv_limit: Optional[int] = None):
-    if "linear_attn" in lp:
-        raise NotImplementedError(
-            "'linear_attn' layers are not ported to the torch package yet")
-    if "kv_a_proj_with_mqa" in lp:           # MLA (DeepSeek, GLM-4.7)
+    if "linear_attn" in lp:                  # Gated DeltaNet (Qwen3-Next)
+        if not isinstance(cfg.deltanet, dn_mod.DeltaNetConfig):
+            raise NotImplementedError(
+                "a 'linear_attn' layer needs cfg.deltanet, a "
+                "models.deltanet.DeltaNetConfig")
+        h_in = rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps)
+        h, cache = dn_mod.block(lp["linear_attn"], cfg.deltanet, h_in, cache)
+    elif "kv_a_proj_with_mqa" in lp:         # MLA (DeepSeek, GLM-4.7)
         if isinstance(cache, PagedKVCache):
             raise ValueError("MLA layers need a dense latent cache "
                              "(mla.init_cache_layer), not a paged one")
@@ -544,7 +598,8 @@ def forward(params: dict, cfg: TransformerConfig, tokens: torch.Tensor,
     attended cache prefix of a continuation chunk during chunked prefill
     (kernel K2c on CUDA). skip_logits=True returns the final normed hidden
     states instead of logits (non-final chunks need only the KV writes).
-    The KV buffers are written in place."""
+    The KV buffers, and a DeltaNet layer's state and conv window, are
+    written in place."""
     return forward_embeds(params, cfg, embedding(params["embed"], tokens),
                           cache, fresh_prefill, kv_limit, skip_logits)
 
@@ -562,16 +617,20 @@ def forward_embeds(params: dict, cfg: TransformerConfig, x: torch.Tensor,
     T = x.shape[1]
     rope = cfg.rope()
     for lc in cache.layers:
-        if not isinstance(lc, (KVCache, PagedKVCache)):
+        if not isinstance(lc, (KVCache, PagedKVCache, dn_mod.RecurrentCache)):
             raise NotImplementedError(
                 f"{type(lc).__name__} is not ported to the torch package")
-    cap = cache.layers[0].max_len
-    if kv_limit is not None:
-        kv_limit = min(kv_limit, cap)
-    cols = kv_limit if kv_limit is not None else cap
-    # built on first use: the kernel branches need no mask
-    mask = functools.cache(lambda: causal_mask(
-        T, cols, cache.offset, cfg.sliding_window, device=x.device))
+    # only positional (KV) layers take a mask; a hybrid's recurrent layers
+    # see every position they are given
+    caps = [lc.max_len for lc in cache.layers if not ingests_padding(lc)]
+    mask = None
+    if caps:
+        if kv_limit is not None:
+            kv_limit = min(kv_limit, caps[0])
+        cols = kv_limit if kv_limit is not None else caps[0]
+        # built on first use: the kernel branches need no mask
+        mask = functools.cache(lambda: causal_mask(
+            T, cols, cache.offset, cfg.sliding_window, device=x.device))
     new_layers = []
     for lp, lc in zip(params["layers"], cache.layers):
         x, lc = decoder_layer(lp, cfg, x, lc, cache.offset, mask, rope,
@@ -593,7 +652,17 @@ def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
     """Dense KV cache on ``device`` (default: the current CUDA device):
     with ``cfg.mla``, each layer's latent cache
     (``mla.init_cache_layer``; the JAX package builds that one in
-    ``deepseek_v3.init_cache`` only)."""
+    ``deepseek_v3.init_cache`` only); with ``cfg.layer_types``, the hybrid
+    cache, a ``deltanet.RecurrentCache`` for each "linear_attention"
+    layer and a ``KVCache`` for the others (the JAX package's
+    ``qwen3_next.init_cache``)."""
+    if cfg.layer_types is not None:
+        return ModelCache(layers=[
+            dn_mod.RecurrentCache.init(batch, cfg.deltanet, dtype, device)
+            if is_linear_layer(cfg, i) else
+            KVCache.init(batch, cfg.num_kv_heads, max_len, cfg.hd, dtype,
+                         device)
+            for i in range(cfg.num_layers)], offset=0)
     if cfg.mla is not None:
         return ModelCache(layers=[
             mla_mod.init_cache_layer(batch, cfg.mla, max_len, dtype, device)
@@ -612,10 +681,11 @@ def init_paged_cache(cfg: TransformerConfig, batch: int, max_len: int,
     layers share one page-table tensor (updated in place by its owner).
     ``device`` defaults to the current CUDA device. An MLA model raises:
     its latent cache has one shared head whose k and v differ in width,
-    and the pool (like the JAX package's) backs GQA layers only."""
-    if cfg.mla is not None:
-        raise ValueError("a paged cache backs GQA layers; MLA models use "
-                         "the dense latent cache (init_cache)")
+    and the pool (like the JAX package's) backs GQA layers only; so does
+    a hybrid model, whose DeltaNet layers keep a recurrent state."""
+    if cfg.mla is not None or cfg.layer_types is not None:
+        raise ValueError("a paged cache backs GQA layers; MLA and hybrid "
+                         "models use the dense cache (init_cache)")
     device = resolve_device(device)
     if max_len % page_size:
         raise ValueError(f"max_len {max_len} is not a multiple of the page "

@@ -267,20 +267,26 @@ def quantize_experts_params(lp: dict, group_size: int = 64, bits: int = 4,
     return out
 
 
-def _shared_shapes(mcfg: MoEConfig, D: int) -> dict:
+def _shared_shapes(mcfg: MoEConfig, D: int, gated_shared: int = 0) -> dict:
     """The shared expert's projections [out, in]: a SwiGLU MLP of
-    ``n_shared_experts`` experts' width (the JAX package's checkpoints'
-    ``mlp.shared_experts``)."""
-    Is = mcfg.n_shared_experts * mcfg.moe_intermediate_size
+    ``gated_shared`` width where that is set (Qwen3-Next's
+    ``mlp.shared_expert``), else of ``n_shared_experts`` experts' width
+    (the JAX package's checkpoints' ``mlp.shared_experts``); {} for
+    neither."""
+    Is = gated_shared or mcfg.n_shared_experts * mcfg.moe_intermediate_size
+    if not Is:
+        return {}
     return {"gate_proj": (Is, D), "up_proj": (Is, D), "down_proj": (D, Is)}
 
 
 def init_moe_params(generator: torch.Generator, hidden_size: int,
                     mcfg: MoEConfig, dtype=torch.bfloat16,
-                    device=None) -> dict:
+                    device=None, gated_shared: int = 0) -> dict:
     """Random dense MoE layer: uniform +-1/sqrt(in) router gate and
-    experts (the JAX package's init_moe_params) and, where
-    ``n_shared_experts`` > 0, a shared expert, on ``device``
+    experts (the JAX package's init_moe_params) and a shared expert where
+    ``n_shared_experts`` > 0 or, of ``gated_shared`` width, behind a
+    sigmoid gate [1, D] (Qwen3-Next's ``shared_expert_intermediate_size``:
+    a width the JAX package's MoEConfig does not hold), on ``device``
     (default: the current CUDA device)."""
     device = resolve_device(device)
     E, I, D = mcfg.num_experts, mcfg.moe_intermediate_size, hidden_size
@@ -293,14 +299,22 @@ def init_moe_params(generator: torch.Generator, hidden_size: int,
           "experts": {"gate_proj": uniform((E, I, D), D ** -0.5),
                       "up_proj": uniform((E, I, D), D ** -0.5),
                       "down_proj": uniform((E, D, I), I ** -0.5)}}
-    _add_shared(lp, mcfg, D, lambda o, i: uniform((o, i), i ** -0.5))
+    _add_shared(lp, mcfg, D, lambda o, i: uniform((o, i), i ** -0.5),
+                lambda: uniform((1, D), D ** -0.5), gated_shared)
     return lp
 
 
-def _add_shared(lp: dict, mcfg: MoEConfig, D: int, make):
-    if mcfg.n_shared_experts > 0:
+def _add_shared(lp: dict, mcfg: MoEConfig, D: int, make, make_gate,
+                gated_shared: int = 0):
+    """The shared expert from ``make(out, in)`` and, for a gated one, its
+    dense gate ``make_gate()`` [1, D] (the JAX package's quantize_params
+    leaves it dense)."""
+    shapes = _shared_shapes(mcfg, D, gated_shared)
+    if shapes:
         lp["shared_expert"] = {n: {"w": make(*shape)} for n, shape in
-                               _shared_shapes(mcfg, D).items()}
+                               shapes.items()}
+    if gated_shared:
+        lp["shared_expert_gate"] = {"w": make_gate()}
 
 
 def random_quantized_linear(generator: torch.Generator, out_f: int,
@@ -334,7 +348,8 @@ def init_quantized_moe_params(generator: torch.Generator, hidden_size: int,
                               mcfg: MoEConfig, group_size: int = 64,
                               act_bits: Optional[int] = 8,
                               device=None, bits: int = 4,
-                              scheme: str = "group") -> dict:
+                              scheme: str = "group",
+                              gated_shared: int = 0) -> dict:
     """Random quantized MoE layer made directly in the packed layout (never
     the dense weights), with the ranges of ``base.init_quantized_params``:
     scheme="group", 4- or 8-bit codes uniform over their range, scales
@@ -374,10 +389,14 @@ def init_quantized_moe_params(generator: torch.Generator, hidden_size: int,
             data=data, scales=s, biases=b, group_size=group_size, bits=bits,
             in_features=K, act_bits=act_bits)
 
-    gate = (torch.rand((E, D), generator=generator, device=device) * 2 - 1)
-    lp = {"gate": {"w": (gate * D ** -0.5).to(torch.bfloat16)},
+    def bf16_uniform(shape):
+        u = torch.rand(shape, generator=generator, device=device) * 2 - 1
+        return (u * D ** -0.5).to(torch.bfloat16)
+
+    lp = {"gate": {"w": bf16_uniform((E, D))},
           "experts": {"gate_proj": packed(I, D), "up_proj": packed(I, D),
                       "down_proj": packed(D, I)}}
     _add_shared(lp, mcfg, D, lambda o, i: random_quantized_linear(
-        generator, o, i, group_size, bits, act_bits, device, scheme))
+        generator, o, i, group_size, bits, act_bits, device, scheme),
+        lambda: bf16_uniform((1, D)), gated_shared)
     return lp

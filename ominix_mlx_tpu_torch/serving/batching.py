@@ -16,6 +16,13 @@ cache tensors in place. The host keeps mirrors of what it must decide on
 back from the device except the previous step's tokens, and those only
 after the next forward is queued.
 
+A hybrid model's recurrent layers (``models.deltanet.RecurrentCache``)
+ride the dense batcher: adoption prefills at exactly T (a padded bucket
+would feed the pads into the state), into the slot's rows of each
+recurrent layer, zeroed first, since no offset mask hides a finished
+request's state. The paged batcher refuses hybrids, as the JAX package's
+does.
+
 Speculative batching is not ported: the server's ``enable_batching``
 raises ``NotImplementedError`` for it.
 """
@@ -30,7 +37,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ominix_mlx_tpu_torch.core.cache import KVCache, ModelCache
+from ominix_mlx_tpu_torch.core.cache import (KVCache, ModelCache,
+                                            ingests_padding)
 from ominix_mlx_tpu_torch.core.device import resolve_device
 from ominix_mlx_tpu_torch.core.generate import Engine, bucket_length
 from ominix_mlx_tpu_torch.core.paged_cache import (PageAllocator,
@@ -38,6 +46,7 @@ from ominix_mlx_tpu_torch.core.paged_cache import (PageAllocator,
                                                    quantize_kv_tokens)
 from ominix_mlx_tpu_torch.core.sampling import (SamplerConfig, SamplerParams,
                                                 sample_dynamic)
+from ominix_mlx_tpu_torch.models.deltanet import RecurrentCache
 
 REP_WINDOW = 64
 
@@ -87,7 +96,8 @@ class ContinuousBatcher:
         non-final chunks.
 
         init_cache_fn(cfg, slots, max_len) -> ModelCache of KVCache (or,
-        for the paged batcher, PagedKVCache) layers."""
+        for the paged batcher, PagedKVCache) layers, and a hybrid's
+        RecurrentCache layers."""
         self.fwd = forward_fn
         self.prefill_fwd = prefill_forward_fn or forward_fn
         self.params = params
@@ -96,13 +106,18 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.stop_tokens = set(stop_tokens)
         layers = init_cache_fn(cfg, slots, max_len).layers
-        if not all(isinstance(lc, (KVCache, PagedKVCache)) for lc in layers):
+        if not all(isinstance(lc, (KVCache, PagedKVCache, RecurrentCache))
+                   for lc in layers):
             raise ValueError(
                 "continuous batching needs per-row cache state; init the "
                 "batcher with dense KVCache layers (window masking) "
                 "instead of RotatingKVCache")
+        # recurrent layers take every position they are given: adoption
+        # prefills at exactly T
+        self._has_recurrent = any(ingests_padding(lc) for lc in layers)
         lc = layers[0]
         self.device = (lc.k_pool if isinstance(lc, PagedKVCache)
+                       else lc.state if isinstance(lc, RecurrentCache)
                        else lc.k).device
         dev = self.device
         self.offsets = torch.zeros(slots, dtype=torch.long, device=dev)
@@ -185,8 +200,11 @@ class ContinuousBatcher:
 
     def _prefill_layers(self, b: int, bucket: int) -> list:
         """Single-row cache layers the adoption prefill writes: here the
-        slot's own row of the batch cache (views, written in place)."""
-        return [KVCache(k=lc.k[b:b + 1], v=lc.v[b:b + 1])
+        slot's own row of the batch cache (views, written in place); a
+        recurrent layer's row zeroed first (the slot's last request left
+        its state there, which no offset mask hides)."""
+        return [lc.rows(b).zero_() if isinstance(lc, RecurrentCache)
+                else KVCache(k=lc.k[b:b + 1], v=lc.v[b:b + 1])
                 for lc in self.cache.layers]
 
     def _adopt_request(self, b: int, layers1, T: int, tok, req=None):
@@ -263,7 +281,8 @@ class ContinuousBatcher:
                 break                 # wait for pages to free; stay queued
             req = self.queue.popleft()
             T = len(req.tokens)
-            bucket = min(bucket_length(T), self.max_len)
+            bucket = (T if self._has_recurrent
+                      else min(bucket_length(T), self.max_len))
             padded = torch.zeros(1, bucket, dtype=torch.long,
                                  device=self.device)
             padded[0, :T] = torch.tensor(req.tokens, device=self.device)

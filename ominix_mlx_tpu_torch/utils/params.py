@@ -22,8 +22,11 @@ carried as it is named, so GLM-4's sandwich norms
 reach the port's ``decoder_layer`` and ``linear``, and MLA's absorbed
 ``w_uk`` / ``w_uv`` [H, d, Ckv], ``kv_a_layernorm`` and
 ``q_a_layernorm``, a MoE layer's ``e_score_correction_bias`` and its
-``shared_expert`` (dense or quantized linears) reach ``models.mla`` and
-``models.moe``.
+``shared_expert`` (dense or quantized linears) and ``shared_expert_gate``
+reach ``models.mla`` and ``models.moe``, and Qwen3-Next's DeltaNet
+subtrees (``linear_attn``: its projections, ``conv1d``, ``A_log``,
+``dt_bias``, ``norm``) and attention output gate ``g_proj`` reach
+``models.deltanet`` and ``models.base``.
 """
 
 from __future__ import annotations

@@ -15,6 +15,7 @@ import torch
 from ominix_mlx_tpu_torch.core.quant import QuantizedTensor
 from ominix_mlx_tpu_torch.ops import _build
 from ominix_mlx_tpu_torch.ops import flash_attention as fa
+from ominix_mlx_tpu_torch.ops import gated_delta as gd
 from ominix_mlx_tpu_torch.ops import grouped_matmul as tgmm
 from ominix_mlx_tpu_torch.ops import paged_attention as pa
 from ominix_mlx_tpu_torch.ops import quant_matmul as qm
@@ -1470,3 +1471,190 @@ def test_moe_block_runs_k4_k5_and_k8(cuda):
     _build.reset_launches()
     moe.moe_block(lpd, mcfg, torch.randn(1, 24, 256, device=cuda).bfloat16())
     assert _build.LAUNCHES["k5"] == 3
+
+
+# ------------------------- Qwen3-Next: K9, and K2, K4, K5 at its shapes ----
+
+K9_TOL = 1e-4   # max error over max |plain|: float32 sums in another order
+
+
+def _k9_inputs(dev, B, T, Hk, r, dk=128, dv=128, seed=0):
+    """Inputs of the gated delta rule as a DeltaNet layer gives them:
+    l2-normed q (scaled by dk^-0.5) and k, g < 0, beta in (0, 1), and a
+    carried state that is not zero."""
+    from torch.nn.functional import normalize
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Hv = Hk * r
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    return {"q": normalize(randn(B, T, Hk, dk), dim=-1) * dk ** -0.5,
+            "k": normalize(randn(B, T, Hk, dk), dim=-1),
+            "v": randn(B, T, Hv, dv),
+            "g": -torch.rand(B, T, Hv, generator=g, device=dev) * 1.5,
+            "beta": torch.rand(B, T, Hv, generator=g, device=dev),
+            "state": randn(B, Hv, dk, dv) * 0.1}
+
+
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("B,T", [(1, 1), (8, 1), (1, 128), (2, 1000)])
+def test_k9_matches_plain(cuda, B, T, r):
+    """K9 at Qwen3-Next's widths (16 key heads, dk = dv = 128; r = 2 is
+    its 32 value heads) against the plain version: outputs and the final
+    state (written in place) within K9_TOL of max |plain|, one launch,
+    the same bits on a second run."""
+    a = _k9_inputs(cuda, B, T, 16, r, seed=B * T + r)
+    s1, s2, s3 = (a["state"].clone() for _ in range(3))
+    args = [a[n] for n in ("q", "k", "v", "g", "beta")]
+    _build.reset_launches()
+    got = gd.gated_delta_rule(*args, s1)
+    assert dict(_build.LAUNCHES) == {"k9": 1}
+    want = gd.gated_delta_rule_reference(*args, s2)
+    again = gd.gated_delta_rule(*args, s3)
+    torch.cuda.synchronize()
+    assert got.shape == (B, T, 16 * r, 128) and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) < K9_TOL and _rel(s1, s2) < K9_TOL
+    assert torch.equal(got, again) and torch.equal(s1, s3)
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 48), (256, 96), (32, 200)])
+def test_k9_other_widths_match_plain(cuda, dk, dv):
+    """The other head widths K9 is built for, and value widths that are
+    not a multiple of its 32 columns a CTA (the ragged CTA's dead columns
+    read and write nothing)."""
+    a = _k9_inputs(cuda, 2, 37, 2, 2, dk=dk, dv=dv, seed=dk + dv)
+    s1, s2 = a["state"].clone(), a["state"].clone()
+    args = [a[n] for n in ("q", "k", "v", "g", "beta")]
+    got = gd.gated_delta_rule(*args, s1)
+    want = gd.gated_delta_rule_reference(*args, s2)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < K9_TOL and _rel(s1, s2) < K9_TOL
+
+
+def test_k9_carries_the_state_across_calls(cuda):
+    """Two calls of 50 and 78 tokens on one state equal one call of 128
+    (K9_TOL), the state advanced in place by each."""
+    a = _k9_inputs(cuda, 2, 128, 16, 2, seed=7)
+    whole, parts = a["state"].clone(), a["state"].clone()
+    names = ("q", "k", "v", "g", "beta")
+    one = gd.gated_delta_rule(*(a[n] for n in names), whole)
+    two = torch.cat([gd.gated_delta_rule(*(a[n][:, sl] for n in names), parts)
+                     for sl in (slice(0, 50), slice(50, 128))], 1)
+    torch.cuda.synchronize()
+    assert _rel(two, one) < K9_TOL and _rel(parts, whole) < K9_TOL
+
+
+def test_k9_rejects(cuda):
+    a = _k9_inputs(cuda, 1, 4, 2, 1, dk=48, dv=32)
+    args = [a[n] for n in ("q", "k", "v", "g", "beta")]
+    with pytest.raises(ValueError, match="dk in"):
+        gd._k9(*args, a["state"])
+    b = _k9_inputs(cuda, 1, 4, 2, 1, dk=64, dv=32)
+    with pytest.raises(ValueError, match="state"):
+        gd._k9(*(b[n] for n in ("q", "k", "v", "g", "beta")),
+               b["state"].bfloat16())
+    with pytest.raises(ValueError, match="K9 v"):
+        gd._k9(b["q"], b["k"], b["v"][:, :, :, ::2], b["g"], b["beta"],
+               b["state"])
+
+
+def test_deltanet_block_launches_k9_once(cuda):
+    """A DeltaNet layer on the card runs its recurrence through K9, one
+    launch a call, decode and prefill alike, and its output is within
+    2e-2 of the same layer with the plain recurrence (bf16 activations)."""
+    from ominix_mlx_tpu_torch.models import deltanet as dn
+
+    dcfg = dn.DeltaNetConfig(num_v_heads=32, num_k_heads=16, head_k_dim=128,
+                             head_v_dim=128)
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def make(o, i):
+        return (torch.randn(o, i, generator=g, device=cuda)
+                * i ** -0.5).bfloat16()
+
+    lp = dn.init_layer_params(dcfg, 2048, g, make, device=cuda)
+    for T in (1, 40):
+        x = torch.randn(2, T, 2048, generator=g, device=cuda).bfloat16()
+        c1 = dn.RecurrentCache.init(2, dcfg, device=cuda)
+        c2 = dn.RecurrentCache.init(2, dcfg, device=cuda)
+        _build.reset_launches()
+        y1, _ = dn.block(lp, dcfg, x, c1)
+        assert dict(_build.LAUNCHES) == {"k9": 1}
+        real = dn.gated_delta_rule
+        dn.gated_delta_rule = gd.gated_delta_rule_reference
+        try:
+            y2, _ = dn.block(lp, dcfg, x, c2)
+        finally:
+            dn.gated_delta_rule = real
+        torch.cuda.synchronize()
+        assert _rel(y1, y2) < 2e-2 and _rel(c1.state, c2.state) < K9_TOL
+
+
+def test_k2_k2c_at_qwen3_next_heads(cuda):
+    """Qwen3-Next's attention layers: 16 query heads over 2 KV heads of
+    D = 256. K2 at T = 2048 and K2c on its second half against their
+    plain versions (1e-2 of max |plain|, bf16 output)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    T, H, Hkv, D = 2048, 16, 2, 256
+    q = torch.randn(1, H, T, D, generator=g, device=cuda).bfloat16()
+    k = torch.randn(1, Hkv, T, D, generator=g, device=cuda).bfloat16()
+    v = torch.randn(1, Hkv, T, D, generator=g, device=cuda).bfloat16()
+    _build.reset_launches()
+    out = fa.flash_prefill(q, k, v, D ** -0.5)
+    chunk = fa.flash_chunk_prefill(q[:, :, 1024:].contiguous(), k, v, 1024,
+                                   D ** -0.5)
+    assert dict(_build.LAUNCHES) == {"k2": 1, "k2c": 1}
+    want, _ = fa.flash_prefill_reference(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert _rel(out, want) < 1e-2
+    assert _rel(chunk, want[:, :, 1024:]) < 1e-2
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("T,k,N,K", [(1, 10, 512, 2048), (10, 1, 2048, 512),
+                                     (8, 10, 512, 2048)])
+def test_k4_at_512_experts_top_10(cuda, T, k, N, K, bits):
+    """Qwen3-Next-80B-A3B's experts at decode: 512 of them, 10 a token;
+    gate/up (N 512, K 2048) at one and 8 rows, down (N 2048, K 512) at
+    10 rows. The "k4" route, one launch, within 1e-2 of the plain version
+    per (row, slot)."""
+    E = 512
+    w, g = _experts(cuda, E, N, K, seed=T * k + bits, bits=bits)
+    x = torch.randn(T, K, generator=g, device=cuda).bfloat16()
+    ids = _ids(g, cuda, E, T, k)
+    assert qm.expert_route(w, T) == "k4"
+    _build.reset_launches()
+    got = qm.gather_qmm(x, w, ids)
+    assert dict(_build.LAUNCHES) == {"k4" if bits == 4 else "k4_w8": 1}
+    want = qm.gather_qmm_reference(x, w, ids, act_bits=8)
+    torch.cuda.synchronize()
+    assert _row_rel(got, want) < 1e-2
+
+
+@pytest.mark.parametrize("bits", [4, 16])
+@pytest.mark.parametrize("N,K", [(512, 2048), (2048, 512)])
+def test_k5_at_512_experts(cuda, bits, N, K):
+    """Qwen3-Next-80B-A3B's experts at prefill: a 128-token prompt routes
+    S = 1280 token copies over 512 experts (about 2.5 rows a group, most
+    groups of 0-8 rows), 4-bit packed (the main path) and bf16, against
+    the plain version at 1e-4 of max |plain|, the same bits twice."""
+    E, S = 512, 1280
+    g = torch.Generator(device=cuda).manual_seed(N + bits)
+    xs = torch.randn(S, K, generator=g, device=cuda).bfloat16()
+    if bits == 16:
+        w = (torch.randn(E, N, K, generator=g, device=cuda)
+             * K ** -0.5).bfloat16()
+    else:
+        w = _k5_experts(cuda, E, N, K, bits, seed=N)
+    ids = torch.randint(0, E, (S,), generator=g, device=cuda)
+    gs = torch.bincount(ids, minlength=E)
+    _build.reset_launches()
+    got = tgmm.grouped_matmul(xs, w, gs)
+    assert sum(_build.LAUNCHES.values()) == 1
+    want = tgmm.grouped_matmul_reference(xs, w, gs)
+    again = tgmm.grouped_matmul(xs, w, gs)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-4 and torch.equal(got, again)

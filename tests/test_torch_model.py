@@ -153,23 +153,44 @@ def test_quantize_params_matches_jax():
 
 
 def test_unported_branches_raise():
-    """DeltaNet (GatedDeltaNet) layers are not ported: a config or a tree
-    that holds one raises instead of skipping it. (MoE layers are ported:
-    tests/test_torch_moe.py; MLA layers: tests/test_torch_mla.py.)"""
+    """The DeltaNet branch is ported since the Qwen3-Next slice (the test
+    keeps its name from when it raised): a one-layer tree holding a
+    "linear_attn" layer runs and its logits equal the JAX package's
+    (float32, 1e-4); a deltanet config that is not the port's
+    DeltaNetConfig still raises NotImplementedError."""
     import dataclasses
-    for name in ("deltanet",):
-        with pytest.raises(NotImplementedError):
-            tbase.init_params(dataclasses.replace(TCFG, **{name: object()}),
-                              torch.Generator().manual_seed(0),
-                              device="cpu")
-    g = torch.Generator().manual_seed(0)
-    tp = tbase.init_quantized_params(dataclasses.replace(TCFG, num_layers=1),
-                                     g, device="cpu")
-    tp["layers"][0]["linear_attn"] = {}
+
+    from ominix_mlx_tpu.models import qwen3_next as jqn
+    from ominix_mlx_tpu_torch.models import deltanet as tdn
+
     with pytest.raises(NotImplementedError):
-        tbase.forward(tp, dataclasses.replace(TCFG, num_layers=1),
-                      torch.zeros(1, 1, dtype=torch.long),
-                      tbase.init_cache(TCFG, 1, 8, device="cpu"))
+        tbase.init_params(dataclasses.replace(TCFG, deltanet=object()),
+                          torch.Generator().manual_seed(0), device="cpu")
+    dcfg = tdn.DeltaNetConfig(num_v_heads=4, num_k_heads=2, head_k_dim=16,
+                              head_v_dim=16)
+    cfg = dataclasses.replace(TCFG, num_layers=1, deltanet=dcfg,
+                              layer_types=("linear_attention",))
+    tp = tbase.init_params(cfg, torch.Generator().manual_seed(0),
+                           torch.float32, device="cpu")
+    assert set(tp["layers"][0]) == {"input_layernorm",
+                                    "post_attention_layernorm",
+                                    "linear_attn", "gate_proj", "up_proj",
+                                    "down_proj"}
+    toks = np.array([[3, 1, 4, 1, 5]])
+    with torch.inference_mode():
+        tl, tc = tbase.forward(tp, cfg, torch.from_numpy(toks),
+                               tbase.init_cache(cfg, 1, 8, torch.float32,
+                                                device="cpu"))
+    jcfg = dataclasses.replace(JCFG, num_layers=1, layer_types=(
+        "linear_attention",), deltanet=jqn.DeltaNetConfig(
+        num_v_heads=4, num_k_heads=2, head_k_dim=16, head_v_dim=16))
+    jp = jax.tree_util.tree_map(
+        jnp.asarray, jax.tree_util.tree_map(lambda t: t.numpy(), tp))
+    jl, _ = jbase.forward(jp, jcfg, jnp.asarray(toks),
+                          jqn.init_cache(jcfg, 1, 8, jnp.float32))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                               atol=1e-4)
+    assert tc.offset == 5 and float(tc.layers[0].state.abs().sum()) > 0
 
 
 @pytest.mark.parametrize("key", ["post_self_attn_layernorm",

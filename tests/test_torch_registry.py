@@ -212,7 +212,7 @@ def test_main_draft_flags_raise(flag, checkpoint):
 
 @pytest.mark.parametrize("model_type,family", [
     ("minicpm_sala", "minicpm_sala"), ("qwen3_asr", "qwen3_asr"),
-    ("flux_klein", "flux_klein"), ("qwen3_next", "qwen3_next"),
+    ("flux_klein", "flux_klein"), ("minicpm4", "minicpm_sala"),
     ("paraformer", "paraformer"), ("qwen3_tts", "qwen3_tts")])
 def test_unported_types_raise(model_type, family, tmp_path):
     with open(tmp_path / "config.json", "w") as f:
