@@ -68,20 +68,25 @@ Qwen3-30B-A3B with random weights (seeded):
   - serve_qwen3_next: Qwen3-Next-80B-A3B-Instruct at full width and all
     48 layers (36 Gated DeltaNet, 12 gated attention; 512 experts top 10
     and a gated shared expert), w4a8 g64, about 45 GB: the route of each
-    projection, 4 HTTP chat requests one at a time with K9, K2, K4 and K5
-    launched exactly as many times as their forwards need, a 128-token
-    prefill, the logits check on 4 layers (every K9 call against its
-    plain version), the decode rate, and 8 concurrent requests on the
-    dense continuous batcher, each equal to the same request alone.
+    projection, 4 HTTP chat requests one at a time with k9_prep, K9 (in
+    the form k9_plan picks: recurrent at decode, chunked for prompts),
+    K2, K4 and K5 launched exactly as many times as their forwards need,
+    a 128-token prefill, the logits check on 4 layers (every k9_prep and
+    K9 call against its plain version, and the two together against
+    both plain versions), the decode rate, and 8 concurrent requests on
+    the dense continuous batcher, each equal to the same request alone.
 
 The kernel checks include K2 and K2c with the sliding window (k2_window,
 k2c_window: T=8192 and the 8k prefill's last chunk, windows 4096 and
 4000, 8 and 2 KV heads), K3 at GLM-4.5-Air's 12 query heads a KV head,
 and K5 at Mixtral's down projection (K = 14336, whose scales it streams)
-at 4 and 8 bits; and at Qwen3-Next's shapes K9 (k9: decode at batch 1
-and 8, prompts of 128 and 2048 tokens), K2 at 16 over 2 heads of 256
-(k2_d256), K4 over 512 experts top 10 (k4_e512) and K5 on 512 packed
-experts at a 128-token prompt's 1280 rows.
+at 4 and 8 bits; and at Qwen3-Next's shapes K9 (k9: the recurrent form at
+decode, batch 1 and 8; the chunked form at prompts of 128, 2048 and 8192
+tokens; k9_vs_recurrent: both forms in turns at 128 and 2048), its
+prologue k9_prep (decode at batch 1 and 8, a 128-token prompt; beside
+the plain version's time and device operations), K2 at 16 over 2 heads
+of 256 (k2_d256), K4 over 512 experts top 10 (k4_e512) and K5 on 512
+packed experts at a 128-token prompt's 1280 rows.
 
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
@@ -207,9 +212,16 @@ QWEN3_NEXT_80B_HF = {
     "rms_norm_eps": 1e-6, "hidden_act": "silu", "tie_word_embeddings": False}
 QWEN3_NEXT_E = 512
 # (B, T) of K9 at Qwen3-Next's widths (16 key heads, 32 value heads,
-# dk = dv = 128): decode at batch 1 and 8, the 128-token prefill, and a
-# 2048-token chunk
-K9_SHAPES = ((1, 1), (8, 1), (1, 128), (1, 2048))
+# dk = dv = 128): decode at batch 1 and 8 (the recurrent form), the
+# 128-token prefill, a 2048-token chunk and an 8192-token prompt (the
+# chunked form); the recurrent and the chunked form in turns at K9_TURNS
+K9_SHAPES = ((1, 1), (8, 1), (1, 128), (1, 2048), (1, 8192))
+K9_TURNS = (128, 2048)
+# prompt lengths at which both forms are timed in turns at B = 1: where
+# they meet sets ops/gated_delta.py K9_CHUNK_MIN_T
+K9_CROSSOVER_T = (16, 32, 48, 64, 96)
+# (B, T) of k9_prep: decode at batch 1 and 8, the 128-token prefill
+K9_PREP_SHAPES = ((1, 1), (8, 1), (1, 128))
 # (name, T rows, k slots, N, K) of K4 on Qwen3-Next-80B-A3B's 512 experts,
 # top 10: gate/up at one decode row, down at its 10 (row, slot) pairs
 K4_NEXT_SHAPES = (("gate_up", 1, 10, 512, 2048), ("down", 10, 1, 2048, 512))
@@ -251,7 +263,8 @@ K5_TOL = 1e-4
 # rate and operations over the rate for their type
 HBM_BYTES_PER_S = 3.35e12
 SPIN_CYCLES = 200_000   # ~0.1 ms at the H100's clock: see time_ms
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
+                  "tf32": 495e12}
 K1_TOL = 1e-2     # max error / max |plain|: bf16 output, another sum order
 K2_TOL = 1e-2     # the same for K2's and K2c's bf16 output
 K2_LSE_TOL = 1e-2  # max abs error of K2's float32 row LSE (wrong scores)
@@ -259,6 +272,11 @@ K2_LSE_TOL = 1e-2  # max abs error of K2's float32 row LSE (wrong scores)
 # of the final state: both sum in float32, in another order (the card
 # tests read at most this at T = 1000 and r = 2)
 K9_TOL = 1e-4
+# k9_prep vs its plain version, max error over max |plain| of each of q,
+# k, v, g, beta (the l2norm's sum of squares in another order moves q and
+# k by an ulp or two; v, g and beta are the same roundings); the window it
+# writes is held bit for bit
+K9_PREP_TOL = 1e-5
 K3_DESIGN = ("split-KV (flash-decoding): splits of whole pages from "
              "k3_plan (shapes only), a CTA per (split, KV head, row) with "
              "all its query heads; a CTA-wide cp.async ring of 64-key "
@@ -292,13 +310,33 @@ GATHER_DESIGN = ("the prologue (qmm_prep_pdl for K4, chan_prep for K8) "
                  "x's codes read once for a group's rows; each row summed "
                  "in one order, a warp a row's (a lane's chunks, then the "
                  "butterfly, folded where a group stands for a warp)")
-K9_DESIGN = ("the loop over T inside one launch: a CTA of 128 threads per "
-             "(row, value head, 32 value columns), four threads a column "
-             "holding dk/4 state rows in registers; each token's q and k "
-             "staged in double-buffered shared memory (one barrier a "
-             "token), the next token's inputs loaded while this one "
-             "computes; S^T k and S^T q as four fma chains a thread, "
+K9_DESIGN = ("the recurrent form (decode, prompts under "
+             "K9_CHUNK_MIN_T): the loop over T inside one launch, a CTA of "
+             "128 threads per (row, value head, 32 value columns), four "
+             "threads a column holding dk/4 state rows in registers; each "
+             "token's q and k staged in double-buffered shared memory (one "
+             "barrier a token), the next token's inputs loaded while this "
+             "one computes; S^T k and S^T q as four fma chains a thread, "
              "folded across a column's four lanes by two shuffles")
+K9_CHUNK_DESIGN = ("the chunked (WY / UT-transform) form, chunks of 64 "
+                   "tokens, every product on mma.sync m16n8k8 TF32 in "
+                   "3xTF32: phase 1 (gated_delta_chunk, a CTA per chunk, "
+                   "value head and row) K K^T and Q K^T on or below the "
+                   "diagonal, masked before the exp, T = (I + A)^-1 by "
+                   "forward substitution (four threads a column, two "
+                   "shuffles a row), W and U0 into an 80 KiB scratch a "
+                   "chunk; phase 2 (gated_delta_chunk_scan, a CTA per 32 "
+                   "value columns, value head and row) the scan over "
+                   "chunks, the state slice in four warps' accumulators, "
+                   "W S and Q S, U, then P U beside K^T U; the next chunk's "
+                   "tiles fetched by cp.async in two groups while this one "
+                   "computes")
+K9_PREP_DESIGN = ("one launch for the conv window, SiLU, l2norms and gates: "
+                  "a warp per (q, k or v head, 16 tokens), dk/32 channels "
+                  "a lane, the last K-1 inputs sliding through registers, "
+                  "the l2norm one butterfly; the window read and written "
+                  "by the first token tile's threads only (each channel by "
+                  "one thread)")
 K5_DESIGN = ("tensor cores: 128 expert rows as A (bf16 read by wgmma from "
              "128-byte-swizzled shared memory, or packed codes dequantized "
              "in registers with the plain version's rounding) against up "
@@ -1423,22 +1461,80 @@ def k9_inputs(g, dev, B, T, Hk=16, Hv=32, dk=128, dv=128):
             randn(B, Hv, dk, dv) * 0.1)
 
 
+def k9_bound(B, T, Hk, Hv, dk, dv) -> dict:
+    """K9's bound, whatever the form: the larger of the bytes any form
+    must move (q, k, v, g, beta and o once, the state read and written
+    once) over the memory rate, and the chunked form's products over the
+    TF32 peak: n^2 (3 dk + 2 dv) + 3 n dk dv multiply-adds a chunk of n
+    tokens and value head. Beside it, named as such, the recurrent form's
+    own bound (``recurrent_fp32_bound_ms``): 7 dk dv float32 operations a
+    token and value head off the tensor cores, or the same bytes."""
+    nbytes = 4 * (2 * B * T * Hk * dk + 2 * B * T * Hv * dv
+                  + 2 * B * T * Hv + 2 * B * Hv * dk * dv)
+    full, last = divmod(T, 64)
+    macs = sum(n * n * (3 * dk + 2 * dv) + 3 * n * dk * dv
+               for n in [64] * full + ([last] if last else []))
+    old = bound(nbytes, 7 * B * T * Hv * dk * dv, "fp32")
+    return {**bound(nbytes, 2 * B * Hv * macs, "tf32"),
+            "recurrent_fp32_bound_ms": old["bound_ms"],
+            "recurrent_fp32_bound_by": old["bound_by"]}
+
+
+def rel_to(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def k9_phase_us(call, n: int = 5) -> dict:
+    """Median device time (µs) of each kernel the chunked form launches,
+    over ``n`` calls of ``call`` each waited for, by torch.profiler:
+    {"gated_delta_chunk": phase 1, "gated_delta_chunk_scan": phase 2}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(n):
+            call()
+            torch.cuda.synchronize()
+    times: dict = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in ("gated_delta_chunk_scan<", "gated_delta_chunk<"):
+            if name in e.name:
+                times.setdefault(name[:-1], []).append(
+                    e.time_range.end - e.time_range.start)
+                break
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
 def check_k9(dev, flush):
-    """K9 against gated_delta_rule_reference at Qwen3-Next's widths and
-    K9_SHAPES: outputs and final state (written in place) within K9_TOL
-    of max |plain|, the same bits on a second launch; timed beside its
-    bound: bytes (q, k, v, g, beta and o once, the state read and written
-    once) or float32 operations (7 dk dv a token and value head), off the
-    tensor cores. No PyTorch call computes the rule."""
+    """K9 in the form k9_plan picks (the recurrent form at decode, the
+    chunked one for prompts) against gated_delta_rule_reference at
+    Qwen3-Next's widths and K9_SHAPES: outputs and final state (written in
+    place) within K9_TOL of max |plain|, the same bits on a second launch;
+    timed beside k9_bound, the chunked form's two phases also each by
+    torch.profiler (``phase_us``). At K9_TURNS the two forms in turns (recurrent,
+    chunked, chunked, recurrent: ``k9_vs_recurrent``), each held against
+    the plain version; at K9_CROSSOVER_T the same turns
+    (``k9_crossover``) beside the form the plan picks. No PyTorch call
+    computes the rule."""
     from ominix_mlx_tpu_torch.ops import gated_delta as gd
 
     g = torch.Generator(device=dev).manual_seed(SEED + 36)
     rows = []
     for B, T in K9_SHAPES:
         q, k, v, gg, beta, state = k9_inputs(g, dev, B, T)
+        Hk, dk = q.shape[2], q.shape[3]
+        Hv, dv = v.shape[2], v.shape[3]
+        form = gd.k9_plan(B, T, Hv, dk, dv)
         s1, s2, s3 = state.clone(), state.clone(), state.clone()
-        got = gd._k9(q, k, v, gg, beta, s1)
-        again = gd._k9(q, k, v, gg, beta, s3)
+        got = gd._k9_rule(q, k, v, gg, beta, s1)
+        again = gd._k9_rule(q, k, v, gg, beta, s3)
         want = gd.gated_delta_rule_reference(q, k, v, gg, beta, s2)
         torch.cuda.synchronize()
         if not (torch.isfinite(got).all() and torch.isfinite(s1).all()):
@@ -1447,21 +1543,21 @@ def check_k9(dev, flush):
         rel = d / max(want.abs().max().item(), 1e-12)
         rel_state = ((s1 - s2).abs().max() / s2.abs().max()).item()
         repeatable = bool(torch.equal(got, again) and torch.equal(s1, s3))
-        ms = time_ms(lambda: gd._k9(q, k, v, gg, beta, s1), 10, flush)
+        want_state = s2.clone()
+        ms = time_ms(lambda: gd._k9_rule(q, k, v, gg, beta, s1), 10, flush)
         plain_ms = time_ms(lambda: gd.gated_delta_rule_reference(
-            q, k, v, gg, beta, s2), 3, flush)
-        Hk, dk = q.shape[2], q.shape[3]
-        Hv, dv = v.shape[2], v.shape[3]
-        nbytes = 4 * (2 * B * T * Hk * dk + 2 * B * T * Hv * dv
-                      + 2 * B * T * Hv + 2 * B * Hv * dk * dv)
+            q, k, v, gg, beta, s2), 3 if T <= 2048 else 1, flush)
         row = {"B": B, "T": T, "Hk": Hk, "Hv": Hv, "dk": dk, "dv": dv,
+               "form": form, "launches": gd.k9_launches(B, T, Hv, dk, dv),
                "max_abs_err": d, "rel_err": rel, "state_rel_err": rel_state,
                "bitwise_repeatable": repeatable,
                "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                "library_error": "no PyTorch call computes the gated delta "
                                 "rule",
-               "us_per_token": ms * 1e3 / T,
-               **bound(nbytes, 7 * B * T * Hv * dk * dv, "fp32")}
+               "us_per_token": ms * 1e3 / T, **k9_bound(B, T, Hk, Hv, dk, dv)}
+        if form == "chunked":
+            row["phase_us"] = k9_phase_us(
+                lambda: gd._k9_rule(q, k, v, gg, beta, s1))
         row.update(versus(row))
         emit({"phase": "k9", **row})
         if not (rel < K9_TOL and rel_state < K9_TOL
@@ -1470,7 +1566,126 @@ def check_k9(dev, flush):
                                f"{rel_state}, repeatable "
                                f"{row['bitwise_repeatable']}")
         rows.append(row)
+        if B == 1 and T in K9_TURNS:
+            s4, s5 = state.clone(), state.clone()
+            rec = gd._k9(q, k, v, gg, beta, s4)
+            chk = gd._k9_chunked(q, k, v, gg, beta, s5)
+            torch.cuda.synchronize()
+            errs = {f: (rel_to(o, want), rel_to(s, want_state))
+                    for f, o, s in (("recurrent", rec, s4),
+                                    ("chunked", chk, s5))}
+            turns = in_turns(lambda: gd._k9(q, k, v, gg, beta, s4),
+                             lambda: gd._k9_chunked(q, k, v, gg, beta, s5),
+                             flush)
+            emit({"phase": "k9_vs_recurrent", "B": B, "T": T,
+                  "recurrent_ms": turns["parent_ms"],
+                  "chunked_ms": turns["ms"], "speedup": turns["speedup"],
+                  "rel_err": {f: e[0] for f, e in errs.items()},
+                  "state_rel_err": {f: e[1] for f, e in errs.items()},
+                  "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                  "recurrent_fp32_bound_ms": row["recurrent_fp32_bound_ms"]})
+            if not all(e[0] < K9_TOL and e[1] < K9_TOL
+                       for e in errs.values()):
+                raise RuntimeError(f"K9 forms at T={T}: {errs}")
         del q, k, v, state, s1, s2, s3
+    for T in K9_CROSSOVER_T:
+        q, k, v, gg, beta, state = k9_inputs(g, dev, 1, T)
+        turns = in_turns(lambda: gd._k9(q, k, v, gg, beta, state),
+                         lambda: gd._k9_chunked(q, k, v, gg, beta, state),
+                         flush)
+        emit({"phase": "k9_crossover", "B": 1, "T": T,
+              "recurrent_ms": turns["parent_ms"], "chunked_ms": turns["ms"],
+              "chunked_speedup": turns["speedup"],
+              "planned": gd.k9_plan(1, T, v.shape[2], q.shape[3],
+                                    v.shape[3])})
+    return rows
+
+
+def prep_inputs(g, dev, B, T, Hk=16, Hv=32, d=128):
+    """A Qwen3-Next DeltaNet layer's prologue inputs: qkvz and ba as its
+    bf16 projections write them, a carried conv window, the taps, A_log
+    and dt_bias as init_layer_params makes them."""
+    C = 2 * Hk * d + Hv * d
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    return (randn(B, T, Hk * (2 * d + 2 * (Hv // Hk) * d)).bfloat16(),
+            (2 * randn(B, T, 2 * Hv)).bfloat16(),
+            randn(B, 3, C).bfloat16(), (randn(C, 4) * 0.5).bfloat16(),
+            (1 + 15 * torch.rand(Hv, generator=g, device=dev)).log(),
+            randn(Hv) - 4, (Hk, Hv, d, d))
+
+
+def device_ops(fn) -> int:
+    """How many device operations (kernels, copies, fills) one call of
+    ``fn`` runs, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
+def check_k9_prep(dev, flush):
+    """k9_prep against deltanet_prep_reference at Qwen3-Next's heads and
+    K9_PREP_SHAPES (bf16, the main path's type): q, k, v, g, beta within
+    K9_PREP_TOL of max |plain| each, the window it writes in place equal
+    to the plain version's bit for bit, the same bits on a second launch;
+    timed beside its bound (bytes: qkvz's q|k|v channels, ba and the taps
+    read once, the window read and written, the float32 outputs written)
+    and the plain version's time and device operations (the launches it
+    replaces). No PyTorch call computes it."""
+    from ominix_mlx_tpu_torch.ops import gated_delta as gd
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    rows = []
+    for B, T in K9_PREP_SHAPES:
+        qkvz, ba, win, conv_w, a_log, dt_bias, heads = prep_inputs(
+            g, dev, B, T)
+        Hk, Hv, dk, dv = heads
+        rest = (conv_w, a_log, dt_bias, heads)
+        w1, w2, w3 = win.clone(), win.clone(), win.clone()
+        got = gd._k9_prep(qkvz, ba, w1, *rest)
+        again = gd._k9_prep(qkvz, ba, w3, *rest)
+        want = gd.deltanet_prep_reference(qkvz, ba, w2, *rest)
+        torch.cuda.synchronize()
+        names = ("q", "k", "v", "g", "beta")
+        rel = {n: row_rel_err(x, y) for n, x, y in zip(names, got, want)}
+        exact = {n: bool(torch.equal(x, y))
+                 for n, x, y in zip(names, got, want)}
+        window_equal = bool(torch.equal(w1, w2))
+        repeatable = all(torch.equal(x, y) for x, y in zip(got, again)) \
+            and bool(torch.equal(w1, w3))
+        ms = time_ms(lambda: gd._k9_prep(qkvz, ba, w1, *rest), 20, flush)
+        plain_ms = time_ms(lambda: gd.deltanet_prep_reference(
+            qkvz, ba, w2, *rest), 20, flush)
+        C = 2 * Hk * dk + Hv * dv
+        nbytes = 2 * (B * T * C + B * T * 2 * Hv + 2 * B * 3 * C + 4 * C) \
+            + 8 * Hv + 4 * B * T * (2 * Hk * dk + Hv * dv + 2 * Hv)
+        row = {"B": B, "T": T, "Hk": Hk, "Hv": Hv, "d": dk,
+               "max_abs_err": max((x - y).abs().max().item()
+                                  for x, y in zip(got, want)),
+               "rel_err": rel, "exact": exact, "window_equal": window_equal,
+               "bitwise_repeatable": repeatable, "ms": ms,
+               "plain_ms": plain_ms,
+               "plain_device_ops": device_ops(
+                   lambda: gd.deltanet_prep_reference(qkvz, ba, w2, *rest)),
+               "device_ops": device_ops(
+                   lambda: gd._k9_prep(qkvz, ba, w1, *rest)),
+               "library_ms": None,
+               "library_error": "no PyTorch call computes the prologue",
+               **bound(nbytes, 8 * B * T * C, "fp32")}
+        row.update(versus(row))
+        emit({"phase": "k9_prep", **row})
+        if not (max(rel.values()) < K9_PREP_TOL and window_equal
+                and repeatable):
+            raise RuntimeError(f"k9_prep B={B} T={T}: {rel}, window equal "
+                               f"{window_equal}, repeatable {repeatable}")
+        rows.append(row)
     return rows
 
 
@@ -1728,7 +1943,8 @@ def plain_versions() -> dict:
             "k5": (gmm, "_k5", gmm.grouped_matmul_reference),
             "k6": (qm, "_k6", qm.qmm_p_reference),
             "k7": (qm, "_k7", qm.qmm_dq_reference),
-            "k9": (gd, "_k9", gd.gated_delta_rule_reference)}
+            "k9": (gd, "_k9_rule", gd.gated_delta_rule_reference),
+            "k9_prep": (gd, "_k9_prep", gd.deltanet_prep_reference)}
 
 
 @contextlib.contextmanager
@@ -2682,6 +2898,116 @@ def p_formula_on_kernel_prologue(x, w) -> dict:
             "sx_differ": int((sx != sx_p).sum())}
 
 
+def k9_call_checks():
+    """Wrappers for swapped_kernels that hold every k9_prep and K9 call
+    against its plain version on the same inputs (the window and the state
+    copied first): (k9 stats, prep stats, wrap for "k9", wrap for
+    "k9_prep"). A K9 call whose q is the output of the prologue call just
+    before it is also held, with that prologue, against both plain
+    versions in a row ("with_prep"); each call's form is counted."""
+    from ominix_mlx_tpu_torch.ops import gated_delta as gd
+
+    k9 = {"calls": 0, "max_rel_err": 0.0, "state_max_rel_err": 0.0,
+          "forms": {}, "with_prep_calls": 0, "with_prep_max_rel_err": 0.0,
+          "with_prep_state_max_rel_err": 0.0}
+    prep = {"calls": 0, "max_rel_err": 0.0, "window_equal": True}
+    last_prep = {}      # the kernel prologue's q -> the plain one's outputs
+
+    def checked_prep(kern, plain):
+        def call(qkvz, ba, window, *rest):
+            w0 = window.clone()
+            got = kern(qkvz, ba, window, *rest)
+            want = plain(qkvz, ba, w0, *rest)
+            prep["calls"] += 1
+            prep["max_rel_err"] = max(prep["max_rel_err"], *(
+                row_rel_err(x, y) for x, y in zip(got, want)))
+            prep["window_equal"] &= bool(torch.equal(window, w0))
+            last_prep.clear()
+            last_prep[id(got[0])] = want
+            return got
+        return call
+
+    def checked_k9(kern, plain):
+        def call(q, k, v, g, beta, state):
+            s0, s1 = state.clone(), state.clone()
+            y = kern(q, k, v, g, beta, state)
+            want = plain(q, k, v, g, beta, s0)
+            k9["calls"] += 1
+            form = gd.k9_plan(q.shape[0], q.shape[1], v.shape[2],
+                              q.shape[3], v.shape[3])
+            k9["forms"][form] = k9["forms"].get(form, 0) + 1
+            k9["max_rel_err"] = max(k9["max_rel_err"], row_rel_err(y, want))
+            k9["state_max_rel_err"] = max(k9["state_max_rel_err"],
+                                          rel_to(state, s0))
+            plain_in = last_prep.pop(id(q), None)
+            if plain_in is not None:
+                both = plain(*plain_in, s1)
+                k9["with_prep_calls"] += 1
+                k9["with_prep_max_rel_err"] = max(
+                    k9["with_prep_max_rel_err"], row_rel_err(y, both))
+                k9["with_prep_state_max_rel_err"] = max(
+                    k9["with_prep_state_max_rel_err"], rel_to(state, s1))
+            return y
+        return call
+
+    return k9, prep, checked_k9, checked_prep
+
+
+def k9_calls_hold(k9, prep, where, forms=()):
+    """Raise unless every K9 call (and each with its prologue) is within
+    K9_TOL, every prologue call within K9_PREP_TOL with its window equal,
+    and each of ``forms`` ran."""
+    if not (k9["calls"] and k9["max_rel_err"] < K9_TOL
+            and k9["state_max_rel_err"] < K9_TOL
+            and k9["with_prep_calls"] == k9["calls"] == prep["calls"]
+            and k9["with_prep_max_rel_err"] < K9_TOL
+            and k9["with_prep_state_max_rel_err"] < K9_TOL
+            and prep["max_rel_err"] < K9_PREP_TOL and prep["window_equal"]
+            and all(k9["forms"].get(f) for f in forms)):
+        raise RuntimeError(f"{where}: K9 and its prologue against their "
+                           f"plain versions on the path's inputs: {k9}, "
+                           f"{prep}")
+
+
+def k9_per_call_prompt(dev, cfg, params, T=200, layers=4, steps=2):
+    """Every k9_prep and K9 call of a T-token prefill (K9's chunked form)
+    and ``steps`` decode steps (its recurrent form) on the hybrid cut to
+    ``layers`` layers, held against the plain versions on the path's own
+    inputs (k9_call_checks, the limits of k9_calls_hold); the other
+    kernels run as on the main path."""
+    from ominix_mlx_tpu_torch.core.generate import Engine
+    from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
+    from ominix_mlx_tpu_torch.models import base
+
+    c2 = dataclasses.replace(cfg, num_layers=layers)
+    p2 = {**params, "layers": params["layers"][:layers]}
+    g = torch.Generator(device=dev).manual_seed(SEED + 42)
+    prompt = torch.randint(0, cfg.vocab_size, (1, T), generator=g,
+                           device=dev)
+    k9, prep, checked_k9, checked_prep = k9_call_checks()
+
+    def wrap(k, kern, plain):
+        return {"k9": checked_k9, "k9_prep": checked_prep}.get(
+            k, lambda kern, plain: kern)(kern, plain)
+
+    eng = Engine(lambda p, t, c: base.forward(p, c2, t, c), p2,
+                 SamplerConfig(),
+                 prefill_forward_fn=lambda p, t, c: base.forward(
+                     p, c2, t, c, fresh_prefill=True))
+    cache = base.init_cache(c2, 1, T + steps + 1, device=dev)
+    with swapped_kernels(wrap), torch.inference_mode():
+        logits, cache = eng.prefill(prompt, cache)
+        for t in range(steps):
+            logits, cache = base.forward(
+                p2, c2, torch.tensor([[t + 1]], device=dev), cache)
+    emit({"phase": "k9_per_call_prompt", "layers": layers, "prompt": T,
+          "decode_steps": steps, "per_call_k9": k9,
+          "per_call_k9_limit": K9_TOL, "per_call_k9_prep": prep,
+          "per_call_k9_prep_limit": K9_PREP_TOL})
+    k9_calls_hold(k9, prep, f"{T}-token prompt",
+                  forms=("chunked", "recurrent"))
+
+
 def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
                  tol=LOGITS_TOL, layers=2):
     """Kernel path vs plain path on a ``layers``-layer cut of the
@@ -2746,30 +3072,15 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
                 out.append(lg[:, -1])
         return torch.stack([o.float() for o in out])
 
-    def rel_to(want, got):
-        return ((got - want).abs().max() / want.abs().max()).item()
-
     calls = {}
-    k9 = {"calls": 0, "max_rel_err": 0.0, "state_max_rel_err": 0.0}
+    k9, prep, checked_k9, checked_prep = k9_call_checks()
     reverse = control_args("reversed")
-
-    def checked_k9(kern, plain):
-        def call(q, k, v, g, beta, state):
-            s0 = state.clone()
-            y = kern(q, k, v, g, beta, state)
-            want = plain(q, k, v, g, beta, s0)
-            k9["calls"] += 1
-            k9["max_rel_err"] = max(k9["max_rel_err"],
-                                    row_rel_err(y, want))
-            k9["state_max_rel_err"] = max(
-                k9["state_max_rel_err"],
-                ((state - s0).abs().max() / s0.abs().max()).item())
-            return y
-        return call
 
     def checked(k, kern, plain):
         if k == "k9":
             return checked_k9(kern, plain)
+        if k == "k9_prep":
+            return checked_prep(kern, plain)
         if k not in QMM_KERNELS:
             return kern
 
@@ -2808,16 +3119,16 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
         alone = {}
         for k in kernels:
             with plain_kernels(keep=(k,)):
-                alone[k] = rel_to(want, run())
+                alone[k] = rel_to(run(), want)
         controls = {}
         for c in ("reversed", "last_group"):
             with plain_kernels(args=control_args(c)):
-                controls[c] = rel_to(want, run())
+                controls[c] = rel_to(run(), want)
     finally:
         moe.route = route
     if got.shape != (4, 1, cfg.vocab_size) or not torch.isfinite(got).all():
         raise RuntimeError(f"bad logits: {tuple(got.shape)}")
-    rel = rel_to(want, got)
+    rel = rel_to(got, want)
     per_call = {k: {"calls": c["calls"], "max_rel_err": c["max_rel_err"],
                     "share_differ": c["differ"] / c["outputs"],
                     "reversed_max_rel_err": c["reversed_max_rel_err"],
@@ -2831,16 +3142,14 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
           "limit": tol, "rel_err_one_kernel": alone,
           "rel_err_control": controls, "per_call": per_call,
           "per_call_limit": K1_TOL,
-          **({"per_call_k9": k9, "per_call_k9_limit": K9_TOL}
-             if cfg.deltanet is not None else {}),
+          **({"per_call_k9": k9, "per_call_k9_limit": K9_TOL,
+              "per_call_k9_prep": prep, "per_call_k9_prep_limit":
+              K9_PREP_TOL} if cfg.deltanet is not None else {}),
           "routed_rows": sum(r.shape[0] for r in routes[0]),
           "routed_rows_differ": sum(int((a != b).any(-1).sum())
                                     for a, b in zip(routes[0], routes[1]))})
-    if cfg.deltanet is not None and not (
-            k9["calls"] and k9["max_rel_err"] < K9_TOL
-            and k9["state_max_rel_err"] < K9_TOL):
-        raise RuntimeError(f"{name}: K9 against its plain version on the "
-                           f"path's inputs: {k9}")
+    if cfg.deltanet is not None:
+        k9_calls_hold(k9, prep, name)
     if not rel < tol:
         raise RuntimeError(f"{name}: kernel vs plain logits rel {rel}")
     if not controls["last_group"] >= tol:
@@ -2959,7 +3268,9 @@ def device_time(prof):
 SHARE_OF = {"qmm_p": ("qmm_p<",), "qmm_prep": ("qmm_prep", "chan_prep"),
             "k4_k8": ("gather_qmm_a8<", "chan_gather_qmm<"),
             "k3": ("paged_decode<", "paged_merge("),
-            "k9": ("gated_delta_k9<",)}
+            "k9": ("gated_delta_k9<",),
+            "k9_chunk": ("gated_delta_chunk<", "gated_delta_chunk_scan<"),
+            "k9_prep": ("k9_prep_kernel<",)}
 
 
 def kernel_shares(by_name, busy_us) -> dict:
@@ -3840,15 +4151,16 @@ def qwen3_next_gib(cfg, shared: int, bits: int = 4) -> float:
 
 @contextlib.contextmanager
 def counting_forwards(module):
-    """Record (rows B * T, fresh_prefill) of each call of ``module.forward``
-    (what a ChatModel and the batcher call, by the module's attribute) for
-    the duration: yields the list."""
+    """Record (rows B * T, fresh_prefill, B, T) of each call of
+    ``module.forward`` (what a ChatModel and the batcher call, by the
+    module's attribute) for the duration: yields the list."""
     seen, real = [], module.forward
 
     @functools.wraps(real)      # the engines read forward's signature
     def counted(params, cfg, tokens, cache, **kw):
         seen.append((tokens.shape[0] * tokens.shape[1],
-                     bool(kw.get("fresh_prefill", False))))
+                     bool(kw.get("fresh_prefill", False)),
+                     tokens.shape[0], tokens.shape[1]))
         return real(params, cfg, tokens, cache, **kw)
     module.forward = counted
     try:
@@ -3857,19 +4169,36 @@ def counting_forwards(module):
         module.forward = real
 
 
+def k9_forward_launches(cfg, shapes) -> dict:
+    """The DeltaNet layers' launches over forwards of (B, T) ``shapes``:
+    k9_prep once per layer and forward, then K9 in the form k9_plan picks
+    (k9, or the chunked form's k9_chunk and k9_chunk_scan)."""
+    from ominix_mlx_tpu_torch.ops import gated_delta as gd
+
+    d, lin = cfg.deltanet, lin_layers(cfg)
+    want = {"k9_prep": lin * len(shapes), "k9": 0, "k9_chunk": 0,
+            "k9_chunk_scan": 0}
+    for B, T in shapes:
+        for k, n in gd.k9_launches(B, T, d.num_v_heads, d.head_k_dim,
+                                   d.head_v_dim).items():
+            want[k] += lin * n
+    return want
+
+
 def check_hybrid_launches(cfg, forwards, launches, where):
     """The launch counts of a run of ``forwards`` on the hybrid, exactly:
-    K9 once per DeltaNet layer and forward; K4 twice per MoE layer at each
-    forward of at most GATHER_M_MAX rows (decode), K5 on the packed
-    experts three times per MoE layer at each longer one (prefill); K2
-    once per attention layer at each fresh prefill."""
+    k9_prep and K9 (in its planned form) once per DeltaNet layer and
+    forward; K4 twice per MoE layer at each forward of at most
+    GATHER_M_MAX rows (decode), K5 on the packed experts three times per
+    MoE layer at each longer one (prefill); K2 once per attention layer
+    at each fresh prefill."""
     from ominix_mlx_tpu_torch.models import moe
 
-    lin = lin_layers(cfg)
-    attn = cfg.num_layers - lin
-    decode = sum(m <= moe.GATHER_M_MAX for m, _ in forwards)
-    fresh = sum(f for m, f in forwards if m > 1)
-    want = {"k9": lin * len(forwards), "k4": 2 * cfg.num_layers * decode,
+    attn = cfg.num_layers - lin_layers(cfg)
+    decode = sum(f[0] <= moe.GATHER_M_MAX for f in forwards)
+    fresh = sum(f[1] for f in forwards if f[0] > 1)
+    want = {**k9_forward_launches(cfg, [f[2:] for f in forwards]),
+            "k4": 2 * cfg.num_layers * decode,
             "k5_w4": 3 * cfg.num_layers * (len(forwards) - decode),
             "k2": attn * fresh}
     got = {k: launches.get(k, 0) for k in want}
@@ -3958,7 +4287,8 @@ def hybrid_chunked_prefill(dev, cfg, params, T=1024, chunk=256):
     """The hybrid's long-prompt path through Engine.prefill_chunked: a
     T-token prompt in ``chunk``-token chunks (the first through K2, the
     rest K2c over the written prefix; every chunk at its exact width
-    through the recurrent layers, K9 once a chunk and layer), against
+    through the recurrent layers, k9_prep and K9's planned form once a
+    chunk and layer), against
     Engine.prefill of the whole prompt: the launches exact; the last
     prompt token's logits and those of one decode step after it (which
     read the state the prefill left) within HYBRID_PREFILL_TOL, the same
@@ -4005,8 +4335,9 @@ def hybrid_chunked_prefill(dev, cfg, params, T=1024, chunk=256):
     n = -(-T // chunk)
     lin = lin_layers(cfg)
     attn = cfg.num_layers - lin
-    want_counts = {"k9": lin * n, "k2": attn, "k2c": attn * (n - 1),
-                   "k5_w4": 3 * cfg.num_layers * n}
+    want_counts = {**k9_forward_launches(
+        cfg, [(1, min(chunk, T - i)) for i in range(0, T, chunk)]),
+        "k2": attn, "k2c": attn * (n - 1), "k5_w4": 3 * cfg.num_layers * n}
     want, t_single = run(eng, chunked=False)[:2]
     control = Engine(
         eng.forward_fn, eng.params, eng.sampler,
@@ -4041,13 +4372,16 @@ def serve_qwen3_next(dev, smi, profile=False):
     48 layers, w4a8 g64 random weights made packed (about 45 GB: its
     reckoning and the allocation printed): the route of each projection;
     4 HTTP chat requests one at a time (every prefill at exactly its
-    length: K9 in the 36 DeltaNet layers, K2 at 16 over 2 heads of 256 in
-    the 12 attention layers, K5 on the 512 packed experts; every decode
-    step K9, K1 and K4 twice a MoE layer at top 10), their launches held
-    exactly (check_hybrid_launches); a profiled 128-token prefill (wall,
-    device busy, peak memory); the kernel-vs-plain logits check on 4
-    layers (K9 alone against its plain version, every K9 call held per
-    call); the batch-1 decode rate; with ``profile`` a profile line of
+    length: k9_prep and K9 in the 36 DeltaNet layers, the chunked form
+    from K9_CHUNK_MIN_T tokens, K2 at 16 over 2 heads of 256 in the 12
+    attention layers, K5 on the 512 packed experts; every decode step
+    k9_prep and K9's recurrent form, K1 and K4 twice a MoE layer at top
+    10), their launches held exactly (check_hybrid_launches); a profiled
+    128-token prefill (wall, device busy, peak memory); the kernel-vs-plain
+    logits check on 4 layers (K9 and k9_prep each alone against the plain
+    path, every call of each held per call, and each K9 call with the
+    prologue before it against both plain versions); the batch-1 decode
+    rate; with ``profile`` a profile line of
     decode steps; 8 concurrent requests on enable_batching(paged=False),
     each equal to the same request alone. Returns the phase's launches."""
     from ominix_mlx_tpu_torch.models import base, qwen3_next
@@ -4073,7 +4407,8 @@ def serve_qwen3_next(dev, smi, profile=False):
     with counting_forwards(qwen3_next) as forwards:
         _, counts = serve_requests(dev, cfg, params, name.lower(),
                                    ("k1_m1", "k1_mn", "k2", "k4", "k5_w4",
-                                    "k9"), qwen3_next)
+                                    "k9", "k9_chunk", "k9_chunk_scan",
+                                    "k9_prep"), qwen3_next)
     want = check_hybrid_launches(cfg, forwards, counts, f"{name} serve")
     emit({"phase": "serve_qwen3_next_launches", "forwards": len(forwards),
           "launches": counts, "want": want})
@@ -4081,7 +4416,8 @@ def serve_qwen3_next(dev, smi, profile=False):
     emit({"phase": "moe_prefill", "config": name, "weights": "w4a8 g64",
           **moe_prefill(dev, cfg, params), "card": smi})
     check_logits(dev, cfg, params, name,
-                 kernels=("k1", "k2", "k4", "k5", "k9"), layers=4)
+                 kernels=("k1", "k2", "k4", "k5", "k9", "k9_prep"), layers=4)
+    k9_per_call_prompt(dev, cfg, params)
     emit({**decode_rate(dev, cfg, params, 16, 48), "config": name,
           "weights": "w4a8 g64", "card": smi})
     if profile:
@@ -4360,6 +4696,7 @@ def main() -> int:
     k8_rows = check_k8(dev, flush)
     k5_rows = check_k5(dev, flush)
     k9_rows = check_k9(dev, flush)
+    k9_prep_rows = check_k9_prep(dev, flush)
     k2_d256_rows = check_k2(dev, flush, H=16, Hkv=2, D=256, Ts=(128, 2048),
                             seed=SEED + 39, phase="k2_d256")
     k4_e512_rows, k5_e512_rows = check_next_experts(dev, flush)
@@ -4599,9 +4936,23 @@ def main() -> int:
               design=K5_DESIGN),
         entry("k9_gated_delta",
               "XLA scan ominix_mlx_tpu/models/deltanet.py:132-144, no Pallas "
-              "kernel", "ominix_mlx_tpu_torch/csrc/gated_delta.cu", k9_rows,
-              lambda rs: next(r for r in rs if r["T"] == 128), "k9",
-              design=K9_DESIGN),
+              "kernel (the recurrent form)",
+              "ominix_mlx_tpu_torch/csrc/gated_delta.cu",
+              [r for r in k9_rows if r["form"] == "recurrent"],
+              lambda rs: rs[0], "k9", design=K9_DESIGN),
+        entry("k9_gated_delta_chunked",
+              "XLA scan ominix_mlx_tpu/models/deltanet.py:132-144, no Pallas "
+              "kernel (the chunked form: gated_delta_chunk, then "
+              "gated_delta_chunk_scan, one launch each a call)",
+              "ominix_mlx_tpu_torch/csrc/gated_delta.cu",
+              [r for r in k9_rows if r["form"] == "chunked"],
+              lambda rs: next(r for r in rs if r["T"] == 2048), "k9_chunk",
+              design=K9_CHUNK_DESIGN),
+        entry("k9_prep",
+              "XLA ops ominix_mlx_tpu/models/deltanet.py:111-130 (conv, "
+              "SiLU, l2norms, gates), no Pallas kernel",
+              "ominix_mlx_tpu_torch/csrc/k9_prep.cu", k9_prep_rows,
+              lambda rs: rs[0], "k9_prep", design=K9_PREP_DESIGN),
         entry("k2_flash_prefill_d256",
               "ominix_mlx_tpu/ops/flash_attention.py:60 (Qwen3-Next: 16 "
               "over 2 heads of 256)",
@@ -4622,6 +4973,8 @@ def main() -> int:
     for k in kernels:
         if k["launches"] < 1:
             raise RuntimeError(f"{k['name']} never launched on a main path")
+    if launches("k9_chunk_scan") != launches("k9_chunk"):
+        raise RuntimeError("K9's chunked form: the phases' launches differ")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
     print(smi, flush=True)

@@ -11,11 +11,14 @@ with a per-head decay (HF ``torch_recurrent_gated_delta_rule``):
     S_t += outer(k_t, delta_t)
     o_t = q_t^T S_t        (q, k l2-normed; q scaled by dk^-0.5)
 
-runs in ``ops.gated_delta.gated_delta_rule``: kernel K9 on CUDA, its
-plain version on the CPU. Unlike the JAX package, whose caches are
-values, ``block`` writes the state and the conv window into the cache's
-buffers IN PLACE, so the batcher's row views carry them and a decode step
-allocates no new state.
+runs in ``ops.gated_delta.gated_delta_rule``: kernel K9 on CUDA (its
+recurrent or its chunked form, as ``k9_plan`` picks), its plain version on
+the CPU. What comes before it, the causal conv over the carried window,
+SiLU, the l2norms and the gates, is ``ops.gated_delta.k9_prep``: one
+launch on CUDA, ``deltanet_prep_reference`` on the CPU. Unlike the JAX
+package, whose caches are values, ``block`` writes the state and the conv
+window into the cache's buffers IN PLACE, so the batcher's row views
+carry them and a decode step allocates no new state.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import torch.nn.functional as F
 
 from ominix_mlx_tpu_torch.core.device import resolve_device
 from ominix_mlx_tpu_torch.nn.layers import linear, rms_norm
-from ominix_mlx_tpu_torch.ops.gated_delta import gated_delta_rule
+from ominix_mlx_tpu_torch.ops.gated_delta import (gated_delta_rule, k9_prep,
+                                                  split_qkvz_ba)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,47 +120,17 @@ def init_layer_params(dcfg: DeltaNetConfig, hidden_size: int,
     }
 
 
+def _heads(dcfg: DeltaNetConfig):
+    return (dcfg.num_k_heads, dcfg.num_v_heads, dcfg.head_k_dim,
+            dcfg.head_v_dim)
+
+
 def _split_qkvz_ba(qkvz: torch.Tensor, ba: torch.Tensor,
                    dcfg: DeltaNetConfig):
     """HF ``fix_query_key_value_ordering``: per-k-head interleaved packing
     [q (dk), k (dk), v (r dv), z (r dv)] and [b (r), a (r)] for each of the
     Hk key heads, r = Hv / Hk."""
-    B, T, _ = qkvz.shape
-    Hk, Hv = dcfg.num_k_heads, dcfg.num_v_heads
-    r = Hv // Hk
-    dk, dv = dcfg.head_k_dim, dcfg.head_v_dim
-    qkvz = qkvz.reshape(B, T, Hk, 2 * dk + 2 * r * dv)
-    q = qkvz[..., :dk]
-    k = qkvz[..., dk:2 * dk]
-    v = qkvz[..., 2 * dk:2 * dk + r * dv].reshape(B, T, Hv, dv)
-    z = qkvz[..., 2 * dk + r * dv:].reshape(B, T, Hv, dv)
-    ba = ba.reshape(B, T, Hk, 2 * r)
-    b = ba[..., :r].reshape(B, T, Hv)
-    a = ba[..., r:].reshape(B, T, Hv)
-    return q, k, v, z, b, a
-
-
-def _l2norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    return x * torch.rsqrt((x * x).sum(-1, keepdim=True) + eps)
-
-
-def _causal_conv(lp: dict, x: torch.Tensor, cache: RecurrentCache,
-                 dcfg: DeltaNetConfig) -> torch.Tensor:
-    """Depthwise causal conv over x [B, T, conv_dim] after the carried
-    window, then SiLU, in x's type (each output a float32 sum of its K
-    taps, rounded once; no cuDNN, whose float32 convolutions run in TF32).
-    The weight is [C, 1, K] (HF) or [C, K, 1] (MLX); both reshape to
-    [C, K]. The window's last K-1 inputs are written back in place."""
-    K, T = dcfg.conv_kernel, x.shape[1]
-    w = lp["conv1d"]["w"].reshape(dcfg.conv_dim, K).to(x.dtype).float()
-    full = torch.cat([cache.conv.to(x.dtype), x], 1)       # [B, K-1+T, C]
-    ff = full.float()
-    out = ff[:, 0:T] * w[:, 0]
-    for j in range(1, K):
-        out = out + ff[:, j:j + T] * w[:, j]
-    if K > 1:
-        cache.conv.copy_(full[:, -(K - 1):])
-    return F.silu(out.to(x.dtype))
+    return split_qkvz_ba(qkvz, ba, _heads(dcfg))
 
 
 def block(lp: dict, dcfg: DeltaNetConfig, x: torch.Tensor,
@@ -169,23 +143,14 @@ def block(lp: dict, dcfg: DeltaNetConfig, x: torch.Tensor,
     B, T, _ = x.shape
     qkvz = linear(lp["in_proj_qkvz"], x)
     ba = linear(lp["in_proj_ba"], x)
-    q, k, v, z, b, a = _split_qkvz_ba(qkvz, ba, dcfg)
-
-    mixed = torch.cat([q.reshape(B, T, -1), k.reshape(B, T, -1),
-                       v.reshape(B, T, -1)], -1)
-    mixed = _causal_conv(lp, mixed, cache, dcfg)
-    kd = dcfg.key_dim
-    q = mixed[..., :kd].reshape(B, T, dcfg.num_k_heads, dcfg.head_k_dim)
-    k = mixed[..., kd:2 * kd].reshape(B, T, dcfg.num_k_heads,
-                                      dcfg.head_k_dim)
-    v = mixed[..., 2 * kd:].reshape(B, T, dcfg.num_v_heads, dcfg.head_v_dim)
-
-    beta = torch.sigmoid(b.float())                                # [B,T,Hv]
-    g = (-torch.exp(lp["A_log"].float())
-         * F.softplus(a.float() + lp["dt_bias"].float()))
-    q = _l2norm(q.float()) * dcfg.head_k_dim ** -0.5
-    k = _l2norm(k.float())
-    out = gated_delta_rule(q, k, v.float(), g, beta, cache.state)
+    heads = _heads(dcfg)
+    # the taps, [C, 1, K] (HF) or [C, K, 1] (MLX), as [C, K]
+    conv_w = lp["conv1d"]["w"].reshape(dcfg.conv_dim, dcfg.conv_kernel)
+    q, k, v, g, beta = k9_prep(qkvz, ba, cache.conv, conv_w.to(x.dtype),
+                               lp["A_log"].float(), lp["dt_bias"].float(),
+                               heads)
+    z = _split_qkvz_ba(qkvz, ba, dcfg)[3]
+    out = gated_delta_rule(q, k, v, g, beta, cache.state)
 
     # gated RMSNorm: rms(out) * silu(z), then out_proj
     out = rms_norm(lp["norm"], out.to(x.dtype), dcfg.rms_norm_eps)

@@ -48,7 +48,9 @@ build_seconds = 0.0     # wall time of the build this process ran (0 if reused)
 # pages, "k4": MoE expert gather-qmm on 4-bit experts, "k4_w8": the same
 # on 8-bit experts, "k5": grouped matmul on bf16 experts, "k5_w4" and
 # "k5_w8": the same on 4- and 8-bit experts read packed, "k8": channelwise
-# w8a8 expert gather, "k9": the gated delta rule of a DeltaNet layer).
+# w8a8 expert gather, "k9": the gated delta rule of a DeltaNet layer in its
+# recurrent form, "k9_chunk" and "k9_chunk_scan": the two phases of its
+# chunked form, "k9_prep": the layer's prologue before the rule).
 # Plain-version calls do not count.
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -106,6 +108,10 @@ def _declare(lib):
                                       i, i, i, i, vp]
     lib.ominix_gated_delta.restype = i
     lib.ominix_gated_delta.argtypes = [vp] * 7 + [i] * 6 + [vp]
+    lib.ominix_gated_delta_chunked.restype = i
+    lib.ominix_gated_delta_chunked.argtypes = [vp] * 11 + [i] * 6 + [vp]
+    lib.ominix_k9_prep.restype = i
+    lib.ominix_k9_prep.argtypes = [vp] * 11 + [i] * 8 + [f, vp]
     lib.ominix_cuda_error_string.restype = ctypes.c_char_p
     lib.ominix_cuda_error_string.argtypes = [i]
     return lib

@@ -1478,10 +1478,10 @@ def test_moe_block_runs_k4_k5_and_k8(cuda):
 K9_TOL = 1e-4   # max error over max |plain|: float32 sums in another order
 
 
-def _k9_inputs(dev, B, T, Hk, r, dk=128, dv=128, seed=0):
+def _k9_inputs(dev, B, T, Hk, r, dk=128, dv=128, seed=0, low=1.5):
     """Inputs of the gated delta rule as a DeltaNet layer gives them:
-    l2-normed q (scaled by dk^-0.5) and k, g < 0, beta in (0, 1), and a
-    carried state that is not zero."""
+    l2-normed q (scaled by dk^-0.5) and k, g in (-low, 0), beta in (0,
+    1), and a carried state that is not zero."""
     from torch.nn.functional import normalize
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1493,7 +1493,7 @@ def _k9_inputs(dev, B, T, Hk, r, dk=128, dv=128, seed=0):
     return {"q": normalize(randn(B, T, Hk, dk), dim=-1) * dk ** -0.5,
             "k": normalize(randn(B, T, Hk, dk), dim=-1),
             "v": randn(B, T, Hv, dv),
-            "g": -torch.rand(B, T, Hv, generator=g, device=dev) * 1.5,
+            "g": -torch.rand(B, T, Hv, generator=g, device=dev) * low,
             "beta": torch.rand(B, T, Hv, generator=g, device=dev),
             "state": randn(B, Hv, dk, dv) * 0.1}
 
@@ -1503,14 +1503,15 @@ def _k9_inputs(dev, B, T, Hk, r, dk=128, dv=128, seed=0):
 def test_k9_matches_plain(cuda, B, T, r):
     """K9 at Qwen3-Next's widths (16 key heads, dk = dv = 128; r = 2 is
     its 32 value heads) against the plain version: outputs and the final
-    state (written in place) within K9_TOL of max |plain|, one launch,
-    the same bits on a second run."""
+    state (written in place) within K9_TOL of max |plain|, the launches
+    of the form k9_plan picks (recurrent at T = 1, chunked at 128 and
+    1000), the same bits on a second run."""
     a = _k9_inputs(cuda, B, T, 16, r, seed=B * T + r)
     s1, s2, s3 = (a["state"].clone() for _ in range(3))
     args = [a[n] for n in ("q", "k", "v", "g", "beta")]
     _build.reset_launches()
     got = gd.gated_delta_rule(*args, s1)
-    assert dict(_build.LAUNCHES) == {"k9": 1}
+    assert dict(_build.LAUNCHES) == gd.k9_launches(B, T, 16 * r, 128, 128)
     want = gd.gated_delta_rule_reference(*args, s2)
     again = gd.gated_delta_rule(*args, s3)
     torch.cuda.synchronize()
@@ -1541,10 +1542,137 @@ def test_k9_carries_the_state_across_calls(cuda):
     whole, parts = a["state"].clone(), a["state"].clone()
     names = ("q", "k", "v", "g", "beta")
     one = gd.gated_delta_rule(*(a[n] for n in names), whole)
-    two = torch.cat([gd.gated_delta_rule(*(a[n][:, sl] for n in names), parts)
-                     for sl in (slice(0, 50), slice(50, 128))], 1)
+    two = torch.cat([gd.gated_delta_rule(
+        *(a[n][:, sl].contiguous() for n in names), parts)
+        for sl in (slice(0, 50), slice(50, 128))], 1)
     torch.cuda.synchronize()
     assert _rel(two, one) < K9_TOL and _rel(parts, whole) < K9_TOL
+
+
+@pytest.mark.parametrize("decay", [1.5, 20.0])
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("B,T", [(1, 65), (1, 128), (2, 1000), (1, 2048)])
+def test_k9_chunked_matches_plain(cuda, B, T, r, decay):
+    """K9's chunked form (3xTF32 on the tensor cores) against the plain
+    version at Qwen3-Next's widths, at decays down to -1.5 and -20 a token
+    (G near -1300 within a chunk): outputs and the final state within
+    K9_TOL of max |plain|, finite, one launch of each phase, the same bits
+    on a second run."""
+    a = _k9_inputs(cuda, B, T, 16, r, seed=7 * T + B + r, low=decay)
+    s1, s2, s3 = (a["state"].clone() for _ in range(3))
+    args = [a[n] for n in ("q", "k", "v", "g", "beta")]
+    _build.reset_launches()
+    got = gd._k9_chunked(*args, s1)
+    assert dict(_build.LAUNCHES) == {"k9_chunk": 1, "k9_chunk_scan": 1}
+    want = gd.gated_delta_rule_reference(*args, s2)
+    again = gd._k9_chunked(*args, s3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.isfinite(s1).all()
+    assert _rel(got, want) < K9_TOL and _rel(s1, s2) < K9_TOL
+    assert torch.equal(got, again) and torch.equal(s1, s3)
+
+
+@pytest.mark.parametrize("T", [31, 128])
+def test_k9_recurrent_form_at_prompt_lengths(cuda, T):
+    """The recurrent form, which the plan keeps below K9_CHUNK_MIN_T, over
+    a prompt (T = 31) and past the crossover (T = 128, called directly):
+    within K9_TOL of the plain version, one "k9" launch."""
+    a = _k9_inputs(cuda, 1, T, 16, 2, seed=T)
+    s1, s2 = a["state"].clone(), a["state"].clone()
+    args = [a[n] for n in ("q", "k", "v", "g", "beta")]
+    _build.reset_launches()
+    got = gd._k9(*args, s1)
+    assert dict(_build.LAUNCHES) == {"k9": 1}
+    want = gd.gated_delta_rule_reference(*args, s2)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < K9_TOL and _rel(s1, s2) < K9_TOL
+
+
+@pytest.mark.parametrize("cuts", [(20, 45, 100), (1, 63, 65, 130),
+                                  (130, 1, 2)])
+def test_k9_state_across_calls_of_either_form(cuda, cuts):
+    """Calls of lengths that are not multiples of 64, each in the form the
+    plan picks (recurrent under K9_CHUNK_MIN_T, chunked from it), carry
+    the state as one call over the whole sequence (K9_TOL), launching
+    exactly what k9_launches says."""
+    T = sum(cuts)
+    a = _k9_inputs(cuda, 1, T, 16, 2, seed=T, low=4.0)
+    names = ("q", "k", "v", "g", "beta")
+    whole, parts = a["state"].clone(), a["state"].clone()
+    want = gd.gated_delta_rule_reference(*(a[n] for n in names), whole)
+    _build.reset_launches()
+    outs, t0, counts = [], 0, {}
+    for n in cuts:
+        sl = slice(t0, t0 + n)
+        outs.append(gd.gated_delta_rule(
+            *(a[x][:, sl].contiguous() for x in names), parts))
+        for key, c in gd.k9_launches(1, n, 32, 128, 128).items():
+            counts[key] = counts.get(key, 0) + c
+        t0 += n
+    assert dict(_build.LAUNCHES) == counts
+    torch.cuda.synchronize()
+    assert _rel(torch.cat(outs, 1), want) < K9_TOL
+    assert _rel(parts, whole) < K9_TOL
+
+
+def _prep_inputs(dev, B, T, dtype, Hk=16, r=2, d=128, seed=0):
+    """A DeltaNet layer's projections and parameters at Qwen3-Next's
+    heads: qkvz and ba as the projections write them, a carried conv
+    window, the taps, A_log and dt_bias as init_layer_params makes them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Hv = Hk * r
+    C = 2 * Hk * d + Hv * d
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    return {"qkvz": randn(B, T, Hk * (2 * d + 2 * r * d)).to(dtype),
+            "ba": (2 * randn(B, T, 2 * Hv)).to(dtype),
+            "window": randn(B, 3, C).to(dtype),
+            "conv_w": (randn(C, 4) * 0.5).to(dtype),
+            "A_log": (1 + 15 * torch.rand(Hv, generator=g, device=dev)).log(),
+            "dt_bias": randn(Hv) - 4,
+            "heads": (Hk, Hv, d, d)}
+
+
+K9_PREP_TOL = 1e-5   # max error / max |plain|: l2norm's sum in another order
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T", [(1, 1), (8, 1), (1, 300)])
+def test_k9_prep_matches_plain(cuda, B, T, dtype):
+    """k9_prep against deltanet_prep_reference on the same inputs: q, k,
+    v, g, beta within K9_PREP_TOL of max |plain| (v, g and beta read 0:
+    the same float32 roundings), the window written in place bit for bit,
+    one launch; then a second call on the advanced window."""
+    a = _prep_inputs(cuda, B, T, dtype, seed=T + B)
+    w1, w2 = a["window"].clone(), a["window"].clone()
+    rest = (a["conv_w"], a["A_log"], a["dt_bias"], a["heads"])
+    for call in range(2):
+        _build.reset_launches()
+        got = gd.k9_prep(a["qkvz"], a["ba"], w1, *rest)
+        assert dict(_build.LAUNCHES) == {"k9_prep": 1}
+        want = gd.deltanet_prep_reference(a["qkvz"], a["ba"], w2, *rest)
+        torch.cuda.synchronize()
+        assert torch.equal(w1, w2), call
+        for name, x, y in zip(("q", "k", "v", "g", "beta"), got, want):
+            assert x.dtype == torch.float32 and x.shape == y.shape, name
+            assert _rel(x, y) < K9_PREP_TOL, (call, name, _rel(x, y))
+        a["qkvz"] = a["qkvz"].flip(1).contiguous()
+
+
+def test_k9_prep_window_rows_of_a_short_call(cuda):
+    """T = 2 < K - 1: the new window keeps the old window's last row
+    before the two new inputs, as the plain version's slice of
+    [window; x] does."""
+    a = _prep_inputs(cuda, 2, 2, torch.bfloat16, seed=3)
+    w1, w2 = a["window"].clone(), a["window"].clone()
+    rest = (a["conv_w"], a["A_log"], a["dt_bias"], a["heads"])
+    gd.k9_prep(a["qkvz"], a["ba"], w1, *rest)
+    gd.deltanet_prep_reference(a["qkvz"], a["ba"], w2, *rest)
+    torch.cuda.synchronize()
+    assert torch.equal(w1, w2)
+    assert torch.equal(w1[:, 0], a["window"][:, 2])
 
 
 def test_k9_rejects(cuda):
@@ -1562,9 +1690,11 @@ def test_k9_rejects(cuda):
 
 
 def test_deltanet_block_launches_k9_once(cuda):
-    """A DeltaNet layer on the card runs its recurrence through K9, one
-    launch a call, decode and prefill alike, and its output is within
-    2e-2 of the same layer with the plain recurrence (bf16 activations)."""
+    """A DeltaNet layer on the card runs its prologue through k9_prep and
+    its recurrence through K9 in the planned form, one launch each (the
+    chunked form's two phases at T = 40 and 300), and its output is
+    within 2e-2 of the same layer with the plain prologue and recurrence
+    (bf16 activations), the state within K9_TOL, the window equal."""
     from ominix_mlx_tpu_torch.models import deltanet as dn
 
     dcfg = dn.DeltaNetConfig(num_v_heads=32, num_k_heads=16, head_k_dim=128,
@@ -1576,21 +1706,24 @@ def test_deltanet_block_launches_k9_once(cuda):
                 * i ** -0.5).bfloat16()
 
     lp = dn.init_layer_params(dcfg, 2048, g, make, device=cuda)
-    for T in (1, 40):
+    for T in (1, 40, 300):
         x = torch.randn(2, T, 2048, generator=g, device=cuda).bfloat16()
         c1 = dn.RecurrentCache.init(2, dcfg, device=cuda)
         c2 = dn.RecurrentCache.init(2, dcfg, device=cuda)
         _build.reset_launches()
         y1, _ = dn.block(lp, dcfg, x, c1)
-        assert dict(_build.LAUNCHES) == {"k9": 1}
-        real = dn.gated_delta_rule
+        assert dict(_build.LAUNCHES) == {
+            "k9_prep": 1, **gd.k9_launches(2, T, 32, 128, 128)}
+        real = dn.gated_delta_rule, dn.k9_prep
         dn.gated_delta_rule = gd.gated_delta_rule_reference
+        dn.k9_prep = gd.deltanet_prep_reference
         try:
             y2, _ = dn.block(lp, dcfg, x, c2)
         finally:
-            dn.gated_delta_rule = real
+            dn.gated_delta_rule, dn.k9_prep = real
         torch.cuda.synchronize()
         assert _rel(y1, y2) < 2e-2 and _rel(c1.state, c2.state) < K9_TOL
+        assert torch.equal(c1.conv, c2.conv)
 
 
 def test_k2_k2c_at_qwen3_next_heads(cuda):
