@@ -74,7 +74,18 @@ Qwen3-30B-A3B with random weights (seeded):
     a 128-token prefill, the logits check on 4 layers (every k9_prep and
     K9 call against its plain version, and the two together against
     both plain versions), the decode rate, and 8 concurrent requests on
-    the dense continuous batcher, each equal to the same request alone.
+    the dense continuous batcher, each equal to the same request alone;
+  - serve_minicpm_sala: MiniCPM-SALA at its published widths and all 32
+    layers (8 InfLLMv2 sparse, 24 lightning), w8a8 g64, about 10 GB: the
+    route of each projection, 4 HTTP chat requests one at a time with
+    K10 (in the form k10_plan picks), K11 (score and attend), K2 and K1
+    launched exactly as many times as their forwards need, a 128-token
+    prefill, the logits check on 4 layers (every K10 and K11 call against
+    its plain version; also on a 200-token prompt), the decode rate, an
+    8192-token chunked prefill (K2, then K2c) and 16 decode steps that
+    select the top 64 of 190 blocks, 8 concurrent requests on the dense
+    batcher each equal to the same request alone, and decode over caches
+    filled to 65536 and 524288 tokens (ms/token, K11's share).
 
 The kernel checks include K2 and K2c with the sliding window (k2_window,
 k2c_window: T=8192 and the 8k prefill's last chunk, windows 4096 and
@@ -86,7 +97,13 @@ tokens; k9_vs_recurrent: both forms in turns at 128 and 2048), its
 prologue k9_prep (decode at batch 1 and 8, a 128-token prompt; beside
 the plain version's time and device operations), K2 at 16 over 2 heads
 of 256 (k2_d256), K4 over 512 experts top 10 (k4_e512) and K5 on 512
-packed experts at a 128-token prompt's 1280 rows.
+packed experts at a 128-token prompt's 1280 rows; and at MiniCPM-SALA's
+shapes K10 (k10: the recurrent form at decode, batch 1 and 8; the chunked
+form at prompts of 128, 2048 and 8192 tokens; k10_crossover: both forms
+in turns at 16-128 tokens) and K11 (k11_score, k11_attend: batch 1 at
+4096, 65536 and 524288 cached tokens, batch 8 at ragged totals near
+16384, each beside its plain version, a read of the same bytes and its
+bound).
 
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
@@ -222,6 +239,38 @@ K9_TURNS = (128, 2048)
 K9_CROSSOVER_T = (16, 32, 48, 64, 96)
 # (B, T) of k9_prep: decode at batch 1 and 8, the 128-token prefill
 K9_PREP_SHAPES = ((1, 1), (8, 1), (1, 128))
+# HF config.json of openbmb/MiniCPM-SALA (as the model-configs catalog
+# records it): 32 layers, 8 InfLLMv2 sparse layers ("minicpm4": 32 query
+# heads over 2 KV heads of 128, QK-norm, no RoPE) and 24 lightning layers
+# (32 heads of 128, RoPE, an output norm and gate); it has no
+# sparse_config block, so the JAX SparseConfig defaults hold (kernel 32,
+# block 64, one init block, window 2048, top 64)
+MINICPM_SALA_HF = {
+    "model_type": "minicpm_sala", "vocab_size": 73448, "hidden_size": 4096,
+    "num_hidden_layers": 32, "num_attention_heads": 32,
+    "num_key_value_heads": 2, "head_dim": 128, "intermediate_size": 16384,
+    "tie_word_embeddings": False, "scale_emb": 12, "scale_depth": 1.4,
+    "dim_model_base": 256, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+    "qk_norm": True, "attn_use_rope": False, "lightning_use_rope": True,
+    "lightning_nh": 32, "lightning_head_dim": 128, "use_output_gate": True,
+    "use_output_norm": True, "max_position_embeddings": 524288,
+    "mixer_types": ["minicpm4" if i in (0, 9, 16, 17, 22, 29, 30, 31)
+                    else "lightning-attn" for i in range(32)]}
+# (B, T) of K10 at MiniCPM-SALA's 32 heads of 128: decode at batch 1 and 8
+# (the recurrent form), the 128-token prefill, a 2048-token chunk and an
+# 8192-token prompt (the chunked form)
+K10_SHAPES = ((1, 1), (8, 1), (1, 128), (1, 2048), (1, 8192))
+# prompt lengths at which both forms are timed in turns at B = 1: where
+# they meet sets ops/lightning_attention.py K10_CHUNK_MIN_T
+K10_CROSSOVER_T = (16, 24, 32, 48, 64, 96, 128)
+# (B, cache positions, totals) of K11: batch 1 at 4096, 65536 and 524288
+# tokens, and batch 8 with ragged totals near 16384
+K11_CASES = ((1, 4096, (4096,)), (1, 65536, (65536,)),
+             (1, 524288, (524288,)),
+             (8, 16384, (16384, 16320, 16383, 16200, 15000, 16350, 12000,
+                         16384)))
+# decode over a cache filled at random up to these offsets
+MINICPM_LONG_OFFSETS = (65536, 524288)
 # (name, T rows, k slots, N, K) of K4 on Qwen3-Next-80B-A3B's 512 experts,
 # top 10: gate/up at one decode row, down at its 10 (row, slot) pairs
 K4_NEXT_SHAPES = (("gate_up", 1, 10, 512, 2048), ("down", 10, 1, 2048, 512))
@@ -277,6 +326,17 @@ K9_TOL = 1e-4
 # k by an ulp or two; v, g and beta are the same roundings); the window it
 # writes is held bit for bit
 K9_PREP_TOL = 1e-5
+# K10 vs its plain version, max error over max |plain| of the outputs and
+# of the final state: float32 sums in another order (3xTF32 products in
+# the chunked form)
+K10_TOL = 2e-5
+# k11_score: the finite scores' max error over their max |plain| (float32
+# sums of the same bf16 products in another order); the masked ones
+# NEG_INF in both
+K11_SCORE_TOL = 1e-6
+# k11_attend vs the gather plus masked sdpa given the same indices, per
+# (row, head), as K3_TOL: both round the softmax weights to bf16
+K11_TOL = 3e-2
 K3_DESIGN = ("split-KV (flash-decoding): splits of whole pages from "
              "k3_plan (shapes only), a CTA per (split, KV head, row) with "
              "all its query heads; a CTA-wide cp.async ring of 64-key "
@@ -337,6 +397,36 @@ K9_PREP_DESIGN = ("one launch for the conv window, SiLU, l2norms and gates: "
                   "the l2norm one butterfly; the window read and written "
                   "by the first token tile's threads only (each channel by "
                   "one thread)")
+K10_DESIGN = ("the recurrent form (decode, prompts under "
+              "K10_CHUNK_MIN_T): the loop over T inside one launch, a CTA "
+              "of 128 threads per (row, head, 32 value columns), four "
+              "threads a column holding D/4 state rows in registers; each "
+              "token's q and k staged in double-buffered shared memory (one "
+              "barrier a token), the next token's loaded while this one "
+              "computes; S^T q as four fma chains folded by two shuffles")
+K10_CHUNK_DESIGN = ("the chunked form, chunks of 64 tokens, every product on "
+                    "mma.sync m16n8k8 TF32 in 3xTF32: phase 1 "
+                    "(lightning_chunk, a CTA per chunk, head and row) Q K^T "
+                    "on and below the diagonal, masked and decayed into P, "
+                    "P V into o, K^T (rev * V) into a 64 KiB scratch a "
+                    "chunk; phase 2 (lightning_chunk_scan, a CTA per 32 "
+                    "value columns, head and row) the scan over chunks, the "
+                    "state slice in shared memory, Q S_prev scaled into o, "
+                    "S = lambda^n S + dS; a short final chunk masked")
+K11_SCORE_DESIGN = ("a group of D/8 lanes per block, 16 bytes of the pooled "
+                    "keys a lane (bf16, read once, never copied to float32), "
+                    "float32 products and a butterfly over the group; blocks "
+                    "outside [init_end, window_start - ks] written NEG_INF "
+                    "unread")
+K11_ATTEND_DESIGN = ("K3's split-KV flash-decoding over the valid slots "
+                     "numbered densely (init, the finite top-k blocks "
+                     "compacted by a ballot, the window): splits of whole "
+                     "64-slot tiles from k11_plan, a CTA per (split, KV "
+                     "head, row) holding all 16 query heads as mma.sync "
+                     "m16n8k16's A operand, a cp.async ring of three tiles "
+                     "whose rows are copied through the slots' positions, "
+                     "an online softmax a warp; partials merged in split "
+                     "order by sparse_merge")
 K5_DESIGN = ("tensor cores: 128 expert rows as A (bf16 read by wgmma from "
              "128-byte-swizzled shared memory, or packed codes dequantized "
              "in registers with the plain version's rounding) against up "
@@ -369,6 +459,12 @@ W8A8_PANELS_LOGITS_TOL = 5e-2
 # - row-major w4a8 / w8a8 (a8 at every prefill row too, where a one-ulp
 #   flip moves int8 codes downstream): sound up to 5.32e-2, the fault 0.389
 ROWS_A8_LOGITS_TOL = 0.1
+# - MiniCPM-SALA w8a8 on panels, 4 layers (one InfLLMv2 sparse layer,
+#   three lightning): sound up to 4.94e-2 (the kernel path; K11's attend
+#   alone 4.84e-2, K2 alone 3.85e-2, the reversed control 3.22e-2: the
+#   muP-scaled random layers pass a bf16 rounding on to the logits), the
+#   fault 0.610
+MINICPM_LOGITS_TOL = 0.1
 # - w8a8 on panels with 8-bit experts, Qwen3-30B-A3B: sound up to 4.10e-2
 #   (the kernel path, where one routed row of 38 picks another expert set
 #   than the plain run, a router near-tie; the reversed control 3.81e-2,
@@ -804,13 +900,21 @@ def device_events(run, complete, tries: int = 5):
     torch.profiler window around ``run()``; the window is taken again
     while ``complete(events)`` is false (on the H100 a window now and
     then returns some or none of its device events); raises after
-    ``tries`` windows that all missed some."""
+    ``tries`` windows that all missed some. A spin kernel opens and
+    closes each window: once a process has been profiled before, a window
+    can lose its first or its last device event (every window of the
+    launch probe read 19 of its 20 kernels there, and with the two spins
+    all 20 and one spin)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             run()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
         ev = sorted((e.time_range.start, e.time_range.end, e.name)
                     for e in prof.events()
                     if e.device_type == DeviceType.CUDA)
@@ -1486,10 +1590,13 @@ def rel_to(got, want) -> float:
             / want.float().abs().max()).item()
 
 
-def k9_phase_us(call, n: int = 5) -> dict:
-    """Median device time (µs) of each kernel the chunked form launches,
-    over ``n`` calls of ``call`` each waited for, by torch.profiler:
-    {"gated_delta_chunk": phase 1, "gated_delta_chunk_scan": phase 2}."""
+def phase_us(call, names, n: int = 5) -> dict:
+    """Median device time (µs) of each kernel a call launches, over ``n``
+    calls of ``call`` each waited for, by torch.profiler: {name: µs} for
+    each of ``names`` (a piece of the kernel's name ending in "<"; a name
+    that another contains goes after it): K9's chunked form's
+    ("gated_delta_chunk_scan<", "gated_delta_chunk<"), K10's
+    ("lightning_chunk_scan<", "lightning_chunk<")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1504,7 +1611,7 @@ def k9_phase_us(call, n: int = 5) -> dict:
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
-        for name in ("gated_delta_chunk_scan<", "gated_delta_chunk<"):
+        for name in names:
             if name in e.name:
                 times.setdefault(name[:-1], []).append(
                     e.time_range.end - e.time_range.start)
@@ -1556,8 +1663,9 @@ def check_k9(dev, flush):
                                 "rule",
                "us_per_token": ms * 1e3 / T, **k9_bound(B, T, Hk, Hv, dk, dv)}
         if form == "chunked":
-            row["phase_us"] = k9_phase_us(
-                lambda: gd._k9_rule(q, k, v, gg, beta, s1))
+            row["phase_us"] = phase_us(
+                lambda: gd._k9_rule(q, k, v, gg, beta, s1),
+                ("gated_delta_chunk_scan<", "gated_delta_chunk<"))
         row.update(versus(row))
         emit({"phase": "k9", **row})
         if not (rel < K9_TOL and rel_state < K9_TOL
@@ -1688,6 +1796,214 @@ def check_k9_prep(dev, flush):
         rows.append(row)
     return rows
 
+
+def k10_inputs(g, dev, B, T, H=32, D=128):
+    """A lightning layer's K10 inputs at MiniCPM-SALA's heads, as the
+    model hands them: bf16 q (scaled by D^-0.5), k and v, the ALiBi slopes
+    and a carried state."""
+    from ominix_mlx_tpu_torch.models.lightning import alibi_slopes
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    return ((randn(B, H, T, D) * D ** -0.5).bfloat16(),
+            randn(B, H, T, D).bfloat16(), randn(B, H, T, D).bfloat16(),
+            torch.from_numpy(alibi_slopes(H)).to(dev),
+            randn(B, H, D, D) * 0.1)
+
+
+def k10_bound(B, T, H, D) -> dict:
+    """K10's bound, whatever the form: the larger of the bytes any form
+    must move (q, k and v in bf16 read once, o in float32 written once,
+    the state read and written once) over the memory rate, and the
+    chunked form's products (``k10_macs``) at the TF32 peak."""
+    from ominix_mlx_tpu_torch.ops.lightning_attention import k10_macs
+
+    nbytes = 3 * 2 * B * H * T * D + 4 * B * H * T * D + 8 * B * H * D * D \
+        + 4 * H
+    return bound(nbytes, 2 * B * H * k10_macs(T, D), "tf32")
+
+
+def check_k10(dev, flush):
+    """K10 in the form k10_plan picks (the recurrent form at decode, the
+    chunked one for prompts) against lightning_reference at MiniCPM-SALA's
+    32 heads of 128 and K10_SHAPES, bf16 inputs: outputs and the final
+    state (written in place) within K10_TOL of max |plain|, the same bits
+    on a second launch; timed beside k10_bound, the chunked form's two
+    phases each by torch.profiler (``phase_us``). At K10_CROSSOVER_T the
+    two forms in turns (recurrent, chunked, chunked, recurrent:
+    ``k10_crossover``) beside the form the plan picks. No PyTorch call
+    computes lightning attention."""
+    from ominix_mlx_tpu_torch.ops import lightning_attention as la
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 50)
+    rows = []
+    for B, T in K10_SHAPES:
+        q, k, v, sl, state = k10_inputs(g, dev, B, T)
+        H, D = q.shape[1], q.shape[3]
+        form = la.k10_plan(B, T, H, D)
+        s1, s2, s3 = state.clone(), state.clone(), state.clone()
+        got = la._k10_rule(q, k, v, sl, s1)
+        again = la._k10_rule(q, k, v, sl, s3)
+        want = la.lightning_reference(q, k, v, sl, s2)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(got).all() and torch.isfinite(s1).all()):
+            raise RuntimeError(f"K10 B={B} T={T}: non-finite")
+        rel, rel_state = rel_to(got, want), rel_to(s1, s2)
+        repeatable = bool(torch.equal(got, again) and torch.equal(s1, s3))
+        row = {"B": B, "T": T, "H": H, "D": D, "form": form,
+               "launches": la.k10_launches(B, T, H, D),
+               "max_abs_err": (got - want).abs().max().item(),
+               "rel_err": rel, "state_rel_err": rel_state,
+               "bitwise_repeatable": repeatable,
+               "ms": time_ms(lambda: la._k10_rule(q, k, v, sl, s1), 10,
+                             flush),
+               "plain_ms": time_ms(lambda: la.lightning_reference(
+                   q, k, v, sl, s2), 3 if T <= 2048 else 1, flush),
+               "library_ms": None,
+               "library_error": "no PyTorch call computes lightning "
+                                "attention",
+               **k10_bound(B, T, H, D)}
+        row["us_per_token"] = row["ms"] * 1e3 / T
+        if form == "chunked":
+            row["phase_us"] = phase_us(
+                lambda: la._k10_rule(q, k, v, sl, s1),
+                ("lightning_chunk_scan<", "lightning_chunk<"))
+        row.update(versus(row))
+        emit({"phase": "k10", **row})
+        if not (rel < K10_TOL and rel_state < K10_TOL and repeatable):
+            raise RuntimeError(f"K10 B={B} T={T}: rel error {rel}, state "
+                               f"{rel_state}, repeatable {repeatable}")
+        rows.append(row)
+        del q, k, v, state, s1, s2, s3
+    for T in K10_CROSSOVER_T:
+        q, k, v, sl, state = k10_inputs(g, dev, 1, T)
+        turns = in_turns(lambda: la._k10(q, k, v, sl, state),
+                         lambda: la._k10_chunked(q, k, v, sl, state), flush)
+        emit({"phase": "k10_crossover", "B": 1, "T": T,
+              "recurrent_ms": turns["parent_ms"], "chunked_ms": turns["ms"],
+              "chunked_speedup": turns["speedup"],
+              "planned": la.k10_plan(1, T, q.shape[1], q.shape[3])})
+    return rows
+
+
+def k11_case(g, dev, B, S, totals, Hkv=2, H=32, D=128, ks=32):
+    """A MiniCPM-SALA sparse layer's cache of S positions per row, K and V
+    at random and the pooled keys from them (as
+    benchmarks/longcontext_bench.py:59-64 jumps the offset), a bf16 decode
+    query and the rows' totals."""
+    from ominix_mlx_tpu_torch.models.sparse_attention import (
+        SparseKVCache, compress_keys)
+
+    c = SparseKVCache.init(B, Hkv, S, D, torch.bfloat16, ks, dev)
+    c.k.normal_(generator=g)
+    c.v.normal_(generator=g)
+    c.comp.copy_(compress_keys(c.k, ks))
+    q = (torch.randn(B, H, 1, D, generator=g, device=dev) * 0.3).bfloat16()
+    return q, c, torch.tensor(totals, dtype=torch.int32, device=dev)
+
+
+def selected_sets(scores, topk):
+    """Per (row, KV head) the sorted ids of the top-k blocks with a finite
+    score."""
+    from ominix_mlx_tpu_torch.ops.sparse_attention import NEG_INF
+
+    vals, idx = torch.topk(scores, topk, dim=-1)
+    return [[sorted(i[v > NEG_INF / 2].tolist()) for v, i in zip(vr, ir)]
+            for vr, ir in zip(vals.cpu(), idx.cpu())]
+
+
+def check_k11(dev, flush):
+    """K11 at MiniCPM-SALA's 32 query heads over 2 KV heads of 128 and the
+    production InfLLMv2 config, for each of K11_CASES (caches at random):
+    k11_score against block_scores_reference (the finite scores within
+    K11_SCORE_TOL, the masked ones NEG_INF in both, and the blocks
+    torch.topk selects from each equal); k11_attend against
+    sparse_attend_reference (the gather plus masked sdpa) given the same
+    indices, per (row, head) within K11_TOL, bit-repeatable. Each timed
+    beside its plain version, a read of the same bytes, and its bound:
+    the scorer's bytes are the blocks that can be valid (it reads no
+    other), the attend's the valid slots' K and V rows. No PyTorch call
+    computes either. Returns (score rows, attend rows)."""
+    from ominix_mlx_tpu_torch.models.sparse_attention import SparseConfig
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    sc = SparseConfig()
+    ie, W, ks, topk = sc.init_end, sc.window_size, sc.kernel_size, sc.topk
+    g = torch.Generator(device=dev).manual_seed(SEED + 53)
+    score_rows, attend_rows = [], []
+    for B, S, totals in K11_CASES:
+        q, c, total = k11_case(g, dev, B, S, totals)
+        H, D, Hkv, nb = q.shape[1], q.shape[3], c.k.shape[1], c.comp.shape[2]
+        sargs = (q, c.comp, total, ie, W, ks)
+        got = sa._k11_score(*sargs)
+        want = sa.block_scores_reference(*sargs)
+        top, idx = torch.topk(want, topk, dim=-1)
+        aargs = (q, c.k, c.v, idx, top, total, ie, W, ks, D ** -0.5)
+        out = sa._k11_attend(*aargs)
+        again = sa._k11_attend(*aargs)
+        plain = sa.sparse_attend_reference(*aargs)
+        torch.cuda.synchronize()
+        masked = want <= sa.NEG_INF / 2
+        fin = ~masked
+        score_rel = (((got - want)[fin].abs().max() / want[fin].abs().max())
+                     .item() if fin.any() else 0.0)
+        same_mask = bool(torch.equal(got <= sa.NEG_INF / 2, masked))
+        same_sel = selected_sets(got, topk) == selected_sets(want, topk)
+        attend_rel = row_rel_err(out, plain)
+        repeatable = bool(torch.equal(out, again))
+        # what each must read: the blocks that can be valid, the valid
+        # slots (init, the finite top-k blocks, the window)
+        tot = [int(t) for t in totals]
+        ws = [max(t - W, ie) for t in tot]
+        blocks = sum(max(0, w // ks - -(-ie // ks)) for w in ws) * Hkv
+        nsel = (top > sa.NEG_INF / 2).sum(-1).cpu()
+        slots = sum(min(ie, t) * Hkv + int(nsel[b].sum()) * ks
+                    + Hkv * max(t - w, 0)
+                    for b, (t, w) in enumerate(zip(tot, ws)))
+        s_bytes = 2 * blocks * D + 2 * B * Hkv * D + 4 * B * Hkv * nb
+        a_bytes = 4 * slots * D + 4 * B * H * D + 12 * B * Hkv * topk
+        kf, vf = c.k.reshape(-1), c.v.reshape(-1)
+        case = {"B": B, "S": S, "totals": tot, "H": H, "Hkv": Hkv, "D": D}
+        srow = {**case, "max_abs_err": (got - want)[fin].abs().max().item()
+                if fin.any() else 0.0, "rel_err": score_rel,
+                "masked_equal": same_mask, "selected_equal": same_sel,
+                "blocks_read": blocks,
+                "ms": time_ms(lambda: sa._k11_score(*sargs), 20, flush),
+                "plain_ms": time_ms(lambda: sa.block_scores_reference(
+                    *sargs), 5, flush),
+                "read_ms": time_ms(lambda: kf[:blocks * D].max(), 20, flush),
+                "library_ms": None,
+                "library_error": "no PyTorch call computes the masked block "
+                                 "scores",
+                **bound(s_bytes, 2 * blocks * D, "fp32")}
+        arow = {**case, "max_abs_err": (out.float() - plain.float()).abs()
+                .max().item(), "rel_err": attend_rel,
+                "bitwise_repeatable": repeatable, "slots_read": slots,
+                "splits": sa.k11_plan(B, Hkv, ie + topk * ks + W)[0],
+                "ms": time_ms(lambda: sa._k11_attend(*aargs), 20, flush),
+                "plain_ms": time_ms(lambda: sa.sparse_attend_reference(
+                    *aargs), 5, flush),
+                "read_ms": time_ms(lambda: (kf[:slots * D].max(),
+                                            vf[:slots * D].max()), 20,
+                                   flush),
+                "library_ms": None,
+                "library_error": "no PyTorch call computes attention over "
+                                 "a gathered slot set",
+                **bound(a_bytes, 4 * slots * D * (H // Hkv), "bf16")}
+        for row, name in ((srow, "k11_score"), (arow, "k11_attend")):
+            row.update(versus(row))
+            emit({"phase": name, **row})
+        if not (score_rel < K11_SCORE_TOL and same_mask and same_sel
+                and attend_rel < K11_TOL and repeatable):
+            raise RuntimeError(f"K11 B={B} S={S}: score {score_rel}, mask "
+                               f"{same_mask}, selection {same_sel}, attend "
+                               f"{attend_rel}, repeatable {repeatable}")
+        score_rows.append(srow)
+        attend_rows.append(arow)
+        del q, c, total, kf, vf
+        torch.cuda.empty_cache()
+    return score_rows, attend_rows
 
 def check_next_experts(dev, flush):
     """K4 and K5 at Qwen3-Next-80B-A3B's 512 experts, 4-bit (its w4a8
@@ -1930,7 +2246,9 @@ def plain_versions() -> dict:
     from ominix_mlx_tpu_torch.ops import flash_attention as fa
     from ominix_mlx_tpu_torch.ops import gated_delta as gd
     from ominix_mlx_tpu_torch.ops import grouped_matmul as gmm
+    from ominix_mlx_tpu_torch.ops import lightning_attention as la
     from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
 
     return {"k1": (qm, "_k1", lambda x, w, nw=None, eps=EPS: (
                 qm.qmm_p_reference(x, w, nw, eps) if x.shape[0] == 1
@@ -1944,7 +2262,10 @@ def plain_versions() -> dict:
             "k6": (qm, "_k6", qm.qmm_p_reference),
             "k7": (qm, "_k7", qm.qmm_dq_reference),
             "k9": (gd, "_k9_rule", gd.gated_delta_rule_reference),
-            "k9_prep": (gd, "_k9_prep", gd.deltanet_prep_reference)}
+            "k9_prep": (gd, "_k9_prep", gd.deltanet_prep_reference),
+            "k10": (la, "_k10_rule", la.lightning_reference),
+            "k11_score": (sa, "_k11_score", sa.block_scores_reference),
+            "k11_attend": (sa, "_k11_attend", sa.sparse_attend_reference)}
 
 
 @contextlib.contextmanager
@@ -2179,26 +2500,28 @@ def serve_moe(dev, cfg, params, phase="serve_moe", name="qwen3-30b-a3b",
     return counts
 
 
-def moe_prefill(dev, cfg, params, T: int = 128) -> dict:
+def moe_prefill(dev, cfg, params, T: int = 128, module=None) -> dict:
     """One fresh T-token prefill at batch 1 after a warm-up: its wall ms
     alone, then under torch.profiler its wall ms, device busy ms and top
     device kernels, and the device memory it needs
     (torch.cuda.max_memory_allocated across it, and that peak over what
-    was allocated at its start)."""
+    was allocated at its start). ``module``: the family's (default
+    models.base)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ominix_mlx_tpu_torch.models import base
 
+    mod = module or base
     prompt = torch.ones(1, T, dtype=torch.long, device=dev)
 
     def run():
-        cache = base.init_cache(cfg, 1, 1024, device=dev)
+        cache = mod.init_cache(cfg, 1, 1024, device=dev)
         with torch.inference_mode():
             torch.cuda.synchronize()
             start = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            base.forward(params, cfg, prompt, cache, fresh_prefill=True)
+            mod.forward(params, cfg, prompt, cache, fresh_prefill=True)
             torch.cuda.synchronize()
             return time.perf_counter() - t0, start
 
@@ -2368,20 +2691,22 @@ def serve_moe_bf16(dev, cfg, params, name):
     return counts
 
 
-def engine_for(cfg, params):
+def engine_for(cfg, params, module=None):
     """The Engine a user drives: fresh prefill (K2), continuation chunks
-    (K2c) and their logits-free form for non-final chunks."""
+    (K2c) and their logits-free form for non-final chunks, of ``module``
+    (default models.base)."""
     from ominix_mlx_tpu_torch.core.generate import Engine
     from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
     from ominix_mlx_tpu_torch.models import base
 
+    mod = module or base
     return Engine(
-        lambda p, t, c: base.forward(p, cfg, t, c), params, SamplerConfig(),
-        prefill_forward_fn=lambda p, t, c: base.forward(
+        lambda p, t, c: mod.forward(p, cfg, t, c), params, SamplerConfig(),
+        prefill_forward_fn=lambda p, t, c: mod.forward(
             p, cfg, t, c, fresh_prefill=True),
-        chunk_forward_fn=lambda p, t, c, kl: base.forward(
+        chunk_forward_fn=lambda p, t, c, kl: mod.forward(
             p, cfg, t, c, kv_limit=kl),
-        chunk_hidden_forward_fn=lambda p, t, c, kl: base.forward(
+        chunk_hidden_forward_fn=lambda p, t, c, kl: mod.forward(
             p, cfg, t, c, kv_limit=kl, skip_logits=True))
 
 
@@ -3009,7 +3334,7 @@ def k9_per_call_prompt(dev, cfg, params, T=200, layers=4, steps=2):
 
 
 def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
-                 tol=LOGITS_TOL, layers=2):
+                 tol=LOGITS_TOL, layers=2, module=None):
     """Kernel path vs plain path on a ``layers``-layer cut of the
     full-width model (2; a hybrid's 4 hold its three DeltaNet layers and
     one attention layer):
@@ -3039,10 +3364,16 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
     a whole expert, not by a rounding. Every K9 call of the kernel run
     (a DeltaNet layer's recurrence) is held against its plain version on
     the same inputs and a copy of the same state, outputs and final
-    state, below K9_TOL (``per_call_k9``)."""
+    state, below K9_TOL (``per_call_k9``); so is every K10 call (below
+    K10_TOL) and every K11 call (the scores below K11_SCORE_TOL, the same
+    blocks selected, the attend below K11_TOL per row and head:
+    ``per_call_k10``, ``per_call_k11``) of MiniCPM-SALA (``module``
+    models.minicpm_sala; default models.base)."""
     from ominix_mlx_tpu_torch.core.generate import Engine
     from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
     from ominix_mlx_tpu_torch.models import base, moe
+
+    mod = module or base
 
     c2 = dataclasses.replace(cfg, num_layers=layers)
     p2 = {**params, "layers": params["layers"][:layers]}
@@ -3058,22 +3389,23 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
 
     def run():
         routes.append([])
-        eng = Engine(lambda p, t, c: base.forward(p, c2, t, c), p2,
+        eng = Engine(lambda p, t, c: mod.forward(p, c2, t, c), p2,
                      SamplerConfig(),
-                     prefill_forward_fn=lambda p, t, c: base.forward(
+                     prefill_forward_fn=lambda p, t, c: mod.forward(
                          p, c2, t, c, fresh_prefill=True))
-        cache = base.init_cache(c2, 1, 64, device=dev)
+        cache = mod.init_cache(c2, 1, 64, device=dev)
         with torch.inference_mode():
             logits, cache = eng.prefill(prompt[None], cache)
             out = [logits]
             for t in (1, 2, 3):
-                lg, cache = base.forward(
+                lg, cache = mod.forward(
                     p2, c2, torch.tensor([[t]], device=dev), cache)
                 out.append(lg[:, -1])
         return torch.stack([o.float() for o in out])
 
     calls = {}
     k9, prep, checked_k9, checked_prep = k9_call_checks()
+    sala, sala_wraps = minicpm_call_checks()
     reverse = control_args("reversed")
 
     def checked(k, kern, plain):
@@ -3081,6 +3413,8 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
             return checked_k9(kern, plain)
         if k == "k9_prep":
             return checked_prep(kern, plain)
+        if k in sala_wraps:
+            return sala_wraps[k](kern, plain)
         if k not in QMM_KERNELS:
             return kern
 
@@ -3107,6 +3441,7 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
             return y
         return call
 
+    hybrid = getattr(cfg, "deltanet", None) is not None
     if kernels is None:
         kernels = ("k1", "k2", "k4", "k5") if cfg.moe is not None \
             else ("k1", "k2")
@@ -3144,12 +3479,19 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
           "per_call_limit": K1_TOL,
           **({"per_call_k9": k9, "per_call_k9_limit": K9_TOL,
               "per_call_k9_prep": prep, "per_call_k9_prep_limit":
-              K9_PREP_TOL} if cfg.deltanet is not None else {}),
+              K9_PREP_TOL} if hybrid else {}),
+          **({"per_call_k10": sala["k10"], "per_call_k11": sala["k11"],
+              "per_call_limits": {"k10": K10_TOL,
+                                  "k11_score": K11_SCORE_TOL,
+                                  "k11_attend": K11_TOL}}
+             if module is not None else {}),
           "routed_rows": sum(r.shape[0] for r in routes[0]),
           "routed_rows_differ": sum(int((a != b).any(-1).sum())
                                     for a, b in zip(routes[0], routes[1]))})
-    if cfg.deltanet is not None:
+    if hybrid:
         k9_calls_hold(k9, prep, name)
+    if module is not None:
+        minicpm_calls_hold(sala, name)
     if not rel < tol:
         raise RuntimeError(f"{name}: kernel vs plain logits rel {rel}")
     if not controls["last_group"] >= tol:
@@ -3162,21 +3504,23 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
                                f"the path's inputs: rel {c['max_rel_err']}")
 
 
-def decode_rate(dev, cfg, params, short=128, long=512):
+def decode_rate(dev, cfg, params, short=128, long=512, module=None):
     """Decode tok/s by the difference quotient of bench.py: prompt 128,
-    generate_scan of ``long`` vs ``short`` tokens, best of 2 each."""
+    generate_scan of ``long`` vs ``short`` tokens, best of 2 each.
+    ``module``: the family's (default models.base)."""
     from ominix_mlx_tpu_torch.core.generate import Engine
     from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
     from ominix_mlx_tpu_torch.models import base
 
-    eng = Engine(lambda p, t, c: base.forward(p, cfg, t, c), params,
+    mod = module or base
+    eng = Engine(lambda p, t, c: mod.forward(p, cfg, t, c), params,
                  SamplerConfig(),
-                 prefill_forward_fn=lambda p, t, c: base.forward(
+                 prefill_forward_fn=lambda p, t, c: mod.forward(
                      p, cfg, t, c, fresh_prefill=True))
     prompt = torch.ones(1, 128, dtype=torch.long, device=dev)
 
     def run(n):
-        cache = base.init_cache(cfg, 1, 1024, device=dev)
+        cache = mod.init_cache(cfg, 1, 1024, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         toks, _ = eng.generate_scan(prompt, cache, max_tokens=n)
@@ -3264,13 +3608,16 @@ def device_time(prof):
 # kernel-name pieces of the port's kernels whose share of a profiled step
 # --profile reports: the P formula's rows kernel, the activation
 # prologues (K1, K4 and K6's qmm_prep_pdl, K8's chan_prep), K4's and K8's
-# rows kernels, K3 with its merge, K9
+# rows kernels, K3 with its merge, K9, K10, K11
 SHARE_OF = {"qmm_p": ("qmm_p<",), "qmm_prep": ("qmm_prep", "chan_prep"),
             "k4_k8": ("gather_qmm_a8<", "chan_gather_qmm<"),
             "k3": ("paged_decode<", "paged_merge("),
             "k9": ("gated_delta_k9<",),
             "k9_chunk": ("gated_delta_chunk<", "gated_delta_chunk_scan<"),
-            "k9_prep": ("k9_prep_kernel<",)}
+            "k9_prep": ("k9_prep_kernel<",),
+            "k10": ("lightning_k10<",),
+            "k10_chunk": ("lightning_chunk<", "lightning_chunk_scan<"),
+            "k11": ("sparse_score<", "sparse_attend<", "sparse_merge(")}
 
 
 def kernel_shares(by_name, busy_us) -> dict:
@@ -3341,7 +3688,7 @@ def compare_probes(parent: str, here: str, what: str, keys: tuple):
 
 
 def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
-                   paged: bool = False):
+                   paged: bool = False, module=None):
     """Where a decode step's time goes: greedy decode steps of ``batch``
     rows (over a dense or a paged cache) after a 128-token prompt, first
     under torch.profiler (device side), then under cProfile (host side).
@@ -3350,10 +3697,13 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
     across it. The device's busy time is the union of the intervals
     of every kernel, copy and fill it ran (``device_ops_per_step``: how
     many a step); the idle share is one minus busy over the window's wall
-    time on the host clock."""
+    time on the host clock. ``module``: the family's (default
+    models.base)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ominix_mlx_tpu_torch.models import base
+
+    mod = module or base
 
     def probe():
         return profile(activities=[ProfilerActivity.CPU,
@@ -3361,7 +3711,7 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
 
     def decode(n, prefill_probe=contextlib.nullcontext,
                steps_probe=contextlib.nullcontext):
-        cache = (base.init_paged_cache if paged else base.init_cache)(
+        cache = (base.init_paged_cache if paged else mod.init_cache)(
             cfg, batch, 1024, device=dev)
         prompt = torch.ones(batch, 128, dtype=torch.long, device=dev)
         with torch.inference_mode():
@@ -3370,8 +3720,8 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
             mem[:] = [torch.cuda.memory_allocated()]
             with prefill_probe():
                 t0 = time.perf_counter()
-                _, cache = base.forward(params, cfg, prompt, cache,
-                                        fresh_prefill=True)
+                _, cache = mod.forward(params, cfg, prompt, cache,
+                                       fresh_prefill=True)
                 torch.cuda.synchronize()
                 prefill_s = time.perf_counter() - t0
             mem.append(torch.cuda.max_memory_allocated())
@@ -3379,7 +3729,7 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
             with steps_probe():
                 t0 = time.perf_counter()
                 for _ in range(n):
-                    logits, cache = base.forward(params, cfg, tok, cache)
+                    logits, cache = mod.forward(params, cfg, tok, cache)
                     tok = logits[:, -1].argmax(-1, keepdim=True)
                 tok.cpu()
                 return prefill_s, time.perf_counter() - t0
@@ -4151,8 +4501,9 @@ def qwen3_next_gib(cfg, shared: int, bits: int = 4) -> float:
 
 @contextlib.contextmanager
 def counting_forwards(module):
-    """Record (rows B * T, fresh_prefill, B, T) of each call of
-    ``module.forward`` (what a ChatModel and the batcher call, by the
+    """Record (rows B * T, fresh_prefill, B, T, the keyword arguments
+    with "int_offset": whether the cache's offset is one int) of each call
+    of ``module.forward`` (what a ChatModel and the batcher call, by the
     module's attribute) for the duration: yields the list."""
     seen, real = [], module.forward
 
@@ -4160,7 +4511,8 @@ def counting_forwards(module):
     def counted(params, cfg, tokens, cache, **kw):
         seen.append((tokens.shape[0] * tokens.shape[1],
                      bool(kw.get("fresh_prefill", False)),
-                     tokens.shape[0], tokens.shape[1]))
+                     tokens.shape[0], tokens.shape[1],
+                     {**kw, "int_offset": isinstance(cache.offset, int)}))
         return real(params, cfg, tokens, cache, **kw)
     module.forward = counted
     try:
@@ -4197,7 +4549,7 @@ def check_hybrid_launches(cfg, forwards, launches, where):
     attn = cfg.num_layers - lin_layers(cfg)
     decode = sum(f[0] <= moe.GATHER_M_MAX for f in forwards)
     fresh = sum(f[1] for f in forwards if f[0] > 1)
-    want = {**k9_forward_launches(cfg, [f[2:] for f in forwards]),
+    want = {**k9_forward_launches(cfg, [f[2:4] for f in forwards]),
             "k4": 2 * cfg.num_layers * decode,
             "k5_w4": 3 * cfg.num_layers * (len(forwards) - decode),
             "k2": attn * fresh}
@@ -4234,14 +4586,14 @@ def hybrid_routes(cfg, params) -> dict:
                         for n, w in moe["experts"].items()}}
 
 
-def hybrid_batched(dev, cfg, params, name, module):
+def hybrid_batched(dev, cfg, params, name, module, check=None):
     """The hybrid on a batched server (enable_batching(paged=False): the
     dense continuous batcher, 8 slots; each adoption prefills at exactly T
     into its slot's rows, the recurrent ones zeroed first): 8 concurrent
     HTTP chat requests of up to 16 tokens, then each alone on the same
     server (its slot rows reused), whose text must equal its text in the
-    batch. Launch counts of the concurrent run, held exactly
-    (check_hybrid_launches over its forwards)."""
+    batch. Launch counts of the concurrent run, held exactly by
+    ``check`` (default check_hybrid_launches) over its forwards."""
     from ominix_mlx_tpu_torch.ops import _build
     from ominix_mlx_tpu_torch.serving.server import ChatModel, Server
 
@@ -4275,7 +4627,8 @@ def hybrid_batched(dev, cfg, params, name, module):
           "launches": launches, "equal_alone": same,
           "prompt_tokens": {k: r[1] for k, r in together.items()},
           "text": {k: r[0][:40] for k, r in together.items()}})
-    check_hybrid_launches(cfg, forwards, launches, f"{name} batched")
+    (check or check_hybrid_launches)(cfg, forwards, launches,
+                                     f"{name} batched")
     if not all(r[2] > 0 and r[0] for r in together.values()) \
             or not all(same.values()):
         raise RuntimeError(f"{name}: batched answers differ from solo or "
@@ -4435,6 +4788,397 @@ def serve_qwen3_next(dev, smi, profile=False):
           "max_memory_gib": peak, "ok": True})
     return total
 
+
+def minicpm_call_checks():
+    """Wrappers for swapped_kernels that hold every K10 and K11 call
+    against its plain version on the same inputs (a copy of the state for
+    K10): (stats, {kernel: wrap}). K10 counts each call's form; k11_score
+    holds the finite scores, the NEG_INF mask and the blocks torch.topk
+    selects; k11_attend holds each (row, head) and counts, per (row, KV
+    head), the finite top-k blocks it was given (``valid_blocks``)."""
+    from ominix_mlx_tpu_torch.ops import lightning_attention as la
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    st = {"k10": {"calls": 0, "max_rel_err": 0.0, "state_max_rel_err": 0.0,
+                  "forms": {}},
+          "k11": {"score_calls": 0, "score_max_rel_err": 0.0,
+                  "masked_equal": True, "selected_equal": True,
+                  "attend_calls": 0, "attend_max_rel_err": 0.0,
+                  "valid_blocks": []}}
+
+    def k10(kern, plain):
+        def call(q, k, v, slopes, state):
+            s0 = state.clone()
+            y = kern(q, k, v, slopes, state)
+            want = plain(q, k, v, slopes, s0)
+            c = st["k10"]
+            c["calls"] += 1
+            form = la.k10_plan(q.shape[0], q.shape[2], q.shape[1],
+                               q.shape[3])
+            c["forms"][form] = c["forms"].get(form, 0) + 1
+            c["max_rel_err"] = max(c["max_rel_err"], rel_to(y, want))
+            c["state_max_rel_err"] = max(c["state_max_rel_err"],
+                                         rel_to(state, s0))
+            return y
+        return call
+
+    def score(kern, plain):
+        def call(q, comp, total, ie, window, ks):
+            y = kern(q, comp, total, ie, window, ks)
+            want = plain(q, comp, total, ie, window, ks)
+            c = st["k11"]
+            c["score_calls"] += 1
+            fin = want > sa.NEG_INF / 2
+            c["masked_equal"] &= bool(torch.equal(y > sa.NEG_INF / 2, fin))
+            if fin.any():
+                c["score_max_rel_err"] = max(
+                    c["score_max_rel_err"],
+                    ((y - want)[fin].abs().max() / want[fin].abs().max())
+                    .item())
+            topk = min(64, want.shape[-1])
+            c["selected_equal"] &= selected_sets(y, topk) == \
+                selected_sets(want, topk)
+            return y
+        return call
+
+    def attend(kern, plain):
+        def call(q, k, v, idx, top, *rest):
+            y = kern(q, k, v, idx, top, *rest)
+            want = plain(q, k, v, idx, top, *rest)
+            c = st["k11"]
+            c["attend_calls"] += 1
+            c["attend_max_rel_err"] = max(c["attend_max_rel_err"],
+                                          row_rel_err(y, want))
+            c["valid_blocks"].extend(
+                (top > sa.NEG_INF / 2).sum(-1).flatten().tolist())
+            return y
+        return call
+
+    return st, {"k10": k10, "k11_score": score, "k11_attend": attend}
+
+
+def minicpm_calls_hold(st, where):
+    """Raise unless every K10 and K11 call held its limit."""
+    a, b = st["k10"], st["k11"]
+    if not (a["max_rel_err"] < K10_TOL and a["state_max_rel_err"] < K10_TOL
+            and b["score_max_rel_err"] < K11_SCORE_TOL and b["masked_equal"]
+            and b["selected_equal"] and b["attend_max_rel_err"] < K11_TOL
+            and b["score_calls"] == b["attend_calls"]):
+        raise RuntimeError(f"{where}: K10 / K11 against their plain versions "
+                           f"on the path's inputs: {sala_summary(st)}")
+
+
+def sala_summary(st) -> dict:
+    """The per-call stats for a JSON line (the valid-block counts as their
+    range)."""
+    k11 = {k: v for k, v in st["k11"].items() if k != "valid_blocks"}
+    vb = st["k11"]["valid_blocks"]
+    k11["valid_blocks"] = [min(vb), max(vb)] if vb else None
+    return {"per_call_k10": st["k10"], "per_call_k11": k11}
+
+
+def minicpm_gib(cfg, bits: int = 8) -> float:
+    """The reckoned size of the w8a8 g64 tree of init_quantized_params:
+    every projection, the embedding and the lm_head at bits/8 bytes a
+    weight plus a bf16 scale and bias per group; the norms bf16."""
+    D, L, V = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    lin = sum(m == "lightning-attn" for m in cfg.mixer_types)
+    w = cfg.gla_heads * cfg.gla_head_dim
+    att = (2 * cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim * D
+    packed = lin * 5 * w * D + (L - lin) * att \
+        + L * 3 * cfg.intermediate_size * D + 2 * V * D
+    norms = 2 * (L * 2 * D + lin * w + L * 2 * cfg.head_dim + D)
+    return (packed * (bits / 8 + 4 / GS) + norms) / 2 ** 30
+
+
+def minicpm_forward_launches(cfg, params, forwards) -> dict:
+    """The launches of MiniCPM-SALA forwards, exactly (``forwards`` as
+    counting_forwards records them): per forward of B rows and T tokens
+    over its layers (``num_layers``), K10 in each lightning layer in the
+    form k10_plan picks; in each sparse layer K2 for a fresh prompt, K2c
+    for a continuation chunk (kv_limit) or a prompt at an offset,
+    k11_score and k11_attend for a decode step; and K1 for each packed
+    projection at M = B T rows in the formula ``route`` names (one row:
+    k1_m1, 2-16 rows on panels: the dq formula k1_mn, the 8-bit counters;
+    past 16 rows the dense route, no kernel), the lm_head's unless
+    skip_logits."""
+    from ominix_mlx_tpu_torch.ops import lightning_attention as la
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    want = dict.fromkeys(("k10", "k10_chunk", "k10_chunk_scan", "k11_score",
+                          "k11_attend", "k2", "k2c", "k1_m1", "k1_mn",
+                          "k1_m1_w8", "k1_mn_w8"), 0)
+
+    def k1(w, M):
+        if not isinstance(w, qm.PackedQuantizedTensor):
+            return
+        r = qm.route(w, M)
+        if r not in ("k1", "k1_mn", "dense"):
+            raise RuntimeError(f"a projection takes route {r} at {M} rows")
+        if r != "dense":                    # no kernel past 16 rows
+            want[{"k1": "k1_m1", "k1_mn": "k1_mn"}[r]
+                 + ("_w8" if w.bits == 8 else "")] += 1
+
+    for rows, fresh, B, T, kw in forwards:
+        n = kw.get("num_layers") or cfg.num_layers
+        for i in range(n):
+            if cfg.mixer_types[i] == "lightning-attn":
+                for k, c in la.k10_launches(B, T, cfg.gla_heads,
+                                            cfg.gla_head_dim).items():
+                    want[k] += c
+            elif kw.get("kv_limit") is not None:
+                want["k2c"] += 1
+            elif T == 1:
+                want["k11_score"] += 1
+                want["k11_attend"] += 1
+            elif kw["int_offset"]:
+                want["k2" if fresh else "k2c"] += 1
+            for v in params["layers"][i].values():
+                if isinstance(v, dict) and "w" in v:
+                    k1(v["w"], rows)
+        if not kw.get("skip_logits"):
+            k1(params["lm_head"]["w"], rows)
+    return want
+
+
+def check_minicpm_launches(cfg, params, forwards, launches, where):
+    want = minicpm_forward_launches(cfg, params, forwards)
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        raise RuntimeError(f"{where}: launched {got}, want {want} for "
+                           f"{len(forwards)} forwards")
+    return want
+
+
+def minicpm_routes(params) -> dict:
+    """The formula each projection takes at one row: a sparse layer's, a
+    lightning layer's and the lm_head's (ops.quant_matmul ``route``)."""
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+
+    def of(tree):
+        return {n: qm.route(v["w"], 1) for n, v in tree.items()
+                if isinstance(v, dict)
+                and isinstance(v.get("w"), qm.PackedQuantizedTensor)}
+
+    return {"sparse_layer": of(params["layers"][0]),
+            "lightning_layer": of(params["layers"][1]),
+            "lm_head": of({"lm_head": params["lm_head"]})["lm_head"]}
+
+
+def minicpm_per_call_prompt(dev, cfg, params, T=200, layers=4, steps=2):
+    """Every K10 and K11 call of a T-token prefill (K10's chunked form)
+    and ``steps`` decode steps (its recurrent form, K11) on the first
+    ``layers`` layers (one sparse, three lightning), held against the
+    plain versions on the path's own inputs."""
+    from ominix_mlx_tpu_torch.models import minicpm_sala as ms
+
+    c2 = dataclasses.replace(cfg, num_layers=layers)
+    p2 = {**params, "layers": params["layers"][:layers]}
+    g = torch.Generator(device=dev).manual_seed(SEED + 54)
+    prompt = torch.randint(0, cfg.vocab_size, (1, T), generator=g,
+                           device=dev)
+    st, wraps = minicpm_call_checks()
+    eng = engine_for(c2, p2, ms)
+    cache = ms.init_cache(c2, 1, T + steps + 1, device=dev)
+    with swapped_kernels(lambda k, kern, plain: wraps[k](kern, plain)
+                         if k in wraps else kern), torch.inference_mode():
+        logits, cache = eng.prefill(prompt, cache)
+        for t in range(steps):
+            logits, cache = ms.forward(
+                p2, c2, torch.tensor([[t + 1]], device=dev), cache)
+    emit({"phase": "minicpm_per_call_prompt", "layers": layers, "prompt": T,
+          "decode_steps": steps, **sala_summary(st)})
+    minicpm_calls_hold(st, f"{T}-token prompt")
+    if set(st["k10"]["forms"]) != {"chunked", "recurrent"}:
+        raise RuntimeError(f"K10's forms on the prompt: {st['k10']}")
+
+
+def minicpm_long_prefill(dev, cfg, params, T=8192, chunk=2048, steps=16):
+    """An 8192-token prompt through Engine.prefill_chunked in 2048-token
+    chunks (K2, then K2c in the sparse layers; K10's chunked form), then
+    ``steps`` greedy decode steps (K11), every K11 call held against its
+    plain version: the middle then holds 190 whole blocks, so the top 64
+    prune, and every (row, KV head) must be given 64 finite blocks. The
+    launches of the whole run held exactly. Returns them."""
+    from ominix_mlx_tpu_torch.models import minicpm_sala as ms
+    from ominix_mlx_tpu_torch.ops import _build
+
+    eng = engine_for(cfg, params, ms)
+    g = torch.Generator(device=dev).manual_seed(SEED + 55)
+    prompt = torch.randint(0, cfg.vocab_size, (1, T), generator=g,
+                           device=dev)
+    cache = ms.init_cache(cfg, 1, T + steps + 16, device=dev)
+    st, wraps = minicpm_call_checks()
+    _build.reset_launches()
+    with counting_forwards(ms) as forwards:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = eng.prefill_chunked(prompt, cache, chunk)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        tok = last.argmax(-1, keepdim=True)
+        with swapped_kernels(lambda k, kern, plain: wraps[k](kern, plain)
+                             if k.startswith("k11") else kern), \
+                torch.inference_mode():
+            for _ in range(steps):
+                logits, cache = ms.forward(params, cfg, tok, cache)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = check_minicpm_launches(cfg, params, forwards, launches,
+                                  "MiniCPM-SALA 8k chunked prefill")
+    vb = st["k11"]["valid_blocks"]
+    emit({"phase": "minicpm_prefill_chunked", "prompt": T, "chunk": chunk,
+          "prefill_seconds": prefill_s, "prefill_tok_s": T / prefill_s,
+          "decode_steps": steps, "offset": cache.offset,
+          "launches": launches, "want": want, **sala_summary(st)})
+    minicpm_calls_hold(st, "8k chunked prefill")
+    if cache.offset != T + steps or not vb or set(vb) != {64} \
+            or not torch.isfinite(logits.float()).all():
+        raise RuntimeError(f"8k chunked prefill: offset {cache.offset}, "
+                           f"valid blocks {sorted(set(vb))}")
+    return launches
+
+
+def minicpm_long_decode(dev, cfg, params, smi, steps=16, profiled=4):
+    """Decode over a cache filled at random up to each of
+    MINICPM_LONG_OFFSETS (every sparse layer's K and V normal, its pooled
+    keys pooled from them; every lightning state small and random), as
+    benchmarks/longcontext_bench.py:59-64 jumps the offset: one step with
+    every K11 call held against its plain version (64 finite blocks a
+    KV head), then ``steps`` greedy steps timed (ms/token, ended by a
+    synchronize), then ``profiled`` steps under torch.profiler (device
+    activity only): device busy ms a step and K11's share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ominix_mlx_tpu_torch.core.cache import ModelCache
+    from ominix_mlx_tpu_torch.models import minicpm_sala as ms
+    from ominix_mlx_tpu_torch.models.lightning import GLACache
+    from ominix_mlx_tpu_torch.models.sparse_attention import compress_keys
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 56)
+    for off in MINICPM_LONG_OFFSETS:
+        free_device_memory()
+        cache = ms.init_cache(cfg, 1, off + 64, device=dev)
+        for lc in cache.layers:
+            if isinstance(lc, GLACache):
+                lc.state.normal_(generator=g).mul_(0.01)
+            else:
+                lc.k.normal_(generator=g)
+                lc.v.normal_(generator=g)
+                lc.comp.copy_(compress_keys(lc.k, lc.kernel_size))
+        cache_gib = torch.cuda.memory_allocated() / 2 ** 30
+        cache = ModelCache(layers=cache.layers, offset=off)
+        tok = torch.ones(1, 1, dtype=torch.long, device=dev)
+        st, wraps = minicpm_call_checks()
+        with torch.inference_mode():
+            with swapped_kernels(lambda k, kern, plain: wraps[k](kern, plain)
+                                 if k.startswith("k11") else kern):
+                logits, cache = ms.forward(params, cfg, tok, cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = ms.forward(params, cfg, tok, cache)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+            tok.cpu()
+            wall = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(profiled):
+                    logits, cache = ms.forward(params, cfg, tok, cache)
+                    tok = logits[:, -1].argmax(-1, keepdim=True)
+                torch.cuda.synchronize()
+        busy_us, by_name = device_time(prof)
+        shares = kernel_shares(by_name, busy_us)
+        row = {"phase": "minicpm_long_decode", "offset": off,
+               "cache_gib": cache_gib, "decode_steps": steps,
+               "ms_per_token": wall * 1e3 / steps,
+               "decode_tok_s": steps / wall,
+               "profiled_steps": profiled,
+               "device_busy_ms_per_step": busy_us / 1e3 / profiled,
+               "k11_us_per_step": shares["k11"]["ms"] * 1e3 / profiled,
+               "k11_share_of_busy": shares["k11"]["share_of_busy"],
+               "k10_share_of_busy": shares["k10"]["share_of_busy"],
+               "top_device": top_kernels(by_name, busy_us, 6),
+               **sala_summary(st), "card": smi}
+        emit(row)
+        minicpm_calls_hold(st, f"decode at offset {off}")
+        if set(st["k11"]["valid_blocks"]) != {64} \
+                or not torch.isfinite(logits.float()).all():
+            raise RuntimeError(f"decode at offset {off}: {row}")
+        del cache, logits
+    free_device_memory()
+
+
+def serve_minicpm_sala(dev, smi, profile=False):
+    """serve_minicpm_sala: MiniCPM-SALA at its published widths and all 32
+    layers (8 InfLLMv2 sparse, 24 lightning), w8a8 g64 random weights made
+    packed (about 10 GB; its reckoning and the allocation printed): the
+    route of each projection; 4 HTTP chat requests one at a time (every
+    prefill at exactly its length: K2 in the sparse layers, K10 in the
+    form k10_plan picks; every decode step K11 and K10's recurrent form;
+    K1 on panels), their launches held exactly per forward; a profiled
+    128-token prefill; the logits check on 4 layers (one sparse, three
+    lightning; every K10 and K11 call held against its plain version);
+    a 200-token prompt's calls held likewise; the decode rate; with
+    ``profile`` a profile line of decode steps; an 8192-token chunked
+    prefill and 16 decode steps (the top 64 of 190 blocks); 8 concurrent
+    requests on the dense batcher, each equal to the same request alone;
+    decode at 65536 and 524288 cached tokens. Returns the launches of the
+    runs whose every forward was counted."""
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.models import minicpm_sala as ms
+
+    cfg = ms.MiniCPMConfig.from_hf(MINICPM_SALA_HF)
+    name = "MiniCPM-SALA"
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    params = base.fuse_layer_projections(ms.init_quantized_params(
+        cfg, gen, GS, 8, 8, device=dev))
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": name, "weights": "w8a8 g64",
+          "layers": cfg.num_layers, "mixer_types": {
+              m: cfg.mixer_types.count(m) for m in set(cfg.mixer_types)},
+          "init_seconds": time.perf_counter() - t0,
+          "reckoned_gib": minicpm_gib(cfg),
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
+          "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    emit({"phase": "routes", "config": name, **minicpm_routes(params)})
+    keys = ("k1_m1_w8", "k1_mn_w8", "k2", "k10", "k10_chunk",
+            "k10_chunk_scan", "k11_score", "k11_attend")
+    with counting_forwards(ms) as forwards:
+        _, counts = serve_requests(dev, cfg, params, name.lower(), keys, ms)
+    want = check_minicpm_launches(cfg, params, forwards, counts,
+                                  f"{name} serve")
+    emit({"phase": "serve_minicpm_sala_launches", "forwards": len(forwards),
+          "launches": counts, "want": want})
+    runs = [counts]
+    emit({"phase": "prefill", "config": name, "weights": "w8a8 g64",
+          **moe_prefill(dev, cfg, params, module=ms), "card": smi})
+    check_logits(dev, cfg, params, name,
+                 kernels=("k1", "k2", "k10", "k11_score", "k11_attend"),
+                 tol=MINICPM_LOGITS_TOL, layers=4, module=ms)
+    minicpm_per_call_prompt(dev, cfg, params)
+    emit({**decode_rate(dev, cfg, params, 16, 48, module=ms),
+          "config": name, "weights": "w8a8 g64", "card": smi})
+    if profile:
+        emit({**profile_decode(dev, cfg, params, steps=16, module=ms),
+              "config": name, "weights": "w8a8 g64", "card": smi})
+    runs.append(minicpm_long_prefill(dev, cfg, params))
+    runs.append(hybrid_batched(
+        dev, cfg, params, name.lower() + "-batched", ms,
+        check=lambda c, f, la, w: check_minicpm_launches(c, params, f, la,
+                                                         w)))
+    minicpm_long_decode(dev, cfg, params, smi)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params
+    free_device_memory()
+    total = {k: sum(r.get(k, 0) for r in runs)
+             for k in set().union(*runs)}
+    emit({"phase": "serve_minicpm_sala", "launches": total,
+          "max_memory_gib": peak, "ok": True})
+    return total
 
 def load_checkpoint(dev, smi):
     """load_checkpoint: a GLM-4-9B-width checkpoint of 2 layers in HF names
@@ -4701,6 +5445,9 @@ def main() -> int:
                             seed=SEED + 39, phase="k2_d256")
     k4_e512_rows, k5_e512_rows = check_next_experts(dev, flush)
     emit({**launch_floor(dev), "card": smi})
+    # after launch_floor: its profiler windows come before these checks'
+    k10_rows = check_k10(dev, flush)
+    k11_score_rows, k11_attend_rows = check_k11(dev, flush)
     del flush_buf, flush
     torch.cuda.empty_cache()
 
@@ -4823,6 +5570,8 @@ def main() -> int:
     phases["serve_mixtral"] = serve_mixtral(dev, smi, args.profile)
     phases["serve_glm4_moe"] = serve_glm4_moe(dev, smi, args.profile)
     phases["serve_qwen3_next"] = serve_qwen3_next(dev, smi, args.profile)
+    phases["serve_minicpm_sala"] = serve_minicpm_sala(dev, smi,
+                                                      args.profile)
 
     def launches(key, only=None):
         return sum(c.get(key, 0) for p, c in phases.items()
@@ -4969,12 +5718,39 @@ def main() -> int:
               "packed)", "ominix_mlx_tpu_torch/csrc/grouped_mm.cu",
               k5_e512_rows, worst_k5, "k5_w4", only=("serve_qwen3_next",),
               design=K5_DESIGN),
+        entry("k10",
+              "XLA einsum ominix_mlx_tpu/models/lightning.py:75-83, no "
+              "Pallas kernel (the recurrent form)",
+              "ominix_mlx_tpu_torch/csrc/lightning_attn.cu",
+              [r for r in k10_rows if r["form"] == "recurrent"],
+              lambda rs: rs[0], "k10", design=K10_DESIGN),
+        entry("k10_chunk",
+              "XLA scan ominix_mlx_tpu/models/lightning.py:86-119, no "
+              "Pallas kernel (the chunked form: lightning_chunk, then "
+              "lightning_chunk_scan, one launch each a call)",
+              "ominix_mlx_tpu_torch/csrc/lightning_attn.cu",
+              [r for r in k10_rows if r["form"] == "chunked"],
+              lambda rs: next(r for r in rs if r["T"] == 2048), "k10_chunk",
+              design=K10_CHUNK_DESIGN),
+        entry("k11_score",
+              "XLA einsum ominix_mlx_tpu/models/sparse_attention.py:150-163, "
+              "no Pallas kernel", "ominix_mlx_tpu_torch/csrc/sparse_attn.cu",
+              k11_score_rows, lambda rs: next(r for r in rs
+                                              if r["S"] == 524288),
+              "k11_score", design=K11_SCORE_DESIGN),
+        entry("k11_attend",
+              "XLA gather and sdpa ominix_mlx_tpu/models/sparse_attention.py:"
+              "165-197, no Pallas kernel",
+              "ominix_mlx_tpu_torch/csrc/sparse_attn.cu", k11_attend_rows,
+              lambda rs: rs[0], "k11_attend", design=K11_ATTEND_DESIGN),
     ]
     for k in kernels:
         if k["launches"] < 1:
             raise RuntimeError(f"{k['name']} never launched on a main path")
     if launches("k9_chunk_scan") != launches("k9_chunk"):
         raise RuntimeError("K9's chunked form: the phases' launches differ")
+    if launches("k10_chunk_scan") != launches("k10_chunk"):
+        raise RuntimeError("K10's chunked form: the phases' launches differ")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
     print(smi, flush=True)

@@ -32,7 +32,7 @@ MODEL_TYPES = {
 }
 # the families of MODEL_TYPES this package holds
 PORTED = {"qwen3", "qwen3_moe", "mistral", "glm4", "mixtral", "glm4_moe",
-          "deepseek_v3", "qwen3_next"}
+          "deepseek_v3", "qwen3_next", "minicpm_sala"}
 
 # the JAX package's non-LLM families: model_type -> (its module there,
 # capability); none is ported yet

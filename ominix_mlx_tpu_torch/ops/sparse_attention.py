@@ -1,0 +1,226 @@
+"""InfLLMv2's sparse decode attention, the one-token step of MiniCPM-SALA's
+"minicpm4" layers (``models.sparse_attention.sparse_decode_attention``),
+in two halves with ``torch.topk`` between them (no TPU kernel computes a
+top-k either: the JAX package leaves it to ``lax.top_k``):
+
+- ``block_scores``: each KV head's scoring query (the first query head of
+  its group) against the mean-pooled keys ``comp``, in float32; blocks
+  outside [init_end, window_start - ks] score NEG_INF
+  (ominix_mlx_tpu/models/sparse_attention.py:150-163). Kernel K11's
+  scorer (counter ``k11_score``) on CUDA.
+- ``sparse_attend``: every query head of a KV head over its init slots,
+  its selected blocks (those whose score is finite) and its window; the
+  others are masked (:165-197). Kernel K11's attend (counter
+  ``k11_attend``) on CUDA, reading K and V in place through the indices.
+
+The JAX package computes both with XLA ops, no Pallas kernel. A CPU
+tensor takes the plain versions, the JAX formulas in torch
+(``block_scores_reference``; ``sparse_attend_reference``, the gather plus
+masked attention); a CUDA tensor launches the kernel or raises. ``total``
+is each row's token count including this step's, a [B] tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ominix_mlx_tpu_torch.core.attention import NEG_INF
+from ominix_mlx_tpu_torch.ops._build import SMS
+
+K11_DIMS = (128,)      # MiniCPM-SALA's head width
+K11_MAX_ROWS = 16       # query heads a KV head (the mma's rows)
+K11_MAX_TOPK = 256
+K11_TILE = 64           # slots a tile
+# the attend's CTAs: about two an SM over all rows
+K11_TARGET_CTAS = 2 * SMS
+
+
+def window_start(total: torch.Tensor, init_end: int,
+                 window: int) -> torch.Tensor:
+    """max(total - window, init_end): the first window slot of each row."""
+    return torch.clamp(total.long() - window, min=init_end)
+
+
+def block_scores_reference(q: torch.Tensor, comp: torch.Tensor,
+                           total: torch.Tensor, init_end: int, window: int,
+                           ks: int) -> torch.Tensor:
+    """Plain version of ``k11_score``: q [B, H, 1, D], comp [B, Hkv, nb,
+    D], total [B] -> scores [B, Hkv, nb] float32 (the JAX package's einsum
+    on float32 copies, the invalid blocks NEG_INF)."""
+    B, H, _, D = q.shape
+    Hkv, nb = comp.shape[1], comp.shape[2]
+    q_score = q.reshape(B, Hkv, H // Hkv, D)[:, :, 0]
+    scores = torch.einsum("bhd,bhnd->bhn", q_score.float(), comp.float())
+    start = torch.arange(nb, device=q.device) * ks
+    ws = window_start(total.to(q.device), init_end, window)
+    valid = (start[None] >= init_end) & (start[None] + ks <= ws[:, None])
+    return torch.where(valid[:, None], scores,
+                       torch.full((), NEG_INF, device=q.device))
+
+
+def sparse_attend_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, top_idx: torch.Tensor,
+                            top_scores: torch.Tensor, total: torch.Tensor,
+                            init_end: int, window: int, ks: int,
+                            scale: float) -> torch.Tensor:
+    """Plain version of ``k11_attend``, the JAX gather plus masked sdpa:
+    q [B, H, 1, D], k/v [B, Hkv, S, D], top_idx / top_scores [B, Hkv,
+    topk], total [B] -> [B, H, 1, D] in v's dtype. The gathered set is
+    init (slots below init_end, valid below total), the selected blocks
+    (valid where their score is finite) and the last ``window`` positions
+    (valid from the window start); the invalid slots are masked with
+    NEG_INF, the softmax weights rounded to v's dtype."""
+    B, H, _, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    topk = top_idx.shape[-1]
+    dev = q.device
+    total = total.to(dev).long()
+    ws = window_start(total, init_end, window)
+    ar_init = torch.arange(init_end, device=dev)
+    blk_tok = (top_idx.long()[..., None] * ks
+               + torch.arange(ks, device=dev)).reshape(B, Hkv, topk * ks)
+    win_pos = total[:, None] - window + torch.arange(window, device=dev)
+    idx = torch.cat([ar_init.expand(B, Hkv, init_end), blk_tok,
+                     win_pos[:, None].expand(B, Hkv, window)], -1)
+    idx = idx.clamp(0, S - 1)
+    valid = torch.cat([
+        (ar_init[None, None] < total[:, None, None]).expand(B, Hkv,
+                                                            init_end),
+        (top_scores > NEG_INF / 2).repeat_interleave(ks, -1),
+        (win_pos >= ws[:, None])[:, None].expand(B, Hkv, window)], -1)
+    gather = idx[..., None].expand(-1, -1, -1, D)
+    gk = torch.gather(k, 2, gather)
+    gv = torch.gather(v, 2, gather)
+    qg = q.reshape(B, Hkv, H // Hkv, 1, D)
+    logits = torch.einsum("bhgtd,bhsd->bhgts", qg.float(),
+                          gk.float()) * scale
+    logits = logits + torch.where(valid, 0.0, NEG_INF)[:, :, None, None]
+    w = torch.softmax(logits, -1).to(v.dtype)
+    out = torch.einsum("bhgts,bhsd->bhgtd", w, gv)
+    return out.reshape(B, H, 1, D)
+
+
+def k11_plan(B: int, Hkv: int, slots: int):
+    """(splits, slots a split) of k11_attend for ``slots`` = init_end +
+    topk * ks + window (the most a row can hold): whole 64-slot tiles, as
+    few a split as fill about K11_TARGET_CTAS CTAs over the B * Hkv (row,
+    KV head) pairs. Reads shapes only."""
+    tiles = -(-slots // K11_TILE)
+    per = min(max(1, -(-B * Hkv * tiles // K11_TARGET_CTAS)), tiles)
+    return -(-tiles // per), per * K11_TILE
+
+
+def _check_common(q, total, what):
+    B, H, T, D = q.shape
+    if q.dtype != torch.bfloat16 or T != 1 or not q.is_contiguous():
+        raise ValueError(f"{what} q: want contiguous bf16 [B, H, 1, D], got "
+                         f"{q.dtype} {tuple(q.shape)}")
+    if D not in K11_DIMS:
+        raise ValueError(f"{what} takes D in {K11_DIMS}, got {D}")
+    if total.dtype != torch.int32 or tuple(total.shape) != (B,) \
+            or total.device != q.device or not total.is_contiguous():
+        raise ValueError(f"{what} total: want contiguous int32 ({B},) on "
+                         f"{q.device}, got {total.dtype} "
+                         f"{tuple(total.shape)} on {total.device}")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"q is on {q.device}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    return B, H, D
+
+
+def _want(what, name, t, shape, dtype, dev):
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != dev or not t.is_contiguous():
+        raise ValueError(f"{what} {name}: want contiguous {dtype} "
+                         f"{tuple(shape)} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _k11_score(q: torch.Tensor, comp: torch.Tensor, total: torch.Tensor,
+               init_end: int, window: int, ks: int) -> torch.Tensor:
+    """Launch K11's scorer on the current stream; raises for what it does
+    not take."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    B, H, D = _check_common(q, total, "k11_score")
+    Hkv, nb = comp.shape[1], comp.shape[2]
+    _want("k11_score", "comp", comp, (B, Hkv, nb, D), torch.bfloat16,
+          q.device)
+    if Hkv < 1 or H % Hkv or H // Hkv > K11_MAX_ROWS or B > 65535 \
+            or Hkv > 65535:
+        raise ValueError(f"k11_score: {H} query heads over {Hkv} KV heads, "
+                         f"B = {B}")
+    scores = torch.empty(B, Hkv, nb, dtype=torch.float32, device=q.device)
+    rc = _build.library().ominix_sparse_score(
+        q.data_ptr(), comp.data_ptr(), total.data_ptr(), scores.data_ptr(),
+        B, H, Hkv, nb, D, init_end, window, ks,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "k11_score (ominix_sparse_score)")
+    _build.LAUNCHES["k11_score"] += 1
+    return scores
+
+
+def _k11_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                top_idx: torch.Tensor, top_scores: torch.Tensor,
+                total: torch.Tensor, init_end: int, window: int, ks: int,
+                scale: float) -> torch.Tensor:
+    """Launch K11's attend (and, past one split, its merge) on the
+    current stream; raises for what it does not take."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    B, H, D = _check_common(q, total, "k11_attend")
+    Hkv, S = k.shape[1], k.shape[2]
+    topk = top_idx.shape[-1]
+    dev = q.device
+    _want("k11_attend", "k", k, (B, Hkv, S, D), torch.bfloat16, dev)
+    _want("k11_attend", "v", v, (B, Hkv, S, D), torch.bfloat16, dev)
+    _want("k11_attend", "top_idx", top_idx, (B, Hkv, topk), torch.int64,
+          dev)
+    _want("k11_attend", "top_scores", top_scores, (B, Hkv, topk),
+          torch.float32, dev)
+    if Hkv < 1 or H % Hkv or H // Hkv > K11_MAX_ROWS \
+            or topk > K11_MAX_TOPK or B > 65535 or Hkv > 65535:
+        raise ValueError(f"k11_attend takes H / Hkv <= {K11_MAX_ROWS} and "
+                         f"topk <= {K11_MAX_TOPK}; got H={H}, Hkv={Hkv}, "
+                         f"topk={topk}")
+    splits, sps = k11_plan(B, Hkv, init_end + topk * ks + window)
+    out = torch.empty(B, H, 1, D, dtype=torch.bfloat16, device=dev)
+    part_acc = part_ml = None
+    if splits > 1:
+        part_acc = torch.empty(B * H * splits * D, dtype=torch.float32,
+                               device=dev)
+        part_ml = torch.empty(B * H * splits * 2, dtype=torch.float32,
+                              device=dev)
+    rc = _build.library().ominix_sparse_attend(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), top_idx.data_ptr(),
+        top_scores.data_ptr(), total.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr() if part_acc is not None else None,
+        part_ml.data_ptr() if part_ml is not None else None,
+        B, H, Hkv, S, D, topk, init_end, window, ks, splits, sps, scale,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "k11_attend (ominix_sparse_attend)")
+    _build.LAUNCHES["k11_attend"] += 1
+    return out
+
+
+def block_scores(q: torch.Tensor, comp: torch.Tensor, total: torch.Tensor,
+                 init_end: int, window: int, ks: int) -> torch.Tensor:
+    """The masked block scores [B, Hkv, nb] float32: K11's scorer on CUDA
+    (or it raises), ``block_scores_reference`` on the CPU."""
+    if not q.is_cuda:
+        return block_scores_reference(q, comp, total, init_end, window, ks)
+    return _k11_score(q, comp, total, init_end, window, ks)
+
+
+def sparse_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  top_idx: torch.Tensor, top_scores: torch.Tensor,
+                  total: torch.Tensor, init_end: int, window: int, ks: int,
+                  scale: float) -> torch.Tensor:
+    """Attention over init, selected blocks and window, [B, H, 1, D]:
+    K11's attend on CUDA (or it raises), ``sparse_attend_reference`` on the
+    CPU."""
+    if not q.is_cuda:
+        return sparse_attend_reference(q, k, v, top_idx, top_scores, total,
+                                       init_end, window, ks, scale)
+    return _k11_attend(q, k, v, top_idx, top_scores, total, init_end, window,
+                       ks, scale)

@@ -16,12 +16,14 @@ cache tensors in place. The host keeps mirrors of what it must decide on
 back from the device except the previous step's tokens, and those only
 after the next forward is queued.
 
-A hybrid model's recurrent layers (``models.deltanet.RecurrentCache``)
-ride the dense batcher: adoption prefills at exactly T (a padded bucket
-would feed the pads into the state), into the slot's rows of each
-recurrent layer, zeroed first, since no offset mask hides a finished
-request's state. The paged batcher refuses hybrids, as the JAX package's
-does.
+A hybrid model's recurrent layers (``models.deltanet.RecurrentCache``,
+MiniCPM-SALA's ``models.lightning.GLACache``) ride the dense batcher:
+adoption prefills at exactly T (a padded bucket would feed the pads into
+the state), into the slot's rows of each recurrent layer, zeroed first,
+since no offset mask hides a finished request's state; MiniCPM-SALA's
+sparse layers (``models.sparse_attention.SparseKVCache``) prefill into
+their slot's rows of K, V and the pooled keys. The paged batcher refuses
+hybrids, as the JAX package's does.
 
 Speculative batching is not ported: the server's ``enable_batching``
 raises ``NotImplementedError`` for it.
@@ -47,8 +49,12 @@ from ominix_mlx_tpu_torch.core.paged_cache import (PageAllocator,
 from ominix_mlx_tpu_torch.core.sampling import (SamplerConfig, SamplerParams,
                                                 sample_dynamic)
 from ominix_mlx_tpu_torch.models.deltanet import RecurrentCache
+from ominix_mlx_tpu_torch.models.lightning import GLACache
+from ominix_mlx_tpu_torch.models.sparse_attention import SparseKVCache
 
 REP_WINDOW = 64
+# cache layers with per-row views (``rows(b)``) besides KVCache
+ROW_CACHES = (RecurrentCache, GLACache, SparseKVCache)
 
 
 @dataclasses.dataclass
@@ -97,7 +103,7 @@ class ContinuousBatcher:
 
         init_cache_fn(cfg, slots, max_len) -> ModelCache of KVCache (or,
         for the paged batcher, PagedKVCache) layers, and a hybrid's
-        RecurrentCache layers."""
+        RecurrentCache, GLACache and SparseKVCache layers."""
         self.fwd = forward_fn
         self.prefill_fwd = prefill_forward_fn or forward_fn
         self.params = params
@@ -106,7 +112,7 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.stop_tokens = set(stop_tokens)
         layers = init_cache_fn(cfg, slots, max_len).layers
-        if not all(isinstance(lc, (KVCache, PagedKVCache, RecurrentCache))
+        if not all(isinstance(lc, (KVCache, PagedKVCache) + ROW_CACHES)
                    for lc in layers):
             raise ValueError(
                 "continuous batching needs per-row cache state; init the "
@@ -117,7 +123,8 @@ class ContinuousBatcher:
         self._has_recurrent = any(ingests_padding(lc) for lc in layers)
         lc = layers[0]
         self.device = (lc.k_pool if isinstance(lc, PagedKVCache)
-                       else lc.state if isinstance(lc, RecurrentCache)
+                       else lc.state if isinstance(lc, (RecurrentCache,
+                                                        GLACache))
                        else lc.k).device
         dev = self.device
         self.offsets = torch.zeros(slots, dtype=torch.long, device=dev)
@@ -203,7 +210,8 @@ class ContinuousBatcher:
         slot's own row of the batch cache (views, written in place); a
         recurrent layer's row zeroed first (the slot's last request left
         its state there, which no offset mask hides)."""
-        return [lc.rows(b).zero_() if isinstance(lc, RecurrentCache)
+        return [lc.rows(b).zero_() if ingests_padding(lc)
+                else lc.rows(b) if isinstance(lc, SparseKVCache)
                 else KVCache(k=lc.k[b:b + 1], v=lc.v[b:b + 1])
                 for lc in self.cache.layers]
 

@@ -26,7 +26,9 @@ reach the port's ``decoder_layer`` and ``linear``, and MLA's absorbed
 reach ``models.mla`` and ``models.moe``, and Qwen3-Next's DeltaNet
 subtrees (``linear_attn``: its projections, ``conv1d``, ``A_log``,
 ``dt_bias``, ``norm``) and attention output gate ``g_proj`` reach
-``models.deltanet`` and ``models.base``.
+``models.deltanet`` and ``models.base``, and MiniCPM-SALA's lightning
+layers' output gate ``z_proj`` and output norm ``o_norm`` and its
+``q_norm`` / ``k_norm`` reach ``models.minicpm_sala``.
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ from ominix_mlx_tpu_torch.ops import _build
 from ominix_mlx_tpu_torch.ops import flash_attention as fa
 from ominix_mlx_tpu_torch.ops import gated_delta as gd
 from ominix_mlx_tpu_torch.ops import grouped_matmul as tgmm
+from ominix_mlx_tpu_torch.ops import lightning_attention as la
 from ominix_mlx_tpu_torch.ops import paged_attention as pa
 from ominix_mlx_tpu_torch.ops import quant_matmul as qm
 
@@ -1791,3 +1792,256 @@ def test_k5_at_512_experts(cuda, bits, N, K):
     again = tgmm.grouped_matmul(xs, w, gs)
     torch.cuda.synchronize()
     assert _rel(got, want) < 1e-4 and torch.equal(got, again)
+
+
+# ------------------------------------------ K10 (lightning attention) -------
+
+K10_TOL = 2e-5  # max error over max |plain|: float32 sums in another order
+
+
+def _k10_inputs(dev, B, T, H=32, D=128, dtype=torch.bfloat16, seed=0,
+                strong=1.0):
+    """Inputs of K10 as a lightning layer gives them: q scaled by
+    D^-0.5 after the norm, k, v, MiniCPM-SALA's slopes (times ``strong``
+    for a stronger decay) and a carried state that is not zero."""
+    from ominix_mlx_tpu_torch.models.lightning import alibi_slopes
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    return (((randn(B, H, T, D)) * D ** -0.5).to(dtype),
+            randn(B, H, T, D).to(dtype), randn(B, H, T, D).to(dtype),
+            torch.from_numpy(alibi_slopes(H) * strong).to(dev),
+            randn(B, H, D, D) * 0.1)
+
+
+def _k10_check(got, want, s_got, s_want):
+    assert torch.isfinite(got).all() and torch.isfinite(s_got).all()
+    assert _rel(got, want) < K10_TOL
+    assert _rel(s_got, s_want) < K10_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,H,D", [(1, 1, 32, 128), (8, 1, 32, 128),
+                                     (2, 37, 4, 128), (1, 200, 8, 128)])
+def test_k10_recurrent_matches_plain(cuda, B, T, H, D, dtype):
+    """K10's recurrent form against lightning_reference: outputs and the
+    state written in place within K10_TOL of max |plain|, one "k10"
+    launch, the same bits on a second launch."""
+    q, k, v, sl, state = _k10_inputs(cuda, B, T, H, D, dtype, seed=B + T)
+    s1, s2, s3 = state.clone(), state.clone(), state.clone()
+    _build.reset_launches()
+    got = la._k10(q, k, v, sl, s1)
+    assert dict(_build.LAUNCHES) == {"k10": 1}
+    want = la.lightning_reference(q, k, v, sl, s2)
+    again = la._k10(q, k, v, sl, s3)
+    torch.cuda.synchronize()
+    _k10_check(got, want, s1, s2)
+    assert torch.equal(got, again) and torch.equal(s1, s3)
+
+
+@pytest.mark.parametrize("strong", [1.0, 8.0])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T", [(1, 32), (1, 100), (2, 1000), (1, 2048)])
+def test_k10_chunked_matches_plain(cuda, B, T, dtype, strong):
+    """K10's chunked form (a partial final chunk at 100 and 1000) against
+    lightning_reference at MiniCPM-SALA's 32 heads of 128, and with the
+    decay eight times as strong: outputs and state within K10_TOL, its
+    two phases counted, bit-repeatable."""
+    q, k, v, sl, state = _k10_inputs(cuda, B, T, dtype=dtype, seed=T + B,
+                                     strong=strong)
+    s1, s2, s3 = state.clone(), state.clone(), state.clone()
+    _build.reset_launches()
+    got = la._k10_chunked(q, k, v, sl, s1)
+    assert dict(_build.LAUNCHES) == {"k10_chunk": 1, "k10_chunk_scan": 1}
+    want = la.lightning_reference(q, k, v, sl, s2)
+    again = la._k10_chunked(q, k, v, sl, s3)
+    torch.cuda.synchronize()
+    _k10_check(got, want, s1, s2)
+    assert torch.equal(got, again) and torch.equal(s1, s3)
+
+
+@pytest.mark.parametrize("cuts", [(1, 40, 100), (64, 1, 200, 1),
+                                  (300, 5, 700)])
+def test_k10_state_across_calls_of_either_form(cuda, cuts):
+    """A prompt fed in pieces, each through the form k10_plan picks, and
+    the whole prompt through the plain version: the outputs and the final
+    state agree within K10_TOL, and the launches are what k10_launches
+    says."""
+    T = sum(cuts)
+    q, k, v, sl, state = _k10_inputs(cuda, 1, T, seed=T, strong=2.0)
+    s1, s2 = state.clone(), state.clone()
+    want = la.lightning_reference(q, k, v, sl, s2)
+    _build.reset_launches()
+    outs, t0, counts = [], 0, {}
+    for n in cuts:
+        sl_t = slice(t0, t0 + n)
+        outs.append(la.lightning_attention(q[:, :, sl_t], k[:, :, sl_t],
+                                           v[:, :, sl_t], sl, s1))
+        for key, c in la.k10_launches(1, n, 32, 128).items():
+            counts[key] = counts.get(key, 0) + c
+        t0 += n
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == counts
+    _k10_check(torch.cat(outs, 2), want, s1, s2)
+
+
+def test_k10_reads_strided_views(cuda):
+    """q, k and v as the model hands them: views of [B, T, H, D]
+    projections transposed to [B, H, T, D], read in place by both forms."""
+    for T in (1, 150):
+        g = torch.Generator(device=cuda).manual_seed(T)
+        qkv = torch.randn(2, T, 3 * 32 * 128, generator=g, device=cuda,
+                          dtype=torch.bfloat16) * 0.1
+        q, k, v = (t.reshape(2, T, 32, 128).transpose(1, 2)
+                   for t in qkv.split(32 * 128, -1))
+        sl = _k10_inputs(cuda, 1, 1)[3]
+        s1 = torch.randn(2, 32, 128, 128, generator=g, device=cuda) * 0.1
+        s2 = s1.clone()
+        got = la.lightning_attention(q, k, v, sl, s1)
+        want = la.lightning_reference(q, k, v, sl, s2)
+        torch.cuda.synchronize()
+        _k10_check(got, want, s1, s2)
+
+
+def test_k10_rejects(cuda):
+    q, k, v, sl, state = _k10_inputs(cuda, 1, 4, 2, 128)
+    with pytest.raises(ValueError, match="state"):
+        la._k10(q, k, v, sl, state.bfloat16())
+    with pytest.raises(ValueError, match="K10 k"):
+        la._k10(q, torch.stack([k, k], -1)[..., 0], v, sl, state)
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        la._k10(q.half(), k.half(), v.half(), sl, state)
+    q, k, v, sl, state = _k10_inputs(cuda, 1, 4, 2, 64)
+    for form in (la._k10, la._k10_chunked):
+        with pytest.raises(ValueError, match="D in"):
+            form(q, k, v, sl, state)
+
+
+# ---------------------------- K11 (InfLLMv2 sparse decode attention) -------
+
+K11_SCORE_TOL = 1e-6    # the scores' max error over max |plain|
+K11_TOL = 3e-2          # per (row, head), as K3: bf16 softmax weights
+
+
+def _k11_cache(dev, B, S, totals, Hkv=2, H=32, D=128, ks=32, seed=0):
+    """A sparse cache of S positions per row, filled at random up to each
+    row's total, its pooled keys from it, and a decode query."""
+    from ominix_mlx_tpu_torch.models.sparse_attention import (
+        SparseKVCache, compress_keys)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = SparseKVCache.init(B, Hkv, S, D, torch.bfloat16, ks, dev)
+    c.k.copy_(torch.randn(c.k.shape, generator=g, device=dev))
+    c.v.copy_(torch.randn(c.v.shape, generator=g, device=dev))
+    c.comp.copy_(compress_keys(c.k, ks))
+    q = (torch.randn(B, H, 1, D, generator=g, device=dev)
+         * 0.3).bfloat16()
+    total = torch.tensor(totals, dtype=torch.int32, device=dev)
+    return q, c, total
+
+
+@pytest.mark.parametrize("B,S,totals", [(1, 8192, [4096]),
+                                        (1, 65536, [65536]),
+                                        (3, 20000, [20000, 3000, 1]),
+                                        (2, 4096, [2111, 2048])])
+def test_k11_score_matches_plain(cuda, B, S, totals):
+    """k11_score against block_scores_reference: the finite scores within
+    K11_SCORE_TOL of max |plain|, the masked ones NEG_INF in both."""
+    from ominix_mlx_tpu_torch.models.sparse_attention import SparseConfig
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    sc = SparseConfig()
+    q, c, total = _k11_cache(cuda, B, S, totals, seed=S + B)
+    args = (q, c.comp, total, sc.init_end, sc.window_size, sc.kernel_size)
+    _build.reset_launches()
+    got = sa._k11_score(*args)
+    assert dict(_build.LAUNCHES) == {"k11_score": 1}
+    want = sa.block_scores_reference(*args)
+    torch.cuda.synchronize()
+    masked = want <= sa.NEG_INF / 2
+    assert torch.equal(got <= sa.NEG_INF / 2, masked)
+    if (~masked).any():
+        assert ((got - want)[~masked].abs().max()
+                / want[~masked].abs().max()).item() < K11_SCORE_TOL
+
+
+@pytest.mark.parametrize("B,S,totals", [
+    (1, 8192, [4096]), (1, 65536, [65536]), (1, 4096, [1]),
+    (4, 20000, [20000, 2112, 2113, 64]), (8, 16384,
+                                          [16384, 16320, 16383, 16200,
+                                           9000, 16350, 12000, 16384])])
+def test_k11_attend_matches_plain(cuda, B, S, totals):
+    """k11_attend given the same indices as sparse_attend_reference (the
+    JAX gather plus masked sdpa), per (row, head) within K11_TOL of max
+    |plain|, at totals around the window's and the tiles' edges, and the
+    same bits on a second launch."""
+    from ominix_mlx_tpu_torch.models.sparse_attention import SparseConfig
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    sc = SparseConfig()
+    q, c, total = _k11_cache(cuda, B, S, totals, seed=S + 7 * B)
+    scores = sa.block_scores_reference(q, c.comp, total, sc.init_end,
+                                       sc.window_size, sc.kernel_size)
+    top, idx = torch.topk(scores, sc.topk, dim=-1)
+    args = (q, c.k, c.v, idx, top, total, sc.init_end, sc.window_size,
+            sc.kernel_size, 128 ** -0.5)
+    _build.reset_launches()
+    got = sa._k11_attend(*args)
+    assert dict(_build.LAUNCHES) == {"k11_attend": 1}
+    want = sa.sparse_attend_reference(*args)
+    again = sa._k11_attend(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert _row_rel(got, want) < K11_TOL
+    assert torch.equal(got, again)
+
+
+def test_sparse_decode_attention_launches_k11(cuda):
+    """The model's decode step on CUDA: one k11_score and one k11_attend,
+    the output within K11_TOL of the plain path's."""
+    from ominix_mlx_tpu_torch.models.sparse_attention import (
+        SparseConfig, sparse_decode_attention)
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    q, c, _ = _k11_cache(cuda, 2, 12288, [12288, 12288], seed=3)
+    _build.reset_launches()
+    got = sparse_decode_attention(q, c, 12000, SparseConfig(), 128 ** -0.5)
+    assert dict(_build.LAUNCHES) == {"k11_score": 1, "k11_attend": 1}
+    total = torch.full((2,), 12001, dtype=torch.int32, device=cuda)
+    sc = SparseConfig()
+    scores = sa.block_scores_reference(q, c.comp, total, sc.init_end,
+                                       sc.window_size, sc.kernel_size)
+    top, idx = torch.topk(scores, sc.topk, dim=-1)
+    want = sa.sparse_attend_reference(q, c.k, c.v, idx, top, total,
+                                      sc.init_end, sc.window_size,
+                                      sc.kernel_size, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert _row_rel(got, want) < K11_TOL
+
+
+def test_k11_rejects(cuda):
+    from ominix_mlx_tpu_torch.models.sparse_attention import SparseConfig
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    sc = SparseConfig()
+    q, c, total = _k11_cache(cuda, 1, 4096, [100])
+    rest = (sc.init_end, sc.window_size, sc.kernel_size)
+    with pytest.raises(ValueError, match="k11_score q"):
+        sa._k11_score(q.float(), c.comp, total, *rest)
+    with pytest.raises(ValueError, match="total"):
+        sa._k11_score(q, c.comp, total.long(), *rest)
+    with pytest.raises(ValueError, match="comp"):
+        sa._k11_score(q, c.comp.float(), total, *rest)
+    idx = torch.zeros(1, 2, 64, dtype=torch.int64, device=cuda)
+    top = torch.zeros(1, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="top_idx"):
+        sa._k11_attend(q, c.k, c.v, idx.int(), top, total, *rest, 0.1)
+    with pytest.raises(ValueError, match="k11_attend k"):
+        sa._k11_attend(q, c.k[:, :, ::2], c.v, idx, top, total, *rest, 0.1)
+    q2, c2, t2 = _k11_cache(cuda, 1, 4096, [100], Hkv=1)
+    with pytest.raises(ValueError, match="H / Hkv"):
+        sa._k11_attend(q2, c2.k, c2.v, idx[:, :1], top[:, :1], t2, *rest,
+                       0.1)

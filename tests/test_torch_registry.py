@@ -211,8 +211,8 @@ def test_main_draft_flags_raise(flag, checkpoint):
 
 
 @pytest.mark.parametrize("model_type,family", [
-    ("minicpm_sala", "minicpm_sala"), ("qwen3_asr", "qwen3_asr"),
-    ("flux_klein", "flux_klein"), ("minicpm4", "minicpm_sala"),
+    ("moxin_vlm", "moxin_vlm"), ("qwen3_asr", "qwen3_asr"),
+    ("flux_klein", "flux_klein"), ("deepseek_ocr2", "deepseek_ocr2"),
     ("paraformer", "paraformer"), ("qwen3_tts", "qwen3_tts")])
 def test_unported_types_raise(model_type, family, tmp_path):
     with open(tmp_path / "config.json", "w") as f:
@@ -224,6 +224,16 @@ def test_unported_types_raise(model_type, family, tmp_path):
         model_type)
     with pytest.raises(ValueError, match="unsupported"):
         registry.get_module("no_such_family")
+
+
+@pytest.mark.parametrize("model_type", ["minicpm_sala", "minicpm4"])
+def test_minicpm_types_load_with_the_port(model_type):
+    """Both MiniCPM-SALA model types load through the port's module
+    (tests/test_torch_minicpm.py loads checkpoints of each)."""
+    from ominix_mlx_tpu_torch.models import minicpm_sala
+
+    assert registry.get_module(model_type) is minicpm_sala
+    assert registry.capability(model_type) == "chat"
 
 
 def test_registry_maps_every_jax_type():
