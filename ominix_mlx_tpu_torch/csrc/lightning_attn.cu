@@ -33,40 +33,58 @@
 // token) while the next token's are loaded; S^T q as four fma chains a
 // thread folded across the column's four lanes by two shuffles.
 //
-// The chunked form (prompts, D = 128), chunks of C = 64 tokens. With a
-// scalar decay per head it needs no UT transform: per (row, head) and
-// chunk of n tokens, with S the state at the chunk's start,
+// The chunked form (prompts, D = 128), chunks of C = 64 tokens, in ONE
+// launch with no scratch in device memory. With a scalar decay per head it
+// needs no UT transform: per (row, head) and chunk of n tokens, with S the
+// state at the chunk's start,
 //   O = (Q K^T * M) V + diag(lambda^(i+1)) Q S,  M_ij = lambda^(i-j), j <= i
 //   S <- lambda^n S + K^T diag(lambda^(n-1-j)) V
-// Every product runs on mma.sync m16n8k8 TF32 in 3xTF32 (mma_tf32.cuh;
-// plain TF32 misses the 1e-4 that K9 is held to). A short final chunk is
-// masked (its rows past n read as zeros, its decays those of length n),
-// not zero-padded: the JAX package's pad-and-correct's function.
-//   * phase 1, lightning_chunk, grid (chunk, head, row), 8 warps: Q K^T on
-//     and below the diagonal, masked and decayed into P (over Q's shared
-//     memory); P V, the chunk's own output, written to o; K^T (rev * V),
-//     the chunk's state increment, into a float32 scratch of D * D a chunk
-//     and head that the wrapper allocates. Every chunk is independent, so
-//     this phase fills the card from a few hundred tokens on. About 100 KiB
-//     of shared memory: two CTAs an SM.
-//   * phase 2, lightning_chunk_scan, grid (D / 32, head, row), 8 warps: the
-//     scan over the chunks with the state's 32 columns in shared memory:
-//     Q S_prev (each warp 16 rows by 16 columns) scaled by lambda^(i+1)
-//     and added to the chunk's rows of o, then S = lambda^n S + dS. The
-//     next chunk's Q and dS are loaded into registers while this one
-//     computes.
+// A short final chunk is masked (its rows past n read as zeros, its decays
+// those of length n), not zero-padded: the JAX package's pad-and-correct's
+// function. Grid (D / 32, head, row), 8 warps: a CTA walks the chunks of
+// its (row, head) in order for 32 value columns, the state's column block
+// in its mma accumulators from the first chunk to the last, so no
+// increment goes to device memory; o is written once and the state read
+// and written once. Q K^T is recomputed by each of the four CTAs of a head
+// (about a fifth of the products): 128 CTAs at MiniCPM-SALA's 32 heads at
+// B = 1, one wave of 132 SMs.
+//   * Precision: bf16 q, k and v are exact bf16 operands, so Q K^T is exact
+//     products summed in float32. The float32 operands (P, rev * V and the
+//     state) are split ONCE a chunk into three bf16 pieces (hi, mid, lo:
+//     about 2^-24 relative together) and each piece meets the bf16 operand:
+//     three products for about float32's precision (the pieces of a
+//     product are stacked as extra columns of one wgmma where they are
+//     the B operand, so the A operand is read once for all three).
+//   * lightning_chunk_bf16 (bf16 inputs, the model's path) runs on wgmma:
+//     two warpgroups, each holding 64 of the state's 128 rows. After one
+//     barrier warpgroup 0 issues Q K^T (m64n64k16) and warpgroup 1 Q S
+//     (m64n96k16 over the state's three pieces) while every warp writes
+//     V^T and rev * V's pieces (ldmatrix .trans, stmatrix); after a second,
+//     warpgroup 0 masks and decays Q K^T in registers into P's pieces as
+//     the A operand of P V, each warpgroup updates its state rows with
+//     K^T (rev * V) (A = K^T read transposed from the stage as landed),
+//     warpgroup 1 hands lambda^(i+1) Q S to warpgroup 0 through shared
+//     memory (a named barrier) and warpgroup 0 writes o; the new state's
+//     pieces go, transposed by stmatrix, to the other of two state
+//     buffers. The next chunk's q, k, v are copied by cp.async into the
+//     other stage of a two-stage ring meanwhile. About 145 KiB of shared
+//     memory (128-byte swizzled tiles).
+//   * lightning_chunk_f32 (float32 inputs) keeps the same walk on mma.sync
+//     m16n8k16 (ldmatrix from 16-byte padded rows), q, k and v split into
+//     pieces too (six piece pairs a product), one stage.
 // What bounds it on an H100: at MiniCPM-SALA's 32 heads of 128, T = 2048,
-// the products (about 6.4 GFLOP: 13 us at the TF32 peak, three times that
-// in 3xTF32 on mma.sync, which runs below wgmma's peak) against the bytes
-// (q, k, v in bf16, o in float32 and the state once: about 26 us); the
-// scratch (64 KiB a chunk and head, written once and read once) and phase
-// 2's serial chunks come on top.
+// the bytes (q, k, v in bf16, o in float32 and the state once: 26.3 us at
+// 3.35 TB/s) against the products (6.4 GFLOP: 13 us at the TF32 peak; the
+// bf16 pieces make about 2.5 M multiply-adds a chunk and CTA); the chunks
+// of a CTA are serial. On an H100 80GB HBM3 at 700.00 W (PERF.md section 6)
+// the bf16 form takes about 2.5 us a chunk, against about 0.7 us for its
+// products at the bf16 peak.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_tf32.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -74,9 +92,6 @@ constexpr int kCols = 32;          // value columns a CTA
 constexpr int kThreads = 4 * kCols;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kChunk = 64;         // tokens a chunk
-constexpr int kChunkThreads = 256; // 8 warps, either phase
-constexpr int kLdC = kChunk + 4;   // P [C][C]: A reads conflict-free
-constexpr int kLdN = kCols + 8;    // S slice [D][32]: B reads conflict-free
 
 // element strides of a [B, H, T, D] input (unit stride along D)
 struct Strides {
@@ -86,28 +101,6 @@ struct Strides {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// 8 consecutive elements from a 16-byte aligned address, as float32
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void store8(float* p, const float (&x)[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(x[4], x[5], x[6], x[7]);
 }
 
 // ---------------------------------------------------------------- recurrent
@@ -189,300 +182,764 @@ cudaError_t launch_recurrent(const void* q, const void* k, const void* v,
 
 // ---------------------------------------------------------------- chunked
 
-template <int D>
-struct ChunkSmem {
-  static constexpr int kLdK = D + 4;   // [C][D]: A, A^T and [n][k] B reads
-  static constexpr int kLdV = D + 8;   // [C][D] read as [k][n] B
-  // phase 1: Q (then P), K, V, the reverse decays
-  static constexpr int kPrep = 4 * (2 * kChunk * kLdK + kChunk * kLdV +
-                                    kChunk);
-  // phase 2: Q, the state's 32 columns, the query decays
-  static constexpr int kScan = 4 * (kChunk * kLdK + D * kLdN + kChunk);
-};
+constexpr int kFThreads = 256;     // 8 warps
+constexpr int kPieces = 3;         // bf16 pieces of a float32 operand
 
-// rows t0 .. t0 + n - 1 of one (row, head) of x into dst [C][ld] as
-// float32, zeros past n
-template <typename In, int D>
-__device__ __forceinline__ void rows_to_smem(const In* x, long long st,
-                                             int t0, int n, float* dst,
-                                             int ld, int tid) {
-  for (int idx = tid; idx < kChunk * D / 8; idx += kChunkThreads) {
-    const int i = idx / (D / 8), d = idx % (D / 8) * 8;
-    float e[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (i < n) load8(x + (t0 + i) * st + d, e);
-    store8(dst + i * ld + d, e);
+// 16-byte asynchronous copy global -> shared; src_bytes 0 zero-fills the
+// destination without reading (the source stays a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+// c += A (16 x 16) B (16 x 8), bf16 in, float32 accumulators (not
+// volatile: the compiler may interleave independent products)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x0, x1 each as three bf16 pieces hi + mid + lo (word p holds piece p of
+// both, x0 in the low half): hi = bf16(x), mid = bf16(x - hi), lo =
+// bf16(x - hi - mid). Both differences are exact in float32, so the
+// pieces carry x to about 2^-24 relative, and a product of a piece with a
+// bf16 value is exact in the float32 accumulator.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t (&w)[3]) {
+#pragma unroll
+  for (int p = 0; p < kPieces; ++p) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    w[p] = *reinterpret_cast<const uint32_t*>(&h);
+    x0 -= __low2float(h);
+    x1 -= __high2float(h);
   }
 }
 
-// Phase 1: one CTA per (chunk, head, row): the chunk's own output into o,
-// its state increment into dS ([B][H][NC] blocks of D x D).
-template <typename In, int D>
-__global__ void __launch_bounds__(kChunkThreads, 2)
-    lightning_chunk(const In* __restrict__ q, const In* __restrict__ k,
-                    const In* __restrict__ v,
-                    const float* __restrict__ slopes, float* __restrict__ o,
-                    float* __restrict__ dS, int H, int T, Strides sq,
-                    Strides sk, Strides sv) {
-  static_assert(D == 8 * 16, "a warp per 16 rows of the D x D increment");
-  using L = ChunkSmem<D>;
-  constexpr int LK = L::kLdK, LV = L::kLdV;
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;                 // Q, then P [C][kLdC]
-  float* sK = sQ + kChunk * LK;
-  float* sV = sK + kChunk * LK;
-  float* sRev = sV + kChunk * LV;
+// d[nt] += (sum of a's NA pieces) (sum of b's NB pieces) over the piece
+// pairs whose orders sum to at most 2 (a 1-piece operand is exact bf16),
+// the small terms first
+template <int NA, int NB, int NT>
+__device__ __forceinline__ void mma_pieces(float (&d)[NT][4],
+                                           const uint32_t (&a)[NA][4],
+                                           const uint32_t (&b)[NB][NT][2]) {
+#pragma unroll
+  for (int s = 2; s >= 0; --s)
+#pragma unroll
+    for (int ia = 0; ia < NA; ++ia) {
+      const int ib = s - ia;
+      if (ib < 0 || ib >= NB) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mma_bf16(d[nt], a[ia], b[ib][nt][0], b[ib][nt][1]);
+    }
+}
 
+// Byte offsets of the ldmatrix.x4 rows a lane addresses in a bf16 tile
+// with rows of `ld` bytes (every tile's rows are padded by 16 bytes, so the
+// eight rows of one 8 x 8 matrix fall in eight bank groups):
+// the A fragment (rows m0 .. + 15, columns k0 .. + 15) of a [m][k] tile
+__device__ __forceinline__ int a_off(int ld, int m0, int k0, int lane) {
+  return (m0 + (lane & 15)) * ld + (k0 + (lane >> 4) * 8) * 2;
+}
+// the A fragment of A = X^T for a [k][m] tile X (with ldmatrix .trans)
+__device__ __forceinline__ int at_off(int ld, int m0, int k0, int lane) {
+  const int mi = lane >> 3;
+  return (k0 + (mi >> 1) * 8 + (lane & 7)) * ld + (m0 + (mi & 1) * 8) * 2;
+}
+// the B fragments of two n8 tiles (columns n0 .. + 15, k0 .. + 15) of
+// B = X^T for a [n][k] tile X
+__device__ __forceinline__ int bn_off(int ld, int n0, int k0, int lane) {
+  const int mi = lane >> 3;
+  return (n0 + (mi >> 1) * 8 + (lane & 7)) * ld + (k0 + (mi & 1) * 8) * 2;
+}
+// the same of a [k][n] tile (with ldmatrix .trans)
+__device__ __forceinline__ int bk_off(int ld, int k0, int n0, int lane) {
+  const int mi = lane >> 3;
+  return (k0 + (mi & 1) * 8 + (lane & 7)) * ld + (n0 + (mi >> 1) * 8) * 2;
+}
+
+// Shared memory of the float32 form (bytes): the chunk's Q, K [C][D] and
+// V's column block [C][32], each in NI = 3 pieces; P [C][C], rev * V [C]
+// [32] and two buffers of the state's column block [D][32], each in three
+// pieces; the powers lambda^d.
+struct ChunkPlan {
+  static constexpr int D = 128;
+  static constexpr int NI = kPieces;
+  static constexpr int kLdQ = D * 2 + 16;
+  static constexpr int kLdV = kCols * 2 + 16;   // V, rev * V, the state
+  static constexpr int kLdP = kChunk * 2 + 16;
+  static constexpr int kQ = kChunk * kLdQ;      // one piece of Q or K
+  static constexpr int kV = kChunk * kLdV;
+  static constexpr int kS = D * kLdV;
+  static constexpr int kP = kChunk * kLdP;
+  static constexpr int oK = NI * kQ;
+  static constexpr int oV = 2 * NI * kQ;
+  static constexpr int oP = NI * (2 * kQ + kV);
+  static constexpr int oVR = oP + kPieces * kP;
+  static constexpr int oS = oVR + kPieces * kV;
+  static constexpr int oPow = oS + 2 * kPieces * kS;
+  static constexpr int kBytes = oPow + 4 * (kChunk + 4);
+  static_assert(kBytes <= 232448, "one CTA's shared memory");
+};
+
+// The float32 form (float32 q, k, v, off the model's path): one CTA per
+// (32 value columns, head, row) walks the chunks in order, the state's
+// column block in its warps' mma.sync accumulators from the first chunk to
+// the last (warp w: rows 16 w .. + 15); q, k and v are loaded and split
+// into three pieces each a chunk (one stage).
+__global__ void __launch_bounds__(kFThreads, 1)
+    lightning_chunk_f32(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ slopes,
+                        float* __restrict__ state, float* __restrict__ o,
+                        int H, int T, Strides sq, Strides sk, Strides sv) {
+  using L = ChunkPlan;
+  constexpr int D = L::D, NI = L::NI;
+  constexpr int LQ = L::kLdQ, LV = L::kLdV, LP = L::kLdP;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* pw = reinterpret_cast<float*>(smem + L::oPow);    // lambda^d
+  const uint32_t sb = smem_u32(smem);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int t0 = c * kChunk, n = min(kChunk, T - t0);
-  const float slope = slopes[h];
+  const int c0 = blockIdx.x * kCols, h = blockIdx.y, b = blockIdx.z;
+  const int NC = (T + kChunk - 1) / kChunk;
+  const size_t bh = (size_t)b * H + h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h + c0;
+  if (tid <= kChunk) pw[tid] = expf(slopes[h] * (float)tid);
 
-  rows_to_smem<In, D>(q + b * sq.b + h * sq.h, sq.t, t0, n, sQ, LK, tid);
-  rows_to_smem<In, D>(k + b * sk.b + h * sk.h, sk.t, t0, n, sK, LK, tid);
-  rows_to_smem<In, D>(v + b * sv.b + h * sv.h, sv.t, t0, n, sV, LV, tid);
-  if (tid < kChunk)
-    sRev[tid] = tid < n ? expf(slope * (float)(n - 1 - tid)) : 0.f;
-  __syncthreads();
-
-  // Q K^T: warp (mb, nh) takes rows 16 mb .. + 15 and columns 32 nh .. +
-  // 31, unless every one of them lies above the diagonal
-  const int mb = warp >> 1, nh = warp & 1;
-  const bool below = 32 * nh <= 16 * mb + 15;
-  float acc[4][4] = {};
-  if (below) {
-#pragma unroll 4
-    for (int ks = 0; ks < D / 8; ++ks) {
-      const FragA a = load_a(sQ, LK, 16 * mb, 8 * ks, lane);
-      FragB bf[4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        bf[nt] = load_b_nk(sK, LK, 8 * ks, 32 * nh + 8 * nt, lane);
-      mma3_row<4>(acc, a, bf);
-    }
-  }
-  __syncthreads();                  // Q is read: P takes its place
-
-  // P = (Q K^T) * M, M_ij = lambda^(i-j) for j <= i, else 0
-  float* sP = sQ;
-  if (below) {
+  // the state's pieces into buffer `buf`, for the next chunk's Q S
+  auto put_state = [&](const float (&s)[4][4], int buf) {
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
-        const int i = 16 * mb + g + 8 * hf, j0 = 32 * nh + 8 * nt + 2 * t;
-        float val[2];
+        uint32_t w[kPieces];
+        split3(s[nt][2 * hf], s[nt][2 * hf + 1], w);
+        const int off = L::oS + buf * kPieces * L::kS +
+                        (16 * warp + g + 8 * hf) * LV + (8 * nt + 2 * t) * 2;
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = j0 + e;
-          val[e] = j <= i ? expf(slope * (float)(i - j)) *
-                                acc[nt][2 * hf + e]
-                          : 0.f;
-        }
-        *reinterpret_cast<float2*>(sP + i * kLdC + j0) =
-            make_float2(val[0], val[1]);
+        for (int p = 0; p < kPieces; ++p)
+          *reinterpret_cast<uint32_t*>(smem + off + p * L::kS) = w[p];
       }
-  }
-  __syncthreads();
-
-  const size_t bh = (size_t)b * H + h;
-  // P V: rows 16 mb .. + 15, columns D/2 nh .. + D/2 - 1; P is zero past
-  // column 16 mb + 15 (and never written there by a skipped warp)
-  {
-    constexpr int NT = D / 16;
-    float ac[NT][4] = {};
-    for (int ks = 0; ks < 2 * mb + 2; ++ks) {
-      const FragA a = load_a(sP, kLdC, 16 * mb, 8 * ks, lane);
-      FragB bf[NT];
+  };
+  float* Sg = state + bh * D * D + c0;
+  float sacc[4][4];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        bf[nt] = load_b_kn(sV, LV, 8 * ks, D / 2 * nh + 8 * nt, lane);
-      mma3_row<NT>(ac, a, bf);
-    }
+  for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-      const int i = 16 * mb + g + 8 * hf;
-      if (i < n) {
-        float* orow = o + (bh * T + t0 + i) * D + D / 2 * nh;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-          *reinterpret_cast<float2*>(orow + 8 * nt + 2 * t) =
-              make_float2(ac[nt][2 * hf], ac[nt][2 * hf + 1]);
-      }
+      const float2 x = *reinterpret_cast<const float2*>(
+          Sg + (size_t)(16 * warp + g + 8 * hf) * D + 8 * nt + 2 * t);
+      sacc[nt][2 * hf] = x.x;
+      sacc[nt][2 * hf + 1] = x.y;
     }
-  }
+  put_state(sacc, 0);
 
-  // dS = K^T diag(rev) V: warp w takes rows 16 w .. + 15, in two halves of
-  // D / 2 columns
-  float* dSc = dS + (bh * gridDim.x + c) * D * D;
-#pragma unroll 1
-  for (int half = 0; half < 2; ++half) {
-    constexpr int NT = D / 16;
-    float ac[NT][4] = {};
-#pragma unroll 2
-    for (int ks = 0; ks < kChunk / 8; ++ks) {
-      const FragA a = load_a_t(sK, LK, 16 * warp, 8 * ks, lane);
-      FragB bf[NT];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        bf[nt] = load_b_kn(sV, LV, 8 * ks, D / 2 * half + 8 * nt, lane,
-                           sRev);
-      mma3_row<NT>(ac, a, bf);
-    }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      float* row = dSc + (size_t)(16 * warp + g + 8 * hf) * D + D / 2 * half;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        *reinterpret_cast<float2*>(row + 8 * nt + 2 * t) =
-            make_float2(ac[nt][2 * hf], ac[nt][2 * hf + 1]);
-    }
-  }
-}
-
-// Phase 2: one CTA per (32 value columns, head, row), the scan over the
-// chunks. A thread owns D * 32 / 256 elements of the state's slice for
-// the update; warp (mb, nh) computes Q S for rows 16 mb .. + 15 and
-// columns 16 nh .. + 15 of the slice.
-template <typename In, int D>
-__global__ void __launch_bounds__(kChunkThreads, 1)
-    lightning_chunk_scan(const In* __restrict__ q,
-                         const float* __restrict__ slopes,
-                         float* __restrict__ state, float* __restrict__ o,
-                         const float* __restrict__ dS, int H, int T,
-                         Strides sq) {
-  using L = ChunkSmem<D>;
-  constexpr int LK = L::kLdK;
-  constexpr int QG = kChunk * D / 8 / kChunkThreads;    // Q's 8-groups
-  constexpr int SE = D * kCols / kChunkThreads;         // state elements
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sS = sQ + kChunk * LK;
-  float* sDec = sS + D * kLdN;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int col0 = blockIdx.x * kCols, h = blockIdx.y, b = blockIdx.z;
-  const int NC = (T + kChunk - 1) / kChunk;
-  const float slope = slopes[h];
-  const size_t bh = (size_t)b * H + h;
-  const In* qb = q + b * sq.b + h * sq.h;
-
-  float* Sg = state + bh * D * D + col0;
-#pragma unroll
-  for (int m = 0; m < SE; ++m) {
-    const int idx = tid + m * kChunkThreads, r = idx / kCols, cc = idx % kCols;
-    sS[r * kLdN + cc] = Sg[(size_t)r * D + cc];
-  }
-
-  float qn[QG][8], dn[SE];
-  auto fetch = [&](int c) {
+  // chunk c's Q, K and V block read into registers and stored as three
+  // pieces each
+  auto load_split = [&](int c) {
     const int t0 = c * kChunk, n = min(kChunk, T - t0);
+    auto put = [&](const float* src, int r, int off, int piece_bytes) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < n) x = *reinterpret_cast<const float4*>(src);
+      uint32_t lo[kPieces], hi[kPieces];
+      split3(x.x, x.y, lo);
+      split3(x.z, x.w, hi);
 #pragma unroll
-    for (int m = 0; m < QG; ++m) {
-      const int idx = tid + m * kChunkThreads;
-      const int i = idx / (D / 8), d = idx % (D / 8) * 8;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) qn[m][e] = 0.f;
-      if (i < n) load8(qb + (t0 + i) * sq.t + d, qn[m]);
+      for (int p = 0; p < kPieces; ++p)
+        *reinterpret_cast<uint2*>(smem + off + p * piece_bytes) =
+            make_uint2(lo[p], hi[p]);
+    };
+#pragma unroll 4
+    for (int m = 0; m < kChunk * D / 4 / kFThreads; ++m) {
+      const int idx = tid + m * kFThreads, r = idx / (D / 4),
+                pc = idx % (D / 4);
+      const int tr = r < n ? t0 + r : 0;
+      put(qb + tr * sq.t + 4 * pc, r, r * LQ + pc * 8, L::kQ);
+      put(kb + tr * sk.t + 4 * pc, r, L::oK + r * LQ + pc * 8, L::kQ);
     }
-    const float* dSc = dS + (bh * NC + c) * D * D + col0;
 #pragma unroll
-    for (int m = 0; m < SE; ++m) {
-      const int idx = tid + m * kChunkThreads;
-      dn[m] = dSc[(size_t)(idx / kCols) * D + idx % kCols];
+    for (int m = 0; m < kChunk * kCols / 4 / kFThreads; ++m) {
+      const int idx = tid + m * kFThreads, r = idx / (kCols / 4),
+                pc = idx % (kCols / 4);
+      const int tr = r < n ? t0 + r : 0;
+      put(vb + tr * sv.t + 4 * pc, r, L::oV + r * LV + pc * 8, L::kV);
     }
   };
 
   const int mb = warp >> 1, nh = warp & 1;
-  fetch(0);
   for (int c = 0; c < NC; ++c) {
     const int t0 = c * kChunk, n = min(kChunk, T - t0);
-#pragma unroll
-    for (int m = 0; m < QG; ++m) {
-      const int idx = tid + m * kChunkThreads;
-      store8(sQ + idx / (D / 8) * LK + idx % (D / 8) * 8, qn[m]);
-    }
-    float dcur[SE];
-#pragma unroll
-    for (int m = 0; m < SE; ++m) dcur[m] = dn[m];
-    if (tid < kChunk) sDec[tid] = expf(slope * (float)(tid + 1));
+    __syncthreads();              // chunk c - 1 is consumed by every warp
+    load_split(c);
     __syncthreads();
-    if (c + 1 < NC) fetch(c + 1);
+    const uint32_t sQ = sb, sK = sQ + L::oK, sV = sQ + L::oV;
+    const uint32_t sP = sb + L::oP, sVR = sb + L::oVR;
+    const uint32_t sS = sb + L::oS + (c & 1) * kPieces * L::kS;
 
-    // Q S_prev, scaled by lambda^(i+1), added to the chunk's rows of o
-    float acc[2][4] = {};
-#pragma unroll 4
-    for (int ks = 0; ks < D / 8; ++ks) {
-      const FragA a = load_a(sQ, LK, 16 * mb, 8 * ks, lane);
-      FragB bf[2];
+    // rev * V (rev_j = lambda^(n-1-j), 0 past n) in three pieces: a thread
+    // per 8 columns of a row
+    {
+      const int r = tid >> 2, pc = tid & 3;
+      const float rev = r < n ? pw[n - 1 - r] : 0.f;
+      float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-        bf[nt] = load_b_kn(sS, kLdN, 8 * ks, 16 * nh + 8 * nt, lane);
-      mma3_row<2>(acc, a, bf);
+      for (int p = 0; p < NI; ++p) {
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            smem + L::oV + p * L::kV + r * LV + pc * 16);
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[2 * i] += __uint_as_float(w[i] << 16);
+          x[2 * i + 1] += __uint_as_float(w[i] & 0xffff0000u);
+        }
+      }
+      uint32_t w[4][kPieces];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split3(x[2 * i] * rev, x[2 * i + 1] * rev,
+                                         w[i]);
+#pragma unroll
+      for (int p = 0; p < kPieces; ++p)
+        *reinterpret_cast<uint4*>(smem + L::oVR + p * L::kV + r * LV +
+                                  pc * 16) =
+            make_uint4(w[0][p], w[1][p], w[2][p], w[3][p]);
     }
+
+    // Q K^T: warp (mb, nh) rows 16 mb .. + 15, columns 32 nh .. + 31,
+    // unless every one lies above the diagonal; masked and decayed
+    // (P_ij = lambda^(i-j) (Q K^T)_ij for j <= i, else 0) into P's pieces
+    if (32 * nh <= 16 * mb + 15) {
+      float acc[4][4] = {};
+#pragma unroll 2
+      for (int ks = 0; ks < D / 16; ++ks) {
+        uint32_t a[NI][4], bq[NI][4][2];
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int i = 16 * mb + g + 8 * hf;
-      if (i < n) {
-        float* orow = o + (bh * T + t0 + i) * D + col0 + 16 * nh;
-        const float dec = sDec[i];
+        for (int p = 0; p < NI; ++p) {
+          ldsm_x4(sQ + p * L::kQ + a_off(LQ, 16 * mb, 16 * ks, lane), a[p]);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            uint32_t f[4];
+            ldsm_x4(sK + p * L::kQ +
+                        bn_off(LQ, 32 * nh + 16 * hh, 16 * ks, lane),
+                    f);
+            bq[p][2 * hh][0] = f[0];
+            bq[p][2 * hh][1] = f[1];
+            bq[p][2 * hh + 1][0] = f[2];
+            bq[p][2 * hh + 1][1] = f[3];
+          }
+        }
+        mma_pieces<NI, NI, 4>(acc, a, bq);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 16 * mb + g + 8 * hf, j = 32 * nh + 8 * nt + 2 * t;
+          uint32_t w[kPieces];
+          split3(j <= i ? pw[i - j] * acc[nt][2 * hf] : 0.f,
+                 j + 1 <= i ? pw[i - j - 1] * acc[nt][2 * hf + 1] : 0.f, w);
+#pragma unroll
+          for (int p = 0; p < kPieces; ++p)
+            *reinterpret_cast<uint32_t*>(smem + L::oP + p * L::kP + i * LP +
+                                         j * 2) = w[p];
+        }
+    }
+    __syncthreads();              // P and rev * V are written
+
+    // O = diag(lambda^(i+1)) Q S + P V: warp (mb, nh) rows 16 mb .. + 15,
+    // columns 16 nh .. + 15 of the block; P is zero past column 16 mb + 15
+    {
+      float oacc[2][4] = {};
+#pragma unroll 2
+      for (int ks = 0; ks < D / 16; ++ks) {
+        uint32_t a[NI][4], bs[kPieces][2][2];
+#pragma unroll
+        for (int p = 0; p < NI; ++p)
+          ldsm_x4(sQ + p * L::kQ + a_off(LQ, 16 * mb, 16 * ks, lane), a[p]);
+#pragma unroll
+        for (int p = 0; p < kPieces; ++p) {
+          uint32_t f[4];
+          ldsm_x4_t(sS + p * L::kS + bk_off(LV, 16 * ks, 16 * nh, lane), f);
+          bs[p][0][0] = f[0];
+          bs[p][0][1] = f[1];
+          bs[p][1][0] = f[2];
+          bs[p][1][1] = f[3];
+        }
+        mma_pieces<NI, kPieces, 2>(oacc, a, bs);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float dec = pw[16 * mb + g + 8 * hf + 1];
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt) {
-          float2* p = reinterpret_cast<float2*>(orow + 8 * nt + 2 * t);
-          float2 x = *p;
-          x.x = fmaf(dec, acc[nt][2 * hf], x.x);
-          x.y = fmaf(dec, acc[nt][2 * hf + 1], x.y);
-          *p = x;
+          oacc[nt][2 * hf] *= dec;
+          oacc[nt][2 * hf + 1] *= dec;
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < kChunk / 16; ++ks) {
+        if (ks > mb) break;
+        uint32_t a[kPieces][4], bv[NI][2][2];
+#pragma unroll
+        for (int p = 0; p < kPieces; ++p)
+          ldsm_x4(sP + p * L::kP + a_off(LP, 16 * mb, 16 * ks, lane), a[p]);
+#pragma unroll
+        for (int p = 0; p < NI; ++p) {
+          uint32_t f[4];
+          ldsm_x4_t(sV + p * L::kV + bk_off(LV, 16 * ks, 16 * nh, lane), f);
+          bv[p][0][0] = f[0];
+          bv[p][0][1] = f[1];
+          bv[p][1][0] = f[2];
+          bv[p][1][1] = f[3];
+        }
+        mma_pieces<kPieces, NI, 2>(oacc, a, bv);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = 16 * mb + g + 8 * hf;
+        if (i < n) {
+          float* orow = o + (bh * T + t0 + i) * D + c0 + 16 * nh + 2 * t;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+            *reinterpret_cast<float2*>(orow + 8 * nt) =
+                make_float2(oacc[nt][2 * hf], oacc[nt][2 * hf + 1]);
         }
       }
     }
-    __syncthreads();              // S and Q are read by every warp
 
-    const float blk = expf(slope * (float)n);
+    // S <- lambda^n S + K^T (rev * V): warp w rows 16 w .. + 15, all 32
+    // columns, in its accumulators
+    {
+      const float blk = pw[n];
 #pragma unroll
-    for (int m = 0; m < SE; ++m) {
-      const int idx = tid + m * kChunkThreads;
-      float* s = sS + (idx / kCols) * kLdN + idx % kCols;
-      *s = fmaf(blk, *s, dcur[m]);
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[nt][e] *= blk;
+#pragma unroll
+      for (int ks = 0; ks < kChunk / 16; ++ks) {
+        uint32_t a[NI][4], bw[kPieces][4][2];
+#pragma unroll
+        for (int p = 0; p < NI; ++p)
+          ldsm_x4_t(sK + p * L::kQ + at_off(LQ, 16 * warp, 16 * ks, lane),
+                    a[p]);
+#pragma unroll
+        for (int p = 0; p < kPieces; ++p)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            uint32_t f[4];
+            ldsm_x4_t(sVR + p * L::kV + bk_off(LV, 16 * ks, 16 * hh, lane),
+                      f);
+            bw[p][2 * hh][0] = f[0];
+            bw[p][2 * hh][1] = f[1];
+            bw[p][2 * hh + 1][0] = f[2];
+            bw[p][2 * hh + 1][1] = f[3];
+          }
+        mma_pieces<NI, kPieces, 4>(sacc, a, bw);
+      }
+      if (c + 1 < NC) put_state(sacc, (c + 1) & 1);
     }
   }
 
 #pragma unroll
-  for (int m = 0; m < SE; ++m) {
-    const int idx = tid + m * kChunkThreads, r = idx / kCols, cc = idx % kCols;
-    Sg[(size_t)r * D + cc] = sS[r * kLdN + cc];
-  }
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      *reinterpret_cast<float2*>(Sg + (size_t)(16 * warp + g + 8 * hf) * D +
+                                 8 * nt + 2 * t) =
+          make_float2(sacc[nt][2 * hf], sacc[nt][2 * hf + 1]);
 }
 
-template <typename In>
-cudaError_t launch_chunked(const void* q, const void* k, const void* v,
-                           const float* slopes, float* state, float* o,
-                           float* dS, int B, int H, int T, Strides sq,
+// ------------------------------------------ chunked, bf16 inputs: wgmma
+
+// D[64 x 96] += A[64 x 16] . B[16 x 96], A MN-major in shared memory (the
+// transpose of a tile stored K-rows by M-columns), B K-major
+__device__ __forceinline__ void wgmma_n96_ta(float (&d)[48], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// store four 8 x 8 b16 matrices from their fragments (lanes 8 i .. 8 i + 7
+// address the rows of matrix i), as they are or transposed
+__device__ __forceinline__ void stsm_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1,%2,%3,%4};\n" ::"r"(
+          addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+__device__ __forceinline__ void stsm_x4_t(uint32_t addr,
+                                          const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1,%2,%3,%4};\n" ::
+          "r"(addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 128-byte swizzle of an offset inside 1024-byte aligned 8-row groups
+__device__ __forceinline__ uint32_t swz(uint32_t off) {
+  return off ^ (((off >> 7) & 7) << 4);
+}
+
+// Shared memory of the bf16 form (bytes from a 1024-aligned base; every
+// wgmma operand 128-byte swizzled, K-major unless said): two stages of the
+// chunk's Q and K [2 column blocks of 64][C][64] and V's column block [C]
+// [32] (row-major, read by threads only); V^T [32][C]; the three pieces of
+// rev * V, transposed and stacked [3 x 32][C]; two buffers of the state's
+// three pieces, transposed and stacked [2 blocks of 64 d][3 x 32][64]; the
+// exchange of Q S between the warpgroups; the powers lambda^d.
+struct WgPlan {
+  static constexpr int D = 128;
+  static constexpr int kQ = 2 * kChunk * 128;          // Q or K
+  static constexpr int kLdV = kCols * 2 + 16;          // V's rows, padded
+  static constexpr int kStage = (2 * kQ + kChunk * kLdV + 1023) / 1024 * 1024;
+  static constexpr int oVt = 2 * kStage;
+  static constexpr int oVR = oVt + kCols * 128;
+  static constexpr int kStBlk = kPieces * kCols * 128;  // one 64-d block
+  static constexpr int kSt = 2 * kStBlk;
+  static constexpr int oSt = oVR + kStBlk;
+  static constexpr int oX = oSt + 2 * kSt;
+  static constexpr int oPow = oX + 16 * 128 * 4;
+  static constexpr int kBytes = oPow + 4 * (kChunk + 4) + 1024;
+  static_assert(kStage % 1024 == 0 && oVt % 1024 == 0 && oSt % 1024 == 0,
+                "swizzled tiles start at 1024-byte boundaries");
+  static_assert(kBytes <= 232448, "one CTA's shared memory");
+};
+
+// The bf16 form: the same walk as lightning_chunk_f32, on wgmma. Two
+// warpgroups; the state's column block [D][32] is split between them by
+// rows (warpgroup h holds d = 64 h .. + 63 in an m64n32 accumulator). A
+// chunk, after one barrier: warpgroup 0 issues Q K^T (m64n64k16, both
+// operands from the stage as landed), warpgroup 1 Q S (m64n96k16: B is the
+// state's three pieces stacked as 96 columns, so Q is read once for all
+// three); every thread meanwhile writes V^T and rev * V's pieces; a second
+// barrier; then warpgroup 0 masks and decays Q K^T in registers into P's
+// three pieces as the A operand of P V (m64n32k16, A from registers), and
+// each warpgroup updates its state rows with K^T (rev * V) (m64n96k16, A =
+// K^T read transposed from the stage); warpgroup 1 hands lambda^(i+1) Q S
+// to warpgroup 0 through shared memory, which adds it to P V and writes o.
+// The new state's pieces go to the other state buffer.
+__global__ void __launch_bounds__(kFThreads, 1)
+    lightning_chunk_bf16(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const float* __restrict__ slopes,
+                       float* __restrict__ state, float* __restrict__ o,
+                       int H, int T, Strides sq, Strides sk, Strides sv) {
+  using L = WgPlan;
+  constexpr int D = L::D;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_u32(sm);
+  float* pw = reinterpret_cast<float*>(sm + L::oPow);        // lambda^d
+  float* ox = reinterpret_cast<float*>(sm + L::oX);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wt = tid & 127;
+  const int g = lane >> 2, t = lane & 3;
+  const int c0 = blockIdx.x * kCols, h = blockIdx.y, b = blockIdx.z;
+  const int NC = (T + kChunk - 1) / kChunk;
+  const size_t bh = (size_t)b * H + h;
+  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
+  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h + c0;
+  if (tid <= kChunk) pw[tid] = expf(slopes[h] * (float)tid);
+
+  // accumulator element e of an m64nN tile: row 16 (warp % 4) + g + 8
+  // ((e >> 1) & 1), column 8 (e >> 2) + 2 t + (e & 1)
+  const int r0 = 16 * (warp & 3) + g;
+  // the state's pieces, transposed ([col][d]) into buffer `buf`, block wg,
+  // by stmatrix .trans: the fragment of rows d = 16 (warp % 4) + 8 hf ..
+  // + 7 and columns 8 j .. + 7 is one 8 x 8 matrix (lanes 8 i .. 8 i + 7
+  // address matrix i: hf = i % 2, j = 2 x + i / 2 in store x)
+  const int mi = lane >> 3, mr = lane & 7;
+  auto put_state = [&](const float (&s)[16], int buf) {
+    const uint32_t base = sb + L::oSt + buf * L::kSt + wg * L::kStBlk;
+    uint32_t w[8][kPieces];                 // [2 j + hf][piece]
+#pragma unroll
+    for (int e = 0; e < 16; e += 2) split3(s[e], s[e + 1], w[e >> 1]);
+#pragma unroll
+    for (int p = 0; p < kPieces; ++p)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const uint32_t r[4] = {w[4 * x][p], w[4 * x + 1][p],
+                               w[4 * x + 2][p], w[4 * x + 3][p]};
+        stsm_x4_t(base + swz((p * kCols + 8 * (2 * x + (mi >> 1)) + mr) *
+                                 128 +
+                             (2 * (warp & 3) + (mi & 1)) * 16),
+                  r);
+      }
+  };
+  float* Sg = state + bh * D * D + (size_t)64 * wg * D + c0;
+  float s[16];
+#pragma unroll
+  for (int e = 0; e < 16; e += 2) {
+    const float2 x = *reinterpret_cast<const float2*>(
+        Sg + (size_t)(r0 + 8 * ((e >> 1) & 1)) * D + 8 * (e >> 2) + 2 * t);
+    s[e] = x.x;
+    s[e + 1] = x.y;
+  }
+  put_state(s, 0);
+
+  // chunk c's Q and K (swizzled) and V's block (row-major) into stage st by
+  // cp.async, rows past the chunk's n zero-filled
+  auto issue = [&](int c, int st) {
+    const int t0 = c * kChunk, n = min(kChunk, T - t0);
+    const uint32_t base = sb + st * L::kStage;
+#pragma unroll
+    for (int m = 0; m < kChunk * D / 8 / kFThreads; ++m) {
+      const int idx = tid + m * kFThreads, r = idx >> 4, c16 = idx & 15;
+      const int ok = r < n ? 16 : 0, tr = r < n ? t0 + r : 0;
+      const uint32_t off =
+          (c16 >> 3) * (kChunk * 128) + swz(r * 128 + (c16 & 7) * 16);
+      cp_async16(base + off, qb + tr * sq.t + c16 * 8, ok);
+      cp_async16(base + L::kQ + off, kb + tr * sk.t + c16 * 8, ok);
+    }
+    const int r = tid >> 2, c4 = tid & 3;
+    const int ok = r < n ? 16 : 0, tr = r < n ? t0 + r : 0;
+    cp_async16(base + 2 * L::kQ + r * L::kLdV + c4 * 16,
+               vb + tr * sv.t + c4 * 8, ok);
+    cp_async_commit();
+  };
+
+  issue(0, 0);
+  for (int c = 0; c < NC; ++c) {
+    const int t0 = c * kChunk, n = min(kChunk, T - t0), st = c & 1;
+    cp_async_wait_all();          // chunk c has landed, ...
+    fence_proxy_async();          // ... is visible to wgmma, as are the
+    __syncthreads();              // state's pieces; chunk c - 1 is done
+    if (c + 1 < NC) issue(c + 1, st ^ 1);
+    const uint32_t sQ = sb + st * L::kStage, sK = sQ + L::kQ;
+    const uint32_t sSt = sb + L::oSt + st * L::kSt;
+    const uint32_t sVt = sb + L::oVt, sVR = sb + L::oVR;
+
+    // Q K^T (warpgroup 0) and Q S (warpgroup 1), issued now, waited for
+    // after the V pass
+    float acc[48];
+#pragma unroll
+    for (int e = 0; e < 48; ++e) acc[e] = 0.f;
+    keep(acc);
+    wgmma_fence();
+    if (wg == 0) {
+      float(&a64)[32] = reinterpret_cast<float(&)[32]>(acc);
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks >> 2) * (kChunk * 128) + (ks & 3) * 32;
+        wgmma_ss_k<64>(a64, gmma_desc(sQ + off, 16), gmma_desc(sK + off, 16));
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss_k<96>(acc,
+                       gmma_desc(sQ + (ks >> 2) * (kChunk * 128) +
+                                     (ks & 3) * 32, 16),
+                       gmma_desc(sSt + (ks >> 2) * L::kStBlk + (ks & 3) * 32,
+                                 16));
+    }
+    wgmma_commit();
+
+    // V^T and the three pieces of rev * V (rev_j = lambda^(n-1-j), 0 past
+    // n): warp w reads rows j = 8 w .. + 7 of V transposed (ldmatrix .trans:
+    // matrix i is columns 8 i .. + 7), scales and splits them, and stores
+    // them as rows of V^T and of the pieces (stmatrix)
+    {
+      uint32_t f[4];
+      ldsm_x4_t(sQ + 2 * L::kQ + (8 * warp + mr) * L::kLdV + mi * 16, f);
+      const int row = (8 * mi + mr) * 128 + warp * 16;
+      stsm_x4(sVt + swz(row), f);
+      const int j = 8 * warp + 2 * t;
+      const float rv0 = j < n ? pw[n - 1 - j] : 0.f;
+      const float rv1 = j + 1 < n ? pw[n - 2 - j] : 0.f;
+      uint32_t w[4][kPieces];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split3(__uint_as_float(f[i] << 16) * rv0,
+               __uint_as_float(f[i] & 0xffff0000u) * rv1, w[i]);
+#pragma unroll
+      for (int p = 0; p < kPieces; ++p) {
+        const uint32_t r[4] = {w[0][p], w[1][p], w[2][p], w[3][p]};
+        stsm_x4(sVR + swz(p * kCols * 128 + row), r);
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();              // V^T and rev * V are written
+
+    // S <- lambda^n S + K^T (rev * V) for this warpgroup's 64 state rows:
+    // A = K^T (the stage's K read transposed, block wg), B = rev * V's
+    // three pieces stacked
+    float inc[48];
+#pragma unroll
+    for (int e = 0; e < 48; ++e) inc[e] = 0.f;
+    float oacc[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) oacc[e] = 0.f;
+    if (wg == 0) {
+      wgmma_wait<0>();
+      keep(acc);
+      // P = (Q K^T) * M into three pieces as P V's A fragments: k16 step
+      // ks takes the accumulator's n8 tiles 2 ks and 2 ks + 1
+      unsigned pa[kPieces][4][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = r0 + 8 * hf, j = 8 * nt + 2 * t;
+          uint32_t w[kPieces];
+          split3(j <= i ? pw[i - j] * acc[4 * nt + 2 * hf] : 0.f,
+                 j + 1 <= i ? pw[i - j - 1] * acc[4 * nt + 2 * hf + 1] : 0.f,
+                 w);
+#pragma unroll
+          for (int p = 0; p < kPieces; ++p)
+            pa[p][nt >> 1][(nt & 1) * 2 + hf] = w[p];
+        }
+      keep(oacc);
+      keep(inc);
+#pragma unroll
+      for (int p = 0; p < kPieces; ++p) keep(pa[p]);
+      wgmma_fence();
+#pragma unroll
+      for (int p = kPieces - 1; p >= 0; --p)
+#pragma unroll
+        for (int ks = 0; ks < kChunk / 16; ++ks)
+          wgmma_rs_k<32>(oacc, pa[p][ks], gmma_desc(sVt + ks * 32, 16));
+#pragma unroll
+      for (int ks = 0; ks < kChunk / 16; ++ks)
+        wgmma_n96_ta(inc, gmma_desc(sK + ks * 2048, kChunk * 128),
+                     gmma_desc(sVR + ks * 32, 16));
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(oacc);
+      keep(inc);
+#pragma unroll
+      for (int p = 0; p < kPieces; ++p) keep(pa[p]);
+    } else {
+      keep(inc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kChunk / 16; ++ks)
+        wgmma_n96_ta(inc,
+                     gmma_desc(sK + kChunk * 128 + ks * 2048, kChunk * 128),
+                     gmma_desc(sVR + ks * 32, 16));
+      wgmma_commit();
+      wgmma_wait<1>();            // Q S has finished
+      keep(acc);
+      // lambda^(i+1) Q S, its three column blocks summed, to warpgroup 0
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const float x = (acc[32 + e] + acc[16 + e]) + acc[e];
+        ox[e * 128 + wt] = x * pw[r0 + 8 * ((e >> 1) & 1) + 1];
+      }
+      asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+      wgmma_wait<0>();
+      keep(inc);
+    }
+    const float blk = pw[n];
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      s[e] = fmaf(blk, s[e], (inc[32 + e] + inc[16 + e]) + inc[e]);
+    if (c + 1 < NC) put_state(s, st ^ 1);
+    if (wg == 0) {
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = r0 + 8 * hf;
+        if (i < n) {
+          float* orow = o + (bh * T + t0 + i) * D + c0 + 2 * t;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const int e = 4 * nt + 2 * hf;
+            *reinterpret_cast<float2*>(orow + 8 * nt) =
+                make_float2(oacc[e] + ox[e * 128 + wt],
+                            oacc[e + 1] + ox[(e + 1) * 128 + wt]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int e = 0; e < 16; e += 2)
+    *reinterpret_cast<float2*>(
+        Sg + (size_t)(r0 + 8 * ((e >> 1) & 1)) * D + 8 * (e >> 2) + 2 * t) =
+        make_float2(s[e], s[e + 1]);
+}
+
+// the chunked form on `st`: the bf16 kernel for bf16 q, k, v, else the
+// float32 one; D = 128
+cudaError_t launch_chunked(bool bf16, const void* q, const void* k,
+                           const void* v, const float* slopes, float* state,
+                           float* o, int B, int H, int T, Strides sq,
                            Strides sk, Strides sv, cudaStream_t st) {
-  constexpr int D = 128;
-  using L = ChunkSmem<D>;
   static bool attrs = false;
   if (!attrs) {
     cudaError_t e = cudaFuncSetAttribute(
-        lightning_chunk<In, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::kPrep);
+        lightning_chunk_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        WgPlan::kBytes);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(lightning_chunk_scan<In, D>,
+      e = cudaFuncSetAttribute(lightning_chunk_f32,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               L::kScan);
+                               ChunkPlan::kBytes);
     if (e != cudaSuccess) return e;
     attrs = true;
   }
-  const int NC = (T + kChunk - 1) / kChunk;
-  lightning_chunk<In, D><<<dim3(NC, H, B), kChunkThreads, L::kPrep, st>>>(
-      (const In*)q, (const In*)k, (const In*)v, slopes, o, dS, H, T, sq, sk,
-      sv);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  lightning_chunk_scan<In, D>
-      <<<dim3(D / kCols, H, B), kChunkThreads, L::kScan, st>>>(
-          (const In*)q, slopes, state, o, dS, H, T, sq);
+  const dim3 grid(128 / kCols, H, B);
+  if (bf16)
+    lightning_chunk_bf16<<<grid, kFThreads, WgPlan::kBytes, st>>>(
+        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+        (const __nv_bfloat16*)v, slopes, state, o, H, T, sq, sk, sv);
+  else
+    lightning_chunk_f32<<<grid, kFThreads, ChunkPlan::kBytes, st>>>(
+        (const float*)q, (const float*)k, (const float*)v, slopes, state, o,
+        H, T, sq, sk, sv);
   return cudaGetLastError();
 }
 
@@ -516,26 +973,19 @@ int ominix_lightning(const void* q, const void* k, const void* v,
                                            st);
 }
 
-// The chunked form on `stream` (see above): D = 128 (k10_plan); dS the
-// float32 scratch of B H ceil(T / 64) D D floats, every element written by
-// phase 1 before phase 2 reads it. Returns the first CUDA error.
+// The chunked form on `stream` (see above): D = 128 (k10_plan), one
+// launch. Returns the first CUDA error.
 int ominix_lightning_chunked(const void* q, const void* k, const void* v,
-                             const void* slopes, void* state, void* o,
-                             void* dS, int B, int H, int T, int D, int bf16,
-                             long long qb, long long qh, long long qt,
-                             long long kb, long long kh, long long kt,
-                             long long vb, long long vh, long long vt,
-                             void* stream) {
+                             const void* slopes, void* state, void* o, int B,
+                             int H, int T, int D, int bf16, long long qb,
+                             long long qh, long long qt, long long kb,
+                             long long kh, long long kt, long long vb,
+                             long long vh, long long vt, void* stream) {
   if (bad_args(B, H, T) || D != 128) return (int)cudaErrorInvalidValue;
   const Strides sq{qb, qh, qt}, sk{kb, kh, kt}, sv{vb, vh, vt};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return (int)launch_chunked<__nv_bfloat16>(
-        q, k, v, (const float*)slopes, (float*)state, (float*)o, (float*)dS,
-        B, H, T, sq, sk, sv, st);
-  return (int)launch_chunked<float>(q, k, v, (const float*)slopes,
-                                    (float*)state, (float*)o, (float*)dS, B,
-                                    H, T, sq, sk, sv, st);
+  return (int)launch_chunked(bf16 != 0, q, k, v, (const float*)slopes,
+                             (float*)state, (float*)o, B, H, T, sq, sk, sv,
+                             (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 // 3xTF32 products on mma.sync m16n8k8 and 16-byte cp.async, the device
-// helpers of K9's chunked form (gated_delta.cu) and K10's chunked form
-// (lightning_attn.cu). Each float32 operand is split into a TF32 high part
-// and a TF32 remainder; hi.hi + hi.lo + lo.hi summed in float32 carries a
-// product to about 2^-21 relative (plain TF32 keeps about 2^-11).
+// helpers of K9's chunked form (gated_delta.cu). Each float32 operand is
+// split into a TF32 high part and a TF32 remainder; hi.hi + hi.lo + lo.hi
+// summed in float32 carries a product to about 2^-21 relative (plain TF32
+// keeps about 2^-11).
 
 #pragma once
 

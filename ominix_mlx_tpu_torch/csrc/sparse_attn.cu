@@ -7,10 +7,10 @@
 //     mean-pooled keys comp [B, Hkv, nb, D] bf16; a block outside
 //     [init_end, window_start - ks] scores NEG_INF. window_start =
 //     max(total - window, init_end).
-//   sparse_attend (counter k11_attend; with a second small kernel,
-//     sparse_merge, where a row is split): attention of each (row, KV head)
-//     over its init slots, its selected blocks and its window, K and V read
-//     in place from the cache [B, Hkv, S, D] bf16 through the indices.
+//   sparse_attend (counter k11_attend; one launch): attention of each (row,
+//     KV head) over its init slots, its selected blocks and its window, K
+//     and V read in place from the cache [B, Hkv, S, D] bf16 through the
+//     indices.
 //
 // No TPU kernel computes either: the JAX package scores with an einsum on
 // a float32 copy of comp, takes lax.top_k, gathers init + top-k blocks +
@@ -23,17 +23,22 @@
 // NEG_INF unread, so a short context in a long cache costs what it holds.
 // sparse_attend reads each valid slot's K and V rows once (4160 slots x 2
 // KV heads x 512 B at B = 1) and does 4 R FLOPs a byte, R = 16 query heads
-// a KV head: far below the card's ratio of operations to bytes. Its design
-// is K3's split-KV flash-decoding (paged_attn.cu) over a slot list instead
-// of a page table:
+// a KV head: far below the card's ratio of operations to bytes, and at B =
+// 1 so few bytes (4.3 MB) that a launch and a chain of dependent reads set
+// its time. Its design is K3's split-KV flash-decoding (paged_attn.cu) over
+// a slot list instead of a page table, in one launch:
 //   * the valid slots of a (row, KV head) are numbered densely: the init
 //     slots below min(init_end, total), then the selected blocks whose score
-//     is finite (compacted in top-k order by a ballot), then the window
+//     is finite (in top-k order: a block's rank is the count of finite
+//     scores before it, by a ballot over the scores), then the window
 //     [window_start, total). A slot that is not valid is never read: the
 //     same function as the NEG_INF mask, since slot 0 is always valid. The
-//     list is cut into splits of whole 64-slot tiles (ops/sparse_attention
-//     k11_plan, from shapes only); a split past the row's count exits at
-//     once, so the work follows the valid slots;
+//     list is cut into splits of whole 64-slot tiles, at least two a split
+//     (ops/sparse_attention k11_plan, from shapes only); a split past the
+//     row's count exits at once, so the work follows the valid slots;
+//   * a CTA issues every load that needs nothing else at once (the row's
+//     total, the top-k scores and ids, the query heads), so its first K/V
+//     copy waits on one read of the indices;
 //   * one CTA per (split, KV head, row) holds all R <= 16 query heads of
 //     its KV head as the A operand of mma.sync m16n8k16 (bf16 in, float32
 //     accumulators), so K and V are read once; a CTA-wide ring of three
@@ -43,8 +48,23 @@
 //     row; the probabilities are rounded to bf16 for the P.V product, as
 //     the plain version rounds its softmax weights;
 //   * with more than one split a CTA writes a float32 partial (row max in
-//     log2 units, denominator, numerator) and sparse_merge sums a row's
-//     partials in split order, never in arrival order: bit-repeatable.
+//     log2 units, denominator, numerator) and takes a ticket of its group
+//     of `group` (8) splits; the CTA that draws a group's last ticket
+//     merges the group's partials in split order, then, if the row has
+//     more than one group, takes a ticket of the (row, KV head), and the
+//     CTA that draws its last merges the groups' partials in group order
+//     and writes the output. A fixed tree, never arrival order:
+//     bit-repeatable. Each last drawer sets its ticket back to zero. The
+//     partials and tickets are buffers the wrapper keeps per device: no
+//     allocation, memset or second launch a call, so a CUDA graph can
+//     replay it.
+// On an H100 80GB HBM3 at 700.00 W (PERF.md section 6) a chain of
+// dependent reads sets the time at B = 1, each about 1 us (a timeline of
+// the CTAs by %globaltimer): the indices, the K/V tiles, the partial, the
+// tickets and the partials read back. One CTA merging all 33-65 partials
+// takes 0.2 us a partial; two levels of at most 8 cost less. Splits of two
+// tiles, at most two CTAs an SM (a CTA of a second wave delays its row's
+// merge by a CTA's time).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -137,6 +157,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 64;          // slots a tile, 16 a warp
 constexpr int kRows = 16;          // query rows a CTA (the mma's 16 rows)
 constexpr int kMaxTopk = 256;
+constexpr int kBatch = 8;          // partials loaded at once in a merge
 
 __device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
                                            int src_bytes) {
@@ -195,6 +216,101 @@ struct Plan {
   static_assert(kTile * kPieces % kThreads == 0, "copy split");
 };
 
+// Thread 0 adds one to *ticket, releasing the CTA's writes before the
+// call (ordered by the barrier) and acquiring those that other CTAs
+// released with their tickets, at gpu scope; true, in every thread, for
+// the drawer of the last of n tickets, which sets the ticket back to zero.
+__device__ __forceinline__ bool draw_last(int* ticket, int n, int* s_flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int t;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(t)
+                 : "l"(ticket)
+                 : "memory");
+    if (t == n - 1) *ticket = 0;
+    *s_flag = t == n - 1;
+  }
+  __syncthreads();
+  return *s_flag;
+}
+
+// Merge the n partials at slots first, first + stride, ... of a (row, KV
+// head) (slot s of the partials from `acc` / `ml`: kRows query heads' row
+// max in log2 units and denominator [kRows][2], numerator [kRows][D], the
+// first R used), in slot order: into out (bf16, R heads) if to_out, else
+// into slot first. A thread per (head, 16 dims) loads kBatch partials at
+// once from L2, the running sums rescaled to each batch's max. Every
+// thread of the CTA calls it (it has a barrier).
+template <int D>
+__device__ __forceinline__ void merge_partials(
+    float* __restrict__ acc, float* __restrict__ ml,
+    __nv_bfloat16* __restrict__ out, int R, int first, int stride, int n,
+    bool to_out) {
+  constexpr int kPer = kRows * D / kThreads;
+  const int tid = threadIdx.x;
+  const int r = tid / (D / kPer), d0 = tid % (D / kPer) * kPer;
+  float m = -INFINITY, den = 0.f, num[kPer];
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) num[e] = 0.f;
+  for (int s0 = 0; s0 < (r < R ? n : 0); s0 += kBatch) {
+    float ms[kBatch], ls[kBatch];
+    float4 a[kBatch][kPer / 4];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const bool ok = s0 + i < n;
+      const size_t sl = (size_t)(first + (s0 + i) * stride) * kRows + r;
+      ms[i] = ok ? __ldcg(ml + sl * 2) : -INFINITY;
+      ls[i] = ok ? __ldcg(ml + sl * 2 + 1) : 0.f;
+#pragma unroll
+      for (int e = 0; e < kPer / 4; ++e)
+        a[i][e] = ok ? __ldcg(reinterpret_cast<const float4*>(
+                           acc + sl * D + d0) + e)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    float mb = m;
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) mb = fmaxf(mb, ms[i]);
+    if (mb == -INFINITY) continue;
+    const float fr = exp2f(m - mb);     // 0 while nothing is summed
+    den *= fr;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) num[e] *= fr;
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (ms[i] == -INFINITY) continue;
+      const float f = exp2f(ms[i] - mb);
+      den = fmaf(f, ls[i], den);
+#pragma unroll
+      for (int e = 0; e < kPer / 4; ++e) {
+        num[4 * e] = fmaf(f, a[i][e].x, num[4 * e]);
+        num[4 * e + 1] = fmaf(f, a[i][e].y, num[4 * e + 1]);
+        num[4 * e + 2] = fmaf(f, a[i][e].z, num[4 * e + 2]);
+        num[4 * e + 3] = fmaf(f, a[i][e].w, num[4 * e + 3]);
+      }
+    }
+    m = mb;
+  }
+  __syncthreads();                // every read of slot first is done
+  if (r >= R) return;
+  if (to_out) {
+#pragma unroll
+    for (int e = 0; e < kPer; e += 2)
+      *reinterpret_cast<__nv_bfloat162*>(out + r * D + d0 + e) =
+          __floats2bfloat162_rn(num[e] / den, num[e + 1] / den);
+  } else {
+    const size_t sl = (size_t)first * kRows + r;
+#pragma unroll
+    for (int e = 0; e < kPer; e += 4)
+      *reinterpret_cast<float4*>(acc + sl * D + d0 + e) =
+          make_float4(num[e], num[e + 1], num[e + 2], num[e + 3]);
+    if (d0 == 0) {
+      ml[sl * 2] = m;
+      ml[sl * 2 + 1] = den;
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     sparse_attend(const __nv_bfloat16* __restrict__ q,
@@ -203,52 +319,74 @@ __global__ void __launch_bounds__(kThreads)
                   const long long* __restrict__ top_idx,
                   const float* __restrict__ top_val,
                   const int* __restrict__ total,
-                  __nv_bfloat16* __restrict__ out,
-                  float* __restrict__ part_acc, float* __restrict__ part_ml,
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
+                  float* __restrict__ part_ml, int* __restrict__ tickets,
                   int H, int Hkv, int S, int topk, int init_end, int window,
-                  int ks, int sps, float scale) {
+                  int ks, int sps, int group, float scale) {
   using P = Plan<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int s_sel[kMaxTopk];
-  __shared__ int s_nsel;
+  __shared__ int s_nsel, s_last;
   const int split = blockIdx.x, splits = gridDim.x;
   const int g = blockIdx.y, b = blockIdx.z;
   const int R = H / Hkv, h0 = g * R;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, t4 = lane & 3;
-
-  const int tot = total[b];
-  const int ws = max(tot - window, init_end);
-  const int n_init = min(init_end, tot);
-  const int n_win = max(tot - ws, 0);
   const size_t bg = (size_t)b * Hkv + g;
+  const size_t bh0 = (size_t)b * H + h0;
 
-  // the selected blocks with a finite score, in top-k order
+  // Every load that needs nothing else is issued first: the row's total,
+  // the (row, KV head)'s top-k scores and ids (warp 0, all at once), and
+  // the query heads as the A operand (rows gq and gq + 8, zero past R).
+  const int tot = total[b];
+  constexpr int kSel = kMaxTopk / 32;
+  float sv[kSel];
+  long long si[kSel];
+  if (warp == 0) {
+#pragma unroll
+    for (int r = 0; r < kSel; ++r) {
+      const int i = r * 32 + lane;
+      sv[r] = i < topk ? top_val[bg * topk + i] : kNegInf;
+      si[r] = i < topk ? top_idx[bg * topk + i] : 0;
+    }
+  }
+  uint32_t qa[D / 16][4];
+  {
+    const bool r0 = gq < R, r1 = gq + 8 < R;
+    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(
+        q + (bh0 + (r0 ? gq : 0)) * D);
+    const uint32_t* q1 = reinterpret_cast<const uint32_t*>(
+        q + (bh0 + (r1 ? gq + 8 : 0)) * D);
+#pragma unroll
+    for (int s = 0; s < D / 16; ++s) {
+      qa[s][0] = r0 ? q0[8 * s + t4] : 0u;
+      qa[s][1] = r1 ? q1[8 * s + t4] : 0u;
+      qa[s][2] = r0 ? q0[8 * s + 4 + t4] : 0u;
+      qa[s][3] = r1 ? q1[8 * s + 4 + t4] : 0u;
+    }
+  }
+  // the selected blocks with a finite score, in top-k order: each one's
+  // rank is the count of finite scores before it (a ballot a 32 entries)
   if (warp == 0) {
     int cnt = 0;
-    for (int i0 = 0; i0 < topk; i0 += 32) {
-      const int i = i0 + lane;
-      const bool ok = i < topk && top_val[bg * topk + i] > 0.5f * kNegInf;
+#pragma unroll
+    for (int r = 0; r < kSel; ++r) {
+      const bool ok = sv[r] > 0.5f * kNegInf;
       const unsigned bal = __ballot_sync(kFull, ok);
-      if (ok)
-        s_sel[cnt + __popc(bal & ((1u << lane) - 1u))] =
-            (int)top_idx[bg * topk + i];
+      if (ok) s_sel[cnt + __popc(bal & ((1u << lane) - 1u))] = (int)si[r];
       cnt += __popc(bal);
     }
     if (lane == 0) s_nsel = cnt;
   }
+  const int ws = max(tot - window, init_end);
+  const int n_init = min(init_end, tot);
+  const int n_win = max(tot - ws, 0);
   __syncthreads();
   const int sel_end = n_init + s_nsel * ks;
   const int count = sel_end + n_win;
+  const int used = (count + sps - 1) / sps;       // splits with a slot
   const int lo = split * sps, hi = min(lo + sps, count);
-  const size_t bh0 = (size_t)b * H + h0;
-  if (lo >= hi) {                            // nothing of this row here
-    if (splits > 1 && tid < R) {
-      part_ml[((bh0 + tid) * splits + split) * 2] = -INFINITY;
-      part_ml[((bh0 + tid) * splits + split) * 2 + 1] = 0.f;
-    }
-    return;
-  }
+  if (lo >= hi) return;                     // nothing of this row here
   const int n_tiles = (hi - lo + kTile - 1) / kTile;
 
   // cache position of valid slot i
@@ -285,23 +423,6 @@ __global__ void __launch_bounds__(kThreads)
     }
     cp_async_commit();
   };
-
-  // the query heads as the A operand: rows gq and gq + 8 (zero past R)
-  uint32_t qa[D / 16][4];
-  {
-    const bool r0 = gq < R, r1 = gq + 8 < R;
-    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(
-        q + (bh0 + (r0 ? gq : 0)) * D);
-    const uint32_t* q1 = reinterpret_cast<const uint32_t*>(
-        q + (bh0 + (r1 ? gq + 8 : 0)) * D);
-#pragma unroll
-    for (int s = 0; s < D / 16; ++s) {
-      qa[s][0] = r0 ? q0[8 * s + t4] : 0u;
-      qa[s][1] = r1 ? q1[8 * s + t4] : 0u;
-      qa[s][2] = r0 ? q0[8 * s + 4 + t4] : 0u;
-      qa[s][3] = r1 ? q1[8 * s + 4 + t4] : 0u;
-    }
-  }
   const float qk = scale * kLog2e;     // scores in log2 units, f32
 
   float o[D / 8][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
@@ -420,87 +541,109 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < R * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
+  // a query head's factors (its warps' maxima against the largest) and its
+  // max and denominator, once, by a thread a head
+  __shared__ float s_f[kRows][kWarps + 2];
+  if (tid < R) {
     float m = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
-      m = fmaxf(m, red_ml[(w * kRows + r) * 2]);
-    float num = 0.f, den = 0.f;
+      m = fmaxf(m, red_ml[(w * kRows + tid) * 2]);
+    float den = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float mw = red_ml[(w * kRows + r) * 2];
+      const float mw = red_ml[(w * kRows + tid) * 2];
       const float f = mw == -INFINITY ? 0.f : exp2f(mw - m);
-      num = fmaf(f, red_acc[(w * kRows + r) * D + d], num);
-      den = fmaf(f, red_ml[(w * kRows + r) * 2 + 1], den);
+      s_f[tid][w] = f;
+      den = fmaf(f, red_ml[(w * kRows + tid) * 2 + 1], den);
     }
-    if (splits == 1) {
-      out[(bh0 + r) * D + d] = __float2bfloat16(num / den);
-    } else {
-      const size_t pi = (bh0 + r) * splits + split;
-      part_acc[pi * D + d] = num;
-      if (d == 0) {
-        part_ml[pi * 2] = m;
-        part_ml[pi * 2 + 1] = den;
+    s_f[tid][kWarps] = m;
+    s_f[tid][kWarps + 1] = den;
+  }
+  __syncthreads();
+  // the CTA's partial (or, with one split, the output): a thread a (head,
+  // 16 dims)
+  constexpr int kPer = kRows * D / kThreads;
+  float* acc = part_acc + bg * splits * kRows * D;     // this row's partials
+  float* ml = part_ml + bg * splits * kRows * 2;
+  {
+    const int r = tid / (D / kPer), d0 = tid % (D / kPer) * kPer;
+    if (r < R) {
+      const size_t pi = (size_t)split * kRows + r;
+#pragma unroll
+      for (int e = 0; e < kPer; e += 4) {
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) {
+          const float f = s_f[r][w];
+          const float4 y = *reinterpret_cast<const float4*>(
+              red_acc + (w * kRows + r) * D + d0 + e);
+          x.x = fmaf(f, y.x, x.x);
+          x.y = fmaf(f, y.y, x.y);
+          x.z = fmaf(f, y.z, x.z);
+          x.w = fmaf(f, y.w, x.w);
+        }
+        if (used == 1) {
+          const float den = s_f[r][kWarps + 1];
+          __nv_bfloat16* o2 = out + (bh0 + r) * D + d0 + e;
+          *reinterpret_cast<__nv_bfloat162*>(o2) =
+              __floats2bfloat162_rn(x.x / den, x.y / den);
+          *reinterpret_cast<__nv_bfloat162*>(o2 + 2) =
+              __floats2bfloat162_rn(x.z / den, x.w / den);
+        } else {
+          *reinterpret_cast<float4*>(acc + pi * D + d0 + e) = x;
+        }
+      }
+      if (used > 1 && d0 == 0) {
+        ml[pi * 2] = s_f[r][kWarps];
+        ml[pi * 2 + 1] = s_f[r][kWarps + 1];
       }
     }
   }
-}
+  if (used == 1) return;
 
-// out[b, h] from the row's partials, in split order; empty splits (m =
-// -inf) are skipped (K3's paged_merge). One CTA per (row, query head), a
-// thread per dim.
-__global__ void sparse_merge(const float* __restrict__ part_acc,
-                             const float* __restrict__ part_ml,
-                             __nv_bfloat16* __restrict__ out, int splits) {
-  extern __shared__ float ml[];             // [splits][2]
-  const size_t bh = blockIdx.x;
-  const int D = blockDim.x, d = threadIdx.x;
-  for (int i = d; i < 2 * splits; i += D) ml[i] = part_ml[bh * splits * 2 + i];
-  __syncthreads();
-  float m = -INFINITY;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, ml[2 * s]);
-  const float* acc = part_acc + bh * splits * D + d;
-  float num = 0.f, den = 0.f;
-  for (int s0 = 0; s0 < splits; s0 += 8) {
-    float a[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      a[i] = s0 + i < splits && ml[2 * (s0 + i)] != -INFINITY
-                 ? acc[(size_t)(s0 + i) * D] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int s = s0 + i;
-      if (s >= splits || ml[2 * s] == -INFINITY) continue;
-      const float f = exp2f(ml[2 * s] - m);
-      num = fmaf(f, a[i], num);
-      den = fmaf(f, ml[2 * s + 1], den);
-    }
-  }
-  out[bh * D + d] = __float2bfloat16(num / den);
+  // The partials are merged in a tree of fixed shape: the splits in groups
+  // of `group`, each merged by the CTA that draws its group's last ticket
+  // (into the group's first partial), then, if there is more than one
+  // group, the groups' partials by the CTA that draws the row's last
+  // ticket. Each merge sums in split (group) order, never in arrival
+  // order, so the bits do not depend on which CTA finishes when.
+  // tickets: [B * Hkv] rows, then [B * Hkv][groups] groups.
+  const int groups = (splits + group - 1) / group;
+  const int used_groups = (used + group - 1) / group;
+  const int first = split / group * group;
+  int* gticket = tickets + (size_t)gridDim.y * gridDim.z + bg * groups +
+                 split / group;
+  if (!draw_last(gticket, min(group, used - first), &s_last)) return;
+  merge_partials<D>(acc, ml, out + bh0 * D, R, first, 1,
+                    min(group, used - first), used_groups == 1);
+  if (used_groups == 1) return;
+  if (!draw_last(tickets + bg, used_groups, &s_last)) return;
+  merge_partials<D>(acc, ml, out + bh0 * D, R, 0, group, used_groups, true);
 }
 
 template <int D>
 int launch_attend(const void* q, const void* k, const void* v,
                   const void* idx, const void* val, const void* total,
-                  void* out, void* part_acc, void* part_ml, int B, int H,
-                  int Hkv, int S, int topk, int init_end, int window, int ks,
-                  int splits, int sps, float scale, cudaStream_t st) {
+                  void* out, void* part_acc, void* part_ml, void* tickets,
+                  int B, int H, int Hkv, int S, int topk, int init_end,
+                  int window, int ks, int splits, int sps, int group,
+                  float scale, cudaStream_t st) {
   constexpr size_t smem = Plan<D>::kBytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      sparse_attend<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  static bool attrs = false;
+  if (!attrs) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sparse_attend<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attrs = true;
+  }
   sparse_attend<D><<<dim3(splits, Hkv, B), kThreads, smem, st>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const long long*)idx, (const float*)val,
       (const int*)total, (__nv_bfloat16*)out, (float*)part_acc,
-      (float*)part_ml, H, Hkv, S, topk, init_end, window, ks, sps, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  sparse_merge<<<B * H, D, 2 * splits * sizeof(float), st>>>(
-      (const float*)part_acc, (const float*)part_ml, (__nv_bfloat16*)out,
-      splits);
+      (float*)part_ml, (int*)tickets, H, Hkv, S, topk, init_end, window, ks,
+      sps, group, scale);
   return (int)cudaGetLastError();
 }
 
@@ -541,32 +684,38 @@ int ominix_sparse_score(const void* q, const void* comp, const void* total,
                            window, ks, st);
 }
 
-// k11_attend on `stream`: q [B, H, D] bf16; k, v [B, Hkv, S, D] bf16;
-// top_idx [B, Hkv, topk] int64 and top_val [B, Hkv, topk] float32 (as
-// torch.topk returns them); total [B] int32; out [B, H, D] bf16. The slots
-// are cut into `splits` runs of `slots_per_split` (a multiple of 64; the
-// plan of ops/sparse_attention.py k11_plan); with more than one split,
-// part_acc [B, H, splits, D] and part_ml [B, H, splits, 2] (float32, the
-// caller's) hold the partials. D = 128, H / Hkv <= 16, topk <= 256.
+// k11_attend on `stream`, one launch: q [B, H, D] bf16; k, v [B, Hkv, S,
+// D] bf16; top_idx [B, Hkv, topk] int64 and top_val [B, Hkv, topk] float32
+// (as torch.topk returns them); total [B] int32; out [B, H, D] bf16. The
+// slots are cut into `splits` runs of `slots_per_split` (a multiple of 64;
+// the plan of ops/sparse_attention.py k11_plan); with more than one split,
+// part_acc [B, Hkv, splits, 16, D] and part_ml [.., 2] (float32) hold
+// the partials and tickets (int32, B Hkv (1 + ceil(splits / 8)) of them,
+// zero; the kernel leaves them zero) the counts of a row's finished splits
+// and groups of splits. D = 128, H / Hkv <= 16, topk <= 256, init_end +
+// window >= 1 (a row's first slot is valid).
 int ominix_sparse_attend(const void* q, const void* k, const void* v,
                          const void* top_idx, const void* top_val,
                          const void* total, void* out, void* part_acc,
-                         void* part_ml, int B, int H, int Hkv, int S, int D,
-                         int topk, int init_end, int window, int ks,
-                         int splits, int slots_per_split, float scale,
-                         void* stream) {
+                         void* part_ml, void* tickets, int B, int H, int Hkv,
+                         int S, int D, int topk, int init_end, int window,
+                         int ks, int splits, int slots_per_split, int group,
+                         float scale, void* stream) {
   if (bad_heads(B, H, Hkv) || S < 1 || topk < 0 || topk > kMaxTopk ||
-      ks < 1 || init_end < 0 || window < 0 || splits < 1 ||
-      slots_per_split < kTile || slots_per_split % kTile ||
+      ks < 1 || init_end < 0 || window < 0 || init_end + window < 1 ||
+      splits < 1 || slots_per_split < kTile || slots_per_split % kTile ||
+      group < 2 ||
       (long long)splits * slots_per_split <
           (long long)init_end + (long long)topk * ks + window ||
-      (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
+      (splits > 1 &&
+       (part_acc == nullptr || part_ml == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (D != 128) return (int)cudaErrorInvalidValue;
   return launch_attend<128>(q, k, v, top_idx, top_val, total, out, part_acc,
-                            part_ml, B, H, Hkv, S, topk, init_end, window, ks,
-                            splits, slots_per_split, scale, st);
+                            part_ml, tickets, B, H, Hkv, S, topk, init_end,
+                            window, ks, splits, slots_per_split, group, scale,
+                            st);
 }
 
 }  // extern "C"

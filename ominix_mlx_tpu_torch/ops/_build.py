@@ -51,8 +51,8 @@ build_seconds = 0.0     # wall time of the build this process ran (0 if reused)
 # w8a8 expert gather, "k9": the gated delta rule of a DeltaNet layer in its
 # recurrent form, "k9_chunk" and "k9_chunk_scan": the two phases of its
 # chunked form, "k9_prep": the layer's prologue before the rule; "k10":
-# MiniCPM-SALA's lightning attention in its recurrent form, "k10_chunk" and
-# "k10_chunk_scan": the two phases of its chunked form; "k11_score" and
+# MiniCPM-SALA's lightning attention in its recurrent form, "k10_chunk":
+# its chunked form (one launch); "k11_score" and
 # "k11_attend": InfLLMv2's block scorer and sparse decode attention).
 # Plain-version calls do not count.
 LAUNCHES: collections.Counter = collections.Counter()
@@ -118,12 +118,12 @@ def _declare(lib):
     lib.ominix_lightning.restype = i
     lib.ominix_lightning.argtypes = [vp] * 6 + [i] * 5 + [ll] * 9 + [vp]
     lib.ominix_lightning_chunked.restype = i
-    lib.ominix_lightning_chunked.argtypes = [vp] * 7 + [i] * 5 + [ll] * 9 \
+    lib.ominix_lightning_chunked.argtypes = [vp] * 6 + [i] * 5 + [ll] * 9 \
         + [vp]
     lib.ominix_sparse_score.restype = i
     lib.ominix_sparse_score.argtypes = [vp] * 4 + [i] * 8 + [vp]
     lib.ominix_sparse_attend.restype = i
-    lib.ominix_sparse_attend.argtypes = [vp] * 9 + [i] * 11 + [f, vp]
+    lib.ominix_sparse_attend.argtypes = [vp] * 10 + [i] * 12 + [f, vp]
     lib.ominix_cuda_error_string.restype = ctypes.c_char_p
     lib.ominix_cuda_error_string.argtypes = [i]
     return lib

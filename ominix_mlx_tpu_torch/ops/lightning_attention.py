@@ -14,11 +14,11 @@ package's two functions (one step at T = 1, the chunked form otherwise).
 
 K10 has two forms, which ``k10_plan`` picks from the shapes alone: the
 recurrent form (counter ``k10``; the loop over T inside one launch; decode
-and short prompts) and the chunked form (counters ``k10_chunk`` and
-``k10_chunk_scan``, its two phases; prompts at D = 128). q, k and v are
-[B, H, T, D] bf16 or float32 (any strides with a unit stride along D);
-the state [B, H, D, D] float32 is written in place; the output o is
-[B, H, T, D] float32.
+and short prompts) and the chunked form (counter ``k10_chunk``; one launch
+that walks the chunks with the state on chip; prompts at D = 128). q, k
+and v are [B, H, T, D] bf16 or float32 (any strides with a unit stride
+along D); the state [B, H, D, D] float32 is written in place; the output
+o is [B, H, T, D] float32.
 """
 
 from __future__ import annotations
@@ -28,29 +28,22 @@ import torch
 # the head width both forms are built for (MiniCPM-SALA's)
 K10_DIMS = (128,)
 K10_MAX_GRID = 65535
-# The chunked form: tokens a chunk, its head width, and the prompt length
-# from which k10_plan takes it. Below it the recurrent form is faster: it
-# costs about 0.75 us a token, the chunked form's two launches a fixed
-# 25-34 us up to 128 tokens, and they meet between 16 and 24 tokens
-# (chip_smoke.py's k10_crossover lines, H100 80GB HBM3 at 700 W,
-# MiniCPM-SALA's 32 heads of 128, B = 1: 22.1 against 24.8 us at 16
-# tokens, 29.7 against 26.0 at 24; PERF.md section 6).
+# The chunked form: tokens a chunk, and the prompt length from which
+# k10_plan takes it. Below it the recurrent form is faster: it costs about
+# 1 us a token from 7.7 us at one, the one-launch chunked form about 9.3
+# us up to 24 tokens, and they meet between 2 and 3 tokens (chip_smoke.py's
+# k10_crossover lines, NVIDIA H100 80GB HBM3 at 700.00 W, MiniCPM-SALA's
+# 32 heads of 128, B = 1: 8.5 against 9.3 us at 2 tokens, 9.6 against 9.3
+# at 3, 10.5 against 9.3 at 4; PERF.md section 6).
 K10_CHUNK = 64
-K10_CHUNK_MIN_T = 24
-# the most scratch (the chunks' state increments, D * D float32 a chunk
-# and head) the chunked form may allocate, past which the plan keeps the
-# recurrent form
-K10_CHUNK_MAX_SCRATCH = 2 << 30
+K10_CHUNK_MIN_T = 3
 
 
 def k10_plan(B: int, T: int, H: int, D: int) -> str:
     """The form of K10 for these shapes: "chunked" for prompts of at least
-    K10_CHUNK_MIN_T tokens at the head width it is built for (while its
-    scratch stays within K10_CHUNK_MAX_SCRATCH), else "recurrent". Reads
-    shapes only."""
-    scratch = 4 * B * H * -(-T // K10_CHUNK) * D * D
-    if D in K10_DIMS and T >= K10_CHUNK_MIN_T \
-            and scratch <= K10_CHUNK_MAX_SCRATCH:
+    K10_CHUNK_MIN_T tokens at the head width it is built for, else
+    "recurrent". Reads shapes only."""
+    if D in K10_DIMS and T >= K10_CHUNK_MIN_T:
         return "chunked"
     return "recurrent"
 
@@ -59,7 +52,7 @@ def k10_launches(B: int, T: int, H: int, D: int) -> dict:
     """The launch counts ({counter: n}) of one call on CUDA at these
     shapes."""
     if k10_plan(B, T, H, D) == "chunked":
-        return {"k10_chunk": 1, "k10_chunk_scan": 1}
+        return {"k10_chunk": 1}
     return {"k10": 1}
 
 
@@ -181,26 +174,21 @@ def _k10(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _k10_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  slopes: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
-    """Launch K10's chunked form on the current stream: phase 1 (each
-    chunk's own output into o and its state increment into a float32
-    scratch of D * D a chunk and head), then phase 2 (the scan over the
-    chunks)."""
+    """Launch K10's chunked form on the current stream: one launch, the
+    chunks walked in order with the state on chip; raises for what it does
+    not take."""
     from ominix_mlx_tpu_torch.ops import _build
 
     B, H, T, D, dt = _check(q, k, v, slopes, state)
     dev = q.device
     o = torch.empty(B, H, T, D, dtype=torch.float32, device=dev)
-    nc = -(-T // K10_CHUNK)
-    scratch = torch.empty(B * H * nc * D * D, dtype=torch.float32,
-                          device=dev)
     rc = _build.library().ominix_lightning_chunked(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), slopes.data_ptr(),
-        state.data_ptr(), o.data_ptr(), scratch.data_ptr(), B, H, T, D,
+        state.data_ptr(), o.data_ptr(), B, H, T, D,
         int(dt == torch.bfloat16), *_strides(q), *_strides(k), *_strides(v),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "K10 chunked (ominix_lightning_chunked)")
     _build.LAUNCHES["k10_chunk"] += 1
-    _build.LAUNCHES["k10_chunk_scan"] += 1
     return o
 
 

@@ -11,7 +11,9 @@ top-k either: the JAX package leaves it to ``lax.top_k``):
 - ``sparse_attend``: every query head of a KV head over its init slots,
   its selected blocks (those whose score is finite) and its window; the
   others are masked (:165-197). Kernel K11's attend (counter
-  ``k11_attend``) on CUDA, reading K and V in place through the indices.
+  ``k11_attend``, one launch) on CUDA, reading K and V in place through
+  the indices; its partials and tickets live in buffers kept per device
+  (``_k11_buffers``).
 
 The JAX package computes both with XLA ops, no Pallas kernel. A CPU
 tensor takes the plain versions, the JAX formulas in torch
@@ -22,6 +24,8 @@ is each row's token count including this step's, a [B] tensor.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ominix_mlx_tpu_torch.core.attention import NEG_INF
@@ -31,8 +35,12 @@ K11_DIMS = (128,)      # MiniCPM-SALA's head width
 K11_MAX_ROWS = 16       # query heads a KV head (the mma's rows)
 K11_MAX_TOPK = 256
 K11_TILE = 64           # slots a tile
-# the attend's CTAs: about two an SM over all rows
+# the attend's CTAs: at most two an SM over all rows (one wave: the shared
+# memory of its cp.async ring allows two), each with at least K11_MIN_TILES
+# tiles
 K11_TARGET_CTAS = 2 * SMS
+K11_MIN_TILES = 2
+K11_MERGE_GROUP = 8     # splits a first-level merge (csrc/sparse_attn.cu)
 
 
 def window_start(total: torch.Tensor, init_end: int,
@@ -102,12 +110,52 @@ def sparse_attend_reference(q: torch.Tensor, k: torch.Tensor,
 
 def k11_plan(B: int, Hkv: int, slots: int):
     """(splits, slots a split) of k11_attend for ``slots`` = init_end +
-    topk * ks + window (the most a row can hold): whole 64-slot tiles, as
-    few a split as fill about K11_TARGET_CTAS CTAs over the B * Hkv (row,
-    KV head) pairs. Reads shapes only."""
+    topk * ks + window (the most a row can hold): whole 64-slot tiles, at
+    least K11_MIN_TILES a split (unless the row has fewer), and the fewest
+    a split whose B * Hkv * splits CTAs fit K11_TARGET_CTAS (one wave: a
+    CTA that waits for a second wave delays its row's merge by a whole CTA
+    time), or all of a row's tiles in one split where nothing fits. Reads
+    shapes only."""
     tiles = -(-slots // K11_TILE)
-    per = min(max(1, -(-B * Hkv * tiles // K11_TARGET_CTAS)), tiles)
+    per = min(K11_MIN_TILES, tiles)
+    while per < tiles and B * Hkv * -(-tiles // per) > K11_TARGET_CTAS:
+        per += 1
     return -(-tiles // per), per * K11_TILE
+
+
+# per device index: (tickets, partial numerators, partial maxima and
+# denominators) of k11_attend; a buffer that is outgrown stays referenced
+# in _K11_RETIRED, since a CUDA graph captured over it writes it on replay
+_K11_BUFFERS: dict = {}
+_K11_RETIRED: list = []
+_K11_LOCK = threading.Lock()
+
+
+def _k11_buffers(dev: torch.device, counters: int, parts: int):
+    """k11_attend's tickets (``counters`` int32 counters, one a (row, KV
+    head) and one a group of its splits; zero: the kernel sets each one it
+    takes back to zero) and float32 partials (``parts`` (row, KV head,
+    split, query head) entries of D and 2 floats, K11_MAX_ROWS heads a KV
+    head), allocated once
+    per device and grown to at least twice their size when a call needs
+    more: otherwise a call allocates and clears nothing."""
+    def grown(t, need):
+        return max(need, 0 if t is None else 2 * t.numel())
+
+    with _K11_LOCK:
+        tickets, acc, ml = _K11_BUFFERS.get(dev.index, (None, None, None))
+        if tickets is None or tickets.numel() < counters:
+            _K11_RETIRED.append(tickets)
+            tickets = torch.zeros(grown(tickets, counters), dtype=torch.int32,
+                                  device=dev)
+        if ml is None or ml.numel() < 2 * parts:
+            _K11_RETIRED.extend((acc, ml))
+            n = grown(ml, 2 * parts) // 2
+            acc = torch.empty(n * K11_DIMS[0], dtype=torch.float32,
+                              device=dev)
+            ml = torch.empty(2 * n, dtype=torch.float32, device=dev)
+        _K11_BUFFERS[dev.index] = (tickets, acc, ml)
+        return tickets, acc, ml
 
 
 def _check_common(q, total, what):
@@ -164,8 +212,9 @@ def _k11_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 top_idx: torch.Tensor, top_scores: torch.Tensor,
                 total: torch.Tensor, init_end: int, window: int, ks: int,
                 scale: float) -> torch.Tensor:
-    """Launch K11's attend (and, past one split, its merge) on the
-    current stream; raises for what it does not take."""
+    """Launch K11's attend (one launch; past one split the last CTA of a
+    (row, KV head) merges its partials) on the current stream; raises for
+    what it does not take."""
     from ominix_mlx_tpu_torch.ops import _build
 
     B, H, D = _check_common(q, total, "k11_attend")
@@ -183,21 +232,23 @@ def _k11_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"k11_attend takes H / Hkv <= {K11_MAX_ROWS} and "
                          f"topk <= {K11_MAX_TOPK}; got H={H}, Hkv={Hkv}, "
                          f"topk={topk}")
+    if init_end + window < 1:
+        raise ValueError("k11_attend needs init_end + window >= 1 (a row's "
+                         "first slot valid)")
     splits, sps = k11_plan(B, Hkv, init_end + topk * ks + window)
     out = torch.empty(B, H, 1, D, dtype=torch.bfloat16, device=dev)
-    part_acc = part_ml = None
+    tickets = part_acc = part_ml = None
     if splits > 1:
-        part_acc = torch.empty(B * H * splits * D, dtype=torch.float32,
-                               device=dev)
-        part_ml = torch.empty(B * H * splits * 2, dtype=torch.float32,
-                              device=dev)
+        tickets, part_acc, part_ml = _k11_buffers(
+            dev, B * Hkv * (1 + -(-splits // K11_MERGE_GROUP)),
+            B * Hkv * splits * K11_MAX_ROWS)
     rc = _build.library().ominix_sparse_attend(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), top_idx.data_ptr(),
         top_scores.data_ptr(), total.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr() if part_acc is not None else None,
-        part_ml.data_ptr() if part_ml is not None else None,
-        B, H, Hkv, S, D, topk, init_end, window, ks, splits, sps, scale,
-        torch.cuda.current_stream(dev).cuda_stream)
+        *(None if t is None else t.data_ptr()
+          for t in (part_acc, part_ml, tickets)),
+        B, H, Hkv, S, D, topk, init_end, window, ks, splits, sps,
+        K11_MERGE_GROUP, scale, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "k11_attend (ominix_sparse_attend)")
     _build.LAUNCHES["k11_attend"] += 1
     return out

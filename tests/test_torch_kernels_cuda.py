@@ -1849,13 +1849,13 @@ def test_k10_chunked_matches_plain(cuda, B, T, dtype, strong):
     """K10's chunked form (a partial final chunk at 100 and 1000) against
     lightning_reference at MiniCPM-SALA's 32 heads of 128, and with the
     decay eight times as strong: outputs and state within K10_TOL, its
-    two phases counted, bit-repeatable."""
+    one launch counted, bit-repeatable."""
     q, k, v, sl, state = _k10_inputs(cuda, B, T, dtype=dtype, seed=T + B,
                                      strong=strong)
     s1, s2, s3 = state.clone(), state.clone(), state.clone()
     _build.reset_launches()
     got = la._k10_chunked(q, k, v, sl, s1)
-    assert dict(_build.LAUNCHES) == {"k10_chunk": 1, "k10_chunk_scan": 1}
+    assert dict(_build.LAUNCHES) == {"k10_chunk": 1}
     want = la.lightning_reference(q, k, v, sl, s2)
     again = la._k10_chunked(q, k, v, sl, s3)
     torch.cuda.synchronize()
@@ -1918,6 +1918,35 @@ def test_k10_rejects(cuda):
     for form in (la._k10, la._k10_chunked):
         with pytest.raises(ValueError, match="D in"):
             form(q, k, v, sl, state)
+
+
+@pytest.mark.parametrize("T", [24, 65, 2048, 8192])
+@pytest.mark.parametrize("B", [1, 8])
+def test_k10_chunked_strong_decay_and_cuts(cuda, B, T):
+    """The one-launch chunked form at MiniCPM-SALA's 32 heads of 128 with
+    decays eight times as strong: one launch, outputs and state within
+    K10_TOL of the plain version, bit-repeatable; and the same prompt cut
+    in two calls at a point inside a chunk gives the same state (and
+    outputs) within K10_TOL."""
+    q, k, v, sl, state = _k10_inputs(cuda, B, T, seed=3 * T + B,
+                                     strong=8.0)
+    s1, s2, s3 = state.clone(), state.clone(), state.clone()
+    _build.reset_launches()
+    got = la._k10_chunked(q, k, v, sl, s1)
+    assert dict(_build.LAUNCHES) == {"k10_chunk": 1}
+    want = la.lightning_reference(q, k, v, sl, s2)
+    again = la._k10_chunked(q, k, v, sl, s3)
+    torch.cuda.synchronize()
+    _k10_check(got, want, s1, s2)
+    assert torch.equal(got, again) and torch.equal(s1, s3)
+    cut = T // 2 + 7 if T > 24 else 11
+    s4 = state.clone()
+    first = la._k10_chunked(q[:, :, :cut], k[:, :, :cut], v[:, :, :cut], sl,
+                            s4)
+    rest = la._k10_chunked(q[:, :, cut:], k[:, :, cut:], v[:, :, cut:], sl,
+                           s4)
+    torch.cuda.synchronize()
+    _k10_check(torch.cat([first, rest], 2), want, s4, s2)
 
 
 # ---------------------------- K11 (InfLLMv2 sparse decode attention) -------
@@ -2045,3 +2074,61 @@ def test_k11_rejects(cuda):
     with pytest.raises(ValueError, match="H / Hkv"):
         sa._k11_attend(q2, c2.k, c2.v, idx[:, :1], top[:, :1], t2, *rest,
                        0.1)
+
+
+def _k11_attend_args(dev, B, S, totals, seed):
+    """k11_attend's arguments at MiniCPM-SALA's heads and the production
+    InfLLMv2 config, the blocks selected from the plain scores."""
+    from ominix_mlx_tpu_torch.models.sparse_attention import SparseConfig
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    sc = SparseConfig()
+    q, c, total = _k11_cache(dev, B, S, totals, seed=seed)
+    scores = sa.block_scores_reference(q, c.comp, total, sc.init_end,
+                                       sc.window_size, sc.kernel_size)
+    top, idx = torch.topk(scores, sc.topk, dim=-1)
+    return (q, c.k, c.v, idx, top, total, sc.init_end, sc.window_size,
+            sc.kernel_size, 128 ** -0.5)
+
+
+@pytest.mark.parametrize("B,S,totals", [
+    (1, 65536, [65536]),
+    (8, 16384, [16384, 16320, 2100, 16200, 9000, 16350, 12000, 1])])
+def test_k11_attend_one_launch_repeatable_and_graphed(cuda, B, S, totals):
+    """k11_attend is one launch a call, the same bits over 20 calls, within
+    K11_TOL per (row, head) of the plain version (rows 2 and 7 of the
+    ragged batch hold no finite block), leaves every ticket zero, and
+    replayed three times from a CUDA graph gives the eager call's bits."""
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    args = _k11_attend_args(cuda, B, S, totals, seed=B + S)
+    if B == 8:
+        assert not (args[4][2] > sa.NEG_INF / 2).any()
+    _build.reset_launches()
+    base = sa._k11_attend(*args)
+    assert dict(_build.LAUNCHES) == {"k11_attend": 1}
+    outs = [sa._k11_attend(*args) for _ in range(20)]
+    assert dict(_build.LAUNCHES) == {"k11_attend": 21}
+    want = sa.sparse_attend_reference(*args)
+    torch.cuda.synchronize()
+    assert _row_rel(base, want) < K11_TOL
+    assert all(torch.equal(o, base) for o in outs)
+    splits = sa.k11_plan(B, 2, 64 + 64 * 32 + 2048)[0]
+    assert splits > 1
+    tickets = sa._K11_BUFFERS[cuda.index if cuda.index is not None
+                              else torch.cuda.current_device()][0]
+    assert not tickets.any()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sa._k11_attend(*args)           # warm up on the capture's stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = sa._k11_attend(*args)
+    for _ in range(3):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, base)
+    assert not tickets.any()

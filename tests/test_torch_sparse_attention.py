@@ -248,11 +248,11 @@ def test_plain_kv_cache_pools_its_keys():
 
 
 @pytest.mark.parametrize("B_,Hkv,slots,want", [
-    (1, 2, 4160, (65, 64)), (8, 2, 4160, (17, 256)),
-    (1, 2, 100, (2, 64)), (64, 8, 4160, (1, 4160))])
+    (1, 2, 4160, (33, 128)), (8, 2, 4160, (13, 320)),
+    (1, 2, 100, (1, 128)), (64, 8, 4160, (1, 4160))])
 def test_k11_plan(B_, Hkv, slots, want):
-    """Splits of whole 64-slot tiles, from shapes alone, filling about
-    two CTAs an SM; every slot is covered."""
+    """Splits of whole 64-slot tiles, at least two a split, from shapes
+    alone, at most two CTAs an SM; every slot is covered."""
     splits, sps = osa.k11_plan(B_, Hkv, slots)
     assert (splits, sps) == want
     assert sps % 64 == 0 and splits * sps >= slots > (splits - 1) * sps
