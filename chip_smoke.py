@@ -78,14 +78,16 @@ Qwen3-30B-A3B with random weights (seeded):
   - serve_minicpm_sala: MiniCPM-SALA at its published widths and all 32
     layers (8 InfLLMv2 sparse, 24 lightning), w8a8 g64, about 10 GB: the
     route of each projection, 4 HTTP chat requests one at a time with
-    K10 (in the form k10_plan picks), K11 (score and attend), K2 and K1
-    launched exactly as many times as their forwards need, a 128-token
-    prefill, the logits check on 4 layers (every K10 and K11 call against
-    its plain version; also on a 200-token prompt), the decode rate, an
-    8192-token chunked prefill (K2, then K2c) and 16 decode steps that
-    select the top 64 of 190 blocks, 8 concurrent requests on the dense
-    batcher each equal to the same request alone, and decode over caches
-    filled to 65536 and 524288 tokens (ms/token, K11's share).
+    K10 (in the form k10_plan picks at prompts, k10_decode at decode),
+    K11 (k11_select and k11_attend), K2 and K1 launched exactly as many
+    times as their forwards need, a 128-token prefill, the logits check
+    on 4 layers (every K10 and K11 call against its plain version; also on
+    a 200-token prompt with a 2-token continuation), the decode rate, an
+    8194-token chunked prefill (K2, then K2c; K10's recurrent form on the
+    last 2 tokens) and 16 decode steps that select the top 64 of about 190
+    blocks, 8 concurrent requests on the dense batcher each equal to the
+    same request alone, and decode over caches filled to 65536 and 524288
+    tokens (ms/token, K11's share).
 
 The kernel checks include K2 and K2c with the sliding window (k2_window,
 k2c_window: T=8192 and the 8k prefill's last chunk, windows 4096 and
@@ -98,20 +100,23 @@ prologue k9_prep (decode at batch 1 and 8, a 128-token prompt; beside
 the plain version's time and device operations), K2 at 16 over 2 heads
 of 256 (k2_d256), K4 over 512 experts top 10 (k4_e512) and K5 on 512
 packed experts at a 128-token prompt's 1280 rows; and at MiniCPM-SALA's
-shapes K10 (k10: the recurrent form at decode, batch 1 and 8; the chunked
-form at prompts of 128, 2048 and 8192 tokens; k10_crossover: both forms
-in turns at 16-128 tokens) and K11 (k11_score, k11_attend: batch 1 at
-4096, 65536 and 524288 cached tokens, batch 8 at ragged totals near
-16384, each beside its plain version, a read of the same bytes and its
-bound).
+shapes K10 (k10: the recurrent form at batch 1 and 8; the chunked form
+at prompts of 128, 2048 and 8192 tokens; k10_crossover: both forms in
+turns at 2-128 tokens; k10_decode: a lightning layer's decode mixer at
+batch 1 at positions 0, 4095 and 524287 and batch 8 at ragged ones,
+beside the parent's sequence of glue and K10 in turns) and K11
+(k11_score, k11_select, k11_attend: batch 1 at 4096, 65536 and 524288
+cached tokens, batch 8 at ragged totals near 16384, each beside its plain
+version and its bound; the selector beside the parent's score and
+torch.topk in turns and torch.topk alone).
 
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
     python3 chip_smoke.py --parent DIR # K3, K1/K6 (qmm_p), K5 (bf16,
-                                       # 4- and 8-bit), K10 chunked, K11
-                                       # attend and the 128-token MoE
-                                       # prefill against another
-                                       # checkout's
+                                       # 4- and 8-bit), K10's decode
+                                       # mixer, K11's selection and the
+                                       # 128-token MoE prefill against
+                                       # another checkout's
 
 The kernel checks end with a ``launch_floor`` line: an empty kernel's
 device time on an idle card, alone and behind a one-CTA kernel.
@@ -274,6 +279,11 @@ K11_CASES = ((1, 4096, (4096,)), (1, 65536, (65536,)),
              (1, 524288, (524288,)),
              (8, 16384, (16384, 16320, 16383, 16200, 15000, 16350, 12000,
                          16384)))
+# (B, positions) of k10_decode, a lightning layer's decode mixer, at
+# MiniCPM-SALA's 32 heads of 128: batch 1 at the first position, after a
+# 4096-token context and at the last of 524288; batch 8 at ragged positions
+K10_DECODE_CASES = ((1, 0), (1, 4095), (1, 524287),
+                    (8, (0, 1, 4095, 4096, 70000, 131071, 524287, 9)))
 # decode over a cache filled at random up to these offsets
 MINICPM_LONG_OFFSETS = (65536, 524288)
 # (name, T rows, k slots, N, K) of K4 on Qwen3-Next-80B-A3B's 512 experts,
@@ -335,6 +345,13 @@ K9_PREP_TOL = 1e-5
 # of the final state: float32 sums in another order (3xTF32 products in
 # the chunked form)
 K10_TOL = 2e-5
+# k10_decode vs its plain version: q, k and the state are the plain
+# version's bits (the same roundings, PyTorch's reduction order), so an
+# output element differs only where K10's float32 o (another sum order)
+# rounds to the other bf16 neighbour, and the norm's, weight's and gate's
+# products of the two round once more each: within this many bf16 ulps of
+# the row's largest |plain| value (spacing 2^(floor(log2 max) - 7))
+K10_DECODE_ULPS = 4
 # k11_score: the finite scores' max error over their max |plain| (float32
 # sums of the same bf16 products in another order); the masked ones
 # NEG_INF in both
@@ -422,11 +439,28 @@ K10_CHUNK_DESIGN = ("the chunked form in one launch, chunks of 64 tokens: a "
                     "written by ldmatrix/stmatrix; the next chunk's q, k, v "
                     "by cp.async into a two-stage ring; a short final chunk "
                     "masked")
-K11_SCORE_DESIGN = ("a group of D/8 lanes per block, 16 bytes of the pooled "
-                    "keys a lane (bf16, read once, never copied to float32), "
-                    "float32 products and a butterfly over the group; blocks "
-                    "outside [init_end, window_start - ks] written NEG_INF "
-                    "unread")
+K10_DECODE_DESIGN = ("a lightning layer's decode mixer in one launch (QK-norm, "
+                     "RoPE, the scale, the state step, the cast, the output "
+                     "norm, the gate): a CTA of 128 threads per (32 value "
+                     "columns, head, row), a thread owning 4 columns x 8 "
+                     "state rows, loaded first as 16-byte vectors (before "
+                     "the dependent-launch wait in the model's call); two "
+                     "warps normalize and rotate q and k with the plain "
+                     "path's roundings and PyTorch's reduction order (q, k "
+                     "and the state bit for bit); the output norm spans the "
+                     "row: each CTA writes its 32 bf16 values and draws a "
+                     "ticket, the last sums the row in PyTorch's order, "
+                     "normalizes and gates it (tickets kept per device)")
+K11_SELECT_DESIGN = ("the block scores of k11_score (bit for bit: 8 lanes a "
+                     "block holding two of its sum chains, 16 loads a lane "
+                     "in flight, no branch around a sum) and their top k in "
+                     "one launch: runs of 512 blocks a CTA, sorted in "
+                     "chunks of 64 keys (score bits over the complement of "
+                     "the index: equal scores by index) by counting ranks, "
+                     "merged in index order by warp bitonic merges, chunks "
+                     "with no valid block passed over; past 512 blocks one "
+                     "list a CTA, the last ticket drawer merging them "
+                     "(tickets and lists kept per device)")
 K11_ATTEND_DESIGN = ("one launch: K3's split-KV flash-decoding over the "
                      "valid slots numbered densely (init, the finite top-k "
                      "blocks placed by their rank among the finite scores, "
@@ -1900,6 +1934,131 @@ def check_k10(dev, flush):
     return rows
 
 
+def k10_decode_inputs(g, dev, B, H=32, D=128):
+    """A lightning layer's decode-step inputs at MiniCPM-SALA's heads as the
+    model hands them to k10_decode: q, k and v as views of one fused bf16
+    projection, the slopes, a carried state, and the keyword arguments (z,
+    the norm weights near one, eps, RoPE's theta)."""
+    from ominix_mlx_tpu_torch.models.lightning import alibi_slopes
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    N = H * D
+    qkv = randn(B, 1, 3 * N).bfloat16()
+    q, k, v = (t.reshape(B, 1, H, D).transpose(1, 2)
+               for t in qkv.split([N, N, N], -1))
+    kw = {"z": randn(B, 1, N).bfloat16(),
+          "q_norm": (1 + 0.1 * randn(D)).bfloat16(),
+          "k_norm": (1 + 0.1 * randn(D)).bfloat16(),
+          "o_norm": (1 + 0.1 * randn(N)).bfloat16(), "eps": EPS,
+          "rope_theta": float(MINICPM_SALA_HF["rope_theta"])}
+    return (q, k, v, torch.from_numpy(alibi_slopes(H)).to(dev),
+            randn(B, H, D, D) * 0.1, kw)
+
+
+def unfused_decode(k10):
+    """The decode mixer as the parent composes it: QK-norm and RoPE, the
+    scale, ``k10`` (the state step: K10's recurrent form, this checkout's
+    or the parent's), the cast, the output norm and the gate."""
+    from ominix_mlx_tpu_torch.ops import lightning_attention as la
+    from ominix_mlx_tpu_torch.ops.quant_matmul import rms_norm
+
+    def call(q, k, v, slopes, state, z, q_norm, k_norm, o_norm, eps,
+             rope_theta, offset):
+        B, H, _, D = q.shape
+        q, k = la.norm_rope(q, k, q_norm, k_norm, eps, rope_theta, offset)
+        out = k10(q * D ** -0.5, k, v, slopes, state)
+        out = out.transpose(1, 2).reshape(B, 1, H * D).to(v.dtype)
+        return rms_norm(o_norm, out, eps) * torch.sigmoid(z)
+    return call
+
+
+def row_ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of each row's largest |want|."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        w.abs().amax(-1, keepdim=True))) - 7)
+    return ((g - w).abs() / ulp).max().item()
+
+
+def k10_decode_bound(B, H, D) -> dict:
+    """k10_decode's bound: the state read and written once in float32; q,
+    k, v, z and the output in bf16; the norm weights and slopes once;
+    about four float32 operations a state element."""
+    N = H * D
+    nbytes = 8 * B * H * D * D + 2 * 5 * B * N + 2 * (2 * D + N) + 4 * H
+    return bound(nbytes, 4 * B * H * D * D, "fp32")
+
+
+def check_k10_decode(dev, flush):
+    """k10_decode against lightning_decode_reference at MiniCPM-SALA's 32
+    heads of 128 for each of K10_DECODE_CASES (random z and norm weights
+    near one): q and k as the state step reads them and the state bit for
+    bit, the output within K10_DECODE_ULPS (row_ulps), the same bits on a
+    second launch. Timed as the model calls it (by dependent launch)
+    beside its bound, the kernel alone by torch.profiler (``kernel_us``),
+    the plain version, and the parent's sequence (the glue around K10's
+    recurrent form, ``unfused_decode``, and its device ops) in turns. No
+    PyTorch call computes the mixer."""
+    from ominix_mlx_tpu_torch.ops import lightning_attention as la
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 57)
+    parent = unfused_decode(la._k10)
+    rows = []
+    for B, offsets in K10_DECODE_CASES:
+        q, k, v, sl, state, kw = k10_decode_inputs(g, dev, B)
+        H, D = q.shape[1], q.shape[3]
+        off = offsets if isinstance(offsets, int) else torch.tensor(
+            offsets, device=dev)
+        N = H * D
+        qk1, qk2 = (torch.empty(B, 2, N, dtype=torch.bfloat16, device=dev)
+                    for _ in range(2))
+        s1, s2, s3 = state.clone(), state.clone(), state.clone()
+        torch.cuda.synchronize()
+        got = la._k10_decode(q, k, v, sl, s1, offset=off, qk_out=qk1, **kw)
+        again = la._k10_decode(q, k, v, sl, s3, offset=off, **kw)
+        want = la.lightning_decode_reference(q, k, v, sl, s2, offset=off,
+                                             qk_out=qk2, **kw)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            raise RuntimeError(f"k10_decode B={B}: non-finite")
+        ulps = row_ulps(got, want)
+        checks = {"qk_bitwise_equal": bool(torch.equal(qk1, qk2)),
+                  "state_bitwise_equal": bool(torch.equal(s1, s2)),
+                  "bitwise_repeatable": bool(torch.equal(got, again)
+                                             and torch.equal(s1, s3))}
+        scratch = state.clone()
+
+        def kernel():
+            la._k10_decode(q, k, v, sl, scratch, offset=off, overlap=True,
+                           **kw)
+
+        def unfused():
+            parent(q, k, v, sl, scratch, offset=off, **kw)
+
+        row = {"B": B, "offsets": offsets, "H": H, "D": D,
+               "max_abs_err": (got.float() - want.float()).abs().max()
+               .item(), "row_ulps": ulps, "row_ulps_limit": K10_DECODE_ULPS,
+               "share_differ": (got != want).float().mean().item(), **checks,
+               "ms": time_ms(kernel, 20, flush),
+               "kernel_us": phase_us(kernel, ("lightning_decode(",)).get(
+                   "lightning_decode"),
+               "plain_ms": time_ms(lambda: la.lightning_decode_reference(
+                   q, k, v, sl, s2, offset=off, **kw), 5, flush),
+               "unfused_device_ops": device_ops(unfused),
+               "vs_parent_sequence": in_turns(unfused, kernel, flush),
+               "library_ms": None,
+               "library_error": "no PyTorch call computes the mixer",
+               **k10_decode_bound(B, H, D)}
+        row.update(versus(row))
+        emit({"phase": "k10_decode", **row})
+        if not (ulps <= K10_DECODE_ULPS and all(checks.values())):
+            raise RuntimeError(f"k10_decode B={B} at {offsets}: {row}")
+        rows.append(row)
+    return rows
+
+
 def k11_case(g, dev, B, S, totals, Hkv=2, H=32, D=128, ks=32):
     """A MiniCPM-SALA sparse layer's cache of S positions per row, K and V
     at random and the pooled keys from them (as
@@ -1916,14 +2075,19 @@ def k11_case(g, dev, B, S, totals, Hkv=2, H=32, D=128, ks=32):
     return q, c, torch.tensor(totals, dtype=torch.int32, device=dev)
 
 
+def chosen(vals, idx):
+    """Per (row, KV head) the sorted ids of the selected blocks with a
+    finite score."""
+    from ominix_mlx_tpu_torch.ops.sparse_attention import NEG_INF
+
+    return [[sorted(i[v > NEG_INF / 2].tolist()) for v, i in zip(vr, ir)]
+            for vr, ir in zip(vals.cpu(), idx.cpu())]
+
+
 def selected_sets(scores, topk):
     """Per (row, KV head) the sorted ids of the top-k blocks with a finite
     score."""
-    from ominix_mlx_tpu_torch.ops.sparse_attention import NEG_INF
-
-    vals, idx = torch.topk(scores, topk, dim=-1)
-    return [[sorted(i[v > NEG_INF / 2].tolist()) for v, i in zip(vr, ir)]
-            for vr, ir in zip(vals.cpu(), idx.cpu())]
+    return chosen(*torch.topk(scores, topk, dim=-1))
 
 
 def check_k11(dev, flush):
@@ -1931,20 +2095,28 @@ def check_k11(dev, flush):
     production InfLLMv2 config, for each of K11_CASES (caches at random):
     k11_score against block_scores_reference (the finite scores within
     K11_SCORE_TOL, the masked ones NEG_INF in both, and the blocks
-    torch.topk selects from each equal); k11_attend against
-    sparse_attend_reference (the gather plus masked sdpa) given the same
-    indices, per (row, head) within K11_TOL, bit-repeatable. Each timed
-    beside its plain version, a read of the same bytes, and its bound:
-    the scorer's bytes are the blocks that can be valid (it reads no
-    other), the attend's the valid slots' K and V rows. No PyTorch call
-    computes either. Returns (score rows, attend rows)."""
+    torch.topk selects from each equal); k11_select against k11_score's
+    scores sorted stably (values and ids bit for bit), against
+    block_select_reference (the finite scores within K11_SCORE_TOL, the
+    same blocks chosen) and against torch.topk's choice, and k11_attend
+    given its selection bit-equal to k11_attend given the parent's (score,
+    then torch.topk); k11_attend against sparse_attend_reference (the
+    gather plus masked sdpa) given the same indices, per (row, head) within
+    K11_TOL, bit-repeatable. Each timed beside its plain version, a read of
+    the same bytes, and its bound: the scorer's bytes are the blocks that
+    can be valid (it reads no other), the selector's those and the top k
+    written, the attend's the valid slots' K and V rows; the selector also
+    in turns with the parent's score and torch.topk, and torch.topk alone
+    on the same scores as its library time. No PyTorch call computes the
+    scorer or the attend. Returns (score rows, select rows, attend
+    rows)."""
     from ominix_mlx_tpu_torch.models.sparse_attention import SparseConfig
     from ominix_mlx_tpu_torch.ops import sparse_attention as sa
 
     sc = SparseConfig()
     ie, W, ks, topk = sc.init_end, sc.window_size, sc.kernel_size, sc.topk
     g = torch.Generator(device=dev).manual_seed(SEED + 53)
-    score_rows, attend_rows = [], []
+    score_rows, select_rows, attend_rows = [], [], []
     for B, S, totals in K11_CASES:
         q, c, total = k11_case(g, dev, B, S, totals)
         H, D, Hkv, nb = q.shape[1], q.shape[3], c.k.shape[1], c.comp.shape[2]
@@ -1956,6 +2128,15 @@ def check_k11(dev, flush):
         out = sa._k11_attend(*aargs)
         again = sa._k11_attend(*aargs)
         plain = sa.sparse_attend_reference(*aargs)
+        kk = min(topk, nb)
+        sel = sa._k11_select(*sargs, kk)
+        sel_again = sa._k11_select(*sargs, kk)
+        sv, si = torch.sort(got, dim=-1, descending=True, stable=True)
+        pv, pi = sa.block_select_reference(*sargs, kk)
+        ptop, pidx = torch.topk(got, kk, dim=-1)
+        rest = (total, ie, W, ks, D ** -0.5)
+        sel_out = sa._k11_attend(q, c.k, c.v, sel[1], sel[0], *rest)
+        par_out = sa._k11_attend(q, c.k, c.v, pidx, ptop, *rest)
         torch.cuda.synchronize()
         masked = want <= sa.NEG_INF / 2
         fin = ~masked
@@ -2012,11 +2193,46 @@ def check_k11(dev, flush):
             raise RuntimeError(f"K11 B={B} S={S}: score {score_rel}, mask "
                                f"{same_mask}, selection {same_sel}, attend "
                                f"{attend_rel}, repeatable {repeatable}")
+        pfin = pv > sa.NEG_INF / 2
+        sel_checks = {
+            "sorted_scores_bitwise_equal": bool(
+                torch.equal(sel[0], sv[..., :kk])
+                and torch.equal(sel[1], si[..., :kk])),
+            "bitwise_repeatable": bool(torch.equal(sel[0], sel_again[0])
+                                       and torch.equal(sel[1],
+                                                       sel_again[1])),
+            "masked_equal": bool(torch.equal(sel[0] > sa.NEG_INF / 2, pfin)),
+            "chosen_equal_plain": chosen(*sel) == chosen(pv, pi),
+            "chosen_equal_topk": chosen(*sel) == chosen(ptop, pidx),
+            "attend_bitwise_equal_parent": bool(torch.equal(sel_out,
+                                                            par_out))}
+        sel_rel = (((sel[0] - pv)[pfin].abs().max() / pv[pfin].abs().max())
+                   .item() if pfin.any() else 0.0)
+        xrow = {**case, "k": kk, "max_abs_err": (sel[0] - pv)[pfin].abs()
+                .max().item() if pfin.any() else 0.0, "rel_err": sel_rel,
+                **sel_checks,
+                "ms": time_ms(lambda: sa._k11_select(*sargs, kk), 20, flush),
+                "plain_ms": time_ms(lambda: sa.block_select_reference(
+                    *sargs, kk), 5, flush),
+                "score_ms": srow["ms"],
+                "vs_parent_sequence": in_turns(
+                    lambda: torch.topk(sa._k11_score(*sargs), kk, dim=-1),
+                    lambda: sa._k11_select(*sargs, kk), flush),
+                "library_ms": time_ms(lambda: torch.topk(got, kk, dim=-1),
+                                      20, flush),
+                "library": "torch.topk of the parent's scores",
+                **bound(s_bytes - 4 * B * Hkv * nb + 12 * B * Hkv * kk,
+                        2 * blocks * D, "fp32")}
+        xrow.update(versus(xrow))
+        emit({"phase": "k11_select", **xrow})
+        if not (sel_rel < K11_SCORE_TOL and all(sel_checks.values())):
+            raise RuntimeError(f"k11_select B={B} S={S}: {xrow}")
         score_rows.append(srow)
+        select_rows.append(xrow)
         attend_rows.append(arow)
         del q, c, total, kf, vf
         torch.cuda.empty_cache()
-    return score_rows, attend_rows
+    return score_rows, select_rows, attend_rows
 
 
 def parent_module(parent: str, rel: str, name: str):
@@ -2031,108 +2247,95 @@ def parent_module(parent: str, rel: str, name: str):
     return mod
 
 
-def compare_k10(plib, dev, flush):
-    """The parent's K10 chunked form (``plib``'s entry
-    ``ominix_lightning_chunked(q, k, v, slopes, state, o, dS, B, H, T, D,
-    bf16, 9 strides, stream)``: the earlier two launches through a float32
-    scratch dS of D * D floats a chunk and head) against this checkout's
-    one launch on the same inputs at MiniCPM-SALA's 32 heads of 128, B =
-    1, bf16, at K10_PARENT_T, timed in turns (parent, this, this,
-    parent). Both are held to the plain version (outputs and state within
-    K10_TOL). One ``k10_vs_parent`` line per T."""
+def compare_k10_decode(plib, dev, flush):
+    """The parent's decode mixer (the glue around ``plib``'s K10 recurrent
+    entry ``ominix_lightning(q, k, v, slopes, state, o, B, H, T, D, bf16,
+    9 strides, stream)``, ``unfused_decode``) against this checkout's one
+    launch on the same inputs at each of K10_DECODE_CASES, timed in turns
+    (parent, this, this, parent); the state of both held to the plain
+    version (bit for bit for this checkout's, within K10_TOL for the
+    parent's). One ``k10_decode_vs_parent`` line per case."""
     from ominix_mlx_tpu_torch.ops import lightning_attention as la
 
     stream = torch.cuda.current_stream(dev).cuda_stream
-    g = torch.Generator(device=dev).manual_seed(SEED + 60)
-    for T in K10_PARENT_T:
-        q, k, v, sl, state = k10_inputs(g, dev, 1, T)
-        B, H, _, D = q.shape
+
+    def parent_k10(q, k, v, sl, st):
+        B, H, T, D = q.shape
         o = torch.empty(B, H, T, D, dtype=torch.float32, device=dev)
-        dS = torch.empty(B * H * -(-T // 64) * D * D, dtype=torch.float32,
-                         device=dev)
-        strides = [x for t in (q, k, v) for x in t.stride()[:3]]
+        rc = plib.ominix_lightning(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), sl.data_ptr(),
+            st.data_ptr(), o.data_ptr(), B, H, T, D, 1,
+            *[x for t in (q, k, v) for x in t.stride()[:3]], stream)
+        if rc != 0:
+            raise RuntimeError(f"parent K10: CUDA error {rc}")
+        return o
 
-        def parent_call(st):
-            rc = plib.ominix_lightning_chunked(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), sl.data_ptr(),
-                st.data_ptr(), o.data_ptr(), dS.data_ptr(), B, H, T, D, 1,
-                *strides, stream)
-            if rc != 0:
-                raise RuntimeError(f"parent K10 chunked: CUDA error {rc}")
-
+    parent = unfused_decode(parent_k10)
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    for B, offsets in K10_DECODE_CASES:
+        q, k, v, sl, state, kw = k10_decode_inputs(g, dev, B)
+        off = offsets if isinstance(offsets, int) else torch.tensor(
+            offsets, device=dev)
         s1, s2, s3 = state.clone(), state.clone(), state.clone()
-        parent_call(s1)
-        mine = la._k10_chunked(q, k, v, sl, s2)
-        want = la.lightning_reference(q, k, v, sl, s3)
         torch.cuda.synchronize()
-        rel = {"parent": rel_to(o, want), "this": rel_to(mine, want),
-               "parent_state": rel_to(s1, s3), "this_state": rel_to(s2, s3)}
-        emit({"phase": "k10_vs_parent", "B": B, "T": T, "H": H, "D": D,
-              "rel_err": rel, "parent_vs_this": rel_to(mine, o),
-              **in_turns(lambda: parent_call(s1),
-                         lambda: la._k10_chunked(q, k, v, sl, s2), flush)})
-        if max(rel.values()) >= K10_TOL:
-            raise RuntimeError(f"k10_vs_parent T={T}: {rel}")
-        del q, k, v, state, o, dS, s1, s2, s3, mine, want
-        torch.cuda.empty_cache()
+        theirs = parent(q, k, v, sl, s1, offset=off, **kw)
+        mine = la._k10_decode(q, k, v, sl, s2, offset=off, **kw)
+        want = la.lightning_decode_reference(q, k, v, sl, s3, offset=off,
+                                             **kw)
+        torch.cuda.synchronize()
+        held = {"parent_state_rel": rel_to(s1, s3),
+                "state_bitwise_equal": bool(torch.equal(s2, s3)),
+                "parent_row_ulps": row_ulps(theirs, want),
+                "row_ulps": row_ulps(mine, want)}
+        emit({"phase": "k10_decode_vs_parent", "B": B, "offsets": offsets,
+              **held, **in_turns(
+                  lambda: parent(q, k, v, sl, s1, offset=off, **kw),
+                  lambda: la._k10_decode(q, k, v, sl, s2, offset=off,
+                                         overlap=True, **kw), flush)})
+        if not (held["parent_state_rel"] < K10_TOL
+                and held["state_bitwise_equal"]
+                and held["row_ulps"] <= K10_DECODE_ULPS):
+            raise RuntimeError(f"k10_decode_vs_parent B={B}: {held}")
 
 
-def compare_k11(plib, parent, dev, flush):
-    """The parent's K11 attend (``plib``'s entry ``ominix_sparse_attend(q,
-    k, v, top_idx, top_val, total, out, part_acc, part_ml, B, H, Hkv, S, D,
-    topk, init_end, window, ks, splits, slots_per_split, scale, stream)``:
-    the earlier split-KV then sparse_merge, with the parent's own
-    ops/sparse_attention.py k11_plan) against this checkout's one launch on
-    the same inputs at each of K11_CASES, timed in turns (parent, this,
-    this, parent). Both are held to the plain version per (row, head)
-    within K11_TOL. One ``k11_vs_parent`` line per case."""
+def compare_k11_select(plib, dev, flush):
+    """The parent's selection (``plib``'s ``ominix_sparse_score(q, comp,
+    total, scores, B, H, Hkv, nb, D, init_end, window, ks, stream)``, then
+    torch.topk) against this checkout's k11_select on the same inputs at
+    each of K11_CASES, timed in turns (parent, this, this, parent); the
+    chosen blocks equal. One ``k11_select_vs_parent`` line per case."""
     from ominix_mlx_tpu_torch.models.sparse_attention import SparseConfig
     from ominix_mlx_tpu_torch.ops import sparse_attention as sa
 
-    pplan = parent_module(parent,
-                          "ominix_mlx_tpu_torch/ops/sparse_attention.py",
-                          "parent_sparse_attention").k11_plan
     sc = SparseConfig()
     ie, W, ks, topk = sc.init_end, sc.window_size, sc.kernel_size, sc.topk
     stream = torch.cuda.current_stream(dev).cuda_stream
     g = torch.Generator(device=dev).manual_seed(SEED + 61)
     for B, S, totals in K11_CASES:
         q, c, total = k11_case(g, dev, B, S, totals)
-        H, D, Hkv = q.shape[1], q.shape[3], c.k.shape[1]
-        scores = sa.block_scores_reference(q, c.comp, total, ie, W, ks)
-        top, idx = torch.topk(scores, topk, dim=-1)
-        aargs = (q, c.k, c.v, idx, top, total, ie, W, ks, D ** -0.5)
-        splits, sps = pplan(B, Hkv, ie + topk * ks + W)
-        out = torch.empty(B, H, 1, D, dtype=torch.bfloat16, device=dev)
-        part = [torch.empty(B * H * splits * n, dtype=torch.float32,
-                            device=dev) if splits > 1 else None
-                for n in (D, 2)]
+        H, D, Hkv, nb = q.shape[1], q.shape[3], c.k.shape[1], c.comp.shape[2]
+        kk = min(topk, nb)
+        scores = torch.empty(B, Hkv, nb, dtype=torch.float32, device=dev)
 
         def parent_call():
-            rc = plib.ominix_sparse_attend(
-                q.data_ptr(), c.k.data_ptr(), c.v.data_ptr(), idx.data_ptr(),
-                top.data_ptr(), total.data_ptr(), out.data_ptr(),
-                *(None if t is None else t.data_ptr() for t in part), B, H,
-                Hkv, S, D, topk, ie, W, ks, splits, sps, D ** -0.5, stream)
+            rc = plib.ominix_sparse_score(
+                q.data_ptr(), c.comp.data_ptr(), total.data_ptr(),
+                scores.data_ptr(), B, H, Hkv, nb, D, ie, W, ks, stream)
             if rc != 0:
-                raise RuntimeError(f"parent k11_attend: CUDA error {rc}")
+                raise RuntimeError(f"parent k11_score: CUDA error {rc}")
+            return torch.topk(scores, kk, dim=-1)
 
-        parent_call()
-        mine = sa._k11_attend(*aargs)
-        plain = sa.sparse_attend_reference(*aargs)
+        theirs = parent_call()
+        mine = sa._k11_select(q, c.comp, total, ie, W, ks, kk)
         torch.cuda.synchronize()
-        rel = {"parent": row_rel_err(out, plain),
-               "this": row_rel_err(mine, plain)}
-        emit({"phase": "k11_vs_parent", "B": B, "S": S, "totals": totals,
-              "parent_splits": splits,
-              "splits": sa.k11_plan(B, Hkv, ie + topk * ks + W)[0],
-              "row_rel_err": rel, "parent_vs_this_row_rel":
-                  row_rel_err(mine, out),
-              **in_turns(parent_call, lambda: sa._k11_attend(*aargs),
-                         flush)})
-        if max(rel.values()) >= K11_TOL:
-            raise RuntimeError(f"k11_vs_parent B={B} S={S}: {rel}")
-        del q, c, total, out, part, mine, plain
+        same = chosen(*mine) == chosen(*theirs)
+        emit({"phase": "k11_select_vs_parent", "B": B, "S": S,
+              "totals": totals, "chosen_equal": same,
+              **in_turns(parent_call, lambda: sa._k11_select(
+                  q, c.comp, total, ie, W, ks, kk), flush)})
+        if not same:
+            raise RuntimeError(f"k11_select_vs_parent B={B} S={S}")
+        del q, c, total, scores
         torch.cuda.empty_cache()
 
 
@@ -2395,7 +2598,11 @@ def plain_versions() -> dict:
             "k9": (gd, "_k9_rule", gd.gated_delta_rule_reference),
             "k9_prep": (gd, "_k9_prep", gd.deltanet_prep_reference),
             "k10": (la, "_k10_rule", la.lightning_reference),
+            "k10_decode": (la, "_k10_decode",
+                           lambda *a, overlap=False, **kw:
+                           la.lightning_decode_reference(*a, **kw)),
             "k11_score": (sa, "_k11_score", sa.block_scores_reference),
+            "k11_select": (sa, "_k11_select", sa.block_select_reference),
             "k11_attend": (sa, "_k11_attend", sa.sparse_attend_reference)}
 
 
@@ -3613,7 +3820,8 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
               K9_PREP_TOL} if hybrid else {}),
           **({"per_call_k10": sala["k10"], "per_call_k11": sala["k11"],
               "per_call_limits": {"k10": K10_TOL,
-                                  "k11_score": K11_SCORE_TOL,
+                                  "k10_decode_row_ulps": K10_DECODE_ULPS,
+                                  "k11_select": K11_SCORE_TOL,
                                   "k11_attend": K11_TOL}}
              if module is not None else {}),
           "routed_rows": sum(r.shape[0] for r in routes[0]),
@@ -3739,16 +3947,16 @@ def device_time(prof):
 # kernel-name pieces of the port's kernels whose share of a profiled step
 # --profile reports: the P formula's rows kernel, the activation
 # prologues (K1, K4 and K6's qmm_prep_pdl, K8's chan_prep), K4's and K8's
-# rows kernels, K3 with its merge, K9, K10, K11
+# rows kernels, K3 with its merge, K9, K10 (with its decode mixer), K11
 SHARE_OF = {"qmm_p": ("qmm_p<",), "qmm_prep": ("qmm_prep", "chan_prep"),
             "k4_k8": ("gather_qmm_a8<", "chan_gather_qmm<"),
             "k3": ("paged_decode<", "paged_merge("),
             "k9": ("gated_delta_k9<",),
             "k9_chunk": ("gated_delta_chunk<", "gated_delta_chunk_scan<"),
             "k9_prep": ("k9_prep_kernel<",),
-            "k10": ("lightning_k10<",),
+            "k10": ("lightning_k10<", "lightning_decode("),
             "k10_chunk": ("lightning_chunk_",),
-            "k11": ("sparse_score<", "sparse_attend<")}
+            "k11": ("sparse_score<", "sparse_select<", "sparse_attend<")}
 
 
 def kernel_shares(by_name, busy_us) -> dict:
@@ -4923,19 +5131,22 @@ def serve_qwen3_next(dev, smi, profile=False):
 def minicpm_call_checks():
     """Wrappers for swapped_kernels that hold every K10 and K11 call
     against its plain version on the same inputs (a copy of the state for
-    K10): (stats, {kernel: wrap}). K10 counts each call's form; k11_score
-    holds the finite scores, the NEG_INF mask and the blocks torch.topk
-    selects; k11_attend holds each (row, head) and counts, per (row, KV
-    head), the finite top-k blocks it was given (``valid_blocks``)."""
+    K10): (stats, {kernel: wrap}). K10 counts each call's form;
+    k10_decode holds the state bit for bit and the output within
+    K10_DECODE_ULPS; k11_select holds the finite scores, the NEG_INF mask
+    and the blocks chosen; k11_attend holds each (row, head)
+    and counts, per (row, KV head), the finite top-k blocks it was given
+    (``valid_blocks``)."""
     from ominix_mlx_tpu_torch.ops import lightning_attention as la
     from ominix_mlx_tpu_torch.ops import sparse_attention as sa
 
     st = {"k10": {"calls": 0, "max_rel_err": 0.0, "state_max_rel_err": 0.0,
-                  "forms": {}},
-          "k11": {"score_calls": 0, "score_max_rel_err": 0.0,
-                  "masked_equal": True, "selected_equal": True,
-                  "attend_calls": 0, "attend_max_rel_err": 0.0,
-                  "valid_blocks": []}}
+                  "forms": {}, "decode_calls": 0, "decode_max_row_ulps": 0.0,
+                  "decode_state_equal": True},
+          "k11": {"select_calls": 0, "score_max_rel_err": 0.0,
+                  "masked_equal": True,
+                  "selected_equal": True, "attend_calls": 0,
+                  "attend_max_rel_err": 0.0, "valid_blocks": []}}
 
     def k10(kern, plain):
         def call(q, k, v, slopes, state):
@@ -4953,22 +5164,37 @@ def minicpm_call_checks():
             return y
         return call
 
-    def score(kern, plain):
-        def call(q, comp, total, ie, window, ks):
-            y = kern(q, comp, total, ie, window, ks)
-            want = plain(q, comp, total, ie, window, ks)
+    def decode(kern, plain):
+        def call(q, k, v, slopes, state, *a, **kw):
+            s0 = state.clone()
+            y = kern(q, k, v, slopes, state, *a, **kw)
+            want = plain(q, k, v, slopes, s0, *a, **kw)
+            c = st["k10"]
+            c["decode_calls"] += 1
+            c["decode_max_row_ulps"] = max(c["decode_max_row_ulps"],
+                                           row_ulps(y, want))
+            c["decode_state_equal"] &= bool(torch.equal(state, s0))
+            return y
+        return call
+
+    def held_scores(got, want):
+        c = st["k11"]
+        fin = want > sa.NEG_INF / 2
+        c["masked_equal"] &= bool(torch.equal(got > sa.NEG_INF / 2, fin))
+        if fin.any():
+            c["score_max_rel_err"] = max(
+                c["score_max_rel_err"],
+                ((got - want)[fin].abs().max() / want[fin].abs().max())
+                .item())
+
+    def select(kern, plain):
+        def call(*a):
+            y = kern(*a)
+            want = plain(*a)
             c = st["k11"]
-            c["score_calls"] += 1
-            fin = want > sa.NEG_INF / 2
-            c["masked_equal"] &= bool(torch.equal(y > sa.NEG_INF / 2, fin))
-            if fin.any():
-                c["score_max_rel_err"] = max(
-                    c["score_max_rel_err"],
-                    ((y - want)[fin].abs().max() / want[fin].abs().max())
-                    .item())
-            topk = min(64, want.shape[-1])
-            c["selected_equal"] &= selected_sets(y, topk) == \
-                selected_sets(want, topk)
+            c["select_calls"] += 1
+            held_scores(y[0], want[0])
+            c["selected_equal"] &= chosen(*y) == chosen(*want)
             return y
         return call
 
@@ -4985,16 +5211,19 @@ def minicpm_call_checks():
             return y
         return call
 
-    return st, {"k10": k10, "k11_score": score, "k11_attend": attend}
+    return st, {"k10": k10, "k10_decode": decode, "k11_select": select,
+                "k11_attend": attend}
 
 
 def minicpm_calls_hold(st, where):
     """Raise unless every K10 and K11 call held its limit."""
     a, b = st["k10"], st["k11"]
     if not (a["max_rel_err"] < K10_TOL and a["state_max_rel_err"] < K10_TOL
+            and a["decode_max_row_ulps"] <= K10_DECODE_ULPS
+            and a["decode_state_equal"]
             and b["score_max_rel_err"] < K11_SCORE_TOL and b["masked_equal"]
             and b["selected_equal"] and b["attend_max_rel_err"] < K11_TOL
-            and b["score_calls"] == b["attend_calls"]):
+            and b["select_calls"] == b["attend_calls"]):
         raise RuntimeError(f"{where}: K10 / K11 against their plain versions "
                            f"on the path's inputs: {sala_summary(st)}")
 
@@ -5025,10 +5254,11 @@ def minicpm_gib(cfg, bits: int = 8) -> float:
 def minicpm_forward_launches(cfg, params, forwards) -> dict:
     """The launches of MiniCPM-SALA forwards, exactly (``forwards`` as
     counting_forwards records them): per forward of B rows and T tokens
-    over its layers (``num_layers``), K10 in each lightning layer in the
-    form k10_plan picks; in each sparse layer K2 for a fresh prompt, K2c
-    for a continuation chunk (kv_limit) or a prompt at an offset,
-    k11_score and k11_attend for a decode step; and K1 for each packed
+    over its layers (``num_layers``), in each lightning layer k10_decode
+    at T = 1 and otherwise K10 in the form k10_plan picks; in each sparse
+    layer K2 for a fresh prompt, K2c for a continuation chunk (kv_limit) or
+    a prompt at an offset, k11_select and k11_attend for a decode step (no
+    k10 and no k11_score there); and K1 for each packed
     projection at M = B T rows in the formula ``route`` names (one row:
     k1_m1, 2-16 rows on panels: the dq formula k1_mn, the 8-bit counters;
     past 16 rows the dense route, no kernel), the lm_head's unless
@@ -5036,9 +5266,9 @@ def minicpm_forward_launches(cfg, params, forwards) -> dict:
     from ominix_mlx_tpu_torch.ops import lightning_attention as la
     from ominix_mlx_tpu_torch.ops import quant_matmul as qm
 
-    want = dict.fromkeys(("k10", "k10_chunk", "k11_score", "k11_attend",
-                          "k2", "k2c", "k1_m1", "k1_mn", "k1_m1_w8",
-                          "k1_mn_w8"), 0)
+    want = dict.fromkeys(("k10", "k10_chunk", "k10_decode", "k11_score",
+                          "k11_select", "k11_attend", "k2", "k2c", "k1_m1",
+                          "k1_mn", "k1_m1_w8", "k1_mn_w8"), 0)
 
     def k1(w, M):
         if not isinstance(w, qm.PackedQuantizedTensor):
@@ -5054,13 +5284,16 @@ def minicpm_forward_launches(cfg, params, forwards) -> dict:
         n = kw.get("num_layers") or cfg.num_layers
         for i in range(n):
             if cfg.mixer_types[i] == "lightning-attn":
-                for k, c in la.k10_launches(B, T, cfg.gla_heads,
-                                            cfg.gla_head_dim).items():
-                    want[k] += c
+                if T == 1:
+                    want["k10_decode"] += 1
+                else:
+                    for k, c in la.k10_launches(B, T, cfg.gla_heads,
+                                                cfg.gla_head_dim).items():
+                        want[k] += c
             elif kw.get("kv_limit") is not None:
                 want["k2c"] += 1
             elif T == 1:
-                want["k11_score"] += 1
+                want["k11_select"] += 1
                 want["k11_attend"] += 1
             elif kw["int_offset"]:
                 want["k2" if fresh else "k2c"] += 1
@@ -5097,10 +5330,11 @@ def minicpm_routes(params) -> dict:
 
 
 def minicpm_per_call_prompt(dev, cfg, params, T=200, layers=4, steps=2):
-    """Every K10 and K11 call of a T-token prefill (K10's chunked form)
-    and ``steps`` decode steps (its recurrent form, K11) on the first
-    ``layers`` layers (one sparse, three lightning), held against the
-    plain versions on the path's own inputs."""
+    """Every K10 and K11 call of a T-token prefill (K10's chunked form), a
+    2-token continuation (its recurrent form; K2c) and ``steps`` decode
+    steps (k10_decode, k11_select, k11_attend) on the first ``layers``
+    layers (one sparse, three lightning), held against the plain versions
+    on the path's own inputs."""
     from ominix_mlx_tpu_torch.models import minicpm_sala as ms
 
     c2 = dataclasses.replace(cfg, num_layers=layers)
@@ -5110,25 +5344,31 @@ def minicpm_per_call_prompt(dev, cfg, params, T=200, layers=4, steps=2):
                            device=dev)
     st, wraps = minicpm_call_checks()
     eng = engine_for(c2, p2, ms)
-    cache = ms.init_cache(c2, 1, T + steps + 1, device=dev)
+    cache = ms.init_cache(c2, 1, T + steps + 3, device=dev)
     with swapped_kernels(lambda k, kern, plain: wraps[k](kern, plain)
                          if k in wraps else kern), torch.inference_mode():
         logits, cache = eng.prefill(prompt, cache)
+        logits, cache = ms.forward(
+            p2, c2, torch.tensor([[1, 2]], device=dev), cache)
         for t in range(steps):
             logits, cache = ms.forward(
-                p2, c2, torch.tensor([[t + 1]], device=dev), cache)
+                p2, c2, torch.tensor([[t + 3]], device=dev), cache)
     emit({"phase": "minicpm_per_call_prompt", "layers": layers, "prompt": T,
           "decode_steps": steps, **sala_summary(st)})
     minicpm_calls_hold(st, f"{T}-token prompt")
-    if set(st["k10"]["forms"]) != {"chunked", "recurrent"}:
-        raise RuntimeError(f"K10's forms on the prompt: {st['k10']}")
+    lin = sum(m == "lightning-attn" for m in c2.mixer_types[:layers])
+    if set(st["k10"]["forms"]) != {"chunked", "recurrent"} \
+            or st["k10"]["decode_calls"] != steps * lin \
+            or st["k11"]["select_calls"] != steps * (layers - lin):
+        raise RuntimeError(f"K10's and K11's calls on the prompt: {st}")
 
 
-def minicpm_long_prefill(dev, cfg, params, T=8192, chunk=2048, steps=16):
-    """An 8192-token prompt through Engine.prefill_chunked in 2048-token
-    chunks (K2, then K2c in the sparse layers; K10's chunked form), then
-    ``steps`` greedy decode steps (K11), every K11 call held against its
-    plain version: the middle then holds 190 whole blocks, so the top 64
+def minicpm_long_prefill(dev, cfg, params, T=8194, chunk=2048, steps=16):
+    """An 8194-token prompt through Engine.prefill_chunked in 2048-token
+    chunks (K2, then K2c in the sparse layers; K10's chunked form, and its
+    recurrent form on the last chunk of 2 tokens), then ``steps`` greedy
+    decode steps (k10_decode, K11), every K11 call held against its plain
+    version: the middle then holds about 190 whole blocks, so the top 64
     prune, and every (row, KV head) must be given 64 finite blocks. The
     launches of the whole run held exactly. Returns them."""
     from ominix_mlx_tpu_torch.models import minicpm_sala as ms
@@ -5149,7 +5389,8 @@ def minicpm_long_prefill(dev, cfg, params, T=8192, chunk=2048, steps=16):
         prefill_s = time.perf_counter() - t0
         tok = last.argmax(-1, keepdim=True)
         with swapped_kernels(lambda k, kern, plain: wraps[k](kern, plain)
-                             if k.startswith("k11") else kern), \
+                             if k in wraps and k.startswith("k11")
+                             else kern), \
                 torch.inference_mode():
             for _ in range(steps):
                 logits, cache = ms.forward(params, cfg, tok, cache)
@@ -5204,7 +5445,8 @@ def minicpm_long_decode(dev, cfg, params, smi, steps=16, profiled=4):
         st, wraps = minicpm_call_checks()
         with torch.inference_mode():
             with swapped_kernels(lambda k, kern, plain: wraps[k](kern, plain)
-                                 if k.startswith("k11") else kern):
+                                 if k in wraps and k.startswith("k11")
+                                 else kern):
                 logits, cache = ms.forward(params, cfg, tok, cache)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -5276,8 +5518,8 @@ def serve_minicpm_sala(dev, smi, profile=False):
           "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30,
           "max_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
     emit({"phase": "routes", "config": name, **minicpm_routes(params)})
-    keys = ("k1_m1_w8", "k1_mn_w8", "k2", "k10", "k10_chunk", "k11_score",
-            "k11_attend")
+    keys = ("k1_m1_w8", "k1_mn_w8", "k2", "k10_chunk", "k10_decode",
+            "k11_select", "k11_attend")
     with counting_forwards(ms) as forwards:
         _, counts = serve_requests(dev, cfg, params, name.lower(), keys, ms)
     want = check_minicpm_launches(cfg, params, forwards, counts,
@@ -5288,7 +5530,8 @@ def serve_minicpm_sala(dev, smi, profile=False):
     emit({"phase": "prefill", "config": name, "weights": "w8a8 g64",
           **moe_prefill(dev, cfg, params, module=ms), "card": smi})
     check_logits(dev, cfg, params, name,
-                 kernels=("k1", "k2", "k10", "k11_score", "k11_attend"),
+                 kernels=("k1", "k2", "k10", "k10_decode", "k11_select",
+                          "k11_attend"),
                  tol=MINICPM_LOGITS_TOL, layers=4, module=ms)
     minicpm_per_call_prompt(dev, cfg, params)
     emit({**decode_rate(dev, cfg, params, 16, 48, module=ms),
@@ -5493,8 +5736,8 @@ def main() -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="only build this checkout's and DIR's kernels, "
                          "time K3, the P formula (K1 at one row, K6), K5 "
-                         "(bf16, 4- and 8-bit), K10's chunked form and "
-                         "K11's attend against DIR's, and "
+                         "(bf16, 4- and 8-bit), K10's decode mixer and "
+                         "K11's selection against DIR's sequences, and "
                          "the 128-token Qwen3-30B-A3B w4a8 prefill of both "
                          "packages, in turns")
     ap.add_argument("--prefill-probe", metavar="ROOT",
@@ -5550,8 +5793,8 @@ def main() -> int:
         compare_k3(plib, dev, flush)
         compare_qmm_p(plib, dev, flush)
         compare_k5(plib, dev, flush)
-        compare_k10(plib, dev, flush)
-        compare_k11(plib, args.parent, dev, flush)
+        compare_k10_decode(plib, dev, flush)
+        compare_k11_select(plib, dev, flush)
         del flush_buf, flush
         free_device_memory()
         parent = os.path.abspath(args.parent)
@@ -5581,7 +5824,8 @@ def main() -> int:
     emit({**launch_floor(dev), "card": smi})
     # after launch_floor: its profiler windows come before these checks'
     k10_rows = check_k10(dev, flush)
-    k11_score_rows, k11_attend_rows = check_k11(dev, flush)
+    k10_decode_rows = check_k10_decode(dev, flush)
+    _, k11_select_rows, k11_attend_rows = check_k11(dev, flush)
     del flush_buf, flush
     torch.cuda.empty_cache()
 
@@ -5866,12 +6110,19 @@ def main() -> int:
               [r for r in k10_rows if r["form"] == "chunked"],
               lambda rs: next(r for r in rs if r["T"] == 2048), "k10_chunk",
               design=K10_CHUNK_DESIGN),
-        entry("k11_score",
-              "XLA einsum ominix_mlx_tpu/models/sparse_attention.py:150-163, "
-              "no Pallas kernel", "ominix_mlx_tpu_torch/csrc/sparse_attn.cu",
-              k11_score_rows, lambda rs: next(r for r in rs
-                                              if r["S"] == 524288),
-              "k11_score", design=K11_SCORE_DESIGN),
+        entry("k10_decode",
+              "XLA ops ominix_mlx_tpu/models/minicpm_sala.py:158-184 at "
+              "T = 1 (QK-norm, RoPE, the einsum step of models/lightning.py:"
+              "75-83, the output norm and gate), no Pallas kernel",
+              "ominix_mlx_tpu_torch/csrc/lightning_attn.cu",
+              k10_decode_rows, lambda rs: rs[0], "k10_decode",
+              design=K10_DECODE_DESIGN),
+        entry("k11_select",
+              "XLA einsum and lax.top_k ominix_mlx_tpu/models/"
+              "sparse_attention.py:150-166, no Pallas kernel",
+              "ominix_mlx_tpu_torch/csrc/sparse_attn.cu", k11_select_rows,
+              lambda rs: next(r for r in rs if r["S"] == 524288),
+              "k11_select", design=K11_SELECT_DESIGN),
         entry("k11_attend",
               "XLA gather and sdpa ominix_mlx_tpu/models/sparse_attention.py:"
               "165-197, no Pallas kernel",

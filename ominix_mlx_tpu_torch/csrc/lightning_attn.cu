@@ -79,11 +79,49 @@
 // of a CTA are serial. On an H100 80GB HBM3 at 700.00 W (PERF.md section 6)
 // the bf16 form takes about 2.5 us a chunk, against about 0.7 us for its
 // products at the bf16 peak.
+//
+// The decode mixer (lightning_decode, counter k10_decode): a lightning
+// layer's whole step at T = 1 between its projections and o_proj, in one
+// launch: QK-RMSNorm, RoPE, q * D^-0.5, the state step, the cast of o to
+// bf16, the output RMSNorm over the row's H * D values and the gate
+// sigmoid(z) (ominix_mlx_tpu/models/minicpm_sala.py:158-184 at T = 1;
+// the plain version ops/lightning_attention.py lightning_decode_reference
+// runs some 65 PyTorch ops for it). What bounds it on an H100: bytes, the
+// state read and written once (2 MiB each way at 32 heads of 128, B = 1);
+// in a host-bound decode step, the launches it replaces. Each step rounds
+// where the plain path rounds (bf16 after each norm, the weight, RoPE's
+// float32 rotation, the scale, the cast, the gate; float32 expf, cosf,
+// sinf and rsqrtf, no intrinsics), and the two RMSNorms sum their squares
+// in the order PyTorch's CUDA reduction does (ATen/native/cuda/Reduce.cuh:
+// a 128-wide row by one warp, a lane's 4-vector in order then a
+// shuffle-down tree; the output row by a block of norm_bw threads that the
+// wrapper derives from the same heuristic), so q, k and the state come out
+// bit for bit as the plain path's and the output differs only where o's
+// float32 sum (another order than cuBLAS's) rounds to another bf16. Grid
+// (D / 32, head, row) of 128 threads, at most 64 registers (8 CTAs an SM:
+// B = 8 in one wave): a thread owns 4 adjacent value columns x 8 state
+// rows, loaded first as 16-byte vectors (before the dependent-launch wait
+// where the caller allows it: nothing just before on the stream writes
+// the state); two warps normalize q and k while the other two compute
+// RoPE's 64 cos and sin once (accurate sinf / cosf: position 524287 takes
+// their slow path) and the gates of the CTA's columns; the update keeps
+// the plain version's two roundings (lambda S, then + k v), S^T q folds
+// the 16 row groups by two shuffles and a fixed sum over the 4 warps. The
+// output norm spans the row: each CTA writes its 32 bf16 values and
+// gates, draws a ticket of its row and only then writes its state (so the
+// ticket's fence waits for none of it); the last drawer reads the row,
+// the weights and the gates at once, sums the squares in PyTorch's order,
+// normalizes, gates and writes the row, and sets the ticket back to zero
+// (tickets and gates kept per device by the wrapper: no memset,
+// graph-replayable). On an H100 80GB HBM3 at 700.00 W (PERF.md section 6)
+// it takes about 6.3 us alone at B = 1: 2.3 to the new state, 1.7 for the
+// ticket, 2.5 for the last CTA's row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "qmm_common.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -178,6 +216,304 @@ cudaError_t launch_recurrent(const void* q, const void* k, const void* v,
       (const In*)q, (const In*)k, (const In*)v, slopes, state, o, H, T, sq,
       sk, sv);
   return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ decode mixer
+
+constexpr int kDecD = 128;
+constexpr int kDecMaxRow = 4096;   // H * D of an output row (H <= 32)
+constexpr int kDecVecs = kDecMaxRow / 8 / 128;   // 16-byte pieces a thread
+constexpr int kDecMaxBw = 512;     // PyTorch's reduction block, at most
+
+struct DecodeArgs {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  long long qb, qh, kb, kh, vb, vh;      // element strides (row, head)
+  const __nv_bfloat16* z;                // gate input, row stride zb; or null
+  long long zb;
+  const __nv_bfloat16* q_norm;           // [D] each, or both null
+  const __nv_bfloat16* k_norm;
+  const __nv_bfloat16* o_norm;           // [H D] or null
+  const long long* offsets;              // [B] positions, or null: pos0
+  long long pos0;
+  const float* slopes;
+  float* state;
+  __nv_bfloat16* out;                    // [B, H D]
+  __nv_bfloat16* qk_out;                 // [B, 2, H D] q and k, or null
+  int* tickets;                          // [B], zero (o_norm only)
+  __nv_bfloat16* gates;                  // [B, H D] scratch (o_norm, z)
+  float eps, rope_c, scale, o_factor;
+  int H, rope, norm_bw;
+};
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+// torch.sigmoid of a bf16 value: 1 / (1 + exp(-z)) in float32, to bf16
+__device__ __forceinline__ float sigmoid_bf16(float z) {
+  return bf16r(1.f / (1.f + expf(-z)));
+}
+
+// Adds one to a ticket after the CTA's writes (a barrier before it) and
+// returns the ticket's old value: a release fence before the atomic and an
+// acquire fence after it at GPU scope, so the drawer of the last ticket
+// sees every other CTA's writes.
+__device__ __forceinline__ int draw_ticket(int* t) {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  const int old = atomicAdd(t, 1);
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+  return old;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+__global__ void __launch_bounds__(kThreads, 8)   // 8 CTAs an SM: B = 8
+    lightning_decode(const DecodeArgs a) {         // in one wave
+  constexpr int D = kDecD;
+  static_assert(kThreads == 128 && kCols == 32,
+                "8 column quads x 16 row groups");
+  __shared__ float s_qk[2][D];
+  __shared__ float s_cos[D / 2], s_sin[D / 2];
+  __shared__ float s_red[4][kCols];
+  __shared__ float s_part[kThreads];
+  __shared__ __align__(16) __nv_bfloat16 s_row[kDecMaxRow];
+  __shared__ float s_inv;
+  __shared__ bool s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cq = tid & 7, rg = tid >> 3;     // column quad, row group
+  const int h = blockIdx.y, b = blockIdx.z, H = a.H, N = H * D;
+  const int c0 = blockIdx.x * kCols + 4 * cq;
+  const int col = h * D + blockIdx.x * kCols + lane;    // warp 0's column
+
+  // the state strip first: rows rg + 16 i, columns c0..c0+3
+  float* S = a.state + ((size_t)b * H + h) * D * D + c0;
+  float s[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float4 t =
+        *reinterpret_cast<const float4*>(S + (size_t)(rg + 16 * i) * D);
+    s[i][0] = t.x;
+    s[i][1] = t.y;
+    s[i][2] = t.z;
+    s[i][3] = t.w;
+  }
+  const float lam = expf(a.slopes[h]);
+  // the row's last CTA reads the whole row's o_norm and z: each CTA pulls
+  // its own columns' into L2
+  if (tid == 96 && a.o_norm != nullptr) prefetch_l2(a.o_norm + col - lane);
+  griddep_wait();
+
+  float x[4];
+  if (warp < 2) {      // warp 0: q, warp 1: k of head h, 4 values a lane
+    const __nv_bfloat16* src = warp == 0 ? a.q + b * a.qb + h * a.qh
+                                         : a.k + b * a.kb + h * a.kh;
+    const uint2 u = *reinterpret_cast<const uint2*>(src + 4 * lane);
+    x[0] = bf16_lo(u.x);
+    x[1] = bf16_hi(u.x);
+    x[2] = bf16_lo(u.y);
+    x[3] = bf16_hi(u.y);
+    const __nv_bfloat16* w = warp == 0 ? a.q_norm : a.k_norm;
+    if (w != nullptr) {
+      // mean(x^2) as PyTorch reduces a 128-wide row: the lane's vector in
+      // order, then a shuffle-down tree
+      float p = __fmul_rn(x[0], x[0]);
+#pragma unroll
+      for (int j = 1; j < 4; ++j) p = __fadd_rn(p, __fmul_rn(x[j], x[j]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        p = __fadd_rn(p, __shfl_down_sync(kFull, p, o));
+      const float mean = __fmul_rn(__shfl_sync(kFull, p, 0), 1.f / D);
+      const float inv = rsqrtf(__fadd_rn(mean, a.eps));
+      const uint2 wu = *reinterpret_cast<const uint2*>(w + 4 * lane);
+      const float wf[4] = {bf16_lo(wu.x), bf16_hi(wu.x), bf16_lo(wu.y),
+                           bf16_hi(wu.y)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[j] = bf16r(__fmul_rn(bf16r(__fmul_rn(x[j], inv)), wf[j]));
+    }
+  } else if (a.rope) { // warps 2 and 3: RoPE's cos and sin, one angle a lane
+    const int f = (warp - 2) * 32 + lane;
+    const float pos =
+        a.offsets != nullptr ? (float)a.offsets[b] : (float)a.pos0;
+    const float ang = __fmul_rn(pos, expf(__fmul_rn(-(float)f, a.rope_c)));
+    s_cos[f] = cosf(ang);
+    s_sin[f] = sinf(ang);
+  }
+  const uint2 vu =
+      *reinterpret_cast<const uint2*>(a.v + b * a.vb + h * a.vh + c0);
+  const float vv[4] = {bf16_lo(vu.x), bf16_hi(vu.x), bf16_lo(vu.y),
+                       bf16_hi(vu.y)};
+  if (warp == 3 && a.o_norm != nullptr && a.z != nullptr)   // for the last
+    a.gates[(size_t)b * N + col] =                           // CTA
+        __float2bfloat16(sigmoid_bf16(__bfloat162float(a.z[b * a.zb + col])));
+  __syncthreads();
+  if (warp < 2) {
+    if (a.rope) {      // half-split pairs (i, i + 64): lanes l and l ^ 16
+      float other[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) other[j] = __shfl_xor_sync(kFull, x[j], 16);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int f = (4 * lane + j) & (D / 2 - 1);
+        const float xc = __fmul_rn(x[j], s_cos[f]);
+        const float os = __fmul_rn(other[j], s_sin[f]);
+        x[j] = bf16r(lane < 16 ? __fsub_rn(xc, os) : __fadd_rn(xc, os));
+      }
+    }
+    if (warp == 0) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[j] = bf16r(__fmul_rn(x[j], a.scale));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s_qk[warp][4 * lane + j] = x[j];
+    if (a.qk_out != nullptr)
+      *reinterpret_cast<uint2*>(a.qk_out + ((size_t)b * 2 + warp) * N +
+                                h * D + 4 * lane) =
+          make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
+  }
+  __syncthreads();
+
+  // S = lambda S + k v^T (the plain version's two roundings); o = S^T q
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = rg + 16 * i;
+    const float kr = s_qk[1][r], qr = s_qk[0][r];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[i][j] = __fadd_rn(__fmul_rn(s[i][j], lam), __fmul_rn(kr, vv[j]));
+      acc[j] = fmaf(s[i][j], qr, acc[j]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    acc[j] += __shfl_xor_sync(kFull, acc[j], 8);
+    acc[j] += __shfl_xor_sync(kFull, acc[j], 16);
+    if (lane < 8) s_red[warp][4 * cq + j] = acc[j];
+  }
+  __syncthreads();
+
+  __nv_bfloat16* orow = a.out + (size_t)b * N;
+  if (warp == 0) {
+    float y =
+        bf16r(((s_red[0][lane] + s_red[1][lane]) + s_red[2][lane]) +
+              s_red[3][lane]);
+    if (a.o_norm == nullptr && a.z != nullptr)
+      y = bf16r(__fmul_rn(y, sigmoid_bf16(__bfloat162float(
+                                 a.z[b * a.zb + col]))));
+    orow[col] = __float2bfloat16(y);
+  }
+  if (a.o_norm != nullptr) {   // the output norm spans the row: a ticket
+    __syncthreads();
+    if (tid == 0)              // the CTA's values published, the others' seen
+      s_last = draw_ticket(a.tickets + b) == (int)(gridDim.x * gridDim.y) - 1;
+  }
+  // the new state after the ticket, so the fence waits for none of it
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    *reinterpret_cast<float4*>(S + (size_t)(rg + 16 * i) * D) =
+        make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+  if (a.o_norm == nullptr) return;
+  __syncthreads();
+  if (!s_last) return;
+
+  // the row's last CTA: the row, its o_norm weights and gates (each CTA's
+  // sigmoid(z) of its columns) read at once, 16 bytes a piece; the row
+  // staged in shared memory
+  const __nv_bfloat16* grow = a.z != nullptr ? a.gates + (size_t)b * N
+                                             : nullptr;
+  uint4 xr[kDecVecs], wr[kDecVecs], gr[kDecVecs];
+#pragma unroll
+  for (int m = 0; m < kDecVecs; ++m) {
+    const int e0 = 8 * (tid + kThreads * m);
+    if (e0 < N) {
+      xr[m] = __ldcg(reinterpret_cast<const uint4*>(orow + e0));
+      wr[m] = *reinterpret_cast<const uint4*>(a.o_norm + e0);
+      gr[m] = grow != nullptr
+                  ? __ldcg(reinterpret_cast<const uint4*>(grow + e0))
+                  : make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(s_row + e0) = xr[m];
+    }
+  }
+  __syncthreads();
+  // mean(x^2) in the order of PyTorch's reduction over a block of norm_bw
+  // threads along the row: thread vt sums its 4-vectors vt, vt + bw, ...
+  // lane by lane, then its 4 lanes in order; then the tree of halving
+  // offsets (here: those of 128 and up within a thread, which holds vt =
+  // tid + 128 m; 64 and 32 in shared memory; then the warp's)
+  const int bw = a.norm_bw;
+  float v[kDecMaxBw / kThreads];
+#pragma unroll
+  for (int m = 0; m < kDecMaxBw / kThreads; ++m) {
+    const int vt = tid + kThreads * m;
+    float p[4] = {0.f, 0.f, 0.f, 0.f};
+    if (vt < bw) {
+      for (int vi = vt; 4 * vi < N; vi += bw) {
+        const uint2 u = *reinterpret_cast<const uint2*>(s_row + 4 * vi);
+        const float xv[4] = {bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y),
+                             bf16_hi(u.y)};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          p[j] = __fadd_rn(p[j], __fmul_rn(xv[j], xv[j]));
+      }
+    }
+    v[m] = __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), p[2]), p[3]);
+  }
+#pragma unroll
+  for (int off = kDecMaxBw / 2; off >= kThreads; off >>= 1) {
+    if (off < bw) {
+#pragma unroll
+      for (int m = 0; m < off / kThreads; ++m)
+        v[m] = __fadd_rn(v[m], v[m + off / kThreads]);
+    }
+  }
+  const int bx = min(bw, kThreads);
+  if (tid < bx) s_part[tid] = v[0];
+  __syncthreads();
+  for (int off = bx / 2; off >= 32; off >>= 1) {
+    if (tid < off) s_part[tid] = __fadd_rn(s_part[tid], s_part[tid + off]);
+    __syncthreads();
+  }
+  if (warp == 0) {
+    float p = s_part[lane];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      p = __fadd_rn(p, __shfl_down_sync(kFull, p, o));
+    if (lane == 0) s_inv = rsqrtf(__fadd_rn(__fmul_rn(p, a.o_factor), a.eps));
+  }
+  __syncthreads();
+  const float inv = s_inv;
+#pragma unroll
+  for (int m = 0; m < kDecVecs; ++m) {
+    const int e0 = 8 * (tid + kThreads * m);
+    if (e0 >= N) continue;
+    const uint32_t xw[4] = {xr[m].x, xr[m].y, xr[m].z, xr[m].w};
+    const uint32_t ww[4] = {wr[m].x, wr[m].y, wr[m].z, wr[m].w};
+    const uint32_t gw[4] = {gr[m].x, gr[m].y, gr[m].z, gr[m].w};
+    uint32_t yw[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float y0 = bf16r(__fmul_rn(bf16r(__fmul_rn(bf16_lo(xw[j]), inv)),
+                                 bf16_lo(ww[j])));
+      float y1 = bf16r(__fmul_rn(bf16r(__fmul_rn(bf16_hi(xw[j]), inv)),
+                                 bf16_hi(ww[j])));
+      if (grow != nullptr) {
+        y0 = __fmul_rn(y0, bf16_lo(gw[j]));
+        y1 = __fmul_rn(y1, bf16_hi(gw[j]));
+      }
+      yw[j] = pack_bf16(y0, y1);
+    }
+    *reinterpret_cast<uint4*>(orow + e0) = make_uint4(yw[0], yw[1], yw[2],
+                                                      yw[3]);
+  }
+  if (tid == 0) a.tickets[b] = 0;
 }
 
 // ---------------------------------------------------------------- chunked
@@ -986,6 +1322,78 @@ int ominix_lightning_chunked(const void* q, const void* k, const void* v,
   return (int)launch_chunked(bf16 != 0, q, k, v, (const float*)slopes,
                              (float*)state, (float*)o, B, H, T, sq, sk, sv,
                              (cudaStream_t)stream);
+}
+
+// The decode mixer on `stream` (see above), one launch: q, k, v [B, H, 1,
+// D] bf16 through their (row, head) element strides; z [B, H D] bf16 with
+// row stride zb, or null (no gate); q_norm and k_norm [D] bf16 (both or
+// neither), o_norm [H D] bf16 or null; rope != 0 rotates at the positions
+// offsets[b] (int64) or pos0, with rope_c the float32 of ln(theta) / (D /
+// 2); scale the float32 of D^-0.5; o_factor the float32 of 1 / (H D) as
+// PyTorch's mean computes it, norm_bw the x-width of its reduction block
+// (a power of two, 32..512); state [B, H, D, D] float32 in place; out [B,
+// H D] bf16; qk_out [B, 2, H D] bf16 or null (q and k as the state step
+// reads them); tickets [B] int32, zero (left zero), where o_norm is given,
+// and gates [B, H D] bf16 (scratch: sigmoid(z)) where z is too.
+// pdl != 0 launches behind the work before it by programmatic dependent
+// launch: the state is then read before that work ends, so it must not
+// write the state. D = 128, H D <= 4096. Returns the first CUDA error.
+int ominix_lightning_decode(
+    const void* q, const void* k, const void* v, long long qb, long long qh,
+    long long kb, long long kh, long long vb, long long vh, const void* z,
+    long long zb, const void* q_norm, const void* k_norm, const void* o_norm,
+    float eps, int rope, float rope_c, float scale, float o_factor,
+    long long pos0, const void* offsets, const void* slopes, void* state,
+    void* out, void* qk_out, void* tickets, void* gates, int B, int H, int D,
+    int norm_bw, int pdl, void* stream) {
+  if (bad_args(B, H, 1) || D != kDecD || H * D > kDecMaxRow ||
+      (q_norm == nullptr) != (k_norm == nullptr) ||
+      (o_norm != nullptr && (tickets == nullptr || norm_bw < 32 ||
+                             (z != nullptr && gates == nullptr) ||
+                             norm_bw > kDecMaxBw ||
+                             (norm_bw & (norm_bw - 1)) != 0)))
+    return (int)cudaErrorInvalidValue;
+  DecodeArgs a;
+  a.q = (const __nv_bfloat16*)q;
+  a.k = (const __nv_bfloat16*)k;
+  a.v = (const __nv_bfloat16*)v;
+  a.qb = qb;
+  a.qh = qh;
+  a.kb = kb;
+  a.kh = kh;
+  a.vb = vb;
+  a.vh = vh;
+  a.z = (const __nv_bfloat16*)z;
+  a.zb = zb;
+  a.q_norm = (const __nv_bfloat16*)q_norm;
+  a.k_norm = (const __nv_bfloat16*)k_norm;
+  a.o_norm = (const __nv_bfloat16*)o_norm;
+  a.offsets = (const long long*)offsets;
+  a.pos0 = pos0;
+  a.slopes = (const float*)slopes;
+  a.state = (float*)state;
+  a.out = (__nv_bfloat16*)out;
+  a.qk_out = (__nv_bfloat16*)qk_out;
+  a.tickets = (int*)tickets;
+  a.gates = (__nv_bfloat16*)gates;
+  a.eps = eps;
+  a.rope_c = rope_c;
+  a.scale = scale;
+  a.o_factor = o_factor;
+  a.H = H;
+  a.rope = rope;
+  a.norm_bw = norm_bw;
+  static bool carveout = false;     // shared memory for 8 CTAs an SM
+  if (!carveout) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lightning_decode, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    carveout = true;
+  }
+  return (int)launch_kernel(lightning_decode, dim3(D / kCols, H, B),
+                            dim3(kThreads), 0, pdl != 0,
+                            (cudaStream_t)stream, a);
 }
 
 }  // extern "C"

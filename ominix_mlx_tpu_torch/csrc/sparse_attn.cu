@@ -1,12 +1,14 @@
 // K11: InfLLMv2's sparse decode attention (MiniCPM-SALA's "minicpm4"
-// layers at one query token a row), in two kernels the wrapper launches in
-// turn with torch.topk between them:
+// layers at one query token a row), in two launches:
 //
-//   sparse_score (counter k11_score): the block scores, float32 sums of the
-//     products of the group's scoring query (its first query head) and the
-//     mean-pooled keys comp [B, Hkv, nb, D] bf16; a block outside
-//     [init_end, window_start - ks] scores NEG_INF. window_start =
-//     max(total - window, init_end).
+//   sparse_select (counter k11_select): the block scores, float32 sums of
+//     the products of the group's scoring query (its first query head) and
+//     the mean-pooled keys comp [B, Hkv, nb, D] bf16 (a block outside
+//     [init_end, window_start - ks] scores NEG_INF; window_start =
+//     max(total - window, init_end)), and their top k, sorted, equal
+//     scores by block index. sparse_score (counter k11_score) computes the
+//     same scores alone, bit for bit; the decode path no longer launches
+//     it.
 //   sparse_attend (counter k11_attend; one launch): attention of each (row,
 //     KV head) over its init slots, its selected blocks and its window, K
 //     and V read in place from the cache [B, Hkv, S, D] bf16 through the
@@ -17,10 +19,15 @@
 // window (4160 slots a KV head at the production config) and runs a masked
 // sdpa (ominix_mlx_tpu/models/sparse_attention.py:131-197), all XLA.
 //
-// What bounds them on an H100: bytes. sparse_score reads comp once in bf16
+// What bounds them on an H100: bytes. The scores read comp once in bf16
 // (8 MiB a layer at a 524288-token cache; the plain version first copies
 // it to float32) and only the blocks that can be valid: the rest get
 // NEG_INF unread, so a short context in a long cache costs what it holds.
+// The selector's top k replaces torch.topk (a radix select and a sort,
+// 19-77 us at 4096-524288 tokens on an H100 80GB HBM3 at 700.00 W, PERF.md
+// section 6) by a sort of 64-bit keys on chip (see sparse_select); a (row,
+// KV head) past 512 blocks pays one ticket and the last CTA's merge of up
+// to 32 lists, about 3 us of its 15 at 524288 tokens.
 // sparse_attend reads each valid slot's K and V rows once (4160 slots x 2
 // KV heads x 512 B at B = 1) and does 4 R FLOPs a byte, R = 16 query heads
 // a KV head: far below the card's ratio of operations to bytes, and at B =
@@ -85,6 +92,41 @@ constexpr float kNegInf = -0.7f * 3.4028234663852886e38f;
 constexpr int kScoreWarps = 8;
 constexpr int kScoreIters = 4;     // blocks a lane group, unrolled
 
+// The scoring query of KV head g (query head g H / Hkv) of row b: the 8
+// values (16 bytes) of lane ls of a lane group, in float32.
+template <int D>
+__device__ __forceinline__ void load_query(const __nv_bfloat16* q, int b,
+                                           int g, int H, int Hkv, int ls,
+                                           float (&qf)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(
+      q + ((size_t)b * H + (size_t)g * (H / Hkv)) * D + ls * 8);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    qf[2 * i] = __uint_as_float(w[i] << 16);
+    qf[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// A block's score: the lane's 8 products from zero as one fma chain, then
+// a butterfly over the group's LPB lanes (smask); every lane of the group
+// gets the same sum. k11_score and k11_select both score with it.
+template <int LPB>
+__device__ __forceinline__ float group_dot(const float (&qf)[8], uint4 u,
+                                           unsigned smask) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc = fmaf(qf[2 * i], __uint_as_float(w[i] << 16), acc);
+    acc = fmaf(qf[2 * i + 1], __uint_as_float(w[i] & 0xffff0000u), acc);
+  }
+#pragma unroll
+  for (int off = LPB / 2; off >= 1; off >>= 1)
+    acc += __shfl_xor_sync(smask, acc, off);
+  return acc;
+}
+
 // One CTA per (run of blocks, KV head, row); a group of D / 8 lanes per
 // block, 8 elements (16 bytes) a lane.
 template <int D>
@@ -106,16 +148,7 @@ __global__ void __launch_bounds__(32 * kScoreWarps)
   const int hi = ws / ks;                       // blocks ending <= ws
 
   float qf[8];
-  {
-    const uint4 u = *reinterpret_cast<const uint4*>(
-        q + ((size_t)b * H + (size_t)g * (H / Hkv)) * D + ls * 8);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qf[2 * i] = __uint_as_float(w[i] << 16);
-      qf[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
+  load_query<D>(q, b, g, H, Hkv, ls, qf);
   const __nv_bfloat16* crow = comp + ((size_t)b * Hkv + g) * nb * D + ls * 8;
   float* srow = scores + ((size_t)b * Hkv + g) * nb;
   const int base = blockIdx.x * PER_CTA + warp * PW + sub;
@@ -132,21 +165,308 @@ __global__ void __launch_bounds__(32 * kScoreWarps)
   for (int r = 0; r < kScoreIters; ++r) {
     const int n = base + r * kScoreWarps * PW;
     if (n >= nb) continue;
-    float s = kNegInf;
-    if (ok[r]) {                 // the same for the group's lanes
-      const uint32_t w[4] = {u[r].x, u[r].y, u[r].z, u[r].w};
-      float acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc = fmaf(qf[2 * i], __uint_as_float(w[i] << 16), acc);
-        acc = fmaf(qf[2 * i + 1], __uint_as_float(w[i] & 0xffff0000u), acc);
-      }
-#pragma unroll
-      for (int off = LPB / 2; off >= 1; off >>= 1)
-        acc += __shfl_xor_sync(smask, acc, off);
-      s = acc;
-    }
+    // ok is the same for the group's lanes
+    const float s = ok[r] ? group_dot<LPB>(qf, u[r], smask) : kNegInf;
     if (ls == 0) srow[n] = s;
+  }
+}
+
+// ----------------------------------------------------------------- select
+
+constexpr int kSelWarps = 16;
+constexpr int kSelThreads = 32 * kSelWarps;
+constexpr int kSelSpan = 512;      // blocks a round: 16 loads a lane
+constexpr int kSelMaxCtas = 32;    // a pair's lists: the last CTA's level 1
+
+// A block's sort key: the score's bits made order-preserving (-0 as +0)
+// above the complement of its index, so that keys are distinct, a larger
+// key is a larger score, and among equal scores the lower index wins
+// (jax.lax.top_k's tie rule). A position n past the last block is padding:
+// ~n alone, below every block's key and distinct too.
+__device__ __forceinline__ unsigned long long block_key(float s, int n) {
+  uint32_t u = __float_as_uint(s);
+  if (u == 0x80000000u) u = 0u;
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (uint32_t)~(uint32_t)n;
+}
+__device__ __forceinline__ float key_score(unsigned long long key) {
+  const uint32_t u = (uint32_t)(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+__device__ __forceinline__ long long key_index(unsigned long long key) {
+  return (long long)(uint32_t)~(uint32_t)key;
+}
+
+// One compare-exchange stage of a bitonic network over a warp's 32 KPL
+// keys (position p = lane KPL + r): p and p ^ d meet, the larger goes to
+// the lower position where p & s is 0 (descending runs) and to the upper
+// one elsewhere.
+template <int KPL>
+__device__ __forceinline__ void bitonic_stage(unsigned long long (&v)[KPL],
+                                              int lane, int s, int d) {
+  if (d >= KPL) {
+#pragma unroll
+    for (int r = 0; r < KPL; ++r) {
+      const int p = lane * KPL + r;
+      const unsigned long long o = __shfl_xor_sync(kFull, v[r], d / KPL);
+      const bool larger = ((p & s) == 0) == ((p & d) == 0);
+      v[r] = larger ? (v[r] > o ? v[r] : o) : (v[r] < o ? v[r] : o);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < KPL; ++r) {
+      if (r & d) continue;
+      const unsigned long long x = v[r], y = v[r | d];
+      if (((lane * KPL + r) & s) == 0 ? x < y : x > y) {
+        v[r] = y;
+        v[r | d] = x;
+      }
+    }
+  }
+}
+
+// Sort a warp's chunk of 32 KPL distinct keys in shared memory (16-byte
+// aligned) into descending order in place: a key's rank is the count of
+// larger ones (the chunk read as broadcasts, no dependent shuffles), and
+// it is written there.
+template <int KPL>
+__device__ __forceinline__ void chunk_sort(unsigned long long* c, int lane) {
+  constexpr int L = 32 * KPL;
+  unsigned long long mine[KPL];
+  int rank[KPL];
+#pragma unroll
+  for (int r = 0; r < KPL; ++r) {
+    mine[r] = c[lane + 32 * r];
+    rank[r] = 0;
+  }
+#pragma unroll 8
+  for (int j = 0; j < L; j += 2) {
+    const ulonglong2 o = *reinterpret_cast<const ulonglong2*>(c + j);
+#pragma unroll
+    for (int r = 0; r < KPL; ++r)
+      rank[r] += (int)(o.x > mine[r]) + (int)(o.y > mine[r]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < KPL; ++r) c[rank[r]] = mine[r];
+  __syncwarp();
+}
+
+// The top 32 KPL of two descending lists a and b, descending, into out:
+// max(a[p], b[L - 1 - p]) is bitonic and holds them; one merge sorts it.
+// out may be a.
+template <int KPL, bool kGlobal>
+__device__ __forceinline__ void merge_top(const unsigned long long* a,
+                                          const unsigned long long* b,
+                                          unsigned long long* out, int lane) {
+  constexpr int L = 32 * KPL;
+  unsigned long long v[KPL];
+#pragma unroll
+  for (int r = 0; r < KPL; ++r) {
+    const int p = lane * KPL + r;
+    const unsigned long long x = kGlobal ? __ldcg(a + p) : a[p];
+    const unsigned long long y = kGlobal ? __ldcg(b + L - 1 - p) : b[L - 1 - p];
+    v[r] = x > y ? x : y;
+  }
+#pragma unroll
+  for (int d = L >> 1; d > 0; d >>= 1) bitonic_stage<KPL>(v, lane, 2 * L, d);
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < KPL; ++r) out[lane * KPL + r] = v[r];
+}
+
+// Two chains of a block's 16-lane sum (chains gl and gl + 8 of the group
+// dot, 8 products each from zero) held by one of 8 lanes: their sum is
+// the butterfly's first level, the other three are shuffles within the 8
+// lanes. The same sums in the same order as group_dot<16>, so the same
+// score (the adds commute).
+__device__ __forceinline__ float pair_dot(const float (&q0)[8],
+                                          const float (&q1)[8], uint4 u0,
+                                          uint4 u1) {
+  const uint32_t w0[4] = {u0.x, u0.y, u0.z, u0.w};
+  const uint32_t w1[4] = {u1.x, u1.y, u1.z, u1.w};
+  float a = 0.f, c = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a = fmaf(q0[2 * i], __uint_as_float(w0[i] << 16), a);
+    a = fmaf(q0[2 * i + 1], __uint_as_float(w0[i] & 0xffff0000u), a);
+    c = fmaf(q1[2 * i], __uint_as_float(w1[i] << 16), c);
+    c = fmaf(q1[2 * i + 1], __uint_as_float(w1[i] & 0xffff0000u), c);
+  }
+  float acc = a + c;
+#pragma unroll
+  for (int off = 4; off >= 1; off >>= 1)
+    acc += __shfl_xor_sync(kFull, acc, off);
+  return acc;
+}
+
+// The key of position n of a (row, KV head) whose block is not valid:
+// NEG_INF, or padding past the last block; a run of them is in descending
+// order.
+__device__ __forceinline__ unsigned long long masked_key(int n, int nb) {
+  return n < nb ? block_key(kNegInf, n) : (uint32_t)~(uint32_t)n;
+}
+
+// k11_select: the masked block scores of k11_score, bit for bit, and their
+// top k (descending; equal scores by index), one launch. Grid (ctas, Hkv,
+// B); a CTA scores `rounds` runs of 512 blocks: a warp 32 of them, 8
+// lanes a block holding two of its 16 sum chains (pair_dot: 3 shuffles a
+// block, not 4), all 16 16-byte loads of a lane issued at once, only
+// blocks that can be valid read, and no branch around a block's sum (so
+// the 8 blocks of a lane overlap). Each run is sorted in chunks of L = 32
+// KPL keys (chunk_sort: ranks by counting), the chunks merged (a warp's
+// bitonic merge in registers) in index order, neighbours first, into the
+// run's top L, and the runs folded
+// into the CTA's top L. A chunk, run or list whose blocks hold no valid
+// one is already in order (NEG_INF by index) and loses every merge to the
+// lower-indexed list beside it, so it is neither sorted nor merged. With
+// one CTA a (row, KV head) it writes the result; otherwise it writes its
+// list to cands, draws the pair's ticket, and the last drawer merges the
+// ctas lists the same way (the first level from cands by up to 16 warps,
+// then in shared memory), writes the top k and sets the ticket back to
+// zero.
+template <int KPL>
+__global__ void __launch_bounds__(kSelThreads, 1)
+    sparse_select(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ comp,
+                  const int* __restrict__ total, float* __restrict__ top_val,
+                  long long* __restrict__ top_idx,
+                  unsigned long long* __restrict__ cands,
+                  int* __restrict__ tickets, int H, int Hkv, int nb,
+                  int init_end, int window, int ks, int k, int rounds) {
+  constexpr int D = 128, L = 32 * KPL, CHUNKS = kSelSpan / L;
+  static_assert(kSelSpan == 32 * kSelWarps && D == 128, "32 blocks a warp");
+  __shared__ __align__(16) unsigned long long s_key[kSelSpan];
+  __shared__ unsigned long long s_list[kSelMaxCtas / 2][L];
+  __shared__ bool s_last;
+
+  const int g = blockIdx.y, b = blockIdx.z, ctas = gridDim.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = lane >> 3, gl = lane & 7;     // 4 blocks of 8 lanes
+  const int tot = total[b];
+  const int ws = max(tot - window, init_end);
+  const int lo = (init_end + ks - 1) / ks;      // first block >= init_end
+  const int hi = min(ws / ks, nb);              // blocks ending <= ws
+  auto holds_valid = [&](int n0, int n1) { return n0 < hi && n1 > lo; };
+  float q0[8], q1[8];                           // chains gl and gl + 8
+  {
+    const __nv_bfloat16* qs =
+        q + ((size_t)b * H + (size_t)g * (H / Hkv)) * D + gl * 8;
+    const uint4 u0 = *reinterpret_cast<const uint4*>(qs);
+    const uint4 u1 = *reinterpret_cast<const uint4*>(qs + 64);
+    const uint32_t w0[4] = {u0.x, u0.y, u0.z, u0.w};
+    const uint32_t w1[4] = {u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      q0[2 * i] = __uint_as_float(w0[i] << 16);
+      q0[2 * i + 1] = __uint_as_float(w0[i] & 0xffff0000u);
+      q1[2 * i] = __uint_as_float(w1[i] << 16);
+      q1[2 * i + 1] = __uint_as_float(w1[i] & 0xffff0000u);
+    }
+  }
+  const size_t pair = (size_t)b * Hkv + g;
+  const __nv_bfloat16* crow = comp + pair * nb * D + gl * 8;
+  unsigned long long* best = s_list[0];
+
+  for (int rnd = 0; rnd < rounds; ++rnd) {
+    const int start = (blockIdx.x * rounds + rnd) * kSelSpan;
+    const bool scored = holds_valid(start, start + kSelSpan);
+    if (!scored) {
+      if (rnd == 0)
+        for (int p = tid; p < L; p += kSelThreads)
+          best[p] = masked_key(start + p, nb);
+      continue;
+    }
+    {
+      // a block that is not valid reads the nearest valid one instead (the
+      // run holds one): no branch, so all 16 loads are in flight at once
+      const int n0 = start + warp * 32 + grp;
+      uint4 u[8][2];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int n = min(max(n0 + 4 * r, lo), hi - 1);
+        const uint4* src =
+            reinterpret_cast<const uint4*>(crow + (size_t)n * D);
+        u[r][0] = src[0];
+        u[r][1] = src[8];
+      }
+      float sc[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) sc[r] = pair_dot(q0, q1, u[r][0], u[r][1]);
+      if (gl == 0) {
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int n = n0 + 4 * r;
+          s_key[n - start] = n >= lo && n < hi ? block_key(sc[r], n)
+                                                : masked_key(n, nb);
+        }
+      }
+    }
+    __syncthreads();
+    if (warp < CHUNKS && holds_valid(start + warp * L, start + warp * L + L))
+      chunk_sort<KPL>(s_key + warp * L, lane);
+    for (int st = 1; st < CHUNKS; st <<= 1) {   // chunks c and c + st
+      __syncthreads();
+      const int c = warp * 2 * st;
+      if (c + st < CHUNKS &&
+          holds_valid(start + (c + st) * L, start + (c + 2 * st) * L))
+        merge_top<KPL, false>(s_key + c * L, s_key + (c + st) * L,
+                              s_key + c * L, lane);
+    }
+    __syncthreads();
+    if (warp == 0) {       // fold the run's top L into the CTA's
+      if (rnd == 0) {
+#pragma unroll
+        for (int r = 0; r < KPL; ++r)
+          best[lane * KPL + r] = s_key[lane * KPL + r];
+      } else {
+        merge_top<KPL, false>(best, s_key, best, lane);
+      }
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+
+  if (ctas > 1) {
+    const int span = rounds * kSelSpan;        // blocks a CTA
+    unsigned long long* mine = cands + (pair * ctas + blockIdx.x) * L;
+    for (int p = tid; p < L; p += kSelThreads) mine[p] = best[p];
+    __syncthreads();
+    if (tid == 0) {        // the CTA's writes published, the others' seen
+      asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+      s_last = atomicAdd(tickets + pair, 1) == ctas - 1;
+      asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (!s_last) return;
+    // level 1 from cands, lists 2w and 2w + 1 into s_list[w]; then in
+    // shared memory, lists i and i + st into i
+    const unsigned long long* lists = cands + pair * ctas * L;
+    const int n1 = (ctas + 1) / 2;
+    if (warp < n1) {
+      const int i = 2 * warp;
+      if (i + 1 < ctas && holds_valid((i + 1) * span, (i + 2) * span)) {
+        merge_top<KPL, true>(lists + i * L, lists + (i + 1) * L,
+                             s_list[warp], lane);
+      } else {
+#pragma unroll
+        for (int r = 0; r < KPL; ++r)
+          s_list[warp][lane * KPL + r] = __ldcg(lists + i * L + lane * KPL + r);
+      }
+    }
+    for (int st = 1; st < n1; st <<= 1) {
+      __syncthreads();
+      const int i = warp * 2 * st;
+      if (i + st < n1 &&
+          holds_valid((2 * (i + st)) * span, (2 * (i + 2 * st)) * span))
+        merge_top<KPL, false>(s_list[i], s_list[i + st], s_list[i], lane);
+    }
+    __syncthreads();
+    if (tid == 0) tickets[pair] = 0;
+  }
+  for (int i = tid; i < k; i += kSelThreads) {
+    top_val[pair * k + i] = key_score(best[i]);
+    top_idx[pair * k + i] = key_index(best[i]);
   }
 }
 
@@ -659,6 +979,19 @@ int launch_score(const void* q, const void* comp, const void* total,
   return (int)cudaGetLastError();
 }
 
+template <int KPL>
+int launch_select(const void* q, const void* comp, const void* total,
+                  void* top_val, void* top_idx, void* cands, void* tickets,
+                  int B, int H, int Hkv, int nb, int init_end, int window,
+                  int ks, int k, int ctas, int rounds, cudaStream_t st) {
+  sparse_select<KPL><<<dim3(ctas, Hkv, B), kSelThreads, 0, st>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)comp,
+      (const int*)total, (float*)top_val, (long long*)top_idx,
+      (unsigned long long*)cands, (int*)tickets, H, Hkv, nb, init_end,
+      window, ks, k, rounds);
+  return (int)cudaGetLastError();
+}
+
 bool bad_heads(int B, int H, int Hkv) {
   return B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || H % Hkv ||
          H / Hkv > kRows;
@@ -682,6 +1015,40 @@ int ominix_sparse_score(const void* q, const void* comp, const void* total,
   if (D != 128) return (int)cudaErrorInvalidValue;
   return launch_score<128>(q, comp, total, scores, B, H, Hkv, nb, init_end,
                            window, ks, st);
+}
+
+// k11_select on `stream`, one launch: the scores of ominix_sparse_score
+// (the same arguments) and their top k, k <= 256 and k <= nb: top_val [B,
+// Hkv, k] float32 and top_idx [B, Hkv, k] int64, descending, equal scores
+// by index (the blocks that are not valid score NEG_INF). The blocks are
+// cut into ctas runs of rounds x 512 a (row, KV head) (ctas <= 32, ctas x
+// rounds x 512 >= nb; ops/sparse_attention.py k11_select_plan); with ctas
+// > 1, cands [B, Hkv, ctas, L] (L = 64, 128 or 256, the least power of two
+// >= max(k, 64)) holds each CTA's top L and tickets [B Hkv] int32 (zero;
+// left zero) count a pair's finished CTAs. Returns the first CUDA error.
+int ominix_sparse_select(const void* q, const void* comp, const void* total,
+                         void* top_val, void* top_idx, void* cands,
+                         void* tickets, int B, int H, int Hkv, int nb, int D,
+                         int init_end, int window, int ks, int k, int ctas,
+                         int rounds, void* stream) {
+  if (bad_heads(B, H, Hkv) || D != 128 || nb < 1 || ks < 1 ||
+      init_end < 0 || window < 0 || k < 1 || k > kMaxTopk || k > nb ||
+      ctas < 1 || ctas > kSelMaxCtas || rounds < 1 ||
+      (long long)ctas * rounds * kSelSpan < nb ||
+      (ctas > 1 && (cands == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k <= 64)
+    return launch_select<2>(q, comp, total, top_val, top_idx, cands, tickets,
+                            B, H, Hkv, nb, init_end, window, ks, k, ctas,
+                            rounds, st);
+  if (k <= 128)
+    return launch_select<4>(q, comp, total, top_val, top_idx, cands, tickets,
+                            B, H, Hkv, nb, init_end, window, ks, k, ctas,
+                            rounds, st);
+  return launch_select<8>(q, comp, total, top_val, top_idx, cands, tickets, B,
+                          H, Hkv, nb, init_end, window, ks, k, ctas, rounds,
+                          st);
 }
 
 // k11_attend on `stream`, one launch: q [B, H, D] bf16; k, v [B, Hkv, S,

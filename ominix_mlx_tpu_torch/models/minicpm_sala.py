@@ -8,8 +8,10 @@ the lm_head.
 
 Kernels on CUDA: a sparse layer's fresh prefill runs K2, a continuation
 chunk (``kv_limit``) or a prefill at an offset K2c, a decode step K11
-(scorer, torch.topk, attend); a lightning layer runs K10 in the form
-``k10_plan`` picks; the projections the quantized-matmul routes. Every
+(``k11_select``, the block scores and their top-k, then ``k11_attend``); a
+lightning layer's decode step runs its whole mixer in ``k10_decode``, a
+prompt K10 in the form ``k10_plan`` picks; the projections the
+quantized-matmul routes. Every
 cache is written in place. The JAX signature of ``forward`` is kept
 (``num_layers``, the self-speculative draft's prefix; ``fresh_prefill``,
 ``kv_limit``, ``skip_logits``), so ``Server`` and the engines wire K2 and
@@ -33,7 +35,6 @@ import torch
 from ominix_mlx_tpu_torch.core.attention import causal_mask, sdpa
 from ominix_mlx_tpu_torch.core.cache import ModelCache
 from ominix_mlx_tpu_torch.core.device import resolve_device
-from ominix_mlx_tpu_torch.core.rope import apply_rope, make_rope, positions_of
 from ominix_mlx_tpu_torch.models import base
 from ominix_mlx_tpu_torch.models import lightning as gla
 from ominix_mlx_tpu_torch.models.moe import random_quantized_linear
@@ -42,7 +43,7 @@ from ominix_mlx_tpu_torch.models.sparse_attention import (
 from ominix_mlx_tpu_torch.nn.layers import (embedding, embedding_as_linear,
                                             linear, rms_norm)
 from ominix_mlx_tpu_torch.ops import flash_attention as fa
-from ominix_mlx_tpu_torch.ops.lightning_attention import lightning_attention
+from ominix_mlx_tpu_torch.ops import lightning_attention as la
 from ominix_mlx_tpu_torch.utils.loading import load_config, load_safetensors
 
 __all__ = ["MiniCPMConfig", "forward", "init_cache", "init_params",
@@ -153,16 +154,17 @@ def _qkv(lp: dict, x: torch.Tensor, nq: int, nkv: int, hd: int):
             v.reshape(B, T, nkv, hd).transpose(1, 2))
 
 
-def _norm_rope(lp, cfg: MiniCPMConfig, q, k, offset, rope: bool):
+def _qk_norms(lp, cfg: MiniCPMConfig):
+    """(q_norm, k_norm) where the layer normalizes q and k, else (None,
+    None)."""
     if cfg.qk_norm and "q_norm" in lp:
-        q = rms_norm(lp["q_norm"], q, cfg.rms_norm_eps)
-        k = rms_norm(lp["k_norm"], k, cfg.rms_norm_eps)
-    if rope:
-        rc = make_rope(q.shape[-1], cfg.rope_theta)
-        pos = positions_of(offset, q.shape[2], q.device)
-        q = apply_rope(q, pos, rc)
-        k = apply_rope(k, pos, rc)
-    return q, k
+        return lp["q_norm"], lp["k_norm"]
+    return None, None
+
+
+def _norm_rope(lp, cfg: MiniCPMConfig, q, k, offset, rope: bool):
+    return la.norm_rope(q, k, *_qk_norms(lp, cfg), cfg.rms_norm_eps,
+                        cfg.rope_theta if rope else None, offset)
 
 
 def _sparse_attn(lp, cfg: MiniCPMConfig, x, cache: SparseKVCache, offset,
@@ -211,19 +213,32 @@ def _lightning_attn(lp, cfg: MiniCPMConfig, x, cache: gla.GLACache, offset):
     """ominix_mlx_tpu/models/minicpm_sala.py:158-184: QK-norm, RoPE, q
     times hd^-0.5 in the activations' type, K10 (the state advanced in
     place), the float32 output cast to x's type, ``o_norm`` over the whole
-    width and the gate sigmoid(z_proj(x))."""
+    width and the gate sigmoid(z_proj(x)). A decode step (T = 1) runs all
+    of it between the projections and o_proj as ``lightning_decode``
+    (``k10_decode`` on CUDA)."""
     B, T, _ = x.shape
     H, hd = cfg.gla_heads, cfg.gla_head_dim
     q, k, v = _qkv(lp, x, H, H, hd)
+    slopes = gla.slopes_on(H, x.device)
+    z = (linear(lp["z_proj"], x)
+         if cfg.use_output_gate and "z_proj" in lp else None)
+    o_norm = lp["o_norm"] if cfg.use_output_norm and "o_norm" in lp \
+        else None
+    rope_theta = cfg.rope_theta if cfg.lightning_use_rope else None
+    if T == 1:
+        q_norm, k_norm = _qk_norms(lp, cfg)
+        out = la.lightning_decode(q, k, v, slopes, cache.state, z, q_norm,
+                                  k_norm, o_norm, cfg.rms_norm_eps,
+                                  rope_theta, offset, overlap=True)
+        return linear(lp["o_proj"], out), cache
     q, k = _norm_rope(lp, cfg, q, k, offset, cfg.lightning_use_rope)
     q = q * hd ** -0.5
-    out = lightning_attention(q, k, v, gla.slopes_on(H, x.device),
-                              cache.state)
+    out = la.lightning_attention(q, k, v, slopes, cache.state)
     out = out.transpose(1, 2).reshape(B, T, H * hd).to(x.dtype)
-    if cfg.use_output_norm and "o_norm" in lp:
-        out = rms_norm(lp["o_norm"], out, cfg.rms_norm_eps)
-    if cfg.use_output_gate and "z_proj" in lp:
-        out = out * torch.sigmoid(linear(lp["z_proj"], x))
+    if o_norm is not None:
+        out = rms_norm(o_norm, out, cfg.rms_norm_eps)
+    if z is not None:
+        out = out * torch.sigmoid(z)
     return linear(lp["o_proj"], out), cache
 
 

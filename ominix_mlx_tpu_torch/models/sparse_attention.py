@@ -6,9 +6,9 @@ window] at decode.
 
 ``SparseKVCache`` keeps the full history and its pooled keys, written IN
 PLACE (the JAX package's caches are values): an append re-pools only the
-blocks it touches. ``sparse_decode_attention`` scores the blocks
-(``ops.sparse_attention.block_scores``: kernel K11's scorer on CUDA),
-takes ``torch.topk`` and attends the gathered set
+blocks it touches. ``sparse_decode_attention`` scores the blocks and takes
+their top k (``ops.sparse_attention.block_select``: kernel K11's selector
+on CUDA) and attends the gathered set
 (``ops.sparse_attention.sparse_attend``: K11's attend on CUDA, reading K
 and V in place). Its slot set has the JAX package's static length init +
 topk * ks + window, the invalid slots masked, so a short context is exact
@@ -149,9 +149,8 @@ def sparse_decode_attention(q: torch.Tensor, cache, offset: Offset,
         comp = cache.comp
     else:
         comp = compress_keys(cache.k, ks)
-    scores = sa.block_scores(q, comp, total, scfg.init_end,
-                             scfg.window_size, ks)
-    top_scores, top_idx = torch.topk(scores, min(scfg.topk, comp.shape[2]),
-                                     dim=-1)
+    top_scores, top_idx = sa.block_select(
+        q, comp, total, scfg.init_end, scfg.window_size, ks,
+        min(scfg.topk, comp.shape[2]))
     return sa.sparse_attend(q, cache.k, cache.v, top_idx, top_scores, total,
                             scfg.init_end, scfg.window_size, ks, scale)

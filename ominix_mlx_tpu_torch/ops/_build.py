@@ -52,8 +52,10 @@ build_seconds = 0.0     # wall time of the build this process ran (0 if reused)
 # recurrent form, "k9_chunk" and "k9_chunk_scan": the two phases of its
 # chunked form, "k9_prep": the layer's prologue before the rule; "k10":
 # MiniCPM-SALA's lightning attention in its recurrent form, "k10_chunk":
-# its chunked form (one launch); "k11_score" and
-# "k11_attend": InfLLMv2's block scorer and sparse decode attention).
+# its chunked form (one launch), "k10_decode": a lightning layer's whole
+# decode mixer (norms, RoPE, the state step, the gate); "k11_score",
+# "k11_select" and "k11_attend": InfLLMv2's block scorer, the scorer with
+# its top-k (the decode path's), and sparse decode attention).
 # Plain-version calls do not count.
 LAUNCHES: collections.Counter = collections.Counter()
 
@@ -120,8 +122,13 @@ def _declare(lib):
     lib.ominix_lightning_chunked.restype = i
     lib.ominix_lightning_chunked.argtypes = [vp] * 6 + [i] * 5 + [ll] * 9 \
         + [vp]
+    lib.ominix_lightning_decode.restype = i
+    lib.ominix_lightning_decode.argtypes = [vp] * 3 + [ll] * 6 + [vp, ll] \
+        + [vp] * 3 + [f, i, f, f, f, ll] + [vp] * 7 + [i] * 5 + [vp]
     lib.ominix_sparse_score.restype = i
     lib.ominix_sparse_score.argtypes = [vp] * 4 + [i] * 8 + [vp]
+    lib.ominix_sparse_select.restype = i
+    lib.ominix_sparse_select.argtypes = [vp] * 7 + [i] * 11 + [vp]
     lib.ominix_sparse_attend.restype = i
     lib.ominix_sparse_attend.argtypes = [vp] * 10 + [i] * 12 + [f, vp]
     lib.ominix_cuda_error_string.restype = ctypes.c_char_p

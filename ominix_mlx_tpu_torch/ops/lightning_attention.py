@@ -13,17 +13,32 @@ CPU tensor takes the plain version ``lightning_reference``, the JAX
 package's two functions (one step at T = 1, the chunked form otherwise).
 
 K10 has two forms, which ``k10_plan`` picks from the shapes alone: the
-recurrent form (counter ``k10``; the loop over T inside one launch; decode
-and short prompts) and the chunked form (counter ``k10_chunk``; one launch
-that walks the chunks with the state on chip; prompts at D = 128). q, k
-and v are [B, H, T, D] bf16 or float32 (any strides with a unit stride
-along D); the state [B, H, D, D] float32 is written in place; the output
-o is [B, H, T, D] float32.
+recurrent form (counter ``k10``; the loop over T inside one launch; short
+prompts) and the chunked form (counter ``k10_chunk``; one launch that
+walks the chunks with the state on chip; prompts at D = 128). q, k and v
+are [B, H, T, D] bf16 or float32 (any strides with a unit stride along
+D); the state [B, H, D, D] float32 is written in place; the output o is
+[B, H, T, D] float32.
+
+A lightning layer's decode step (T = 1) takes ``lightning_decode``: its
+whole mixer between the projections and o_proj (QK-norm, RoPE, the scale,
+the state step, the output norm and the gate; ominix_mlx_tpu/models/
+minicpm_sala.py:158-184), one launch of ``lightning_decode`` in
+``csrc/lightning_attn.cu`` on CUDA (counter ``k10_decode``), the plain
+composition ``lightning_decode_reference`` on the CPU.
 """
 
 from __future__ import annotations
 
+import math
+import threading
+from typing import Optional
+
+import numpy as np
 import torch
+
+from ominix_mlx_tpu_torch.core.rope import apply_rope, make_rope, positions_of
+from ominix_mlx_tpu_torch.ops.quant_matmul import rms_norm
 
 # the head width both forms are built for (MiniCPM-SALA's)
 K10_DIMS = (128,)
@@ -220,3 +235,211 @@ def k10_macs(T: int, D: int, chunk: int = K10_CHUNK) -> int:
     return sum(2 * n * n * D + 2 * n * D * D
                for n in [chunk] * full + ([last] if last else []))
 
+
+
+# ------------------------------------------------------------ decode mixer
+
+K10_DECODE_MAX_WIDTH = 4096   # H * D of the output row (csrc kDecMaxRow)
+
+
+def norm_rope(q: torch.Tensor, k: torch.Tensor, q_norm, k_norm, eps: float,
+              rope_theta: Optional[float], offset):
+    """QK-RMSNorm where ``q_norm`` and ``k_norm`` are given, then RoPE at
+    ``offset`` (an int, or per-row [B]) where ``rope_theta`` is given:
+    q, k [B, H, T, D] (MiniCPM-SALA's, ominix_mlx_tpu/models/
+    minicpm_sala.py:130-138 and :164-172)."""
+    if q_norm is not None:
+        q = rms_norm(q_norm, q, eps)
+        k = rms_norm(k_norm, k, eps)
+    if rope_theta is not None:
+        rc = make_rope(q.shape[-1], rope_theta)
+        pos = positions_of(offset, q.shape[2], q.device)
+        q = apply_rope(q, pos, rc)
+        k = apply_rope(k, pos, rc)
+    return q, k
+
+
+def lightning_decode_reference(q, k, v, slopes, state, z=None, q_norm=None,
+                               k_norm=None, o_norm=None, eps: float = 1e-6,
+                               rope_theta: Optional[float] = None,
+                               offset=0, qk_out=None) -> torch.Tensor:
+    """Plain version of ``k10_decode``: one lightning layer's decode mixer
+    as the model composes it (ominix_mlx_tpu/models/minicpm_sala.py:
+    158-184 at T = 1). q, k, v [B, H, 1, D] (views of the projections); z
+    [B, 1, H D] (the gate's input, z_proj(x)) or None; q_norm, k_norm [D]
+    or None; o_norm [H D] or None; RoPE where ``rope_theta`` is given, at
+    ``offset`` (an int or per-row [B]); ``state`` [B, H, D, D] float32
+    advanced in place. Returns [B, 1, H D] in v's type. ``qk_out``, where
+    given ([B, 2, H D]), receives q and k as the state step reads them."""
+    B, H, T, D = q.shape
+    q, k = norm_rope(q, k, q_norm, k_norm, eps, rope_theta, offset)
+    q = q * D ** -0.5
+    if qk_out is not None:
+        qk_out.copy_(torch.stack([q, k], 1).reshape(B, 2, H * D))
+    out = decay_step_reference(q, k, v, slopes, state)
+    out = out.transpose(1, 2).reshape(B, T, H * D).to(v.dtype)
+    if o_norm is not None:
+        out = rms_norm(o_norm, out, eps)
+    if z is not None:
+        out = out * torch.sigmoid(z)
+    return out
+
+
+def reduce_width(rows: int, n: int) -> int:
+    """The x-width (threads along the reduced dimension) of the block
+    PyTorch's CUDA reduction takes for the mean over n of a contiguous
+    float32 [rows, n] (ATen/native/cuda/Reduce.cuh setReduceConfig: the
+    input read as 4-vectors, at most 512 threads a block, the outputs
+    filling the rest). ``k10_decode`` sums the output norm's squares in
+    the order this block does."""
+    def pow2_floor(x):
+        return 1 << (x.bit_length() - 1)
+
+    dim0 = n // 4
+    d0 = pow2_floor(dim0) if dim0 < 512 else 512
+    d1 = pow2_floor(rows) if rows < 512 else 512
+    bh = min(d1, 512 // min(d0, 32))
+    return min(d0, 512 // bh)
+
+
+# per device index: k10_decode's tickets (one a row, zero between calls)
+# and gates (a row's sigmoid(z), which each CTA writes for its columns and
+# the row's last one reads); an outgrown buffer stays referenced, since a
+# CUDA graph captured over it writes it on replay
+_K10_BUFFERS: dict = {}
+_K10_RETIRED: list = []
+_K10_LOCK = threading.Lock()
+
+
+def _k10_buffers(dev: torch.device, rows: int, width: int):
+    """(tickets, gates) of k10_decode for ``rows`` rows of ``width``
+    values, allocated once per device and grown to at least twice their
+    size when a call needs more."""
+    with _K10_LOCK:
+        tickets, gates = _K10_BUFFERS.get(dev.index, (None, None))
+        if tickets is None or tickets.numel() < rows:
+            _K10_RETIRED.append(tickets)
+            tickets = torch.zeros(max(rows, 0 if tickets is None
+                                      else 2 * tickets.numel()),
+                                  dtype=torch.int32, device=dev)
+        if gates is None or gates.numel() < rows * width:
+            _K10_RETIRED.append(gates)
+            gates = torch.empty(max(rows * width, 0 if gates is None
+                                    else 2 * gates.numel()),
+                                dtype=torch.bfloat16, device=dev)
+        _K10_BUFFERS[dev.index] = (tickets, gates)
+        return tickets, gates
+
+
+def _bf16_vector(what, name, t, n, dev):
+    if t.dtype != torch.bfloat16 or tuple(t.shape) != (n,) \
+            or t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{what} {name}: want contiguous bf16 ({n},) on "
+                         f"{dev} with a 16-byte aligned base, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _k10_decode(q, k, v, slopes, state, z=None, q_norm=None, k_norm=None,
+                o_norm=None, eps: float = 1e-6,
+                rope_theta: Optional[float] = None, offset=0,
+                qk_out=None, overlap: bool = False) -> torch.Tensor:
+    """Launch ``k10_decode`` on the current stream; raises for what it does
+    not take. ``overlap``: launch by programmatic dependent launch, the
+    state read before the kernels ahead of it on the stream end (the
+    model's call: only its projections are ahead of it); the kernel just
+    before must then not write the state."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    what = "k10_decode"
+    B, H, T, D = q.shape
+    dev = q.device
+    N = H * D
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != (B, H, 1, D) \
+                or t.device != dev or t.stride(3) != 1 \
+                or t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
+            raise ValueError(
+                f"{what} {name}: want bf16 {(B, H, 1, D)} on {dev} with unit "
+                f"stride along D, row and head strides multiples of 8 and a "
+                f"16-byte aligned base; got {t.dtype} {tuple(t.shape)} "
+                f"strides {t.stride()} on {t.device}")
+    if D != K10_DIMS[0] or N > K10_DECODE_MAX_WIDTH or B > K10_MAX_GRID:
+        raise ValueError(f"{what} takes D = {K10_DIMS[0]}, H D <= "
+                         f"{K10_DECODE_MAX_WIDTH} and B <= {K10_MAX_GRID}; "
+                         f"got D={D}, H={H}, B={B}")
+    if z is not None and (z.dtype != torch.bfloat16
+                          or tuple(z.shape) != (B, 1, N) or z.device != dev
+                          or z.stride(2) != 1 or z.stride(0) % 8
+                          or z.data_ptr() % 16):
+        raise ValueError(f"{what} z: want bf16 {(B, 1, N)} on {dev} with unit "
+                         f"stride along the width, the row stride a multiple "
+                         f"of 8 and a 16-byte aligned base; got {z.dtype} "
+                         f"{tuple(z.shape)} strides {z.stride()}")
+    if (q_norm is None) != (k_norm is None):
+        raise ValueError(f"{what}: q_norm and k_norm come together")
+    for name, t, n in (("q_norm", q_norm, D), ("k_norm", k_norm, D),
+                       ("o_norm", o_norm, N)):
+        if t is not None:
+            _bf16_vector(what, name, t, n, dev)
+    if slopes.dtype != torch.float32 or tuple(slopes.shape) != (H,) \
+            or slopes.device != dev or not slopes.is_contiguous():
+        raise ValueError(f"{what} slopes: want contiguous float32 ({H},) on "
+                         f"{dev}")
+    if state.dtype != torch.float32 or tuple(state.shape) != (B, H, D, D) \
+            or state.device != dev or not state.is_contiguous():
+        raise ValueError(f"{what} state: want contiguous float32 "
+                         f"{(B, H, D, D)} on {dev}, got {state.dtype} "
+                         f"{tuple(state.shape)}")
+    offsets, pos0 = None, 0
+    if isinstance(offset, torch.Tensor):
+        if offset.dtype != torch.int64 or tuple(offset.shape) != (B,) \
+                or offset.device != dev or not offset.is_contiguous():
+            raise ValueError(f"{what} offset: want an int or contiguous int64 "
+                             f"({B},) on {dev}, got {offset.dtype} "
+                             f"{tuple(offset.shape)} on {offset.device}")
+        offsets = offset
+    else:
+        pos0 = int(offset)
+    if qk_out is not None:
+        _bf16_vector(what, "qk_out", qk_out.reshape(-1), B * 2 * N, dev)
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"q is on {dev}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    out = torch.empty(B, 1, N, dtype=torch.bfloat16, device=dev)
+    tickets = gates = None
+    if o_norm is not None:
+        tickets, gates = _k10_buffers(dev, B, N)
+    rope = rope_theta is not None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    rc = _build.library().ominix_lightning_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), ptr(z),
+        0 if z is None else z.stride(0), ptr(q_norm), ptr(k_norm),
+        ptr(o_norm), eps, int(rope),
+        math.log(rope_theta) / (D // 2) if rope else 0.0, D ** -0.5,
+        float(np.float32(B) / np.float32(B * N)), pos0, ptr(offsets),
+        slopes.data_ptr(), state.data_ptr(), out.data_ptr(), ptr(qk_out),
+        ptr(tickets), ptr(gates), B, H, D, reduce_width(B, N), int(overlap),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "k10_decode (ominix_lightning_decode)")
+    _build.LAUNCHES["k10_decode"] += 1
+    return out
+
+
+def lightning_decode(q, k, v, slopes, state, z=None, q_norm=None,
+                     k_norm=None, o_norm=None, eps: float = 1e-6,
+                     rope_theta: Optional[float] = None, offset=0,
+                     overlap: bool = False) -> torch.Tensor:
+    """One lightning layer's decode mixer, [B, 1, H D] (the input of
+    o_proj), the state advanced in place: ``k10_decode`` on CUDA (or it
+    raises), ``lightning_decode_reference`` on the CPU. Arguments as the
+    plain version's; ``overlap`` as ``_k10_decode``'s."""
+    if not q.is_cuda:
+        return lightning_decode_reference(q, k, v, slopes, state, z, q_norm,
+                                          k_norm, o_norm, eps, rope_theta,
+                                          offset)
+    return _k10_decode(q, k, v, slopes, state, z, q_norm, k_norm, o_norm,
+                       eps, rope_theta, offset, overlap=overlap)

@@ -1,13 +1,15 @@
 """InfLLMv2's sparse decode attention, the one-token step of MiniCPM-SALA's
 "minicpm4" layers (``models.sparse_attention.sparse_decode_attention``),
-in two halves with ``torch.topk`` between them (no TPU kernel computes a
-top-k either: the JAX package leaves it to ``lax.top_k``):
+in two launches:
 
-- ``block_scores``: each KV head's scoring query (the first query head of
+- ``block_select``: each KV head's scoring query (the first query head of
   its group) against the mean-pooled keys ``comp``, in float32; blocks
   outside [init_end, window_start - ks] score NEG_INF
-  (ominix_mlx_tpu/models/sparse_attention.py:150-163). Kernel K11's
-  scorer (counter ``k11_score``) on CUDA.
+  (ominix_mlx_tpu/models/sparse_attention.py:150-163); then the top k of
+  them, descending, equal scores by block index (``jax.lax.top_k``, :166).
+  Kernel K11's selector (counter ``k11_select``) on CUDA; its scores are
+  ``block_scores``' (K11's scorer alone, counter ``k11_score``, which the
+  decode path no longer launches) bit for bit.
 - ``sparse_attend``: every query head of a KV head over its init slots,
   its selected blocks (those whose score is finite) and its window; the
   others are masked (:165-197). Kernel K11's attend (counter
@@ -17,8 +19,9 @@ top-k either: the JAX package leaves it to ``lax.top_k``):
 
 The JAX package computes both with XLA ops, no Pallas kernel. A CPU
 tensor takes the plain versions, the JAX formulas in torch
-(``block_scores_reference``; ``sparse_attend_reference``, the gather plus
-masked attention); a CUDA tensor launches the kernel or raises. ``total``
+(``block_select_reference``: ``block_scores_reference`` and a stable
+descending sort; ``sparse_attend_reference``, the gather plus masked
+attention); a CUDA tensor launches the kernel or raises. ``total``
 is each row's token count including this step's, a [B] tensor.
 """
 
@@ -41,6 +44,10 @@ K11_TILE = 64           # slots a tile
 K11_TARGET_CTAS = 2 * SMS
 K11_MIN_TILES = 2
 K11_MERGE_GROUP = 8     # splits a first-level merge (csrc/sparse_attn.cu)
+# k11_select: blocks a CTA's run, and the most CTAs a (row, KV head) (the
+# last one merges their lists pairwise, 16 warps at the first level)
+K11_SELECT_SPAN = 512
+K11_SELECT_MAX_CTAS = 32
 
 
 def window_start(total: torch.Tensor, init_end: int,
@@ -64,6 +71,19 @@ def block_scores_reference(q: torch.Tensor, comp: torch.Tensor,
     valid = (start[None] >= init_end) & (start[None] + ks <= ws[:, None])
     return torch.where(valid[:, None], scores,
                        torch.full((), NEG_INF, device=q.device))
+
+
+def block_select_reference(q: torch.Tensor, comp: torch.Tensor,
+                           total: torch.Tensor, init_end: int, window: int,
+                           ks: int, k: int):
+    """Plain version of ``k11_select``: (top_scores [B, Hkv, k] float32,
+    top_idx [B, Hkv, k] int64), the ``block_scores_reference`` scores
+    sorted descending with equal scores by block index (a stable sort:
+    ``jax.lax.top_k``'s order, which ``torch.topk`` does not promise), the
+    first k."""
+    scores = block_scores_reference(q, comp, total, init_end, window, ks)
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k].contiguous(), idx[..., :k].contiguous()
 
 
 def sparse_attend_reference(q: torch.Tensor, k: torch.Tensor,
@@ -123,6 +143,22 @@ def k11_plan(B: int, Hkv: int, slots: int):
     return -(-tiles // per), per * K11_TILE
 
 
+def k11_select_plan(nb: int):
+    """(ctas, rounds) of k11_select for nb blocks a (row, KV head): runs
+    of K11_SELECT_SPAN blocks, ``rounds`` of them a CTA, the fewest rounds
+    that keep the CTAs a pair within K11_SELECT_MAX_CTAS. Reads shapes
+    only."""
+    runs = -(-nb // K11_SELECT_SPAN)
+    rounds = -(-runs // K11_SELECT_MAX_CTAS)
+    return -(-runs // rounds), rounds
+
+
+def k11_select_width(k: int) -> int:
+    """L, the keys of the sorted list a CTA of k11_select keeps: the least
+    of 64, 128, 256 that holds k."""
+    return 64 if k <= 64 else 128 if k <= 128 else 256
+
+
 # per device index: (tickets, partial numerators, partial maxima and
 # denominators) of k11_attend; a buffer that is outgrown stays referenced
 # in _K11_RETIRED, since a CUDA graph captured over it writes it on replay
@@ -156,6 +192,32 @@ def _k11_buffers(dev: torch.device, counters: int, parts: int):
             ml = torch.empty(2 * n, dtype=torch.float32, device=dev)
         _K11_BUFFERS[dev.index] = (tickets, acc, ml)
         return tickets, acc, ml
+
+
+# per device index: (tickets, candidate lists) of k11_select, grown as
+# _k11_buffers' are
+_K11_SELECT_BUFFERS: dict = {}
+
+
+def _k11_select_buffers(dev: torch.device, pairs: int, keys: int):
+    """k11_select's tickets (``pairs`` int32 counters, zero; the kernel
+    sets each one it takes back to zero) and candidate lists (``keys``
+    int64 sort keys), allocated once per device and grown to at least
+    twice their size when a call needs more."""
+    with _K11_LOCK:
+        tickets, cands = _K11_SELECT_BUFFERS.get(dev.index, (None, None))
+        if tickets is None or tickets.numel() < pairs:
+            _K11_RETIRED.append(tickets)
+            tickets = torch.zeros(max(pairs, 0 if tickets is None
+                                      else 2 * tickets.numel()),
+                                  dtype=torch.int32, device=dev)
+        if cands is None or cands.numel() < keys:
+            _K11_RETIRED.append(cands)
+            cands = torch.empty(max(keys, 0 if cands is None
+                                    else 2 * cands.numel()),
+                                dtype=torch.int64, device=dev)
+        _K11_SELECT_BUFFERS[dev.index] = (tickets, cands)
+        return tickets, cands
 
 
 def _check_common(q, total, what):
@@ -206,6 +268,41 @@ def _k11_score(q: torch.Tensor, comp: torch.Tensor, total: torch.Tensor,
     _build.check(rc, "k11_score (ominix_sparse_score)")
     _build.LAUNCHES["k11_score"] += 1
     return scores
+
+
+def _k11_select(q: torch.Tensor, comp: torch.Tensor, total: torch.Tensor,
+                init_end: int, window: int, ks: int, k: int):
+    """Launch K11's selector on the current stream: (top_scores,
+    top_idx); raises for what it does not take."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    B, H, D = _check_common(q, total, "k11_select")
+    Hkv, nb = comp.shape[1], comp.shape[2]
+    dev = q.device
+    _want("k11_select", "comp", comp, (B, Hkv, nb, D), torch.bfloat16, dev)
+    if Hkv < 1 or H % Hkv or H // Hkv > K11_MAX_ROWS or B > 65535 \
+            or Hkv > 65535:
+        raise ValueError(f"k11_select: {H} query heads over {Hkv} KV heads, "
+                         f"B = {B}")
+    if not 1 <= k <= min(nb, K11_MAX_TOPK):
+        raise ValueError(f"k11_select takes 1 <= k <= min(blocks, "
+                         f"{K11_MAX_TOPK}); got k={k} over {nb} blocks")
+    ctas, rounds = k11_select_plan(nb)
+    top_val = torch.empty(B, Hkv, k, dtype=torch.float32, device=dev)
+    top_idx = torch.empty(B, Hkv, k, dtype=torch.int64, device=dev)
+    tickets = cands = None
+    if ctas > 1:
+        tickets, cands = _k11_select_buffers(
+            dev, B * Hkv, B * Hkv * ctas * k11_select_width(k))
+    rc = _build.library().ominix_sparse_select(
+        q.data_ptr(), comp.data_ptr(), total.data_ptr(), top_val.data_ptr(),
+        top_idx.data_ptr(), *(None if t is None else t.data_ptr()
+                              for t in (cands, tickets)),
+        B, H, Hkv, nb, D, init_end, window, ks, k, ctas, rounds,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "k11_select (ominix_sparse_select)")
+    _build.LAUNCHES["k11_select"] += 1
+    return top_val, top_idx
 
 
 def _k11_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -261,6 +358,17 @@ def block_scores(q: torch.Tensor, comp: torch.Tensor, total: torch.Tensor,
     if not q.is_cuda:
         return block_scores_reference(q, comp, total, init_end, window, ks)
     return _k11_score(q, comp, total, init_end, window, ks)
+
+
+def block_select(q: torch.Tensor, comp: torch.Tensor, total: torch.Tensor,
+                 init_end: int, window: int, ks: int, k: int):
+    """(top_scores [B, Hkv, k] float32, top_idx [B, Hkv, k] int64) of the
+    masked block scores: K11's selector on CUDA (or it raises),
+    ``block_select_reference`` on the CPU."""
+    if not q.is_cuda:
+        return block_select_reference(q, comp, total, init_end, window, ks,
+                                      k)
+    return _k11_select(q, comp, total, init_end, window, ks, k)
 
 
 def sparse_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1949,6 +1949,153 @@ def test_k10_chunked_strong_decay_and_cuts(cuda, B, T):
     _k10_check(torch.cat([first, rest], 2), want, s4, s2)
 
 
+# ---------------------------- k10_decode (lightning decode mixer) ---------
+
+# k10_decode's output against its plain version: q, k and the state are
+# the plain version's bits (the same roundings, PyTorch's reduction order),
+# so an element differs only where K10's float32 o (another sum order)
+# rounds to the other bf16 neighbour, and the norm's, weight's and gate's
+# products of the two then round once more each: within 4 bf16 ulps of the
+# row's largest |plain| value (the spacing 2^(floor(log2 max) - 7)).
+K10_DECODE_ULPS = 4
+K10_DECODE_FLAGS = {"all": ("z", "q_norm", "k_norm", "o_norm", "rope"),
+                    "none": (), "gate": ("z",), "norm": ("o_norm",),
+                    "qk_rope": ("q_norm", "k_norm", "rope")}
+
+
+def _row_ulps(got, want):
+    """max |got - want| in bf16 ulps of each row's largest |want|."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        w.abs().amax(-1, keepdim=True))) - 7)
+    return ((g - w).abs() / ulp).max().item()
+
+
+def _decode_inputs(dev, B, H=32, D=128, seed=0, use=K10_DECODE_FLAGS["all"]):
+    """A lightning layer's decode-step inputs at MiniCPM-SALA's heads: q, k,
+    v as views of one fused projection, the slopes, a carried state, and
+    the keyword arguments ``use`` names (z, norm weights near one, RoPE)."""
+    from ominix_mlx_tpu_torch.models.lightning import alibi_slopes
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    N = H * D
+    qkv = randn(B, 1, 3 * N).bfloat16()
+    q, k, v = (t.reshape(B, 1, H, D).transpose(1, 2)
+               for t in qkv.split([N, N, N], -1))
+    kw = {"z": randn(B, 1, N).bfloat16(),
+          "q_norm": (1 + 0.1 * randn(D)).bfloat16(),
+          "k_norm": (1 + 0.1 * randn(D)).bfloat16(),
+          "o_norm": (1 + 0.1 * randn(N)).bfloat16(), "rope_theta": 1e4}
+    kw = {key: val for key, val in kw.items()
+          if key in use or (key == "rope_theta" and "rope" in use)}
+    return (q, k, v, torch.from_numpy(alibi_slopes(H)).to(dev),
+            randn(B, H, D, D) * 0.1, kw)
+
+
+@pytest.mark.parametrize("use", sorted(K10_DECODE_FLAGS))
+@pytest.mark.parametrize("B,offset", [(1, 0), (1, 4095), (1, 524287),
+                                      (8, "ragged")])
+def test_k10_decode_matches_plain(cuda, B, offset, use):
+    """k10_decode against lightning_decode_reference at MiniCPM-SALA's 32
+    heads of 128, each flag combination: q and k as the state step reads
+    them and the state bit for bit, the output within K10_DECODE_ULPS; one
+    launch."""
+    q, k, v, sl, state, kw = _decode_inputs(cuda, B, seed=B + 3,
+                                            use=K10_DECODE_FLAGS[use])
+    if offset == "ragged":
+        offset = torch.tensor([0, 1, 4095, 4096, 70000, 131071, 524287, 9],
+                              device=cuda)
+    N = q.shape[1] * q.shape[3]
+    qk1, qk2 = (torch.empty(B, 2, N, dtype=torch.bfloat16, device=cuda)
+                for _ in range(2))
+    s1, s2 = state.clone(), state.clone()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = la._k10_decode(q, k, v, sl, s1, offset=offset, qk_out=qk1, **kw)
+    assert dict(_build.LAUNCHES) == {"k10_decode": 1}
+    want = la.lightning_decode_reference(q, k, v, sl, s2, offset=offset,
+                                         qk_out=qk2, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (B, 1, N) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(qk1, qk2)
+    assert torch.equal(s1, s2)
+    assert _row_ulps(got, want) <= K10_DECODE_ULPS
+
+
+def test_k10_decode_repeatable_and_graphed(cuda):
+    """20 calls from the same state give the same bits, every ticket is
+    zero after a call, and a CUDA graph's replay gives the eager call's
+    bits; launched by dependent launch behind a kernel that does not
+    write the state (the model's call) it gives them too."""
+    q, k, v, sl, state, kw = _decode_inputs(cuda, 8, seed=5)
+    offset = torch.arange(8, device=cuda) * 1000
+    s0 = state.clone()
+    base = la._k10_decode(q, k, v, sl, state, offset=offset, **kw)
+    outs = []
+    for _ in range(20):
+        st = s0.clone()
+        outs.append((la._k10_decode(q, k, v, sl, st, offset=offset, **kw),
+                     st))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, base) and torch.equal(st, state)
+               for o, st in outs)
+    tickets = la._K10_BUFFERS[torch.cuda.current_device()][0]
+    assert not tickets.any()
+    st = s0.clone()
+    torch.cuda.synchronize()
+    qkv = torch.cat([q, k], 1).contiguous()
+    qkv.mul_(1.0)                      # a kernel just before, not the state
+    over = la._k10_decode(q, k, v, sl, st, offset=offset, overlap=True,
+                          **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(over, base) and torch.equal(st, state)
+    gst = s0.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        la._k10_decode(q, k, v, sl, gst, offset=offset, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = la._k10_decode(q, k, v, sl, gst, offset=offset, **kw)
+    for _ in range(3):
+        gst.copy_(s0)
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, base) and torch.equal(gst, state)
+    assert not tickets.any()
+
+
+def test_k10_decode_rejects(cuda):
+    q, k, v, sl, state, kw = _decode_inputs(cuda, 1, seed=6)
+    with pytest.raises(ValueError, match="k10_decode q"):
+        la._k10_decode(torch.cat([q, q], 2), torch.cat([k, k], 2),
+                       torch.cat([v, v], 2), sl, state, **kw)
+    with pytest.raises(ValueError, match="k10_decode q"):
+        la._k10_decode(q.float(), k, v, sl, state, **kw)
+    with pytest.raises(ValueError, match="k10_decode z"):
+        la._k10_decode(q, k, v, sl, state, **{**kw, "z": kw["z"].float()})
+    with pytest.raises(ValueError, match="o_norm"):
+        la._k10_decode(q, k, v, sl, state,
+                       **{**kw, "o_norm": kw["o_norm"][:128]})
+    with pytest.raises(ValueError, match="offset"):
+        la._k10_decode(q, k, v, sl, state,
+                       offset=torch.zeros(1, dtype=torch.int32, device=cuda),
+                       **kw)
+    with pytest.raises(ValueError, match="state"):
+        la._k10_decode(q, k, v, sl, state.bfloat16(), **kw)
+    q2, k2, v2, sl2, state2, kw2 = _decode_inputs(cuda, 1, H=4, D=64,
+                                                  use=())
+    with pytest.raises(ValueError, match="D = 128"):
+        la._k10_decode(q2, k2, v2, sl2, state2)
+
+
 # ---------------------------- K11 (InfLLMv2 sparse decode attention) -------
 
 K11_SCORE_TOL = 1e-6    # the scores' max error over max |plain|
@@ -2029,8 +2176,9 @@ def test_k11_attend_matches_plain(cuda, B, S, totals):
 
 
 def test_sparse_decode_attention_launches_k11(cuda):
-    """The model's decode step on CUDA: one k11_score and one k11_attend,
-    the output within K11_TOL of the plain path's."""
+    """The model's decode step on CUDA: one k11_select and one k11_attend
+    (no k11_score, no torch.topk), the output within K11_TOL of the plain
+    path's."""
     from ominix_mlx_tpu_torch.models.sparse_attention import (
         SparseConfig, sparse_decode_attention)
     from ominix_mlx_tpu_torch.ops import sparse_attention as sa
@@ -2038,7 +2186,7 @@ def test_sparse_decode_attention_launches_k11(cuda):
     q, c, _ = _k11_cache(cuda, 2, 12288, [12288, 12288], seed=3)
     _build.reset_launches()
     got = sparse_decode_attention(q, c, 12000, SparseConfig(), 128 ** -0.5)
-    assert dict(_build.LAUNCHES) == {"k11_score": 1, "k11_attend": 1}
+    assert dict(_build.LAUNCHES) == {"k11_select": 1, "k11_attend": 1}
     total = torch.full((2,), 12001, dtype=torch.int32, device=cuda)
     sc = SparseConfig()
     scores = sa.block_scores_reference(q, c.comp, total, sc.init_end,
@@ -2132,3 +2280,131 @@ def test_k11_attend_one_launch_repeatable_and_graphed(cuda, B, S, totals):
         torch.cuda.synchronize()
         assert torch.equal(captured, base)
     assert not tickets.any()
+
+
+# ------------------------------------------- k11_select (scores + top-k) ---
+
+@pytest.mark.parametrize("k", [64, 128, 256])
+@pytest.mark.parametrize("B,S,totals", [
+    (1, 4096, [4096]), (1, 65536, [65536]), (1, 524288, [524288]),
+    (8, 16384, [16384, 16320, 16383, 16200, 15000, 16350, 12000, 16384]),
+    (3, 20000, [20000, 3000, 1]), (2, 1024, [1024, 700])])
+def test_k11_select_matches_plain(cuda, B, S, totals, k):
+    """k11_select's scores are k11_score's bit for bit and its top k is a
+    stable descending sort of them (equal scores by block index, NEG_INF
+    last in index order); the finite scores within K11_SCORE_TOL of
+    block_select_reference's and the same blocks selected; one launch."""
+    from ominix_mlx_tpu_torch.models.sparse_attention import SparseConfig
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    sc = SparseConfig()
+    q, c, total = _k11_cache(cuda, B, S, totals, seed=S + B + k)
+    k = min(k, c.comp.shape[2])
+    args = (q, c.comp, total, sc.init_end, sc.window_size, sc.kernel_size)
+    _build.reset_launches()
+    vals, idx = sa._k11_select(*args, k)
+    assert dict(_build.LAUNCHES) == {"k11_select": 1}
+    sv, si = torch.sort(sa._k11_score(*args), dim=-1, descending=True,
+                        stable=True)
+    pv, pi = sa.block_select_reference(*args, k)
+    torch.cuda.synchronize()
+    assert vals.dtype == torch.float32 and idx.dtype == torch.int64
+    assert torch.equal(vals, sv[..., :k]) and torch.equal(idx, si[..., :k])
+    fin = pv > sa.NEG_INF / 2
+    assert torch.equal(vals > sa.NEG_INF / 2, fin)
+    if fin.any():
+        assert ((vals - pv)[fin].abs().max() / pv[fin].abs().max()).item() \
+            < K11_SCORE_TOL
+    sel = [[sorted(i[v > sa.NEG_INF / 2].tolist()) for v, i in zip(vr, ir)]
+           for vr, ir in zip(vals.cpu(), idx.cpu())]
+    want = [[sorted(i[v > sa.NEG_INF / 2].tolist()) for v, i in zip(vr, ir)]
+            for vr, ir in zip(pv.cpu(), pi.cpu())]
+    assert sel == want
+
+
+def test_k11_select_ties_by_index(cuda):
+    """Pooled keys repeated across blocks score the same: the lower block
+    comes first, as jax.lax.top_k orders them."""
+    from ominix_mlx_tpu_torch.models.sparse_attention import SparseConfig
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    sc = SparseConfig()
+    q, c, total = _k11_cache(cuda, 1, 65536, [65536], seed=9)
+    c.comp[:, :, 100:] = c.comp[:, :, 2:100].repeat(1, 1, 21, 1)[
+        :, :, :c.comp.shape[2] - 100]
+    args = (q, c.comp, total, sc.init_end, sc.window_size, sc.kernel_size)
+    vals, idx = sa._k11_select(*args, 256)
+    sv, si = torch.sort(sa._k11_score(*args), dim=-1, descending=True,
+                        stable=True)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, si[..., :256]) and torch.equal(vals, sv[..., :256])
+    same = vals[..., 1:] == vals[..., :-1]
+    assert same.any()
+    assert (idx[..., 1:][same] > idx[..., :-1][same]).all()
+
+
+@pytest.mark.parametrize("B,S,totals", [
+    (1, 524288, [524288]), (8, 16384, [16384, 16320, 2100, 16200, 9000,
+                                       16350, 12000, 1])])
+def test_k11_select_repeatable_and_graphed(cuda, B, S, totals):
+    """The same bits over 20 calls, every ticket zero after a call, a CUDA
+    graph's replay bit-equal to the eager call; k11_attend given its
+    selection gives the bits it gives given k11_score's and torch.topk's
+    (the same ids in the same order)."""
+    from ominix_mlx_tpu_torch.models.sparse_attention import SparseConfig
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    sc = SparseConfig()
+    q, c, total = _k11_cache(cuda, B, S, totals, seed=B + S)
+    args = (q, c.comp, total, sc.init_end, sc.window_size, sc.kernel_size,
+            sc.topk)
+    base = sa._k11_select(*args)
+    outs = [sa._k11_select(*args) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(v, base[0]) and torch.equal(i, base[1])
+               for v, i in outs)
+    if sa.k11_select_plan(c.comp.shape[2])[0] > 1:
+        tickets = sa._K11_SELECT_BUFFERS[torch.cuda.current_device()][0]
+        assert not tickets.any()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sa._k11_select(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = sa._k11_select(*args)
+    for _ in range(3):
+        captured[0].zero_()
+        captured[1].zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured[0], base[0])
+        assert torch.equal(captured[1], base[1])
+    top, idx = torch.topk(sa._k11_score(*args[:-1]), sc.topk, dim=-1)
+    rest = (total, sc.init_end, sc.window_size, sc.kernel_size, 128 ** -0.5)
+    mine = sa._k11_attend(q, c.k, c.v, base[1], base[0], *rest)
+    parent = sa._k11_attend(q, c.k, c.v, idx, top, *rest)
+    torch.cuda.synchronize()
+    fin = top > sa.NEG_INF / 2
+    assert torch.equal(idx[fin], base[1][fin])
+    assert torch.equal(mine, parent)
+
+
+def test_k11_select_rejects(cuda):
+    from ominix_mlx_tpu_torch.models.sparse_attention import SparseConfig
+    from ominix_mlx_tpu_torch.ops import sparse_attention as sa
+
+    sc = SparseConfig()
+    q, c, total = _k11_cache(cuda, 1, 16384, [100])
+    rest = (sc.init_end, sc.window_size, sc.kernel_size)
+    with pytest.raises(ValueError, match="k <= min"):
+        sa._k11_select(q, c.comp, total, *rest, 257)
+    with pytest.raises(ValueError, match="k <= min"):
+        sa._k11_select(q, c.comp[:, :, :10].contiguous(), total, *rest, 11)
+    with pytest.raises(ValueError, match="k11_select q"):
+        sa._k11_select(q.float(), c.comp, total, *rest, 64)
+    with pytest.raises(ValueError, match="comp"):
+        sa._k11_select(q, c.comp.float(), total, *rest, 64)
+    with pytest.raises(ValueError, match="total"):
+        sa._k11_select(q, c.comp, total.long(), *rest, 64)
