@@ -68,13 +68,15 @@ Qwen3-30B-A3B with random weights (seeded):
   - serve_qwen3_next: Qwen3-Next-80B-A3B-Instruct at full width and all
     48 layers (36 Gated DeltaNet, 12 gated attention; 512 experts top 10
     and a gated shared expert), w4a8 g64, about 45 GB: the route of each
-    projection, 4 HTTP chat requests one at a time with k9_prep, K9 (in
-    the form k9_plan picks: recurrent at decode, chunked for prompts),
-    K2, K4 and K5 launched exactly as many times as their forwards need,
-    a 128-token prefill, the logits check on 4 layers (every k9_prep and
-    K9 call against its plain version, and the two together against
-    both plain versions), the decode rate, and 8 concurrent requests on
-    the dense continuous batcher, each equal to the same request alone;
+    projection, 4 HTTP chat requests one at a time with k9_decode at
+    every decode step, k9_prep and K9 at prompts (in the form k9_plan
+    picks: recurrent under 48 tokens, chunked from it), K2, K4 and K5
+    launched exactly as many times as their forwards need, a 128-token
+    prefill, the logits check on 4 layers (every k9_decode, k9_prep and
+    K9 call against its plain version, and each prologue and rule
+    together against both plain versions), the decode rate, and 8
+    concurrent requests on the dense continuous batcher, each equal to
+    the same request alone;
   - serve_minicpm_sala: MiniCPM-SALA at its published widths and all 32
     layers (8 InfLLMv2 sparse, 24 lightning), w8a8 g64, about 10 GB: the
     route of each projection, 4 HTTP chat requests one at a time with
@@ -94,10 +96,12 @@ k2c_window: T=8192 and the 8k prefill's last chunk, windows 4096 and
 4000, 8 and 2 KV heads), K3 at GLM-4.5-Air's 12 query heads a KV head,
 and K5 at Mixtral's down projection (K = 14336, whose scales it streams)
 at 4 and 8 bits; and at Qwen3-Next's shapes K9 (k9: the recurrent form at
-decode, batch 1 and 8; the chunked form at prompts of 128, 2048 and 8192
-tokens; k9_vs_recurrent: both forms in turns at 128 and 2048), its
-prologue k9_prep (decode at batch 1 and 8, a 128-token prompt; beside
-the plain version's time and device operations), K2 at 16 over 2 heads
+one token, batch 1 and 8; the chunked form at prompts of 128, 2048 and
+8192 tokens; k9_vs_recurrent: both forms in turns at 128 and 2048), its
+prologue k9_prep (one token at batch 1 and 8, a 128-token prompt; beside
+the plain version's time and device operations), k9_decode (a DeltaNet
+layer's decode mixer at batch 1 and 8, beside the parent's sequence of
+k9_prep, K9 and the glue in turns), K2 at 16 over 2 heads
 of 256 (k2_d256), K4 over 512 experts top 10 (k4_e512) and K5 on 512
 packed experts at a 128-token prompt's 1280 rows; and at MiniCPM-SALA's
 shapes K10 (k10: the recurrent form at batch 1 and 8; the chunked form
@@ -113,10 +117,11 @@ torch.topk in turns and torch.topk alone).
     python3 chip_smoke.py              # build, check, drive every path
     python3 chip_smoke.py --profile    # the same, then a decode profile
     python3 chip_smoke.py --parent DIR # K3, K1/K6 (qmm_p), K5 (bf16,
-                                       # 4- and 8-bit), K10's decode
-                                       # mixer, K11's selection and the
-                                       # 128-token MoE prefill against
-                                       # another checkout's
+                                       # 4- and 8-bit), the DeltaNet and
+                                       # K10 decode mixers, K11's
+                                       # selection and the 128-token MoE
+                                       # prefill against another
+                                       # checkout's
 
 The kernel checks end with a ``launch_floor`` line: an empty kernel's
 device time on an idle card, alone and behind a one-CTA kernel.
@@ -245,6 +250,8 @@ K9_TURNS = (128, 2048)
 K9_CROSSOVER_T = (16, 32, 48, 64, 96)
 # (B, T) of k9_prep: decode at batch 1 and 8, the 128-token prefill
 K9_PREP_SHAPES = ((1, 1), (8, 1), (1, 128))
+# B of k9_decode, a DeltaNet layer's decode mixer, at Qwen3-Next's heads
+K9_DECODE_B = (1, 8)
 # HF config.json of openbmb/MiniCPM-SALA (as the model-configs catalog
 # records it): 32 layers, 8 InfLLMv2 sparse layers ("minicpm4": 32 query
 # heads over 2 KV heads of 128, QK-norm, no RoPE) and 24 lightning layers
@@ -341,6 +348,16 @@ K9_TOL = 1e-4
 # k by an ulp or two; v, g and beta are the same roundings); the window it
 # writes is held bit for bit
 K9_PREP_TOL = 1e-5
+# k9_decode vs its plain version: q and k within K9_PREP_TOL of the plain
+# ones and o a float32 sum in another order, so an element of o cast to
+# bf16 may take the other neighbour (at most one ulp of the value head's
+# largest), the norm's mean moves by a fraction of an ulp, and the three
+# roundings after it (the normalized value, the weight's product, the
+# gate's product) each add at most one: within this many bf16 ulps of the
+# value head's largest |plain| output (spacing 2^(floor(log2 max) - 7)).
+# Against k9_prep then K9 and the same glue it is held to the same limit;
+# its state and window equal theirs bit for bit.
+K9_DECODE_ULPS = 4
 # K10 vs its plain version, max error over max |plain| of the outputs and
 # of the final state: float32 sums in another order (3xTF32 products in
 # the chunked form)
@@ -419,6 +436,19 @@ K9_PREP_DESIGN = ("one launch for the conv window, SiLU, l2norms and gates: "
                   "the l2norm one butterfly; the window read and written "
                   "by the first token tile's threads only (each channel by "
                   "one thread)")
+K9_DECODE_DESIGN = ("a DeltaNet layer's decode mixer in one launch (the conv "
+                    "window, SiLU, l2norms, gates, the state step, the "
+                    "gated RMSNorm, the SiLU gate): a CTA of 128 threads "
+                    "per (32 value columns, value head, row), the CTAs of "
+                    "a (row, key head) one thread block cluster; the "
+                    "state strip staged in shared memory by cp.async "
+                    "before the dependent-launch wait; each CTA computes "
+                    "its key head's q and k with k9_prep's arithmetic and "
+                    "takes K9's fmaf chains (the state and the window "
+                    "bit for bit as the pair's); the gated norm's partial "
+                    "sums exchanged in distributed shared memory in "
+                    "PyTorch's reduction order; the q|k window written "
+                    "by one CTA after the cluster barrier")
 K10_DESIGN = ("the recurrent form (decode, prompts under "
               "K10_CHUNK_MIN_T): the loop over T inside one launch, a CTA "
               "of 128 threads per (row, head, 32 value columns), four "
@@ -1844,6 +1874,138 @@ def check_k9_prep(dev, flush):
     return rows
 
 
+def k9_decode_inputs(g, dev, B):
+    """A Qwen3-Next DeltaNet layer's decode-step inputs for k9_decode, in
+    its argument order: prep_inputs' qkvz, ba, window, taps and gates at
+    T = 1, a carried state, a norm weight near one, eps and the heads."""
+    qkvz, ba, win, conv_w, a_log, dt_bias, heads = prep_inputs(g, dev, B, 1)
+    Hv, d = heads[1], heads[2]
+    state = torch.randn(B, Hv, d, d, generator=g, device=dev) * 0.1
+    norm_w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).bfloat16()
+    return [qkvz, ba, win, conv_w, a_log, dt_bias, state, norm_w, EPS, heads]
+
+
+def unfused_deltanet_decode(prep, k9):
+    """The decode mixer as the parent composes it: ``prep`` (k9_prep) and
+    ``k9`` (K9's recurrent form), this checkout's or the parent's, then
+    the cast, rms_norm and * silu(z)."""
+    from ominix_mlx_tpu_torch.ops import gated_delta as gd
+    from ominix_mlx_tpu_torch.ops.quant_matmul import rms_norm
+
+    def call(qkvz, ba, window, conv_w, A_log, dt_bias, state, norm_w, eps,
+             heads):
+        q, k, v, g, beta = prep(qkvz, ba, window, conv_w, A_log, dt_bias,
+                                heads)
+        z = gd.split_qkvz_ba(qkvz, ba, heads)[3]
+        out = k9(q, k, v, g, beta, state)
+        out = rms_norm(norm_w, out.to(qkvz.dtype), eps) * F.silu(z)
+        return out.reshape(qkvz.shape[0], 1, -1)
+    return call
+
+
+def k9_decode_on(a, window, state):
+    """k9_decode_inputs' arguments ``a`` with another window and state."""
+    return a[:2] + [window] + a[3:6] + [state] + a[7:]
+
+
+def head_ulps(got, want, dv=128) -> float:
+    """row_ulps over value heads: [B, 1, Hv dv] as [B, Hv, dv] rows."""
+    B = got.shape[0]
+    return row_ulps(got.reshape(B, -1, dv), want.reshape(B, -1, dv))
+
+
+def k9_decode_bound(B, Hk, Hv, d) -> dict:
+    """k9_decode's bound: the state read and written once in float32; qkvz
+    and ba read, the window read and written, the output written, in
+    bf16; the taps, the norm weight and the gates' vectors once; K9's 7
+    float32 operations a state element (the recurrent form's count)."""
+    C = 2 * Hk * d + Hv * d
+    W = 2 * Hk * d + 2 * Hv * d
+    nbytes = 8 * B * Hv * d * d + 2 * (B * W + 2 * B * Hv + 6 * B * C
+                                       + 4 * C + d + B * Hv * d) + 8 * Hv
+    return bound(nbytes, 7 * B * Hv * d * d, "fp32")
+
+
+def check_k9_decode(dev, flush):
+    """k9_decode against deltanet_decode_reference at Qwen3-Next's heads
+    (16 key heads, 32 value heads of 128) and K9_DECODE_B: the output
+    within K9_DECODE_ULPS (head_ulps) of the plain version and of the
+    parent's sequence (k9_prep, K9's recurrent form, the glue:
+    unfused_deltanet_decode), the state and the window bit for bit as
+    that sequence leaves them (the window also as the plain version's,
+    the state within K9_TOL of it), the same bits on a second launch.
+    Timed as the model calls it (by dependent launch) beside its bound,
+    the kernel alone by torch.profiler (``kernel_us``), the plain
+    version, and the parent's sequence in turns with its device ops. No
+    PyTorch call computes the mixer."""
+    from ominix_mlx_tpu_torch.ops import _build
+    from ominix_mlx_tpu_torch.ops import gated_delta as gd
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    parent = unfused_deltanet_decode(gd._k9_prep, gd._k9)
+    rows = []
+    for B in K9_DECODE_B:
+        a = k9_decode_inputs(g, dev, B)
+        Hk, Hv, d, _ = a[9]
+
+        def on(window, state):
+            return k9_decode_on(a, window, state)
+
+        w1, w2, w3, w4, w5 = (a[2].clone() for _ in range(5))
+        s1, s2, s3, s4, s5 = (a[6].clone() for _ in range(5))
+        torch.cuda.synchronize()
+        got = gd._k9_decode(*on(w1, s1))
+        again = gd._k9_decode(*on(w3, s3))
+        pair = parent(*on(w2, s2))
+        want = gd.deltanet_decode_reference(*on(w4, s4))
+        torch.cuda.synchronize()
+        if not torch.isfinite(got.float()).all():
+            raise RuntimeError(f"k9_decode B={B}: non-finite")
+        ulps, pair_ulps = head_ulps(got, want), head_ulps(got, pair)
+        checks = {"state_bitwise_equal_pair": bool(torch.equal(s1, s2)),
+                  "window_bitwise_equal_pair": bool(torch.equal(w1, w2)),
+                  "window_bitwise_equal_plain": bool(torch.equal(w1, w4)),
+                  "bitwise_repeatable": bool(torch.equal(got, again)
+                                             and torch.equal(s1, s3)
+                                             and torch.equal(w1, w3))}
+        state_rel = rel_to(s1, s4)
+
+        def kernel():
+            gd._k9_decode(*on(w5, s5), overlap=True)
+
+        def unfused():
+            parent(*on(w5, s5))
+
+        row = {"B": B, "Hk": Hk, "Hv": Hv, "d": d,
+               "max_abs_err": (got.float() - want.float()).abs().max()
+               .item(), "head_ulps": ulps, "head_ulps_vs_pair": pair_ulps,
+               "head_ulps_limit": K9_DECODE_ULPS,
+               "output_bitwise_equal_pair": bool(torch.equal(got, pair)),
+               "share_differ": (got != want).float().mean().item(),
+               "state_rel_err": state_rel, "state_limit": K9_TOL, **checks,
+               "ms": time_ms(kernel, 20, flush),
+               "kernel_us": phase_us(kernel, ("k9_decode_kernel<",)).get(
+                   "k9_decode_kernel"),
+               "plain_ms": time_ms(lambda: gd.deltanet_decode_reference(
+                   *on(w4, s4)), 5, flush),
+               "device_ops": device_ops(kernel),
+               "unfused_device_ops": device_ops(unfused),
+               "max_active_clusters": _build.library()
+               .ominix_k9_decode_clusters(Hv // Hk, 1),
+               "clusters": B * Hk,
+               "vs_parent_sequence": in_turns(unfused, kernel, flush),
+               "library_ms": None,
+               "library_error": "no PyTorch call computes the mixer",
+               **k9_decode_bound(B, Hk, Hv, d)}
+        row.update(versus(row))
+        emit({"phase": "k9_decode", **row})
+        if not (ulps <= K9_DECODE_ULPS and pair_ulps <= K9_DECODE_ULPS
+                and state_rel < K9_TOL and all(checks.values())):
+            raise RuntimeError(f"k9_decode B={B}: {row}")
+        rows.append(row)
+    return rows
+
+
 def k10_inputs(g, dev, B, T, H=32, D=128):
     """A lightning layer's K10 inputs at MiniCPM-SALA's heads, as the
     model hands them: bf16 q (scaled by D^-0.5), k and v, the ALiBi slopes
@@ -2247,6 +2409,74 @@ def parent_module(parent: str, rel: str, name: str):
     return mod
 
 
+def compare_k9_decode(plib, dev, flush):
+    """The parent's DeltaNet decode mixer (``plib``'s ``ominix_k9_prep`` and
+    K9 recurrent entry ``ominix_gated_delta``, then the glue:
+    unfused_deltanet_decode) against this checkout's one launch on the
+    same inputs at each of K9_DECODE_B, timed in turns (parent, this,
+    this, parent), with the parent's device ops; the state and the window
+    of both bit for bit equal, the outputs within K9_DECODE_ULPS. One
+    ``k9_decode_vs_parent`` line per batch."""
+    from ominix_mlx_tpu_torch.ops import gated_delta as gd
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def parent_prep(qkvz, ba, window, conv_w, A_log, dt_bias, heads):
+        Hk, Hv, dk, dv = heads
+        B, T, _ = qkvz.shape
+
+        def out(*shape):
+            return torch.empty(*shape, dtype=torch.float32, device=dev)
+
+        q, k = out(B, T, Hk, dk), out(B, T, Hk, dk)
+        v, g, beta = out(B, T, Hv, dv), out(B, T, Hv), out(B, T, Hv)
+        rc = plib.ominix_k9_prep(
+            qkvz.data_ptr(), ba.data_ptr(), window.data_ptr(),
+            conv_w.data_ptr(), A_log.data_ptr(), dt_bias.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            beta.data_ptr(), B, T, Hk, Hv, dk, dv, conv_w.shape[-1],
+            int(qkvz.dtype == torch.bfloat16), dk ** -0.5, stream)
+        if rc != 0:
+            raise RuntimeError(f"parent k9_prep: CUDA error {rc}")
+        return q, k, v, g, beta
+
+    def parent_k9(q, k, v, g, beta, state):
+        B, T, Hk, dk = q.shape
+        Hv, dv = v.shape[2], v.shape[3]
+        o = torch.empty(B, T, Hv, dv, dtype=torch.float32, device=dev)
+        rc = plib.ominix_gated_delta(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            beta.data_ptr(), state.data_ptr(), o.data_ptr(), B, T, Hk, Hv,
+            dk, dv, stream)
+        if rc != 0:
+            raise RuntimeError(f"parent K9: CUDA error {rc}")
+        return o
+
+    parent = unfused_deltanet_decode(parent_prep, parent_k9)
+    g = torch.Generator(device=dev).manual_seed(SEED + 62)
+    for B in K9_DECODE_B:
+        a = k9_decode_inputs(g, dev, B)
+        w1, w2 = a[2].clone(), a[2].clone()
+        s1, s2 = a[6].clone(), a[6].clone()
+        torch.cuda.synchronize()
+        theirs = parent(*k9_decode_on(a, w1, s1))
+        mine = gd._k9_decode(*k9_decode_on(a, w2, s2))
+        torch.cuda.synchronize()
+        held = {"state_bitwise_equal": bool(torch.equal(s1, s2)),
+                "window_bitwise_equal": bool(torch.equal(w1, w2)),
+                "output_bitwise_equal": bool(torch.equal(theirs, mine)),
+                "head_ulps": head_ulps(mine, theirs)}
+        emit({"phase": "k9_decode_vs_parent", "B": B, **held,
+              "parent_device_ops": device_ops(
+                  lambda: parent(*k9_decode_on(a, w1, s1))),
+              **in_turns(lambda: parent(*k9_decode_on(a, w1, s1)),
+                         lambda: gd._k9_decode(*k9_decode_on(a, w2, s2),
+                                               overlap=True), flush)})
+        if not (held["state_bitwise_equal"] and held["window_bitwise_equal"]
+                and held["head_ulps"] <= K9_DECODE_ULPS):
+            raise RuntimeError(f"k9_decode_vs_parent B={B}: {held}")
+
+
 def compare_k10_decode(plib, dev, flush):
     """The parent's decode mixer (the glue around ``plib``'s K10 recurrent
     entry ``ominix_lightning(q, k, v, slopes, state, o, B, H, T, D, bf16,
@@ -2597,6 +2827,9 @@ def plain_versions() -> dict:
             "k7": (qm, "_k7", qm.qmm_dq_reference),
             "k9": (gd, "_k9_rule", gd.gated_delta_rule_reference),
             "k9_prep": (gd, "_k9_prep", gd.deltanet_prep_reference),
+            "k9_decode": (gd, "_k9_decode",
+                          lambda *a, overlap=False, **kw:
+                          gd.deltanet_decode_reference(*a, **kw)),
             "k10": (la, "_k10_rule", la.lightning_reference),
             "k10_decode": (la, "_k10_decode",
                            lambda *a, overlap=False, **kw:
@@ -3562,18 +3795,22 @@ def p_formula_on_kernel_prologue(x, w) -> dict:
 
 
 def k9_call_checks():
-    """Wrappers for swapped_kernels that hold every k9_prep and K9 call
-    against its plain version on the same inputs (the window and the state
-    copied first): (k9 stats, prep stats, wrap for "k9", wrap for
-    "k9_prep"). A K9 call whose q is the output of the prologue call just
-    before it is also held, with that prologue, against both plain
-    versions in a row ("with_prep"); each call's form is counted."""
+    """Wrappers for swapped_kernels that hold every k9_prep, K9 and
+    k9_decode call against its plain version on the same inputs (the
+    window and the state copied first): (k9 stats, prep stats, decode
+    stats, {kernel: wrap}). A K9 call whose q is the output of the
+    prologue call just before it is also held, with that prologue,
+    against both plain versions in a row ("with_prep"); each call's form
+    is counted. A k9_decode call holds its output within K9_DECODE_ULPS
+    (head_ulps), its window bit for bit and its state within K9_TOL."""
     from ominix_mlx_tpu_torch.ops import gated_delta as gd
 
     k9 = {"calls": 0, "max_rel_err": 0.0, "state_max_rel_err": 0.0,
           "forms": {}, "with_prep_calls": 0, "with_prep_max_rel_err": 0.0,
           "with_prep_state_max_rel_err": 0.0}
     prep = {"calls": 0, "max_rel_err": 0.0, "window_equal": True}
+    decode = {"calls": 0, "max_head_ulps": 0.0, "window_equal": True,
+              "state_max_rel_err": 0.0}
     last_prep = {}      # the kernel prologue's q -> the plain one's outputs
 
     def checked_prep(kern, plain):
@@ -3613,30 +3850,51 @@ def k9_call_checks():
             return y
         return call
 
-    return k9, prep, checked_k9, checked_prep
+    def checked_decode(kern, plain):
+        def call(qkvz, ba, window, conv_w, A_log, dt_bias, state, *rest,
+                 **kw):
+            w0, s0 = window.clone(), state.clone()
+            y = kern(qkvz, ba, window, conv_w, A_log, dt_bias, state, *rest,
+                     **kw)
+            want = plain(qkvz, ba, w0, conv_w, A_log, dt_bias, s0, *rest)
+            decode["calls"] += 1
+            decode["max_head_ulps"] = max(decode["max_head_ulps"],
+                                          head_ulps(y, want))
+            decode["window_equal"] &= bool(torch.equal(window, w0))
+            decode["state_max_rel_err"] = max(decode["state_max_rel_err"],
+                                              rel_to(state, s0))
+            return y
+        return call
+
+    return k9, prep, decode, {"k9": checked_k9, "k9_prep": checked_prep,
+                              "k9_decode": checked_decode}
 
 
-def k9_calls_hold(k9, prep, where, forms=()):
+def k9_calls_hold(k9, prep, decode, where, forms=()):
     """Raise unless every K9 call (and each with its prologue) is within
     K9_TOL, every prologue call within K9_PREP_TOL with its window equal,
-    and each of ``forms`` ran."""
+    each of ``forms`` ran, and k9_decode ran, every call within
+    K9_DECODE_ULPS with its window equal and its state within K9_TOL."""
     if not (k9["calls"] and k9["max_rel_err"] < K9_TOL
+            and decode["calls"] and decode["window_equal"]
+            and decode["max_head_ulps"] <= K9_DECODE_ULPS
+            and decode["state_max_rel_err"] < K9_TOL
             and k9["state_max_rel_err"] < K9_TOL
             and k9["with_prep_calls"] == k9["calls"] == prep["calls"]
             and k9["with_prep_max_rel_err"] < K9_TOL
             and k9["with_prep_state_max_rel_err"] < K9_TOL
             and prep["max_rel_err"] < K9_PREP_TOL and prep["window_equal"]
             and all(k9["forms"].get(f) for f in forms)):
-        raise RuntimeError(f"{where}: K9 and its prologue against their "
-                           f"plain versions on the path's inputs: {k9}, "
-                           f"{prep}")
+        raise RuntimeError(f"{where}: K9, its prologue and k9_decode "
+                           f"against their plain versions on the path's "
+                           f"inputs: {k9}, {prep}, {decode}")
 
 
 def k9_per_call_prompt(dev, cfg, params, T=200, layers=4, steps=2):
     """Every k9_prep and K9 call of a T-token prefill (K9's chunked form)
-    and ``steps`` decode steps (its recurrent form) on the hybrid cut to
-    ``layers`` layers, held against the plain versions on the path's own
-    inputs (k9_call_checks, the limits of k9_calls_hold); the other
+    and every k9_decode call of ``steps`` decode steps on the hybrid cut
+    to ``layers`` layers, held against the plain versions on the path's
+    own inputs (k9_call_checks, the limits of k9_calls_hold); the other
     kernels run as on the main path."""
     from ominix_mlx_tpu_torch.core.generate import Engine
     from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
@@ -3647,11 +3905,10 @@ def k9_per_call_prompt(dev, cfg, params, T=200, layers=4, steps=2):
     g = torch.Generator(device=dev).manual_seed(SEED + 42)
     prompt = torch.randint(0, cfg.vocab_size, (1, T), generator=g,
                            device=dev)
-    k9, prep, checked_k9, checked_prep = k9_call_checks()
+    k9, prep, decode, wraps = k9_call_checks()
 
     def wrap(k, kern, plain):
-        return {"k9": checked_k9, "k9_prep": checked_prep}.get(
-            k, lambda kern, plain: kern)(kern, plain)
+        return wraps[k](kern, plain) if k in wraps else kern
 
     eng = Engine(lambda p, t, c: base.forward(p, c2, t, c), p2,
                  SamplerConfig(),
@@ -3666,9 +3923,9 @@ def k9_per_call_prompt(dev, cfg, params, T=200, layers=4, steps=2):
     emit({"phase": "k9_per_call_prompt", "layers": layers, "prompt": T,
           "decode_steps": steps, "per_call_k9": k9,
           "per_call_k9_limit": K9_TOL, "per_call_k9_prep": prep,
-          "per_call_k9_prep_limit": K9_PREP_TOL})
-    k9_calls_hold(k9, prep, f"{T}-token prompt",
-                  forms=("chunked", "recurrent"))
+          "per_call_k9_prep_limit": K9_PREP_TOL, "per_call_k9_decode":
+          decode, "per_call_k9_decode_head_ulps": K9_DECODE_ULPS})
+    k9_calls_hold(k9, prep, decode, f"{T}-token prompt", forms=("chunked",))
 
 
 def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
@@ -3702,7 +3959,9 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
     a whole expert, not by a rounding. Every K9 call of the kernel run
     (a DeltaNet layer's recurrence) is held against its plain version on
     the same inputs and a copy of the same state, outputs and final
-    state, below K9_TOL (``per_call_k9``); so is every K10 call (below
+    state, below K9_TOL (``per_call_k9``; k9_prep's and k9_decode's calls
+    likewise, ``per_call_k9_prep``, ``per_call_k9_decode``: the decode
+    mixer's output within K9_DECODE_ULPS); so is every K10 call (below
     K10_TOL) and every K11 call (the scores below K11_SCORE_TOL, the same
     blocks selected, the attend below K11_TOL per row and head:
     ``per_call_k10``, ``per_call_k11``) of MiniCPM-SALA (``module``
@@ -3742,15 +4001,13 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
         return torch.stack([o.float() for o in out])
 
     calls = {}
-    k9, prep, checked_k9, checked_prep = k9_call_checks()
+    k9, prep, decode, k9_wraps = k9_call_checks()
     sala, sala_wraps = minicpm_call_checks()
     reverse = control_args("reversed")
 
     def checked(k, kern, plain):
-        if k == "k9":
-            return checked_k9(kern, plain)
-        if k == "k9_prep":
-            return checked_prep(kern, plain)
+        if k in k9_wraps:
+            return k9_wraps[k](kern, plain)
         if k in sala_wraps:
             return sala_wraps[k](kern, plain)
         if k not in QMM_KERNELS:
@@ -3817,7 +4074,9 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
           "per_call_limit": K1_TOL,
           **({"per_call_k9": k9, "per_call_k9_limit": K9_TOL,
               "per_call_k9_prep": prep, "per_call_k9_prep_limit":
-              K9_PREP_TOL} if hybrid else {}),
+              K9_PREP_TOL, "per_call_k9_decode": decode,
+              "per_call_k9_decode_head_ulps": K9_DECODE_ULPS}
+             if hybrid else {}),
           **({"per_call_k10": sala["k10"], "per_call_k11": sala["k11"],
               "per_call_limits": {"k10": K10_TOL,
                                   "k10_decode_row_ulps": K10_DECODE_ULPS,
@@ -3828,7 +4087,7 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
           "routed_rows_differ": sum(int((a != b).any(-1).sum())
                                     for a, b in zip(routes[0], routes[1]))})
     if hybrid:
-        k9_calls_hold(k9, prep, name)
+        k9_calls_hold(k9, prep, decode, name)
     if module is not None:
         minicpm_calls_hold(sala, name)
     if not rel < tol:
@@ -3947,13 +4206,15 @@ def device_time(prof):
 # kernel-name pieces of the port's kernels whose share of a profiled step
 # --profile reports: the P formula's rows kernel, the activation
 # prologues (K1, K4 and K6's qmm_prep_pdl, K8's chan_prep), K4's and K8's
-# rows kernels, K3 with its merge, K9, K10 (with its decode mixer), K11
+# rows kernels, K3 with its merge, K9, k9_prep, k9_decode, K10 (with its
+# decode mixer), K11
 SHARE_OF = {"qmm_p": ("qmm_p<",), "qmm_prep": ("qmm_prep", "chan_prep"),
             "k4_k8": ("gather_qmm_a8<", "chan_gather_qmm<"),
             "k3": ("paged_decode<", "paged_merge("),
             "k9": ("gated_delta_k9<",),
             "k9_chunk": ("gated_delta_chunk<", "gated_delta_chunk_scan<"),
             "k9_prep": ("k9_prep_kernel<",),
+            "k9_decode": ("k9_decode_kernel<",),
             "k10": ("lightning_k10<", "lightning_decode("),
             "k10_chunk": ("lightning_chunk_",),
             "k11": ("sparse_score<", "sparse_select<", "sparse_attend<")}
@@ -4861,25 +5122,27 @@ def counting_forwards(module):
 
 
 def k9_forward_launches(cfg, shapes) -> dict:
-    """The DeltaNet layers' launches over forwards of (B, T) ``shapes``:
-    k9_prep once per layer and forward, then K9 in the form k9_plan picks
-    (k9, or the chunked form's k9_chunk and k9_chunk_scan)."""
+    """The DeltaNet layers' launches over forwards of (B, T) ``shapes``
+    (ops.gated_delta.deltanet_launches): k9_decode once per layer at T =
+    1; else k9_prep, then K9 in the form k9_plan picks (k9, or the
+    chunked form's k9_chunk and k9_chunk_scan)."""
     from ominix_mlx_tpu_torch.ops import gated_delta as gd
 
     d, lin = cfg.deltanet, lin_layers(cfg)
-    want = {"k9_prep": lin * len(shapes), "k9": 0, "k9_chunk": 0,
-            "k9_chunk_scan": 0}
+    want = dict.fromkeys(("k9_decode", "k9_prep", "k9", "k9_chunk",
+                          "k9_chunk_scan"), 0)
     for B, T in shapes:
-        for k, n in gd.k9_launches(B, T, d.num_v_heads, d.head_k_dim,
-                                   d.head_v_dim).items():
+        for k, n in gd.deltanet_launches(B, T, d.num_v_heads, d.head_k_dim,
+                                         d.head_v_dim).items():
             want[k] += lin * n
     return want
 
 
 def check_hybrid_launches(cfg, forwards, launches, where):
     """The launch counts of a run of ``forwards`` on the hybrid, exactly:
-    k9_prep and K9 (in its planned form) once per DeltaNet layer and
-    forward; K4 twice per MoE layer at each forward of at most
+    k9_decode once per DeltaNet layer and one-token forward, k9_prep and
+    K9 (in its planned form) once per DeltaNet layer and longer forward;
+    K4 twice per MoE layer at each forward of at most
     GATHER_M_MAX rows (decode), K5 on the packed experts three times per
     MoE layer at each longer one (prefill); K2 once per attention layer
     at each fresh prefill."""
@@ -5067,12 +5330,14 @@ def serve_qwen3_next(dev, smi, profile=False):
     length: k9_prep and K9 in the 36 DeltaNet layers, the chunked form
     from K9_CHUNK_MIN_T tokens, K2 at 16 over 2 heads of 256 in the 12
     attention layers, K5 on the 512 packed experts; every decode step
-    k9_prep and K9's recurrent form, K1 and K4 twice a MoE layer at top
+    k9_decode in each DeltaNet layer, K1 and K4 twice a MoE layer at top
     10), their launches held exactly (check_hybrid_launches); a profiled
     128-token prefill (wall, device busy, peak memory); the kernel-vs-plain
-    logits check on 4 layers (K9 and k9_prep each alone against the plain
-    path, every call of each held per call, and each K9 call with the
-    prologue before it against both plain versions); the batch-1 decode
+    logits check on 4 layers (K9, k9_prep and k9_decode each alone
+    against the plain path, every call of each held per call, and each
+    K9 call with the prologue before it against both plain versions);
+    every k9_decode, k9_prep and K9 call of a 200-token prompt and two
+    decode steps held likewise (k9_per_call_prompt); the batch-1 decode
     rate; with ``profile`` a profile line of
     decode steps; 8 concurrent requests on enable_batching(paged=False),
     each equal to the same request alone. Returns the phase's launches."""
@@ -5100,7 +5365,7 @@ def serve_qwen3_next(dev, smi, profile=False):
         _, counts = serve_requests(dev, cfg, params, name.lower(),
                                    ("k1_m1", "k1_mn", "k2", "k4", "k5_w4",
                                     "k9", "k9_chunk", "k9_chunk_scan",
-                                    "k9_prep"), qwen3_next)
+                                    "k9_prep", "k9_decode"), qwen3_next)
     want = check_hybrid_launches(cfg, forwards, counts, f"{name} serve")
     emit({"phase": "serve_qwen3_next_launches", "forwards": len(forwards),
           "launches": counts, "want": want})
@@ -5108,7 +5373,8 @@ def serve_qwen3_next(dev, smi, profile=False):
     emit({"phase": "moe_prefill", "config": name, "weights": "w4a8 g64",
           **moe_prefill(dev, cfg, params), "card": smi})
     check_logits(dev, cfg, params, name,
-                 kernels=("k1", "k2", "k4", "k5", "k9", "k9_prep"), layers=4)
+                 kernels=("k1", "k2", "k4", "k5", "k9", "k9_prep",
+                          "k9_decode"), layers=4)
     k9_per_call_prompt(dev, cfg, params)
     emit({**decode_rate(dev, cfg, params, 16, 48), "config": name,
           "weights": "w4a8 g64", "card": smi})
@@ -5736,8 +6002,9 @@ def main() -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="only build this checkout's and DIR's kernels, "
                          "time K3, the P formula (K1 at one row, K6), K5 "
-                         "(bf16, 4- and 8-bit), K10's decode mixer and "
-                         "K11's selection against DIR's sequences, and "
+                         "(bf16, 4- and 8-bit), the DeltaNet and K10 "
+                         "decode mixers and K11's selection against DIR's "
+                         "sequences, and "
                          "the 128-token Qwen3-30B-A3B w4a8 prefill of both "
                          "packages, in turns")
     ap.add_argument("--prefill-probe", metavar="ROOT",
@@ -5793,6 +6060,7 @@ def main() -> int:
         compare_k3(plib, dev, flush)
         compare_qmm_p(plib, dev, flush)
         compare_k5(plib, dev, flush)
+        compare_k9_decode(plib, dev, flush)
         compare_k10_decode(plib, dev, flush)
         compare_k11_select(plib, dev, flush)
         del flush_buf, flush
@@ -5818,6 +6086,7 @@ def main() -> int:
     k5_rows = check_k5(dev, flush)
     k9_rows = check_k9(dev, flush)
     k9_prep_rows = check_k9_prep(dev, flush)
+    k9_decode_rows = check_k9_decode(dev, flush)
     k2_d256_rows = check_k2(dev, flush, H=16, Hkv=2, D=256, Ts=(128, 2048),
                             seed=SEED + 39, phase="k2_d256")
     k4_e512_rows, k5_e512_rows = check_next_experts(dev, flush)
@@ -6080,6 +6349,13 @@ def main() -> int:
               "SiLU, l2norms, gates), no Pallas kernel",
               "ominix_mlx_tpu_torch/csrc/k9_prep.cu", k9_prep_rows,
               lambda rs: rs[0], "k9_prep", design=K9_PREP_DESIGN),
+        entry("k9_decode",
+              "XLA ops ominix_mlx_tpu/models/deltanet.py:103-150 at T = 1 "
+              "(conv, SiLU, l2norms, gates, the scan's one step of "
+              ":132-144, the gated RMSNorm and SiLU gate), no Pallas "
+              "kernel", "ominix_mlx_tpu_torch/csrc/k9_decode.cu",
+              k9_decode_rows, lambda rs: rs[0], "k9_decode",
+              design=K9_DECODE_DESIGN),
         entry("k2_flash_prefill_d256",
               "ominix_mlx_tpu/ops/flash_attention.py:60 (Qwen3-Next: 16 "
               "over 2 heads of 256)",

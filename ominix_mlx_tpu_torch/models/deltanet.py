@@ -15,7 +15,11 @@ runs in ``ops.gated_delta.gated_delta_rule``: kernel K9 on CUDA (its
 recurrent or its chunked form, as ``k9_plan`` picks), its plain version on
 the CPU. What comes before it, the causal conv over the carried window,
 SiLU, the l2norms and the gates, is ``ops.gated_delta.k9_prep``: one
-launch on CUDA, ``deltanet_prep_reference`` on the CPU. Unlike the JAX
+launch on CUDA, ``deltanet_prep_reference`` on the CPU. A decode step (T =
+1) takes ``ops.gated_delta.deltanet_decode`` instead: the prologue, the
+step, the gated RMSNorm and the gate in one launch (``k9_decode``) on
+CUDA, ``deltanet_decode_reference`` (the same composition as at prompts)
+on the CPU. Unlike the JAX
 package, whose caches are values, ``block`` writes the state and the conv
 window into the cache's buffers IN PLACE, so the batcher's row views
 carry them and a decode step allocates no new state.
@@ -31,7 +35,8 @@ import torch.nn.functional as F
 
 from ominix_mlx_tpu_torch.core.device import resolve_device
 from ominix_mlx_tpu_torch.nn.layers import linear, rms_norm
-from ominix_mlx_tpu_torch.ops.gated_delta import (gated_delta_rule, k9_prep,
+from ominix_mlx_tpu_torch.ops.gated_delta import (deltanet_decode,
+                                                  gated_delta_rule, k9_prep,
                                                   split_qkvz_ba)
 
 
@@ -139,15 +144,24 @@ def block(lp: dict, dcfg: DeltaNetConfig, x: torch.Tensor,
     The JAX package's roundings: beta and g in float32; q, k, v in
     float32 (q l2-normed and scaled by dk^-0.5, k l2-normed); the
     recurrence's float32 output cast to x's type before the gated
-    RMSNorm; then ``* silu(z)`` and ``out_proj``."""
+    RMSNorm; then ``* silu(z)`` and ``out_proj``. At T = 1 everything
+    between the projections and out_proj is one ``deltanet_decode``
+    (on CUDA by dependent launch behind in_proj_ba, which writes neither
+    the state nor the taps nor the norm weight)."""
     B, T, _ = x.shape
     qkvz = linear(lp["in_proj_qkvz"], x)
     ba = linear(lp["in_proj_ba"], x)
     heads = _heads(dcfg)
     # the taps, [C, 1, K] (HF) or [C, K, 1] (MLX), as [C, K]
-    conv_w = lp["conv1d"]["w"].reshape(dcfg.conv_dim, dcfg.conv_kernel)
-    q, k, v, g, beta = k9_prep(qkvz, ba, cache.conv, conv_w.to(x.dtype),
-                               lp["A_log"].float(), lp["dt_bias"].float(),
+    conv_w = lp["conv1d"]["w"].reshape(dcfg.conv_dim,
+                                       dcfg.conv_kernel).to(x.dtype)
+    A_log, dt_bias = lp["A_log"].float(), lp["dt_bias"].float()
+    if T == 1:
+        out = deltanet_decode(qkvz, ba, cache.conv, conv_w, A_log, dt_bias,
+                              cache.state, lp["norm"], dcfg.rms_norm_eps,
+                              heads, overlap=x.is_cuda)
+        return linear(lp["out_proj"], out), cache
+    q, k, v, g, beta = k9_prep(qkvz, ba, cache.conv, conv_w, A_log, dt_bias,
                                heads)
     z = _split_qkvz_ba(qkvz, ba, dcfg)[3]
     out = gated_delta_rule(q, k, v, g, beta, cache.state)

@@ -50,7 +50,9 @@ build_seconds = 0.0     # wall time of the build this process ran (0 if reused)
 # "k5_w8": the same on 4- and 8-bit experts read packed, "k8": channelwise
 # w8a8 expert gather, "k9": the gated delta rule of a DeltaNet layer in its
 # recurrent form, "k9_chunk" and "k9_chunk_scan": the two phases of its
-# chunked form, "k9_prep": the layer's prologue before the rule; "k10":
+# chunked form, "k9_prep": the layer's prologue before the rule,
+# "k9_decode": a DeltaNet layer's whole decode mixer (the prologue, one
+# step of the rule, the gated norm and gate); "k10":
 # MiniCPM-SALA's lightning attention in its recurrent form, "k10_chunk":
 # its chunked form (one launch), "k10_decode": a lightning layer's whole
 # decode mixer (norms, RoPE, the state step, the gate); "k11_score",
@@ -117,6 +119,10 @@ def _declare(lib):
     lib.ominix_gated_delta_chunked.argtypes = [vp] * 11 + [i] * 6 + [vp]
     lib.ominix_k9_prep.restype = i
     lib.ominix_k9_prep.argtypes = [vp] * 11 + [i] * 8 + [f, vp]
+    lib.ominix_k9_decode.restype = i
+    lib.ominix_k9_decode.argtypes = [vp] * 9 + [i] * 7 + [f, f, i, vp]
+    lib.ominix_k9_decode_clusters.restype = i
+    lib.ominix_k9_decode_clusters.argtypes = [i, i]
     lib.ominix_lightning.restype = i
     lib.ominix_lightning.argtypes = [vp] * 6 + [i] * 5 + [ll] * 9 + [vp]
     lib.ominix_lightning_chunked.restype = i

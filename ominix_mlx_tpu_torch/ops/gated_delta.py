@@ -1,6 +1,6 @@
 """The gated delta rule: the recurrence of a Gated DeltaNet layer
-(``models.deltanet.block``) over T tokens from a carried state, and the
-prologue that prepares its inputs.
+(``models.deltanet.block``) over T tokens from a carried state, the
+prologue that prepares its inputs, and the layer's whole decode mixer.
 
 No TPU kernel computes either: the JAX package runs the per-token step
 under ``jax.lax.scan`` (ominix_mlx_tpu/models/deltanet.py:132-144), which
@@ -19,10 +19,15 @@ raises; a CPU tensor takes the plain version:
   order.
 - the prologue: ``k9_prep`` (``csrc/k9_prep.cu``), one launch in place of
   the some 36 of its plain version ``deltanet_prep_reference``.
+- the decode mixer (T = 1): ``deltanet_decode``, kernel ``k9_decode``
+  (``csrc/k9_decode.cu``): the prologue, one step of the rule, the cast,
+  the gated RMSNorm and ``* silu(z)`` in one launch; plain version
+  ``deltanet_decode_reference``, the prologue's and the rule's plain
+  versions and the glue as the layer composes them at prompts.
 
 The rule writes the final state into ``state`` in place (the batcher's
 row views carry it) and returns the outputs o [B, T, Hv, dv] in float32;
-the prologue writes the conv window in place.
+the prologue writes the conv window in place; the decode mixer both.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ominix_mlx_tpu_torch.ops.quant_matmul import rms_norm
 
 # head widths dk the recurrent form is built for (a thread holds dk / 4 rows)
 K9_DK = (32, 64, 128, 256)
@@ -51,6 +58,11 @@ K9_CHUNK_MAX_SCRATCH = 2 << 30
 K9_PREP_DIMS = (128,)
 K9_PREP_TAPS = 4
 K9_PREP_TILE = 16
+# the decode mixer: dk = dv widths, and the largest Hv / Hk (its CTAs of
+# one row and key head, 2 Hv / Hk of them, form one thread block cluster,
+# at most 8 CTAs)
+K9_DECODE_DIMS = (128,)
+K9_DECODE_MAX_RATIO = 4
 
 
 def k9_plan(B: int, T: int, Hv: int, dk: int, dv: int) -> str:
@@ -73,6 +85,15 @@ def k9_launches(B: int, T: int, Hv: int, dk: int, dv: int) -> dict:
     if k9_plan(B, T, Hv, dk, dv) == "chunked":
         return {"k9_chunk": 1, "k9_chunk_scan": 1}
     return {"k9": 1}
+
+
+def deltanet_launches(B: int, T: int, Hv: int, dk: int, dv: int) -> dict:
+    """The launch counts of one DeltaNet layer's mixer on CUDA at these
+    shapes (``models.deltanet.block``): one "k9_decode" at T = 1, else
+    one "k9_prep" and the rule in the form k9_plan picks."""
+    if T == 1:
+        return {"k9_decode": 1}
+    return {"k9_prep": 1, **k9_launches(B, T, Hv, dk, dv)}
 
 
 def gated_delta_rule_reference(q: torch.Tensor, k: torch.Tensor,
@@ -393,3 +414,109 @@ def k9_prep(qkvz: torch.Tensor, ba: torch.Tensor, window: torch.Tensor,
         return deltanet_prep_reference(qkvz, ba, window, conv_w, A_log,
                                        dt_bias, heads)
     return _k9_prep(qkvz, ba, window, conv_w, A_log, dt_bias, heads)
+
+
+# ---------------------------------------------------------- the decode mixer
+
+def deltanet_decode_reference(qkvz: torch.Tensor, ba: torch.Tensor,
+                              window: torch.Tensor, conv_w: torch.Tensor,
+                              A_log: torch.Tensor, dt_bias: torch.Tensor,
+                              state: torch.Tensor, norm_w: torch.Tensor,
+                              eps: float, heads) -> torch.Tensor:
+    """Plain version of ``k9_decode``: a DeltaNet layer's mixer between its
+    input projections and out_proj as the layer composes it (the JAX
+    block, ominix_mlx_tpu/models/deltanet.py:103-150): the prologue
+    (``deltanet_prep_reference``, the window written in place), the rule
+    (``gated_delta_rule_reference``, the state written in place), the
+    cast of its float32 output to qkvz's type, the gated RMSNorm per value
+    head over dv (``rms_norm`` with ``norm_w``) and ``* silu(z)``.
+    Arguments as the prologue's, with the state [B, Hv, dk, dv] float32
+    and norm_w [dv]; returns [B, T, Hv dv] (the kernel takes T = 1)."""
+    B, T, _ = qkvz.shape
+    q, k, v, g, beta = deltanet_prep_reference(qkvz, ba, window, conv_w,
+                                               A_log, dt_bias, heads)
+    z = split_qkvz_ba(qkvz, ba, heads)[3]
+    out = gated_delta_rule_reference(q, k, v, g, beta, state)
+    out = rms_norm(norm_w, out.to(qkvz.dtype), eps) * F.silu(z)
+    return out.reshape(B, T, -1)
+
+
+def _k9_decode(qkvz: torch.Tensor, ba: torch.Tensor, window: torch.Tensor,
+               conv_w: torch.Tensor, A_log: torch.Tensor,
+               dt_bias: torch.Tensor, state: torch.Tensor,
+               norm_w: torch.Tensor, eps: float, heads,
+               overlap: bool = False) -> torch.Tensor:
+    """Launch ``k9_decode`` on the current stream (arguments as
+    ``deltanet_decode_reference``'s at T = 1: qkvz, ba, the window, the
+    taps and norm_w in one type, bf16 or float32, contiguous with 16-byte
+    aligned bases; A_log, dt_bias and the state contiguous float32; the
+    window and the state written in place, so a row view of a batched
+    cache is taken as it is); raises for what it does not take.
+    ``overlap``: launch by programmatic dependent launch, the state, the
+    taps and norm_w read before the kernel ahead of it on the stream ends
+    (the model's call: its projection is just before); that kernel must
+    then write none of them."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    what = "k9_decode"
+    Hk, Hv, dk, dv = heads
+    B, T = qkvz.shape[0], qkvz.shape[1]
+    dev = qkvz.device
+    r = Hv // Hk if Hk > 0 and Hv % Hk == 0 else 0
+    K = conv_w.shape[-1]
+    if not 1 <= r <= K9_DECODE_MAX_RATIO or dk != dv \
+            or dk not in K9_DECODE_DIMS or K != K9_PREP_TAPS or T != 1 \
+            or not 1 <= B <= K9_MAX_GRID or Hk > K9_MAX_GRID:
+        raise ValueError(f"{what} takes T = 1, dk = dv in {K9_DECODE_DIMS}, "
+                         f"Hv a multiple of Hk at most "
+                         f"{K9_DECODE_MAX_RATIO} times it, a conv of "
+                         f"{K9_PREP_TAPS} taps and B, Hk <= {K9_MAX_GRID}; "
+                         f"got T={T}, dk={dk}, dv={dv}, Hk={Hk}, Hv={Hv}, "
+                         f"K={K}, B={B}")
+    dt = qkvz.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what} takes bf16 or float32 x, got {dt}")
+    conv_dim = 2 * Hk * dk + Hv * dv
+    want = {"qkvz": (qkvz, (B, 1, Hk * (2 * dk + 2 * r * dv)), dt),
+            "ba": (ba, (B, 1, 2 * Hv), dt),
+            "window": (window, (B, K - 1, conv_dim), dt),
+            "conv_w": (conv_w, (conv_dim, K), dt),
+            "norm_w": (norm_w, (dv,), dt),
+            "A_log": (A_log, (Hv,), torch.float32),
+            "dt_bias": (dt_bias, (Hv,), torch.float32),
+            "state": (state, (B, Hv, dk, dv), torch.float32)}
+    for name, (t, shp, tdt) in want.items():
+        if t.dtype != tdt or tuple(t.shape) != shp or not t.is_contiguous() \
+                or t.device != dev or t.data_ptr() % 16:
+            raise ValueError(f"{what} {name}: want contiguous {tdt} {shp} "
+                             f"on {dev} with a 16-byte aligned base, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"qkvz is on {dev}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    out = torch.empty(B, 1, Hv * dv, dtype=dt, device=dev)
+    rc = _build.library().ominix_k9_decode(
+        qkvz.data_ptr(), ba.data_ptr(), window.data_ptr(), conv_w.data_ptr(),
+        A_log.data_ptr(), dt_bias.data_ptr(), state.data_ptr(),
+        norm_w.data_ptr(), out.data_ptr(), B, Hk, Hv, dk, dv, K,
+        int(dt == torch.bfloat16), dk ** -0.5, eps, int(overlap),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "k9_decode (ominix_k9_decode)")
+    _build.LAUNCHES["k9_decode"] += 1
+    return out
+
+
+def deltanet_decode(qkvz: torch.Tensor, ba: torch.Tensor,
+                    window: torch.Tensor, conv_w: torch.Tensor,
+                    A_log: torch.Tensor, dt_bias: torch.Tensor,
+                    state: torch.Tensor, norm_w: torch.Tensor, eps: float,
+                    heads, overlap: bool = False) -> torch.Tensor:
+    """A DeltaNet layer's decode mixer, [B, 1, Hv dv] (the input of
+    out_proj), the window and the state advanced in place: ``k9_decode``
+    on CUDA (or it raises), ``deltanet_decode_reference`` on the CPU.
+    Arguments as the plain version's; ``overlap`` as ``_k9_decode``'s."""
+    if not qkvz.is_cuda:
+        return deltanet_decode_reference(qkvz, ba, window, conv_w, A_log,
+                                         dt_bias, state, norm_w, eps, heads)
+    return _k9_decode(qkvz, ba, window, conv_w, A_log, dt_bias, state,
+                      norm_w, eps, heads, overlap=overlap)

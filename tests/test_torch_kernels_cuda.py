@@ -1691,11 +1691,12 @@ def test_k9_rejects(cuda):
 
 
 def test_deltanet_block_launches_k9_once(cuda):
-    """A DeltaNet layer on the card runs its prologue through k9_prep and
-    its recurrence through K9 in the planned form, one launch each (the
-    chunked form's two phases at T = 40 and 300), and its output is
-    within 2e-2 of the same layer with the plain prologue and recurrence
-    (bf16 activations), the state within K9_TOL, the window equal."""
+    """A DeltaNet layer on the card runs a decode step (T = 1) through
+    k9_decode, one launch, and a prompt's prologue through k9_prep and its
+    recurrence through K9 in the planned form, one launch each (the
+    chunked form's two phases at T = 300); its output is within 2e-2 of
+    the same layer with the plain mixer (bf16 activations), the state
+    within K9_TOL, the window equal."""
     from ominix_mlx_tpu_torch.models import deltanet as dn
 
     dcfg = dn.DeltaNetConfig(num_v_heads=32, num_k_heads=16, head_k_dim=128,
@@ -1713,18 +1714,240 @@ def test_deltanet_block_launches_k9_once(cuda):
         c2 = dn.RecurrentCache.init(2, dcfg, device=cuda)
         _build.reset_launches()
         y1, _ = dn.block(lp, dcfg, x, c1)
-        assert dict(_build.LAUNCHES) == {
-            "k9_prep": 1, **gd.k9_launches(2, T, 32, 128, 128)}
-        real = dn.gated_delta_rule, dn.k9_prep
+        assert dict(_build.LAUNCHES) == gd.deltanet_launches(2, T, 32, 128,
+                                                             128)
+        real = dn.gated_delta_rule, dn.k9_prep, dn.deltanet_decode
         dn.gated_delta_rule = gd.gated_delta_rule_reference
         dn.k9_prep = gd.deltanet_prep_reference
+        dn.deltanet_decode = (lambda *a, overlap=False:
+                              gd.deltanet_decode_reference(*a))
         try:
             y2, _ = dn.block(lp, dcfg, x, c2)
         finally:
-            dn.gated_delta_rule, dn.k9_prep = real
+            dn.gated_delta_rule, dn.k9_prep, dn.deltanet_decode = real
         torch.cuda.synchronize()
         assert _rel(y1, y2) < 2e-2 and _rel(c1.state, c2.state) < K9_TOL
         assert torch.equal(c1.conv, c2.conv)
+
+
+# ---------------------------- k9_decode (DeltaNet decode mixer) -----------
+
+# k9_decode's output against deltanet_decode_reference: o is K9's float32
+# sum (another order than the plain version's einsum) from q and k within
+# K9_PREP_TOL of the plain ones, so an element of o cast to bf16 may take
+# the other neighbour (one ulp of that element, at most one of the head's
+# largest), the norm's mean moves by a fraction of an ulp, and the three
+# roundings after it (the normalized value, the weight's product, the
+# gate's product) each add at most one: within 4 bf16 ulps of the value
+# head's largest |plain| output (the spacing 2^(floor(log2 max) - 7)).
+K9_DECODE_ULPS = 4
+
+
+def _head_ulps(got, want, dv=128):
+    """max |got - want| in bf16 ulps of each value head's largest |want|:
+    [B, 1, Hv dv] seen as [B, Hv, dv] rows."""
+    B = got.shape[0]
+    return _row_ulps(got.reshape(B, -1, dv), want.reshape(B, -1, dv))
+
+
+def _mixer_inputs(dev, B, dtype=torch.bfloat16, r=2, seed=0, strong=False,
+                  Hk=16):
+    """A DeltaNet layer's decode-step inputs at Qwen3-Next's widths (16 key
+    heads of 128, r value heads each): _prep_inputs' qkvz, ba, window,
+    taps and gates (dt_bias near -4, a weak decay, or near +4 with
+    ``strong``: exp(g) down to e^-60), a carried state and a norm weight
+    near one. At B > 1 the rows are ragged: row 0 a fresh slot (zero state
+    and window), the others' states at scales 0.01 to 1."""
+    a = _prep_inputs(dev, B, 1, dtype, Hk=Hk, r=r, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    if strong:
+        a["dt_bias"] = a["dt_bias"] + 8
+    scale = torch.logspace(-2, 0, B, device=dev)[:, None, None, None]
+    a["state"] = torch.randn(B, Hk * r, 128, 128, generator=g,
+                             device=dev) * scale
+    if B > 1:
+        a["state"][0] = 0
+        a["window"][0] = 0
+    a["norm_w"] = (1 + 0.1 * torch.randn(128, generator=g, device=dev)).to(
+        dtype)
+    return a
+
+
+def _mixer_args(a, window, state):
+    return (a["qkvz"], a["ba"], window, a["conv_w"], a["A_log"],
+            a["dt_bias"], state, a["norm_w"], EPS, a["heads"])
+
+
+def _parent_mixer(qkvz, ba, window, conv_w, A_log, dt_bias, state, norm_w,
+                  eps, heads):
+    """The decode mixer as the layer composed it before k9_decode: k9_prep,
+    K9's recurrent form, then the cast, rms_norm and * silu(z) op by op."""
+    from torch.nn.functional import silu
+
+    q, k, v, g, beta = gd._k9_prep(qkvz, ba, window, conv_w, A_log,
+                                   dt_bias, heads)
+    z = gd.split_qkvz_ba(qkvz, ba, heads)[3]
+    out = gd._k9(q, k, v, g, beta, state)
+    out = qm.rms_norm(norm_w, out.to(qkvz.dtype), eps) * silu(z)
+    return out.reshape(qkvz.shape[0], 1, -1)
+
+
+@pytest.mark.parametrize("strong", [False, True])
+@pytest.mark.parametrize("B", [1, 8])
+def test_k9_decode_matches_the_pair_and_plain(cuda, B, strong):
+    """k9_decode at Qwen3-Next's heads (B = 8: ragged rows, one a fresh
+    slot), weak and strong decay, two steps in a row: the state and the
+    window bit for bit as k9_prep then K9 leave them, the output within
+    K9_DECODE_ULPS of that pair's glue and of deltanet_decode_reference
+    (whose state it holds within K9_TOL, its window bit for bit); one
+    launch a call."""
+    a = _mixer_inputs(cuda, B, seed=B + 10 * strong, strong=strong)
+    w1, w2, w3 = (a["window"].clone() for _ in range(3))
+    s1, s2, s3 = (a["state"].clone() for _ in range(3))
+    for step in range(2):
+        _build.reset_launches()
+        got = gd.deltanet_decode(*_mixer_args(a, w1, s1))
+        assert dict(_build.LAUNCHES) == {"k9_decode": 1}
+        pair = _parent_mixer(*_mixer_args(a, w2, s2))
+        want = gd.deltanet_decode_reference(*_mixer_args(a, w3, s3))
+        torch.cuda.synchronize()
+        assert got.shape == (B, 1, 32 * 128) and got.dtype == torch.bfloat16
+        assert got.is_contiguous() and torch.isfinite(got.float()).all()
+        assert torch.equal(w1, w2) and torch.equal(s1, s2), step
+        assert torch.equal(w1, w3) and _rel(s1, s3) < K9_TOL, step
+        assert _head_ulps(got, pair) <= K9_DECODE_ULPS, step
+        assert _head_ulps(got, want) <= K9_DECODE_ULPS, step
+        a["qkvz"] = a["qkvz"].flip(-1).contiguous()
+
+
+@pytest.mark.parametrize("r", [1, 3, 4])
+def test_k9_decode_at_other_head_ratios(cuda, r):
+    """Hv / Hk = 1, 3 and 4 (clusters of 4, 12 and 16 CTAs) at 8 key heads
+    and B = 2: the state and the window bit for bit as the pair's, the
+    output within K9_DECODE_ULPS of the plain version's."""
+    a = _mixer_inputs(cuda, 2, r=r, seed=r, Hk=8)
+    w1, w2, w3 = (a["window"].clone() for _ in range(3))
+    s1, s2, s3 = (a["state"].clone() for _ in range(3))
+    got = gd.deltanet_decode(*_mixer_args(a, w1, s1))
+    _parent_mixer(*_mixer_args(a, w2, s2))
+    want = gd.deltanet_decode_reference(*_mixer_args(a, w3, s3))
+    torch.cuda.synchronize()
+    assert torch.equal(w1, w2) and torch.equal(s1, s2)
+    assert _head_ulps(got, want) <= K9_DECODE_ULPS
+
+
+def test_k9_decode_float32_x(cuda):
+    """float32 x (no path sends it; k9_prep takes it, so the mixer does):
+    the state and the window bit for bit as the pair's, the output within
+    K9_TOL of max |plain| (no cast rounds o)."""
+    a = _mixer_inputs(cuda, 2, dtype=torch.float32, seed=4)
+    w1, w2, w3 = (a["window"].clone() for _ in range(3))
+    s1, s2, s3 = (a["state"].clone() for _ in range(3))
+    got = gd.deltanet_decode(*_mixer_args(a, w1, s1))
+    pair = _parent_mixer(*_mixer_args(a, w2, s2))
+    want = gd.deltanet_decode_reference(*_mixer_args(a, w3, s3))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert torch.equal(w1, w2) and torch.equal(s1, s2)
+    assert _rel(got, pair) < K9_TOL and _rel(got, want) < K9_TOL
+
+
+def test_k9_decode_repeatable_graphed_and_overlapped(cuda):
+    """20 calls from the same state and window give the same bits; a CUDA
+    graph's replay, three times, gives the eager call's; launched by
+    dependent launch behind a projection (the model's call: a kernel
+    that writes neither the state nor the taps nor the norm weight) it
+    gives them too."""
+    a = _mixer_inputs(cuda, 8, seed=21)
+    s0, w0 = a["state"].clone(), a["window"].clone()
+    st, wn = s0.clone(), w0.clone()
+    base = gd._k9_decode(*_mixer_args(a, wn, st))
+    torch.cuda.synchronize()
+    for _ in range(20):
+        s, w = s0.clone(), w0.clone()
+        out = gd._k9_decode(*_mixer_args(a, w, s))
+        torch.cuda.synchronize()
+        assert torch.equal(out, base) and torch.equal(s, st) \
+            and torch.equal(w, wn)
+    x = torch.randn(8, 2048, device=cuda).bfloat16()
+    proj = torch.randn(a["qkvz"].shape[-1], 2048, device=cuda).bfloat16()
+    s, w = s0.clone(), w0.clone()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    (x @ proj.T).sum()                 # kernels just before, not the state
+    over = gd._k9_decode(*_mixer_args(a, w, s), overlap=True)
+    assert dict(_build.LAUNCHES) == {"k9_decode": 1}
+    torch.cuda.synchronize()
+    assert torch.equal(over, base) and torch.equal(s, st) \
+        and torch.equal(w, wn)
+    gs, gw = s0.clone(), w0.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        gd._k9_decode(*_mixer_args(a, gw, gs))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = gd._k9_decode(*_mixer_args(a, gw, gs))
+    for _ in range(3):
+        gs.copy_(s0)
+        gw.copy_(w0)
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, base) and torch.equal(gs, st) \
+            and torch.equal(gw, wn)
+
+
+def test_k9_decode_on_row_views_of_a_batched_cache(cuda):
+    """The batcher's row views (RecurrentCache.rows) reach the kernel as
+    they are: a call on row 2 of a 4-row cache writes that row's state
+    and window in the cache's buffers, bit for bit as a call on copies,
+    and leaves the other rows alone."""
+    from ominix_mlx_tpu_torch.models import deltanet as dn
+
+    dcfg = dn.DeltaNetConfig(num_v_heads=32, num_k_heads=16, head_k_dim=128,
+                             head_v_dim=128)
+    a = _mixer_inputs(cuda, 1, seed=31)
+    cache = dn.RecurrentCache.init(4, dcfg, device=cuda)
+    cache.state.normal_()
+    cache.conv.normal_()
+    before = cache.state.clone(), cache.conv.clone()
+    row = cache.rows(2)
+    s, w = row.state.clone(), row.conv.clone()
+    got = gd.deltanet_decode(*_mixer_args(a, row.conv, row.state))
+    want = gd.deltanet_decode(*_mixer_args(a, w, s))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(cache.state[2], s[0])
+    assert torch.equal(cache.conv[2], w[0])
+    for b in (0, 1, 3):
+        assert torch.equal(cache.state[b], before[0][b])
+        assert torch.equal(cache.conv[b], before[1][b])
+
+
+def test_k9_decode_rejects(cuda):
+    a = _mixer_inputs(cuda, 1, seed=41)
+    w, s = a["window"], a["state"]
+    with pytest.raises(ValueError, match="k9_decode state"):
+        gd._k9_decode(*_mixer_args(a, w, s.bfloat16()))
+    with pytest.raises(ValueError, match="k9_decode state"):
+        gd._k9_decode(*_mixer_args(a, w, s.transpose(2, 3)))
+    with pytest.raises(ValueError, match="k9_decode window"):
+        gd._k9_decode(*_mixer_args(a, w.float(), s))
+    with pytest.raises(ValueError, match="k9_decode qkvz"):
+        gd._k9_decode(a["qkvz"][..., 8:], *_mixer_args(a, w, s)[1:])
+    with pytest.raises(ValueError, match="k9_decode norm_w"):
+        gd._k9_decode(*_mixer_args({**a, "norm_w": a["norm_w"].float()}, w,
+                                   s))
+    b = _mixer_inputs(cuda, 1, r=8, Hk=2, seed=42)
+    with pytest.raises(ValueError, match="Hv a multiple of Hk at most"):
+        gd._k9_decode(*_mixer_args(b, b["window"], b["state"]))
+    c = _prep_inputs(cuda, 1, 2, torch.bfloat16)
+    with pytest.raises(ValueError, match="T = 1"):
+        gd._k9_decode(c["qkvz"], c["ba"], c["window"], c["conv_w"],
+                      c["A_log"], c["dt_bias"], a["state"], a["norm_w"], EPS,
+                      c["heads"])
 
 
 def test_k2_k2c_at_qwen3_next_heads(cuda):
