@@ -91,6 +91,18 @@ Qwen3-30B-A3B with random weights (seeded):
     same request alone, and decode over caches filled to 65536 and 524288
     tokens (ms/token, K11's share).
 
+Every path that goes through Engine.generate, generate_scan or
+generate_batch (the single-request server, decode_rate, the batch-8
+decodes) replays the engine's decode step captured as a CUDA graph; the
+batcher's step stays eager. Each family's ``decode_graph`` line (Qwen3-4B
+and Qwen3-30B-A3B w4a8, Qwen3-30B-A3B channel w8a8, Mistral-7B, GLM-4-9B,
+DeepSeek-V2-Lite, Mixtral-8x7B, GLM-4.5-Air, Qwen3-Next-80B-A3B and
+MiniCPM-SALA) holds 17 steps of the captured step against the step's
+eager body from one prefilled state: logits, tokens and launch counts,
+the capture's ms, the graph pool, the host time of a replay and tok/s
+both ways in turns; ``minicpm_long_decode`` times it over its long
+caches beside the eager loop.
+
 The kernel checks include K2 and K2c with the sliding window (k2_window,
 k2c_window: T=8192 and the 8k prefill's last chunk, windows 4096 and
 4000, 8 and 2 KV heads), K3 at GLM-4.5-Air's 12 query heads a KV head,
@@ -119,8 +131,9 @@ torch.topk in turns and torch.topk alone).
     python3 chip_smoke.py --parent DIR # K3, K1/K6 (qmm_p), K5 (bf16,
                                        # 4- and 8-bit), the DeltaNet and
                                        # K10 decode mixers, K11's
-                                       # selection and the 128-token MoE
-                                       # prefill against another
+                                       # selection, the 128-token MoE
+                                       # prefill and the generate_scan
+                                       # decode rates against another
                                        # checkout's
 
 The kernel checks end with a ``launch_floor`` line: an empty kernel's
@@ -571,6 +584,8 @@ PREFILL_LEN, PREFILL_CHUNK = 8192, 2048
 # float32 (tests/test_torch_qwen3_next.py, chunked vs whole at 2e-4)
 HYBRID_PREFILL_TOL = LOGITS_TOL
 BATCH = 8
+# decode_graph: replays after the warm-up, and steps a turn of the timing
+GRAPH_STEPS = 16
 
 
 T0 = time.perf_counter()
@@ -3019,11 +3034,16 @@ def counting_gather_layers():
     ones) for the duration: yields a dict whose "calls" grows with each."""
     from ominix_mlx_tpu_torch.models import moe
 
+    from ominix_mlx_tpu_torch.ops import _build
+
     seen, real = {"calls": 0}, moe.moe_block
+
+    def add():
+        seen["calls"] += 1
 
     def counted(lp, mcfg, x):
         if x.shape[0] * x.shape[1] <= moe.GATHER_M_MAX:
-            seen["calls"] += 1
+            _build.on_run(add)      # once each replay where captured
         return real(lp, mcfg, x)
     moe.moe_block = counted
     try:
@@ -3128,7 +3148,7 @@ def prefill_seconds(dev, cfg, params, T) -> float:
     return dt
 
 
-def serve_moe_batched_w8(dev, cfg):
+def serve_moe_batched_w8(dev, cfg, smi):
     """The batched server's w8a8 scheme on Qwen3-30B-A3B. First its
     channel-int8 weights made directly at full width and depth (30 GB)
     on a batched server with 8 slots and a paged pool (quantize_bits=None:
@@ -3157,6 +3177,7 @@ def serve_moe_batched_w8(dev, cfg):
           "weights": "w8a8 channel8", "layers": cfg.num_layers,
           "init_seconds": time.perf_counter() - t0,
           "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    decode_graph(dev, cfg, params, "Qwen3-30B-A3B", "w8a8 channel8", smi)
     adopt = {T: prefill_seconds(dev, cfg, params, T) for T in (16, 128)}
     name = "qwen3-30b-a3b-batched-w8"
     srv = Server(port=free_port())
@@ -4135,6 +4156,107 @@ def decode_rate(dev, cfg, params, short=128, long=512, module=None):
             "ms_per_token": 1e3 / tps}
 
 
+def cloned_cache(cache):
+    """A copy of every tensor of each layer of a ModelCache (the offset
+    kept)."""
+    from ominix_mlx_tpu_torch.core.cache import ModelCache
+
+    return ModelCache(layers=[dataclasses.replace(lc, **{
+        f.name: getattr(lc, f.name).clone() for f in dataclasses.fields(lc)
+        if isinstance(getattr(lc, f.name), torch.Tensor)})
+        for lc in cache.layers], offset=cache.offset)
+
+
+def decode_graph(dev, cfg, params, name, weights, smi, module=None,
+                 paged=False, prompt_len=128, max_len=1024,
+                 steps=GRAPH_STEPS):
+    """decode_graph: the engine's decode step (Engine.decode_step) at batch
+    1 after a ``prompt_len``-token prefill, from one prefilled state (the
+    cache cloned): ``steps`` + 1 steps of the step's body run eagerly,
+    under set_sync_debug_mode("error") (a host sync in the body raises),
+    against the captured step (its warm-up, then ``steps`` replays): the
+    logits' largest difference (0: the same kernels on the same inputs),
+    the tokens equal, the launch counts equal; the capture's ms, the
+    graph pool, the host time of a replay; then tok/s of the eager body
+    and of the replays, ``steps`` each, in turns (eager, graph, graph,
+    eager), each ended by a synchronize."""
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.ops import _build
+
+    mod = module or base
+    eng = engine_for(cfg, params, module)
+    g = torch.Generator(device=dev).manual_seed(SEED + 60)
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=g,
+                           device=dev)
+    make = base.init_paged_cache if paged else mod.init_cache
+    with torch.inference_mode():
+        last, cache = eng.prefill(prompt, make(cfg, 1, max_len, device=dev))
+        tok = last.argmax(-1)
+        a, b = cloned_cache(cache), cloned_cache(cache)
+        del cache, last
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        eager = eng.decode_step(a, tok.clone())
+        want = []
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(steps + 1):
+                want.append((eager.body().float(), eager.tok.clone()))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        eager_launches = dict(_build.LAUNCHES)
+        _build.reset_launches()
+        reserved = torch.cuda.memory_reserved()
+        step = eng.decode_step(b, tok.clone())
+        got, host_s = [], 0.0
+        for i in range(steps + 1):
+            t0 = time.perf_counter()
+            step()
+            if i:
+                host_s += time.perf_counter() - t0
+            got.append((step.logits.to(torch.float32, copy=True),
+                        step.tok.clone()))
+        torch.cuda.synchronize()
+        graph_launches = dict(_build.LAUNCHES)
+
+        def rate(call):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                call()
+            torch.cuda.synchronize()
+            return steps / (time.perf_counter() - t0)
+
+        turns = {"eager": [], "graph": []}
+        for who in ("eager", "graph", "graph", "eager"):
+            turns[who].append(rate(eager.body if who == "eager" else step))
+        step.close()
+    kept = torch.cuda.memory_reserved() - reserved
+    diff = max(float((gl - wl).abs().max()) for (wl, _), (gl, _)
+               in zip(want, got))
+    scale = max(float(wl.abs().max()) for wl, _ in want)
+    same_tokens = all(torch.equal(wt, gt) for (_, wt), (_, gt)
+                      in zip(want, got))
+    row = {"phase": "decode_graph", "config": name, "weights": weights,
+           "cache": "paged" if paged else "dense", "prompt": prompt_len,
+           "steps": steps + 1, "logits_max_abs_diff": diff,
+           "logits_max_abs": scale, "tokens_equal": same_tokens,
+           "capture_ms": step.capture_ms,
+           "graph_pool_mib": step.pool_bytes / 2 ** 20,
+           "reserved_kept_after_close_mib": kept / 2 ** 20,
+           "host_us_per_replay": host_s * 1e6 / steps,
+           "eager_tok_s": turns["eager"], "graph_tok_s": turns["graph"],
+           "launches_equal": eager_launches == graph_launches,
+           "launches": graph_launches, "card": smi}
+    emit(row)
+    if not (same_tokens and eager_launches == graph_launches
+            and diff <= LOGITS_TOL * scale and graph_launches):
+        raise RuntimeError(f"{name}: the captured step against its eager "
+                           f"body: {row}, eager launches {eager_launches}")
+    return row
+
+
 def moe_batch_decode(dev, cfg, params, short=32, long=96):
     """Qwen3-30B-A3B w4a8 decode at batch 8 over init_paged_cache after a
     128-token prompt (prefill M = 1024: K5 on the packed experts at S =
@@ -4239,35 +4361,56 @@ def top_kernels(by_name, busy_us, n):
 
 
 def package_probe(root: str, what: str) -> dict:
-    """``moe_prefill`` (``what`` "prefill") or ``profile_decode`` at batch
-    1 ("decode") of the package under ``root`` (this checkout's or a
-    parent's: the caller put ``root`` first on sys.path) on full-width,
-    full-depth Qwen3-30B-A3B w4a8 with the smoke's random weights."""
+    """Of the package under ``root`` (this checkout's or a parent's: the
+    caller put ``root`` first on sys.path), with the smoke's random
+    weights at full width and depth: ``moe_prefill`` (``what`` "prefill")
+    on Qwen3-30B-A3B w4a8, or ("decode") the generate_scan decode rate
+    (``decode_rate``, 16 and 48 tokens after a 128-token prompt) of
+    Qwen3-4B w4a8 and of MiniCPM-SALA w8a8 g64: the parent's engine runs
+    its loop eagerly, this one replays its captured step."""
     import ominix_mlx_tpu_torch
-    from ominix_mlx_tpu_torch.models import base, qwen3_moe
+    from ominix_mlx_tpu_torch.core import generate
+    from ominix_mlx_tpu_torch.models import base, minicpm_sala, qwen3_moe
 
     pkg = os.path.dirname(os.path.abspath(ominix_mlx_tpu_torch.__file__))
     if os.path.dirname(pkg) != root:
         raise RuntimeError(f"imported {pkg}, not the package under {root}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if what == "decode":
+        row = {"phase": "decode_probe", "package": pkg,
+               "captured": hasattr(generate, "DecodeStep")}
+        cfg = qwen3_4b()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = base.fuse_layer_projections(base.init_quantized_params(
+            cfg, gen, GS, 4, act_bits=8, device=dev))
+        row["qwen3_4b_tok_s"] = decode_rate(dev, cfg, params, 16,
+                                            48)["decode_tok_s"]
+        del params
+        free_device_memory()
+        cfg = minicpm_sala.MiniCPMConfig.from_hf(MINICPM_SALA_HF)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+        params = base.fuse_layer_projections(
+            minicpm_sala.init_quantized_params(cfg, gen, GS, 8, 8,
+                                               device=dev))
+        row["minicpm_sala_tok_s"] = decode_rate(
+            dev, cfg, params, 16, 48, module=minicpm_sala)["decode_tok_s"]
+        return row
     cfg = qwen3_30b_a3b()
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
     params = base.fuse_layer_projections(qwen3_moe.init_quantized_params(
         cfg, gen, GS, 4, act_bits=8, device=dev))
-    if what == "prefill":
-        return {"phase": "prefill_probe", "package": pkg,
-                **moe_prefill(dev, cfg, params)}
-    return {**profile_decode(dev, cfg, params), "package": pkg}
+    return {"phase": "prefill_probe", "package": pkg,
+            **moe_prefill(dev, cfg, params)}
 
 
 def compare_probes(parent: str, here: str, what: str, keys: tuple):
     """``package_probe(what)`` of the parent's package against this one's,
     each in a process of its own (``--prefill-probe`` or
     ``--decode-probe``), in turns: parent, this, this, parent. One
-    ``moe_prefill_vs_parent`` or ``moe_decode_vs_parent`` line with
-    ``keys`` of each run and the first runs' leading kernels (and, for
-    decode, their kernel shares)."""
+    ``moe_prefill_vs_parent`` or ``decode_vs_parent`` line with ``keys``
+    of each run (and for the prefill the first runs' leading
+    kernels)."""
     runs = {}
     for who, root in (("parent", parent), ("this", here), ("this", here),
                       ("parent", parent)):
@@ -4279,7 +4422,8 @@ def compare_probes(parent: str, here: str, what: str, keys: tuple):
                                f"({r.returncode}):\n{r.stderr[-3000:]}")
         runs.setdefault(who, []).append(
             json.loads(r.stdout.strip().splitlines()[-1]))
-    emit({"phase": f"moe_{what}_vs_parent", **{
+    emit({"phase": "moe_prefill_vs_parent" if what == "prefill"
+          else "decode_vs_parent", **{
         f"{who}_{key}": [run[key] for run in rs]
         for who, rs in runs.items() for key in keys},
         **{f"{who}_{key}": runs[who][0][key] for who in runs
@@ -4289,9 +4433,11 @@ def compare_probes(parent: str, here: str, what: str, keys: tuple):
 
 def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
                    paged: bool = False, module=None):
-    """Where a decode step's time goes: greedy decode steps of ``batch``
-    rows (over a dense or a paged cache) after a 128-token prompt, first
-    under torch.profiler (device side), then under cProfile (host side).
+    """Where a decode step's time goes: replays of the engine's captured
+    decode step (Engine.decode_step, greedy, captured after its warm-up
+    step outside the probes) of ``batch`` rows (over a dense or a paged
+    cache) after a 128-token prompt, first under torch.profiler (device
+    side), then under cProfile (host side).
     Each probe covers the decode steps alone; the prompt's prefill is
     profiled as a window of its own, with torch.cuda.max_memory_allocated
     across it. The device's busy time is the union of the intervals
@@ -4325,16 +4471,23 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
                 torch.cuda.synchronize()
                 prefill_s = time.perf_counter() - t0
             mem.append(torch.cuda.max_memory_allocated())
-            tok = torch.ones(batch, 1, dtype=torch.long, device=dev)
+            tok = torch.ones(batch, dtype=torch.long, device=dev)
+            step = eng.decode_step(cache, tok)
+            step()                      # the warm-up and the capture
+            torch.cuda.synchronize()
+            capture_ms[:] = [step.capture_ms, step.pool_bytes / 2 ** 20]
             with steps_probe():
                 t0 = time.perf_counter()
                 for _ in range(n):
-                    logits, cache = mod.forward(params, cfg, tok, cache)
-                    tok = logits[:, -1].argmax(-1, keepdim=True)
-                tok.cpu()
-                return prefill_s, time.perf_counter() - t0
+                    step()
+                step.tok.cpu()
+                wall = time.perf_counter() - t0
+            step.close()
+            return prefill_s, wall
 
     mem = []        # allocated at the prefill's start, the peak across it
+    capture_ms = []     # the capture's ms and the graph pool's MiB
+    eng = engine_for(cfg, params, module)
     decode(4)
     pre_prof, prof = probe(), probe()
     prefill_s, wall = decode(steps, lambda: pre_prof, lambda: prof)
@@ -4346,7 +4499,8 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
     st = pstats.Stats(cprof).stats
     host = sorted(st.items(), key=lambda kv: -kv[1][2])[:12]
     return {"phase": "profile", "batch": batch, "paged": paged,
-            "decode_steps": steps,
+            "decode_steps": steps, "replayed": True,
+            "capture_ms": capture_ms[0], "graph_pool_mib": capture_ms[1],
             "wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
             "device_sum_ms": sum(us for _, us in by_name.values()) / 1e3,
             "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3),
@@ -4606,6 +4760,7 @@ def serve_family(dev, smi, cfg, name, family, seed, panel_projections,
     check_logits(dev, cfg, params, name)
     rate = decode_rate(dev, cfg, params, *rate_tokens)
     emit({**rate, "config": name, "weights": "w4a8 g64", "card": smi})
+    decode_graph(dev, cfg, params, name, "w4a8 g64", smi, family)
     if profile:
         emit({**profile_decode(dev, cfg, params), "config": name,
               "weights": "w4a8 g64", "card": smi})
@@ -4995,6 +5150,7 @@ def serve_moe_family(dev, smi, phase, cfg, name, module, seed, dense_layers,
           **moe_prefill(dev, cfg, params), "card": smi})
     emit({**decode_rate(dev, cfg, params, 8, 24), "config": name,
           "weights": "w4a8 g64", "card": smi})
+    decode_graph(dev, cfg, params, name, "w4a8 g64", smi, module, paged)
     if profile:
         emit({**profile_decode(dev, cfg, params, steps=16), "config": name,
               "weights": "w4a8 g64", "card": smi})
@@ -5104,15 +5260,20 @@ def counting_forwards(module):
     """Record (rows B * T, fresh_prefill, B, T, the keyword arguments
     with "int_offset": whether the cache's offset is one int) of each call
     of ``module.forward`` (what a ChatModel and the batcher call, by the
-    module's attribute) for the duration: yields the list."""
+    module's attribute) for the duration, a forward captured in the
+    engine's decode step once each replay: yields the list."""
+    from ominix_mlx_tpu_torch.ops import _build
+
     seen, real = [], module.forward
 
     @functools.wraps(real)      # the engines read forward's signature
     def counted(params, cfg, tokens, cache, **kw):
-        seen.append((tokens.shape[0] * tokens.shape[1],
-                     bool(kw.get("fresh_prefill", False)),
-                     tokens.shape[0], tokens.shape[1],
-                     {**kw, "int_offset": isinstance(cache.offset, int)}))
+        row = (tokens.shape[0] * tokens.shape[1],
+               bool(kw.get("fresh_prefill", False)),
+               tokens.shape[0], tokens.shape[1],
+               {**kw, "int_offset": isinstance(cache.offset, int)})
+        # a forward in a captured decode step counts at each replay
+        _build.on_run(lambda: seen.append(row))
         return real(params, cfg, tokens, cache, **kw)
     module.forward = counted
     try:
@@ -5378,6 +5539,7 @@ def serve_qwen3_next(dev, smi, profile=False):
     k9_per_call_prompt(dev, cfg, params)
     emit({**decode_rate(dev, cfg, params, 16, 48), "config": name,
           "weights": "w4a8 g64", "card": smi})
+    decode_graph(dev, cfg, params, name, "w4a8 g64", smi, qwen3_next)
     if profile:
         emit({**profile_decode(dev, cfg, params, steps=16), "config": name,
               "weights": "w4a8 g64", "card": smi})
@@ -5684,9 +5846,13 @@ def minicpm_long_decode(dev, cfg, params, smi, steps=16, profiled=4):
     keys pooled from them; every lightning state small and random), as
     benchmarks/longcontext_bench.py:59-64 jumps the offset: one step with
     every K11 call held against its plain version (64 finite blocks a
-    KV head), then ``steps`` greedy steps timed (ms/token, ended by a
-    synchronize), then ``profiled`` steps under torch.profiler (device
-    activity only): device busy ms a step and K11's share of it."""
+    KV head), then ``steps`` greedy steps of the eager loop (forward at
+    the host offset) and ``steps`` replays of the engine's captured step
+    (Engine.decode_step, captured after its warm-up step, which the
+    timing leaves out), in turns (eager, graph, graph, eager; ms/token,
+    each ended by a synchronize; the graph pool at this cache), then
+    ``profiled`` replays under torch.profiler (device activity only):
+    device busy ms a step and K11's share of it."""
     from torch.profiler import ProfilerActivity, profile
 
     from ominix_mlx_tpu_torch.core.cache import ModelCache
@@ -5694,10 +5860,11 @@ def minicpm_long_decode(dev, cfg, params, smi, steps=16, profiled=4):
     from ominix_mlx_tpu_torch.models.lightning import GLACache
     from ominix_mlx_tpu_torch.models.sparse_attention import compress_keys
 
+    eng = engine_for(cfg, params, ms)
     g = torch.Generator(device=dev).manual_seed(SEED + 56)
     for off in MINICPM_LONG_OFFSETS:
         free_device_memory()
-        cache = ms.init_cache(cfg, 1, off + 64, device=dev)
+        cache = ms.init_cache(cfg, 1, off + 128, device=dev)
         for lc in cache.layers:
             if isinstance(lc, GLACache):
                 lc.state.normal_(generator=g).mul_(0.01)
@@ -5709,31 +5876,54 @@ def minicpm_long_decode(dev, cfg, params, smi, steps=16, profiled=4):
         cache = ModelCache(layers=cache.layers, offset=off)
         tok = torch.ones(1, 1, dtype=torch.long, device=dev)
         st, wraps = minicpm_call_checks()
+        walls = {"eager": [], "graph": []}
         with torch.inference_mode():
             with swapped_kernels(lambda k, kern, plain: wraps[k](kern, plain)
                                  if k in wraps and k.startswith("k11")
                                  else kern):
                 logits, cache = ms.forward(params, cfg, tok, cache)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                logits, cache = ms.forward(params, cfg, tok, cache)
+            for who in ("eager", "graph", "graph", "eager"):
                 tok = logits[:, -1].argmax(-1, keepdim=True)
-            tok.cpu()
-            wall = time.perf_counter() - t0
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(profiled):
-                    logits, cache = ms.forward(params, cfg, tok, cache)
-                    tok = logits[:, -1].argmax(-1, keepdim=True)
+                if who == "graph":
+                    step = eng.decode_step(cache, tok[:, 0])
+                    step()                  # the warm-up and the capture
                 torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    if who == "graph":
+                        step()
+                    else:
+                        logits, cache = ms.forward(params, cfg, tok, cache)
+                        tok = logits[:, -1].argmax(-1, keepdim=True)
+                torch.cuda.synchronize()
+                walls[who].append(time.perf_counter() - t0)
+                if who == "graph":
+                    logits = step.logits[:, None].clone()
+                    cache = ModelCache(layers=cache.layers,
+                                       offset=step.offset_host)
+                    pool_mib, capture_ms = (step.pool_bytes / 2 ** 20,
+                                            step.capture_ms)
+                    if len(walls["graph"]) == 2:
+                        with profile(activities=[ProfilerActivity.CUDA]) \
+                                as prof:
+                            for _ in range(profiled):
+                                step()
+                            torch.cuda.synchronize()
+                    step.close()
         busy_us, by_name = device_time(prof)
         shares = kernel_shares(by_name, busy_us)
         row = {"phase": "minicpm_long_decode", "offset": off,
                "cache_gib": cache_gib, "decode_steps": steps,
-               "ms_per_token": wall * 1e3 / steps,
-               "decode_tok_s": steps / wall,
-               "profiled_steps": profiled,
+               "ms_per_token": [w * 1e3 / steps for w in walls["eager"]],
+               "decode_tok_s": [steps / w for w in walls["eager"]],
+               "graph_ms_per_token": [w * 1e3 / steps
+                                      for w in walls["graph"]],
+               "graph_tok_s": [steps / w for w in walls["graph"]],
+               "graph_capture_ms": capture_ms, "graph_pool_mib": pool_mib,
+               "profiled_replays": profiled,
                "device_busy_ms_per_step": busy_us / 1e3 / profiled,
+               "device_ops_per_step": sum(c for c, _ in by_name.values())
+               / profiled,
                "k11_us_per_step": shares["k11"]["ms"] * 1e3 / profiled,
                "k11_share_of_busy": shares["k11"]["share_of_busy"],
                "k10_share_of_busy": shares["k10"]["share_of_busy"],
@@ -5744,7 +5934,7 @@ def minicpm_long_decode(dev, cfg, params, smi, steps=16, profiled=4):
         if set(st["k11"]["valid_blocks"]) != {64} \
                 or not torch.isfinite(logits.float()).all():
             raise RuntimeError(f"decode at offset {off}: {row}")
-        del cache, logits
+        del cache, logits, step
     free_device_memory()
 
 
@@ -5802,6 +5992,7 @@ def serve_minicpm_sala(dev, smi, profile=False):
     minicpm_per_call_prompt(dev, cfg, params)
     emit({**decode_rate(dev, cfg, params, 16, 48, module=ms),
           "config": name, "weights": "w8a8 g64", "card": smi})
+    decode_graph(dev, cfg, params, name, "w8a8 g64", smi, ms)
     if profile:
         emit({**profile_decode(dev, cfg, params, steps=16, module=ms),
               "config": name, "weights": "w8a8 g64", "card": smi})
@@ -6004,9 +6195,11 @@ def main() -> int:
                          "time K3, the P formula (K1 at one row, K6), K5 "
                          "(bf16, 4- and 8-bit), the DeltaNet and K10 "
                          "decode mixers and K11's selection against DIR's "
-                         "sequences, and "
-                         "the 128-token Qwen3-30B-A3B w4a8 prefill of both "
-                         "packages, in turns")
+                         "sequences, the 128-token Qwen3-30B-A3B w4a8 "
+                         "prefill of both packages, and their "
+                         "generate_scan decode rates (the parent's eager "
+                         "loop, this one's captured step) on Qwen3-4B w4a8 "
+                         "and MiniCPM-SALA, in turns")
     ap.add_argument("--prefill-probe", metavar="ROOT",
                     help=argparse.SUPPRESS)   # one package_probe of ROOT's
     ap.add_argument("--decode-probe", metavar="ROOT",   # package (--parent
@@ -6070,8 +6263,7 @@ def main() -> int:
                        ("wall_ms", "profiled_wall_ms", "device_busy_ms",
                         "max_memory_allocated_gib", "prefill_extra_gib"))
         compare_probes(parent, here, "decode",
-                       ("device_ms_per_step", "device_ops_per_step",
-                        "device_idle_share", "wall_ms", "host_cprofile_s"))
+                       ("captured", "qwen3_4b_tok_s", "minicpm_sala_tok_s"))
         return 0
     k1_rows = check_k1(dev, flush)
     k6_rows = check_k6(dev, flush)
@@ -6111,6 +6303,7 @@ def main() -> int:
     phases["serve"] = serve_main_path(dev, cfg, params)
     check_logits(dev, cfg, params)
     emit({**decode_rate(dev, cfg, params, 32, 128), "card": smi})
+    decode_graph(dev, cfg, params, "Qwen3-4B", "w4a8 g64", smi)
     if args.profile:
         emit({**profile_decode(dev, cfg, params), "card": smi})
         emit({**profile_prefill16(dev, cfg, params), "card": smi})
@@ -6176,6 +6369,7 @@ def main() -> int:
     check_logits(dev, moe_cfg, params, "Qwen3-30B-A3B")
     emit({**decode_rate(dev, moe_cfg, params, 16, 48),
           "config": "Qwen3-30B-A3B", "card": smi})
+    decode_graph(dev, moe_cfg, params, "Qwen3-30B-A3B", "w4a8 g64", smi)
     phases["moe_batch_decode"] = moe_batch_decode(dev, moe_cfg, params, 16,
                                                   48)
     if args.profile:
@@ -6205,7 +6399,7 @@ def main() -> int:
     del params
     free_device_memory()
 
-    phases["serve_moe_batched_w8"] = serve_moe_batched_w8(dev, moe_cfg)
+    phases["serve_moe_batched_w8"] = serve_moe_batched_w8(dev, moe_cfg, smi)
     free_device_memory()
 
     phases["serve_mistral"] = serve_mistral(dev, smi, args.profile)

@@ -1,16 +1,30 @@
-"""Generation engine: bucketed prefill, streaming decode, and a device-side
-decode loop (counterpart of ominix_mlx_tpu/core/generate.py).
+"""Generation engine: bucketed prefill, and decode through one step captured
+as a CUDA graph (counterpart of ominix_mlx_tpu/core/generate.py).
 
-PyTorch runs eagerly, so there is no jit here. Tokens stay on the model's
-device between steps: the streaming ``generate`` dispatches step i+1
-before it reads token i on the host, and ``generate_scan`` never reads a
-token until the loop is done. Capturing the decode step in a CUDA graph is
-later work.
+The JAX engine compiles its decode step (``_decode_jit``, the ``lax.scan``
+of ``generate_scan`` and of ``generate_batch``). Here ``DecodeStep`` is that
+step: one plain body over static buffers (the forward at T = 1 at a [B]
+int64 offset tensor, the sampler, the in-place update of the step's own
+state). On a CUDA cache its first call runs the body eagerly on a side
+stream (the warm-up, which allocates the kernel wrappers' persistent
+buffers outside the graph's pool), then captures it; every later call
+replays the graph, and the launches recorded at the capture count again
+(``ops._build.recording``). A capture that fails raises; nothing falls
+back to an eager loop. The graph and its memory pool live for the call
+that made them. On a CPU cache every call runs the body: the plain path
+the tests hold to the JAX package.
+
+``generate`` replays step i+1 before it reads token i, which it copies out
+of the static buffer into pinned host memory behind an event;
+``generate_scan`` reads no token until the loop is done; ``generate_batch``
+keeps the finish flags, the stop test and a finished row's held offset in
+the step.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, Iterator, Optional
 
@@ -19,6 +33,7 @@ import torch.nn.functional as F
 
 from ominix_mlx_tpu_torch.core.cache import ModelCache, ingests_padding
 from ominix_mlx_tpu_torch.core.sampling import SamplerConfig, sample
+from ominix_mlx_tpu_torch.ops import _build
 
 
 def bucket_length(n: int, minimum: int = 16) -> int:
@@ -162,12 +177,34 @@ class Engine:
             pos = end
         return last, cache
 
-    def _step(self, cache, tok, generator, recent):
-        logits, cache = self.forward_fn(self.params, tok[:, None], cache)
-        nxt = sample(logits[:, -1], generator, self.sampler, recent)
-        if recent is not None:
-            recent = torch.cat([recent[:, 1:], nxt[:, None]], -1)
-        return nxt, cache, recent
+    def decode_step(self, cache: ModelCache, tok: torch.Tensor,
+                    generator: Optional[torch.Generator] = None,
+                    recent: Optional[torch.Tensor] = None,
+                    toks: Optional[torch.Tensor] = None) -> "DecodeStep":
+        """The decode step of ``generate`` and ``generate_scan`` over static
+        buffers: ``tok`` [B] int64, the step's input token, overwritten
+        with the one it samples; ``recent`` [B, W] (the repetition-penalty
+        window) rolled in place; ``toks`` [B, n], whose column i takes step
+        i's input token. The cache's layers are written in place at the
+        step's own offset tensor, started at ``cache.offset``."""
+        step = DecodeStep(cache, tok, generator)
+        fwd, params, sampler = self.forward_fn, self.params, self.sampler
+
+        def body():
+            if toks is not None:
+                toks.index_copy_(1, step.index, step.tok[:, None])
+            logits, _ = fwd(params, step.tok[:, None], step.cache)
+            logits = logits[:, -1]
+            nxt = sample(logits, generator, sampler, recent)
+            if recent is not None:
+                # the window rolls on the device (JAX :126-127)
+                recent.copy_(torch.cat([recent[:, 1:], nxt[:, None]], -1))
+            step.tok.copy_(nxt)
+            step.advance()
+            return logits
+
+        step.body = body
+        return step
 
     @torch.inference_mode()
     def generate(self, prompt: torch.Tensor, cache: ModelCache,
@@ -175,8 +212,10 @@ class Engine:
                  generator: Optional[torch.Generator] = None,
                  stats: Optional[GenerationStats] = None) -> Iterator[int]:
         """Streaming generation for one sequence (B=1): yields token ids.
-        Step i+1 is dispatched before token i is read on the host, so host
-        work (detokenising, stop checks) overlaps the device."""
+        Step i+1 is replayed before token i is read on the host, so host
+        work (detokenising, stop checks) overlaps the device: each token
+        is copied out of the step's buffer into its own pinned host slot
+        behind an event, before the next replay overwrites the buffer."""
         if prompt.ndim == 1:
             prompt = prompt[None]
         B = prompt.shape[0]
@@ -200,23 +239,26 @@ class Engine:
             pending_host = int(tok[0])        # waits for the prefill
             stats.prompt_tokens = int(prompt.shape[1])
             stats.prefill_time_s = time.perf_counter() - t0
-        pending = tok
+        step = self.decode_step(cache, tok, generator, recent)
+        out = _TokenCopies(tok)
+        out.put(0, step.tok)
         n = 0
         td0 = time.perf_counter()
-        for i in range(max_tokens):
-            nxt = None
-            if i + 1 < max_tokens:
-                nxt, cache, recent = self._step(cache, pending, generator,
-                                                recent)
-            t = pending_host if pending_host is not None else int(pending[0])
-            pending_host = None
-            n += 1
-            if t in stop_tokens:
-                break
-            yield t
-            if nxt is None:
-                break
-            pending = nxt
+        try:
+            for i in range(max_tokens):
+                if i + 1 < max_tokens:
+                    step()
+                    out.put(i + 1, step.tok)
+                t = pending_host if pending_host is not None else out.get(i)
+                pending_host = None
+                n += 1
+                if t in stop_tokens:
+                    break
+                yield t
+                if i + 1 >= max_tokens:
+                    break
+        finally:
+            step.close()
         if stats is not None:
             stats.generated_tokens = n
             stats.decode_time_s = time.perf_counter() - td0
@@ -234,10 +276,10 @@ class Engine:
         Right padding keeps every real token at its true RoPE position and
         the pads' garbage KV past each row's offset, where the causal mask
         never exposes it and decode overwrites it; decode then runs at
-        per-row offsets (a [B] tensor, no host sync per step). A finished
-        row holds its offset, so its writes overwrite one garbage slot.
-        Returns (tokens [B, max_tokens] with pad_id after each stop,
-        lengths [B]), on the device."""
+        per-row offsets. The step holds the finish flags, the stop test,
+        the pad and a finished row's offset (its writes overwrite one
+        garbage slot). Returns (tokens [B, max_tokens] with pad_id after
+        each stop, lengths [B]), on the device."""
         B, T = prompts.shape
         dev = prompts.device
         if prompt_lengths is not None and _exact(cache) \
@@ -245,39 +287,58 @@ class Engine:
             raise ValueError("a recurrent layer's state takes every "
                              "position: right-padded prompts of other "
                              "lengths need one prefill each")
+        cap = _kv_capacity(cache)
+        if cap is not None and T + max_tokens > cap:
+            raise ValueError(f"prompt ({T}) + max_tokens ({max_tokens}) "
+                             f"exceeds KV cache capacity {cap}")
         lengths = (torch.full((B,), T, dtype=torch.long, device=dev)
                    if prompt_lengths is None
                    else torch.as_tensor(prompt_lengths, device=dev).long())
         stops = torch.tensor(list(stop_tokens) or [-1], device=dev)
+        pad = torch.full((B,), pad_id, dtype=torch.long, device=dev)
         logits, cache = self.prefill_forward_fn(self.params, prompts, cache)
-        cache = ModelCache(layers=cache.layers, offset=lengths)
         last = logits[torch.arange(B, device=dev), lengths - 1]
         tok = sample(last, generator, self.sampler)
         done = torch.zeros(B, dtype=torch.bool, device=dev)
-        outs, dones = [], []
-        for _ in range(max_tokens):
-            lg, cache = self.forward_fn(self.params, tok[:, None], cache)
-            nxt = sample(lg[:, -1], generator, self.sampler)
-            done = done | torch.isin(tok, stops)
-            outs.append(torch.where(done, torch.full_like(tok, pad_id), tok))
-            dones.append(done)
-            nxt = torch.where(done, tok, nxt)
-            cache = ModelCache(layers=cache.layers,
-                               offset=torch.where(done, cache.offset - 1,
-                                                  cache.offset))
-            tok = nxt
-        toks = torch.stack(outs, 1)
-        return toks, (~torch.stack(dones, 1)).sum(-1)
+        toks = torch.empty(B, max_tokens, dtype=torch.long, device=dev)
+        dones = torch.empty(B, max_tokens, dtype=torch.bool, device=dev)
+        step = DecodeStep(ModelCache(layers=cache.layers, offset=lengths),
+                          tok, generator, start=T)
+        fwd, params, sampler = self.forward_fn, self.params, self.sampler
+
+        def body():
+            lg, _ = fwd(params, tok[:, None], step.cache)
+            lg = lg[:, -1]
+            nxt = sample(lg, generator, sampler)
+            now = done | (tok[:, None] == stops[None]).any(-1)
+            toks.index_copy_(1, step.index,
+                             torch.where(now, pad, tok)[:, None])
+            dones.index_copy_(1, step.index, now[:, None])
+            tok.copy_(torch.where(now, tok, nxt))
+            done.copy_(now)
+            # a finished row holds its offset; a live one advances
+            step.advance((~now).long())
+            return lg
+
+        step.body = body
+        try:
+            for _ in range(max_tokens):
+                step()
+        finally:
+            step.close()
+        return toks, (~dones).sum(-1)
 
     @torch.inference_mode()
     def generate_scan(self, prompt: torch.Tensor, cache: ModelCache,
                       max_tokens: int,
                       generator: Optional[torch.Generator] = None):
         """Fixed-length generation with no host round trip per token: the
-        sampled tokens stay on the device, the loop runs ``max_tokens``
-        decode steps like the JAX package's ``lax.scan``, and the caller
-        reads the tokens once. Runs at any batch B over a dense or paged
-        cache. Returns (tokens [B, max_tokens] on the device, cache)."""
+        step writes its input token to ``toks[:, i]`` through a device step
+        index, runs ``max_tokens`` times like the JAX package's
+        ``lax.scan``, and the caller reads the tokens once. Runs at any
+        batch B over a dense or paged cache. Returns (tokens [B,
+        max_tokens] on the device, the cache at its start offset plus
+        max_tokens)."""
         if prompt.ndim == 1:
             prompt = prompt[None]
         cap = _kv_capacity(cache)
@@ -289,7 +350,188 @@ class Engine:
         tok = sample(logits, generator, self.sampler)
         toks = torch.empty(prompt.shape[0], max_tokens, dtype=torch.long,
                            device=prompt.device)
-        for i in range(max_tokens):
-            toks[:, i] = tok
-            tok, cache, _ = self._step(cache, tok, generator, None)
-        return toks, cache
+        step = self.decode_step(cache, tok, generator, toks=toks)
+        try:
+            for _ in range(max_tokens):
+                step()
+        finally:
+            step.close()
+        return toks, ModelCache(layers=cache.layers,
+                                offset=cache.offset + max_tokens)
+
+
+class DecodeStep:
+    """One decode step over static buffers, captured once as a CUDA graph
+    on a CUDA cache and replayed (the counterpart of the JAX engine's
+    compiled step) around ``tok``, its [B] int64 token buffer.
+    ``Engine.decode_step`` and ``Engine.generate_batch`` set ``body``
+    (the plain step: forward, sampler, in-place updates, ``advance``; it
+    returns the step's logits [B, V]).
+
+    The step owns ``offset``, a [B] int64 tensor on the cache's device
+    started at the cache's offset, and ``cache``, the cache's layers at
+    that offset; ``index`` is a one-element int64 step count on the
+    device (the column a loop writes). ``steps`` counts calls on the host
+    and ``offset_host`` mirrors the offsets (their largest, where a
+    finished row holds), so nothing syncs to check capacity.
+
+    Calling the step: on the CPU, the body. On CUDA, the first call runs
+    the body eagerly on a side stream (a real step: it allocates every
+    wrapper's persistent buffers and initialises cuBLAS outside the
+    graph's pool), empties the allocator's cache, then captures the body
+    on that stream
+    (``capture_error_mode="thread_local"``: another thread may launch
+    meanwhile; a host sync in the body raises), recording its launches;
+    later calls replay. The warm-up and capture run on one side stream a
+    device, one step at a time; the graph allocates from a pool of its
+    own. ``body`` called directly runs the plain step on either device:
+    tests and the smoke hold the replays to it. After each call,
+    ``logits`` holds that step's logits (on CUDA in the graph's pool,
+    until the next replay). ``close()`` waits for the replays and drops
+    the graph and frees its pool."""
+
+    def __init__(self, cache: ModelCache, tok: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 start: Optional[int] = None):
+        """``start``: the host mirror of a [B] ``cache.offset`` (its
+        largest row); an int offset is its own."""
+        dev = tok.device
+        if isinstance(cache.offset, torch.Tensor):
+            if start is None:
+                raise ValueError("a [B] offset needs its host mirror, start")
+            self.offset = cache.offset.to(dev, torch.long).clone()
+        else:
+            start = cache.offset
+            self.offset = torch.full(tok.shape, start, dtype=torch.long,
+                                     device=dev)
+        self.start = start
+        self.cache = ModelCache(layers=cache.layers, offset=self.offset)
+        self.index = torch.zeros(1, dtype=torch.long, device=dev)
+        self.device = dev
+        self.generator = generator
+        self.tok = tok
+        self.body: Optional[Callable[[], torch.Tensor]] = None
+        self.logits: Optional[torch.Tensor] = None
+        self.steps = 0
+        self.graph = None
+        self.record = None
+        self.capture_ms = 0.0
+        self.pool_bytes = 0
+        self._graph_logits = None
+        self._pool = None
+
+    @property
+    def offset_host(self) -> int:
+        return self.start + self.steps
+
+    def advance(self, by=1):
+        """The body's last act: the offsets by ``by`` (1, or a [B] tensor:
+        0 for a finished row) and the step index by one, in place."""
+        self.offset.add_(by)
+        self.index.add_(1)
+
+    def __call__(self):
+        if self.graph is not None:
+            self.graph.replay()
+            _build.replayed(self.record)
+            self.logits = self._graph_logits
+        elif self.device.type != "cuda":
+            self.logits = self.body()
+        else:
+            self._warm_up_and_capture()
+        self.steps += 1
+
+    def _warm_up_and_capture(self):
+        side, lock = _capture_stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            # each replay draws from the generator's state at that replay
+            register = getattr(graph, "register_generator_state", None)
+            if register is None:
+                raise RuntimeError(
+                    "stochastic sampling in a CUDA graph needs "
+                    "torch.cuda.CUDAGraph.register_generator_state, which "
+                    f"torch {torch.__version__} lacks")
+            register(self.generator)
+        # a pool of the step's own, freed with it at close()
+        self._pool = torch.cuda.MemPool()
+        with lock, torch.cuda.stream(side):
+            side.wait_stream(main)
+            self.logits = self.body()           # the warm-up: a real step
+            # the graph's pool cannot reuse the blocks the warm-up cached:
+            # give them back first (as torch.cuda.graph does), so the step
+            # needs its transient memory once, not twice
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            t0 = time.perf_counter()
+            with _build.recording() as record:
+                graph.capture_begin(pool=self._pool.id,
+                                    capture_error_mode="thread_local")
+                try:
+                    logits = self.body()
+                except BaseException:
+                    _end_failed_capture(graph)
+                    raise
+                graph.capture_end()
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
+            self.pool_bytes = torch.cuda.memory_reserved(self.device) \
+                - reserved
+        main.wait_stream(side)
+        self.graph, self.record, self._graph_logits = graph, record, logits
+
+    def close(self):
+        """Wait for the replays on the current stream, then drop the
+        graph and free its pool (``logits`` goes with it: copy first what
+        is to outlive the step)."""
+        if self.graph is not None:
+            torch.cuda.current_stream(self.device).synchronize()
+            self.graph = self._graph_logits = self.logits = None
+            self._pool = None
+
+
+# per device: the side stream that every decode step's warm-up and capture
+# run on, and a lock that takes them one at a time. One stream, so the
+# warm-ups' cached blocks and cuBLAS's per-stream workspace are made once
+# rather than on each new stream.
+_CAPTURE_STREAMS: dict = {}
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _capture_stream(device: torch.device):
+    with _CAPTURE_LOCK:
+        if device.index not in _CAPTURE_STREAMS:
+            _CAPTURE_STREAMS[device.index] = (torch.cuda.Stream(device),
+                                              threading.Lock())
+        return _CAPTURE_STREAMS[device.index]
+
+
+def _end_failed_capture(graph):
+    """End a capture whose body raised, so the stream leaves capture mode;
+    the body's error is the one raised."""
+    try:
+        graph.capture_end()
+    except RuntimeError:
+        pass
+
+
+class _TokenCopies:
+    """Row 0 of each step's token, copied out of the step's buffer into a
+    pinned host slot behind an event (on CUDA), so the host reads token i
+    while step i+1 runs; a ring of two slots. On the CPU a plain copy."""
+
+    def __init__(self, like: torch.Tensor):
+        cuda = like.is_cuda
+        self.host = torch.empty(2, dtype=torch.long, pin_memory=cuda)
+        self.events = [torch.cuda.Event() for _ in range(2)] if cuda \
+            else None
+
+    def put(self, i: int, tok: torch.Tensor):
+        self.host[i % 2:i % 2 + 1].copy_(tok[:1], non_blocking=True)
+        if self.events is not None:
+            self.events[i % 2].record()
+
+    def get(self, i: int) -> int:
+        if self.events is not None:
+            self.events[i % 2].synchronize()
+        return int(self.host[i % 2])

@@ -3,7 +3,8 @@ penalty (counterpart of ominix_mlx_tpu/core/sampling.py, same filters).
 
 Randomness comes from an explicit ``torch.Generator``; it draws other
 numbers than ``jax.random`` for the same seed, so only greedy sampling
-agrees token for token with the JAX package.
+agrees token for token with the JAX package. ``sample`` reads nothing on
+the host, so the engine's captured decode step runs it on the device.
 
 ``SamplerParams`` / ``sample_dynamic`` are the per-row form for the
 continuous batcher: settings held as [B] tensors, one generator per
@@ -85,8 +86,17 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
     logits = apply_min_p(logits, cfg.min_p)
     if generator is None:
         raise ValueError("stochastic sampling needs a torch.Generator")
-    probs = torch.softmax(logits, -1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return draw(torch.softmax(logits, -1), generator)
+
+
+def draw(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One token a row of probs [B, V] -> [B] int64: argmax of probs over
+    exponential noise from ``generator``, the draw of ``torch.multinomial(
+    probs, 1)`` (its one-sample path, the same numbers from the same
+    generator state) without the host read by which multinomial first
+    checks probs: a CUDA graph can capture it."""
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / noise, -1)
 
 
 # -------------------------------------------------- dynamic (per-row) form ---

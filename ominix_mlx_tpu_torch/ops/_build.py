@@ -14,6 +14,7 @@ at import time.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -58,12 +59,79 @@ build_seconds = 0.0     # wall time of the build this process ran (0 if reused)
 # decode mixer (norms, RoPE, the state step, the gate); "k11_score",
 # "k11_select" and "k11_attend": InfLLMv2's block scorer, the scorer with
 # its top-k (the decode path's), and sparse decode attention).
-# Plain-version calls do not count.
-LAUNCHES: collections.Counter = collections.Counter()
+# Plain-version calls do not count. A launch made while the calling thread
+# records a CUDA graph's capture (``recording``) is counted each time the
+# graph replays (``replayed``), not at the capture, where nothing runs.
+class _Record:
+    """What ran during one capture: ``launches`` (increments of counters
+    that defer to the record, LAUNCHES among them) and ``actions``
+    (callables passed to ``on_run``)."""
+
+    def __init__(self):
+        self.launches: dict = {}        # id(counter) -> (counter, Counter)
+        self.actions: list = []
+
+
+_RECORDING = threading.local()
+
+
+def _open_record():
+    return getattr(_RECORDING, "record", None)
+
+
+class ReplayedCounter(collections.Counter):
+    """A Counter whose increments, made while the calling thread records a
+    capture, go to that record instead (added on each ``replayed``)."""
+
+    def __setitem__(self, key, value):
+        record = _open_record()
+        if record is None:
+            super().__setitem__(key, value)
+            return
+        _, counts = record.launches.setdefault(
+            id(self), (self, collections.Counter()))
+        counts[key] += value - self[key]
+
+
+LAUNCHES: ReplayedCounter = ReplayedCounter()
 
 
 def reset_launches():
     LAUNCHES.clear()
+
+
+@contextlib.contextmanager
+def recording():
+    """Within: the calling thread's increments of a ``ReplayedCounter`` (the
+    wrappers' LAUNCHES) and its ``on_run`` actions go to the yielded record,
+    for a CUDA graph's capture; other threads count as usual."""
+    record, prev = _Record(), _open_record()
+    _RECORDING.record = record
+    try:
+        yield record
+    finally:
+        _RECORDING.record = prev
+
+
+def replayed(record: _Record, n: int = 1):
+    """Count ``n`` replays of the graph whose capture made ``record``: what
+    n eager runs of the captured work would have counted."""
+    for counter, counts in record.launches.values():
+        for key, c in counts.items():
+            counter[key] += n * c
+    for _ in range(n):
+        for action in record.actions:
+            action()
+
+
+def on_run(action):
+    """Call ``action()`` now, or, while the calling thread records a
+    capture, at each replay of that graph: for counts of what ran."""
+    record = _open_record()
+    if record is None:
+        action()
+    else:
+        record.actions.append(action)
 
 
 def _nvcc() -> str:

@@ -2631,3 +2631,283 @@ def test_k11_select_rejects(cuda):
         sa._k11_select(q, c.comp.float(), total, *rest, 64)
     with pytest.raises(ValueError, match="total"):
         sa._k11_select(q, c.comp, total.long(), *rest, 64)
+
+
+# ------------------------------------------- the engine's captured step ----
+
+# small configs of the nine families at widths the kernels take (hidden
+# 256 so every packed weight is on panels: K1; head dims 64 for K2 and
+# 128 for k9_decode, K10 and K11)
+_SMALL_HF = dict(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                 num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+                 intermediate_size=512, rms_norm_eps=1e-6,
+                 tie_word_embeddings=False)
+_MOE_HF = dict(_SMALL_HF, moe_intermediate_size=128, num_experts=8,
+               num_experts_per_tok=2, norm_topk_prob=True,
+               decoder_sparse_step=1, mlp_only_layers=[])
+GRAPH_FAMILIES = ("qwen3", "qwen3_paged", "qwen3_moe_w4",
+                  "qwen3_moe_channel8", "mistral_window", "glm4", "mixtral",
+                  "glm4_moe", "deepseek_v3", "qwen3_next", "minicpm_sala")
+
+
+def _attention_biases(params, cfg, g, dev):
+    for lp in params["layers"]:
+        for n, heads in (("q_proj", cfg.num_heads),
+                         ("k_proj", cfg.num_kv_heads),
+                         ("v_proj", cfg.num_kv_heads)):
+            if n in lp:
+                lp[n]["b"] = (torch.randn(heads * cfg.hd, generator=g,
+                                          device=dev) * 0.1).bfloat16()
+    return params
+
+
+def _graph_family(dev, name):
+    """(model module, config, w4a8 / w8a8 g64 params made packed and fused,
+    cache maker (batch, max_len), prompt length) of ``name``."""
+    from ominix_mlx_tpu_torch.models import (base, deepseek_v3, glm4,
+                                             glm4_moe, minicpm_sala, mistral,
+                                             mixtral, qwen3, qwen3_moe,
+                                             qwen3_next)
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    mod, T, dense_layers, scheme, bits = base, 20, 0, "group", 4
+    if name in ("qwen3", "qwen3_paged"):
+        cfg = qwen3.config_from_hf(dict(_SMALL_HF, model_type="qwen3",
+                                        tie_word_embeddings=True))
+    elif name.startswith("qwen3_moe"):
+        cfg = qwen3_moe.config_from_hf(dict(_MOE_HF, model_type="qwen3_moe"))
+        scheme = "channel8" if name.endswith("channel8") else "group"
+    elif name == "mistral_window":
+        cfg = mistral.config_from_hf(dict(_SMALL_HF, model_type="mistral",
+                                          sliding_window=8))
+    elif name == "glm4":
+        cfg = glm4.config_from_hf(dict(_SMALL_HF, model_type="glm4",
+                                       partial_rotary_factor=0.5,
+                                       attention_bias=True))
+    elif name == "mixtral":
+        cfg = mixtral.config_from_hf(dict(
+            _SMALL_HF, model_type="mixtral", intermediate_size=128,
+            num_local_experts=4, num_experts_per_tok=2))
+    elif name == "glm4_moe":
+        cfg = glm4_moe.config_from_hf(dict(
+            _MOE_HF, model_type="glm4_moe", n_routed_experts=8,
+            n_shared_experts=1, first_k_dense_replace=1,
+            routed_scaling_factor=1.0, n_group=1, topk_group=1,
+            partial_rotary_factor=0.5, attention_bias=True))
+        dense_layers = 1
+    elif name == "deepseek_v3":
+        cfg = deepseek_v3.config_from_hf(dict(
+            _MOE_HF, model_type="deepseek_v2", num_key_value_heads=4,
+            q_lora_rank=None, kv_lora_rank=128, qk_nope_head_dim=64,
+            qk_rope_head_dim=32, v_head_dim=64, n_routed_experts=8,
+            n_shared_experts=1, first_k_dense_replace=1,
+            routed_scaling_factor=1.0, n_group=1, topk_group=1))
+        dense_layers = 1
+    elif name == "qwen3_next":
+        cfg = qwen3_next.config_from_hf(dict(
+            _MOE_HF, model_type="qwen3_next", num_hidden_layers=4,
+            full_attention_interval=4, shared_expert_intermediate_size=128,
+            linear_key_head_dim=128, linear_value_head_dim=128,
+            linear_num_key_heads=2, linear_num_value_heads=4,
+            linear_conv_kernel_dim=4, partial_rotary_factor=0.25))
+    else:
+        mod, T, bits = minicpm_sala, 500, 8
+        cfg = minicpm_sala.MiniCPMConfig.from_hf(dict(
+            model_type="minicpm_sala", vocab_size=512, hidden_size=512,
+            num_hidden_layers=4, num_attention_heads=4,
+            num_key_value_heads=2, head_dim=128, intermediate_size=512,
+            qk_norm=True, lightning_nh=4, lightning_head_dim=128,
+            mixer_types=["minicpm4", "lightning-attn", "lightning-attn",
+                         "minicpm4"],
+            sparse_config=dict(kernel_size=32, block_size=64, init_blocks=1,
+                               window_size=128, topk=4)))
+        params = base.fuse_layer_projections(
+            minicpm_sala.init_quantized_params(cfg, g, 64, 8, 8, device=dev))
+        return mod, cfg, params, (
+            lambda B, L: minicpm_sala.init_cache(cfg, B, L, device=dev)), T
+    params = base.init_quantized_params(cfg, g, 64, bits, act_bits=8,
+                                        device=dev, scheme=scheme,
+                                        dense_layers=dense_layers)
+    if cfg.attention_bias:
+        params = _attention_biases(params, cfg, g, dev)
+    params = base.fuse_layer_projections(params)
+    if name == "qwen3_paged":
+        return mod, cfg, params, (lambda B, L: base.init_paged_cache(
+            cfg, B, L, 16, device=dev)), T
+    return mod, cfg, params, (
+        lambda B, L: base.init_cache(cfg, B, L, device=dev)), T
+
+
+def _graph_engine(mod, cfg, params, sampler=None):
+    from ominix_mlx_tpu_torch.core.generate import Engine
+    from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
+
+    return Engine(lambda p, t, c: mod.forward(p, cfg, t, c), params,
+                  sampler or SamplerConfig(),
+                  prefill_forward_fn=lambda p, t, c: mod.forward(
+                      p, cfg, t, c, fresh_prefill=True))
+
+
+def _cloned(cache):
+    from ominix_mlx_tpu_torch.core.cache import ModelCache
+
+    return ModelCache(layers=[dataclasses.replace(lc, **{
+        f.name: getattr(lc, f.name).clone()
+        for f in dataclasses.fields(lc)
+        if isinstance(getattr(lc, f.name), torch.Tensor)})
+        for lc in cache.layers], offset=cache.offset)
+
+
+def _prefilled(dev, name, B=1, max_len=1024, sampler=None):
+    from ominix_mlx_tpu_torch.core.sampling import sample
+
+    mod, cfg, params, make_cache, T = _graph_family(dev, name)
+    eng = _graph_engine(mod, cfg, params, sampler)
+    g = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(1, 512, (B, T), generator=g, device=dev)
+    with torch.inference_mode():
+        last, cache = eng.prefill(prompt, make_cache(B, max_len))
+        tok = sample(last, None, eng.sampler) if sampler is None else \
+            last.argmax(-1)
+    return eng, cache, tok
+
+
+def _launch_counts():
+    return {k: v for k, v in _build.LAUNCHES.items() if v}
+
+
+@pytest.mark.parametrize("name", GRAPH_FAMILIES)
+def test_decode_graph_replays_the_eager_body(cuda, name):
+    """From one prefilled cache (cloned), 5 steps of the step's body run
+    eagerly under set_sync_debug_mode("error") (no host sync in the body)
+    against the captured step (the warm-up, then 4 replays): the logits
+    and tokens of every step and the final caches bit for bit, the
+    kernels' tickets reset between replays included, and the launch
+    counts equal."""
+    eng, cache, tok = _prefilled(cuda, name)
+    a, b = _cloned(cache), _cloned(cache)
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        _build.reset_launches()
+        eager = eng.decode_step(a, tok.clone())
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            want = [(eager.body().clone(), eager.tok.clone())
+                    for _ in range(5)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        eager_launches = _launch_counts()
+        _build.reset_launches()
+        step = eng.decode_step(b, tok.clone())
+        got = []
+        for _ in range(5):
+            step()
+            got.append((step.logits.clone(), step.tok.clone()))
+        step.close()
+        graph_launches = _launch_counts()
+    assert step.record is not None and step.capture_ms > 0
+    assert graph_launches == eager_launches and eager_launches
+    for i, ((wl, wt), (gl, gt)) in enumerate(zip(want, got)):
+        assert torch.equal(gl, wl), f"logits of step {i}"
+        assert torch.equal(gt, wt), f"token of step {i}"
+    for la_, lb in zip(a.layers, b.layers):
+        for f in dataclasses.fields(la_):
+            x = getattr(la_, f.name)
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, getattr(lb, f.name)), f.name
+    assert torch.equal(eager.offset, step.offset)
+
+
+def test_decode_graph_loops_give_the_eager_tokens(cuda, monkeypatch):
+    """On the card generate, generate_scan and generate_batch (ragged
+    rows, a stop token) replay their captured steps and give the tokens
+    and launch counts of the same loops with every step's body run
+    eagerly instead."""
+    from ominix_mlx_tpu_torch.core.generate import DecodeStep
+    from ominix_mlx_tpu_torch.models import base
+
+    mod, cfg, params, _, _ = _graph_family(cuda, "qwen3")
+    eng = _graph_engine(mod, cfg, params)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    prompt = torch.randint(1, 512, (2, 12), generator=g, device=cuda)
+    prompt[1, 9:] = 0
+    n = 10
+
+    def loops(stop):
+        _build.reset_launches()
+        scan, c = eng.generate_scan(prompt[:1], base.init_cache(
+            cfg, 1, 64, device=cuda), n)
+        streamed = list(eng.generate(prompt[0], base.init_cache(
+            cfg, 1, 64, device=cuda), max_tokens=n))
+        batch = eng.generate_batch(prompt, base.init_cache(
+            cfg, 2, 64, device=cuda), max_tokens=n, stop_tokens=stop,
+            pad_id=-1, prompt_lengths=[12, 9])
+        torch.cuda.synchronize()
+        return (scan.tolist(), c.offset, streamed, batch[0].tolist(),
+                batch[1].tolist(), _launch_counts())
+
+    with torch.inference_mode():
+        replayed = loops(())
+        with monkeypatch.context() as m:
+            def eager_call(self):
+                self.logits = self.body()
+                self.steps += 1
+            m.setattr(DecodeStep, "__call__", eager_call)
+            eager = loops(())
+            stop = (eager[3][1][4],)
+            eager_stop = loops(stop)
+        replayed_stop = loops(stop)
+    assert replayed == eager
+    assert replayed[0][0] == replayed[2] and replayed[1] == 12 + n
+    assert replayed_stop == eager_stop
+    assert -1 in replayed_stop[3][1] and replayed_stop[4][1] < n
+
+
+def test_decode_graph_samples_through_a_registered_generator(cuda):
+    """Stochastic sampling (temperature, top-k, top-p) in the captured
+    step draws from the caller's generator, registered with the graph:
+    the tokens of the warm-up and 7 replays equal those of 8 eager steps
+    from a generator at the same seed, and each replay draws anew."""
+    from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
+
+    sampler = SamplerConfig(temperature=1.0, top_k=50, top_p=0.95)
+    eng, cache, tok = _prefilled(cuda, "qwen3", sampler=sampler)
+    a, b = _cloned(cache), _cloned(cache)
+    with torch.inference_mode():
+        ga = torch.Generator(device=cuda).manual_seed(11)
+        eager = eng.decode_step(a, tok.clone(), ga)
+        want = []
+        for _ in range(8):
+            eager.body()
+            want.append(int(eager.tok[0]))
+        gb = torch.Generator(device=cuda).manual_seed(11)
+        step = eng.decode_step(b, tok.clone(), gb)
+        got = []
+        for _ in range(8):
+            step()
+            got.append(int(step.tok[0]))
+        step.close()
+    assert got == want
+    assert len(set(got)) > 1
+
+
+def test_decode_graph_capture_raises_on_a_host_sync(cuda):
+    """A host read planted in the step's body makes the capture raise; no
+    eager fallback runs, and the card goes on working."""
+    eng, cache, tok = _prefilled(cuda, "qwen3")
+    real = eng.forward_fn
+
+    def syncing(p, t, c):
+        lg, c = real(p, t, c)
+        float(lg.sum())            # a host read: the capture refuses it
+        return lg, c
+
+    eng.forward_fn = syncing
+    with torch.inference_mode():
+        step = eng.decode_step(cache, tok.clone())
+        with pytest.raises(RuntimeError):
+            step()
+        assert step.graph is None
+    x = torch.ones(4, device=cuda)
+    assert float((x * 2).sum()) == 8.0
