@@ -91,10 +91,31 @@ Qwen3-30B-A3B with random weights (seeded):
     same request alone, and decode over caches filled to 65536 and 524288
     tokens (ms/token, K11's share).
 
+  - batcher_graph (Qwen3-4B channel w8a8 over a dense cache and a paged
+    int8 pool, Qwen3-30B-A3B w4a8 paged, MiniCPM-SALA dense): the
+    continuous batcher's step at 8 slots replayed from its captured
+    greedy and sampled bodies against the same steps run eagerly: logits
+    (difference 0), tokens and launches held; captures, pool, host time
+    of a replay, aggregate tok/s both ways in turns;
+  - speculative (Qwen3-4B w4a8: the target as its own draft, a 9-layer
+    self-draft, and that draft with force_accept; Qwen3-4B channel w8a8,
+    whose tokens must equal plain greedy's; MiniCPM-SALA's 8-layer
+    self-draft at a 4096-token cache): SpeculativeEngine at batch 1, 4
+    drafts a round, its replayed rounds held against eager ones, the
+    tokens against plain greedy, acceptance, and replayed tok/s against
+    plain replayed decode; serve_speculative_batched: a batched server
+    whose batcher speculates (8 slots, 4 drafts), 8 concurrent greedy
+    requests against the per-request engine path's answers and one
+    sampled one: on w4a8 with a 9-layer self-draft (answers read: its
+    verify at 40 rows takes the dense route), and on channel w8a8 with
+    the target as its own draft and the 9-layer self-draft (every answer
+    equal to the engine path's, held).
+
 Every path that goes through Engine.generate, generate_scan or
 generate_batch (the single-request server, decode_rate, the batch-8
-decodes) replays the engine's decode step captured as a CUDA graph; the
-batcher's step stays eager. Each family's ``decode_graph`` line (Qwen3-4B
+decodes) replays the engine's decode step captured as a CUDA graph, and
+every continuous batcher (the batched servers, hybrid_batched) replays
+its step's captured bodies. Each family's ``decode_graph`` line (Qwen3-4B
 and Qwen3-30B-A3B w4a8, Qwen3-30B-A3B channel w8a8, Mistral-7B, GLM-4-9B,
 DeepSeek-V2-Lite, Mixtral-8x7B, GLM-4.5-Air, Qwen3-Next-80B-A3B and
 MiniCPM-SALA) holds 17 steps of the captured step against the step's
@@ -3031,15 +3052,19 @@ def counting_dequantize_experts():
 def counting_gather_layers():
     """Count the MoE layers that take moe_block's decode branch (at most
     GATHER_M_MAX rows of x: the experts gathered, K4 or K8 on quantized
-    ones) for the duration: yields a dict whose "calls" grows with each."""
+    ones) for the duration, a layer in a captured step once each replay:
+    yields a dict whose "calls" grows with each."""
     from ominix_mlx_tpu_torch.models import moe
 
     from ominix_mlx_tpu_torch.ops import _build
 
-    seen, real = {"calls": 0}, moe.moe_block
+    seen, real, live = {"calls": 0}, moe.moe_block, [True]
 
     def add():
-        seen["calls"] += 1
+        # a batcher's graphs outlive the count: their replays after it
+        # count nothing
+        if live[0]:
+            seen["calls"] += 1
 
     def counted(lp, mcfg, x):
         if x.shape[0] * x.shape[1] <= moe.GATHER_M_MAX:
@@ -3050,6 +3075,7 @@ def counting_gather_layers():
         yield seen
     finally:
         moe.moe_block = real
+        live[0] = False
 
 
 def serve_moe(dev, cfg, params, phase="serve_moe", name="qwen3-30b-a3b",
@@ -4242,8 +4268,8 @@ def decode_graph(dev, cfg, params, name, weights, smi, module=None,
            "cache": "paged" if paged else "dense", "prompt": prompt_len,
            "steps": steps + 1, "logits_max_abs_diff": diff,
            "logits_max_abs": scale, "tokens_equal": same_tokens,
-           "capture_ms": step.capture_ms,
-           "graph_pool_mib": step.pool_bytes / 2 ** 20,
+           "capture_ms": step.captured.capture_ms[0],
+           "graph_pool_mib": step.captured.pool_bytes / 2 ** 20,
            "reserved_kept_after_close_mib": kept / 2 ** 20,
            "host_us_per_replay": host_s * 1e6 / steps,
            "eager_tok_s": turns["eager"], "graph_tok_s": turns["graph"],
@@ -4255,6 +4281,421 @@ def decode_graph(dev, cfg, params, name, weights, smi, module=None,
         raise RuntimeError(f"{name}: the captured step against its eager "
                            f"body: {row}, eager launches {eager_launches}")
     return row
+
+
+# the batcher's captured step and speculative decoding (batcher_graph,
+# speculative): steps a timing turn, drafts a round
+BATCH_GRAPH_STEPS = 24
+SPEC_ND = 4
+
+
+def graph_batcher(dev, cfg, params, module=None, paged=False,
+                  max_len=1024):
+    """A continuous batcher at BATCH slots, wired as the server wires one
+    (fresh prefill at adoption, K2; chunks, K2c), over a dense cache or a
+    paged int8 pool."""
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.serving import batching
+
+    mod = module or base
+    kw = dict(prefill_forward_fn=lambda p, t, c: mod.forward(
+        p, cfg, t, c, fresh_prefill=True))
+    fwd = lambda p, t, c: mod.forward(p, cfg, t, c)
+    if paged:
+        return batching.PagedContinuousBatcher(
+            fwd, params, cfg, slots=BATCH, max_len=max_len, quantize_kv=True,
+            device=dev, **kw)
+    return batching.ContinuousBatcher(
+        fwd, params, cfg, lambda c, b, ml: mod.init_cache(c, b, ml,
+                                                          device=dev),
+        slots=BATCH, max_len=max_len, **kw)
+
+
+def eager_bodies(bodies, sync_check=True):
+    """Make a CapturedBodies run every body eagerly (under
+    set_sync_debug_mode("error") where ``sync_check``: a host sync in a
+    body raises)."""
+    def run(key, body):
+        if not sync_check:
+            return body()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return body()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    bodies.run = run
+
+
+def batcher_graph(dev, cfg, params, name, weights, smi, module=None,
+                  paged=False, prompt_len=128, steps=BATCH_GRAPH_STEPS,
+                  max_len=1024):
+    """batcher_graph: the continuous batcher's decode step at BATCH slots
+    (8 requests of ``prompt_len`` + 8 i tokens, adopted at the first
+    step), replayed from its captured bodies against the same batcher
+    with every body run eagerly under set_sync_debug_mode("error"): over
+    ``steps`` greedy steps, then 8 steps with two sampled requests among
+    the 8 (the sampled body), the logits' largest difference (0), the
+    tokens and the launch counts equal; the captures' ms, the pool's MiB
+    and the host time of a replay; then aggregate tok/s (8 tokens a step)
+    of the eager and the replayed batcher, ``steps`` steps a turn, in
+    turns (eager, graph, graph, eager), each ended by a synchronize.
+    Returns the replayed batcher's launches."""
+    from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
+    from ominix_mlx_tpu_torch.ops import _build
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 70)
+    prompts = [torch.randint(0, cfg.vocab_size, (prompt_len + 8 * i,),
+                             generator=g, device=dev).tolist()
+               for i in range(BATCH)]
+    sampled = SamplerConfig(temperature=0.8, top_k=50, top_p=0.95)
+
+    def run(mixed, n):
+        """(logits a step, tokens a request, launches) of both batchers,
+        and the batchers (the graph's first)."""
+        out = []
+        for eager in (True, False):
+            cb = graph_batcher(dev, cfg, params, module, paged, max_len)
+            if eager:
+                eager_bodies(cb.bodies)
+            for i, p in enumerate(prompts):
+                cb.submit(i, p, 6 * steps + 16, seed=SEED + i,
+                          sampler=sampled if mixed and i in (2, 5) else None)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            logits, host = [], []
+            with torch.inference_mode():
+                for i in range(n):
+                    t0 = time.perf_counter()
+                    cb.step()
+                    if i:
+                        host.append(time.perf_counter() - t0)
+                    logits.append(cb.logits.to(torch.float32, copy=True))
+            torch.cuda.synchronize()
+            out.append((logits, [list(r.out) for r in cb.active],
+                        dict(_build.LAUNCHES), cb, host))
+        return out[1], out[0]
+
+    def held(got, want, what):
+        diff = max(float((a - b).abs().max())
+                   for a, b in zip(got[0], want[0]))
+        row = {"logits_max_abs_diff": diff,
+               "logits_max_abs": max(float(b.abs().max()) for b in want[0]),
+               "tokens_equal": got[1] == want[1],
+               "launches_equal": got[2] == want[2]}
+        if diff != 0 or not row["tokens_equal"] or not row["launches_equal"]:
+            raise RuntimeError(f"{name} batcher_graph {what}: the replayed "
+                               f"step against its eager body: {row}, "
+                               f"launches {got[2]} vs {want[2]}")
+        return row
+
+    graph, eager = run(False, steps + 1)
+    greedy_row = held(graph, eager, "greedy")
+    gcb, ecb = graph[3], eager[3]
+    step_ms = statistics.median(graph[4]) * 1e3
+    eager_bodies(ecb.bodies, sync_check=False)
+    # the host time of a replay: the bodies' run call alone
+    replay_s, replay = [], gcb.bodies.run
+
+    def timed(key, body):
+        t0 = time.perf_counter()
+        out = replay(key, body)
+        replay_s.append(time.perf_counter() - t0)
+        return out
+
+    gcb.bodies.run = timed
+
+    def rate(cb):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for _ in range(steps):
+                cb.step()
+        torch.cuda.synchronize()
+        return BATCH * steps / (time.perf_counter() - t0)
+
+    turns = {"eager": [], "graph": []}
+    for who in ("eager", "graph", "graph", "eager"):
+        turns[who].append(rate(ecb if who == "eager" else gcb))
+    if any(r is None for r in gcb.active):
+        raise RuntimeError(f"{name} batcher_graph: a request ended early")
+    host_us = statistics.median(replay_s) * 1e6
+    capture_ms = dict(gcb.bodies.capture_ms)
+    pool_mib = gcb.bodies.pool_bytes / 2 ** 20
+    launches = graph[2]
+    gcb.close()
+    del graph, eager, gcb, ecb
+    free_device_memory()
+    mgraph, meager = run(True, 8)
+    mixed_row = held(mgraph, meager, "mixed")
+    mcb = mgraph[3]
+    if set(mcb.bodies.graphs) != {"sampled"} or mcb.sampled_steps != 8:
+        raise RuntimeError(f"{name} batcher_graph mixed: bodies "
+                           f"{set(mcb.bodies.graphs)}, sampled steps "
+                           f"{mcb.sampled_steps}")
+    capture_ms.update(mcb.bodies.capture_ms)
+    mcb.close()
+    del mgraph, meager, mcb
+    free_device_memory()
+    row = {"phase": "batcher_graph", "config": name, "weights": weights,
+           "cache": "paged int8" if paged else "dense", "slots": BATCH,
+           "prompt": prompt_len, "steps": steps + 1,
+           **{f"greedy_{k}": v for k, v in greedy_row.items()},
+           **{f"mixed_{k}": v for k, v in mixed_row.items()},
+           "capture_ms": capture_ms, "graph_pool_mib": pool_mib,
+           "host_us_per_replay": host_us, "replayed_step_ms": step_ms,
+           "eager_tok_s": turns["eager"], "graph_tok_s": turns["graph"],
+           "launches": launches, "card": smi}
+    emit(row)
+    return launches
+
+
+def spec_engine(cfg, params, module, draft, nd=SPEC_ND, force=False):
+    """A SpeculativeEngine on ``module``'s forward of ``cfg`` with ``draft``
+    = (forward, params) and both fresh prefills through the module's
+    fresh_prefill where it takes one."""
+    import inspect
+
+    from ominix_mlx_tpu_torch.core.speculative import SpeculativeEngine
+
+    kw = {}
+    if "fresh_prefill" in inspect.signature(module.forward).parameters:
+        kw["target_prefill_forward"] = lambda p, t, c: module.forward(
+            p, cfg, t, c, fresh_prefill=True)
+    return SpeculativeEngine(
+        lambda p, t, c: module.forward(p, cfg, t, c), params, draft[0],
+        draft[1], num_draft_tokens=nd, force_accept=force, **kw)
+
+
+def self_draft(cfg, params, module, n):
+    """(forward, params, init_cache(batch, max_len)) of the first ``n``
+    layers: the server's ``draft_for``."""
+    from ominix_mlx_tpu_torch.serving.server import ChatModel, draft_for
+
+    dev = params["norm"].device
+    return draft_for(ChatModel("draft", params, cfg, None, dev, module),
+                     draft_layers=n)
+
+
+def replay_rates(dev, cfg, module, eng, se, dinit, prompt, cap, n):
+    """Decode tok/s of ``n`` replays, after the capture: of the engine's
+    decode step (one token each) and of the speculative round (the target
+    offset's advance over the replays: n_accept + 1 tokens each), each
+    from a fresh prefill, ended by a synchronize."""
+    from ominix_mlx_tpu_torch.core.generate import CapturedBodies
+
+    with torch.inference_mode():
+        last, cache = eng.prefill(prompt[None], module.init_cache(
+            cfg, 1, cap, device=dev))
+        step = eng.decode_step(cache, last.argmax(-1))
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        plain = n / (time.perf_counter() - t0)
+        step.close()
+        del step, cache
+        st, _ = se._start(prompt, module.init_cache(cfg, 1, cap, device=dev),
+                          dinit(1, cap))
+        bodies = CapturedBodies(dev)
+        bodies.run("round", lambda: se.round(st))
+        torch.cuda.synchronize()
+        off = int(st.t_off[0])
+        t0 = time.perf_counter()
+        for _ in range(n):
+            bodies.run("round", lambda: se.round(st))
+        torch.cuda.synchronize()
+        spec = (int(st.t_off[0]) - off) / (time.perf_counter() - t0)
+        bodies.close()
+    return plain, spec
+
+
+def spec_run(dev, cfg, module, eng, dinit, prompt, n, cap):
+    """One SpeculativeEngine.generate_scan of ``n`` tokens from fresh
+    caches: (tokens, SpecStats, seconds to the last token read)."""
+    from ominix_mlx_tpu_torch.core.speculative import SpecStats
+
+    st = SpecStats()
+    tc = module.init_cache(cfg, 1, cap, device=dev)
+    dc = dinit(1, cap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, _ = eng.generate_scan(prompt, tc, dc, max_tokens=n, stats=st)
+    return toks, st, time.perf_counter() - t0
+
+
+def speculative(dev, cfg, params, name, weights, smi, module=None,
+                drafts=None, prompt_len=128, long=64, cap=1024, rounds=32,
+                exact=False):
+    """speculative: SpeculativeEngine at batch 1 after a ``prompt_len``
+    prompt, 4 drafts a round, for each draft in ``drafts`` ({label:
+    (forward, params, init_cache, force_accept)}): the tokens of a
+    ``long``-token generate_scan against plain greedy decoding's (the
+    engine's replayed step), reported as the tokens before the first
+    difference; the replayed rounds against the same rounds run eagerly
+    (under set_sync_debug_mode("error")): tokens, acceptance and launches
+    equal, held; where ``exact`` (a model whose products do not depend on
+    the rows a call takes), the tokens equal plain greedy's, held;
+    acceptance, rounds, the round's capture ms and pool MiB; decode tok/s
+    of ``rounds`` replayed rounds after the capture (replay_rates) against
+    as many replayed plain decode steps, twice in turns; and each one's
+    ``long``-token generate_scan wall (the prefill and the capture
+    included). Returns the replayed runs' launches."""
+    from ominix_mlx_tpu_torch.core.cache import ModelCache
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.ops import _build
+
+    mod = module or base
+    eng = engine_for(cfg, params, module)
+    g = torch.Generator(device=dev).manual_seed(SEED + 80)
+    prompt = torch.randint(0, cfg.vocab_size, (prompt_len,), generator=g,
+                           device=dev)
+
+    def plain(n):
+        c = mod.init_cache(cfg, 1, cap, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, _ = eng.generate_scan(prompt, c, max_tokens=n)
+        toks = toks[0].tolist()
+        return toks, time.perf_counter() - t0
+
+    greedy = plain(long)[0]
+    total = {}
+    for label, (dfwd, dparams, dinit, force) in drafts.items():
+        se = spec_engine(cfg, params, mod, (dfwd, dparams), force=force)
+        _build.reset_launches()
+        toks, st, _ = spec_run(dev, cfg, mod, se, dinit, prompt, long, cap)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        capture_ms, pool_mib = se.capture_ms, se.pool_bytes / 2 ** 20
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        _build.reset_launches()
+        eager_se = spec_engine(cfg, params, mod, (dfwd, dparams),
+                               force=force)
+        from ominix_mlx_tpu_torch.core import speculative as spec_mod
+        real = spec_mod.CapturedBodies
+
+        class Eager(real):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                eager_bodies(self)
+
+        spec_mod.CapturedBodies = Eager
+        try:
+            etoks, est, _ = spec_run(dev, cfg, mod, eager_se, dinit, prompt,
+                                     long, cap)
+        finally:
+            spec_mod.CapturedBodies = real
+        torch.cuda.synchronize()
+        eager_launches = dict(_build.LAUNCHES)
+        same_eager = (toks == etoks and st == est
+                      and launches == eager_launches)
+        agree = next((i for i, (a, b) in enumerate(zip(toks, greedy))
+                      if a != b), min(len(toks), len(greedy)))
+        turns = {"plain": [], "spec": []}
+        for _ in range(2):
+            p, q = replay_rates(dev, cfg, mod, eng, se, dinit, prompt, cap,
+                                rounds)
+            turns["plain"].append(p)
+            turns["spec"].append(q)
+        wall = {"plain": plain(long)[1],
+                "spec": spec_run(dev, cfg, mod, se, dinit, prompt, long,
+                                 cap)[2]}
+        row = {"phase": "speculative", "config": name, "weights": weights,
+               "draft": label, "force_accept": force, "nd": SPEC_ND,
+               "prompt": prompt_len, "tokens": len(toks), "cache": cap,
+               "tokens_equal_greedy": toks == greedy[:len(toks)],
+               "tokens_before_first_difference": agree,
+               "acceptance": st.acceptance_rate, "rounds": st.rounds,
+               "replayed_equal_eager": same_eager,
+               "capture_ms": capture_ms, "graph_pool_mib": pool_mib,
+               "plain_replay_tok_s": turns["plain"],
+               "spec_replay_tok_s": turns["spec"],
+               "generate_scan_seconds": wall, "launches": launches,
+               "card": smi}
+        emit(row)
+        if not same_eager or len(toks) != long:
+            raise RuntimeError(f"{name} speculative {label}: replayed "
+                               f"rounds against eager: {row}, eager "
+                               f"{etoks} {est} {eager_launches}")
+        if exact and not force and not row["tokens_equal_greedy"]:
+            raise RuntimeError(f"{name} speculative {label}: the tokens "
+                               f"differ from plain greedy: {row}")
+    return total
+
+
+def serve_speculative_batched(dev, cfg, params, smi, weights="w4a8 g64",
+                              drafts=(9,), exact=False):
+    """serve_speculative_batched: a batched speculative server (8 slots,
+    dense cache, 4 drafts a round) for each self-draft depth in ``drafts``
+    (the first n layers; n = num_layers is the target as its own draft,
+    every draft accepted), answering 8 concurrent greedy HTTP chat
+    requests, each against the same request on the per-request engine
+    path of a plain model over the same weights (equal texts and token
+    counts: reported, and held where ``exact``, a model whose products do
+    not depend on the rows a call takes), and one sampled request, which
+    takes the engine path; aggregate completion tok/s, the round's
+    capture ms and pool MiB. Returns the speculative runs' launches."""
+    from ominix_mlx_tpu_torch.ops import _build
+    from ominix_mlx_tpu_torch.serving.server import ChatModel, Server
+
+    srv = Server(port=free_port())
+    srv.add_model("plain", ChatModel("plain", params, cfg, ByteTokenizer(),
+                                     dev))
+    for n in drafts:
+        srv.add_model(f"spec{n}", ChatModel(f"spec{n}", params, cfg,
+                                            ByteTokenizer(), dev))
+    srv.start_background()
+    reqs = {f"r{i}": (f"Request {i}: " + "tell me about the sea. " * (i + 1),
+                      {}) for i in range(BATCH)}
+    total, rows = {}, []
+    try:
+        plain = send_concurrent(srv.port, "plain", reqs)
+        for n in drafts:
+            name = f"spec{n}"
+            srv.enable_batching(name, slots=BATCH, max_len=1024,
+                                draft_layers=n, num_draft_tokens=SPEC_ND)
+            runner = srv.batchers[name]
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            got = send_concurrent(srv.port, name, reqs)
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            sampled = send_concurrent(srv.port, name, {
+                "s": ("Pick a number.", {"temperature": 0.7, "seed": 3})})
+            n_out = sum(r[2] for r in got.values())
+            row = {"phase": "serve_speculative_batched", "config": "Qwen3-4B",
+                   "weights": weights, "slots": BATCH, "nd": SPEC_ND,
+                   "draft_layers": n, "completion_tokens": n_out,
+                   "seconds": wall, "aggregate_tok_s": n_out / wall,
+                   "equal_plain_engine": {
+                       k: got[k][0] == plain[k][0] and got[k][2] == plain[k][2]
+                       for k in reqs},
+                   "sampled_completion_tokens": sampled["s"][2],
+                   "capture_ms": dict(runner.batcher.bodies.capture_ms),
+                   "graph_pool_mib": runner.batcher.bodies.pool_bytes
+                   / 2 ** 20,
+                   "held": "equal_plain_engine" if exact else "reported",
+                   "launches": launches, "card": smi}
+            emit(row)
+            rows.append(row)
+            # the batcher's graphs and pool go before the next one's
+            runner.stop()
+            del srv.batchers[name]
+            free_device_memory()
+    finally:
+        srv.shutdown()
+    for row in rows:
+        if row["completion_tokens"] < BATCH \
+                or row["sampled_completion_tokens"] < 1 \
+                or (exact and not all(row["equal_plain_engine"].values())):
+            raise RuntimeError(f"serve_speculative_batched: {row}")
+    return total
 
 
 def moe_batch_decode(dev, cfg, params, short=32, long=96):
@@ -4475,7 +4916,8 @@ def profile_decode(dev, cfg, params, steps: int = 32, batch: int = 1,
             step = eng.decode_step(cache, tok)
             step()                      # the warm-up and the capture
             torch.cuda.synchronize()
-            capture_ms[:] = [step.capture_ms, step.pool_bytes / 2 ** 20]
+            capture_ms[:] = [step.captured.capture_ms[0],
+                             step.captured.pool_bytes / 2 ** 20]
             with steps_probe():
                 t0 = time.perf_counter()
                 for _ in range(n):
@@ -5261,10 +5703,10 @@ def counting_forwards(module):
     with "int_offset": whether the cache's offset is one int) of each call
     of ``module.forward`` (what a ChatModel and the batcher call, by the
     module's attribute) for the duration, a forward captured in the
-    engine's decode step once each replay: yields the list."""
+    engine's or the batcher's step once each replay: yields the list."""
     from ominix_mlx_tpu_torch.ops import _build
 
-    seen, real = [], module.forward
+    seen, real, live = [], module.forward, [True]
 
     @functools.wraps(real)      # the engines read forward's signature
     def counted(params, cfg, tokens, cache, **kw):
@@ -5272,14 +5714,16 @@ def counting_forwards(module):
                bool(kw.get("fresh_prefill", False)),
                tokens.shape[0], tokens.shape[1],
                {**kw, "int_offset": isinstance(cache.offset, int)})
-        # a forward in a captured decode step counts at each replay
-        _build.on_run(lambda: seen.append(row))
+        # a forward in a captured step counts at each replay while the
+        # count lasts (a batcher's graphs outlive it)
+        _build.on_run(lambda: live[0] and seen.append(row))
         return real(params, cfg, tokens, cache, **kw)
     module.forward = counted
     try:
         yield seen
     finally:
         module.forward = real
+        live[0] = False
 
 
 def k9_forward_launches(cfg, shapes) -> dict:
@@ -5901,8 +6345,9 @@ def minicpm_long_decode(dev, cfg, params, smi, steps=16, profiled=4):
                     logits = step.logits[:, None].clone()
                     cache = ModelCache(layers=cache.layers,
                                        offset=step.offset_host)
-                    pool_mib, capture_ms = (step.pool_bytes / 2 ** 20,
-                                            step.capture_ms)
+                    pool_mib, capture_ms = (
+                        step.captured.pool_bytes / 2 ** 20,
+                        step.captured.capture_ms[0])
                     if len(walls["graph"]) == 2:
                         with profile(activities=[ProfilerActivity.CUDA]) \
                                 as prof:
@@ -6001,6 +6446,11 @@ def serve_minicpm_sala(dev, smi, profile=False):
         dev, cfg, params, name.lower() + "-batched", ms,
         check=lambda c, f, la, w: check_minicpm_launches(c, params, f, la,
                                                          w)))
+    runs.append(batcher_graph(dev, cfg, params, name, "w8a8 g64", smi, ms,
+                              steps=16))
+    runs.append(speculative(
+        dev, cfg, params, name, "w8a8 g64", smi, ms, cap=4096, exact=False,
+        drafts={"self_8_layers": (*self_draft(cfg, params, ms, 8), False)}))
     minicpm_long_decode(dev, cfg, params, smi)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del params
@@ -6304,6 +6754,18 @@ def main() -> int:
     check_logits(dev, cfg, params)
     emit({**decode_rate(dev, cfg, params, 32, 128), "card": smi})
     decode_graph(dev, cfg, params, "Qwen3-4B", "w4a8 g64", smi)
+    phases["speculative"] = speculative(
+        dev, cfg, params, "Qwen3-4B", "w4a8 g64", smi, drafts={
+            "target": (lambda p, t, c: base.forward(p, cfg, t, c), params,
+                       lambda b, ml: base.init_cache(cfg, b, ml, device=dev),
+                       False),
+            "self_9_layers": (*self_draft(cfg, params, base, 9), False),
+            "self_9_layers_force_accept": (
+                *self_draft(cfg, params, base, 9), True)})
+    # w4a8's verify at 8 x 5 = 40 rows takes the dense route, whose
+    # products differ from the one-row P formula's: its answers are read
+    phases["serve_speculative_batched"] = serve_speculative_batched(
+        dev, cfg, params, smi)
     if args.profile:
         emit({**profile_decode(dev, cfg, params), "card": smi})
         emit({**profile_prefill16(dev, cfg, params), "card": smi})
@@ -6331,6 +6793,24 @@ def main() -> int:
     params = base.fuse_layer_projections(base.init_quantized_params(
         cfg, gen, device=dev, scheme="channel8"))
     phases["batch_decode"] = batch_decode(dev, cfg, params, 16, 64)
+    for paged in (False, True):
+        phases["batcher_graph_" + ("paged" if paged else "dense")] = \
+            batcher_graph(dev, cfg, params, "Qwen3-4B", "w8a8 channel8", smi,
+                          paged=paged)
+    # channel w8a8 products are exact whatever rows a call takes: the
+    # speculative tokens are plain greedy's, held
+    phases["speculative_w8a8"] = speculative(
+        dev, cfg, params, "Qwen3-4B", "w8a8 channel8", smi, exact=True,
+        drafts={"target": (lambda p, t, c: base.forward(p, cfg, t, c),
+                           params, lambda b, ml: base.init_cache(
+                               cfg, b, ml, device=dev), False),
+                "self_9_layers": (*self_draft(cfg, params, base, 9), False)})
+    # the batched speculative server on exact products: every answer
+    # equals the per-request engine path's, held, with the target as its
+    # own draft (every draft accepted) and the 9-layer self-draft
+    phases["serve_speculative_batched_w8a8"] = serve_speculative_batched(
+        dev, cfg, params, smi, weights="w8a8 channel8",
+        drafts=(cfg.num_layers, 9), exact=True)
     if args.profile:
         emit({**profile_decode(dev, cfg, params, batch=BATCH, paged=True),
               "weights": "w8a8 channel8", "card": smi})
@@ -6372,6 +6852,9 @@ def main() -> int:
     decode_graph(dev, moe_cfg, params, "Qwen3-30B-A3B", "w4a8 g64", smi)
     phases["moe_batch_decode"] = moe_batch_decode(dev, moe_cfg, params, 16,
                                                   48)
+    phases["batcher_graph_moe"] = batcher_graph(
+        dev, moe_cfg, params, "Qwen3-30B-A3B", "w4a8 g64", smi, paged=True,
+        steps=16)
     if args.profile:
         emit({**profile_decode(dev, moe_cfg, params),
               "config": "Qwen3-30B-A3B", "card": smi})

@@ -12,7 +12,9 @@ replays the graph, and the launches recorded at the capture count again
 (``ops._build.recording``). A capture that fails raises; nothing falls
 back to an eager loop. The graph and its memory pool live for the call
 that made them. On a CPU cache every call runs the body: the plain path
-the tests hold to the JAX package.
+the tests hold to the JAX package. ``CapturedBodies`` is that machinery
+on its own (bodies under keys, one pool), which the continuous batcher's
+step and the speculative round use too.
 
 ``generate`` replays step i+1 before it reads token i, which it copies out
 of the static buffer into pinned host memory behind an event;
@@ -360,6 +362,111 @@ class Engine:
                                 offset=cache.offset + max_tokens)
 
 
+class CapturedBodies:
+    """Bodies captured as CUDA graphs that share one memory pool, each
+    under a key, and replayed: the machinery of the engine's
+    ``DecodeStep``, the continuous batcher's step (a greedy and a sampled
+    body) and a speculative round.
+
+    ``run(key, body)``: on the CPU, ``body()``. On CUDA, the first call
+    for a key runs the body eagerly on a side stream (the warm-up, a real
+    call: it allocates every wrapper's persistent buffers and initialises
+    cuBLAS outside the pool), empties the allocator's cache, then captures
+    it on that stream (``capture_error_mode="thread_local"``: another
+    thread may launch meanwhile; a host sync in the body raises, and
+    nothing falls back to an eager run) into the shared pool, recording
+    its launches; later calls replay the graph and count its launches
+    again (``ops._build.replayed``). Each call returns that call's output
+    (a replay's lives in the pool and is overwritten by the next replay).
+    The warm-up and capture run on one side stream a device, one at a
+    time. Bodies that share the pool never run concurrently: a caller
+    replays them on one stream. ``generator``: registered with every
+    graph, so each replay draws from its state at that replay.
+    ``close()`` waits for the replays, then drops the graphs and frees the
+    pool."""
+
+    def __init__(self, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        self.device = torch.device(device)
+        self.generator = generator
+        self.graphs: dict = {}          # key -> (graph, output)
+        # kept after close(): key -> the capture's launch record, its ms
+        self.records: dict = {}
+        self.capture_ms: dict = {}
+        self.pool_bytes = 0             # reserved by the captures, all keys
+        self._pool = None
+
+    def run(self, key, body: Callable):
+        if self.device.type != "cuda":
+            return body()
+        got = self.graphs.get(key)
+        if got is not None:
+            graph, out = got
+            graph.replay()
+            _build.replayed(self.records[key])
+            return out
+        return self._warm_up_and_capture(key, body)
+
+    def _warm_up_and_capture(self, key, body: Callable):
+        side, lock = _capture_stream(self.device)
+        main = torch.cuda.current_stream(self.device)
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            register = getattr(graph, "register_generator_state", None)
+            if register is None:
+                raise RuntimeError(
+                    "stochastic sampling in a CUDA graph needs "
+                    "torch.cuda.CUDAGraph.register_generator_state, which "
+                    f"torch {torch.__version__} lacks")
+            register(self.generator)
+        if self._pool is None:
+            self._pool = torch.cuda.MemPool()
+        held = self._pool.use_count()
+        with lock, torch.cuda.stream(side):
+            side.wait_stream(main)
+            warm = body()                       # the warm-up: a real call
+            # the graph's pool cannot reuse the blocks the warm-up cached:
+            # give them back first (as torch.cuda.graph does), so the body
+            # needs its transient memory once, not twice
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(self.device)
+            t0 = time.perf_counter()
+            with _build.recording() as record:
+                graph.capture_begin(pool=self._pool.id,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = body()
+                except BaseException:
+                    _end_failed_capture(graph, self._pool, held,
+                                        self.device)
+                    # the traceback keeps this frame: let go of the graph
+                    # now
+                    graph = None
+                    raise
+                graph.capture_end()
+            self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
+            self.pool_bytes += torch.cuda.memory_reserved(self.device) \
+                - reserved
+        main.wait_stream(side)
+        self.graphs[key] = (graph, out)
+        self.records[key] = record
+        return warm
+
+    def close(self):
+        """Wait for the replays on the current stream, then drop the
+        graphs and free the pool (their outputs go with them)."""
+        if self.graphs:
+            torch.cuda.current_stream(self.device).synchronize()
+        self.graphs = {}
+        self._pool = None
+
+    def __del__(self):
+        # the graphs before the pool they hold: a pool that dies under a
+        # live graph aborts the process
+        self.graphs = {}
+        self._pool = None
+
+
 class DecodeStep:
     """One decode step over static buffers, captured once as a CUDA graph
     on a CUDA cache and replayed (the counterpart of the JAX engine's
@@ -375,17 +482,11 @@ class DecodeStep:
     and ``offset_host`` mirrors the offsets (their largest, where a
     finished row holds), so nothing syncs to check capacity.
 
-    Calling the step: on the CPU, the body. On CUDA, the first call runs
-    the body eagerly on a side stream (a real step: it allocates every
-    wrapper's persistent buffers and initialises cuBLAS outside the
-    graph's pool), empties the allocator's cache, then captures the body
-    on that stream
-    (``capture_error_mode="thread_local"``: another thread may launch
-    meanwhile; a host sync in the body raises), recording its launches;
-    later calls replay. The warm-up and capture run on one side stream a
-    device, one step at a time; the graph allocates from a pool of its
-    own. ``body`` called directly runs the plain step on either device:
-    tests and the smoke hold the replays to it. After each call,
+    Calling the step runs its ``captured`` bodies' ``CapturedBodies.run``
+    on its body (key 0): on the CPU
+    the body; on CUDA the warm-up and capture at the first call, then
+    replays. ``body`` called directly runs the plain step on either
+    device: tests and the smoke hold the replays to it. After each call,
     ``logits`` holds that step's logits (on CUDA in the graph's pool,
     until the next replay). ``close()`` waits for the replays and drops
     the graph and frees its pool."""
@@ -408,17 +509,11 @@ class DecodeStep:
         self.cache = ModelCache(layers=cache.layers, offset=self.offset)
         self.index = torch.zeros(1, dtype=torch.long, device=dev)
         self.device = dev
-        self.generator = generator
         self.tok = tok
         self.body: Optional[Callable[[], torch.Tensor]] = None
         self.logits: Optional[torch.Tensor] = None
         self.steps = 0
-        self.graph = None
-        self.record = None
-        self.capture_ms = 0.0
-        self.pool_bytes = 0
-        self._graph_logits = None
-        self._pool = None
+        self.captured = CapturedBodies(dev, generator)
 
     @property
     def offset_host(self) -> int:
@@ -431,67 +526,20 @@ class DecodeStep:
         self.index.add_(1)
 
     def __call__(self):
-        if self.graph is not None:
-            self.graph.replay()
-            _build.replayed(self.record)
-            self.logits = self._graph_logits
-        elif self.device.type != "cuda":
-            self.logits = self.body()
-        else:
-            self._warm_up_and_capture()
+        self.logits = self.captured.run(0, self.body)
         self.steps += 1
-
-    def _warm_up_and_capture(self):
-        side, lock = _capture_stream(self.device)
-        main = torch.cuda.current_stream(self.device)
-        graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            # each replay draws from the generator's state at that replay
-            register = getattr(graph, "register_generator_state", None)
-            if register is None:
-                raise RuntimeError(
-                    "stochastic sampling in a CUDA graph needs "
-                    "torch.cuda.CUDAGraph.register_generator_state, which "
-                    f"torch {torch.__version__} lacks")
-            register(self.generator)
-        # a pool of the step's own, freed with it at close()
-        self._pool = torch.cuda.MemPool()
-        with lock, torch.cuda.stream(side):
-            side.wait_stream(main)
-            self.logits = self.body()           # the warm-up: a real step
-            # the graph's pool cannot reuse the blocks the warm-up cached:
-            # give them back first (as torch.cuda.graph does), so the step
-            # needs its transient memory once, not twice
-            torch.cuda.empty_cache()
-            reserved = torch.cuda.memory_reserved(self.device)
-            t0 = time.perf_counter()
-            with _build.recording() as record:
-                graph.capture_begin(pool=self._pool.id,
-                                    capture_error_mode="thread_local")
-                try:
-                    logits = self.body()
-                except BaseException:
-                    _end_failed_capture(graph)
-                    raise
-                graph.capture_end()
-            self.capture_ms = (time.perf_counter() - t0) * 1e3
-            self.pool_bytes = torch.cuda.memory_reserved(self.device) \
-                - reserved
-        main.wait_stream(side)
-        self.graph, self.record, self._graph_logits = graph, record, logits
 
     def close(self):
         """Wait for the replays on the current stream, then drop the
         graph and free its pool (``logits`` goes with it: copy first what
         is to outlive the step)."""
-        if self.graph is not None:
-            torch.cuda.current_stream(self.device).synchronize()
-            self.graph = self._graph_logits = self.logits = None
-            self._pool = None
+        if self.captured.graphs:
+            self.logits = None
+        self.captured.close()
 
 
-# per device: the side stream that every decode step's warm-up and capture
-# run on, and a lock that takes them one at a time. One stream, so the
+# per device: the side stream that every captured body's warm-up and
+# capture run on, and a lock that takes them one at a time. One stream, so the
 # warm-ups' cached blocks and cuBLAS's per-stream workspace are made once
 # rather than on each new stream.
 _CAPTURE_STREAMS: dict = {}
@@ -506,13 +554,30 @@ def _capture_stream(device: torch.device):
         return _CAPTURE_STREAMS[device.index]
 
 
-def _end_failed_capture(graph):
-    """End a capture whose body raised, so the stream leaves capture mode;
-    the body's error is the one raised."""
+def _end_failed_capture(graph, pool, held: int, device):
+    """End a capture whose body raised, so the stream leaves capture mode,
+    and drop what it captured; the body's error is the one raised. An
+    invalidated capture's end raises before the allocator stops routing
+    to the pool and before the graph takes over the capture's hold on
+    the pool, and a pool destroyed with either left aborts the process:
+    stop the routing (a RuntimeError where it had stopped) and give the
+    hold back, to the count the pool had before the capture began."""
     try:
         graph.capture_end()
     except RuntimeError:
         pass
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool.id)
+    except RuntimeError:
+        pass
+    try:
+        graph.reset()
+    except RuntimeError:
+        pass
+    for _ in range(pool.use_count() - held):
+        torch._C._cuda_releasePool(index, pool.id)
 
 
 class _TokenCopies:

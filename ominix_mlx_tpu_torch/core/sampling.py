@@ -6,15 +6,16 @@ numbers than ``jax.random`` for the same seed, so only greedy sampling
 agrees token for token with the JAX package. ``sample`` reads nothing on
 the host, so the engine's captured decode step runs it on the device.
 
-``SamplerParams`` / ``sample_dynamic`` are the per-row form for the
-continuous batcher: settings held as [B] tensors, one generator per
-sampled row.
+``SamplerParams`` / ``sample_slots`` are the per-row form for the
+continuous batcher: settings held as [B] tensors, and each row's draw
+keyed on the device by its (seed, position) through a counter hash
+(``slot_noise``), with no generator and no host read.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Optional
 
 import torch
 
@@ -136,18 +137,78 @@ class SamplerParams:
         return self
 
 
-def sample_dynamic(logits: torch.Tensor, sp: SamplerParams,
-                   generators: Sequence[Optional[torch.Generator]],
-                   recent: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """logits [B, V] -> tokens [B] int64, per-row settings from ``sp``.
+MASK32 = 0xFFFFFFFF
 
-    generators[b] is row b's ``torch.Generator``, or None for a greedy row
-    (the host knows which rows sample). Every row takes the repetition
-    penalty (rows at 1.0 are unchanged) and one batched argmax; only the
-    sampled rows go through the per-row filters (top-k, top-p, min-p, the
-    JAX package's formulas) and draw, each from its own generator. So a
-    greedy row never depends on the sampled rows batched beside it, and no
-    greedy row draws a random number."""
+
+def _mul32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """(a * m) mod 2^32 for int64 words a in [0, 2^32) and a constant m in
+    [0, 2^32), in int64 without overflow: a's halves times m stay under
+    2^49."""
+    lo = (a & 0xFFFF) * m
+    hi = ((a >> 16) * (m & 0xFFFF)) << 16
+    return (lo + hi) & MASK32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """MurmurHash3's 32-bit finalizer on int64 words in [0, 2^32) (every
+    word stays non-negative, so the right shifts are logical)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def slot_noise(seeds: torch.Tensor, positions: torch.Tensor,
+               vocab: int) -> torch.Tensor:
+    """Exponential(1) noise [B, V] float32 keyed on the device by each
+    row's (seed, absolute position) alone: a counter hash of (seed's low
+    and high words, position, vocabulary index), no generator state. So a
+    draw depends on nothing but the row's seed, position and logits: not
+    on the slot, the step or the rows beside it. seeds, positions: [B]
+    int64, seeds in [0, 2^63). The uniform is the hash's top 23 bits
+    plus a half, over 2^23: k + 0.5 for k < 2^23 is exact in float32, so
+    u lies in (0, 1) and the noise is > 0 (a 24th bit would round
+    k = 2^24 - 1 up to u = 1, noise 0, and a filtered entry's 0 / 0)."""
+    s = seeds.long()
+    p = positions.long() & MASK32
+    h = _fmix32((s & MASK32) ^ 0x9E3779B9)
+    h = _fmix32(h ^ (s >> 32))
+    h = _fmix32(h ^ p)                                           # [B]
+    idx = torch.arange(vocab, dtype=torch.long, device=seeds.device)
+    col = _fmix32(_mul32(idx, 0x9E3779B1) ^ 0x7F4A7C15)          # [V]
+    x = _fmix32(h[:, None] ^ col[None, :])                       # [B, V]
+    return _exp_noise(x)
+
+
+def _exp_noise(x: torch.Tensor) -> torch.Tensor:
+    """Exponential(1) noise from 32-bit hash words in [0, 2^32)."""
+    u = ((x >> 9).float() + 0.5) * (1.0 / (1 << 23))
+    return -torch.log(u)
+
+
+def seed_word(seed: int) -> int:
+    """A request's seed as the non-negative int64 word ``slot_noise``
+    keys on."""
+    return int(seed) % (1 << 63)
+
+
+def sample_slots(logits: torch.Tensor, sp: SamplerParams,
+                 seeds: torch.Tensor, positions: torch.Tensor,
+                 recent: Optional[torch.Tensor] = None,
+                 sampled: bool = True) -> torch.Tensor:
+    """logits [B, V] -> tokens [B] int64, per-row settings from ``sp``,
+    with nothing read on the host (the continuous batcher's captured step
+    runs it).
+
+    Every row takes the repetition penalty (rows at 1.0 are unchanged)
+    and one batched argmax: a greedy row's token. With ``sampled`` every
+    row also goes through the JAX package's filters (temperature, top-k,
+    top-p, min-p) and draws by argmax of probs over ``slot_noise(seeds,
+    positions)``; rows with temperature <= 0 keep the argmax. So a greedy
+    row's token is the same whether ``sampled`` is set or not, and
+    whatever rows sit beside it. The caller clears ``sampled`` when no
+    row samples (the two sorts over [B, V] are skipped)."""
     logits = logits.float()
     B, V = logits.shape
     if recent is not None:
@@ -158,15 +219,12 @@ def sample_dynamic(logits: torch.Tensor, sp: SamplerParams,
         penalized = torch.where(logits > 0, logits / pen, logits * pen)
         logits = torch.where(hit & (pen != 1.0), penalized, logits)
     out = torch.argmax(logits, -1)
-    rows: List[int] = [b for b, g in enumerate(generators) if g is not None]
-    if not rows:
+    if not sampled:
         return out
-    idx = torch.tensor(rows, device=logits.device)
-    lg = logits[idx]
-    scaled = lg / sp.temperature[idx].clamp(min=1e-6)[:, None]
+    scaled = logits / sp.temperature.clamp(min=1e-6)[:, None]
     # top-k: kth-largest threshold via one sort; k <= 0 keeps all
     sorted_desc = torch.sort(scaled, -1, descending=True).values
-    k = sp.top_k[idx]
+    k = sp.top_k
     k_eff = (torch.where(k <= 0, torch.full_like(k, V), k) - 1).clamp(0, V - 1)
     thresh_k = torch.gather(sorted_desc, -1, k_eff[:, None])
     scaled = scaled.masked_fill(scaled < thresh_k, float("-inf"))
@@ -174,7 +232,7 @@ def sample_dynamic(logits: torch.Tensor, sp: SamplerParams,
     sorted_desc = torch.sort(scaled, -1, descending=True).values
     probs = torch.softmax(sorted_desc, -1)
     cum = torch.cumsum(probs, -1)
-    keep = cum - probs < sp.top_p[idx][:, None]
+    keep = cum - probs < sp.top_p[:, None]
     thresh_p = torch.where(keep, sorted_desc,
                            torch.full_like(sorted_desc, float("inf")))
     scaled = scaled.masked_fill(scaled < thresh_p.amin(-1, keepdim=True),
@@ -182,11 +240,8 @@ def sample_dynamic(logits: torch.Tensor, sp: SamplerParams,
     # min-p
     probs = torch.softmax(scaled, -1)
     top = probs.amax(-1, keepdim=True)
-    scaled = scaled.masked_fill(probs < sp.min_p[idx][:, None] * top,
+    scaled = scaled.masked_fill(probs < sp.min_p[:, None] * top,
                                 float("-inf"))
     probs = torch.softmax(scaled, -1)
-    drawn = torch.cat([torch.multinomial(probs[i:i + 1], 1,
-                                         generator=generators[b])[:, 0]
-                       for i, b in enumerate(rows)])
-    out[idx] = torch.where(sp.temperature[idx] <= 0.0, out[idx], drawn)
-    return out
+    drawn = torch.argmax(probs / slot_noise(seeds, positions, V), -1)
+    return torch.where(sp.temperature <= 0.0, out, drawn)

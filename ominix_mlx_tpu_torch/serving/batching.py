@@ -11,10 +11,25 @@
   - finished slots free at once and refill from the queue
 
 Where the JAX package donates buffers to its jits, the port updates the
-cache tensors in place. The host keeps mirrors of what it must decide on
-(``off_host``, the page table, the active set), so a step reads nothing
-back from the device except the previous step's tokens, and those only
-after the next forward is queued.
+cache tensors in place. A decode step is one body over static buffers
+(the forward at T = 1 at the [slots] offset tensor, the per-slot sampler,
+the in-place updates of the offsets, the tokens and the repetition
+window), the counterpart of the JAX package's jitted ``decode_step``: on
+a CUDA cache it is captured as a CUDA graph at the first step
+(``core.generate.CapturedBodies``) and replayed at every later one, a
+greedy body while no active slot samples and a sampled one otherwise,
+both in one graph pool that lives until ``close()``. A sampled slot
+draws by ``core.sampling.slot_noise``, keyed on the device by the
+request's seed and the absolute position of the token drawn, so a
+preempted request replays its tokens exactly. The host keeps mirrors of
+what it must decide on (``off_host``, the page table, the active set),
+writes the device's copies in place between replays, and reads nothing
+back except the previous step's tokens, and those only after the next
+step is queued.
+
+Speculative batching (``draft_forward_fn``, as the JAX package's): each
+step is one draft-and-verify round for every slot, also one captured
+body (``spec_round``); only greedy requests, and no recurrent layers.
 
 A hybrid model's recurrent layers (``models.deltanet.RecurrentCache``,
 MiniCPM-SALA's ``models.lightning.GLACache``) ride the dense batcher:
@@ -24,9 +39,6 @@ since no offset mask hides a finished request's state; MiniCPM-SALA's
 sparse layers (``models.sparse_attention.SparseKVCache``) prefill into
 their slot's rows of K, V and the pooled keys. The paged batcher refuses
 hybrids, as the JAX package's does.
-
-Speculative batching is not ported: the server's ``enable_batching``
-raises ``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -42,12 +54,14 @@ import torch.nn.functional as F
 from ominix_mlx_tpu_torch.core.cache import (KVCache, ModelCache,
                                             ingests_padding)
 from ominix_mlx_tpu_torch.core.device import resolve_device
-from ominix_mlx_tpu_torch.core.generate import Engine, bucket_length
+from ominix_mlx_tpu_torch.core.generate import (CapturedBodies, Engine,
+                                                bucket_length)
 from ominix_mlx_tpu_torch.core.paged_cache import (PageAllocator,
                                                    PagedKVCache, PrefixCache,
                                                    quantize_kv_tokens)
 from ominix_mlx_tpu_torch.core.sampling import (SamplerConfig, SamplerParams,
-                                                sample_dynamic)
+                                                sample_slots, seed_word)
+from ominix_mlx_tpu_torch.core.speculative import draft_and_verify
 from ominix_mlx_tpu_torch.models.deltanet import RecurrentCache
 from ominix_mlx_tpu_torch.models.lightning import GLACache
 from ominix_mlx_tpu_torch.models.sparse_attention import SparseKVCache
@@ -73,14 +87,6 @@ class _Request:
     chain: Optional[list] = None    # memoized prefix-cache digest chain
 
 
-def _seeded(gen: torch.Generator, seed: int, pos: int) -> torch.Generator:
-    """Reseed ``gen`` from (request seed, absolute position of the token
-    being drawn): a draw depends on nothing else, so a preempted request
-    replays its sampled tokens exactly (the JAX package folds the position
-    into the request's key for the same reason)."""
-    return gen.manual_seed((int(seed) * 1_000_003 + int(pos)) % (1 << 63))
-
-
 class ContinuousBatcher:
     """Continuous-batching decoder over ``forward(params, tokens, cache) ->
     (logits, cache)`` models (``base.forward``-compatible)."""
@@ -89,6 +95,10 @@ class ContinuousBatcher:
                  slots: int = 4, max_len: int = 2048,
                  stop_tokens: Tuple[int, ...] = (),
                  prefill_forward_fn: Optional[Callable] = None,
+                 draft_forward_fn: Optional[Callable] = None,
+                 draft_params=None,
+                 draft_init_cache_fn: Optional[Callable] = None,
+                 num_draft_tokens: int = 4,
                  chunk_forward_fn: Optional[Callable] = None,
                  chunk_hidden_forward_fn: Optional[Callable] = None,
                  prefill_chunk: int = 2048):
@@ -100,6 +110,14 @@ class ContinuousBatcher:
         CUDA) and, in the paged batcher, the suffix-only prefill after a
         prefix-cache hit. chunk_hidden_forward_fn: its skip_logits form for
         non-final chunks.
+
+        draft_forward_fn / draft_params / draft_init_cache_fn turn on
+        BATCHED SPECULATIVE decoding (the JAX package's): every step
+        drafts ``num_draft_tokens`` greedily per slot and the target
+        verifies all slots' drafts in one [slots, nd + 1] forward, token
+        for token equal to plain greedy; sampled requests are refused.
+        draft_init_cache_fn(slots, max_len) -> ModelCache of dense KVCache
+        layers for the draft.
 
         init_cache_fn(cfg, slots, max_len) -> ModelCache of KVCache (or,
         for the paged batcher, PagedKVCache) layers, and a hybrid's
@@ -119,35 +137,67 @@ class ContinuousBatcher:
                 "batcher with dense KVCache layers (window masking) "
                 "instead of RotatingKVCache")
         # recurrent layers take every position they are given: adoption
-        # prefills at exactly T
+        # prefills at exactly T; and a speculative round cannot roll their
+        # state back
         self._has_recurrent = any(ingests_padding(lc) for lc in layers)
+        if self._has_recurrent and draft_forward_fn is not None:
+            raise ValueError(
+                "speculative batching cannot roll back recurrent-state "
+                "layers; use plain continuous batching for hybrid models")
         lc = layers[0]
         self.device = (lc.k_pool if isinstance(lc, PagedKVCache)
                        else lc.state if isinstance(lc, (RecurrentCache,
                                                         GLACache))
                        else lc.k).device
         dev = self.device
+        # the step's static buffers, written in place by the captured body
+        # and, between replays, by the host (stream-ordered)
         self.offsets = torch.zeros(slots, dtype=torch.long, device=dev)
         self.toks = torch.zeros(slots, dtype=torch.long, device=dev)
+        self.active_mask = torch.zeros(slots, dtype=torch.bool, device=dev)
+        self.seeds = torch.zeros(slots, dtype=torch.long, device=dev)
         self.cache = ModelCache(layers=layers, offset=self.offsets)
         self.active: List[Optional[_Request]] = [None] * slots
         self.off_host: List[int] = [0] * slots   # host mirror of offsets
+        self._mask_host: List[bool] = [False] * slots
         self.queue: deque = deque()
         self.chunk_fwd = chunk_forward_fn
         self.chunk_hidden_fwd = chunk_hidden_forward_fn
         self.prefill_chunk = prefill_chunk
         self._chunk_engine_inst = None
-        self._reserve = 1               # KV writes per step
-        # per-slot sampling state: settings are [slots] tensors, sampled
-        # slots own a generator (None: greedy)
+        # per-slot sampling settings as [slots] tensors (greedy by default)
         self.sparams = SamplerParams.from_config(SamplerConfig(), slots, dev)
-        self.gens: List[Optional[torch.Generator]] = [None] * slots
         self.recent = torch.full((slots, REP_WINDOW), -1, dtype=torch.long,
                                  device=dev)
-        # host copy of the tokens a step emits, read after the next forward
-        # is queued (pinned, so the copy is asynchronous on CUDA)
-        self._toks_host = torch.empty(slots, dtype=torch.long,
-                                      pin_memory=dev.type == "cuda")
+        # the step's bodies ("greedy", "sampled", "spec"), captured into
+        # one pool on CUDA; the last step's logits (on CUDA in the pool,
+        # until the next step); steps that ran the sampled body
+        self.bodies = CapturedBodies(dev)
+        self.logits: Optional[torch.Tensor] = None
+        self.sampled_steps = 0
+        self.spec = draft_forward_fn is not None
+        self.nd = num_draft_tokens if self.spec else 0
+        # per-step KV write headroom (a speculative round writes nd + 1)
+        self._reserve = self.nd + 1
+        if self.spec:
+            if num_draft_tokens < 1:
+                raise ValueError("num_draft_tokens must be >= 1")
+            self.dfwd = draft_forward_fn
+            self.dparams = draft_params
+            self.d_cache = draft_init_cache_fn(slots, max_len)
+            self.x_prev = torch.zeros(slots, dtype=torch.long, device=dev)
+            self.tgt = torch.zeros(slots, self.nd + 1, dtype=torch.long,
+                                   device=dev)
+            self.n_acc = torch.zeros(slots, dtype=torch.long, device=dev)
+        # host copies of what a step emits (pinned, so the copies are
+        # asynchronous on CUDA)
+        pin = dev.type == "cuda"
+        self._toks_host = torch.empty(slots, dtype=torch.long, pin_memory=pin)
+        if self.spec:
+            self._tgt_host = torch.empty(slots, self.nd + 1,
+                                         dtype=torch.long, pin_memory=pin)
+            self._nacc_host = torch.empty(slots, dtype=torch.long,
+                                          pin_memory=pin)
 
     # ------------------------------------------------------------ public ----
 
@@ -159,6 +209,10 @@ class ContinuousBatcher:
                              f"the batcher's max_len {self.max_len}")
         if sampler is not None and sampler.temperature <= 0.0:
             sampler = None               # greedy is the default row state
+        if sampler is not None and self.spec:
+            raise ValueError(
+                "speculative batcher verifies greedily; route sampled "
+                "requests to the per-request engine path")
         self.queue.append(_Request(
             rid, list(tokens), max_tokens,
             stop=set(stop_tokens) if stop_tokens is not None else None,
@@ -202,6 +256,11 @@ class ContinuousBatcher:
             if req.emit:
                 req.emit(RuntimeError(reason))
 
+    def close(self):
+        """Free the captured bodies' graphs and their pool (after the
+        replays queued so far); a later step captures them anew."""
+        self.bodies.close()
+
     # ----------------------------------------------- adoption hooks --------
     # (overridden by PagedContinuousBatcher)
 
@@ -236,22 +295,18 @@ class ContinuousBatcher:
         hist = list(req.out[-REP_WINDOW:])
         return [-1] * (REP_WINDOW - len(hist)) + hist
 
-    def _gen(self, b: int, req, pos: int) -> Optional[torch.Generator]:
-        """Slot ``b``'s generator seeded for the token at ``pos`` (None for
-        a greedy request)."""
-        if req.sampler is None:
-            return None
-        if self.gens[b] is None:
-            self.gens[b] = torch.Generator(device=self.device)
-        return _seeded(self.gens[b], req.seed, pos)
-
     def _sample_first(self, b, req, last, scfg):
         """The first token of an adopted request, from its last prompt
-        logits [V] (drawn at position T, as the JAX package folds T)."""
+        logits [V], drawn at position T (the prompt's length), as the JAX
+        package folds T."""
         rec1 = torch.tensor([self._recent_row(req)], device=self.device)
-        return sample_dynamic(
+        at = torch.full((1,), len(req.tokens), dtype=torch.long,
+                        device=self.device)
+        seed = torch.full((1,), seed_word(req.seed), dtype=torch.long,
+                          device=self.device)
+        return sample_slots(
             last[None], SamplerParams.from_config(scfg, 1, self.device),
-            [self._gen(b, req, len(req.tokens))], rec1)[0]
+            seed, at, rec1, sampled=req.sampler is not None)[0]
 
     def _run_prefill(self, b: int, req, T: int, bucket: int, padded, scfg):
         """The adoption prefill of one request: returns the single-row
@@ -279,6 +334,16 @@ class ContinuousBatcher:
             padded[:, :T], cache1, chunk_size=self.prefill_chunk)
         return cache1.layers, self._sample_first(b, req, last[0], scfg)
 
+    def _adopt_draft(self, b: int, padded, req):
+        """The draft's adoption prefill (eager): the padded prompt through
+        the draft forward into slot b's rows of the draft cache (views,
+        written in place); x_prev, the token before the held one, is the
+        prompt's last."""
+        layers1 = [KVCache(k=lc.k[b:b + 1], v=lc.v[b:b + 1])
+                   for lc in self.d_cache.layers]
+        self.dfwd(self.dparams, padded, ModelCache(layers=layers1, offset=0))
+        self.x_prev[b] = req.tokens[-1]
+
     # ------------------------------------------------------------------------
 
     def _fill_free_slots(self):
@@ -297,7 +362,10 @@ class ContinuousBatcher:
             scfg = req.sampler or SamplerConfig()
             layers1, tok = self._run_prefill(b, req, T, bucket, padded, scfg)
             self._adopt_request(b, layers1, T, tok, req)
+            if self.spec:
+                self._adopt_draft(b, padded, req)
             self.sparams.set_row(b, scfg)
+            self.seeds[b] = seed_word(req.seed)
             # recent = history shifted left + the token just sampled, so a
             # preempted continuation resumes with its true rep-penalty state
             row = self._recent_row(req)[1:] + [-1]
@@ -306,37 +374,65 @@ class ContinuousBatcher:
             self.off_host[b] = T
             self.active[b] = req
 
+    def _sync_mask(self):
+        """Write the active set into the device mask, in place, where it
+        changed since the last step (stream-ordered fills: the replays
+        queued before still read the old mask)."""
+        for b, req in enumerate(self.active):
+            on = req is not None
+            if on != self._mask_host[b]:
+                self.active_mask[b] = on
+                self._mask_host[b] = on
+
+    def _copy_to_host(self, pairs):
+        """Queue copies of device tensors into pinned host buffers and
+        return the event behind them (None on the CPU: copied already)."""
+        for host, dev in pairs:
+            host.copy_(dev, non_blocking=True)
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        return ev
+
+    def decode_body(self, sampled: bool) -> torch.Tensor:
+        """One decode step for every slot, over the static buffers (the
+        counterpart of the JAX package's ``decode_step``): the forward at
+        T = 1 at the offsets, the per-slot sampler (its filters only when
+        ``sampled``), each draw keyed by (seed, offset + 1), the repetition
+        window rolled, inactive slots' offsets held (their KV write lands
+        on the same slot every step and is overwritten on adoption), the
+        drawn tokens written over the step's input tokens. Returns the
+        logits [slots, V]."""
+        logits, _ = self.fwd(self.params, self.toks[:, None], self.cache)
+        logits = logits[:, -1]
+        nxt = sample_slots(logits, self.sparams, self.seeds,
+                           self.offsets + 1, self.recent, sampled)
+        self.recent.copy_(torch.cat([self.recent[:, 1:], nxt[:, None]], 1))
+        self.offsets.add_(self.active_mask.long())
+        self.toks.copy_(nxt)
+        return logits
+
     @torch.no_grad()
     def step(self) -> List[Tuple[object, List[int]]]:
         """One decode step for every active slot; refills free slots first.
         Returns requests that FINISHED this step as (rid, tokens)."""
+        if self.spec:
+            return self._spec_step()
         self._fill_free_slots()
         if not any(r is not None for r in self.active):
             return []
         self._pre_step()
-        active = [r is not None for r in self.active]
+        self._sync_mask()
+        sampled = any(r is not None and r.sampler is not None
+                      for r in self.active)
         # this step's input tokens are the ones it emits: queue their copy
-        # to the host now, read it after the forward is queued
-        self._toks_host.copy_(self.toks, non_blocking=True)
-        copied = None
-        if self.device.type == "cuda":
-            copied = torch.cuda.Event()
-            copied.record()
-        logits, _ = self.fwd(self.params, self.toks[:, None],
-                             ModelCache(layers=self.cache.layers,
-                                        offset=self.offsets))
-        gens = [self._gen(b, req, self.off_host[b] + 1)
-                if req is not None else None
-                for b, req in enumerate(self.active)]
-        nxt = sample_dynamic(logits[:, -1], self.sparams, gens, self.recent)
-        self.recent = torch.cat([self.recent[:, 1:], nxt[:, None]], 1)
-        # inactive slots hold their offset (their KV write lands on the
-        # same slot every step and is overwritten on adoption)
-        self.offsets = torch.where(
-            torch.tensor(active, device=self.device), self.offsets + 1,
-            self.offsets)
-        self.cache = ModelCache(layers=self.cache.layers,
-                                offset=self.offsets)
+        # to the host before the step overwrites them, read it after the
+        # step is queued
+        copied = self._copy_to_host([(self._toks_host, self.toks)])
+        self.logits = self.bodies.run("sampled" if sampled else "greedy",
+                                      lambda: self.decode_body(sampled))
+        self.sampled_steps += sampled
         if copied is not None:
             copied.synchronize()
         cur = self._toks_host.tolist()
@@ -355,12 +451,88 @@ class ContinuousBatcher:
                 if req.emit:
                     req.emit(t)
             if done:
-                finished.append((req.rid, req.out))
+                self._finish(b, req, finished)
+        return finished
+
+    def _finish(self, b, req, finished):
+        finished.append((req.rid, req.out))
+        if req.emit:
+            req.emit(None)
+        self.active[b] = None
+        self._release_slot(b)
+
+    # ------------------------------------------------ batched speculative --
+
+    def spec_round(self) -> torch.Tensor:
+        """One draft-and-verify round for ALL slots over the static
+        buffers (the JAX package's ``spec_round``; the body is
+        ``core.speculative.draft_and_verify``, the engine's round): the
+        offsets advance by n_acc + 1 on active slots only. Writes the
+        offsets, the held tokens, x_prev, ``tgt`` [slots, nd + 1] and
+        ``n_acc`` [slots] in place; returns the target's logits."""
+        return draft_and_verify(self.fwd, self.params, self.dfwd,
+                                self.dparams, self.nd, self.cache,
+                                self.d_cache.layers, self.toks, self.x_prev,
+                                self.tgt, self.n_acc,
+                                active=self.active_mask)
+
+    def _spec_step(self) -> List[Tuple[object, List[int]]]:
+        """One speculative round for every active slot: emits the held
+        token plus every accepted draft per slot (1..nd+1 tokens), holds
+        the target's correction as the next round's input."""
+        self._fill_free_slots()
+        finished = []
+        # a prompt adopted near capacity cannot survive even one round's
+        # nd+1 transient writes: emit its held token and finish it now
+        for b, req in enumerate(self.active):
+            if req is not None and \
+                    self.off_host[b] >= self.max_len - self.nd - 2:
+                t = int(self.toks[b])
+                stops = req.stop if req.stop is not None else \
+                    self.stop_tokens
+                if t not in stops and len(req.out) < req.max_tokens:
+                    req.out.append(t)
+                    if req.emit:
+                        req.emit(t)
+                self._finish(b, req, finished)
+        if not any(r is not None for r in self.active):
+            return finished
+        self._pre_step()
+        self._sync_mask()
+        held = self._copy_to_host([(self._toks_host, self.toks)])
+        self.logits = self.bodies.run("spec", self.spec_round)
+        done_ev = self._copy_to_host([(self._tgt_host, self.tgt),
+                                      (self._nacc_host, self.n_acc)])
+        for ev in (held, done_ev):
+            if ev is not None:
+                ev.synchronize()
+        cur = self._toks_host.tolist()
+        tgt_h = self._tgt_host.tolist()
+        na_h = self._nacc_host.tolist()
+        for b, req in enumerate(self.active):
+            if req is None:
+                continue
+            n = na_h[b]
+            self.off_host[b] += n + 1
+            stops = req.stop if req.stop is not None else self.stop_tokens
+            # emitted this round: the held token + accepted drafts
+            # (tgt[b, :n] == drafts[b, :n]); tgt[b, n] is held for next
+            done = False
+            for t in [cur[b]] + tgt_h[b][:n]:
+                if t in stops:
+                    done = True
+                    break
+                req.out.append(t)
                 if req.emit:
-                    req.emit(None)
-                self.active[b] = None
-                self._release_slot(b)
-        self.toks = nxt
+                    req.emit(t)
+                if len(req.out) >= req.max_tokens:
+                    done = True
+                    break
+            # leave headroom for the next round's nd+1 transient writes
+            if self.off_host[b] >= self.max_len - self.nd - 2:
+                done = True
+            if done:
+                self._finish(b, req, finished)
         return finished
 
     def run_all(self, requests: List[Tuple[object, List[int], int]]
@@ -393,14 +565,18 @@ class PagedContinuousBatcher(ContinuousBatcher):
                  quantize_kv: bool = False, prefix_cache: bool = False,
                  chunk_forward_fn: Optional[Callable] = None,
                  chunk_hidden_forward_fn: Optional[Callable] = None,
-                 device=None):
+                 draft_forward_fn: Optional[Callable] = None,
+                 draft_params=None,
+                 draft_init_cache_fn: Optional[Callable] = None,
+                 num_draft_tokens: int = 4, device=None):
         """prefix_cache=True turns on automatic prefix caching: full pages
         of each adopted prompt are registered under a hash chain; later
         requests sharing that prefix map the SAME physical pages
         (ref-counted) and prefill only their suffix (through
         chunk_forward_fn when given: K2c at pos = the cached length).
         quantize_kv=True stores int8 pages with per-token scales. The pool
-        lives on ``device`` (default: the current CUDA device)."""
+        lives on ``device`` (default: the current CUDA device). The draft
+        arguments are the dense batcher's; the draft cache is dense."""
         device = resolve_device(device)
         if getattr(cfg, "deltanet", None) is not None \
                 or getattr(cfg, "mla", None) is not None \
@@ -439,15 +615,25 @@ class PagedContinuousBatcher(ContinuousBatcher):
         super().__init__(forward_fn, params, cfg, make_cache, slots=slots,
                          max_len=max_len, stop_tokens=stop_tokens,
                          prefill_forward_fn=prefill_forward_fn,
+                         draft_forward_fn=draft_forward_fn,
+                         draft_params=draft_params,
+                         draft_init_cache_fn=draft_init_cache_fn,
+                         num_draft_tokens=num_draft_tokens,
                          chunk_forward_fn=chunk_forward_fn,
                          chunk_hidden_forward_fn=chunk_hidden_forward_fn)
 
     # ----------------------------------------------------------- hooks -----
 
     def _sync_table(self):
-        """Copy the host table into the device table every layer shares
-        (stream-ordered: steps already queued still read the old one)."""
-        self.dev_table.copy_(torch.from_numpy(self.table))
+        """Copy the host table into the device table every layer shares,
+        in place (stream-ordered: steps already queued still read the old
+        one). On CUDA the copy leaves from a pinned block of PyTorch's
+        caching host allocator, which keeps the block until the copy has
+        run, so the host goes on without waiting for the device."""
+        src = torch.from_numpy(self.table)
+        if self.dev_table.is_cuda:
+            src = src.pin_memory()
+        self.dev_table.copy_(src, non_blocking=True)
 
     def _prefill_layers(self, b: int, bucket: int) -> list:
         return [KVCache.init(1, self.n_kv, bucket, self.hd, self.dtype,

@@ -19,14 +19,18 @@ HTTP threads hand each request to ONE inference thread
 chat requests (greedy and sampled) then go to a ``BatchedChatRunner``,
 whose own thread steps a shared slot decode over a dense or paged KV
 cache, with its own caches (the two threads never share a cache).
-Speculative decoding, tool calls and the audio / image / OCR endpoints are
-not ported yet: their routes answer 404 and a request that needs them
-answers 501.
+``Server.enable_speculative`` sends a model's greedy chat through a
+``core.speculative.SpeculativeEngine`` (a draft checkpoint, or the model's
+own first layers), and ``enable_batching`` with a draft makes its batcher
+speculative (greedy requests; sampled ones take the engine path). Tool
+calls and the audio / image / OCR endpoints are not ported yet: their
+routes answer 404 and a request that needs them answers 501.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import inspect
 import json
 import queue
@@ -35,6 +39,7 @@ import threading
 import time
 import traceback
 import uuid
+import warnings
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -43,7 +48,11 @@ import torch
 from ominix_mlx_tpu_torch import __version__
 from ominix_mlx_tpu_torch.core.generate import Engine
 from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
+from ominix_mlx_tpu_torch.core.speculative import SpeculativeEngine
 from ominix_mlx_tpu_torch.models import base
+from ominix_mlx_tpu_torch.ops.quant_matmul import (DECODE_M_MAX,
+                                                   PackedQuantizedTensor,
+                                                   route)
 from ominix_mlx_tpu_torch.serving.batching import (ContinuousBatcher,
                                                    PagedContinuousBatcher)
 from ominix_mlx_tpu_torch.utils.tokenizer import chatml
@@ -130,6 +139,50 @@ class ChatModel:
                                       self.device)
 
 
+def draft_for(model: ChatModel, draft_dir=None, draft_layers=None,
+              dtype=torch.bfloat16):
+    """A speculative draft for ``model`` (the JAX package's
+    ``enable_speculative`` / ``BatchedChatRunner`` rule): the checkpoint at
+    ``draft_dir`` on the model's device, or a self-draft of the model's
+    first ``draft_layers`` layers (default num_layers // 4, at least 1) on
+    the same weights: a family whose ``forward`` takes ``num_layers``
+    (MiniCPM-SALA) runs its own prefix, any other runs a config with
+    ``num_layers=n`` over the first n layers' params. Returns (forward,
+    params, init_cache(batch, max_len) -> ModelCache)."""
+    dev = model.device
+    if draft_dir is not None:
+        from ominix_mlx_tpu_torch.models import registry
+        dmod, dparams, dcfg = registry.load_model(draft_dir, device=dev)
+        return (lambda p, t, c: dmod.forward(p, dcfg, t, c), dparams,
+                lambda b, ml: dmod.init_cache(dcfg, b, ml, dtype, dev))
+    mod, cfg = model.module, model.cfg
+    n = draft_layers or max(1, cfg.num_layers // 4)
+    if "num_layers" in inspect.signature(mod.forward).parameters:
+        return (lambda p, t, c: mod.forward(p, cfg, t, c, num_layers=n),
+                model.params,
+                lambda b, ml: mod.init_cache(cfg, b, ml, dtype, dev))
+    dcfg = dataclasses.replace(cfg, num_layers=n)
+    dparams = dict(model.params)
+    dparams["layers"] = model.params["layers"][:n]
+    return (lambda p, t, c: mod.forward(p, dcfg, t, c), dparams,
+            lambda b, ml: mod.init_cache(dcfg, b, ml, dtype, dev))
+
+
+def dense_route_weights(params, rows: int) -> int:
+    """How many of ``params``' packed quantized weights take the dense
+    route (dequantized whole, then cuBLAS) at ``rows`` rows a call and a
+    kernel at DECODE_M_MAX rows: those that ``rows`` pushes past the
+    quantized-matmul kernels."""
+    if isinstance(params, PackedQuantizedTensor):
+        return int(rows > DECODE_M_MAX and route(params, rows) == "dense"
+                   and route(params, DECODE_M_MAX) != "dense")
+    if isinstance(params, dict):
+        params = params.values()
+    elif not isinstance(params, (list, tuple)):
+        return 0
+    return sum(dense_route_weights(v, rows) for v in params)
+
+
 class BatchedChatRunner:
     """Cross-request continuous batching for chat (serving/batching.py):
     HTTP threads submit token lists, ONE dedicated thread steps the shared
@@ -145,13 +198,23 @@ class BatchedChatRunner:
     2 <= M <= 16), adoption prefills up to 64 tokens K7, a lone row K6's
     w4a8, and a MoE model's experts K4's w4a8. Both quantize a copy of the
     model's weights, as the JAX package's ``consume=False`` does.
-    kv_bits=8 stores the paged pool as int8 pages."""
+    kv_bits=8 stores the paged pool as int8 pages. ``draft_dir`` or
+    ``draft_layers`` makes the batcher speculative (``draft_for``), with
+    ``num_draft_tokens`` a round. Its verify runs slots x (drafts + 1)
+    rows in one target forward: past DECODE_M_MAX (16) rows a packed
+    (group-quantized) weight takes the dense route, dequantized whole in
+    every round, which the round's graph pool holds (5634 MiB for
+    Qwen3-4B w4a8 at 8 slots and 4 drafts, on an H100), and whose bf16
+    products differ from a one-row step's, so answers can leave plain
+    greedy decoding's; the runner warns then. Channel w8a8
+    (``quantize_bits=8``) stays exact at any row count."""
 
     def __init__(self, model, slots: int = 4, max_len: int = 2048,
                  dtype=torch.bfloat16, paged: bool = False,
                  num_pages=None, page_size: int = 128,
                  quantize_bits=None, kv_bits=None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, draft_dir=None,
+                 draft_layers=None, num_draft_tokens: int = 4):
         if quantize_bits not in (None, 4, 8) or kv_bits not in (None, 8):
             raise ValueError(f"quantize_bits {quantize_bits!r} (None, 4 or "
                              f"8), kv_bits {kv_bits!r} (None or 8)")
@@ -171,20 +234,44 @@ class BatchedChatRunner:
         cfwd = lambda p, t, c, kl: mod.forward(p, cfg, t, c, kv_limit=kl)
         hfwd = lambda p, t, c, kl: mod.forward(p, cfg, t, c, kv_limit=kl,
                                                skip_logits=True)
+        spec_kw = {}
+        if draft_dir is not None or draft_layers is not None:
+            # drafts verify across all slots in one [slots, nd + 1] target
+            # forward (greedy requests only)
+            dfwd, dparams, dinit = draft_for(model, draft_dir, draft_layers,
+                                             dtype)
+            spec_kw = dict(draft_forward_fn=dfwd, draft_params=dparams,
+                           draft_init_cache_fn=dinit,
+                           num_draft_tokens=num_draft_tokens)
+            rows = slots * (num_draft_tokens + 1)
+            n_dense = dense_route_weights(params, rows)
+            if n_dense:
+                warnings.warn(
+                    f"speculative batching verifies {rows} rows ({slots} "
+                    f"slots x {num_draft_tokens + 1}), past the "
+                    f"{DECODE_M_MAX} rows of the quantized-matmul kernels: "
+                    f"{n_dense} packed weights take the dense route, "
+                    "dequantized whole every round (the round's graph "
+                    "pool holds them), and answers can leave plain greedy "
+                    "decoding's. Keep slots x (drafts + 1) <= "
+                    f"{DECODE_M_MAX}, or serve channel w8a8 "
+                    "(quantize_bits=8).", stacklevel=2)
         if paged or kv_bits or prefix_cache:
             self.batcher = PagedContinuousBatcher(
                 fwd, params, cfg, slots=slots, max_len=max_len,
                 num_pages=num_pages, page_size=page_size, dtype=dtype,
                 prefill_forward_fn=pfwd, quantize_kv=kv_bits == 8,
                 prefix_cache=prefix_cache, chunk_forward_fn=cfwd,
-                chunk_hidden_forward_fn=hfwd, device=model.device)
+                chunk_hidden_forward_fn=hfwd, device=model.device,
+                **spec_kw)
         else:
             self.batcher = ContinuousBatcher(
                 fwd, params, cfg,
                 lambda c, b, ml: mod.init_cache(c, b, ml, dtype,
                                                 model.device),
                 slots=slots, max_len=max_len, prefill_forward_fn=pfwd,
-                chunk_forward_fn=cfwd, chunk_hidden_forward_fn=hfwd)
+                chunk_forward_fn=cfwd, chunk_hidden_forward_fn=hfwd,
+                **spec_kw)
         self.thread = threading.Thread(target=self._run, daemon=True)
         self.thread.start()
 
@@ -227,12 +314,14 @@ class BatchedChatRunner:
                         traceback.print_exc(file=sys.stderr)
 
     def stop(self, timeout: float = 10.0):
-        """End the stepping thread; queued and in-flight requests end."""
+        """End the stepping thread; queued and in-flight requests end, and
+        the batcher's captured graphs and their pool are freed."""
         self._stop.set()
         self.wake.set()
         self.thread.join(timeout)
         with self.lock:
             self.batcher.abort_all("the server is shutting down")
+            self.batcher.close()
 
 
 class InferenceWorker:
@@ -268,6 +357,8 @@ class Server:
         self.host, self.port = host, port
         self.models: dict = {}
         self.batchers: dict = {}
+        self.spec: dict = {}        # name -> (SpeculativeEngine, draft
+        #                             init_cache, num_draft_tokens)
         self.worker = InferenceWorker()
         self.request_timeout_s = request_timeout_s
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -338,7 +429,8 @@ class Server:
                         num_pages=None, page_size: int = 128,
                         quantize_bits=None, kv_bits=None,
                         prefix_cache: bool = False,
-                        draft_dir=None, draft_layers=None):
+                        draft_dir=None, draft_layers=None,
+                        num_draft_tokens: int = 4):
         """Turn on continuous batching for a loaded chat model: concurrent
         requests share one slot decode step instead of queueing on the
         inference thread. ``paged=True`` backs the slots with a shared
@@ -346,17 +438,48 @@ class Server:
         CUDA); ``kv_bits=8`` stores it as int8 pages; ``prefix_cache=True``
         reuses pool pages across requests sharing a prompt prefix (both
         imply ``paged``). ``quantize_bits``: 8 = channelwise w8a8, 4 =
-        group w4, batched (see ``BatchedChatRunner``). Speculative batching (``draft_dir`` or
-        ``draft_layers``) is not ported and raises NotImplementedError."""
-        if draft_dir is not None or draft_layers is not None:
-            raise NotImplementedError(
-                "speculative batching is not ported to the torch package "
-                "yet")
-        self.batchers[name] = BatchedChatRunner(
+        group w4, batched (see ``BatchedChatRunner``). ``draft_dir`` or
+        ``draft_layers`` makes the batcher speculative: each step one
+        draft-and-verify round of ``num_draft_tokens`` for every slot
+        (greedy requests; sampled ones take the engine path). A batcher
+        enabled again replaces the old one, which stops and frees its
+        graphs."""
+        runner = BatchedChatRunner(
             self.models[name], slots=slots, max_len=max_len, dtype=dtype,
             paged=paged, num_pages=num_pages, page_size=page_size,
             quantize_bits=quantize_bits, kv_bits=kv_bits,
-            prefix_cache=prefix_cache)
+            prefix_cache=prefix_cache, draft_dir=draft_dir,
+            draft_layers=draft_layers, num_draft_tokens=num_draft_tokens)
+        old, self.batchers[name] = self.batchers.get(name), runner
+        if old is not None:
+            old.stop()
+
+    def enable_speculative(self, name: str, draft_dir: str = None,
+                           draft_layers: int = None,
+                           num_draft_tokens: int = 4):
+        """Speculative decoding for greedy chat on ``name``: a separate
+        draft checkpoint (``draft_dir``) or self-speculation on the first
+        ``draft_layers`` layers of the same weights (``draft_for``). Output
+        is token for token plain greedy decoding's where the target's
+        products do not depend on the rows a call takes (bf16, channel
+        w8a8). Group-quantized w4a8 verifies nd + 1 rows by the dq
+        formula (bf16 activations) where a one-row step takes the P
+        formula (int8 activations), as the JAX package's A3 and A1 do, so
+        its tokens can leave greedy's (on random Qwen3-4B w4a8 weights at
+        token 37 of 64); a hybrid model's recurrent layers roll back
+        approximately, as in the JAX package."""
+        m = self.models[name]
+        dfwd, dparams, dinit = draft_for(m, draft_dir, draft_layers,
+                                         m.kv_dtype)
+        mod, cfg = m.module, m.cfg
+        kw = {}
+        if "fresh_prefill" in inspect.signature(mod.forward).parameters:
+            kw["target_prefill_forward"] = lambda p, t, c: mod.forward(
+                p, cfg, t, c, fresh_prefill=True)
+        eng = SpeculativeEngine(
+            lambda p, t, c: mod.forward(p, cfg, t, c), m.params, dfwd,
+            dparams, num_draft_tokens=num_draft_tokens, **kw)
+        self.spec[name] = (eng, dinit, num_draft_tokens)
 
     # ---------------------------------------------------------- handlers ----
 
@@ -394,6 +517,11 @@ class Server:
         timeout_s = float(body.get("timeout_s", self.request_timeout_s))
         seed = int(body.get("seed", 0))
         runner = self.batchers.get(name)
+        if runner is not None and runner.batcher.spec \
+                and sampler.temperature > 0:
+            # a speculative batcher verifies greedily: sampled requests
+            # take the per-request engine path
+            runner = None
         if runner is not None:
             return self._chat_batched(runner, m, name, tokens, max_tokens,
                                       stops, send_chunk, timeout_s, rid,
@@ -410,22 +538,32 @@ class Server:
                                      "delta": {"content": delta},
                                      "finish_reason": None}]})
 
+        # greedy requests on a speculative model decode draft-then-verify,
+        # token for token plain greedy decoding's
+        spec = self.spec.get(name) if sampler.temperature == 0 else None
+
+        def tokens_out():
+            prompt = torch.tensor(tokens, dtype=torch.long, device=m.device)
+            if spec is not None:
+                eng, dinit, nd = spec
+                cap = len(tokens) + max_tokens + 2 * nd + 8
+                return eng.generate(prompt, m.init_cache(cap),
+                                    dinit(1, cap), max_tokens=max_tokens,
+                                    stop_tokens=tuple(stops))
+            gen = None
+            if sampler.temperature > 0:
+                gen = torch.Generator(device=m.device)
+                gen.manual_seed(seed)
+            return m.engine(sampler).generate(
+                prompt, m.init_cache(len(tokens) + max_tokens + 8),
+                max_tokens=max_tokens, stop_tokens=tuple(stops),
+                generator=gen)
+
         def run():
             try:
-                engine = m.engine(sampler)
-                cache = m.init_cache(len(tokens) + max_tokens + 8)
-                gen = None
-                if sampler.temperature > 0:
-                    gen = torch.Generator(device=m.device)
-                    gen.manual_seed(seed)
-                prompt = torch.tensor(tokens, dtype=torch.long,
-                                      device=m.device)
                 out_ids = []
                 matched = None
-                for tok in engine.generate(prompt, cache,
-                                           max_tokens=max_tokens,
-                                           stop_tokens=tuple(stops),
-                                           generator=gen):
+                for tok in tokens_out():
                     if cancel.is_set():
                         break
                     out_ids.append(tok)
@@ -694,11 +832,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="reuse KV pages across requests that share a "
                          "prompt prefix; implies --batch-paged")
     ap.add_argument("--draft-model", default=None,
-                    help="draft checkpoint for speculative decoding (not "
-                         "ported: raises)")
+                    help="draft checkpoint for speculative greedy decode "
+                         "(applies to the first chat model, or to every "
+                         "batched one)")
     ap.add_argument("--draft-layers", type=int, default=None,
-                    help="self-speculation on the first N layers (not "
-                         "ported: raises)")
+                    help="self-speculation on the first N layers instead "
+                         "of a separate draft checkpoint")
     ap.add_argument("--draft-tokens", type=int, default=4)
     return ap.parse_args(argv)
 
@@ -706,12 +845,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build_server(args: argparse.Namespace, device=None) -> Server:
     """A Server with every ``--model`` loaded (on ``device``, default the
     current CUDA device) and, with ``--batch-slots``, batching enabled on
-    each. Speculative decoding (``--draft-*``) raises
-    NotImplementedError."""
-    if args.draft_model or args.draft_layers:
-        raise NotImplementedError(
-            "speculative decoding (--draft-model, --draft-layers) is not "
-            "ported to the torch package yet")
+    each (speculative with ``--draft-model`` or ``--draft-layers``);
+    without it, ``--draft-*`` turns on speculative decoding for the first
+    model (the JAX package's ``main``)."""
+    drafted = bool(args.draft_model or args.draft_layers)
+    spec_kw = dict(draft_dir=args.draft_model,
+                   draft_layers=args.draft_layers,
+                   num_draft_tokens=args.draft_tokens) if drafted else {}
     srv = Server(args.host, args.port)
     for spec in args.model:
         name, _, path = spec.rpartition("=")
@@ -724,7 +864,9 @@ def build_server(args: argparse.Namespace, device=None) -> Server:
                 paged=(args.batch_paged or bool(args.kv_bits)
                        or args.prefix_cache),
                 num_pages=args.batch_num_pages, kv_bits=args.kv_bits,
-                prefix_cache=args.prefix_cache)
+                prefix_cache=args.prefix_cache, **spec_kw)
+        elif drafted and not srv.spec:
+            srv.enable_speculative(name, **spec_kw)
     return srv
 
 

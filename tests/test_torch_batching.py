@@ -242,8 +242,8 @@ def test_paged_batcher_preemption_matches_jax(params):
 
 def test_sampled_row_leaves_greedy_rows_alone(params):
     """A sampled request batched beside greedy ones changes none of their
-    tokens; the same seed draws the same tokens; a greedy row draws no
-    random numbers (its generator is never made)."""
+    tokens; the same seed draws the same tokens; with no sampled request
+    no step runs the sampled body (its filters and draw)."""
     _, tp = params
 
     def run(sampled, seed=1):
@@ -256,10 +256,10 @@ def test_sampled_row_leaves_greedy_rows_alone(params):
                 temperature=1.2, top_k=20, top_p=0.9), seed=seed)
         cb.submit("g2", [9, 1, 4], 8)
         out = cb.run_all([])
-        return out, cb.gens
+        return out, cb.sampled_steps
 
-    alone, gens = run(False)
-    assert all(g is None for g in gens)
+    alone, sampled_steps = run(False)
+    assert sampled_steps == 0
     mixed, _ = run(True)
     again, _ = run(True)
     assert mixed["g1"] == alone["g1"] and mixed["g2"] == alone["g2"]
@@ -270,7 +270,8 @@ def test_sampled_row_leaves_greedy_rows_alone(params):
 def test_batcher_abort_cancel_and_unported_options(params):
     """abort_all fails every request with an error of its own (never the
     None of a finished request); cancel frees a slot and ends with None;
-    the batchers take no speculative (draft) arguments; an oversize
+    the draft arguments make a working speculative batcher (its greedy
+    outputs the plain batcher's, sampled requests refused); an oversize
     prompt is refused; a prompt the pool can never hold fails with a
     ValueError."""
     _, tp = params
@@ -292,12 +293,19 @@ def test_batcher_abort_cancel_and_unported_options(params):
     assert len(cb.alloc.free) == cb.num_pages - 1
     with pytest.raises(ValueError):
         cb.submit("big", list(range(64)), 4)
-    with pytest.raises(TypeError):
-        tb.ContinuousBatcher(
+    def dense(**kw):
+        return tb.ContinuousBatcher(
             _tfwd(), tp, TCFG,
             lambda cfg, b, ml: tbase.init_cache(cfg, b, ml, torch.float32,
-                                            "cpu"),
-            draft_forward_fn=_tfwd(), draft_params=tp)
+                                                "cpu"), max_len=64, **kw)
+
+    spec = dense(draft_forward_fn=_tfwd(), draft_params=tp,
+                 draft_init_cache_fn=lambda b, ml: tbase.init_cache(
+                     TCFG, b, ml, torch.float32, "cpu"), num_draft_tokens=2)
+    with pytest.raises(ValueError, match="greedily"):
+        spec.submit("s", [3, 7], 4, sampler=SamplerConfig(temperature=0.8))
+    reqs = [("a", [3, 7, 11], 6), ("b", [5, 2], 5)]
+    assert spec.run_all(reqs) == dense().run_all(reqs)
     small = tb.PagedContinuousBatcher(_tfwd(), tp, TCFG, slots=2,
                                       max_len=64, page_size=4, num_pages=4,
                                       dtype=torch.float32, device="cpu")

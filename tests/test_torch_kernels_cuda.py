@@ -8,6 +8,7 @@ installed:
 """
 
 import dataclasses
+import gc
 
 import pytest
 import torch
@@ -2806,7 +2807,7 @@ def test_decode_graph_replays_the_eager_body(cuda, name):
             got.append((step.logits.clone(), step.tok.clone()))
         step.close()
         graph_launches = _launch_counts()
-    assert step.record is not None and step.capture_ms > 0
+    assert 0 in step.captured.records and step.captured.capture_ms[0] > 0
     assert graph_launches == eager_launches and eager_launches
     for i, ((wl, wt), (gl, gt)) in enumerate(zip(want, got)):
         assert torch.equal(gl, wl), f"logits of step {i}"
@@ -2906,8 +2907,238 @@ def test_decode_graph_capture_raises_on_a_host_sync(cuda):
     eng.forward_fn = syncing
     with torch.inference_mode():
         step = eng.decode_step(cache, tok.clone())
-        with pytest.raises(RuntimeError):
+        with pytest.raises(RuntimeError) as e:
             step()
-        assert step.graph is None
+        assert not step.captured.graphs
+    # the step, its pool and the traceback go; the process goes on
+    del step, e
+    gc.collect()
     x = torch.ones(4, device=cuda)
     assert float((x * 2).sum()) == 8.0
+
+
+# ------------------------------------- the batcher's step and speculation --
+
+def _eager_bodies(monkeypatch):
+    """Make every ``CapturedBodies.run`` call its body eagerly, under
+    set_sync_debug_mode("error") (a host sync in a body raises)."""
+    from ominix_mlx_tpu_torch.core.generate import CapturedBodies
+
+    def eager(self, key, body):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return body()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    monkeypatch.setattr(CapturedBodies, "run", eager)
+
+
+def _batcher(dev, name, slots=4, spec=False):
+    """A dense (qwen3) or paged int8 (qwen3_paged) batcher of
+    ``_graph_family``'s model at 4 slots; ``spec``: a self-draft of the
+    first layer, 3 tokens a round."""
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.serving import batching
+
+    mod, cfg, params, _, _ = _graph_family(dev, name)
+    fwd = lambda p, t, c: mod.forward(p, cfg, t, c)
+    kw = dict(prefill_forward_fn=lambda p, t, c: mod.forward(
+        p, cfg, t, c, fresh_prefill=True))
+    if spec:
+        dcfg = dataclasses.replace(cfg, num_layers=1)
+        kw.update(draft_forward_fn=lambda p, t, c: mod.forward(
+            p, dcfg, t, c), draft_params=dict(params,
+                                             layers=params["layers"][:1]),
+                  draft_init_cache_fn=lambda b, ml: base.init_cache(
+                      dcfg, b, ml, device=dev), num_draft_tokens=3)
+    if name == "qwen3_paged":
+        return batching.PagedContinuousBatcher(
+            fwd, params, cfg, slots=slots, max_len=256, page_size=16,
+            quantize_kv=True, device=dev, **kw)
+    return batching.ContinuousBatcher(
+        fwd, params, cfg,
+        lambda c, b, ml: base.init_cache(c, b, ml, device=dev),
+        slots=slots, max_len=256, **kw)
+
+
+def _drive(cb, mixed, steps=12):
+    """Five requests on four slots (one waits for a slot), two sampled
+    when ``mixed``; each step's logits, the tokens out and the launch
+    counts."""
+    from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
+
+    g = torch.Generator().manual_seed(4)
+    for i in range(5):
+        sampler = (SamplerConfig(temperature=0.9, top_k=40, top_p=0.9)
+                   if mixed and i in (1, 3) else None)
+        cb.submit(i, torch.randint(1, 500, (7 + 5 * i,),
+                                   generator=g).tolist(), 8 + i,
+                  sampler=sampler, seed=100 + i)
+    _build.reset_launches()
+    logits, done = [], {}
+    with torch.inference_mode():
+        for _ in range(steps):
+            for rid, out in cb.step():
+                done[rid] = out
+            logits.append(cb.logits.clone())
+        torch.cuda.synchronize()
+    return logits, done, _launch_counts()
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("name", ["qwen3", "qwen3_paged"])
+def test_batch_step_graph_replays_the_eager_body(cuda, monkeypatch, name,
+                                                 mixed):
+    """The continuous batcher's step on a dense cache and on a paged int8
+    pool, greedy and mixed (two sampled requests): 12 steps replayed from
+    its captured bodies give every step's logits, every request's tokens
+    and the launch counts of the same steps with each body run eagerly
+    (under set_sync_debug_mode("error")), bit for bit; the mixed run
+    captures both bodies into one pool; close() frees them."""
+    got = _drive(_batcher(cuda, name), mixed)
+    cb = _batcher(cuda, name)
+    assert cb.bodies.graphs == {}
+    with monkeypatch.context() as m:
+        _eager_bodies(m)
+        want = _drive(cb, mixed)
+    assert got[1] == want[1] and len(got[1]) >= 3
+    assert got[2] == want[2] and got[2]
+    for i, (a, b) in enumerate(zip(got[0], want[0])):
+        assert torch.equal(a, b), f"logits of step {i}"
+
+
+def test_batch_step_capture_keys_and_close(cuda):
+    """A mixed run (its sampled requests end before the last greedy one)
+    captures the sampled and the greedy body into one pool (both keys,
+    the pool's bytes kept); close() drops them, and a later step captures
+    anew."""
+    cb = _batcher(cuda, "qwen3")
+    _drive(cb, True, steps=30)
+    assert set(cb.bodies.graphs) == {"greedy", "sampled"}
+    assert cb.bodies.pool_bytes > 0 and cb.sampled_steps >= 1
+    cb.close()
+    assert cb.bodies.graphs == {}
+    cb.submit("late", [5, 6, 7], 4)
+    with torch.inference_mode():
+        while cb.pending():
+            cb.step()
+    assert cb.bodies.graphs
+
+
+@pytest.mark.parametrize("name", ["qwen3", "qwen3_moe_w4", "qwen3_paged"])
+def test_spec_batcher_round_replays_the_eager_body(cuda, monkeypatch, name):
+    """One speculative round for every slot (a first-layer self-draft,
+    3 drafts, dense cache; qwen3_paged: the target's KV in a paged int8
+    pool of 16-token pages), replayed: the target logits of every round,
+    every request's tokens and the launch counts equal the rounds run
+    eagerly, bit for bit. On the MoE model the verify's 4 slots x 4 rows
+    pass 8 rows, so its experts take K5 inside the captured round. On the
+    paged pool requests take new pages between replays (each round
+    reserves nd + 1 positions past the offset)."""
+    def paged_growth(cb):
+        """Wrap the batcher's _pre_step: the slots that took a page."""
+        grew, pre = [], cb._pre_step
+
+        def counting():
+            before = {b: len(cb.alloc.owned.get(b, []))
+                      for b, r in enumerate(cb.active) if r is not None}
+            pre()
+            grew.extend(b for b, n in before.items()
+                        if cb.active[b] is not None
+                        and len(cb.alloc.owned.get(b, [])) > n)
+
+        cb._pre_step = counting
+        return grew
+
+    cb = _batcher(cuda, name, spec=True)
+    grew = paged_growth(cb) if name == "qwen3_paged" else None
+    got = _drive(cb, False)
+    with monkeypatch.context() as m:
+        _eager_bodies(m)
+        want = _drive(_batcher(cuda, name, spec=True), False)
+    if name == "qwen3_moe_w4":
+        assert got[2].get("k5_w4", 0) > 0 and got[2].get("k4", 0) > 0
+    if name == "qwen3_paged":
+        assert grew
+    assert got[1] == want[1] and len(got[1]) >= 3
+    assert got[2] == want[2] and got[2]
+    for i, (a, b) in enumerate(zip(got[0], want[0])):
+        assert torch.equal(a, b), f"logits of round {i}"
+
+
+@pytest.mark.parametrize("name", GRAPH_FAMILIES)
+def test_spec_engine_round_replays_the_eager_body(cuda, monkeypatch, name):
+    """SpeculativeEngine.generate_scan with a self-draft (the first layer;
+    MiniCPM-SALA its forward(num_layers=2)), 3 drafts a round, on each
+    family, and with the target itself as the draft: the replayed rounds
+    give the tokens, the rounds, the acceptance and the launch counts of
+    the same rounds run eagerly (under set_sync_debug_mode("error"))."""
+    from ominix_mlx_tpu_torch.core.speculative import (SpecStats,
+                                                       SpeculativeEngine)
+    from ominix_mlx_tpu_torch.serving.server import ChatModel, draft_for
+
+    mod, cfg, params, make_cache, T = _graph_family(cuda, name)
+    model = ChatModel(name, params, cfg, None, cuda, mod)
+    dfwd, dparams, dinit = draft_for(model, draft_layers=(
+        2 if name == "minicpm_sala" else 1))
+    fwd = lambda p, t, c: mod.forward(p, cfg, t, c)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    prompt = torch.randint(1, 500, (T,), generator=g, device=cuda)
+    cap = 1024 if name == "minicpm_sala" else 256
+
+    def run(draft):
+        eng = SpeculativeEngine(fwd, params, draft[0], draft[1],
+                                num_draft_tokens=3)
+        st = SpecStats()
+        _build.reset_launches()
+        toks, rounds = eng.generate_scan(
+            prompt, make_cache(1, cap), draft[2](1, cap) if len(draft) > 2
+            else make_cache(1, cap), max_tokens=16, stats=st)
+        torch.cuda.synchronize()
+        return toks, rounds, st, _launch_counts()
+
+    self_draft = (dfwd, dparams)
+    whole = (fwd, params)
+
+    def both(draft):
+        got = run(draft)
+        with monkeypatch.context() as m:
+            _eager_bodies(m)
+            want = run(draft)
+        return got, want
+
+    for draft in (self_draft + (dinit,), whole):
+        got, want = both(draft)
+        assert got[0] == want[0] and len(got[0]) == 16
+        assert got[1:3] == want[1:3] and got[3] == want[3] and got[3]
+
+
+def test_spec_engine_capture_raises_on_a_host_sync(cuda):
+    """A host read planted in the draft's forward makes the round's
+    capture raise: no eager fallback runs."""
+    from ominix_mlx_tpu_torch.core.speculative import SpeculativeEngine
+
+    mod, cfg, params, make_cache, T = _graph_family(cuda, "qwen3")
+    fwd = lambda p, t, c: mod.forward(p, cfg, t, c)
+
+    def syncing(p, t, c):
+        lg, c = fwd(p, t, c)
+        float(lg.sum())
+        return lg, c
+
+    eng = SpeculativeEngine(fwd, params, syncing, params, 2)
+    prompt = torch.arange(1, T + 1, device=cuda)
+    with torch.inference_mode(), pytest.raises(RuntimeError) as e:
+        eng.generate_scan(prompt, make_cache(1, 128), make_cache(1, 128),
+                          max_tokens=8)
+    # the failed capture's pool goes with its traceback, and the process
+    # goes on (a pool freed with a graph's hold left would abort it)
+    del e
+    gc.collect()
+    assert float(torch.ones(2, device=cuda).sum()) == 2.0
+    eng.df = fwd
+    with torch.inference_mode():
+        toks, _ = eng.generate_scan(prompt, make_cache(1, 128),
+                                    make_cache(1, 128), max_tokens=8)
+    assert len(toks) == 8

@@ -491,7 +491,8 @@ def test_registry_loads_the_checkpoint_as_the_jax_registry(checkpoint):
 def test_server_serves_the_checkpoint(checkpoint):
     """Server.load_model then chat completions one at a time and on the
     dense continuous batcher (the same greedy answer); the paged batcher
-    and a speculative draft are refused."""
+    and a speculative batcher (the JAX package's ValueError for recurrent
+    layers) are refused."""
     srv = tserver.Server(port=0)
     body = {"model": "m", "max_tokens": 4,
             "messages": [{"role": "user", "content": "hi there"}]}
@@ -502,7 +503,7 @@ def test_server_serves_the_checkpoint(checkpoint):
         assert 1 <= one["usage"]["completion_tokens"] <= 4
         with pytest.raises(ValueError, match="hybrid"):
             srv.enable_batching("m", slots=2, max_len=64, paged=True)
-        with pytest.raises(NotImplementedError, match="speculative"):
+        with pytest.raises(ValueError, match="recurrent"):
             srv.enable_batching("m", slots=2, max_len=64, draft_layers=1)
         srv.enable_batching("m", slots=2, max_len=64, dtype=torch.float32)
         batched = srv.chat_completion(dict(body))

@@ -202,12 +202,39 @@ def test_main_flags_reach_enable_batching(checkpoint, monkeypatch):
         srv.shutdown()
 
 
-@pytest.mark.parametrize("flag", [["--draft-model", "/nowhere"],
+@pytest.fixture(scope="module")
+def draft_checkpoint(tmp_path_factory):
+    """A second tiny checkpoint: other weights, one layer, the same
+    vocabulary."""
+    cfg_json = dict(CFG_JSON, num_hidden_layers=1)
+    params = jbase.init_params(jbase.TransformerConfig.from_hf(cfg_json),
+                               jax.random.PRNGKey(5), jnp.float32)
+    d = str(tmp_path_factory.mktemp("draft") / "tiny-draft")
+    return _write_dir(d, _hf_flat(params), cfg_json)
+
+
+@pytest.mark.parametrize("flag", [["--draft-model", "DRAFT"],
                                   ["--draft-layers", "2"]])
-def test_main_draft_flags_raise(flag, checkpoint):
-    args = tserver.parse_args(["--model", checkpoint, *flag])
-    with pytest.raises(NotImplementedError, match="speculative"):
-        tserver.build_server(args, device="cpu")
+def test_main_draft_flags_raise(flag, checkpoint, draft_checkpoint):
+    """``--draft-model DIR`` (a second checkpoint) and ``--draft-layers N``
+    (a self-draft) turn on speculative decoding for the model, which
+    serves plain greedy decoding's answer."""
+    flag = [draft_checkpoint if f == "DRAFT" else f for f in flag]
+    body = {"model": "tiny", "max_tokens": 8,
+            "messages": [{"role": "user", "content": "hi there"}]}
+    answers = []
+    for extra in ([], flag):
+        srv = tserver.build_server(tserver.parse_args(
+            ["--model", f"tiny={checkpoint}", "--draft-tokens", "3",
+             *extra]), device="cpu")
+        try:
+            assert bool(srv.spec) == bool(extra)
+            answers.append(srv.chat_completion(dict(body)))
+        finally:
+            srv.shutdown()
+    assert srv.spec["tiny"][2] == 3
+    assert answers[1]["choices"] == answers[0]["choices"]
+    assert answers[1]["usage"] == answers[0]["usage"]
 
 
 @pytest.mark.parametrize("model_type,family", [

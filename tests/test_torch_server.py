@@ -10,13 +10,16 @@ import socket
 import threading
 import urllib.error
 import urllib.request
+import warnings
 
 import pytest
 import torch
 
 from ominix_mlx_tpu_torch.core.sampling import SamplerConfig
 from ominix_mlx_tpu_torch.models import base
-from ominix_mlx_tpu_torch.serving.server import ChatModel, Server
+from ominix_mlx_tpu_torch.serving.server import (BatchedChatRunner,
+                                                 ChatModel, Server,
+                                                 dense_route_weights)
 from ominix_mlx_tpu_torch.utils.tokenizer import chatml
 
 torch.set_num_threads(2)
@@ -234,16 +237,42 @@ def test_batched_concurrent_chat_equals_unbatched(served_batched):
 
 
 def test_batched_speculative_answers_501(served_batched):
-    """Speculative batching is not ported: enabling it raises
-    NotImplementedError, and a request needing an unported feature on the
-    batched model still answers 501."""
+    """Speculative batching serves: a self-draft batcher on "solo" gives
+    the greedy answer its per-request path gave; a request needing an
+    unported feature on the batched model still answers 501."""
     srv = served_batched
-    with pytest.raises(NotImplementedError):
-        srv.enable_batching("solo", draft_layers=1)
+    want = _chat_text(srv, "solo", "hello there")
+    srv.enable_batching("solo", draft_layers=1, max_len=256,
+                        dtype=torch.float32)
+    try:
+        assert srv.batchers["solo"].batcher.spec
+        assert _chat_text(srv, "solo", "hello there") == want
+    finally:
+        srv.batchers.pop("solo").stop()
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(srv, {"model": "batched", "messages": MSGS,
                     "tools": [{"type": "x"}]})
     assert e.value.code == 501
+
+
+def test_speculative_batching_warns_past_the_kernel_rows(served):
+    """A speculative batcher whose verify runs more rows than the
+    quantized-matmul kernels take (4 slots x 5 = 20 > 16) warns that its
+    packed w4a8 weights take the dense route (every projection of the
+    tiny model: 2 layers x 4, the embedding as lm_head); at 3 slots x 5 =
+    15 rows nothing warns."""
+    _, model = served
+    assert dense_route_weights(model.params, 20) > 0
+    assert dense_route_weights(model.params, 16) == 0
+    with pytest.warns(UserWarning, match="dense route"):
+        runner = BatchedChatRunner(model, slots=4, max_len=64,
+                                   draft_layers=1, num_draft_tokens=4)
+    runner.stop()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        runner = BatchedChatRunner(model, slots=3, max_len=64,
+                                   draft_layers=1, num_draft_tokens=4)
+    runner.stop()
 
 
 def test_batched_step_error_answers_500(served_batched):
