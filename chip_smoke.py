@@ -89,7 +89,26 @@ Qwen3-30B-A3B with random weights (seeded):
     last 2 tokens) and 16 decode steps that select the top 64 of about 190
     blocks, 8 concurrent requests on the dense batcher each equal to the
     same request alone, and decode over caches filled to 65536 and 524288
-    tokens (ms/token, K11's share).
+    tokens (ms/token, K11's share);
+  - serve_moxin: Moxin-7B at its published widths (DINOv2 ViT-L/14 with
+    4 registers and SigLIP SO400M/14 at 224 px, bf16; the 2176 -> 8704 ->
+    4096 -> 4096 projector; the Mistral-7B decoder at w8a8 g64 on panels),
+    registered with Server.add_model beside its decoder as a chat model:
+    over HTTP at once a content-array chat with a 320x240 PNG data URI, a
+    /v1/describe and a plain chat (K2 at each prefill, K1's 8-bit P
+    formula at each decode step), the image chat equal to the model's own
+    chat; the towers' ms, the decoder's prefill ms, the replayed decode
+    tok/s, the decoder's logits check on 2 layers, and the request against
+    its plain version (pipeline_vs_plain: the prefill's logits, the greedy
+    tokens);
+  - serve_ocr2: DeepSeek-OCR-2 at its published widths (SAM ViT-B/16 at
+    1024 px with the 896-channel adapter, the 24-layer Qwen2 visual flow,
+    the 896 -> 1280 projector, the 12-layer MoE decoder at w4a8 g64, 64
+    experts top 6, 2 shared, layer 0 dense): /v1/ocr on a PNG and on a
+    one-page PDF (K2 and K5 at the prefill, K4 and K1 at decode), SAM's
+    and the flow's ms, the prefill ms, the replayed decode tok/s and the
+    gathered K = 896 down projection's share of a step, the decoder's
+    logits check on 2 layers, and the request against its plain version.
 
   - batcher_graph (Qwen3-4B channel w8a8 over a dense cache and a paged
     int8 pool, Qwen3-30B-A3B w4a8 paged, MiniCPM-SALA dense): the
@@ -604,6 +623,18 @@ PREFILL_LEN, PREFILL_CHUNK = 8192, 2048
 # that control is reported, not held: the CPU tests hold the carry in
 # float32 (tests/test_torch_qwen3_next.py, chunked vs whole at 2e-4)
 HYBRID_PREFILL_TOL = LOGITS_TOL
+# - DeepSeek-OCR-2's decoder, w4a8 on panels with 4-bit experts (K = 896
+#   down projections gathered): sound up to 1.94e-2 (the kernel path and
+#   K1 alone; K2 alone and the reversed control 1.29e-2; K4 and K5 alone
+#   0.0), the fault 0.145
+OCR2_LOGITS_TOL = 5e-2
+# an image request (serve_moxin, serve_ocr2) through the kernels against
+# the same request through the plain versions, at full depth: the
+# prefill's last-position logits (max error over max |plain|; read
+# 1.24e-2 on Moxin-7B, 6.3e-3 on DeepSeek-OCR-2), and the plain logit gap
+# of any greedy token the two runs choose differently (read 7.0e-3, one
+# bf16 step of the largest logit, at 2 of Moxin's 16 steps)
+IMAGE_LOGITS_TOL = 5e-2
 BATCH = 8
 # decode_graph: replays after the warm-up, and steps a turn of the timing
 GRAPH_STEPS = 16
@@ -6638,6 +6669,483 @@ def load_checkpoint(dev, smi):
     return row["quantized_launches"]
 
 
+# ------------------------------------------------- VLM and OCR pipelines ----
+
+# serve_moxin / serve_ocr2: tokens each image request decodes in the
+# kernel-vs-plain comparison, and the rows of its report
+IMAGE_DECODE = 16
+
+
+def image_png(h: int, w: int, seed: int) -> bytes:
+    """A random RGB image of h x w as PNG bytes."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    arr = np.random.default_rng(seed).integers(0, 256, (h, w, 3), np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "PNG")
+    return buf.getvalue()
+
+
+def one_page_pdf(seed: int) -> bytes:
+    """A one-page PDF holding one embedded JPEG page (768 x 576), built in
+    memory as tests/test_vlm.py builds one."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    img = Image.fromarray(np.random.default_rng(seed).integers(
+        0, 256, (768, 576, 3), np.uint8))
+    buf = io.BytesIO()
+    img.save(buf, format="JPEG")
+    jpeg = buf.getvalue()
+    return (b"%PDF-1.4\n1 0 obj\n<< /Subtype /Image /Width 576 /Height 768 "
+            b"/ColorSpace /DeviceRGB /BitsPerComponent 8 /Filter /DCTDecode "
+            b"/Length " + str(len(jpeg)).encode() + b" >>\nstream\n"
+            + jpeg + b"\nendstream\nendobj\n%%EOF")
+
+
+def post_json(port, path, body) -> dict:
+    """POST a JSON body to ``path``; the JSON answer (raises unless 200)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200:
+            raise RuntimeError(f"{path}: HTTP {r.status}")
+        return json.loads(r.read())
+
+
+def wall_ms(call, n: int = 3) -> float:
+    """Best host wall time of ``call`` over n runs after one warm-up, each
+    ended by a synchronize (a whole stage: towers, a prefill)."""
+    with torch.inference_mode():
+        call()
+        best = float("inf")
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def pipeline_decode_rate(model, image, ids, short=16, long=64) -> dict:
+    """The replayed decode tok/s of a pipeline's request (prefill, then
+    ``engine().decode``'s captured step): the difference quotient of
+    ``long`` and ``short`` tokens, best of 2 each, so the prefill and the
+    step's capture cancel."""
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(image, ids, n)
+        toks = list(model.engine().decode(logits, cache, n))
+        if len(toks) != n:
+            raise RuntimeError(f"decode stopped at {len(toks)} of {n}")
+        return time.perf_counter() - t0
+
+    run(short)
+    t_short = min(run(short) for _ in range(2))
+    t_long = min(run(long) for _ in range(2))
+    tps = (long - short) / (t_long - t_short)
+    return {"decode_tok_s": tps, "ms_per_token": 1e3 / tps,
+            f"t{short}_s": t_short, f"t{long}_s": t_long}
+
+
+def pipeline_vs_plain(dev, model, image, ids, tol, name,
+                      n=IMAGE_DECODE) -> dict:
+    """One image request through the kernels (the prefill, then the
+    engine's captured decode: the served path) against the same request
+    with every kernel swapped for its plain version (``plain_kernels``:
+    the prefill, then eager greedy steps fed the kernel run's tokens).
+    Held: the prefill's last-position logits within ``tol`` (max error
+    over max |plain|), and at every step where the two greedy choices
+    differ, a near-tie: the plain logit of the kernel's token within
+    ``tol`` x max |plain logits| of the plain maximum. Reported: how many
+    of the ``n`` tokens the plain run chose alike (all, where every step
+    agrees: then the plain run's own greedy tokens are the kernel run's)."""
+    from ominix_mlx_tpu_torch.models import base
+
+    with torch.inference_mode():
+        lk, cache = model.prefill(image, ids, n)
+        lk = lk.float()
+        toks = list(model.engine().decode(lk, cache, n))
+        del cache
+        with plain_kernels():
+            lp, cache = model.prefill(image, ids, n)
+            lp = lp.float()
+            lg, gaps, same = lp, [], 0
+            for i, t in enumerate(toks):
+                top = int(lg.argmax(-1)[0])
+                same += top == t
+                if top != t:
+                    gaps.append(float(lg[0, top] - lg[0, t])
+                                / float(lg.abs().max()))
+                if i + 1 < len(toks):
+                    lg, cache = base.forward(
+                        model.lm_params, model.lm_cfg,
+                        torch.tensor([[t]], device=dev), cache)
+                    lg = lg[:, -1].float()
+    rel = rel_to(lk, lp)
+    row = {"phase": "pipeline_vs_plain", "config": name, "prompt": len(ids),
+           "tokens": len(toks), "plain_greedy_equal": same,
+           "tokens_kernel": toks, "logits_rel_err": rel,
+           "differing_steps_gap_rel": gaps, "limit": tol}
+    emit(row)
+    if not rel < tol or any(g >= tol for g in gaps) or not toks:
+        raise RuntimeError(f"{name}: kernel vs plain request: {row}")
+    return row
+
+
+def moxin_7b(dev, gen):
+    """Moxin-7B at its published widths, random weights: DINOv2 ViT-L/14
+    with 4 registers and SigLIP SO400M/14 at 224 px, bf16; the Prismatic
+    projector 2176 -> 8704 -> 4096 -> 4096; the Mistral-7B decoder of
+    benchmarks/pipelines_bench.py:386-416 (vocabulary 32000, 4096 wide, 32
+    layers, 32 / 8 heads of 128, FFN 14336, theta 1e6) at w8a8 g64 with
+    fused projections, as its moxin_vlm_decoder_w8a8 builds it."""
+    from ominix_mlx_tpu_torch.models import base, moxin_vlm, vit
+
+    lm_cfg = base.TransformerConfig(
+        vocab_size=32000, hidden_size=4096, num_layers=32, num_heads=32,
+        num_kv_heads=8, head_dim=128, intermediate_size=14336,
+        rope_theta=1000000.0, tie_word_embeddings=False)
+    dcfg, scfg = vit.DINOV2_LARGE, vit.SIGLIP_SO400M
+    return moxin_vlm.MoxinVLM(
+        dino_params=vit.init_params(dcfg, gen, torch.bfloat16, dev),
+        dino_cfg=dcfg,
+        siglip_params=vit.init_params(scfg, gen, torch.bfloat16, dev),
+        siglip_cfg=scfg,
+        projector=moxin_vlm.init_projector(
+            gen, (dcfg.hidden_size + scfg.hidden_size, 8704, 4096, 4096),
+            torch.bfloat16, dev),
+        lm_params=base.fuse_layer_projections(base.init_quantized_params(
+            lm_cfg, gen, GS, 8, act_bits=8, device=dev)),
+        lm_cfg=lm_cfg, device=dev)
+
+
+def serve_moxin(dev, smi, profile=False):
+    """serve_moxin: Moxin-7B (``moxin_7b``) registered with
+    ``Server.add_model`` beside its own decoder as a chat model; over HTTP
+    at once, a content-array chat with a 320x240 PNG data URI (``chat``
+    resizes it to 224), a /v1/describe of a 224-px PNG and a plain chat on
+    the decoder, each answered; the launches of K2 and K1's 8-bit P
+    formula held; then the towers' ms, the decoder's prefill ms at its T,
+    the replayed decode tok/s, the decoder's logits check on a 2-layer
+    cut, and the request against its plain version (``pipeline_vs_plain``);
+    with ``profile``, a profile line of the decoder's replayed steps.
+    Returns the launches of the HTTP run."""
+    import base64
+    import threading
+
+    from ominix_mlx_tpu_torch.models import base, moxin_vlm, vit
+    from ominix_mlx_tpu_torch.nn.layers import resize_bilinear
+    from ominix_mlx_tpu_torch.ops import _build
+    from ominix_mlx_tpu_torch.serving.server import ChatModel, Server
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    m = moxin_7b(dev, gen)
+    cfg = m.lm_cfg
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": "Moxin-7B", "weights":
+          "towers and projector bf16, decoder w8a8 g64",
+          "init_seconds": time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    srv = Server(port=free_port())
+    srv.add_model("moxin-7b", m)
+    srv.add_model("mistral-7b", ChatModel("mistral-7b", m.lm_params, cfg,
+                                          ByteTokenizer(cfg.vocab_size), dev))
+    srv.start_background()
+    png320 = image_png(240, 320, SEED + 71)
+    png224 = image_png(224, 224, SEED + 72)
+    calls = {
+        "image_chat": lambda: post_json(srv.port, "/v1/chat/completions", {
+            "model": "moxin-7b", "max_tokens": MAX_TOKENS, "messages": [
+                {"role": "user", "content": [
+                    {"type": "text", "text": "What is in this picture?"},
+                    {"type": "image_url", "image_url": {
+                        "url": "data:image/png;base64,"
+                        + base64.b64encode(png320).decode()}}]}]}),
+        "describe": lambda: post_json(srv.port, "/v1/describe", {
+            "model": "moxin-7b", "max_tokens": MAX_TOKENS,
+            "image": base64.b64encode(png224).decode()}),
+        "chat": lambda: post_json(srv.port, "/v1/chat/completions", {
+            "model": "mistral-7b", "max_tokens": MAX_TOKENS,
+            "messages": [{"role": "user", "content": "Tell me a story."}]}),
+    }
+    got, errs = {}, []
+
+    def one(k):
+        try:
+            t = time.perf_counter()
+            got[k] = (calls[k](), time.perf_counter() - t)
+        except Exception as e:        # raised below
+            errs.append((k, e))
+
+    try:
+        _build.reset_launches()
+        threads = [threading.Thread(target=one, args=(k,)) for k in calls]
+        t_http = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t_http
+        counts = dict(_build.LAUNCHES)
+    finally:
+        srv.shutdown()
+    if errs or len(got) != len(calls):
+        raise RuntimeError(f"serve_moxin requests failed: {errs}")
+    texts = {"image_chat": got["image_chat"][0]["choices"][0]["message"][
+                 "content"],
+             "describe": got["describe"][0]["description"],
+             "chat": got["chat"][0]["choices"][0]["message"]["content"]}
+    # without a tokenizer a VLM answers its token ids, one word each
+    n_out = {"image_chat": len(texts["image_chat"].split()),
+             "describe": got["describe"][0]["tokens"],
+             "chat": got["chat"][0]["usage"]["completion_tokens"]}
+    steps = sum(max(n - 1, 0) for n in n_out.values())
+    per_step = 4 * cfg.num_layers + 1
+    row = {"phase": "serve_moxin_requests", "seconds": {
+               k: v[1] for k, v in got.items()}, "wall_s": wall,
+           "completion_tokens": n_out, "text": {k: v[:60]
+                                                for k, v in texts.items()},
+           "describe_tokens_per_second":
+               got["describe"][0]["tokens_per_second"],
+           "launches": counts, "card": smi}
+    emit(row)
+    if not all(texts.values()) or counts.get("k2", 0) < 3 \
+            or counts.get("k1_m1_w8", 0) < per_step * steps:
+        raise RuntimeError(f"serve_moxin: answers or launches: {row}")
+
+    # the same image chat straight through the model: HTTP routes nothing
+    # else in (greedy, so the text is the served one)
+    with torch.inference_mode():
+        direct = m.chat("What is in this picture?", card_image(png320, dev),
+                        max_tokens=MAX_TOKENS)
+    if direct != texts["image_chat"]:
+        raise RuntimeError("serve_moxin: the served image chat differs "
+                           "from the model's own chat")
+    size = m.dino_cfg.image_size
+    image = card_image(png224, dev)
+    if image.shape[1:3] != (size, size):        # the rehearsal's towers
+        image = resize_bilinear(image, size, size)
+    ids = [1] + [ord(c) % cfg.vocab_size for c in
+                 "In: Describe this image in detail.\nOut:"][:32]
+    dino_in, sig_in = (x.to(torch.bfloat16)
+                       for x in moxin_vlm.preprocess(image))
+    embeds = m.prepare_inputs(image, ids)
+    T = embeds.shape[1]
+    stages = {"dino_ms": wall_ms(lambda: vit.encode(
+                  m.dino_params, m.dino_cfg, dino_in)),
+              "siglip_ms": wall_ms(lambda: vit.encode(
+                  m.siglip_params, m.siglip_cfg, sig_in)),
+              "encode_image_ms": wall_ms(lambda: m.encode_image(image)),
+              "prefill_ms": wall_ms(lambda: base.forward_embeds(
+                  m.lm_params, cfg, embeds,
+                  base.init_cache(cfg, 1, T + 8, device=dev),
+                  fresh_prefill=True)),
+              "prefill_T": T,
+              "image_tokens": (size // m.dino_cfg.patch_size) ** 2}
+    rate = pipeline_decode_rate(m, image, ids)
+    emit({"phase": "moxin_split", **stages, **rate,
+          "describe_ms_est": stages["encode_image_ms"]
+          + stages["prefill_ms"] + MAX_TOKENS * rate["ms_per_token"],
+          "card": smi})
+    check_logits(dev, cfg, m.lm_params, "Moxin-7B decoder w8a8",
+                 tol=W8A8_PANELS_LOGITS_TOL)
+    pipeline_vs_plain(dev, m, image, ids, IMAGE_LOGITS_TOL, "Moxin-7B")
+    if profile:
+        emit({**profile_decode(dev, cfg, m.lm_params),
+              "config": "Moxin-7B decoder", "weights": "w8a8 g64",
+              "card": smi})
+    del m, srv, embeds
+    free_device_memory()
+    emit({"phase": "serve_moxin", "launches": counts, "ok": True})
+    return counts
+
+
+def card_image(png: bytes, dev) -> torch.Tensor:
+    """PNG bytes -> [1, H, W, 3] float32 in [0, 1] on ``dev``, as the
+    server decodes an image."""
+    from ominix_mlx_tpu_torch.serving.server import _decode_image
+
+    return torch.from_numpy(_decode_image(png))[None].to(dev)
+
+
+def deepseek_ocr2_model(dev, gen):
+    """DeepSeek-OCR-2 at its published widths, random weights: SAM ViT-B/16
+    at 1024 px with the 896-channel adapter (deepseek_ocr2.py:350 of the
+    JAX package), the 24-layer Qwen2 visual flow (896 wide, 14 / 2 heads,
+    FFN 4864, theta 1e6, query banks of 144 and 256), all bf16; the 896 ->
+    1280 projector; the decoder of ``config_from_hf({})`` (12 layers, 10
+    heads MHA, 64 experts top 6 and 2 shared, layer 0 dense) at w4a8 g64
+    with fused projections."""
+    from ominix_mlx_tpu_torch.models import base, deepseek_ocr2, sam_vit
+
+    scfg = sam_vit.SamViTConfig(adapter_chans=896)
+    fcfg = deepseek_ocr2.visual_flow_config()
+    flow = base.init_params(fcfg, gen, torch.bfloat16, dev)
+    flow = {"layers": flow["layers"], "norm": flow["norm"],
+            **{f"query_{px}": (torch.randn(n, fcfg.hidden_size, generator=gen,
+                                           device=dev) * 0.02).bfloat16()
+               for px, n in ((768, 144), (1024, 256))}}
+    cfg = deepseek_ocr2.config_from_hf({})
+    w = torch.rand(cfg.hidden_size, fcfg.hidden_size, generator=gen,
+                   device=dev) * 2 - 1
+    return deepseek_ocr2.DeepSeekOCR2(
+        vision_params=sam_vit.init_params(scfg, gen, torch.bfloat16, dev),
+        vision_cfg=scfg,
+        projector={"w": (w * fcfg.hidden_size ** -0.5).bfloat16(),
+                   "b": torch.zeros(cfg.hidden_size, dtype=torch.bfloat16,
+                                    device=dev)},
+        lm_params=base.fuse_layer_projections(base.init_quantized_params(
+            cfg, gen, GS, 4, act_bits=8, device=dev, dense_layers=1)),
+        lm_cfg=cfg, flow_params=flow, flow_cfg=fcfg,
+        view_separator=(torch.randn(cfg.hidden_size, generator=gen,
+                                    device=dev) * 0.02).bfloat16(),
+        device=dev)
+
+
+def serve_ocr2(dev, smi, profile=False):
+    """serve_ocr2: DeepSeek-OCR-2 (``deepseek_ocr2_model``) registered with
+    ``Server.add_model``; over HTTP, /v1/ocr on an 800x600 PNG (resized to
+    1024) and on a one-page PDF built in memory, each answered; the
+    launches of K2, K5 (packed 4-bit experts at the prefill), K4 (gate and
+    up at every decode step) and K1 held; then SAM's and the visual
+    flow's ms, the decoder's prefill ms at its T, the replayed decode
+    tok/s and the gathered K = 896 down projection's share of a decode
+    step (the route K4 does not take: ROADMAP gap #1), the decoder's
+    logits check on a 2-layer cut (layer 0 dense, layer 1 MoE), and the
+    request against its plain version; with ``profile``, a profile line
+    of the decoder's replayed steps. Returns the launches of the HTTP
+    run."""
+    import base64
+
+    from ominix_mlx_tpu_torch.models import base, deepseek_ocr2, sam_vit
+    from ominix_mlx_tpu_torch.nn.layers import resize_bilinear
+    from ominix_mlx_tpu_torch.ops import _build
+    from ominix_mlx_tpu_torch.ops import quant_matmul as qm
+    from ominix_mlx_tpu_torch.serving.server import Server
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    m = deepseek_ocr2_model(dev, gen)
+    cfg = m.lm_cfg
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": "DeepSeek-OCR-2", "weights":
+          "SAM, flow and projector bf16, decoder w4a8 g64",
+          "init_seconds": time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    emit({"phase": "routes", "config": "DeepSeek-OCR-2",
+          **projection_routes(cfg, m.lm_params, 1)})
+    srv = Server(port=free_port())
+    srv.add_model("deepseek-ocr2", m)
+    srv.start_background()
+    png = image_png(600, 800, SEED + 81)
+    got = {}
+    try:
+        _build.reset_launches()
+        for key, body in (("image", {"image": base64.b64encode(png).decode()}),
+                          ("pdf", {"pdf": base64.b64encode(
+                              one_page_pdf(SEED + 82)).decode()})):
+            t = time.perf_counter()
+            got[key] = (post_json(srv.port, "/v1/ocr", {
+                "model": "deepseek-ocr2", "max_tokens": MAX_TOKENS, **body}),
+                time.perf_counter() - t)
+        counts = dict(_build.LAUNCHES)
+    finally:
+        srv.shutdown()
+    texts = {"image": got["image"][0]["text"],
+             "pdf": got["pdf"][0]["pages"]}
+    n_out = {"image": len(texts["image"].split()),
+             "pdf": sum(len(p.split()) for p in texts["pdf"])}
+    steps = sum(max(n - 1, 0) for n in n_out.values())
+    moe_layers = cfg.num_layers - 1
+    row = {"phase": "serve_ocr2_requests",
+           "seconds": {k: v[1] for k, v in got.items()},
+           "completion_tokens": n_out, "pages": len(texts["pdf"]),
+           "text": {"image": texts["image"][:60],
+                    "pdf": [p[:60] for p in texts["pdf"]]},
+           "launches": counts, "card": smi}
+    emit(row)
+    if not texts["image"] or len(texts["pdf"]) != 1 \
+            or counts.get("k2", 0) < 2 \
+            or counts.get("k5_w4", 0) < 2 * 3 * moe_layers \
+            or counts.get("k4", 0) < moe_layers * steps \
+            or counts.get("k1_m1", 0) < steps:
+        raise RuntimeError(f"serve_ocr2: answers or launches: {row}")
+
+    size = m.image_size
+    with torch.inference_mode():
+        image = resize_bilinear(card_image(png, dev), size, size)
+        x = (image * 2 - 1).to(torch.bfloat16)
+        feats = sam_vit.encode(m.vision_params, m.vision_cfg, x)
+    ids = m.prompt_ids("Free OCR.")
+    embeds = m.prepare_inputs(image, ids)
+    T = embeds.shape[1]
+    stages = {"sam_ms": wall_ms(lambda: sam_vit.encode(
+                  m.vision_params, m.vision_cfg, x)),
+              "flow_ms": wall_ms(lambda: deepseek_ocr2.visual_flow_encode(
+                  m.flow_params, m.flow_cfg, feats)),
+              "encode_page_ms": wall_ms(lambda: m.encode_page(image)),
+              "prefill_ms": wall_ms(lambda: base.forward_embeds(
+                  m.lm_params, cfg, embeds,
+                  base.init_cache(cfg, 1, T + 8, device=dev),
+                  fresh_prefill=True)),
+              "prefill_T": T, "image_tokens": m.n_image_tokens}
+    rate = pipeline_decode_rate(m, image, ids, 16, 48)
+    down = m.lm_params["layers"][1]["moe"]["experts"]["down_proj"]
+    route = qm.expert_route(down, 1)
+    k = cfg.moe.top_k
+    h = torch.randn(k, down.in_features, generator=gen,
+                    device=dev).bfloat16()
+    ids_k = torch.randint(0, cfg.moe.num_experts, (k, 1), generator=gen,
+                          device=dev, dtype=torch.int32)
+    # timed as a decode step runs it: replayed from a CUDA graph (eager,
+    # its dozen small ops would time the host's launches)
+    with torch.inference_mode():
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            qm.gather_qmm(h, down, ids_k)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            qm.gather_qmm(h, down, ids_k)
+    buf = torch.zeros(256 << 20, dtype=torch.uint8, device=dev)
+    ms = time_ms(graph.replay, 10, l2_flush(buf))
+    del buf, graph
+    emit({"phase": "ocr2_split", **stages, **rate,
+          "ocr_ms_est": stages["encode_page_ms"] + stages["prefill_ms"]
+          + MAX_TOKENS * rate["ms_per_token"],
+          "down_proj": {"N": down.data.shape[1], "K": down.in_features,
+                        "route": route, "ms": ms,
+                        "calls_per_token": moe_layers,
+                        "share_of_decode_step":
+                            moe_layers * ms / rate["ms_per_token"]},
+          "card": smi})
+    if route != "gathered":
+        raise RuntimeError(f"OCR-2's K = 896 down projection takes {route}")
+    check_logits(dev, cfg, m.lm_params, "DeepSeek-OCR-2 decoder w4a8",
+                 tol=OCR2_LOGITS_TOL)
+    pipeline_vs_plain(dev, m, image, ids, IMAGE_LOGITS_TOL,
+                      "DeepSeek-OCR-2")
+    if profile:
+        emit({**profile_decode(dev, cfg, m.lm_params, steps=16),
+              "config": "DeepSeek-OCR-2 decoder", "weights": "w4a8 g64",
+              "card": smi})
+    del m, srv, embeds, feats
+    free_device_memory()
+    emit({"phase": "serve_ocr2", "launches": counts, "ok": True})
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
@@ -6896,6 +7404,8 @@ def main() -> int:
     phases["serve_qwen3_next"] = serve_qwen3_next(dev, smi, args.profile)
     phases["serve_minicpm_sala"] = serve_minicpm_sala(dev, smi,
                                                       args.profile)
+    phases["serve_moxin"] = serve_moxin(dev, smi, args.profile)
+    phases["serve_ocr2"] = serve_ocr2(dev, smi, args.profile)
 
     def launches(key, only=None):
         return sum(c.get(key, 0) for p, c in phases.items()

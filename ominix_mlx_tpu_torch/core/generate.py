@@ -220,27 +220,51 @@ class Engine:
         behind an event, before the next replay overwrites the buffer."""
         if prompt.ndim == 1:
             prompt = prompt[None]
-        B = prompt.shape[0]
         cap = _kv_capacity(cache)
         off = cache.offset
         if cap is not None and off + prompt.shape[1] + max_tokens > cap:
             raise ValueError(
                 f"offset ({off}) + prompt ({prompt.shape[1]}) + max_tokens "
                 f"({max_tokens}) exceeds KV cache capacity {cap}")
+        t0 = time.perf_counter()
+        logits, cache = self.prefill(prompt, cache, fresh=(off == 0))
+        if stats is not None:
+            stats.prompt_tokens = int(prompt.shape[1])
+        return self.decode(logits, cache, max_tokens, stop_tokens,
+                           generator, stats, t0)
+
+    @torch.inference_mode()
+    def decode(self, logits: torch.Tensor, cache: ModelCache,
+               max_tokens: int = 256, stop_tokens: tuple = (),
+               generator: Optional[torch.Generator] = None,
+               stats: Optional[GenerationStats] = None,
+               t0: Optional[float] = None) -> Iterator[int]:
+        """The streaming decode of ``generate`` after a prefill that left
+        ``logits`` [B, V] (its last position) and ``cache``: the first
+        token is sampled from ``logits``, each later one by the captured
+        step; yields row 0's tokens, stopping before a stop token (the
+        callers that prefill input embeddings themselves, such as the
+        VLM and OCR pipelines, enter here). ``t0``: the prefill's start
+        on the host clock, for ``stats.prefill_time_s``."""
+        B = logits.shape[0]
         recent = None
         if self.sampler.repetition_penalty != 1.0:
             recent = torch.full((B, self.sampler.repetition_context), -1,
-                                dtype=torch.long, device=prompt.device)
-        t0 = time.perf_counter()
-        logits, cache = self.prefill(prompt, cache, fresh=(off == 0))
+                                dtype=torch.long, device=logits.device)
         tok = sample(logits, generator, self.sampler, recent)
         if recent is not None:
             recent[:, -1] = tok
         pending_host = None
         if stats is not None:
             pending_host = int(tok[0])        # waits for the prefill
-            stats.prompt_tokens = int(prompt.shape[1])
-            stats.prefill_time_s = time.perf_counter() - t0
+            if t0 is not None:
+                stats.prefill_time_s = time.perf_counter() - t0
+        return self._stream(cache, tok, max_tokens, stop_tokens, generator,
+                            recent, pending_host, stats)
+
+    @torch.inference_mode()
+    def _stream(self, cache, tok, max_tokens, stop_tokens, generator,
+                recent, pending_host, stats):
         step = self.decode_step(cache, tok, generator, recent)
         out = _TokenCopies(tok)
         out.put(0, step.tok)

@@ -1,8 +1,10 @@
 """One ``load_model(dir)`` for every family the port holds, dispatched on
 the HF ``model_type`` of config.json (counterpart of
 ominix_mlx_tpu/models/registry.py; ``MODEL_TYPES`` and the pipeline table
-copied from there). Model types whose family is not ported yet, and every
-pipeline type, raise ``NotImplementedError`` naming the family."""
+copied from there). ``load_pipeline`` loads the VLM (Moxin-7B) and OCR
+(DeepSeek-OCR-2) pipelines; the other pipeline types, and model types
+whose family is not ported yet, raise ``NotImplementedError`` naming
+their family."""
 
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ PORTED = {"qwen3", "qwen3_moe", "mistral", "glm4", "mixtral", "glm4_moe",
           "deepseek_v3", "qwen3_next", "minicpm_sala"}
 
 # the JAX package's non-LLM families: model_type -> (its module there,
-# capability); none is ported yet
+# capability)
 PIPELINE_TYPES = {
     "paraformer": ("paraformer", "transcribe"),
     "funasr_nano": ("funasr_nano", "transcribe"),
@@ -52,6 +54,8 @@ PIPELINE_TYPES = {
     "moxin_vlm": ("moxin_vlm", "vlm"),
     "prismatic": ("moxin_vlm", "vlm"),
 }
+# the pipeline families this package holds
+PORTED_PIPELINES = {"moxin_vlm", "deepseek_ocr2"}
 
 
 def capability(model_type: str) -> str:
@@ -73,6 +77,8 @@ def get_module(model_type: str):
             f"to the torch package yet")
     if model_type in PIPELINE_TYPES:
         family, cap = PIPELINE_TYPES[model_type]
+        if family in PORTED_PIPELINES:
+            return importlib.import_module(_PKG + family)
         raise NotImplementedError(
             f"model_type {model_type!r}: the {family} pipeline ({cap}) is "
             f"not ported to the torch package yet")
@@ -83,17 +89,24 @@ def get_module(model_type: str):
 def load_model(model_dir: str, device=None):
     """A chat checkpoint directory -> (module, params, config), the
     tensors on ``device`` (default: the current CUDA device; raises
-    without a card). The module exposes ``forward`` and ``init_cache``."""
-    mod = get_module(load_config(model_dir)["model_type"])
+    without a card). The module exposes ``forward`` and ``init_cache``.
+    A pipeline directory raises: ValueError where its family is ported
+    (``load_pipeline`` loads it), NotImplementedError where not."""
+    mt = load_config(model_dir)["model_type"]
+    mod = get_module(mt)
+    if mt not in MODEL_TYPES:
+        raise ValueError(f"{mt!r} is not a chat model; use load_pipeline")
     params, cfg = mod.load_model(model_dir, device=device)
     return mod, params, cfg
 
 
 def load_pipeline(model_dir: str, device=None):
     """Any family -> (capability, object): a chat model as the triple of
-    ``load_model``; a pipeline as its module's ``load_model`` gives it
-    (``get_module`` raises for every pipeline today)."""
+    ``load_model``; a pipeline as its module's ``load_model`` gives it on
+    ``device`` ("vlm": ``moxin_vlm.MoxinVLM``, "ocr":
+    ``deepseek_ocr2.DeepSeekOCR2``; the unported ones raise in
+    ``get_module``)."""
     mt = load_config(model_dir)["model_type"]
     if mt in MODEL_TYPES:
         return "chat", load_model(model_dir, device)
-    return capability(mt), get_module(mt).load_model(model_dir)
+    return capability(mt), get_module(mt).load_model(model_dir, device)

@@ -82,4 +82,73 @@ def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return F.silu(gate) * up
 
 
-ACTIVATIONS = {"silu": F.silu}
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU by its tanh approximation: ``jax.nn.gelu``'s default
+    (``approximate=True``), where ``F.gelu`` defaults to the exact form."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """GELU by the error function (``jax.nn.gelu(x, approximate=False)``)."""
+    return F.gelu(x)
+
+
+# the JAX package's table (ominix_mlx_tpu/nn/layers.py:151-160): its
+# "gelu" is jax.nn.gelu's default, the tanh form
+ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": gelu_tanh,
+    "gelu_new": gelu_tanh,
+    "gelu_pytorch_tanh": gelu_tanh,
+    "relu": F.relu,
+    "relu2": lambda x: torch.square(F.relu(x)),
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+}
+
+
+def layer_norm(params: dict, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """params: {"w"?, "b"?}. Statistics in float32; the normalized x is
+    cast to x's type before the affine, as the JAX package's
+    ``layer_norm`` does."""
+    dtype = x.dtype
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = ((xf - mean) * torch.rsqrt(var + eps)).to(dtype)
+    if params.get("w") is not None:
+        y = y * params["w"]
+    if params.get("b") is not None:
+        y = y + params["b"]
+    return y
+
+
+def conv2d(params: dict, x: torch.Tensor, stride=1, padding=0,
+           groups: int = 1) -> torch.Tensor:
+    """x: [B, H, W, C_in] (channels last, as the JAX package's towers);
+    params["w"]: [C_out, C_in/groups, KH, KW] (PyTorch's layout; the JAX
+    tree's OHWI weight becomes it through ``conv_weight``), "b"?: [C_out].
+    ``padding``: an int or (ph, pw), both sides alike. Returns [B, H', W',
+    C_out] in x's type."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), params["w"].to(x.dtype),
+                 stride=stride, padding=padding, groups=groups)
+    y = y.permute(0, 2, 3, 1)
+    if params.get("b") is not None:
+        y = y + params["b"]
+    return y
+
+
+def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, h, w, C] in x's type, computed in float32:
+    ``jax.image.resize(..., "bilinear")``, which antialiases when it
+    shrinks (``F.interpolate`` does only with ``antialias=True``)."""
+    y = F.interpolate(x.float().permute(0, 3, 1, 2), size=(h, w),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def conv_weight(w_ohwi: torch.Tensor) -> torch.Tensor:
+    """A JAX tree's conv weight [O, KH, KW, I] as ``conv2d`` takes it,
+    [O, I, KH, KW] (contiguous)."""
+    return w_ohwi.permute(0, 3, 1, 2).contiguous()

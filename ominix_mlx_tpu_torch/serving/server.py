@@ -1,15 +1,21 @@
 """OpenAI-compatible HTTP server (counterpart of
-ominix_mlx_tpu/serving/server.py, chat surface):
+ominix_mlx_tpu/serving/server.py):
 
-  POST /v1/chat/completions      (stream=true -> SSE)
+  POST /v1/chat/completions      (stream=true -> SSE; content arrays with
+                                  an image go to a VLM; tools)
+  POST /v1/describe              (image description by a VLM)
+  POST /v1/ocr                   (an image or a PDF through the OCR model)
   GET  /v1/models
+  GET  /v1/models/local          (the local model directory)
+  DELETE /v1/models/<name>       (delete one from it)
   GET  /health
   GET  /metrics                  (Prometheus text, counters)
 
 ``Server.load_model(name, dir)`` loads a checkpoint directory through
-``models.registry`` (Qwen3, Qwen2, Qwen3-MoE, Mistral, GLM-4) with the
-directory's ``utils.tokenizer.Tokenizer``; ``add_model`` registers a model
-built in memory. ``main()`` is the command line:
+``models.registry``: a chat family with the directory's
+``utils.tokenizer.Tokenizer``, a Moxin VLM or a DeepSeek-OCR-2 pipeline as
+its module builds it; ``add_model`` registers a model built in memory.
+``main()`` is the command line:
 
     python -m ominix_mlx_tpu_torch.serving.server --model name=DIR
 
@@ -22,22 +28,30 @@ cache, with its own caches (the two threads never share a cache).
 ``Server.enable_speculative`` sends a model's greedy chat through a
 ``core.speculative.SpeculativeEngine`` (a draft checkpoint, or the model's
 own first layers), and ``enable_batching`` with a draft makes its batcher
-speculative (greedy requests; sampled ones take the engine path). Tool
-calls and the audio / image / OCR endpoints are not ported yet: their
-routes answer 404 and a request that needs them answers 501.
+speculative (greedy requests; sampled ones take the engine path). A
+request's ``tools`` are folded into its system turn and the completion's
+``<tool_call>`` spans come back as OpenAI ``tool_calls``
+(``utils.tools``). Every image request (VLM chat, /v1/describe, /v1/ocr)
+runs its card work on the inference thread, as unbatched chat does, so
+no tower launches from an HTTP thread. The audio and image-generation
+routes are not ported yet and answer 404; /v1/models/download needs the
+network and answers 501.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
 import dataclasses
 import inspect
+import io
 import json
 import queue
 import sys
 import threading
 import time
 import traceback
+import urllib.parse
 import uuid
 import warnings
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -55,7 +69,10 @@ from ominix_mlx_tpu_torch.ops.quant_matmul import (DECODE_M_MAX,
                                                    route)
 from ominix_mlx_tpu_torch.serving.batching import (ContinuousBatcher,
                                                    PagedContinuousBatcher)
+from ominix_mlx_tpu_torch.utils import hub
 from ominix_mlx_tpu_torch.utils.tokenizer import chatml
+from ominix_mlx_tpu_torch.utils.tools import (finalize_tool_response,
+                                              inject_tools)
 
 DEFAULT_MAX_TOKENS = 512
 
@@ -351,10 +368,23 @@ class InferenceWorker:
         self.thread.join(timeout)
 
 
+def _decode_image(raw: bytes):
+    """PNG / JPEG bytes -> an [H, W, 3] float32 array in [0, 1]."""
+    import numpy as np
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(raw)).convert("RGB")
+    return np.asarray(img, np.float32) / 255.0
+
+
 class Server:
     def __init__(self, host: str = "127.0.0.1", port: int = 8080,
-                 request_timeout_s: float = 600.0):
+                 request_timeout_s: float = 600.0, models_root=None):
+        """``models_root``: the local model directory of /v1/models/local
+        and DELETE /v1/models/<name> (default: ``utils.hub.models_dir``'s,
+        ``$OMINIX_MODELS_DIR`` or ``~/.ominix/models``)."""
         self.host, self.port = host, port
+        self.models_root = models_root
         self.models: dict = {}
         self.batchers: dict = {}
         self.spec: dict = {}        # name -> (SpeculativeEngine, draft
@@ -403,14 +433,19 @@ class Server:
     def load_model(self, name: str, model_dir: str, device=None):
         """Load a checkpoint directory through ``models.registry.
         load_pipeline``: a chat family becomes a ``ChatModel`` with the
-        directory's ``Tokenizer``; a pipeline family raises
-        NotImplementedError (none is ported yet)."""
+        directory's ``Tokenizer``; a "vlm" (``moxin_vlm.MoxinVLM``) or
+        "ocr" (``deepseek_ocr2.DeepSeekOCR2``) pipeline is served as its
+        module builds it; the other pipelines raise NotImplementedError."""
         from ominix_mlx_tpu_torch.core.device import resolve_device
         from ominix_mlx_tpu_torch.models import registry
         from ominix_mlx_tpu_torch.utils.tokenizer import Tokenizer
 
         device = resolve_device(device)
         cap, obj = registry.load_pipeline(model_dir, device)
+        if cap in ("vlm", "ocr"):
+            obj.dir = model_dir
+            self.models[name] = obj
+            return obj
         if cap != "chat":
             raise NotImplementedError(f"{cap} pipelines are not ported")
         module, params, cfg = obj
@@ -420,9 +455,18 @@ class Server:
         self.models[name] = m
         return m
 
-    def add_model(self, name: str, model: ChatModel):
-        """Register a model built in memory (random or bridged weights)."""
+    def add_model(self, name: str, model):
+        """Register a model built in memory (random or bridged weights): a
+        ``ChatModel``, a ``MoxinVLM`` or a ``DeepSeekOCR2``."""
         self.models[name] = model
+
+    def remove_model(self, name: str):
+        """Stop serving ``name``: its batcher stops and frees its graphs."""
+        self.models.pop(name, None)
+        self.spec.pop(name, None)
+        runner = self.batchers.pop(name, None)
+        if runner is not None:
+            runner.stop()
 
     def enable_batching(self, name: str, slots: int = 4, max_len: int = 2048,
                         dtype=torch.bfloat16, paged: bool = False,
@@ -483,18 +527,101 @@ class Server:
 
     # ---------------------------------------------------------- handlers ----
 
+    def on_worker(self, fn, timeout_s: Optional[float] = None):
+        """Run ``fn()`` on the inference thread and return its result (or
+        raise its error; TimeoutError past ``timeout_s``, the request
+        timeout by default, while the job runs on to its end). Image
+        requests take this path, so their towers never launch from an
+        HTTP thread, where they could land inside another request's
+        CUDA-graph capture."""
+        done = threading.Event()
+        box: dict = {}
+
+        def run():
+            try:
+                box["out"] = fn()
+            except Exception as e:
+                box["err"] = e
+            finally:
+                done.set()
+
+        self.worker.submit(run, lambda e: (box.setdefault("err", e),
+                                           done.set()))
+        timeout_s = self.request_timeout_s if timeout_s is None \
+            else timeout_s
+        if not done.wait(timeout=timeout_s):
+            raise TimeoutError(f"request exceeded {timeout_s:.0f}s")
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    @staticmethod
+    def _parse_content_arrays(messages):
+        """(text parts, the last image as [H, W, 3] float32 in [0, 1]) of
+        OpenAI content-array messages (a data-URI ``image_url``); (None,
+        None) where every content is a plain string."""
+        texts, image = [], None
+        seen_array = False
+        for msg in messages:
+            c = msg.get("content")
+            if not isinstance(c, list):
+                continue
+            seen_array = True
+            for part in c:
+                if part.get("type") == "text":
+                    texts.append(part.get("text", ""))
+                elif part.get("type") == "image_url":
+                    url = part.get("image_url", {}).get("url", "")
+                    if url.startswith("data:") and "base64," in url:
+                        image = _decode_image(base64.b64decode(
+                            url.split("base64,", 1)[1]))
+        return (texts if seen_array else None), image
+
+    def _image_chat(self, name: str, m, body: dict, texts, image,
+                    send_chunk=None) -> dict:
+        """A content-array chat on a VLM: its ``chat`` on the inference
+        thread (a stream gets the answer as one chunk)."""
+        if not hasattr(m, "chat"):
+            raise KeyError(f"model {name!r} takes no image input")
+        max_tokens = int(body.get("max_tokens", DEFAULT_MAX_TOKENS))
+        text = self.on_worker(lambda: m.chat(" ".join(texts or [""]), image,
+                                             max_tokens=max_tokens),
+                              float(body.get("timeout_s",
+                                             self.request_timeout_s)))
+        out = {"id": f"chatcmpl-{uuid.uuid4().hex[:12]}",
+               "object": "chat.completion", "created": int(time.time()),
+               "model": name,
+               "choices": [{"index": 0, "message": {
+                   "role": "assistant", "content": text},
+                   "finish_reason": "stop"}]}
+        if send_chunk is not None:
+            send_chunk({"id": out["id"], "object": "chat.completion.chunk",
+                        "created": out["created"], "model": name,
+                        "choices": [{"index": 0, "delta": {"content": text},
+                                     "finish_reason": None}]})
+        return out
+
     def chat_completion(self, body: dict, send_chunk=None) -> dict:
         name = body.get("model") or next(iter(self.models))
         if name not in self.models:
             raise KeyError(f"model {name!r} not loaded")
         m = self.models[name]
+        # OpenAI content arrays (image chat) go to a VLM's chat(prompt,
+        # image01): a text-only array too, where the model is one
+        texts, image = self._parse_content_arrays(body.get("messages", []))
+        if image is not None or (texts is not None and hasattr(m, "chat")
+                                 and hasattr(m, "encode_image")):
+            return self._image_chat(name, m, body, texts, image, send_chunk)
+        if not isinstance(m, ChatModel):
+            raise KeyError(f"model {name!r} is not a chat model")
+        # tools: folded into the system turn; the completion's
+        # <tool_call> spans come back as tool_calls (not when streaming)
         messages = body.get("messages", [])
-        if any(not isinstance(msg.get("content", ""), (str, type(None)))
-               for msg in messages):
-            raise NotImplementedError("content arrays (image chat) are not "
-                                      "ported yet")
-        if body.get("tools") and body.get("tool_choice") != "none":
-            raise NotImplementedError("tool calling is not ported yet")
+        tools = body.get("tools") or None
+        if body.get("tool_choice") == "none":
+            tools = None
+        if tools:
+            messages = inject_tools(messages, tools)
         tmpl = getattr(m.tokenizer, "apply_chat_template", None)
         prompt_text = tmpl(messages) if tmpl else chatml(messages)
         tokens = list(m.tokenizer.encode(prompt_text))
@@ -523,9 +650,11 @@ class Server:
             # take the per-request engine path
             runner = None
         if runner is not None:
-            return self._chat_batched(runner, m, name, tokens, max_tokens,
+            resp = self._chat_batched(runner, m, name, tokens, max_tokens,
                                       stops, send_chunk, timeout_s, rid,
                                       created, sampler, seed, stop_strs)
+            return (resp if send_chunk is not None
+                    else finalize_tool_response(resp, tools))
         cancel = threading.Event()
         result = {"text": "", "n": 0}
         done = threading.Event()
@@ -601,7 +730,7 @@ class Server:
             raise TimeoutError(f"request exceeded {timeout_s:.0f}s")
         if err:
             raise err[0]
-        return {
+        resp = {
             "id": rid, "object": "chat.completion", "created": created,
             "model": name,
             "choices": [{"index": 0,
@@ -612,6 +741,8 @@ class Server:
                       "completion_tokens": result["n"],
                       "total_tokens": len(tokens) + result["n"]},
         }
+        return (resp if send_chunk is not None
+                else finalize_tool_response(resp, tools))
 
     @staticmethod
     def _chat_batched(runner, m, name, tokens, max_tokens, stops,
@@ -676,6 +807,54 @@ class Server:
                       "total_tokens": len(tokens) + len(out_ids)},
         }
 
+    def ocr(self, body: dict) -> dict:
+        """POST /v1/ocr {"image": base64 PNG / JPEG | "pdf": base64,
+        "prompt"?, "max_tokens"?} -> {"text"} / {"pages", "text"}, from a
+        model with ``ocr`` / ``ocr_pdf`` (DeepSeek-OCR-2), on the
+        inference thread."""
+        name = body.get("model") or next(
+            (n for n, m in self.models.items() if hasattr(m, "ocr")), "")
+        if name not in self.models or not hasattr(self.models[name], "ocr"):
+            raise KeyError(f"model {name!r} has no OCR capability")
+        m = self.models[name]
+        prompt = body.get("prompt", "Free OCR.")
+        max_tokens = int(body.get("max_tokens", 512))
+        timeout_s = float(body.get("timeout_s", self.request_timeout_s))
+        if "pdf" in body:
+            raw = base64.b64decode(body["pdf"])
+            pages = self.on_worker(lambda: m.ocr_pdf(
+                raw, prompt, max_tokens=max_tokens), timeout_s)
+            return {"pages": pages, "text": "\n\n".join(pages)}
+        arr = _decode_image(base64.b64decode(body["image"]))
+        return {"text": self.on_worker(lambda: m.ocr(
+            arr, prompt, max_tokens=max_tokens), timeout_s)}
+
+    def describe(self, body: dict) -> dict:
+        """POST /v1/describe {"image": base64, "prompt"?, "max_tokens"?}
+        -> {"description", "tokens", "tokens_per_second"}: a VLM's
+        ``chat`` on the inference thread. ``tokens`` counts the answer's
+        tokens (by the model's tokenizer; without one, the ids the answer
+        lists)."""
+        name = body.get("model") or next(
+            (n for n, m in self.models.items()
+             if hasattr(m, "chat") and hasattr(m, "encode_image")), "")
+        m = self.models.get(name)
+        if m is None or not hasattr(m, "chat"):
+            raise KeyError(f"model {name!r} has no image-chat capability")
+        arr = _decode_image(base64.b64decode(body["image"]))
+        prompt = body.get("prompt", "Describe this image in detail.")
+        max_tokens = int(body.get("max_tokens", 256))
+        t0 = time.time()
+        text = self.on_worker(
+            lambda: m.chat(prompt, arr, max_tokens=max_tokens),
+            float(body.get("timeout_s", self.request_timeout_s)))
+        dt = time.time() - t0
+        tok = getattr(m, "tokenizer", None)
+        n_tok = len(tok.encode(text)) if tok else len(text.split())
+        return {"description": text, "tokens": n_tok,
+                "tokens_per_second": (round(n_tok / dt, 2)
+                                      if n_tok and dt > 0 else None)}
+
     def list_models(self) -> dict:
         return {"object": "list", "data": [
             {"id": name, "object": "model", "owned_by": "ominix",
@@ -717,18 +896,53 @@ class Server:
                     self._json(200, server.health())
                 elif self.path in ("/v1/models", "/models"):
                     self._json(200, server.list_models())
+                elif self.path == "/v1/models/local":
+                    self._json(200, {"data": hub.list_models(
+                        server.models_root)})
                 else:
                     self._json(404, {"error": "not found"})
+
+            def do_DELETE(self):
+                if not self.path.startswith("/v1/models/"):
+                    return self._json(404, {"error": "not found"})
+                name = urllib.parse.unquote(self.path[len("/v1/models/"):])
+                server.remove_model(name)
+                ok = hub.delete_model(name, server.models_root)
+                self._json(200, {"deleted": bool(ok), "id": name})
+
+            def _error(self, e: Exception):
+                if isinstance(e, KeyError):
+                    return 404, str(e)
+                if isinstance(e, NotImplementedError):
+                    return 501, str(e)
+                if isinstance(e, ValueError):
+                    return 400, str(e)
+                if isinstance(e, TimeoutError):
+                    return 504, str(e)
+                return 500, f"{type(e).__name__}: {e}"
 
             def do_POST(self):
                 length = int(self.headers.get("Content-Length", 0))
                 raw = self.rfile.read(length)
-                if self.path != "/v1/chat/completions":
+                routes = {"/v1/describe": server.describe,
+                          "/v1/ocr": server.ocr}
+                if self.path == "/v1/models/download":
+                    return self._json(501, {
+                        "error": "model download needs the network and is "
+                                 "not ported"})
+                if self.path not in routes \
+                        and self.path != "/v1/chat/completions":
                     return self._json(404, {"error": "not found"})
                 try:
                     body = json.loads(raw or b"{}")
                 except json.JSONDecodeError:
                     return self._json(400, {"error": "invalid JSON"})
+                if self.path in routes:
+                    try:
+                        return self._json(200, routes[self.path](body))
+                    except Exception as e:
+                        code, msg = self._error(e)
+                        return self._json(code, {"error": msg})
                 t_req = time.time()
                 streaming = bool(body.get("stream"))
                 try:
@@ -751,7 +965,7 @@ class Server:
                             "model": out["model"],
                             "choices": [{"index": 0, "delta": {},
                                          "finish_reason": "stop"}],
-                            "usage": out["usage"]})
+                            "usage": out.get("usage")})
                         self.wfile.write(b"data: [DONE]\n\n")
                     else:
                         out = server.chat_completion(body)
@@ -761,16 +975,8 @@ class Server:
                                   u.get("completion_tokens", 0),
                                   time.time() - t_req)
                     return
-                except KeyError as e:
-                    code, msg = 404, str(e)
-                except NotImplementedError as e:
-                    code, msg = 501, str(e)
-                except ValueError as e:
-                    code, msg = 400, str(e)
-                except TimeoutError as e:
-                    code, msg = 504, str(e)
                 except Exception as e:
-                    code, msg = 500, f"{type(e).__name__}: {e}"
+                    code, msg = self._error(e)
                 server._count(failed=True, seconds=time.time() - t_req)
                 if streaming:   # headers are out: report in the stream
                     self.wfile.write(b"data: " + json.dumps(

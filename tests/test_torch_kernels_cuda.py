@@ -3142,3 +3142,201 @@ def test_spec_engine_capture_raises_on_a_host_sync(cuda):
         toks, _ = eng.generate_scan(prompt, make_cache(1, 128),
                                     make_cache(1, 128), max_tokens=8)
     assert len(toks) == 8
+
+
+# ------------------------------------------------ VLM and OCR pipelines -----
+
+def _plain_k1(x, w, nw=None, eps=EPS):
+    return (qm.qmm_p_reference(x, w, nw, eps) if x.shape[0] == 1
+            else qm.qmm_dq_reference(x, w))
+
+
+def _tiny_moxin(dev):
+    """Tiny bf16 towers (28 px) before a 256-wide w8a8 decoder on panels
+    (K1's 8-bit P formula at one row, K2 at head dim 64)."""
+    from ominix_mlx_tpu_torch.models import base, moxin_vlm, vit
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    dcfg, scfg, _ = moxin_vlm.tiny_configs()
+    lm_cfg = base.TransformerConfig(
+        vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+        num_kv_heads=2, head_dim=64, intermediate_size=512)
+    return moxin_vlm.MoxinVLM(
+        dino_params=vit.init_params(dcfg, g, torch.bfloat16, dev),
+        dino_cfg=dcfg,
+        siglip_params=vit.init_params(scfg, g, torch.bfloat16, dev),
+        siglip_cfg=scfg,
+        projector=moxin_vlm.init_projector(g, (56, 64, 64, 256),
+                                           torch.bfloat16, dev),
+        lm_params=base.fuse_layer_projections(base.init_quantized_params(
+            lm_cfg, g, 64, 8, act_bits=8, device=dev)),
+        lm_cfg=lm_cfg, device=dev)
+
+
+def _tiny_ocr2(dev):
+    """SAM at 256 px (16 image tokens, so the 18-row prefill takes the
+    sorted dispatch: K5), a 2-layer 128-wide flow (head dim 64, which K2
+    would take), and a 2-layer 256-wide w4a8 decoder (a dense layer, then
+    8 packed experts of 128, top 2, and a shared one)."""
+    from ominix_mlx_tpu_torch.models import base, deepseek_ocr2, sam_vit
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    scfg = sam_vit.SamViTConfig(img_size=256, patch_size=16, embed_dim=64,
+                                depth=2, num_heads=2, window_size=6,
+                                global_attn_indexes=(1,), out_chans=16,
+                                adapter_chans=128)
+    fcfg = deepseek_ocr2.visual_flow_config(hidden=128, layers=2)
+    flow = base.init_params(fcfg, g, torch.bfloat16, dev)
+    flow = {"layers": flow["layers"], "norm": flow["norm"],
+            **{f"query_{px}": (torch.randn(n, 128, generator=g, device=dev)
+                               * 0.02).bfloat16()
+               for px, n in ((768, 16), (1024, 25))}}
+    cfg = deepseek_ocr2.config_from_hf({
+        "hidden_size": 256, "num_hidden_layers": 2,
+        "num_attention_heads": 4, "num_key_value_heads": 4,
+        "intermediate_size": 512, "n_routed_experts": 8,
+        "moe_intermediate_size": 128, "num_experts_per_tok": 2,
+        "n_shared_experts": 1})
+    return deepseek_ocr2.DeepSeekOCR2(
+        vision_params=sam_vit.init_params(scfg, g, torch.bfloat16, dev),
+        vision_cfg=scfg,
+        projector={"w": ((torch.rand(256, 128, generator=g, device=dev)
+                          - 0.5) * 0.2).bfloat16(),
+                   "b": torch.zeros(256, dtype=torch.bfloat16, device=dev)},
+        lm_params=base.fuse_layer_projections(base.init_quantized_params(
+            cfg, g, 64, 4, act_bits=8, device=dev, dense_layers=1)),
+        lm_cfg=cfg, flow_params=flow, flow_cfg=fcfg,
+        view_separator=(torch.randn(256, generator=g, device=dev)
+                        * 0.02).bfloat16(), device=dev)
+
+
+def _png_b64(h, w, seed):
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.random.default_rng(seed).integers(
+        0, 256, (h, w, 3), np.uint8)).save(buf, "PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def test_moxin_request_launches_k2_then_qmm_p(cuda, monkeypatch):
+    """On CUDA, a Moxin request's prefill over the spliced prompt launches
+    K2 (a launch a layer) and its replayed decode K1's 8-bit P formula
+    (4 projections a layer and the lm_head a step), none falling back;
+    the prefill's logits within 5e-2 of the plain versions' (w8a8 on
+    panels); a /v1/describe through the server (on its inference thread)
+    launches both again."""
+    from ominix_mlx_tpu_torch.serving.server import Server
+
+    m = _tiny_moxin(cuda)
+    image = torch.rand(1, 28, 28, 3, generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    ids = [1, 5, 9, 12, 40]
+    _build.reset_launches()
+    with torch.inference_mode():
+        logits, cache = m.prefill(image, ids, 8)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["k2"] == 2
+    before = dict(_build.LAUNCHES)
+    toks = list(m.engine().decode(logits, cache, 8))
+    torch.cuda.synchronize()
+    assert len(toks) == 8
+    assert _build.LAUNCHES["k2"] == before["k2"]
+    assert _build.LAUNCHES["k1_m1_w8"] - before.get("k1_m1_w8", 0) \
+        >= 9 * 7
+    with monkeypatch.context() as mp:
+        mp.setattr(qm, "_k1", _plain_k1)
+        mp.setattr(fa, "_k2", fa.flash_prefill_reference)
+        with torch.inference_mode():
+            want, _ = m.prefill(image, ids, 8)
+    assert _rel(logits, want) < 5e-2
+    srv = Server()
+    srv.add_model("vlm", m)
+    try:
+        _build.reset_launches()
+        out = srv.describe({"image": _png_b64(40, 30, 4), "max_tokens": 4})
+        assert out["tokens"] == 4
+        assert _build.LAUNCHES["k2"] == 2
+        assert _build.LAUNCHES["k1_m1_w8"] >= 9 * 3
+    finally:
+        srv.worker.stop()
+
+
+def test_ocr2_page_launches_k5_then_k4(cuda, monkeypatch):
+    """On CUDA, an OCR page's prefill launches K2 and K5 on the packed
+    experts (gate, up and down: three launches in the MoE layer) and its
+    replayed decode K4 (gate and up in one launch a step; the K = 128
+    down projection takes the gathered route) and K1 at one row, none
+    falling back; the prefill's logits within 5e-2 of the plain
+    versions'; a /v1/ocr through the server launches them again."""
+    from ominix_mlx_tpu_torch.ops import grouped_matmul as gmm
+    from ominix_mlx_tpu_torch.serving.server import Server
+
+    m = _tiny_ocr2(cuda)
+    image = torch.rand(1, 256, 256, 3, generator=torch.Generator(
+        device=cuda).manual_seed(5), device=cuda)
+    ids = m.prompt_ids("Free OCR.")
+    assert len(ids) == 18
+    _build.reset_launches()
+    with torch.inference_mode():
+        logits, cache = m.prefill(image, ids, 8)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["k2"] == 2 and _build.LAUNCHES["k5_w4"] == 3
+    before = dict(_build.LAUNCHES)
+    toks = list(m.engine().decode(logits, cache, 8))
+    torch.cuda.synchronize()
+    steps = len(toks) - 1
+    assert _build.LAUNCHES["k4"] - before.get("k4", 0) >= steps
+    assert _build.LAUNCHES["k1_m1"] - before.get("k1_m1", 0) >= 2 * steps
+    with monkeypatch.context() as mp:
+        mp.setattr(qm, "_k1", _plain_k1)
+        mp.setattr(qm, "_k7", qm.qmm_dq_reference)
+        mp.setattr(fa, "_k2", fa.flash_prefill_reference)
+        mp.setattr(gmm, "_k5", gmm.grouped_matmul_reference)
+        with torch.inference_mode():
+            want, _ = m.prefill(image, ids, 8)
+    assert _rel(logits, want) < 5e-2
+    srv = Server()
+    srv.add_model("ocr", m)
+    try:
+        _build.reset_launches()
+        assert srv.ocr({"image": _png_b64(300, 200, 6), "max_tokens": 4})
+        assert _build.LAUNCHES["k2"] == 2 and _build.LAUNCHES["k5_w4"] == 3
+    finally:
+        srv.worker.stop()
+
+
+def test_visual_flow_never_reaches_k2(cuda, monkeypatch):
+    """The visual flow's attention (image tokens bidirectional, queries
+    causal) takes the masked sdpa on CUDA, never K2, which is causal only:
+    with K2's entry points raising, no K2 launch, and the bf16 result
+    within 2e-2 of the float32 flow on the CPU."""
+    from ominix_mlx_tpu_torch.models import deepseek_ocr2
+    from ominix_mlx_tpu_torch.utils.loading import (flatten_params,
+                                                    unflatten_params)
+
+    m = _tiny_ocr2(cuda)
+
+    def refuse(*a, **k):
+        raise AssertionError("the visual flow reached K2")
+
+    monkeypatch.setattr(fa, "_k2", refuse)
+    monkeypatch.setattr(fa, "flash_prefill", refuse)
+    feats = torch.randn(1, 4, 4, 128, generator=torch.Generator(
+        device=cuda).manual_seed(7), device=cuda).bfloat16()
+    _build.reset_launches()
+    with torch.inference_mode():
+        got = deepseek_ocr2.visual_flow_encode(m.flow_params, m.flow_cfg,
+                                               feats)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["k2"] == 0 and got.shape == (1, 16, 128)
+    cpu = {k: v.float().cpu() for k, v in
+           flatten_params(m.flow_params).items()}
+    with torch.inference_mode():
+        want = deepseek_ocr2.visual_flow_encode(
+            unflatten_params(cpu), m.flow_cfg, feats.float().cpu())
+    assert _rel(got.cpu(), want) < 2e-2

@@ -238,8 +238,8 @@ def test_main_draft_flags_raise(flag, checkpoint, draft_checkpoint):
 
 
 @pytest.mark.parametrize("model_type,family", [
-    ("moxin_vlm", "moxin_vlm"), ("qwen3_asr", "qwen3_asr"),
-    ("flux_klein", "flux_klein"), ("deepseek_ocr2", "deepseek_ocr2"),
+    ("funasr_nano", "funasr_nano"), ("qwen3_asr", "qwen3_asr"),
+    ("flux_klein", "flux_klein"), ("gpt_sovits", "gpt_sovits"),
     ("paraformer", "paraformer"), ("qwen3_tts", "qwen3_tts")])
 def test_unported_types_raise(model_type, family, tmp_path):
     with open(tmp_path / "config.json", "w") as f:

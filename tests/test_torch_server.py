@@ -91,6 +91,22 @@ def _post(srv, body):
 MSGS = [{"role": "user", "content": "hi"}]
 
 
+def _png_uri() -> str:
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.full((8, 8, 3), 128, np.uint8)).save(buf, "PNG")
+    return "data:image/png;base64," + base64.b64encode(
+        buf.getvalue()).decode()
+
+
+PNG_URI = _png_uri()
+
+
 def _engine_text(model, n):
     toks = model.tokenizer.encode(chatml(MSGS))
     eng = model.engine(SamplerConfig())
@@ -144,8 +160,11 @@ def test_chat_stop_string_and_errors(served):
     with _post(srv, {"messages": MSGS, "max_tokens": 8, "stop": stop}) as r:
         cut = json.loads(r.read())["choices"][0]["message"]["content"]
     assert stop not in cut and full.startswith(cut)
+    image_chat = [{"role": "user", "content": [
+        {"type": "text", "text": "what is this?"},
+        {"type": "image_url", "image_url": {"url": PNG_URI}}]}]
     for body, code in (({"model": "nope", "messages": MSGS}, 404),
-                       ({"messages": MSGS, "tools": [{"type": "x"}]}, 501),
+                       ({"messages": image_chat}, 404),   # no image input
                        ({"messages": MSGS, "max_tokens": 0}, 400)):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(srv, body)
@@ -238,8 +257,11 @@ def test_batched_concurrent_chat_equals_unbatched(served_batched):
 
 def test_batched_speculative_answers_501(served_batched):
     """Speculative batching serves: a self-draft batcher on "solo" gives
-    the greedy answer its per-request path gave; a request needing an
-    unported feature on the batched model still answers 501."""
+    the greedy answer its per-request path gave. A request with tools on
+    a batcher is answered (the tools block folded into its prompt, which
+    the batcher's max_len must hold; tests/test_torch_server_surface.py
+    holds the tool calls parsed back), and ``tool_choice: "none"`` drops
+    the tools."""
     srv = served_batched
     want = _chat_text(srv, "solo", "hello there")
     srv.enable_batching("solo", draft_layers=1, max_len=256,
@@ -249,10 +271,22 @@ def test_batched_speculative_answers_501(served_batched):
         assert _chat_text(srv, "solo", "hello there") == want
     finally:
         srv.batchers.pop("solo").stop()
-    with pytest.raises(urllib.error.HTTPError) as e:
-        _post(srv, {"model": "batched", "messages": MSGS,
-                    "tools": [{"type": "x"}]})
-    assert e.value.code == 501
+    tools = [{"type": "function", "function": {"name": "f"}}]
+    usage = {}
+    srv.enable_batching("solo", max_len=1024, dtype=torch.float32)
+    try:
+        for choice in ("auto", "none", None):
+            body = {"model": "solo", "messages": MSGS, "max_tokens": 4}
+            if choice is not None:
+                body.update(tools=tools, tool_choice=choice)
+            with _post(srv, body) as r:
+                out = json.loads(r.read())
+            assert out["choices"][0]["finish_reason"] in ("stop",
+                                                          "tool_calls")
+            usage[choice] = out["usage"]["prompt_tokens"]
+    finally:
+        srv.batchers.pop("solo").stop()
+    assert usage["none"] == usage[None] < usage["auto"]
 
 
 def test_speculative_batching_warns_past_the_kernel_rows(served):
