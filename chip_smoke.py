@@ -108,7 +108,21 @@ Qwen3-30B-A3B with random weights (seeded):
     one-page PDF (K2 and K5 at the prefill, K4 and K1 at decode), SAM's
     and the flow's ms, the prefill ms, the replayed decode tok/s and the
     gathered K = 896 down projection's share of a step, the decoder's
-    logits check on 2 layers, and the request against its plain version.
+    logits check on 2 layers, and the request against its plain version;
+  - serve_paraformer: Paraformer-large at its published widths (50 + 16
+    SAN-M blocks, 512 wide, vocabulary 8404), bf16: a 30 s WAV to
+    /v1/audio/transcriptions answered as the model's own transcribe (K12,
+    CIF, once, never its plain loop), K12 bit for bit against its plain
+    loop at the clip's shapes (k12), the split and the RTF;
+  - serve_qwen3_asr: Qwen3-ASR, the AuT encoder (bf16) and the Qwen3-0.6B
+    decoder at w8a8 g64 on panels: a 30 s WAV transcribed over HTTP (K2 at
+    the spliced prefill, K1's 8-bit P formula at every decode step), the
+    split, the replayed decode tok/s, the RTF and the decoder's logits
+    check on 2 layers;
+  - serve_funasr_nano: Fun-ASR-Nano, the Paraformer-large encoder, the
+    adaptor and the Qwen3-0.6B decoder, bf16: a 30 s WAV transcribed and
+    a 45 s one translated (translate_long, two chunks) over HTTP (K2 at
+    each prefill), the split, the RTF and the logits check.
 
   - batcher_graph (Qwen3-4B channel w8a8 over a dense cache and a paged
     int8 pool, Qwen3-30B-A3B w4a8 paged, MiniCPM-SALA dense): the
@@ -4019,7 +4033,7 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
     run, the kernel against its
     plain version on the same inputs, per row, below K1_TOL; and the
     "last_group" control below at or above ``tol`` (the limit catches
-    it).
+    it) where a quantized matmul ran (a bf16 model's only kernel is K2).
 
     Reported beside, to say where a difference comes from and what the
     limit is worth: each kernel alone against the plain path (that kernel
@@ -4170,7 +4184,9 @@ def check_logits(dev, cfg, params, name="Qwen3-4B", kernels=None,
         minicpm_calls_hold(sala, name)
     if not rel < tol:
         raise RuntimeError(f"{name}: kernel vs plain logits rel {rel}")
-    if not controls["last_group"] >= tol:
+    # the planted fault sits in the quantized matmuls: a model without
+    # one (a bf16 decoder, K2 its only kernel) has nothing to plant it in
+    if calls and not controls["last_group"] >= tol:
         raise RuntimeError(f"{name}: the limit {tol} misses a quantized "
                            f"matmul without its last group (rel "
                            f"{controls['last_group']})")
@@ -6734,15 +6750,19 @@ def wall_ms(call, n: int = 3) -> float:
     return best
 
 
-def pipeline_decode_rate(model, image, ids, short=16, long=64) -> dict:
+def pipeline_decode_rate(model, image, ids, short=16, long=64,
+                         prefill=None) -> dict:
     """The replayed decode tok/s of a pipeline's request (prefill, then
     ``engine().decode``'s captured step): the difference quotient of
     ``long`` and ``short`` tokens, best of 2 each, so the prefill and the
-    step's capture cancel."""
+    step's capture cancel. ``prefill(n)`` (default ``model.prefill(image,
+    ids, n)``) gives the last logits and the cache."""
+    prefill = prefill or (lambda n: model.prefill(image, ids, n))
+
     def run(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(image, ids, n)
+        logits, cache = prefill(n)
         toks = list(model.engine().decode(logits, cache, n))
         if len(toks) != n:
             raise RuntimeError(f"decode stopped at {len(toks)} of {n}")
@@ -7146,6 +7166,382 @@ def serve_ocr2(dev, smi, profile=False):
     return counts
 
 
+# ------------------------------------------------------------------ ASR -----
+
+ASR_SECONDS = 30
+ASR_LONG_SECONDS = 45            # two chunks of Fun-ASR-Nano's long path
+ASR_RATE = 16000
+K12_DESIGN = ("one launch, a CTA of 128 columns of one row (grid: columns x "
+              "rows): the row's alphas staged in shared memory, its thread "
+              "0 runs the scalar integrate-and-fire scan and leaves each "
+              "frame's weight, remainder and fire flag in shared memory, "
+              "then every thread walks its column through the frames in "
+              "loop order (products and sums rounded apart, __fmul_rn and "
+              "__fadd_rn), writing each fired frame and zeroing the rows "
+              "past the count: the plain loop's bits; the CTAs of a row "
+              "repeat its scan")
+
+
+def qwen3_0p6b():
+    """The Qwen3-0.6B decoder of benchmarks/pipelines_bench.py:70-73 (the
+    qwen3_asr_0p6b_rtf row), copied: vocabulary 151936, 1024 wide, 28
+    layers, 16 / 8 heads of 128, FFN 3072, QK-norm, tied embeddings."""
+    from ominix_mlx_tpu_torch.models import base
+
+    return base.TransformerConfig(
+        vocab_size=151936, hidden_size=1024, num_layers=28, num_heads=16,
+        num_kv_heads=8, head_dim=128, intermediate_size=3072,
+        use_qk_norm=True, tie_word_embeddings=True)
+
+
+def asr_wav(seconds: float, seed: int, rate: int = ASR_RATE) -> bytes:
+    """A seeded mono 16-bit WAV: a few tones whose pitch wanders, and
+    noise."""
+    import io
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * rate)) / rate
+    x = sum(0.1 * np.sin(2 * np.pi * f * t * (1 + 0.05 * np.sin(t * w)))
+            for f, w in ((180, 0.7), (420, 1.3), (1100, 0.4)))
+    x = x + 0.02 * rng.normal(size=t.shape)
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def wav_samples(data: bytes):
+    """The samples and rate the audio routes decode from ``data``."""
+    import io
+    import wave
+
+    import numpy as np
+
+    from ominix_mlx_tpu_torch import native
+
+    with wave.open(io.BytesIO(data), "rb") as w:
+        rate = w.getframerate()
+        raw = w.readframes(w.getnframes())
+    return native.pcm16_to_float(np.frombuffer(raw, np.int16)), rate
+
+
+def post_audio(port, path: str, data: bytes) -> dict:
+    """POST raw WAV bytes; the JSON answer (raises unless 200)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200:
+            raise RuntimeError(f"{path}: HTTP {r.status}")
+        return json.loads(r.read())
+
+
+def serve_audio(name, model, requests):
+    """Each (route, WAV bytes) of ``requests`` over HTTP to a server
+    holding ``model`` alone, one after another: (answers, seconds, the
+    launches of all of them)."""
+    from ominix_mlx_tpu_torch.ops import _build
+    from ominix_mlx_tpu_torch.serving.server import Server
+
+    srv = Server(port=free_port())
+    srv.add_model(name, model)
+    srv.start_background()
+    out, secs = [], []
+    try:
+        _build.reset_launches()
+        for path, data in requests:
+            t = time.perf_counter()
+            out.append(post_audio(srv.port, path, data)["text"])
+            secs.append(time.perf_counter() - t)
+        counts = dict(_build.LAUNCHES)
+    finally:
+        srv.shutdown()
+    return out, secs, counts
+
+
+def check_k12(dev, flush, enc, alphas, cfg):
+    """K12 against cif_reference on the encoder output and alphas of the
+    phase's 30 s clip (bf16, [1, 501, 512]) and on three rows of ragged
+    fires built from them (the alphas scaled by 0.5 and 1.6: a row that
+    fires about half as often and one that fires at most frames): frames
+    and counts bit for bit; timed beside the bound (bytes) and the plain
+    loop. No PyTorch call computes CIF."""
+    from ominix_mlx_tpu_torch.ops import cif as tcif
+
+    rows = []
+    a3 = torch.cat([alphas, alphas * 0.5, (alphas * 1.6).clamp(max=0.999)])
+    for h, a in ((enc, alphas), (enc.expand(3, -1, -1).contiguous(), a3)):
+        B, T, D = h.shape
+        th, tail = cfg.cif_threshold, cfg.cif_tail_threshold
+        got = tcif._k12(h, a, th, tail, T)
+        want = tcif.cif_reference(h, a, th, tail)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got[0], want[0])
+                     and torch.equal(got[1], want[1]))
+        row = {"B": B, "T": T, "D": D, "counts": got[1].tolist(),
+               "bitwise_equal": equal,
+               "max_abs_err": (got[0] - want[0]).abs().max().item(),
+               "ms": time_ms(lambda: tcif._k12(h, a, th, tail, T), 10,
+                             flush),
+               "plain_ms": time_ms(lambda: tcif.cif_reference(
+                   h, a, th, tail), 3, flush),
+               "library_ms": None,
+               "library_error": "no PyTorch call computes CIF",
+               **bound(tcif.k12_bytes(B, T, D, T), 0, "fp32")}
+        row.update(versus(row))
+        emit({"phase": "k12", **row})
+        if not equal:
+            raise RuntimeError(f"K12 B={B}: not its plain loop's bits: "
+                               f"{row}")
+        rows.append(row)
+    return rows
+
+
+def paraformer_large(dev, gen):
+    """Paraformer-large at its published widths (FunASR's paraformer-large:
+    ParaformerConfig(), 50 + 16 blocks, 512 wide, vocabulary 8404), random
+    bf16 weights, as benchmarks/pipelines_bench.py:39-60 builds it."""
+    from ominix_mlx_tpu_torch.models import paraformer as pf
+
+    cfg = pf.ParaformerConfig()
+    return pf.Transcriber(params=pf.init_params(cfg, gen, torch.bfloat16,
+                                                dev), cfg=cfg, device=dev)
+
+
+def serve_paraformer(dev, smi):
+    """serve_paraformer: Paraformer-large (``paraformer_large``) registered
+    with ``Server.add_model``; a 30 s seeded WAV to
+    /v1/audio/transcriptions answered with the text of the model's own
+    ``transcribe`` (token ids, no token table), K12 launched once and the
+    plain loop never; then K12 against its plain version at the clip's
+    shapes (``check_k12``), the split (front end, encoder, alphas, CIF,
+    decoder) and the RTF (wall seconds of a transcription per second of
+    audio). Returns (the launches of the HTTP run, K12's rows)."""
+    from ominix_mlx_tpu_torch.models import paraformer as pf
+    from ominix_mlx_tpu_torch.ops import cif as tcif
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    m = paraformer_large(dev, gen)
+    cfg = m.cfg
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": "Paraformer-large", "weights": "bf16",
+          "init_seconds": time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    data = asr_wav(ASR_SECONDS, SEED + 91)
+    plain = tcif.cif_reference
+
+    def refuse(*a, **k):
+        raise RuntimeError("a CUDA tensor took CIF's plain loop")
+
+    tcif.cif_reference = refuse
+    try:
+        texts, secs, counts = serve_audio(
+            "paraformer-large", m,
+            [("/v1/audio/transcriptions", data)])
+    finally:
+        tcif.cif_reference = plain
+    x, rate = wav_samples(data)
+    direct = m.transcribe(x, rate)
+    row = {"phase": "serve_paraformer_request", "seconds": secs[0],
+           "tokens": len(texts[0].split()), "text": texts[0][:60],
+           "launches": counts, "card": smi}
+    emit(row)
+    if texts[0] != direct or not texts[0] or counts.get("k12", 0) != 1:
+        raise RuntimeError(f"serve_paraformer: answer or launches: {row}")
+
+    with torch.inference_mode():
+        samples = torch.from_numpy(x).to(dev)
+        feats = m.features(samples, rate).to(torch.bfloat16)
+        enc = pf.encode(m.params, cfg, feats)
+        alphas = pf.predict_alphas(m.params["predictor"], enc)
+        frames, n = tcif.cif(enc, alphas)
+        frames = frames.to(enc.dtype)
+        flush_buf = torch.zeros(256 << 20, dtype=torch.uint8, device=dev)
+        rows = check_k12(dev, l2_flush(flush_buf), enc, alphas, cfg)
+        del flush_buf
+        stages = {
+            "frontend_ms": wall_ms(lambda: m.features(samples, rate)),
+            "encoder_ms": wall_ms(lambda: pf.encode(m.params, cfg, feats)),
+            "alphas_ms": wall_ms(lambda: pf.predict_alphas(
+                m.params["predictor"], enc)),
+            "cif_ms": wall_ms(lambda: tcif.cif(enc, alphas)),
+            "decoder_ms": wall_ms(lambda: pf.decode(m.params, cfg, frames,
+                                                    enc)),
+            "transcribe_ms": wall_ms(lambda: m.transcribe(x, rate), 2)}
+    emit({"phase": "paraformer_split", "audio_s": ASR_SECONDS,
+          "lfr_frames": enc.shape[1], "tokens": int(n[0]), **stages,
+          "rtf": stages["transcribe_ms"] / 1e3 / ASR_SECONDS,
+          "k12_launches_per_transcription": counts.get("k12", 0),
+          "card": smi})
+    del m, enc, alphas, frames, feats
+    free_device_memory()
+    emit({"phase": "serve_paraformer", "launches": counts, "ok": True})
+    return counts, rows
+
+
+def asr_decoder_checks(dev, name, m, prefill, smi, tol):
+    """The decoder's split and checks for an ASR phase: its prefill's ms at
+    the spliced prompt's T (``prefill(n)``: the prompt into a cache for n
+    tokens, (last logits, cache)), the replayed decode tok/s (the
+    difference quotient of 16 and 64 tokens), and ``check_logits`` on a
+    2-layer cut."""
+    logits, cache = prefill(8)
+    T = cache.offset
+    del logits, cache
+    rate = pipeline_decode_rate(m, None, None, prefill=prefill)
+    check_logits(dev, m.lm_cfg, m.lm_params, f"{name} decoder", tol=tol)
+    return {"prefill_T": T, "prefill_ms": wall_ms(lambda: prefill(8)),
+            **rate}
+
+
+def serve_qwen3_asr(dev, smi):
+    """serve_qwen3_asr: Qwen3-ASR with the default AuT encoder (bf16; output
+    2048, cut to the decoder's 1024 as the JAX package does) and the
+    Qwen3-0.6B decoder (``qwen3_0p6b``) at w8a8 g64 on panels (the 8-bit
+    of BASELINE.md:17), random weights; a 30 s seeded WAV to
+    /v1/audio/transcriptions answered with the model's own ``transcribe``
+    (no tokenizer: 256 greedy token ids), K2 launched once a layer at the
+    spliced prefill and K1's 8-bit P formula at every decode step; the
+    split (front end, encoder, prefill, replayed decode), the RTF, and
+    the decoder's logits check on 2 layers. Returns the launches of the
+    HTTP run."""
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.models import qwen3_asr as qa
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+    ecfg, lcfg = qa.AudioEncoderConfig(), qwen3_0p6b()
+    m = qa.Qwen3ASR(
+        enc_params=qa.init_encoder_params(ecfg, gen, torch.bfloat16, dev),
+        enc_cfg=ecfg,
+        lm_params=base.fuse_layer_projections(base.init_quantized_params(
+            lcfg, gen, GS, 8, act_bits=8, device=dev)),
+        lm_cfg=lcfg, device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": "Qwen3-ASR-0.6B", "weights":
+          "AuT encoder bf16, decoder w8a8 g64",
+          "init_seconds": time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    data = asr_wav(ASR_SECONDS, SEED + 93)
+    texts, secs, counts = serve_audio(
+        "qwen3-asr", m, [("/v1/audio/transcriptions", data)])
+    x, rate = wav_samples(data)
+    direct = m.transcribe(x, rate)
+    steps = len(texts[0].split()) - 1
+    L = lcfg.num_layers
+    row = {"phase": "serve_qwen3_asr_request", "seconds": secs[0],
+           "tokens": steps + 1, "text": texts[0][:60], "launches": counts,
+           "card": smi}
+    emit(row)
+    if texts[0] != direct or counts.get("k2", 0) != L \
+            or counts.get("k1_m1_w8", 0) < 4 * L * steps:
+        raise RuntimeError(f"serve_qwen3_asr: answer or launches: {row}")
+
+    with torch.inference_mode():
+        samples = torch.from_numpy(x).to(dev)
+        feats = m.encode_audio(x)[:, :lcfg.hidden_size]
+        mel = m.mel(samples)
+        n = mel.shape[1]
+        mel = torch.nn.functional.pad(mel, (0, (-n) % ecfg.chunk_frames)) \
+            .to(torch.bfloat16)
+        pre, suf, _ = m.prompt_ids()
+        stages = {"frontend_ms": wall_ms(lambda: m.mel(samples)),
+                  "encoder_ms": wall_ms(lambda: qa.encode(
+                      m.enc_params, ecfg, mel, n)),
+                  "audio_tokens": feats.shape[0],
+                  **asr_decoder_checks(
+                      dev, "Qwen3-ASR-0.6B w8a8", m,
+                      lambda k: m.prefill(feats, pre, suf, k), smi,
+                      W8A8_PANELS_LOGITS_TOL),
+                  "transcribe_ms": wall_ms(lambda: m.transcribe(x, rate),
+                                           2)}
+    emit({"phase": "qwen3_asr_split", "audio_s": ASR_SECONDS, **stages,
+          "tokens": steps + 1,
+          "rtf": stages["transcribe_ms"] / 1e3 / ASR_SECONDS,
+          "k2_per_request": counts.get("k2", 0),
+          "k1_m1_w8_per_request": counts.get("k1_m1_w8", 0),
+          "card": smi})
+    del m, feats, mel
+    free_device_memory()
+    emit({"phase": "serve_qwen3_asr", "launches": counts, "ok": True})
+    return counts
+
+
+def serve_funasr_nano(dev, smi):
+    """serve_funasr_nano: Fun-ASR-Nano with the Paraformer-large SAN-M
+    encoder, ``AdaptorConfig()`` and the Qwen3-0.6B decoder
+    (``qwen3_0p6b``), all bf16, random weights; a 30 s seeded WAV to
+    /v1/audio/transcriptions and a 45 s one to /v1/audio/translations
+    (past 30 s: ``translate_long``, two chunks), each answered with the
+    model's own ``transcribe`` / ``translate_long`` (256 greedy token ids
+    a chunk), K2 launched once a layer at each of the three spliced
+    prefills; the split, the RTF and the decoder's logits check on 2
+    layers. Returns the launches of the HTTP run."""
+    from ominix_mlx_tpu_torch.models import base, funasr_nano
+    from ominix_mlx_tpu_torch.models import paraformer as pf
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 94)
+    ecfg, acfg, lcfg = pf.ParaformerConfig(), funasr_nano.AdaptorConfig(), \
+        qwen3_0p6b()
+    m = funasr_nano.FunASRNano(
+        enc_params=pf.init_params(ecfg, gen, torch.bfloat16, dev),
+        enc_cfg=ecfg,
+        adaptor_params=funasr_nano.init_adaptor(acfg, gen, torch.bfloat16,
+                                                dev),
+        adaptor_cfg=acfg,
+        lm_params=base.fuse_layer_projections(base.init_params(
+            lcfg, gen, torch.bfloat16, dev)),
+        lm_cfg=lcfg, device=dev)
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": "Fun-ASR-Nano", "weights": "bf16",
+          "init_seconds": time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    short = asr_wav(ASR_SECONDS, SEED + 95)
+    long = asr_wav(ASR_LONG_SECONDS, SEED + 96)
+    texts, secs, counts = serve_audio(
+        "fun-asr-nano", m, [("/v1/audio/transcriptions", short),
+                                 ("/v1/audio/translations", long)])
+    xs, rate = wav_samples(short)
+    xl, _ = wav_samples(long)
+    direct = [m.transcribe(xs, rate), m.translate_long(xl, rate)]
+    L = lcfg.num_layers
+    row = {"phase": "serve_funasr_nano_requests", "seconds": secs,
+           "tokens": [len(t.split()) for t in texts],
+           "text": [t[:60] for t in texts], "launches": counts, "card": smi}
+    emit(row)
+    if texts != direct or not all(texts) or counts.get("k2", 0) != 3 * L:
+        raise RuntimeError(f"serve_funasr_nano: answers or launches: {row}")
+
+    with torch.inference_mode():
+        samples = torch.from_numpy(xs).to(dev)
+        lfr = m.features(xs, rate)[None]
+        pre, suf, _ = m._prompt_ids()
+        stages = {"frontend_ms": wall_ms(lambda: m.features(samples, rate)),
+                  "encoder_adaptor_ms": wall_ms(lambda: m.encode(lfr)),
+                  "audio_tokens": m.encode(lfr).shape[1],
+                  **asr_decoder_checks(
+                      dev, "Fun-ASR-Nano bf16", m,
+                      lambda k: m.prefill(lfr, pre, suf, k), smi,
+                      LOGITS_TOL),
+                  "transcribe_ms": wall_ms(lambda: m.transcribe(xs, rate),
+                                           2)}
+    emit({"phase": "funasr_nano_split", "audio_s": ASR_SECONDS, **stages,
+          "rtf": stages["transcribe_ms"] / 1e3 / ASR_SECONDS,
+          "translate_long_s": secs[1],
+          "rtf_translate_long": secs[1] / ASR_LONG_SECONDS,
+          "k2_per_request": counts.get("k2", 0) / 3, "card": smi})
+    del m, lfr
+    free_device_memory()
+    emit({"phase": "serve_funasr_nano", "launches": counts, "ok": True})
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
@@ -7406,6 +7802,9 @@ def main() -> int:
                                                       args.profile)
     phases["serve_moxin"] = serve_moxin(dev, smi, args.profile)
     phases["serve_ocr2"] = serve_ocr2(dev, smi, args.profile)
+    phases["serve_paraformer"], k12_rows = serve_paraformer(dev, smi)
+    phases["serve_qwen3_asr"] = serve_qwen3_asr(dev, smi)
+    phases["serve_funasr_nano"] = serve_funasr_nano(dev, smi)
 
     def launches(key, only=None):
         return sum(c.get(key, 0) for p, c in phases.items()
@@ -7591,6 +7990,10 @@ def main() -> int:
               "165-197, no Pallas kernel",
               "ominix_mlx_tpu_torch/csrc/sparse_attn.cu", k11_attend_rows,
               lambda rs: rs[0], "k11_attend", design=K11_ATTEND_DESIGN),
+        entry("k12_cif",
+              "XLA scan ominix_mlx_tpu/models/paraformer.py:110-155, no "
+              "Pallas kernel", "ominix_mlx_tpu_torch/csrc/cif.cu", k12_rows,
+              lambda rs: rs[0], "k12", design=K12_DESIGN),
     ]
     for k in kernels:
         if k["launches"] < 1:

@@ -14,11 +14,14 @@ Layering:
                                models.mistral, models.glm4)
     core                      (core: device, quant, rope, attention,
                                cache, paged_cache, sampling, generate)
-    layers                    (nn.layers)
+    layers                    (nn.layers; the audio front end
+                               audio.dsp, audio.io and the native
+                               resampler)
     kernels                   (ops: quantized matmul K1, flash prefill
                                K2 and K2c (with a sliding window),
                                paged decode attention K3,
-                               expert gather-qmm K4, grouped matmul K5;
+                               expert gather-qmm K4, grouped matmul K5,
+                               and the port's own K8-K12 (K12: CIF);
                                hand-written CUDA for sm_90a in csrc/)
     PyTorch / CUDA
 

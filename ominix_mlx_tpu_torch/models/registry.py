@@ -1,10 +1,11 @@
 """One ``load_model(dir)`` for every family the port holds, dispatched on
 the HF ``model_type`` of config.json (counterpart of
 ominix_mlx_tpu/models/registry.py; ``MODEL_TYPES`` and the pipeline table
-copied from there). ``load_pipeline`` loads the VLM (Moxin-7B) and OCR
-(DeepSeek-OCR-2) pipelines; the other pipeline types, and model types
-whose family is not ported yet, raise ``NotImplementedError`` naming
-their family."""
+copied from there). ``load_pipeline`` loads the VLM (Moxin-7B), OCR
+(DeepSeek-OCR-2) and ASR (Paraformer, Fun-ASR-Nano and FunASR-Qwen4B,
+Qwen3-ASR) pipelines; the other pipeline types, and model types whose
+family is not ported yet, raise ``NotImplementedError`` naming their
+family."""
 
 from __future__ import annotations
 
@@ -55,7 +56,8 @@ PIPELINE_TYPES = {
     "prismatic": ("moxin_vlm", "vlm"),
 }
 # the pipeline families this package holds
-PORTED_PIPELINES = {"moxin_vlm", "deepseek_ocr2"}
+PORTED_PIPELINES = {"moxin_vlm", "deepseek_ocr2", "paraformer",
+                    "funasr_nano", "qwen3_asr"}
 
 
 def capability(model_type: str) -> str:
@@ -104,7 +106,9 @@ def load_pipeline(model_dir: str, device=None):
     """Any family -> (capability, object): a chat model as the triple of
     ``load_model``; a pipeline as its module's ``load_model`` gives it on
     ``device`` ("vlm": ``moxin_vlm.MoxinVLM``, "ocr":
-    ``deepseek_ocr2.DeepSeekOCR2``; the unported ones raise in
+    ``deepseek_ocr2.DeepSeekOCR2``, "transcribe": ``paraformer.
+    Transcriber``, ``funasr_nano.FunASRNano`` or ``qwen3_asr.Qwen3ASR``,
+    each with ``transcribe(samples, rate)``; the unported ones raise in
     ``get_module``)."""
     mt = load_config(model_dir)["model_type"]
     if mt in MODEL_TYPES:

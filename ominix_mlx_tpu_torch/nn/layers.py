@@ -124,6 +124,26 @@ def layer_norm(params: dict, x: torch.Tensor,
     return y
 
 
+def conv1d(params: dict, x: torch.Tensor, stride: int = 1, padding=0,
+           groups: int = 1, dilation: int = 1) -> torch.Tensor:
+    """x: [B, T, C_in] (channels last); params["w"]: [C_out, K,
+    C_in/groups] (the MLX layout the JAX tree keeps; moved to PyTorch's
+    [C_out, C_in/groups, K] here, at the call), "b"?: [C_out].
+    ``padding``: an int (both sides) or a ((left, right),) pair. Returns
+    [B, T', C_out] in x's type."""
+    w = params["w"].to(x.dtype).permute(0, 2, 1)
+    xc = x.transpose(1, 2)
+    if not isinstance(padding, int):
+        (left, right), = padding
+        xc = F.pad(xc, (left, right))
+        padding = 0
+    y = F.conv1d(xc, w, stride=stride, padding=padding, dilation=dilation,
+                 groups=groups).transpose(1, 2)
+    if params.get("b") is not None:
+        y = y + params["b"]
+    return y
+
+
 def conv2d(params: dict, x: torch.Tensor, stride=1, padding=0,
            groups: int = 1) -> torch.Tensor:
     """x: [B, H, W, C_in] (channels last, as the JAX package's towers);

@@ -58,7 +58,8 @@ build_seconds = 0.0     # wall time of the build this process ran (0 if reused)
 # its chunked form (one launch), "k10_decode": a lightning layer's whole
 # decode mixer (norms, RoPE, the state step, the gate); "k11_score",
 # "k11_select" and "k11_attend": InfLLMv2's block scorer, the scorer with
-# its top-k (the decode path's), and sparse decode attention).
+# its top-k (the decode path's), and sparse decode attention; "k12":
+# Paraformer's CIF).
 # Plain-version calls do not count. A launch made while the calling thread
 # records a CUDA graph's capture (``recording``) is counted each time the
 # graph replays (``replayed``), not at the capture, where nothing runs.
@@ -205,6 +206,8 @@ def _declare(lib):
     lib.ominix_sparse_select.argtypes = [vp] * 7 + [i] * 11 + [vp]
     lib.ominix_sparse_attend.restype = i
     lib.ominix_sparse_attend.argtypes = [vp] * 10 + [i] * 12 + [f, vp]
+    lib.ominix_cif.restype = i
+    lib.ominix_cif.argtypes = [vp] * 4 + [i] * 6 + [f, f, vp]
     lib.ominix_cuda_error_string.restype = ctypes.c_char_p
     lib.ominix_cuda_error_string.argtypes = [i]
     return lib

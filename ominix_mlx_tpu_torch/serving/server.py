@@ -5,6 +5,10 @@ ominix_mlx_tpu/serving/server.py):
                                   an image go to a VLM; tools)
   POST /v1/describe              (image description by a VLM)
   POST /v1/ocr                   (an image or a PDF through the OCR model)
+  POST /v1/audio/transcriptions  (raw WAV bytes -> {"text"}: the first
+                                  model that can transcribe)
+  POST /v1/audio/translations    (raw WAV bytes -> English {"text"}: the
+                                  first model that can translate)
   GET  /v1/models
   GET  /v1/models/local          (the local model directory)
   DELETE /v1/models/<name>       (delete one from it)
@@ -13,8 +17,9 @@ ominix_mlx_tpu/serving/server.py):
 
 ``Server.load_model(name, dir)`` loads a checkpoint directory through
 ``models.registry``: a chat family with the directory's
-``utils.tokenizer.Tokenizer``, a Moxin VLM or a DeepSeek-OCR-2 pipeline as
-its module builds it; ``add_model`` registers a model built in memory.
+``utils.tokenizer.Tokenizer``, a Moxin VLM, a DeepSeek-OCR-2 pipeline or an
+ASR pipeline (Paraformer, Qwen3-ASR, Fun-ASR-Nano) as its module builds
+it; ``add_model`` registers a model built in memory.
 ``main()`` is the command line:
 
     python -m ominix_mlx_tpu_torch.serving.server --model name=DIR
@@ -31,11 +36,11 @@ own first layers), and ``enable_batching`` with a draft makes its batcher
 speculative (greedy requests; sampled ones take the engine path). A
 request's ``tools`` are folded into its system turn and the completion's
 ``<tool_call>`` spans come back as OpenAI ``tool_calls``
-(``utils.tools``). Every image request (VLM chat, /v1/describe, /v1/ocr)
-runs its card work on the inference thread, as unbatched chat does, so
-no tower launches from an HTTP thread. The audio and image-generation
-routes are not ported yet and answer 404; /v1/models/download needs the
-network and answers 501.
+(``utils.tools``). Every image and audio request (VLM chat,
+/v1/describe, /v1/ocr, /v1/audio/*) runs its card work on the inference
+thread, as unbatched chat does, so no encoder launches from an HTTP
+thread. The image-generation route is not ported yet and answers 404;
+/v1/models/download needs the network and answers 501.
 """
 
 from __future__ import annotations
@@ -433,16 +438,18 @@ class Server:
     def load_model(self, name: str, model_dir: str, device=None):
         """Load a checkpoint directory through ``models.registry.
         load_pipeline``: a chat family becomes a ``ChatModel`` with the
-        directory's ``Tokenizer``; a "vlm" (``moxin_vlm.MoxinVLM``) or
-        "ocr" (``deepseek_ocr2.DeepSeekOCR2``) pipeline is served as its
-        module builds it; the other pipelines raise NotImplementedError."""
+        directory's ``Tokenizer``; a "vlm" (``moxin_vlm.MoxinVLM``), "ocr"
+        (``deepseek_ocr2.DeepSeekOCR2``) or "transcribe" pipeline
+        (``paraformer.Transcriber``, ``qwen3_asr.Qwen3ASR``,
+        ``funasr_nano.FunASRNano``) is served as its module builds it; the
+        other pipelines raise NotImplementedError."""
         from ominix_mlx_tpu_torch.core.device import resolve_device
         from ominix_mlx_tpu_torch.models import registry
         from ominix_mlx_tpu_torch.utils.tokenizer import Tokenizer
 
         device = resolve_device(device)
         cap, obj = registry.load_pipeline(model_dir, device)
-        if cap in ("vlm", "ocr"):
+        if cap in ("vlm", "ocr", "transcribe"):
             obj.dir = model_dir
             self.models[name] = obj
             return obj
@@ -457,7 +464,8 @@ class Server:
 
     def add_model(self, name: str, model):
         """Register a model built in memory (random or bridged weights): a
-        ``ChatModel``, a ``MoxinVLM`` or a ``DeepSeekOCR2``."""
+        ``ChatModel``, a ``MoxinVLM``, a ``DeepSeekOCR2`` or an ASR facade
+        (anything with ``transcribe(samples, rate)``)."""
         self.models[name] = model
 
     def remove_model(self, name: str):
@@ -855,6 +863,45 @@ class Server:
                 "tokens_per_second": (round(n_tok / dt, 2)
                                       if n_tok and dt > 0 else None)}
 
+    def audio_transcription(self, wav_bytes: bytes, model_name=None,
+                            task: str = "transcribe") -> dict:
+        """POST /v1/audio/transcriptions (task "transcribe") and
+        /v1/audio/translations (task "translate": speech to English in one
+        pass) -> {"text"}: raw WAV bytes (not multipart), the named model
+        or else the first one with ``transcribe`` / ``translate``
+        (KeyError, 404, where none can), on the inference thread. Past 30
+        s of audio the model's ``transcribe_long`` / ``translate_long``
+        takes it where it has one. As in the JAX package, the frames are
+        read as 16-bit PCM whatever the file's sample width, and the
+        channels averaged."""
+        import wave
+
+        import numpy as np
+
+        from ominix_mlx_tpu_torch import native
+
+        want = "translate" if task == "translate" else "transcribe"
+        if model_name is None:
+            model_name = next((n for n, m in self.models.items()
+                               if hasattr(m, want)), None)
+        if model_name is None or model_name not in self.models:
+            raise KeyError(f"no {want}-capable model loaded")
+        m = self.models[model_name]
+        if not hasattr(m, want):
+            raise KeyError(f"model {model_name!r} cannot {want}")
+        with wave.open(io.BytesIO(wav_bytes), "rb") as w:
+            rate = w.getframerate()
+            raw = w.readframes(w.getnframes())
+            ch = w.getnchannels()
+        samples = native.pcm16_to_float(np.frombuffer(raw, np.int16))
+        if ch > 1:
+            samples = samples.reshape(-1, ch).mean(-1)
+        fn = want + "_long"
+        if not (len(samples) > 30 * rate and hasattr(m, fn)):
+            fn = want
+        return {"text": self.on_worker(
+            lambda: getattr(m, fn)(samples, rate))}
+
     def list_models(self) -> dict:
         return {"object": "list", "data": [
             {"id": name, "object": "model", "owned_by": "ominix",
@@ -926,6 +973,16 @@ class Server:
                 raw = self.rfile.read(length)
                 routes = {"/v1/describe": server.describe,
                           "/v1/ocr": server.ocr}
+                if self.path in ("/v1/audio/transcriptions",
+                                 "/v1/audio/translations"):
+                    task = ("translate" if self.path.endswith(
+                        "translations") else "transcribe")
+                    try:
+                        return self._json(200, server.audio_transcription(
+                            raw, task=task))
+                    except Exception as e:
+                        code, msg = self._error(e)
+                        return self._json(code, {"error": msg})
                 if self.path == "/v1/models/download":
                     return self._json(501, {
                         "error": "model download needs the network and is "

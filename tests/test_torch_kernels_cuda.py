@@ -3340,3 +3340,98 @@ def test_visual_flow_never_reaches_k2(cuda, monkeypatch):
         want = deepseek_ocr2.visual_flow_encode(
             unflatten_params(cpu), m.flow_cfg, feats.float().cpu())
     assert _rel(got.cpu(), want) < 2e-2
+
+
+# ------------------------------------------------------------ K12: CIF
+
+def _cif_inputs(dev, B, T, D, dtype, seed):
+    """Hidden states and alphas with ragged fires: row 0 sigmoid-like
+    alphas, row 1 a stretch that fires at every step, row 2 one that never
+    fires (the rows past B are dropped)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(B, T, D, generator=g, device=dev).to(dtype)
+    a = torch.rand(B, T, generator=g, device=dev) * 0.8 + 0.05
+    if B > 1:
+        a[1, : T // 2] = 0.93
+    if B > 2:
+        a[2] = 0.3 / T
+    return h, a.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T", [(1, 1), (1, 37), (1, 501), (3, 1),
+                                 (3, 37), (3, 501)])
+def test_k12_matches_plain_bit_for_bit(cuda, B, T, dtype):
+    """K12's frames and counts equal its plain loop's bit for bit (the
+    loop's products and sums rounded apart, as PyTorch runs them), one
+    launch a call; Paraformer's D = 512 and a ragged D = 200."""
+    from ominix_mlx_tpu_torch.ops import cif as tcif
+
+    for D in (512, 200):
+        h, a = _cif_inputs(cuda, B, T, D, dtype, seed=T * 10 + B)
+        _build.reset_launches()
+        frames, counts = tcif.cif(h, a)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["k12"] == 1
+        want_f, want_c = tcif.cif_reference(h, a)
+        assert torch.equal(counts, want_c), (counts, want_c)
+        assert torch.equal(frames, want_f)
+        if B > 2:
+            assert int(counts[2]) == 0 and not frames[2].any()
+
+
+def test_k12_clamps_at_max_tokens_and_reuses_no_state(cuda):
+    """Writes past max_tokens - 1 land on the last row (as the plain loop
+    and jax.lax.dynamic_update_slice); calls in a row give the same
+    bits."""
+    from ominix_mlx_tpu_torch.ops import cif as tcif
+
+    h, a = _cif_inputs(cuda, 2, 64, 512, torch.bfloat16, seed=3)
+    got = tcif.cif(h, a, max_tokens=5)
+    want = tcif.cif_reference(h, a, max_tokens=5)
+    assert int(want[1].max()) > 5
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    again = tcif.cif(h, a, max_tokens=5)
+    assert torch.equal(again[0], got[0])
+
+
+def test_k12_rejects(cuda):
+    from ominix_mlx_tpu_torch.ops import cif as tcif
+
+    h, a = _cif_inputs(cuda, 1, 16, 64, torch.float32, seed=1)
+    with pytest.raises(ValueError, match="K12 hidden"):
+        tcif.cif(h.half(), a)
+    with pytest.raises(ValueError, match="K12 alphas"):
+        tcif.cif(h, a[:, ::2])
+    with pytest.raises(ValueError, match="K12 takes"):
+        tcif.cif(torch.zeros(1, tcif.K12_MAX_T + 1, 8, device=cuda),
+                 torch.zeros(1, tcif.K12_MAX_T + 1, device=cuda))
+
+
+def test_paraformer_transcription_launches_k12(cuda, monkeypatch):
+    """On CUDA a Paraformer transcription runs CIF through K12 once (never
+    the plain loop), and its ids equal those of the same model with K12
+    swapped for its plain version."""
+    from ominix_mlx_tpu_torch.models import paraformer as pf
+    from ominix_mlx_tpu_torch.ops import cif as tcif
+
+    cfg = pf.ParaformerConfig(n_mels=80, encoder_layers=3, decoder_layers=2,
+                              vocab_size=300)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    m = pf.Transcriber(params=pf.init_params(cfg, g, torch.bfloat16, cuda),
+                       cfg=cfg, device=cuda)
+    x = torch.randn(16000 * 3, generator=g, device=cuda) * 0.1
+
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA tensor took CIF's plain loop")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(tcif, "cif_reference", refuse)
+        _build.reset_launches()
+        ids = m.transcribe_ids(x)
+        torch.cuda.synchronize()
+    assert _build.LAUNCHES["k12"] == 1 and ids
+    with monkeypatch.context() as mp:
+        mp.setattr(tcif, "_k12", lambda h, a, th, tail, n:
+                   tcif.cif_reference(h, a, th, tail, n))
+        assert m.transcribe_ids(x) == ids

@@ -238,9 +238,9 @@ def test_main_draft_flags_raise(flag, checkpoint, draft_checkpoint):
 
 
 @pytest.mark.parametrize("model_type,family", [
-    ("funasr_nano", "funasr_nano"), ("qwen3_asr", "qwen3_asr"),
+    ("step_audio2", "step_audio2"), ("qwen_image", "qwen_image"),
     ("flux_klein", "flux_klein"), ("gpt_sovits", "gpt_sovits"),
-    ("paraformer", "paraformer"), ("qwen3_tts", "qwen3_tts")])
+    ("zimage", "zimage"), ("qwen3_tts", "qwen3_tts")])
 def test_unported_types_raise(model_type, family, tmp_path):
     with open(tmp_path / "config.json", "w") as f:
         json.dump({"model_type": model_type}, f)
@@ -251,6 +251,20 @@ def test_unported_types_raise(model_type, family, tmp_path):
         model_type)
     with pytest.raises(ValueError, match="unsupported"):
         registry.get_module("no_such_family")
+
+
+@pytest.mark.parametrize("model_type,module", [
+    ("paraformer", "paraformer"), ("funasr_nano", "funasr_nano"),
+    ("funasr_qwen4b", "funasr_nano"), ("qwen3_asr", "qwen3_asr")])
+def test_asr_types_load_with_the_port(model_type, module):
+    """The ASR pipeline types load through the port's modules, each with a
+    ``transcribe(samples, rate)`` facade (tests/test_torch_server_audio.py
+    loads a checkpoint of each)."""
+    mod = registry.get_module(model_type)
+    assert mod.__name__ == f"ominix_mlx_tpu_torch.models.{module}"
+    assert registry.capability(model_type) == "transcribe" \
+        == jregistry.capability(model_type)
+    assert callable(mod.load_model)
 
 
 @pytest.mark.parametrize("model_type", ["minicpm_sala", "minicpm4"])
