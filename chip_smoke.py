@@ -122,7 +122,18 @@ Qwen3-30B-A3B with random weights (seeded):
   - serve_funasr_nano: Fun-ASR-Nano, the Paraformer-large encoder, the
     adaptor and the Qwen3-0.6B decoder, bf16: a 30 s WAV transcribed and
     a 45 s one translated (translate_long, two chunks) over HTTP (K2 at
-    each prefill), the split, the RTF and the logits check.
+    each prefill), the split, the RTF and the logits check;
+  - serve_qwen3_tts: Qwen3-TTS with the 1.7B talker (bf16 and w8a8 g64),
+    the e2e row's codec, the speech and ECAPA speaker encoders: each
+    talker's frame step captured once and replayed (K2 inside the graph
+    at the code predictor's prefill, K1 at one row at w8a8), held bit for
+    bit against its eager body over 60 frames, a profile of replayed
+    frames, ms a frame both ways in turns (eager over 8 frames of one
+    request), the 2-layer card-vs-plain check with its planted fault; one
+    /v1/audio/speech request over HTTP equal to the model's own
+    synthesis (no capture), a voice-clone request from a 3 s clip, the
+    split and the RTF; and float32 convolutions against float64
+    (conv_tf32).
 
   - batcher_graph (Qwen3-4B channel w8a8 over a dense cache and a paged
     int8 pool, Qwen3-30B-A3B w4a8 paged, MiniCPM-SALA dense): the
@@ -7542,6 +7553,464 @@ def serve_funasr_nano(dev, smi):
     return counts
 
 
+TTS_FRAMES = 60                  # the e2e row's 60 frames (4.8 s there)
+TTS_TEXT = "The quick brown fox jumps over the lazy dog near the river."
+TTS_VOICE = "vivian"
+# a preset voice's codec prefix: 9 control ids, so the prompt is the
+# reference's 10-position batched prefill (11 with a speaker x-vector)
+TTS_PREFIX = [2051, 2053, 2054, 2055, 2048, 2049, 2051, 2053, 2055]
+# frames timed for ms a frame: their difference quotient; every request
+# of the phase falls in one capacity bucket (128), so one capture serves
+TTS_TIMED_FRAMES = (48, 80)
+# the eager body's ms a frame: the host clock from frame 8's read of its
+# codes to frame 16's, in one request of TTS_FRAMES cut there
+TTS_EAGER_WINDOW = (8, 16)
+TTS_PROFILED_FRAMES = 16
+TTS_CLONE_SECONDS = 3
+TTS_RATE = 24000
+
+
+def qwen3_tts_1p7b():
+    """The Qwen3-TTS 1.7B talker of benchmarks/pipelines_bench.py:131-134,
+    copied: 28 layers 2048 wide, 16 / 8 heads of 128, FFN 6144, QK-norm,
+    the codec-0 vocabulary 3072; the code predictor and text embedding at
+    TalkerConfig's defaults (4 layers 1024 wide, 8 heads; 151936 x
+    1024)."""
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.models import qwen3_tts as qt
+
+    return qt.TalkerConfig(transformer=base.TransformerConfig(
+        vocab_size=3072, hidden_size=2048, num_layers=28, num_heads=16,
+        num_kv_heads=8, head_dim=128, intermediate_size=6144,
+        use_qk_norm=True))
+
+
+def tts_text_ids(text: str) -> list:
+    """Token ids without a tokenizer: ``TTSModel``'s ord(c) % 1000."""
+    return [ord(c) % 1000 for c in text]
+
+
+def tts_frames(syn, ids, prefix, n) -> list:
+    with torch.inference_mode():
+        return list(syn.generate_frames(ids, prefix, n))
+
+
+def tts_device_frames(syn, ids, n, eager: bool, times=None) -> list:
+    """The first ``n`` frames of a request of ``TTS_FRAMES`` frames (the
+    preset voice's prefix; the rest not generated), copies of each
+    frame's codes and codebook-0 logits on the device: every step after
+    frame 0 a replay of the captured frame (``Synthesizer.step``) or,
+    ``eager``, its body run directly. ``times`` gets the host clock at
+    each frame's read of its codes (the request loop's one sync)."""
+    step = (lambda st, cap: syn.frame_body(st)) if eager else syn.step
+    out = []
+    with torch.inference_mode():
+        frames = syn._frames(ids, TTS_PREFIX, TTS_FRAMES, step)
+        for codes, logits in frames:
+            out.append((codes.clone(), logits.clone()))
+            if times is not None:
+                codes.cpu()
+                times.append(time.perf_counter())
+            if len(out) == n:
+                break
+        frames.close()
+    return out
+
+
+def tts_replay_profile(syn, ids) -> dict:
+    """``TTS_PROFILED_FRAMES`` replayed frames of a request under
+    torch.profiler, its prefill and frame 0 outside the window, each
+    frame's codes read on the host as the request loop does: wall ms and
+    device busy ms a frame (the union of the kernels', copies' and fills'
+    intervals), the idle share, device operations a frame, and the
+    kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = TTS_PROFILED_FRAMES
+    with torch.inference_mode():
+        frames = syn._frames(ids, TTS_PREFIX, TTS_FRAMES, syn.step)
+        next(frames)[0].cpu()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                next(frames)[0].cpu()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        frames.close()
+    busy_us, by_name = device_time(prof)
+    return {"frames": n, "wall_ms_per_frame": wall_ms / n,
+            "device_busy_ms_per_frame": busy_us / 1e3 / n,
+            "device_idle_share": 1 - busy_us / 1e3 / wall_ms,
+            "device_ops_per_frame": sum(c for c, _ in by_name.values()) / n,
+            "top_device": top_kernels(by_name, busy_us, 10)}
+
+
+def tts_logits_check(dev, syn, name, tol, fault: bool, smi=""):
+    """Card path against plain path on a 2-layer cut of the talker (the
+    code predictor whole): the 10-token prefill (K2; the dq kernel at 8
+    bits) and 3 frames teacher-forced on seeded codes (the talker's step:
+    K1 at one row at 8 bits; the predictor's 2-token prefill: K2): the
+    codebook-0 logits [4, V0] and the predictor's first head on each
+    hidden [4, 2048], max error over max |plain| below ``tol``. With
+    ``fault`` (a quantized talker) the planted "last_group" control on
+    the plain path must reach ``tol``."""
+    from ominix_mlx_tpu_torch.core.cache import ModelCache
+    from ominix_mlx_tpu_torch.models import qwen3_tts as qt
+    from ominix_mlx_tpu_torch.nn.layers import embedding, linear
+
+    tcfg = dataclasses.replace(syn.tcfg, transformer=dataclasses.replace(
+        syn.tcfg.transformer, num_layers=2))
+    tp = {**syn.tp, "layers": syn.tp["layers"][:2]}
+    cut = qt.Synthesizer(tp, tcfg)
+    cp = tp["code_predictor"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 101)
+    codes = torch.randint(0, tcfg.codec_vocab_size, (3, 16), generator=g,
+                          device=dev)
+    ids = tts_text_ids(TTS_TEXT)
+
+    def heads(hidden, code0):
+        pc = qt.predictor_cache(tcfg, cp, 1, hidden.dtype, dev)
+        x = torch.cat([linear(cp["small_to_mtp_projection"], hidden),
+                       linear(cp["small_to_mtp_projection"], embedding(
+                           tp["codec_embedding"], code0))], 1)
+        h, _ = qt._cp_forward(cp, qt.predictor_config(tcfg, cp), x, pc,
+                              fresh_prefill=True)
+        return qt.linear_head(cp, 0, h[:, -1])
+
+    def run():
+        with torch.inference_mode():
+            st = cut.state(64)
+            logits, hidden = cut._prefill(st, cut.build_prefill(
+                ids, TTS_PREFIX))
+            lg = [logits[:, -1]]
+            hd = [heads(hidden[:, -1:], codes[:1, :1])]
+            cache = ModelCache(layers=st.layers, offset=st.offset)
+            for i in range(3):
+                emb = cut.frame_embedding(codes[i:i + 1],
+                                          torch.tensor([ids[i + 1]],
+                                                       device=dev))
+                logits, hidden, _ = qt.talker_step(tp, tcfg, emb, cache)
+                st.offset.add_(1)
+                lg.append(logits[:, -1])
+                hd.append(heads(hidden, codes[i:i + 1, :1]))
+            return torch.stack(lg).float(), torch.stack(hd).float()
+
+    got = run()
+    with plain_kernels():
+        want = run()
+    controls = {}
+    if fault:
+        with plain_kernels(args=control_args("last_group")):
+            controls["last_group"] = rel_to(run()[0], want[0])
+    rel = {"codec0_logits": rel_to(got[0], want[0]),
+           "predictor_head0": rel_to(got[1], want[1])}
+    row = {"phase": "tts_logits", "config": name, "layers": 2,
+           "rel_err": rel, "limit": tol, "rel_err_control": controls,
+           "card": smi}
+    emit(row)
+    if not all(torch.isfinite(t).all() for t in got):
+        raise RuntimeError(f"{name}: non-finite logits")
+    if not max(rel.values()) < tol:
+        raise RuntimeError(f"{name}: card vs plain path: {row}")
+    if fault and not controls["last_group"] >= tol:
+        raise RuntimeError(f"{name}: the limit {tol} misses a quantized "
+                           f"matmul without its last group: {row}")
+    return row
+
+
+def tts_frame_graph(dev, syn, name, weights, smi):
+    """The captured frame step against its eager body: ``TTS_FRAMES``
+    frames of one request each way, every frame's codes and codebook-0
+    logits bit for bit; the capture's ms, its pool, the launches a replay
+    records by kernel; the host µs of a replay (median of single replays
+    each issued to an idle card, and the mean of back-to-back ones); a
+    profile of replayed frames (``tts_replay_profile``); then ms a frame
+    replayed and eager in turns (3 each): replayed, the median of the
+    difference quotient of requests of ``TTS_TIMED_FRAMES`` frames, so
+    the prefill cancels; eager, the host clock across
+    ``TTS_EAGER_WINDOW`` inside one request."""
+    from ominix_mlx_tpu_torch.ops import _build
+
+    ids = tts_text_ids(TTS_TEXT)
+    before = syn.captures
+    got = tts_device_frames(syn, ids, TTS_FRAMES, eager=False)
+    want = tts_device_frames(syn, ids, TTS_FRAMES, eager=True)
+    if len(got) != TTS_FRAMES or len(want) != TTS_FRAMES:
+        raise RuntimeError(f"{name}: {len(got)} frames replayed, "
+                           f"{len(want)} eager")
+    differ = [i for i, ((gc, gl), (wc, wl)) in enumerate(zip(got, want))
+              if not (torch.equal(gc, wc) and torch.equal(gl, wl))]
+    cap = next(iter(syn.captured.graphs))
+    per_replay = {k: c for counter, counts in
+                  syn.captured.records[cap].launches.values()
+                  if counter is _build.LAUNCHES for k, c in counts.items()
+                  if c}
+    graph, _ = syn.captured.graphs[cap]
+    single = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        single.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        graph.replay()
+    queued_us = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
+    profiled = tts_replay_profile(syn, ids)
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        frames = tts_frames(syn, ids, TTS_PREFIX, n)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, len(frames)
+
+    a, b = TTS_EAGER_WINDOW
+    rates = {"replayed": [], "eager": []}
+    for _ in range(3):
+        (ta, na), (tb, nb) = map(timed, TTS_TIMED_FRAMES)
+        if nb <= na:
+            raise RuntimeError(f"{name}: EOS before frame {nb}")
+        rates["replayed"].append((tb - ta) / (nb - na) * 1e3)
+        times = []
+        tts_device_frames(syn, ids, b + 1, eager=True, times=times)
+        rates["eager"].append((times[b] - times[a]) / (b - a) * 1e3)
+    row = {"phase": "tts_frame_graph", "config": name, "weights": weights,
+           "frames": len(got), "frames_differ": differ,
+           "captures": syn.captures - before,
+           "capture_ms": syn.captured.capture_ms[cap],
+           "pool_mib": syn.captured.pool_bytes / 2 ** 20,
+           "capacity": cap, "launches_per_replay": per_replay,
+           "host_us_per_replay": statistics.median(single),
+           "host_us_per_replay_back_to_back": queued_us,
+           "replay_profile": profiled,
+           "ms_per_frame_replayed": statistics.median(rates["replayed"]),
+           "ms_per_frame_eager": statistics.median(rates["eager"]),
+           "ms_per_frame_runs": rates, "eager_window": [a, b],
+           "card": smi}
+    emit(row)
+    if differ or row["captures"] != 1:
+        raise RuntimeError(f"{name}: replayed frames against eager: {row}")
+    return row
+
+
+def tts_synth(dev, tcfg, tp, dec, ccfg, spk, enc, ecfg):
+    from ominix_mlx_tpu_torch.models import qwen3_tts as qt
+    from ominix_mlx_tpu_torch.models import speaker_encoder as se
+
+    return qt.Synthesizer(tp, tcfg, dec, ccfg, spk_params=spk,
+                          spk_cfg=se.SpeakerEncoderConfig(),
+                          speech_enc=enc, speech_enc_cfg=ecfg)
+
+
+def conv_tf32(dev, smi) -> dict:
+    """float32 convolutions on the card against float64, at Paraformer's
+    FSMN shape (512 channels depthwise, K = 11, 501 frames) and ECAPA's
+    first TDNN (128 -> 512, K = 5, 300 frames): F.conv1d under PyTorch's
+    default flags (cuDNN may take TF32) and ``nn.layers.conv1d`` (float32
+    without TF32 for the call), max error over max |float64|."""
+    from ominix_mlx_tpu_torch.nn import layers
+
+    rows = {}
+    for shape, (cin, cout, K, T, groups) in {
+            "fsmn": (512, 512, 11, 501, 512),
+            "ecapa_tdnn": (128, 512, 5, 300, 1)}.items():
+        g = torch.Generator(device=dev).manual_seed(K)
+        w = torch.randn(cout, K, cin // groups, generator=g, device=dev,
+                        dtype=torch.float64) * (cin * K / groups) ** -0.5
+        x = torch.randn(1, T, cin, generator=g, device=dev,
+                        dtype=torch.float64)
+        want = layers.conv1d({"w": w}, x, padding=K // 2, groups=groups)
+        raw = F.conv1d(x.float().transpose(1, 2),
+                       w.float().permute(0, 2, 1), padding=K // 2,
+                       groups=groups).transpose(1, 2)
+        got = layers.conv1d({"w": w.float()}, x.float(), padding=K // 2,
+                            groups=groups)
+        rows[shape] = {"default_flags_rel_err": rel_to(raw.double(), want),
+                       "layer_rel_err": rel_to(got.double(), want)}
+    row = {"phase": "conv_tf32", "rows": rows, "limit": 1e-5,
+           "cudnn_allow_tf32_default": torch.backends.cudnn.allow_tf32,
+           "card": smi}
+    emit(row)
+    if not all(r["layer_rel_err"] < 1e-5 for r in rows.values()):
+        raise RuntimeError(f"float32 convolutions: {row}")
+    return row
+
+
+def serve_qwen3_tts(dev, smi):
+    """serve_qwen3_tts: Qwen3-TTS with the 1.7B talker (``qwen3_tts_1p7b``,
+    random weights), the e2e row's codec decoder (512 wide, 4 transformer
+    layers of 8 heads, strides (2,) then (8, 5, 4, 3): 960 samples a
+    frame), the speech encoder (512 wide, strides (8, 5, 4, 3)) and the
+    default ECAPA speaker encoder (float32), the talker in bf16 and at
+    w8a8 g64 (``quantize_params``: its layers only; fused, on panels).
+    For each: the captured frame step against its eager body
+    (``tts_frame_graph``) and the 2-layer card-vs-plain check
+    (``tts_logits_check``). Then, on w8a8: one /v1/audio/speech request
+    over HTTP (the main path: its launches returned), its WAV equal to
+    ``TTSModel.synthesize``'s, no capture in it, K2 and K1's 8-bit P
+    formula launched as the frames need; the waveform finite, within
+    [-1, 1], 960 samples a frame; a voice-clone request from a seeded 3 s
+    clip (speech encoder, speaker encoder; the same capacity bucket, so no
+    capture); the split (prefill, frame, codec at 60 frames, request) and
+    the RTF on the samples produced."""
+    import io
+    import wave
+
+    import numpy as np
+
+    from ominix_mlx_tpu_torch import native
+    from ominix_mlx_tpu_torch.audio.dsp import log_mel_spectrogram
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.models import qwen3_tts as qt
+    from ominix_mlx_tpu_torch.models import speaker_encoder as se
+    from ominix_mlx_tpu_torch.ops import _build
+    from ominix_mlx_tpu_torch.serving.server import Server
+
+    conv_tf32(dev, smi)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    tcfg = qwen3_tts_1p7b()
+    bf16 = qt.init_params(tcfg, gen, torch.bfloat16, dev)
+    # EOS's row of the random codec head zeroed: every request runs its
+    # full frame count, as the bench rows' fixed 60 frames (a random head
+    # ends a request at an arbitrary frame)
+    bf16["codec_head"]["w"][tcfg.codec_eos_id] = 0
+    dec, ccfg = qt.init_codec(gen, frame_dim=512, n_transformer=4,
+                              num_heads=8, up_strides=(2,),
+                              dec_strides=(8, 5, 4, 3), codec_vocab=2048,
+                              dtype=torch.bfloat16, device=dev)
+    enc, ecfg = qt.init_speech_encoder(gen, dim=512,
+                                       enc_strides=(8, 5, 4, 3),
+                                       codec_vocab=2048, device=dev)
+    spk = se.init_params(se.SpeakerEncoderConfig(), gen, device=dev)
+    models = {"bf16": base.fuse_layer_projections(bf16),
+              "w8a8 g64": base.fuse_layer_projections(
+                  base.quantize_params(bf16, GS, 8))}
+    torch.cuda.synchronize()
+    emit({"phase": "model", "config": "Qwen3-TTS-1.7B",
+          "weights": "talker bf16 and w8a8 g64; predictor, heads, codec "
+                     "bf16; speech and speaker encoders float32",
+          "init_seconds": time.perf_counter() - t0,
+          "gib_allocated": torch.cuda.memory_allocated() / 2 ** 30})
+    per = qt.samples_per_frame(ccfg)
+    L, Lc = tcfg.transformer.num_layers, tcfg.cp_layers
+    Ld = len(dec["pre_transformer_layers"])
+    out, graphs = {}, {}
+    for weights, tp in models.items():
+        syn = tts_synth(dev, tcfg, tp, dec, ccfg, spk, enc, ecfg)
+        name = f"Qwen3-TTS-1.7B {weights}"
+        q8 = weights != "bf16"
+        graph = graphs[weights] = tts_frame_graph(dev, syn, name, weights,
+                                                  smi)
+        want = {"k2": Lc, **({"k1_m1_w8": 4 * L} if q8 else {})}
+        if any(graph["launches_per_replay"].get(k) != n
+               for k, n in want.items()):
+            raise RuntimeError(f"{name}: a replay's launches "
+                               f"{graph['launches_per_replay']}, want {want}")
+        tts_logits_check(dev, syn, name, W8A8_PANELS_LOGITS_TOL if q8
+                         else LOGITS_TOL, fault=q8, smi=smi)
+        out[weights] = syn
+    syn = out["w8a8 g64"]
+    out["bf16"].close()
+    model = qt.TTSModel(syn, voices={TTS_VOICE: TTS_PREFIX},
+                        max_frames=TTS_FRAMES)
+
+    srv = Server(port=free_port())
+    srv.add_model("qwen3-tts", model)
+    srv.start_background()
+    captures = syn.captures
+    try:
+        _build.reset_launches()
+        t = time.perf_counter()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/v1/audio/speech",
+            data=json.dumps({"input": TTS_TEXT, "voice": TTS_VOICE}).encode())
+        with urllib.request.urlopen(req, timeout=600) as r:
+            if r.status != 200:
+                raise RuntimeError(f"/v1/audio/speech: HTTP {r.status}")
+            data = r.read()
+        seconds = time.perf_counter() - t
+        counts = dict(_build.LAUNCHES)
+    finally:
+        srv.shutdown()
+    with wave.open(io.BytesIO(data), "rb") as w:
+        rate, width, ch = w.getframerate(), w.getsampwidth(), w.getnchannels()
+        pcm = np.frombuffer(w.readframes(w.getnframes()), np.int16)
+    wav, mrate = model.synthesize(TTS_TEXT, voice=TTS_VOICE)
+    frames = len(wav) // per
+    steps = frames if frames < TTS_FRAMES else frames - 1
+    row = {"phase": "serve_qwen3_tts_request", "seconds": seconds,
+           "frames": frames, "samples": len(pcm), "rate": rate,
+           "launches": counts, "captures": syn.captures - captures,
+           "card": smi}
+    emit(row)
+    if (rate, width, ch) != (TTS_RATE, 2, 1) or mrate != TTS_RATE \
+            or not np.array_equal(pcm, native.float_to_pcm16(wav)):
+        raise RuntimeError(f"serve_qwen3_tts: the WAV is not the model's: "
+                           f"{row}")
+    if not (np.isfinite(wav).all() and np.abs(wav).max() <= 1
+            and len(wav) == frames * per and frames > 0):
+        raise RuntimeError(f"serve_qwen3_tts: waveform: {row}")
+    # K2: the talker's prefill, frame 0's predictor, each replay's
+    # predictor, the codec's pre-transformer
+    if row["captures"] or counts.get("k2", 0) != L + Lc + Lc * steps + Ld \
+            or counts.get("k1_m1_w8", 0) != 4 * L * steps:
+        raise RuntimeError(f"serve_qwen3_tts: captures or launches: {row}")
+
+    g = np.random.default_rng(SEED + 102)
+    t_ax = np.arange(TTS_CLONE_SECONDS * TTS_RATE) / TTS_RATE
+    clip = (0.2 * np.sin(2 * np.pi * 180 * t_ax * (1 + 0.1 * np.sin(t_ax)))
+            + 0.02 * g.normal(size=t_ax.shape)).astype(np.float32)
+    mel = log_mel_spectrogram(torch.from_numpy(clip).to(dev), 1024, 256,
+                              128, TTS_RATE)
+    ids = tts_text_ids(TTS_TEXT)
+    t = time.perf_counter()
+    res = syn.synthesize_voice_clone(ids[:20], ids[20:], ref_mel=mel,
+                                     ref_samples=clip, max_frames=16)
+    torch.cuda.synchronize()
+    clone = {"phase": "tts_clone", "ref_seconds": TTS_CLONE_SECONDS,
+             "ref_frames": len(syn.encode_reference(clip)),
+             "frames": res.frames,
+             "seconds": time.perf_counter() - t,
+             "captures": syn.captures - captures, "card": smi}
+    emit(clone)
+    if res.frames < 1 or clone["captures"]:
+        raise RuntimeError(f"serve_qwen3_tts: clone: {clone}")
+
+    with torch.inference_mode():
+        st = syn.state(next(iter(syn.captured.graphs)))
+        emb = syn.build_prefill(ids, TTS_PREFIX)
+        codes = torch.randint(0, 2048, (TTS_FRAMES, 16), device=dev)
+        stages = {
+            "prefill_T": emb.shape[1],
+            "prefill_ms": wall_ms(lambda: syn._prefill(st, emb)),
+            "codec_frames": TTS_FRAMES,
+            "codec_ms": wall_ms(lambda: qt.codec_decode(dec, codes, ccfg)),
+            "speaker_encoder_ms": wall_ms(lambda: syn.encode_speaker(mel)),
+            "speech_encoder_ms": wall_ms(lambda: syn.encode_reference(clip)),
+            "request_ms": wall_ms(lambda: model.synthesize(
+                TTS_TEXT, voice=TTS_VOICE), 2)}
+    audio_s = frames * per / TTS_RATE
+    emit({"phase": "qwen3_tts_split", "weights": "w8a8 g64",
+          "frames": frames, "samples_per_frame": per, "audio_s": audio_s,
+          **stages, "ms_per_frame_replayed":
+              graphs["w8a8 g64"]["ms_per_frame_replayed"],
+          "ms_per_frame_eager": graphs["w8a8 g64"]["ms_per_frame_eager"],
+          "rtf": stages["request_ms"] / 1e3 / audio_s,
+          "rtf_note": f"on the samples produced ({per} a frame); "
+                      "benchmarks/pipelines_bench.py:253 counts 1920",
+          "k2_per_request": counts.get("k2", 0),
+          "k1_m1_w8_per_request": counts.get("k1_m1_w8", 0), "card": smi})
+    syn.close()
+    del models, out, syn, model, bf16, dec, enc, spk, st, emb, codes, mel
+    free_device_memory()
+    emit({"phase": "serve_qwen3_tts", "launches": counts, "ok": True})
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
@@ -7805,6 +8274,7 @@ def main() -> int:
     phases["serve_paraformer"], k12_rows = serve_paraformer(dev, smi)
     phases["serve_qwen3_asr"] = serve_qwen3_asr(dev, smi)
     phases["serve_funasr_nano"] = serve_funasr_nano(dev, smi)
+    phases["serve_qwen3_tts"] = serve_qwen3_tts(dev, smi)
 
     def launches(key, only=None):
         return sum(c.get(key, 0) for p, c in phases.items()

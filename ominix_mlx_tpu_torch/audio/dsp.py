@@ -5,7 +5,8 @@ PyTorch on the samples' device.
 
   - Qwen3-ASR: 128 mels, n_fft 400, hop 160, the Whisper norm;
   - Paraformer and Fun-ASR-Nano: 80 mels, then LFR (7 frames every 6)
-    and, where the checkpoint has it, CMVN.
+    and, where the checkpoint has it, CMVN;
+  - TTS speed control: ``wsola_time_stretch``, host numpy.
 
 The filterbank is built in numpy and cached as numpy (``_hz_to_mel``,
 ``_mel_to_hz`` and ``mel_filterbank`` are copied from the JAX package).
@@ -144,3 +145,48 @@ def apply_cmvn(feats: torch.Tensor, means: torch.Tensor,
     """Global CMVN: (feats + means) * vars (the checkpoint stores the
     negated means and the inverse deviations)."""
     return (feats + means) * vars_
+
+
+def wsola_time_stretch(samples, rate: int, speed: float,
+                       frame_ms: float = 30.0, overlap_ms: float = 10.0,
+                       search_ms: float = 8.0) -> np.ndarray:
+    """WSOLA time stretching for TTS speed control: speed > 1 shortens the
+    audio. Host numpy (a small sequential search over ms-scale windows),
+    copied from the JAX package's ``audio.dsp.wsola_time_stretch``."""
+    x = np.asarray(samples, np.float32)
+    if abs(speed - 1.0) < 1e-3 or len(x) == 0:
+        return x
+    frame = int(rate * frame_ms / 1000)
+    overlap = int(rate * overlap_ms / 1000)
+    search = int(rate * search_ms / 1000)
+    hop_out = frame - overlap
+    hop_in = int(round(hop_out * speed))
+    n_frames = max(1, (len(x) - frame - search) // hop_in)
+    out = np.zeros(n_frames * hop_out + frame, np.float32)
+    win = np.hanning(2 * overlap + 1)[:overlap] if overlap else None
+    prev_tail = None
+    pos_out = 0
+    for i in range(n_frames):
+        target = i * hop_in
+        if prev_tail is not None and search > 0:
+            lo = max(0, target - search)
+            hi = min(len(x) - frame, target + search)
+            best, best_c = target, -np.inf
+            for cand in range(lo, hi + 1, max(1, search // 16)):
+                seg = x[cand:cand + overlap]
+                c = float(np.dot(seg, prev_tail))
+                if c > best_c:
+                    best_c, best = c, cand
+            target = best
+        seg = x[target:target + frame]
+        if len(seg) < frame:
+            seg = np.pad(seg, (0, frame - len(seg)))
+        if prev_tail is not None and overlap:
+            out[pos_out:pos_out + overlap] *= (1 - win)
+            out[pos_out:pos_out + overlap] += seg[:overlap] * win
+            out[pos_out + overlap:pos_out + frame] = seg[overlap:]
+        else:
+            out[pos_out:pos_out + frame] = seg
+        prev_tail = x[target + hop_out:target + hop_out + overlap]
+        pos_out += hop_out
+    return out[:pos_out + overlap]

@@ -2,8 +2,8 @@
 the HF ``model_type`` of config.json (counterpart of
 ominix_mlx_tpu/models/registry.py; ``MODEL_TYPES`` and the pipeline table
 copied from there). ``load_pipeline`` loads the VLM (Moxin-7B), OCR
-(DeepSeek-OCR-2) and ASR (Paraformer, Fun-ASR-Nano and FunASR-Qwen4B,
-Qwen3-ASR) pipelines; the other pipeline types, and model types whose
+(DeepSeek-OCR-2), ASR (Paraformer, Fun-ASR-Nano and FunASR-Qwen4B,
+Qwen3-ASR) and TTS (Qwen3-TTS) pipelines; the other pipeline types, and model types whose
 family is not ported yet, raise ``NotImplementedError`` naming their
 family."""
 
@@ -57,7 +57,7 @@ PIPELINE_TYPES = {
 }
 # the pipeline families this package holds
 PORTED_PIPELINES = {"moxin_vlm", "deepseek_ocr2", "paraformer",
-                    "funasr_nano", "qwen3_asr"}
+                    "funasr_nano", "qwen3_asr", "qwen3_tts"}
 
 
 def capability(model_type: str) -> str:
@@ -108,8 +108,9 @@ def load_pipeline(model_dir: str, device=None):
     ``device`` ("vlm": ``moxin_vlm.MoxinVLM``, "ocr":
     ``deepseek_ocr2.DeepSeekOCR2``, "transcribe": ``paraformer.
     Transcriber``, ``funasr_nano.FunASRNano`` or ``qwen3_asr.Qwen3ASR``,
-    each with ``transcribe(samples, rate)``; the unported ones raise in
-    ``get_module``)."""
+    each with ``transcribe(samples, rate)``; "speak": ``qwen3_tts.
+    TTSModel`` with ``synthesize(text, voice)``; the unported ones raise
+    in ``get_module``)."""
     mt = load_config(model_dir)["model_type"]
     if mt in MODEL_TYPES:
         return "chat", load_model(model_dir, device)

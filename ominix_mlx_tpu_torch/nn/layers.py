@@ -6,6 +6,7 @@ checkpoint loads) the JAX package's dequantize-then-product path."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -124,21 +125,41 @@ def layer_norm(params: dict, x: torch.Tensor,
     return y
 
 
+@contextlib.contextmanager
+def ieee_fp32(x: torch.Tensor):
+    """Within: cuDNN computes a float32 convolution of ``x`` on the card
+    in float32, not TF32 (PyTorch's default for cuDNN convolutions,
+    ``torch.backends.cudnn.allow_tf32``), as the JAX package's float32
+    convolutions are; the flag is restored on the way out, and anything
+    else passes through untouched. The flag is the process's: the server
+    runs every model call on its one inference thread."""
+    if not (x.is_cuda and x.dtype == torch.float32
+            and torch.backends.cudnn.allow_tf32):
+        yield
+        return
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
 def conv1d(params: dict, x: torch.Tensor, stride: int = 1, padding=0,
            groups: int = 1, dilation: int = 1) -> torch.Tensor:
     """x: [B, T, C_in] (channels last); params["w"]: [C_out, K,
     C_in/groups] (the MLX layout the JAX tree keeps; moved to PyTorch's
     [C_out, C_in/groups, K] here, at the call), "b"?: [C_out].
     ``padding``: an int (both sides) or a ((left, right),) pair. Returns
-    [B, T', C_out] in x's type."""
+    [B, T', C_out] in x's type; float32 without TF32 (``ieee_fp32``)."""
     w = params["w"].to(x.dtype).permute(0, 2, 1)
     xc = x.transpose(1, 2)
     if not isinstance(padding, int):
         (left, right), = padding
         xc = F.pad(xc, (left, right))
         padding = 0
-    y = F.conv1d(xc, w, stride=stride, padding=padding, dilation=dilation,
-                 groups=groups).transpose(1, 2)
+    with ieee_fp32(x):
+        y = F.conv1d(xc, w, stride=stride, padding=padding,
+                     dilation=dilation, groups=groups).transpose(1, 2)
     if params.get("b") is not None:
         y = y + params["b"]
     return y
@@ -150,13 +171,49 @@ def conv2d(params: dict, x: torch.Tensor, stride=1, padding=0,
     params["w"]: [C_out, C_in/groups, KH, KW] (PyTorch's layout; the JAX
     tree's OHWI weight becomes it through ``conv_weight``), "b"?: [C_out].
     ``padding``: an int or (ph, pw), both sides alike. Returns [B, H', W',
-    C_out] in x's type."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), params["w"].to(x.dtype),
-                 stride=stride, padding=padding, groups=groups)
+    C_out] in x's type; float32 without TF32 (``ieee_fp32``)."""
+    with ieee_fp32(x):
+        y = F.conv2d(x.permute(0, 3, 1, 2), params["w"].to(x.dtype),
+                     stride=stride, padding=padding, groups=groups)
     y = y.permute(0, 2, 3, 1)
     if params.get("b") is not None:
         y = y + params["b"]
     return y
+
+
+def conv_transpose1d(params: dict, x: torch.Tensor, stride: int = 1,
+                     padding: int = 0) -> torch.Tensor:
+    """x: [B, T, C_in] (channels last); params["w"]: [C_out, K, C_in]
+    (MLX's ConvTranspose1d layout, as the JAX tree keeps it), "b"?:
+    [C_out]. ``padding`` has PyTorch's meaning: out = (T - 1) * stride + K
+    - 2 * padding. The JAX package's ``lax.conv_transpose`` with
+    ``transpose_kernel=True`` and the "IHO" kernel spec is PyTorch's
+    ``conv_transpose1d`` with the weight [C_in, C_out, K] =
+    ``w.permute(2, 0, 1)`` (no flip; ``tests/test_torch_qwen3_tts.py``
+    holds the two against each other at K = 2 * stride). Returns [B, T',
+    C_out] in x's type; float32 without TF32 (``ieee_fp32``)."""
+    w = params["w"].to(x.dtype).permute(2, 0, 1)
+    with ieee_fp32(x):
+        y = F.conv_transpose1d(x.transpose(1, 2), w, stride=stride,
+                               padding=padding).transpose(1, 2)
+    if params.get("b") is not None:
+        y = y + params["b"]
+    return y
+
+
+def elu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.elu`` (alpha 1)."""
+    return F.elu(x)
+
+
+def snake_beta(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SnakeBeta, x + sin(alpha x)^2 / (beta + 1e-9), with alpha and beta
+    held exponentiated (p["alpha_exp"], p["beta_exp"], float32 [1, 1, C]):
+    computed in float32 and cast back to x's type, as the JAX package's
+    ``qwen3_tts.snake_beta``."""
+    xf = x.float()
+    s = torch.sin(p["alpha_exp"] * xf)
+    return (xf + s * s / (p["beta_exp"] + 1e-9)).to(x.dtype)
 
 
 def resize_bilinear(x: torch.Tensor, h: int, w: int) -> torch.Tensor:

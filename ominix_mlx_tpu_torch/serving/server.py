@@ -9,6 +9,9 @@ ominix_mlx_tpu/serving/server.py):
                                   model that can transcribe)
   POST /v1/audio/translations    (raw WAV bytes -> English {"text"}: the
                                   first model that can translate)
+  POST /v1/audio/speech          ({"input", "voice"?, "ref_audio"?} ->
+                                  WAV bytes: the first model that can
+                                  synthesize)
   GET  /v1/models
   GET  /v1/models/local          (the local model directory)
   DELETE /v1/models/<name>       (delete one from it)
@@ -17,9 +20,10 @@ ominix_mlx_tpu/serving/server.py):
 
 ``Server.load_model(name, dir)`` loads a checkpoint directory through
 ``models.registry``: a chat family with the directory's
-``utils.tokenizer.Tokenizer``, a Moxin VLM, a DeepSeek-OCR-2 pipeline or an
-ASR pipeline (Paraformer, Qwen3-ASR, Fun-ASR-Nano) as its module builds
-it; ``add_model`` registers a model built in memory.
+``utils.tokenizer.Tokenizer``, a Moxin VLM, a DeepSeek-OCR-2 pipeline, an
+ASR pipeline (Paraformer, Qwen3-ASR, Fun-ASR-Nano) or a TTS pipeline
+(Qwen3-TTS) as its module builds it; ``add_model`` registers a model
+built in memory.
 ``main()`` is the command line:
 
     python -m ominix_mlx_tpu_torch.serving.server --model name=DIR
@@ -39,7 +43,8 @@ request's ``tools`` are folded into its system turn and the completion's
 (``utils.tools``). Every image and audio request (VLM chat,
 /v1/describe, /v1/ocr, /v1/audio/*) runs its card work on the inference
 thread, as unbatched chat does, so no encoder launches from an HTTP
-thread. The image-generation route is not ported yet and answers 404;
+thread, and a TTS model's captured frame step replays on that thread.
+The image-generation route is not ported yet and answers 404;
 /v1/models/download needs the network and answers 501.
 """
 
@@ -439,17 +444,18 @@ class Server:
         """Load a checkpoint directory through ``models.registry.
         load_pipeline``: a chat family becomes a ``ChatModel`` with the
         directory's ``Tokenizer``; a "vlm" (``moxin_vlm.MoxinVLM``), "ocr"
-        (``deepseek_ocr2.DeepSeekOCR2``) or "transcribe" pipeline
+        (``deepseek_ocr2.DeepSeekOCR2``), "transcribe" pipeline
         (``paraformer.Transcriber``, ``qwen3_asr.Qwen3ASR``,
-        ``funasr_nano.FunASRNano``) is served as its module builds it; the
-        other pipelines raise NotImplementedError."""
+        ``funasr_nano.FunASRNano``) or "speak" pipeline (``qwen3_tts.
+        TTSModel``) is served as its module builds it; the other
+        pipelines raise NotImplementedError."""
         from ominix_mlx_tpu_torch.core.device import resolve_device
         from ominix_mlx_tpu_torch.models import registry
         from ominix_mlx_tpu_torch.utils.tokenizer import Tokenizer
 
         device = resolve_device(device)
         cap, obj = registry.load_pipeline(model_dir, device)
-        if cap in ("vlm", "ocr", "transcribe"):
+        if cap in ("vlm", "ocr", "transcribe", "speak"):
             obj.dir = model_dir
             self.models[name] = obj
             return obj
@@ -464,13 +470,21 @@ class Server:
 
     def add_model(self, name: str, model):
         """Register a model built in memory (random or bridged weights): a
-        ``ChatModel``, a ``MoxinVLM``, a ``DeepSeekOCR2`` or an ASR facade
-        (anything with ``transcribe(samples, rate)``)."""
+        ``ChatModel``, a ``MoxinVLM``, a ``DeepSeekOCR2``, an ASR facade
+        (anything with ``transcribe(samples, rate)``) or a TTS one (anything
+        with ``synthesize``)."""
         self.models[name] = model
 
     def remove_model(self, name: str):
-        """Stop serving ``name``: its batcher stops and frees its graphs."""
-        self.models.pop(name, None)
+        """Stop serving ``name``: its batcher stops and frees its graphs;
+        a model with ``close`` (a TTS model's captured frame steps) is
+        closed on the inference thread."""
+        m = self.models.pop(name, None)
+        if hasattr(m, "close"):
+            if self.worker.thread.is_alive():
+                self.on_worker(m.close)
+            else:
+                m.close()
         self.spec.pop(name, None)
         runner = self.batchers.pop(name, None)
         if runner is not None:
@@ -902,6 +916,67 @@ class Server:
         return {"text": self.on_worker(
             lambda: getattr(m, fn)(samples, rate))}
 
+    def audio_speech(self, body: dict) -> bytes:
+        """POST /v1/audio/speech {"input", "voice"?, "model"?, "ref_audio"?
+        (a base64 WAV)} -> mono 16-bit WAV bytes: the named model or else
+        the first one with ``synthesize`` (KeyError, 404, where none can),
+        on the inference thread. A model with ``set_reference_audio`` takes
+        ``ref_audio`` first (its frames read as 16-bit PCM, the channels
+        averaged); ``synthesize(text, voice=)`` where it takes a voice, else
+        ``synthesize(text)``. A bare waveform (no rate) is at the model's
+        ``vits_cfg.sampling_rate``, else its ``sample_rate``, else 24 kHz.
+        The samples go to PCM through ``native.float_to_pcm16``."""
+        import wave
+
+        import numpy as np
+
+        from ominix_mlx_tpu_torch import native
+
+        name = body.get("model") or next(
+            (n for n, m in self.models.items() if hasattr(m, "synthesize")),
+            "")
+        if name not in self.models or not hasattr(self.models[name],
+                                                  "synthesize"):
+            raise KeyError(f"model {name!r} has no TTS capability")
+        m = self.models[name]
+        ref = None
+        if body.get("ref_audio") and hasattr(m, "set_reference_audio"):
+            with wave.open(io.BytesIO(base64.b64decode(body["ref_audio"])),
+                           "rb") as w:
+                ref_rate = w.getframerate()
+                raw = w.readframes(w.getnframes())
+                ch = w.getnchannels()
+            ref = native.pcm16_to_float(np.frombuffer(raw, np.int16))
+            if ch > 1:
+                ref = ref.reshape(-1, ch).mean(-1)
+        text = body["input"]
+        takes_voice = "voice" in inspect.signature(m.synthesize).parameters
+
+        def run():
+            if ref is not None:
+                m.set_reference_audio(ref, ref_rate)
+            if takes_voice:
+                return m.synthesize(text, voice=body.get("voice"))
+            return m.synthesize(text)
+
+        out = self.on_worker(run, float(body.get("timeout_s",
+                                                 self.request_timeout_s)))
+        if isinstance(out, tuple):
+            samples, rate = out
+        else:   # a clone model's bare waveform, at the decoder's rate
+            samples = out
+            rate = int(getattr(getattr(m, "vits_cfg", None),
+                               "sampling_rate", 0)
+                       or getattr(m, "sample_rate", 0) or 24000)
+        buf = io.BytesIO()
+        with wave.open(buf, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(rate)
+            w.writeframes(native.float_to_pcm16(
+                np.asarray(samples, np.float32).reshape(-1)).tobytes())
+        return buf.getvalue()
+
     def list_models(self) -> dict:
         return {"object": "list", "data": [
             {"id": name, "object": "model", "owned_by": "ominix",
@@ -983,6 +1058,20 @@ class Server:
                     except Exception as e:
                         code, msg = self._error(e)
                         return self._json(code, {"error": msg})
+                if self.path == "/v1/audio/speech":
+                    try:
+                        wav = server.audio_speech(json.loads(raw or b"{}"))
+                    except json.JSONDecodeError:
+                        return self._json(400, {"error": "invalid JSON"})
+                    except Exception as e:
+                        code, msg = self._error(e)
+                        return self._json(code, {"error": msg})
+                    self.send_response(200)
+                    self.send_header("Content-Type", "audio/wav")
+                    self.send_header("Content-Length", str(len(wav)))
+                    self.end_headers()
+                    self.wfile.write(wav)
+                    return
                 if self.path == "/v1/models/download":
                     return self._json(501, {
                         "error": "model download needs the network and is "

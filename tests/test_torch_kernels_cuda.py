@@ -3435,3 +3435,160 @@ def test_paraformer_transcription_launches_k12(cuda, monkeypatch):
         mp.setattr(tcif, "_k12", lambda h, a, th, tail, n:
                    tcif.cif_reference(h, a, th, tail, n))
         assert m.transcribe_ids(x) == ids
+
+
+# ---------------------------------------------------------------- Qwen3-TTS
+
+def _tts_synth(dev, bits=None):
+    """A small talker (2 layers, head dim 128, K2's widths) and code
+    predictor (2 layers of 2 heads of 128), bf16, its codec-0 head scaled
+    up so the codes move; at ``bits`` the talker's layers are quantized
+    (group 64, int8 activations), the predictor and heads stay bf16."""
+    from ominix_mlx_tpu_torch.models import base
+    from ominix_mlx_tpu_torch.models import qwen3_tts as qt
+
+    tcfg = qt.TalkerConfig(
+        transformer=base.TransformerConfig(
+            vocab_size=1, hidden_size=256, num_layers=2, num_heads=2,
+            num_kv_heads=1, head_dim=128, intermediate_size=512,
+            use_qk_norm=True),
+        codec_vocab_size=256, codec_head_size=264, text_vocab_size=512,
+        text_embed_dim=128, cp_hidden=256, cp_layers=2, cp_heads=2,
+        codec_eos_id=258, codec_pad_id=259, codec_bos_id=260,
+        tts_pad_token_id=300)
+    g = torch.Generator(device=dev).manual_seed(3)
+    tp = qt.init_params(tcfg, g, torch.bfloat16, dev)
+    tp["codec_head"]["w"] = tp["codec_head"]["w"] * 4
+    if bits:
+        tp = base.quantize_params(tp, 64, bits)
+    return qt.Synthesizer(base.fuse_layer_projections(tp), tcfg), tcfg
+
+
+def _record_counts(record):
+    return {k: c for counter, counts in record.launches.values()
+            if counter is _build.LAUNCHES for k, c in counts.items() if c}
+
+
+@pytest.mark.parametrize("bits", [None, 8])
+def test_tts_frame_graph_replays_the_eager_body(cuda, bits):
+    """The frame step captured once and replayed against the same frames
+    with the body run eagerly: every frame's codes and codebook-0 logits
+    bit for bit over 12 frames; one capture in the synthesizer's life (a
+    second request captures nothing); the capture holds K2 (the
+    predictor's 2-token prefill, once a predictor layer) and at 8 bits K1
+    at one row (4 a talker layer); no host sync in the body; close()
+    frees the graph."""
+    syn, tcfg = _tts_synth(cuda, bits)
+    text, prefix = list(range(20, 40)), [259] * 4
+
+    def device_frames(step):
+        with torch.inference_mode():
+            return [(c.clone(), lg.clone())
+                    for c, lg in syn._frames(text, prefix, 12, step)]
+
+    want = device_frames(lambda st, cap: syn.frame_body(st))
+    with torch.inference_mode():
+        st = syn.state(32)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            syn.frame_body(st)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    got = device_frames(syn.step)
+    assert len(got) == len(want) == 12
+    for i, ((gc, gl), (wc, wl)) in enumerate(zip(got, want)):
+        assert torch.equal(gc, wc), f"codes of frame {i}"
+        assert torch.equal(gl, wl), f"logits of frame {i}"
+    frames_e = [c[0].to(torch.int32).cpu().numpy() for c, _ in want]
+    frames_g = list(syn.generate_frames(text, prefix, 12))
+    assert len(frames_g) == 12
+    assert all((a == b).all() for a, b in zip(frames_g, frames_e))
+    assert syn.captures == 1 and list(syn.captured.graphs) == [32]
+    again = list(syn.generate_frames(text, prefix, 12))
+    assert syn.captures == 1
+    assert all((a == b).all() for a, b in zip(again, frames_e))
+    per_replay = _record_counts(syn.captured.records[32])
+    assert per_replay.get("k2") == tcfg.cp_layers
+    if bits:
+        assert per_replay.get("k1_m1_w8") == 4 * tcfg.transformer.num_layers
+    syn.close()
+    assert not syn.captured.graphs and not syn._states
+
+
+@pytest.mark.parametrize("T", [2, 11])
+def test_k2_replayed_in_a_graph_matches_eager_and_plain(cuda, T):
+    """K2 at the TTS shapes (8 heads of 128; T = 2, the code predictor's
+    prefill, and 11, the talker's) launched inside a CapturedBodies graph
+    and replayed on new inputs written into its static buffers: bit for
+    bit the eager launch on those inputs, and within K2's limit (1e-2 of
+    the largest) of its plain version; the capture records one K2
+    launch."""
+    from ominix_mlx_tpu_torch.core.generate import CapturedBodies
+
+    g = torch.Generator(device=cuda).manual_seed(T)
+
+    def qkv():
+        return [torch.randn(1, 8, T, 128, generator=g,
+                            device=cuda).bfloat16() for _ in range(3)]
+
+    q, k, v = qkv()
+    bodies = CapturedBodies(cuda)
+    bodies.run(0, lambda: fa.flash_prefill(q, k, v, 128 ** -0.5))
+    assert _record_counts(bodies.records[0]) == {"k2": 1}
+    for _ in range(2):
+        new = qkv()
+        for buf, x in zip((q, k, v), new):
+            buf.copy_(x)
+        out = bodies.run(0, lambda: None).clone()
+        eager = fa.flash_prefill(*new, 128 ** -0.5)
+        want, _ = fa.flash_prefill_reference(*new, 128 ** -0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        assert _rel(out, want) < 1e-2
+    bodies.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [2, 5, 8])
+def test_conv_transpose1d_on_cuda_matches_the_cpu_path(cuda, dtype, s):
+    """nn.layers.conv_transpose1d (cuDNN) against the same layer on the
+    CPU in float32: within 1e-5 of the largest output for float32 inputs
+    (no TF32), 1e-2 for bf16."""
+    from ominix_mlx_tpu_torch.nn import layers
+
+    g = torch.Generator().manual_seed(s)
+    p = {"w": torch.randn(256, 2 * s, 128, generator=g) * 0.05,
+         "b": torch.randn(256, generator=g)}
+    x = torch.randn(1, 60, 128, generator=g)
+    want = layers.conv_transpose1d(p, x, stride=s)
+    got = layers.conv_transpose1d({k: t.to(cuda, dtype) for k, t in
+                                   p.items()}, x.to(cuda, dtype), stride=s)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert _rel(got.cpu(), want) < (1e-5 if dtype == torch.float32
+                                    else 1e-2)
+
+
+@pytest.mark.parametrize("shape", ["fsmn", "tdnn", "res2net"])
+def test_float32_convolutions_carry_float32_error(cuda, shape):
+    """nn.layers.conv1d on float32 inputs on the card against the same
+    convolution in float64: within 1e-5 of the largest output (TF32's
+    10-bit mantissa would give about 1e-3). Shapes: Paraformer's FSMN
+    memory (512 channels, depthwise, K = 11, 501 frames), ECAPA's first
+    TDNN (128 mels to 512, K = 5, 300 frames) and a dilated Res2Net conv
+    (64 channels, K = 3, dilation 2)."""
+    from ominix_mlx_tpu_torch.nn import layers
+
+    cin, cout, K, T, groups, dil = {
+        "fsmn": (512, 512, 11, 501, 512, 1),
+        "tdnn": (128, 512, 5, 300, 1, 1),
+        "res2net": (64, 64, 3, 300, 1, 2)}[shape]
+    g = torch.Generator().manual_seed(K)
+    p = {"w": torch.randn(cout, K, cin // groups, generator=g,
+                          dtype=torch.float64) * (cin * K / groups) ** -0.5}
+    x = torch.randn(1, T, cin, generator=g, dtype=torch.float64)
+    pad = (K - 1) * dil // 2
+    want = layers.conv1d(p, x, padding=pad, groups=groups, dilation=dil)
+    got = layers.conv1d({"w": p["w"].float().to(cuda)}, x.float().to(cuda),
+                        padding=pad, groups=groups, dilation=dil)
+    assert torch.backends.cudnn.allow_tf32      # restored after the call
+    assert _rel(got.cpu().double(), want) < 1e-5

@@ -240,7 +240,7 @@ def test_main_draft_flags_raise(flag, checkpoint, draft_checkpoint):
 @pytest.mark.parametrize("model_type,family", [
     ("step_audio2", "step_audio2"), ("qwen_image", "qwen_image"),
     ("flux_klein", "flux_klein"), ("gpt_sovits", "gpt_sovits"),
-    ("zimage", "zimage"), ("qwen3_tts", "qwen3_tts")])
+    ("zimage", "zimage")])
 def test_unported_types_raise(model_type, family, tmp_path):
     with open(tmp_path / "config.json", "w") as f:
         json.dump({"model_type": model_type}, f)
@@ -265,6 +265,17 @@ def test_asr_types_load_with_the_port(model_type, module):
     assert registry.capability(model_type) == "transcribe" \
         == jregistry.capability(model_type)
     assert callable(mod.load_model)
+
+
+def test_tts_type_loads_with_the_port():
+    """qwen3_tts loads through the port's module, a ``synthesize(text,
+    voice)`` facade under capability "speak" (tests/test_torch_server_tts.py
+    loads a checkpoint)."""
+    mod = registry.get_module("qwen3_tts")
+    assert mod.__name__ == "ominix_mlx_tpu_torch.models.qwen3_tts"
+    assert registry.capability("qwen3_tts") == "speak" \
+        == jregistry.capability("qwen3_tts")
+    assert callable(mod.load_model) and hasattr(mod.TTSModel, "synthesize")
 
 
 @pytest.mark.parametrize("model_type", ["minicpm_sala", "minicpm4"])

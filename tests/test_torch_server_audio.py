@@ -306,9 +306,9 @@ def test_load_pipeline_loads_each_asr_type(tmp_path):
             nano.transcribe(x, max_tokens=4)
 
 
-UNPORTED = {"qwen3_tts": "qwen3_tts", "gpt_sovits": "gpt_sovits",
-            "step_audio2": "step_audio2", "flux_klein": "flux_klein",
-            "qwen_image": "qwen_image", "zimage": "zimage"}
+UNPORTED = {"gpt_sovits": "gpt_sovits", "step_audio2": "step_audio2",
+            "flux_klein": "flux_klein", "qwen_image": "qwen_image",
+            "zimage": "zimage"}
 
 
 def test_the_unported_pipelines_are_the_other_six():
